@@ -7,13 +7,17 @@ package. Phases, each printing one line:
 
   1. device — torch/CUDA versions and `nvidia-smi` name + power limit;
   2. build — compiles csrc/*.cu with nvcc for sm_90a (one process a source);
-  3. kernels — each kernel against its plain PyTorch version on the card,
-     bit-exact, at the shapes of the leaf prover, plus the field edge
-     vectors; median times over CUDA-event-timed runs and each kernel's bound;
+  3. kernels — each kernel against its plain PyTorch version, bit-exact, at
+     the shapes of the leaf prover, plus the field edge vectors (the fused
+     quotient and permutation kernels against their plain versions run on CPU
+     copies of the same inputs, so no kernel is on the reference side); median
+     wrapper times over CUDA-event-timed runs, each kernel's device-only time
+     from torch.profiler, and each kernel's bound;
   4. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
      prove_inputs(seed=0) cold and warm; the proof bytes must equal the
-     committed fixture (length and SHA-256), and every kernel must have been
-     launched during the cold proof.
+     committed fixture (length and SHA-256), every kernel must have been
+     launched during the cold proof, and the quotient and the permutation
+     argument must have taken at most two launches each.
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -22,6 +26,7 @@ and the result line is not printed.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import statistics
@@ -50,6 +55,42 @@ OPS_ADD = 4
 # of 48 small 64x64 products (half a mul each) and 12 reductions.
 PERM_MULS = 118 * 4 + 22 * 12 + 9 * (48 // 2 + 12)
 PERM_ADDS = 8 * 12 + 22 + 22 * 12 + 9 * 24
+# multiplies of the Fermat inverse a^(p-2) in csrc/permutation.cu: 64
+# squarings and one multiply per set bit of p - 2
+INV_MULS = 64 + bin((1 << 64) - (1 << 32) - 1).count("1")
+
+
+def quotient_field_ops(data) -> tuple[int, int]:
+    """Field multiplies and adds (or subs) per LDE point of kernel A
+    (csrc/quotient.cu), counted from its descriptor table: each gate type's
+    constraints, the selector mask, each challenge's boundary and chunked
+    permutation transitions, nc alpha terms per constraint, and the combine."""
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+
+    cfg = data.config
+    nc, nr, qdf = cfg.num_challenges, cfg.num_routed_wires, cfg.max_quotient_degree_factor
+    nchunks = -(-nr // qdf)
+    desc, k_total = tprover.quotient_descriptors(data)
+    muls = adds = 0
+    for tid, p0, p1, _p2, sel, *_ in desc.tolist():
+        if tid == 1:  # arithmetic: c0*a*b + c1*c, out - t
+            muls, adds = muls + 3 * p0, adds + 2 * p0
+        elif tid in (2, 3):  # constant, public input: one sub a constraint
+            adds += p0 if tid == 2 else 4
+        elif tid == 4:  # Poseidon2 gate: a permutation's ops plus 118 subs
+            muls, adds = muls + PERM_MULS, adds + PERM_ADDS + 118
+        elif tid == 5:  # reducing: 5 muls, 2-3 adds and 2 subs a step
+            muls, adds = muls + 5 * p0, adds + (4 + p1) * p0
+        elif tid == 6:  # base sum: b*(b-1), b*2^i, 3 adds a bit, one sub
+            muls, adds = muls + 2 * p0, adds + 3 * p0 + 1
+        elif tid == 7:  # permutation: boundary, 4 factor muls + k*x a wire
+            muls += 1 + 5 * nr + 2 * nchunks
+            adds += 1 + 4 * nr + nchunks
+        if sel >= 0:
+            muls += nc
+    muls += nc * k_total + nc  # alpha terms, 1/Z_H
+    adds += nc * k_total + nc * len(desc)  # alpha sums, the combine
+    return muls, adds
 
 
 def _median_ms(fn, runs: int, warmup: int = 2) -> float:
@@ -120,8 +161,10 @@ def kernel_table(device) -> list[dict]:
     import numpy as np
     import torch
 
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
     from qp_zk_circuits_tpu_torch.field import goldilocks as gl
     from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
     from qp_zk_circuits_tpu_torch.poly import ntt
 
     rng = np.random.default_rng(0)
@@ -138,12 +181,13 @@ def kernel_table(device) -> list[dict]:
     rows = lde.T  # the leaf matrix as the commit hashes it: strided rows
     level = _felts((m, ps.DIGEST_LEN), rng, device)
     coeffs = _felts((wires, m >> rate), rng, device)
-    quot = _felts((1, m), rng, device)
+    quot = _felts((2, m), rng, device)  # the quotient's nc rows
+    unshift = int(F.inv(np.uint64(7)))  # g^-1, the coset iNTT's unshift
     perms_per_row = -(-wires // ps.RATE)
     ew_bytes = 3 * 8 * n_el
 
-    def ntt_all(f_lde, f_inv):
-        return [f_lde(coeffs), f_inv(coeffs), f_inv(quot)]
+    def ntt_all(f_lde, f_inv, f_coset_inv):
+        return [f_lde(coeffs), f_inv(coeffs), f_inv(quot), f_coset_inv(quot)]
 
     return [
         dict(name="goldilocks_add", wrapper=gl.add, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
@@ -181,33 +225,154 @@ def kernel_table(device) -> list[dict]:
              plain=lambda: ntt.batched_ntt_plain(coeffs, lde_bits, shift=7),
              check=lambda: (
                  ntt_all(lambda x: ntt.batched_ntt(x, lde_bits, shift=7),
-                         lambda x: ntt.batched_ntt(x, x.shape[1].bit_length() - 1, inverse=True)),
+                         lambda x: ntt.batched_ntt(x, x.shape[1].bit_length() - 1, inverse=True),
+                         lambda x: ntt.batched_ntt(x, lde_bits, inverse=True, out_shift=unshift)),
                  ntt_all(lambda x: ntt.batched_ntt_plain(x, lde_bits, shift=7),
-                         lambda x: ntt.batched_ntt_plain(x, x.shape[1].bit_length() - 1, inverse=True)),
+                         lambda x: ntt.batched_ntt_plain(x, x.shape[1].bit_length() - 1, inverse=True),
+                         lambda x: ntt.batched_ntt_plain(x, lde_bits, inverse=True, out_shift=unshift)),
              ),
              bytes=(coeffs.numel() + wires * m) * 8,
              ops=wires * ((m // 2) * lde_bits * (OPS_MUL + 2 * OPS_ADD) + (m >> rate) * OPS_MUL)),
+        dict(name="quotient", wrapper=tprover.quotient_evals,
+             source="qp_zk_circuits_tpu_torch/csrc/quotient.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover.py:114",
+             setup=lambda: _quotient_case(device)),
+        dict(name="permutation_polys", wrapper=tprover.compute_permutation_polys,
+             source="qp_zk_circuits_tpu_torch/csrc/permutation.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:581",
+             setup=lambda: _permutation_case(device)),
     ]
+
+
+@functools.cache
+def _leaf_data(device):
+    """A leaf circuit of its own for the kernel checks, so the main path's
+    prover starts with nothing cached."""
+    from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+
+    return WormholeProver(device=device).data
+
+
+def _cpu(xs):
+    return [x.cpu() if hasattr(x, "cpu") else x for x in xs]
+
+
+def _quotient_case(device) -> dict:
+    """Kernel A at the leaf: random LDE wires and Z/pp rows, the circuit's
+    own constants, selectors and sigmas, random challenges."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+
+    data = _leaf_data(device)
+    cfg = data.config
+    rng = np.random.default_rng(1)
+    m = data.n << cfg.rate_bits
+    nc = cfg.num_challenges
+    npp = -(-cfg.num_routed_wires // cfg.max_quotient_degree_factor) - 1
+    args = [_felts((cfg.num_wires, m), rng, device), _felts((nc + nc * npp, m), rng, device),
+            *(F.rand_felts(nc, rng) for _ in range(3)), F.rand_felts(4, rng)]
+    consts = data.constants_oracle.lde
+    cpu_args = _cpu(args)
+    muls, adds = quotient_field_ops(data)
+    return dict(
+        run=lambda: tprover.quotient_evals(data, *args),
+        plain=lambda: tprover.quotient_evals_plain(data, *cpu_args), plain_on_host=True,
+        bytes=(args[0].numel() + consts.numel() + args[1].numel() + 3 * m + nc * m) * 8,
+        ops=m * (muls * OPS_MUL + adds * OPS_ADD),
+    )
+
+
+def _permutation_case(device) -> dict:
+    """Kernel B at the leaf: a random trace and random beta, gamma."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+
+    data = _leaf_data(device)
+    cfg = data.config
+    rng = np.random.default_rng(2)
+    nc, nr, n = cfg.num_challenges, cfg.num_routed_wires, data.n
+    nchunks = -(-nr // cfg.max_quotient_degree_factor)
+    args = [_felts((cfg.num_wires, n), rng, device), F.rand_felts(nc, rng), F.rand_felts(nc, rng)]
+    cpu_args = _cpu(args)
+    # per (row, challenge): 4 muls and 4 adds a routed wire, the batch
+    # inverse (3 muls a chunk and one Fermat inverse), the running ratio
+    # products, then the scan's 2 muls and the npp partial products
+    muls = 4 * nr + 4 * nchunks + INV_MULS + 2 + (nchunks - 1)
+    return dict(
+        run=lambda: tprover.compute_permutation_polys(data, *args),
+        plain=lambda: tprover.compute_permutation_polys_plain(data, *cpu_args),
+        plain_on_host=True,
+        bytes=(3 * nr * n + nc * nchunks * n) * 8,
+        ops=n * nc * (muls * OPS_MUL + 4 * nr * OPS_ADD),
+    )
+
+
+def _host_median_ms(fn, runs: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _device_ms(fn, runs: int = 5):
+    """Device-only time of one call: every device event torch.profiler
+    records over `runs` calls, divided by `runs`; None if it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    return sum(e.self_device_time_total for e in events) / 1e3 / runs
 
 
 def phase_kernels(kernels) -> None:
     import torch
 
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+
+    elementwise = (gl.add, gl.sub, gl.mul)
     for k in kernels:
+        if "setup" in k:
+            k.update(k["setup"]())
+        before = [f.launches for f in elementwise]
         if "check" in k:
             got, want = k["check"]()
         else:
             got, want = [k["run"]()], [k["plain"]()]
         torch.cuda.synchronize()
-        err = max(int((g != w).sum()) for g, w in zip(got, want))
+        if k.get("plain_on_host") and [f.launches for f in elementwise] != before:
+            raise AssertionError(f"{k['name']}: the fused kernel called the field wrappers")
+        err = max(int((g.cpu() != w.cpu()).sum()) for g, w in zip(got, want))
         if err:
             raise AssertionError(f"{k['name']}: {err} elements differ from the plain version")
         k["max_abs_err"] = 0
         k["ms"] = _median_ms(k["run"], runs=20)
-        k["plain_ms"] = _median_ms(k["plain"], runs=3, warmup=1)
+        k["device_ms"] = _device_ms(k["run"])
+        if k.get("plain_on_host"):
+            k["plain_ms"] = _host_median_ms(k["plain"], runs=3)
+        else:
+            k["plain_ms"] = _median_ms(k["plain"], runs=3, warmup=1)
         k["bound_by"] = "bytes" if k["bytes"] / HBM_BYTES_PER_S >= k["ops"] / INT32_OPS_PER_S else "operations"
         k["bound_ms"] = 1e3 * max(k["bytes"] / HBM_BYTES_PER_S, k["ops"] / INT32_OPS_PER_S)
-        print(f"[kernel] {k['name']}: bit-exact; {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
+        dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
+        where = "host" if k.get("plain_on_host") else "card"
+        print(f"[kernel] {k['name']}: bit-exact; {k['ms']:.4f} ms, device {dev} "
+              f"(plain on the {where} {k['plain_ms']:.3f} ms, "
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
 
 
@@ -245,6 +410,9 @@ def phase_main_path(kernels) -> None:
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    fused = {k["name"]: k["launches"] for k in kernels if k["name"] in ("quotient", "permutation_polys")}
+    if max(fused.values()) > 2:
+        raise AssertionError(f"a fused stage took more than two launches: {fused}")
     counts = ", ".join(f"{k['name']}={k['launches']}" for k in kernels)
     print(f"[main] leaf: {cfg.num_wires} wires, degree_bits {prover.data.degree_bits}, "
           f"{cfg.fri_config.num_query_rounds} queries, {cfg.fri_config.proof_of_work_bits} PoW bits; "
@@ -260,7 +428,7 @@ def main() -> int:
     phase_kernels(kernels)
     phase_main_path(kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
         k["route"] = "cuda"
         k["library_ms"] = None  # no single PyTorch call computes these functions

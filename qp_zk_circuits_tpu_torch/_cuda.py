@@ -38,7 +38,10 @@ _ENTRIES = {
     "qzk_poseidon2_permute": [_P, _P, _LL, _P],
     "qzk_poseidon2_hash_rows": [_P, _P, _LL, _I, _LL, _LL, _P],
     "qzk_poseidon2_two_to_one": [_P, _LL, _P, _LL, _P, _LL, _P],
-    "qzk_ntt": [_P, _P, _P, _P, _LL, _I, _I, _ULL, _I, _P],
+    "qzk_ntt": [_P, _P, _P, _P, _P, _LL, _I, _I, _ULL, _I, _P],
+    "qzk_quotient_set_constants": [_P, _P, _P],
+    "qzk_quotient": [_P] * 11 + [_I] * 10 + [_P],
+    "qzk_permutation": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lib = None

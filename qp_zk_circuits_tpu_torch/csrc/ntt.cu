@@ -3,7 +3,9 @@
 // Replaces the XLA-compiled jnp functions poly/ntt.py::ntt_j (with _stage_j),
 // intt_j and coset_lde_j of the JAX package: a (C, N) batch, bit-reversed
 // gather, log N decimation-in-time stages, natural order out, 1/N scale for
-// the inverse, and for the LDE a x g^i shift plus zero-pad to N << rate.
+// the inverse, and for the LDE a x g^i shift plus zero-pad to N << rate. An
+// optional output multiplier folds the quotient's g^-i unshift
+// (plonk/prover.py::quotient_run after intt_j) into the inverse transform.
 //
 // Design: one block per column. The column lives in shared memory (N * 8
 // bytes, dynamic, above 48 KB after cudaFuncSetAttribute), is loaded in
@@ -26,7 +28,8 @@ namespace {
 
 __global__ void ntt_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                            const uint64_t* __restrict__ twiddles,
-                           const uint64_t* __restrict__ shift_pows, int n_in, int log_n,
+                           const uint64_t* __restrict__ shift_pows,
+                           const uint64_t* __restrict__ post_pows, int n_in, int log_n,
                            uint64_t scale, int do_scale) {
   extern __shared__ uint64_t x[];
   const int n = 1 << log_n;
@@ -60,7 +63,8 @@ __global__ void ntt_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict
   }
 
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    dst[i] = do_scale ? gl::mul(x[i], scale) : x[i];
+    const uint64_t v = do_scale ? gl::mul(x[i], scale) : x[i];
+    dst[i] = post_pows != nullptr ? gl::mul(v, post_pows[i]) : v;
   }
 }
 
@@ -69,8 +73,10 @@ __global__ void ntt_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict
 // in: (cols, n_in) contiguous; out: (cols, 2^log_n) contiguous, n_in <= 2^log_n.
 // shift_pows: n_in felts g^j applied before the transform, or null.
 // scale: applied to every output when do_scale != 0 (1/N for the inverse).
+// post_pows: 2^log_n felts multiplied into output i (the coset unshift
+// g^-i after an inverse transform), or null.
 extern "C" int qzk_ntt(const void* in, void* out, const void* twiddles, const void* shift_pows,
-                       long long cols, int n_in, int log_n, unsigned long long scale,
+                       const void* post_pows, long long cols, int n_in, int log_n, unsigned long long scale,
                        int do_scale, void* stream) {
   if (cols <= 0) return 0;
   if (log_n < 1 || log_n > 14 || n_in > (1 << log_n)) return (int)cudaErrorInvalidValue;
@@ -84,6 +90,6 @@ extern "C" int qzk_ntt(const void* in, void* out, const void* twiddles, const vo
   if (threads > 512) threads = 512;
   ntt_kernel<<<(unsigned)cols, threads, smem, (cudaStream_t)stream>>>(
       (const uint64_t*)in, (uint64_t*)out, (const uint64_t*)twiddles,
-      (const uint64_t*)shift_pows, n_in, log_n, (uint64_t)scale, do_scale);
+      (const uint64_t*)shift_pows, (const uint64_t*)post_pows, n_in, log_n, (uint64_t)scale, do_scale);
   return (int)cudaGetLastError();
 }

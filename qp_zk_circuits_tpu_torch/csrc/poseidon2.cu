@@ -10,7 +10,8 @@
 // 4 full rounds). Round constants and the internal diagonal sit in
 // __constant__ memory; they are uploaded once from the port's Grain-LFSR
 // derived tables (qzk_poseidon2_set_constants), so no table is written here.
-// Linear layers accumulate 128-bit sums of small multiples and reduce once.
+// The S-box and the linear layers live in poseidon2.cuh, shared with the
+// Poseidon2 gate of kernel A (quotient.cu).
 //
 // Bound on the H100: operations. One permutation is about 500 field
 // multiplies (118 S-boxes of 4 multiplies plus the internal diagonal), each a
@@ -19,83 +20,21 @@
 // arbitrary strides so a column-major LDE is hashed without a transpose copy.
 #include <cuda_runtime.h>
 
-#include "goldilocks.cuh"
+#include "poseidon2.cuh"
 
 namespace {
 
-constexpr int WIDTH = 12;
-constexpr int RATE = 8;
-constexpr int DIGEST = 4;
-constexpr int ROUNDS_F = 8;
-constexpr int ROUNDS_P = 22;
+using p2::DIGEST;
+using p2::RATE;
+using p2::ROUNDS_F;
+using p2::ROUNDS_P;
+using p2::WIDTH;
+using p2::external_linear;
+using p2::sbox;
 
 __constant__ uint64_t c_ext_rc[ROUNDS_F][WIDTH];
 __constant__ uint64_t c_int_rc[ROUNDS_P];
 __constant__ uint64_t c_diag[WIDTH];
-
-struct U128 {
-  uint64_t lo, hi;
-};
-
-__device__ __forceinline__ void mac(U128& acc, uint64_t x, uint64_t c) {
-  uint64_t lo = x * c;
-  uint64_t hi = __umul64hi(x, c);
-  acc.lo += lo;
-  acc.hi += hi + (acc.lo < lo ? 1 : 0);
-}
-
-__device__ __forceinline__ U128 add128(U128 a, U128 b) {
-  U128 r;
-  r.lo = a.lo + b.lo;
-  r.hi = a.hi + b.hi + (r.lo < a.lo ? 1 : 0);
-  return r;
-}
-
-__device__ __forceinline__ uint64_t sbox(uint64_t x) {
-  uint64_t x2 = gl::mul(x, x);
-  uint64_t x4 = gl::mul(x2, x2);
-  return gl::mul(gl::mul(x4, x2), x);
-}
-
-// M_E = circ(2*M4, M4, M4): per-group M4, then add the sum over groups.
-__device__ __forceinline__ void external_linear(uint64_t* x) {
-  const uint64_t m4[4][4] = {{5, 7, 1, 3}, {4, 6, 1, 1}, {1, 3, 5, 7}, {1, 1, 4, 6}};
-  U128 y[3][4];
-#pragma unroll
-  for (int g = 0; g < 3; ++g) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      U128 acc = {0, 0};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mac(acc, x[4 * g + j], m4[i][j]);
-      y[g][i] = acc;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    U128 s = add128(add128(y[0][i], y[1][i]), y[2][i]);
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      U128 v = add128(y[g][i], s);
-      x[4 * g + i] = gl::reduce128(v.lo, v.hi);
-    }
-  }
-}
-
-// M_I(x)_i = diag_i * x_i + sum_j x_j.
-__device__ __forceinline__ void internal_linear(uint64_t* x) {
-  U128 tot = {0, 0};
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) mac(tot, x[i], 1);
-  uint64_t t = gl::reduce128(tot.lo, tot.hi);
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) {
-    U128 v = {0, 0};
-    mac(v, x[i], c_diag[i]);
-    mac(v, t, 1);
-    x[i] = gl::reduce128(v.lo, v.hi);
-  }
-}
 
 __device__ void permute(uint64_t* x) {
   external_linear(x);
@@ -106,7 +45,7 @@ __device__ void permute(uint64_t* x) {
   }
   for (int r = 0; r < ROUNDS_P; ++r) {
     x[0] = sbox(gl::add(x[0], c_int_rc[r]));
-    internal_linear(x);
+    p2::internal_linear(x, c_diag);
   }
   for (int r = 4; r < ROUNDS_F; ++r) {
 #pragma unroll

@@ -578,3 +578,37 @@ class BaseSumGate(Gate):
             )
         for i in range(self.num_bits):
             set_(1 + i, (v >> i) & 1)
+
+
+# ---------------------------------------------------------------------------
+# kernel A's gate descriptors (csrc/quotient.cu)
+
+#: type ids of csrc/quotient.cu; 7 marks a challenge's permutation part
+GATE_TYPE_IDS = {
+    NoopGate: 0,
+    ArithmeticGate: 1,
+    ConstantGate: 2,
+    PublicInputGate: 3,
+    Poseidon2Gate: 4,
+    ReducingGate: 5,
+    BaseSumGate: 6,
+}
+PERMUTATION_TYPE_ID = 7
+
+
+def gate_descriptor(gate: Gate) -> tuple[int, int, int, int]:
+    """(type id, p0, p1, p2): what kernel A needs to evaluate `gate`'s
+    constraints in its own registers. A gate type the kernel does not know
+    raises; it never falls back to `eval_batched`."""
+    tid = GATE_TYPE_IDS.get(type(gate))
+    if tid is None:
+        raise ValueError(f"kernel A has no evaluation for gate {type(gate).__name__}")
+    if isinstance(gate, ArithmeticGate):
+        return (tid, gate.num_ops, 0, 0)
+    if isinstance(gate, ConstantGate):
+        return (tid, gate.num_consts, 0, 0)
+    if isinstance(gate, ReducingGate):
+        return (tid, gate.num_coeffs, int(gate.ext), gate.scratch)
+    if isinstance(gate, BaseSumGate):
+        return (tid, gate.num_bits, 0, 0)
+    return (tid, 0, 0, 0)

@@ -1,8 +1,10 @@
 """PLONK prover: trace -> commitments -> permutation argument -> quotient -> FRI.
 
 The staged order of the JAX package's `plonk/prover.py::prove_staged`, step
-for step, with the device work in torch over the port's three kernel
-families (field elementwise, Poseidon2, NTT):
+for step, with the device work on the port's kernels: field elementwise,
+Poseidon2, NTT, and the fused kernels A (the quotient's vanishing
+evaluation, csrc/quotient.cu) and B (the permutation argument,
+csrc/permutation.cu):
 
   * trace interpolation, LDEs, Merkle levels, the permutation argument, the
     constraint/quotient evaluation, openings and the FRI folds run on the
@@ -16,9 +18,12 @@ staged and fused provers, which are pinned equal to each other).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from .. import _cuda
 from ..field import extension as ext
 from ..field import gf_np as F
 from ..field import goldilocks as gl
@@ -28,9 +33,21 @@ from ..hash import poseidon2 as ps
 from ..poly import ntt
 from . import transcript as ts
 from .builder import CircuitData, PartialWitness, coset_shifts, generate_witness
-from .gates import DeviceBatchCtx
+from .gates import PERMUTATION_TYPE_ID, DeviceBatchCtx, gate_descriptor
 from .proof import OpeningSet, Proof, fri_instance, zs_pp_layout
 from .vanishing import num_partial_products, permutation_chunks
+
+
+#: kernel A keeps one accumulator a challenge in registers; kernel B's
+#: challenges travel as launch arguments
+MAX_CHALLENGES = 4
+#: kernel B keeps a row's chunk products in registers
+MAX_CHUNKS = 16
+#: kernel B scans Z in one block: 1024 threads x at most 16 rows
+MAX_PERMUTATION_ROWS = 1 << 14
+#: a kernel-A descriptor row: type, p0, p1, p2, selector row, first
+#: constraint index
+DESC_WIDTH = 6
 
 
 def _prefix_prod_inclusive(a: torch.Tensor) -> torch.Tensor:
@@ -44,34 +61,52 @@ def _prefix_prod_inclusive(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _tables(data: CircuitData) -> dict:
-    """Per-circuit device tables (cached on the circuit data)."""
-    cached = data.__dict__.get("_torch_tables")
+def quotient_descriptors(data: CircuitData) -> tuple[np.ndarray, int]:
+    """Kernel A's descriptor table (G, DESC_WIDTH) int32 and the total
+    constraint count K. One row per gate type (its constraints are masked by
+    selector row nconst + s), then one row per challenge for its boundary and
+    permutation transitions; column 5 is the row's first index in the
+    canonical constraint list of `vanishing.eval_constraints`."""
+    cfg = data.config
+    nconst = data.const_cols.shape[0]
+    nchunks = len(permutation_chunks(cfg.num_routed_wires, cfg.max_quotient_degree_factor))
+    rows = []
+    k = 0
+    for s, gate in enumerate(data.gate_types):
+        rows.append([*gate_descriptor(gate), nconst + s, k])
+        k += gate.num_constraints
+    for c in range(cfg.num_challenges):
+        rows.append([PERMUTATION_TYPE_ID, c, 0, 0, -1, k])
+        k += 1 + nchunks
+    return np.array(rows, dtype=np.int32).reshape(-1, DESC_WIDTH), k
+
+
+def _tables(data: CircuitData, dev) -> dict:
+    """Per-circuit tables on device `dev` (cached on the circuit data)."""
+    dev = torch.device(dev)
+    per_device = data.__dict__.setdefault("_torch_tables", {})
+    cached = per_device.get(dev)
     if cached is not None:
         return cached
-    dev = data.device
     cfg = data.config
-    n = data.n
-    m = n << cfg.rate_bits
+    m = data.n << cfg.rate_bits
     xs = F.mul(
         F.powers_table(F.primitive_root_of_unity(data.degree_bits + cfg.rate_bits), m),
         F.MULTIPLICATIVE_GROUP_GENERATOR,
     )
     l1, inv_zh = _l1_and_inv_zh(data, xs)
-    ks = np.asarray(coset_shifts(cfg.num_routed_wires), dtype=np.uint64)
-    xs_d = gl.from_u64(xs, dev)
+    desc, k_total = quotient_descriptors(data)
     tables = {
         "id_coords": gl.from_u64(data.id_coords, dev),
         "sigma_vals": gl.from_u64(data.sigma_vals, dev),
+        "xs": gl.from_u64(xs, dev),
         "l1": gl.from_u64(l1, dev),
         "inv_zh": gl.from_u64(inv_zh, dev),
-        "inv_shift_pows": gl.from_u64(
-            F.powers_table(F.inv(F.MULTIPLICATIVE_GROUP_GENERATOR), m), dev
-        ),
-        # k_i * x over the LDE coset: the permutation identity columns
-        "ids_lde": gl.mul(gl.from_u64(ks, dev).unsqueeze(1), xs_d),
+        "ks": gl.from_u64(np.asarray(coset_shifts(cfg.num_routed_wires), dtype=np.uint64), dev),
+        "desc": torch.as_tensor(desc, device=dev),
+        "num_constraints": k_total,
     }
-    data.__dict__["_torch_tables"] = tables
+    per_device[dev] = tables
     return tables
 
 
@@ -86,16 +121,51 @@ def _l1_and_inv_zh(data: CircuitData, xs: np.ndarray):
     return l1, inv_zh
 
 
-def compute_permutation_polys(data: CircuitData, trace: torch.Tensor, betas, gammas):
-    """Z and partial-product columns per challenge -> (num_cols, n) on the
-    trace's device: [Z_0, Z_1, ..., pp_0_*, pp_1_*, ...]."""
+@functools.cache
+def _kernel_lib():
+    """The kernel library with kernel A's Poseidon2 constants uploaded."""
+    lib = _cuda.lib()
+    ext_rcs, int_rcs, diag = (
+        np.ascontiguousarray(a, dtype=np.uint64)
+        for a in (ps.external_round_constants(), ps.internal_round_constants(), ps.internal_diag())
+    )
+    err = lib.qzk_quotient_set_constants(
+        ext_rcs.ctypes.data, int_rcs.ctypes.data, diag.ctypes.data
+    )
+    _cuda.check(err, "qzk_quotient_set_constants")
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# the permutation argument (kernel B)
+
+
+def _permutation_limits(data: CircuitData, trace: torch.Tensor) -> None:
+    cfg = data.config
+    nchunks = len(permutation_chunks(cfg.num_routed_wires, cfg.max_quotient_degree_factor))
+    if trace.dim() != 2 or trace.shape[0] < cfg.num_routed_wires or trace.shape[1] != data.n:
+        raise ValueError(f"trace {tuple(trace.shape)} does not fit the circuit")
+    if data.n > MAX_PERMUTATION_ROWS:
+        raise ValueError(
+            f"{data.n} rows: the one-block Z scan takes at most {MAX_PERMUTATION_ROWS}"
+        )
+    if not 1 <= cfg.num_challenges <= MAX_CHALLENGES or nchunks > MAX_CHUNKS:
+        raise ValueError(
+            f"{cfg.num_challenges} challenges and {nchunks} permutation chunks: "
+            f"kernel B takes at most {MAX_CHALLENGES} and {MAX_CHUNKS}"
+        )
+
+
+def compute_permutation_polys_plain(data: CircuitData, trace: torch.Tensor, betas, gammas):
+    """Plain torch version of `compute_permutation_polys` (same arguments)."""
+    _permutation_limits(data, trace)
     cfg = data.config
     nr = cfg.num_routed_wires
     qdf = cfg.max_quotient_degree_factor
     chunks = permutation_chunks(nr, qdf)
     npp = num_partial_products(nr, qdf)
-    tab = _tables(data)
     dev = trace.device
+    tab = _tables(data, dev)
     wires = trace[:nr]  # (nr, n)
     zs, pps = [], []
     for c in range(cfg.num_challenges):
@@ -116,25 +186,82 @@ def compute_permutation_polys(data: CircuitData, trace: torch.Tensor, betas, gam
     return torch.stack(zs + pps)
 
 
-def compute_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash):
-    """Quotient chunks (nc * qdf, n) in coefficient form (the JAX package's
-    `quotient_run`): gate constraints masked by selectors, the boundary term
-    L1 * (Z - 1) and the permutation transitions over the LDE coset, combined
-    per challenge by powers of alpha, times 1/Z_H, then a kernel-3 iNTT and
-    the g^-i unshift."""
+def compute_permutation_polys(data: CircuitData, trace: torch.Tensor, betas, gammas):
+    """Z and partial-product columns per challenge -> (num_cols, n) on the
+    trace's device: [Z_0, Z_1, ..., pp_0_*, pp_1_*, ...].
+
+    On a CUDA trace: kernel B (csrc/permutation.cu), two launches. On a CPU
+    trace: the plain version. n is at most MAX_PERMUTATION_ROWS on every
+    device."""
+    _permutation_limits(data, trace)
+    if trace.device.type == "cpu":
+        return compute_permutation_polys_plain(data, trace, betas, gammas)
+    _cuda.require_cuda_int64(trace)
+    return _launch_permutation(data, trace, betas, gammas)
+
+
+def _launch_permutation(data: CircuitData, trace: torch.Tensor, betas, gammas):
+    cfg = data.config
+    nr, nc = cfg.num_routed_wires, cfg.num_challenges
+    npp = num_partial_products(nr, cfg.max_quotient_degree_factor)
+    tab = _tables(data, trace.device)
+    wires = trace[:nr].contiguous()
+    out = torch.empty((nc + nc * npp, data.n), dtype=torch.int64, device=trace.device)
+    b = np.ascontiguousarray(np.asarray(betas, dtype=np.uint64)[:nc])
+    g = np.ascontiguousarray(np.asarray(gammas, dtype=np.uint64)[:nc])
+    err = _cuda.lib().qzk_permutation(
+        wires.data_ptr(), tab["id_coords"].data_ptr(), tab["sigma_vals"].data_ptr(),
+        b.ctypes.data, g.ctypes.data, out.data_ptr(),
+        data.n, nr, cfg.max_quotient_degree_factor, nc, _cuda.stream(),
+    )
+    _cuda.check(err, "qzk_permutation")
+    compute_permutation_polys.launches += 2
+    return out
+
+
+compute_permutation_polys.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the quotient (kernel A)
+
+
+def _quotient_operands(data: CircuitData, wires_lde, zs_pp_lde):
+    """The constants/selectors/sigmas LDE on the operands' device, after
+    checking every operand's shape."""
+    cfg = data.config
+    m = data.n << cfg.rate_bits
+    nc = cfg.num_challenges
+    npp = num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor)
+    consts_lde = data.constants_oracle.lde.to(wires_lde.device)
+    nconst = data.const_cols.shape[0]
+    want = (
+        (wires_lde, cfg.num_wires),
+        (consts_lde, nconst + data.num_selectors + cfg.num_routed_wires),
+        (zs_pp_lde, nc + nc * npp),
+    )
+    for t, rows in want:
+        if t.dim() != 2 or t.shape[0] < rows or t.shape[1] != m:
+            raise ValueError(f"LDE operand {tuple(t.shape)}, expected ({rows}, {m})")
+    if not 1 <= nc <= MAX_CHALLENGES:
+        raise ValueError(f"{nc} challenges: kernel A takes at most {MAX_CHALLENGES}")
+    return consts_lde
+
+
+def quotient_evals_plain(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash):
+    """Plain torch version of `quotient_evals` (same arguments)."""
+    consts_lde = _quotient_operands(data, wires_lde, zs_pp_lde)
     cfg = data.config
     nc = cfg.num_challenges
     nr = cfg.num_routed_wires
     qdf = cfg.max_quotient_degree_factor
     npp = num_partial_products(nr, qdf)
     rate = 1 << cfg.rate_bits
-    n = data.n
-    m = n * rate
-    consts_lde = data.constants_oracle.lde
+    m = data.n * rate
     nconst = data.const_cols.shape[0]
     nsel = data.num_selectors
-    tab = _tables(data)
     dev = wires_lde.device
+    tab = _tables(data, dev)
 
     ctx = DeviceBatchCtx(
         wires_lde[: cfg.num_wires],
@@ -144,11 +271,13 @@ def compute_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash)
     # gate constraints, selector-masked, stacked (K_gates, m)
     parts = []
     for s, gate in enumerate(data.gate_types):
-        parts.append(gl.mul(gate.eval_batched(ctx), consts_lde[nconst + s]))
+        if gate.num_constraints:  # a Noop row has none to stack
+            parts.append(gl.mul(gate.eval_batched(ctx), consts_lde[nconst + s]))
 
     # permutation constraints, per challenge
     routed = wires_lde[:nr]  # (nr, m)
     sigma = consts_lde[nconst + nsel : nconst + nsel + nr]
+    ids_lde = gl.mul(tab["ks"].unsqueeze(1), tab["xs"])  # k_i * x
     # the final chunk may be ragged (routed % qdf != 0): pad its factors
     # with multiplicative ones so the segment products match the chunks
     nchunks = -(-nr // qdf)
@@ -159,7 +288,7 @@ def compute_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash)
         beta, gamma = gl.felt(betas[c], dev), gl.felt(gammas[c], dev)
         z = zs_pp_lde[c]
         z_next = torch.roll(z, -rate, dims=0)
-        num = gl.add(gl.add(routed, gl.mul(beta, tab["ids_lde"])), gamma)
+        num = gl.add(gl.add(routed, gl.mul(beta, ids_lde)), gamma)
         den = gl.add(gl.add(routed, gl.mul(beta, sigma)), gamma)
         cn = gl.prod_tree(torch.cat([num, ones_pad]).reshape(nchunks, qdf, m), 1)
         cd = gl.prod_tree(torch.cat([den, ones_pad]).reshape(nchunks, qdf, m), 1)
@@ -172,14 +301,75 @@ def compute_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash)
 
     all_cons = torch.cat(parts, dim=0)  # (K, m)
     k_total = all_cons.shape[0]
-    out_chunks = []
+    out = []
     for c in range(nc):
-        apows = gl.from_u64(F.powers(np.uint64(alphas[c]), k_total), dev).unsqueeze(1)
-        acc = gl.sum_tree(gl.mul(all_cons, apows), 0)
-        t_coeffs = ntt.intt(gl.mul(acc, tab["inv_zh"]))
-        t_coeffs = gl.mul(t_coeffs, tab["inv_shift_pows"])
-        out_chunks.append(t_coeffs.reshape(rate, n))
-    return torch.cat(out_chunks, dim=0)  # (nc*qdf, n) — qdf == rate
+        apows = gl.from_u64(F.powers_table(np.uint64(alphas[c]), k_total), dev).unsqueeze(1)
+        out.append(gl.mul(gl.sum_tree(gl.mul(all_cons, apows), 0), tab["inv_zh"]))
+    return torch.stack(out)
+
+
+def quotient_evals(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash):
+    """The quotient's values over the LDE coset, (nc, m), before the iNTT:
+    out_c(x) = (1/Z_H(x)) sum_k alpha_c^k C_k(x) over the canonical
+    constraint list (gate constraints masked by selectors, then per
+    challenge L1 * (Z - 1) and the permutation transitions).
+
+    The constants, selectors and sigmas come from the circuit's preprocessing
+    oracle. On CUDA operands: kernel A (csrc/quotient.cu), two launches. On
+    CPU operands: the plain version."""
+    consts_lde = _quotient_operands(data, wires_lde, zs_pp_lde)
+    if wires_lde.device.type == "cpu":
+        return quotient_evals_plain(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash)
+    _cuda.require_cuda_int64(wires_lde, consts_lde, zs_pp_lde)
+    return _launch_quotient(
+        data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash, consts_lde
+    )
+
+
+def _launch_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash, consts_lde):
+    cfg = data.config
+    nc = cfg.num_challenges
+    m = data.n << cfg.rate_bits
+    dev = wires_lde.device
+    tab = _tables(data, dev)
+    k_total = tab["num_constraints"]
+    apows = [F.powers_table(np.uint64(alphas[c]), k_total) for c in range(nc)]
+    scal = gl.from_u64(
+        np.concatenate([
+            np.asarray(betas, dtype=np.uint64)[:nc], np.asarray(gammas, dtype=np.uint64)[:nc],
+            np.asarray(pi_hash, dtype=np.uint64), *apows,
+        ]),
+        dev,
+    )
+    wires_lde, consts_lde, zs_pp_lde = (t.contiguous() for t in (wires_lde, consts_lde, zs_pp_lde))
+    groups = tab["desc"].shape[0]
+    partial = torch.empty((groups, nc, m), dtype=torch.int64, device=dev)
+    out = torch.empty((nc, m), dtype=torch.int64, device=dev)
+    err = _kernel_lib().qzk_quotient(
+        wires_lde.data_ptr(), consts_lde.data_ptr(), zs_pp_lde.data_ptr(),
+        tab["xs"].data_ptr(), tab["l1"].data_ptr(), tab["inv_zh"].data_ptr(),
+        tab["ks"].data_ptr(), scal.data_ptr(), tab["desc"].data_ptr(),
+        partial.data_ptr(), out.data_ptr(),
+        groups, m, 1 << cfg.rate_bits, cfg.num_routed_wires, cfg.max_quotient_degree_factor,
+        num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor), nc,
+        data.const_cols.shape[0], data.num_selectors, k_total, _cuda.stream(),
+    )
+    _cuda.check(err, "qzk_quotient")
+    quotient_evals.launches += 2
+    return out
+
+
+quotient_evals.launches = 0
+
+
+def compute_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash):
+    """Quotient chunks (nc * qdf, n) in coefficient form (the JAX package's
+    `quotient_run`): `quotient_evals` over the LDE coset, then one kernel-3
+    coset iNTT of all nc rows with the g^-i unshift folded in."""
+    cfg = data.config
+    evals = quotient_evals(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash)
+    # (nc, m) -> (nc * qdf, n): qdf == rate
+    return ntt.coset_intt(evals).reshape(cfg.num_challenges << cfg.rate_bits, data.n)
 
 
 def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None) -> Proof:

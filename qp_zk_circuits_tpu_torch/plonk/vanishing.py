@@ -15,10 +15,11 @@ D_j = prod (w_i + beta_c * sigma_i(x) + gamma_c); chunks of size
 max_quotient_degree_factor (the reference's partial-products split keeps
 constraint degree at qdf + 1 = 9).
 
-The same code runs in the device base algebra over the LDE domain (prover
-quotient) and the host extension algebra at zeta (verifier) — one source of
-truth for the identity (prover/verifier divergence is a soundness bug class
-this kills structurally).
+The verifier runs this code in the host extension algebra at zeta
+(`HostExtAlg`). The prover's quotient evaluates the same list in the same
+order, in torch (`plonk/prover.py::quotient_evals_plain`) and in kernel A
+(csrc/quotient.cu); tests/test_torch_quotient.py holds both to the JAX
+package's copy of this function.
 """
 
 from __future__ import annotations
@@ -85,29 +86,6 @@ def eval_constraints(
             constraints.append(alg.sub(alg.mul(nxt, den), alg.mul(prev, num)))
             prev = nxt
     return constraints
-
-
-class DeviceAlg:
-    """Base-field felt-tensor algebra (batched over the LDE domain), through
-    the kernel-1 wrappers."""
-
-    def __init__(self, device):
-        from ..field import goldilocks as gl
-
-        self.gl = gl
-        self.device = device
-
-    def add(self, a, b):
-        return self.gl.add(a, b)
-
-    def sub(self, a, b):
-        return self.gl.sub(a, b)
-
-    def mul(self, a, b):
-        return self.gl.mul(a, b)
-
-    def one(self):
-        return self.gl.felt(1, self.device)
 
 
 class HostExtAlg:

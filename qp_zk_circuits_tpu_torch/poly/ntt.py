@@ -64,7 +64,8 @@ def _device_powers(base: int, n: int, device: torch.device) -> torch.Tensor:
 
 
 def batched_ntt_plain(
-    x: torch.Tensor, log_n: int, inverse: bool = False, shift: int | None = None
+    x: torch.Tensor, log_n: int, inverse: bool = False, shift: int | None = None,
+    out_shift: int | None = None,
 ) -> torch.Tensor:
     """Plain torch version of `batched_ntt` (same arguments)."""
     c, n_in = x.shape
@@ -84,11 +85,14 @@ def batched_ntt_plain(
         x = x.reshape(c, n)
     if inverse:
         x = gl.mul_plain(x, gl.felt(int(F.inv(np.uint64(n))), x.device))
+    if out_shift is not None:
+        x = gl.mul_plain(x, _device_powers(out_shift, n, x.device))
     return x
 
 
 def batched_ntt(
-    x: torch.Tensor, log_n: int, inverse: bool = False, shift: int | None = None
+    x: torch.Tensor, log_n: int, inverse: bool = False, shift: int | None = None,
+    out_shift: int | None = None,
 ) -> torch.Tensor:
     """Kernel-3 transform of every row of x (C, n_in), n_in <= 2^log_n, for
     1 <= log_n <= MAX_LOG_N on every device (the CPU path keeps the kernel's
@@ -96,7 +100,8 @@ def batched_ntt(
 
     Element j of each row is first scaled by shift^j (when `shift` is given)
     and the rows are zero-padded to 2^log_n; `inverse` selects inverse twiddles and the 1/N
-    scale. Returns (C, 2^log_n) in natural order."""
+    scale; output element j is multiplied by out_shift^j (when given). Returns
+    (C, 2^log_n) in natural order."""
     if x.dim() != 2 or x.shape[1] > 1 << log_n:
         raise ValueError(f"batched_ntt takes (C, n <= 2^{log_n}), got {tuple(x.shape)}")
     if not 1 <= log_n <= MAX_LOG_N:
@@ -104,17 +109,19 @@ def batched_ntt(
             f"NTT size 2^{log_n} outside the one-block kernel's range 2^1..2^{MAX_LOG_N}"
         )
     if x.device.type == "cpu":
-        return batched_ntt_plain(x, log_n, inverse, shift)
+        return batched_ntt_plain(x, log_n, inverse, shift, out_shift)
     _cuda.require_cuda_int64(x)
     x = x.contiguous()
     c, n_in = x.shape
     out = torch.empty((c, 1 << log_n), dtype=torch.int64, device=x.device)
     tw = _device_twiddles(log_n, inverse, x.device)
     sp = _device_powers(shift, n_in, x.device) if shift is not None else None
+    post = _device_powers(out_shift, 1 << log_n, x.device) if out_shift is not None else None
     scale = int(F.inv(np.uint64(1 << log_n))) if inverse else 1
     err = _cuda.lib().qzk_ntt(
         x.data_ptr(), out.data_ptr(), tw.data_ptr(),
         None if sp is None else sp.data_ptr(),
+        None if post is None else post.data_ptr(),
         c, n_in, log_n, scale, int(inverse), _cuda.stream(),
     )
     _cuda.check(err, "qzk_ntt")
@@ -145,6 +152,18 @@ def ntt(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
 
 def intt(values: torch.Tensor) -> torch.Tensor:
     return ntt(values, inverse=True)
+
+
+def coset_intt(values: torch.Tensor, shift: int | None = None) -> torch.Tensor:
+    """Evaluations (..., N) over shift * H -> coefficients: an inverse NTT with
+    the shift^-j unshift folded into the same launch."""
+    n = values.shape[-1]
+    if shift is None:
+        shift = int(F.MULTIPLICATIVE_GROUP_GENERATOR)
+    out = batched_ntt(
+        values.reshape(-1, n), _log2(n), inverse=True, out_shift=int(F.inv(np.uint64(shift)))
+    )
+    return out.reshape(values.shape)
 
 
 def coset_lde(coeffs: torch.Tensor, rate_bits: int, shift: int | None = None) -> torch.Tensor:
