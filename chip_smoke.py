@@ -55,41 +55,56 @@ OPS_ADD = 4
 # of 48 small 64x64 products (half a mul each) and 12 reductions.
 PERM_MULS = 118 * 4 + 22 * 12 + 9 * (48 // 2 + 12)
 PERM_ADDS = 8 * 12 + 22 + 22 * 12 + 9 * 24
-# multiplies of the Fermat inverse a^(p-2) in csrc/permutation.cu: 64
-# squarings and one multiply per set bit of p - 2
+# multiplies of one Fermat inverse a^(p-2): 64 squarings and one multiply
+# per set bit of p - 2
 INV_MULS = 64 + bin((1 << 64) - (1 << 32) - 1).count("1")
+
+# The bounds count the operations the function needs, not the ones a
+# kernel's chosen algorithm spends (kernel B's inverse per thread, kernel A's
+# k_i*x per challenge, its sum of group partials).
 
 
 def quotient_field_ops(data) -> tuple[int, int]:
-    """Field multiplies and adds (or subs) per LDE point of kernel A
-    (csrc/quotient.cu), counted from its descriptor table: each gate type's
-    constraints, the selector mask, each challenge's boundary and chunked
-    permutation transitions, nc alpha terms per constraint, and the combine."""
+    """Field multiplies and adds (or subs) that one LDE point of kernel A's
+    function (csrc/quotient.cu) needs, counted from the circuit's descriptor
+    table: each gate type's constraints and selector mask, k_i*x once, each
+    challenge's boundary and chunked permutation transitions, nc alpha terms
+    per constraint and the 1/Z_H multiply."""
+    from qp_zk_circuits_tpu_torch.plonk import gates as tgates
     from qp_zk_circuits_tpu_torch.plonk import prover as tprover
 
     cfg = data.config
     nc, nr, qdf = cfg.num_challenges, cfg.num_routed_wires, cfg.max_quotient_degree_factor
     nchunks = -(-nr // qdf)
+    ids = tgates.GATE_TYPE_IDS
+    # (muls, adds) of one descriptor row with parameters p0, p1
+    per_row = {
+        ids[tgates.NoopGate]: lambda p0, p1: (0, 0),
+        # c0*a*b + c1*c, then out - t
+        ids[tgates.ArithmeticGate]: lambda p0, p1: (3 * p0, 2 * p0),
+        # one sub a constraint
+        ids[tgates.ConstantGate]: lambda p0, p1: (0, p0),
+        ids[tgates.PublicInputGate]: lambda p0, p1: (0, 4),
+        # a permutation's ops plus a sub for each of its 118 S-box outputs
+        ids[tgates.Poseidon2Gate]: lambda p0, p1: (PERM_MULS, PERM_ADDS + 118),
+        # a Horner step over the extension: 5 muls, 2 adds (3 with ext), 2 subs
+        ids[tgates.ReducingGate]: lambda p0, p1: (5 * p0, (4 + p1) * p0),
+        # b*(b-1) and b*2^i a bit, 2 adds a bit, one sub
+        ids[tgates.BaseSumGate]: lambda p0, p1: (2 * p0, 2 * p0 + 1),
+        # per challenge: the boundary L1*(Z-1); beta times k_i*x and sigma_i
+        # with 2 adds each; the chunk products; nxt*D - prev*N a chunk
+        tgates.PERMUTATION_TYPE_ID: lambda p0, p1: (
+            1 + 2 * nr + 2 * (nr - nchunks) + 2 * nchunks, 1 + 4 * nr + nchunks),
+    }
     desc, k_total = tprover.quotient_descriptors(data)
-    muls = adds = 0
-    for tid, p0, p1, _p2, sel, *_ in desc.tolist():
-        if tid == 1:  # arithmetic: c0*a*b + c1*c, out - t
-            muls, adds = muls + 3 * p0, adds + 2 * p0
-        elif tid in (2, 3):  # constant, public input: one sub a constraint
-            adds += p0 if tid == 2 else 4
-        elif tid == 4:  # Poseidon2 gate: a permutation's ops plus 118 subs
-            muls, adds = muls + PERM_MULS, adds + PERM_ADDS + 118
-        elif tid == 5:  # reducing: 5 muls, 2-3 adds and 2 subs a step
-            muls, adds = muls + 5 * p0, adds + (4 + p1) * p0
-        elif tid == 6:  # base sum: b*(b-1), b*2^i, 3 adds a bit, one sub
-            muls, adds = muls + 2 * p0, adds + 3 * p0 + 1
-        elif tid == 7:  # permutation: boundary, 4 factor muls + k*x a wire
-            muls += 1 + 5 * nr + 2 * nchunks
-            adds += 1 + 4 * nr + nchunks
-        if sel >= 0:
+    muls, adds = nr, 0  # k_i * x, shared by the challenges
+    for tid, p0, p1, _p2, sel, _first in desc.tolist():
+        m, a = per_row[tid](p0, p1)
+        muls, adds = muls + m, adds + a
+        if sel >= 0 and (m or a):  # the selector masks each challenge's gate sum
             muls += nc
     muls += nc * k_total + nc  # alpha terms, 1/Z_H
-    adds += nc * k_total + nc * len(desc)  # alpha sums, the combine
+    adds += nc * k_total  # alpha sums
     return muls, adds
 
 
@@ -298,16 +313,18 @@ def _permutation_case(device) -> dict:
     nchunks = -(-nr // cfg.max_quotient_degree_factor)
     args = [_felts((cfg.num_wires, n), rng, device), F.rand_felts(nc, rng), F.rand_felts(nc, rng)]
     cpu_args = _cpu(args)
-    # per (row, challenge): 4 muls and 4 adds a routed wire, the batch
-    # inverse (3 muls a chunk and one Fermat inverse), the running ratio
-    # products, then the scan's 2 muls and the npp partial products
-    muls = 4 * nr + 4 * nchunks + INV_MULS + 2 + (nchunks - 1)
+    # per (row, challenge): beta times id_i and sigma_i with 2 adds each, the
+    # chunk products, one batch inverse across all rows (3 muls a chunk
+    # denominator), cn_j * cd_j^-1, and one multiply a ratio for the running
+    # products that give Z and the partial products; per challenge one
+    # Fermat inverse
+    muls = 2 * nr + 2 * (nr - nchunks) + 3 * nchunks + nchunks + nchunks
     return dict(
         run=lambda: tprover.compute_permutation_polys(data, *args),
         plain=lambda: tprover.compute_permutation_polys_plain(data, *cpu_args),
         plain_on_host=True,
         bytes=(3 * nr * n + nc * nchunks * n) * 8,
-        ops=n * nc * (muls * OPS_MUL + 4 * nr * OPS_ADD),
+        ops=nc * ((n * muls + INV_MULS) * OPS_MUL + n * 4 * nr * OPS_ADD),
     )
 
 

@@ -24,9 +24,12 @@
 // 1024 * 16 = 2^14 rows (the wrapper refuses more on every device); a scan
 // across blocks comes with aggregation.
 //
-// Bound on the H100: integer operations at the leaf (n = 256): about 500
-// field multiplies per (row, challenge), most of them the chunk products and
-// the inverse, against 3 * 80 reads. Phase 2 is a latency-bound scan.
+// Bound on the H100: integer operations at the leaf (n = 256). The function
+// needs about 350 field multiplies per (row, challenge), most of them the
+// chunk factors and products, and one Fermat inverse per challenge when a
+// batch inverse runs across all rows, against 3 * 80 reads. This kernel
+// spends a Fermat inverse (127 multiplies) per (row, challenge) instead.
+// Phase 2 is a latency-bound scan.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"

@@ -26,11 +26,13 @@
 // __constant__ copies, uploaded by qzk_quotient_set_constants from the same
 // host generator as kernel 2's.
 //
-// Bound on the H100: integer operations. A point of the leaf does about
-// 2,700 field multiplies and 2,300 adds (Poseidon2 gate, permutation
-// products, the alpha sums) against about 2 KB of reads; chip_smoke.py
-// counts both from the descriptor table. The Poseidon2 group, a serial chain
-// of dependent multiplies on 16 blocks, sets the kernel's time at the leaf.
+// Bound on the H100: integer operations. The function needs about 2,600
+// field multiplies and 2,200 adds a point of the leaf (Poseidon2 gate,
+// permutation products, the alpha sums) against about 2 KB of reads;
+// chip_smoke.py::quotient_field_ops counts both from the descriptor table.
+// This kernel spends more: k_i * x once per challenge and the G-partial sum.
+// The Poseidon2 group, a serial chain of dependent multiplies on 16 blocks,
+// sets the kernel's time at the leaf.
 #include <cuda_runtime.h>
 
 #include "poseidon2.cuh"
@@ -42,7 +44,9 @@ constexpr int DESC_W = 6;  // plonk/prover.py::DESC_WIDTH
 constexpr int THREADS = 128;
 
 // descriptor row: type, p0, p1, p2, selector row (or -1), first constraint
-// index; types as plonk/gates.py::GATE_TYPE_IDS
+// index. The type ids are those of plonk/gates.py::GATE_TYPE_IDS and
+// PERMUTATION_TYPE_ID, the one table of them: change them there and here
+// together (chip_smoke.py's op counts key on that table).
 enum : int {
   T_NOOP = 0,
   T_ARITH = 1,      // p0 = num_ops

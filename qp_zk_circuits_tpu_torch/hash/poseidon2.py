@@ -411,15 +411,25 @@ def two_to_one_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _kernel_lib():
-    """The kernel library with the round constants in __constant__ memory."""
+def _kernel_lib(index: int | None):
+    """The kernel library with the round constants in the __constant__ memory
+    of CUDA device `index` (that memory is per device: one upload each)."""
     lib = _cuda.lib()
     ext_rcs, int_rcs, diag = (np.ascontiguousarray(a, dtype=np.uint64) for a in _constants())
-    err = lib.qzk_poseidon2_set_constants(
-        ext_rcs.ctypes.data, int_rcs.ctypes.data, diag.ctypes.data
-    )
+    with torch.cuda.device(index):
+        err = lib.qzk_poseidon2_set_constants(
+            ext_rcs.ctypes.data, int_rcs.ctypes.data, diag.ctypes.data
+        )
     _cuda.check(err, "qzk_poseidon2_set_constants")
     return lib
+
+
+def _launch(entry: str, device: torch.device, *args) -> None:
+    """Call kernel-2 entry `entry` on `device`, its current stream last: the
+    launch and the constants it reads are that device's."""
+    lib = _kernel_lib(device.index)
+    with torch.cuda.device(device.index):
+        _cuda.check(getattr(lib, entry)(*args, _cuda.stream()), entry)
 
 
 def permute(state: torch.Tensor) -> torch.Tensor:
@@ -431,10 +441,8 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     _cuda.require_cuda_int64(state)
     state = state.contiguous()
     out = torch.empty_like(state)
-    err = _kernel_lib().qzk_poseidon2_permute(
-        state.data_ptr(), out.data_ptr(), state.numel() // WIDTH, _cuda.stream()
-    )
-    _cuda.check(err, "qzk_poseidon2_permute")
+    _launch("qzk_poseidon2_permute", state.device,
+            state.data_ptr(), out.data_ptr(), state.numel() // WIDTH)
     permute.launches += 1
     return out
 
@@ -450,11 +458,8 @@ def hash_rows(rows: torch.Tensor) -> torch.Tensor:
     _cuda.require_cuda_int64(rows)
     r, c = rows.shape
     out = torch.empty((r, DIGEST_LEN), dtype=torch.int64, device=rows.device)
-    err = _kernel_lib().qzk_poseidon2_hash_rows(
-        rows.data_ptr(), out.data_ptr(), r, c, rows.stride(0), rows.stride(1),
-        _cuda.stream(),
-    )
-    _cuda.check(err, "qzk_poseidon2_hash_rows")
+    _launch("qzk_poseidon2_hash_rows", rows.device,
+            rows.data_ptr(), out.data_ptr(), r, c, rows.stride(0), rows.stride(1))
     hash_rows.launches += 1
     return out
 
@@ -474,11 +479,8 @@ def two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         right = right.contiguous()
     b = left.shape[0]
     out = torch.empty((b, DIGEST_LEN), dtype=torch.int64, device=left.device)
-    err = _kernel_lib().qzk_poseidon2_two_to_one(
-        left.data_ptr(), left.stride(0), right.data_ptr(), right.stride(0),
-        out.data_ptr(), b, _cuda.stream(),
-    )
-    _cuda.check(err, "qzk_poseidon2_two_to_one")
+    _launch("qzk_poseidon2_two_to_one", left.device,
+            left.data_ptr(), left.stride(0), right.data_ptr(), right.stride(0), out.data_ptr(), b)
     two_to_one.launches += 1
     return out
 

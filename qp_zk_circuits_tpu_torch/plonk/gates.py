@@ -583,7 +583,9 @@ class BaseSumGate(Gate):
 # ---------------------------------------------------------------------------
 # kernel A's gate descriptors (csrc/quotient.cu)
 
-#: type ids of csrc/quotient.cu; 7 marks a challenge's permutation part
+#: kernel A's gate type ids, the one table of them: csrc/quotient.cu's enum
+#: mirrors it and chip_smoke.py's op counts key on it; 7 marks a challenge's
+#: permutation part
 GATE_TYPE_IDS = {
     NoopGate: 0,
     ArithmeticGate: 1,

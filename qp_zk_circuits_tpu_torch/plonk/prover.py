@@ -122,16 +122,19 @@ def _l1_and_inv_zh(data: CircuitData, xs: np.ndarray):
 
 
 @functools.cache
-def _kernel_lib():
-    """The kernel library with kernel A's Poseidon2 constants uploaded."""
+def _kernel_lib(index: int | None):
+    """The kernel library with kernel A's Poseidon2 constants uploaded to CUDA
+    device `index`: `__constant__` memory is per device, so each device gets
+    its own upload."""
     lib = _cuda.lib()
     ext_rcs, int_rcs, diag = (
         np.ascontiguousarray(a, dtype=np.uint64)
         for a in (ps.external_round_constants(), ps.internal_round_constants(), ps.internal_diag())
     )
-    err = lib.qzk_quotient_set_constants(
-        ext_rcs.ctypes.data, int_rcs.ctypes.data, diag.ctypes.data
-    )
+    with torch.cuda.device(index):
+        err = lib.qzk_quotient_set_constants(
+            ext_rcs.ctypes.data, int_rcs.ctypes.data, diag.ctypes.data
+        )
     _cuda.check(err, "qzk_quotient_set_constants")
     return lib
 
@@ -345,15 +348,18 @@ def _launch_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash,
     groups = tab["desc"].shape[0]
     partial = torch.empty((groups, nc, m), dtype=torch.int64, device=dev)
     out = torch.empty((nc, m), dtype=torch.int64, device=dev)
-    err = _kernel_lib().qzk_quotient(
-        wires_lde.data_ptr(), consts_lde.data_ptr(), zs_pp_lde.data_ptr(),
-        tab["xs"].data_ptr(), tab["l1"].data_ptr(), tab["inv_zh"].data_ptr(),
-        tab["ks"].data_ptr(), scal.data_ptr(), tab["desc"].data_ptr(),
-        partial.data_ptr(), out.data_ptr(),
-        groups, m, 1 << cfg.rate_bits, cfg.num_routed_wires, cfg.max_quotient_degree_factor,
-        num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor), nc,
-        data.const_cols.shape[0], data.num_selectors, k_total, _cuda.stream(),
-    )
+    lib = _kernel_lib(dev.index)
+    # the launch, its stream and the constants it reads are the operands' device's
+    with torch.cuda.device(dev.index):
+        err = lib.qzk_quotient(
+            wires_lde.data_ptr(), consts_lde.data_ptr(), zs_pp_lde.data_ptr(),
+            tab["xs"].data_ptr(), tab["l1"].data_ptr(), tab["inv_zh"].data_ptr(),
+            tab["ks"].data_ptr(), scal.data_ptr(), tab["desc"].data_ptr(),
+            partial.data_ptr(), out.data_ptr(),
+            groups, m, 1 << cfg.rate_bits, cfg.num_routed_wires, cfg.max_quotient_degree_factor,
+            num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor), nc,
+            data.const_cols.shape[0], data.num_selectors, k_total, _cuda.stream(),
+        )
     _cuda.check(err, "qzk_quotient")
     quotient_evals.launches += 2
     return out

@@ -154,15 +154,13 @@ def intt(values: torch.Tensor) -> torch.Tensor:
     return ntt(values, inverse=True)
 
 
-def coset_intt(values: torch.Tensor, shift: int | None = None) -> torch.Tensor:
-    """Evaluations (..., N) over shift * H -> coefficients: an inverse NTT with
-    the shift^-j unshift folded into the same launch."""
+def coset_intt(values: torch.Tensor) -> torch.Tensor:
+    """Evaluations (..., N) over g * H, g the multiplicative group generator,
+    -> coefficients: an inverse NTT with the g^-j unshift folded into the same
+    launch."""
     n = values.shape[-1]
-    if shift is None:
-        shift = int(F.MULTIPLICATIVE_GROUP_GENERATOR)
-    out = batched_ntt(
-        values.reshape(-1, n), _log2(n), inverse=True, out_shift=int(F.inv(np.uint64(shift)))
-    )
+    unshift = int(F.inv(F.MULTIPLICATIVE_GROUP_GENERATOR))
+    out = batched_ntt(values.reshape(-1, n), _log2(n), inverse=True, out_shift=unshift)
     return out.reshape(values.shape)
 
 

@@ -290,6 +290,41 @@ def test_failed_build_raises_and_never_falls_back(small, monkeypatch, tmp_path):
     tprover._kernel_lib.cache_clear()
 
 
+@pytest.mark.parametrize("module, entry", [
+    ("prover", "qzk_quotient_set_constants"), ("poseidon2", "qzk_poseidon2_set_constants"),
+])
+def test_constants_uploaded_once_per_device(monkeypatch, module, entry):
+    """__constant__ memory is per device: kernel A's and kernel 2's Poseidon2
+    tables are uploaded once to each device, with that device current."""
+    import contextlib
+
+    from qp_zk_circuits_tpu_torch import _cuda
+    from qp_zk_circuits_tpu_torch.hash import poseidon2 as tps
+
+    mod = {"prover": tprover, "poseidon2": tps}[module]
+    current, uploads = [None], []
+
+    @contextlib.contextmanager
+    def device(index):
+        before, current[0] = current[0], index
+        yield
+        current[0] = before
+
+    def upload(*args):
+        uploads.append(current[0])
+        return 0
+
+    monkeypatch.setattr(_cuda, "lib", lambda: SimpleNamespace(**{entry: upload}))
+    monkeypatch.setattr(torch.cuda, "device", device)
+    mod._kernel_lib.cache_clear()
+    try:
+        for index in (0, 1, 0, 1):
+            mod._kernel_lib(index)
+    finally:
+        mod._kernel_lib.cache_clear()
+    assert uploads == [0, 1]
+
+
 def test_coset_intt_matches_reference():
     """The quotient's iNTT with the g^-i unshift folded in."""
     vals = JF.rand_felts((2, 1 << 7), np.random.default_rng(6))
