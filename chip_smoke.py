@@ -9,15 +9,17 @@ package. Phases, each printing one line:
   2. build — compiles csrc/*.cu with nvcc for sm_90a (one process a source);
   3. kernels — each kernel against its plain PyTorch version, bit-exact, at
      the shapes of the leaf prover, plus the field edge vectors (the fused
-     quotient and permutation kernels against their plain versions run on CPU
-     copies of the same inputs, so no kernel is on the reference side); median
-     wrapper times over CUDA-event-timed runs, each kernel's device-only time
-     from torch.profiler, and each kernel's bound;
+     kernels A-F against their plain versions run on CPU copies of the same
+     inputs, so no kernel is on the reference side); median wrapper times over
+     CUDA-event-timed runs, each kernel's device-only time from
+     torch.profiler, and each kernel's bound;
   4. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
      prove_inputs(seed=0) cold and warm; the proof bytes must equal the
-     committed fixture (length and SHA-256), every kernel must have been
-     launched during the cold proof, and the quotient and the permutation
-     argument must have taken at most two launches each.
+     committed fixture (length and SHA-256), every kernel of the path must
+     have been launched during the cold proof, within its launch limits
+     (quotient and permutation argument at most two each, composition at most
+     two, openings one, one fold a FRI round, one query gather), and kernel 1
+     (off the path since the FRI tail got its own kernels) at most five times.
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -108,6 +110,19 @@ def quotient_field_ops(data) -> tuple[int, int]:
     return muls, adds
 
 
+def fri_field_ops(m: int, terms: int, batches: int) -> tuple[int, int]:
+    """Field multiplies and adds of kernel C's function over m points: two
+    of each a term and point (alpha^k times a base value, then the sum); a
+    batch's c_b and x - z subtractions, the norm, three multiplies a point of
+    a batch inverse, the conjugate times the norm's inverse, the extension
+    product and the sum over batches; one Fermat inverse per batch; and once,
+    alpha^k and alpha^k y_k (two extension products a term) and their sums."""
+    per_point_muls = 2 * terms + batches * (3 + 3 + 2 + 5)
+    per_point_adds = 2 * terms + batches * (2 + 1 + 1 + 2 + 2)
+    return (m * per_point_muls + batches * INV_MULS + terms * 2 * 5,
+            m * per_point_adds + terms * (2 * 2 + 2))
+
+
 def _median_ms(fn, runs: int, warmup: int = 2) -> float:
     import torch
 
@@ -178,6 +193,8 @@ def kernel_table(device) -> list[dict]:
 
     from qp_zk_circuits_tpu_torch.field import gf_np as F
     from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+    from qp_zk_circuits_tpu_torch.fri import oracle as fo
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
     from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
     from qp_zk_circuits_tpu_torch.plonk import prover as tprover
     from qp_zk_circuits_tpu_torch.poly import ntt
@@ -205,15 +222,15 @@ def kernel_table(device) -> list[dict]:
         return [f_lde(coeffs), f_inv(coeffs), f_inv(quot), f_coset_inv(quot)]
 
     return [
-        dict(name="goldilocks_add", wrapper=gl.add, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
+        dict(name="goldilocks_add", wrapper=gl.add, path=False, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
              replaces="qp_zk_circuits_tpu/field/goldilocks.py:137",
              run=lambda: gl.add(a, b), plain=lambda: gl.add_plain(a, b),
              bytes=ew_bytes, ops=OPS_ADD * n_el),
-        dict(name="goldilocks_sub", wrapper=gl.sub, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
+        dict(name="goldilocks_sub", wrapper=gl.sub, path=False, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
              replaces="qp_zk_circuits_tpu/field/goldilocks.py:145",
              run=lambda: gl.sub(a, b), plain=lambda: gl.sub_plain(a, b),
              bytes=ew_bytes, ops=OPS_ADD * n_el),
-        dict(name="goldilocks_mul", wrapper=gl.mul, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
+        dict(name="goldilocks_mul", wrapper=gl.mul, path=False, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
              replaces="qp_zk_circuits_tpu/ops/field_kernels.py:100",
              run=lambda: gl.mul(a, b), plain=lambda: gl.mul_plain(a, b),
              bytes=ew_bytes, ops=OPS_MUL * n_el),
@@ -256,6 +273,22 @@ def kernel_table(device) -> list[dict]:
              source="qp_zk_circuits_tpu_torch/csrc/permutation.cu",
              replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:581",
              setup=lambda: _permutation_case(device)),
+        dict(name="fri_composition", wrapper=fri.compute_composition,
+             source="qp_zk_circuits_tpu_torch/csrc/fri.cu",
+             replaces="qp_zk_circuits_tpu/fri/prover.py:184",
+             setup=lambda: _composition_case(device)),
+        dict(name="eval_openings", wrapper=fo.eval_openings,
+             source="qp_zk_circuits_tpu_torch/csrc/fri.cu",
+             replaces="qp_zk_circuits_tpu/fri/oracle.py:187",
+             setup=lambda: _openings_case(device)),
+        dict(name="fri_fold", wrapper=fri.fold_round,
+             source="qp_zk_circuits_tpu_torch/csrc/fri.cu",
+             replaces="qp_zk_circuits_tpu/fri/prover.py:122",
+             setup=lambda: _fold_case(device)),
+        dict(name="query_gather", wrapper=fri.query_gather,
+             source="qp_zk_circuits_tpu_torch/csrc/fri.cu",
+             replaces="qp_zk_circuits_tpu/fri/oracle.py:225",
+             setup=lambda: _gather_case(device)),
     ]
 
 
@@ -328,6 +361,154 @@ def _permutation_case(device) -> dict:
     )
 
 
+def _fri_leaf_case(device, seed):
+    """The leaf's FRI inputs at random: the four oracles' LDEs (their real
+    column counts, with the field edge values), coefficient rows, the
+    circuit's opening instance at a random zeta, claimed openings, alpha."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+    from qp_zk_circuits_tpu_torch.plonk.proof import fri_instance
+
+    data = _leaf_data(device)
+    cfg = data.config
+    rng = np.random.default_rng(seed)
+    m = data.n << cfg.rate_bits
+    nc, qdf = cfg.num_challenges, cfg.max_quotient_degree_factor
+    npp = -(-cfg.num_routed_wires // qdf) - 1
+    rows = [data.constants_oracle.lde.shape[0], cfg.num_wires, nc + nc * npp, nc * qdf]
+    edges = np.array([gl.P - 1, 0, 1 << 32], dtype=np.uint64)
+
+    def felts(shape):
+        x = F.rand_felts(shape, rng)
+        x.reshape(-1)[: edges.size] = edges
+        return gl.from_u64(x, device)
+
+    oracles = [SimpleNamespace(lde=felts((c, m)), coeffs=felts((c, data.n))) for c in rows]
+    zeta, zeta_next = F.rand_felts(2, rng), F.rand_felts(2, rng)
+    instance = fri_instance(data, zeta, zeta_next)
+    openings = [F.rand_felts((len(b.polys), 2), rng) for b in instance.batches]
+    return dict(data=data, oracles=oracles, instance=instance, openings=openings,
+                alpha=F.rand_felts(2, rng), zeta=zeta, zeta_next=zeta_next, nz=nc,
+                lde_bits=data.degree_bits + cfg.rate_bits, rng=rng,
+                schedule=cfg.fri_config.reduction_strategy.schedule(data.degree_bits))
+
+
+def _cpu_oracles(oracles):
+    from types import SimpleNamespace
+
+    return [SimpleNamespace(**{k: v.cpu() for k, v in vars(o).items()}) for o in oracles]
+
+
+def _composition_case(device) -> dict:
+    """Kernel C at the leaf: the circuit's instance (two batches, about 255
+    columns at zeta and the Z columns at g * zeta), Q in the first round's
+    leaf layout; two launches a call."""
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+
+    c = _fri_leaf_case(device, seed=3)
+    m = 1 << c["lde_bits"]
+    args = (c["instance"], c["openings"], c["alpha"], c["lde_bits"], c["schedule"][0])
+    cpu = _cpu_oracles(c["oracles"])
+    cols = len({t for b in c["instance"].batches for t in b.polys})
+    k = c["instance"].num_terms()
+    muls, adds = fri_field_ops(m, k, len(c["instance"].batches))
+    return dict(
+        run=lambda: fri.compute_composition(c["oracles"], *args),
+        plain=lambda: fri.compute_composition_plain(cpu, *args), plain_on_host=True,
+        bytes=(cols * m + 2 * k + 2 * m) * 8,
+        ops=muls * OPS_MUL + adds * OPS_ADD,
+    )
+
+
+def _openings_case(device) -> dict:
+    """Kernel D at the leaf: every oracle's coefficient rows at zeta and the
+    Z rows at g * zeta, one (rows, 2) result."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.fri import oracle as fo
+
+    c = _fri_leaf_case(device, seed=4)
+    cpu = _cpu_oracles(c["oracles"])
+    n = c["oracles"][0].coeffs.shape[1]
+    rows = sum(o.coeffs.shape[0] for o in c["oracles"])
+    args = (c["zeta"], c["zeta_next"], 2, c["nz"])
+
+    def joined(parts):
+        return torch.as_tensor(np.concatenate(list(parts[0]) + [parts[1]]).view(np.int64))
+
+    out_rows = rows + c["nz"]
+    return dict(
+        run=lambda: fo.eval_openings(c["oracles"], *args),
+        plain=lambda: fo.eval_openings_plain(cpu, *args), plain_on_host=True,
+        check=lambda: ([joined(fo.eval_openings(c["oracles"], *args))],
+                       [joined(fo.eval_openings_plain(cpu, *args))]),
+        bytes=(rows * n + 2 * out_rows) * 8,
+        # two multiplies and two adds a coefficient; the powers of the two
+        # points, one extension product each
+        ops=out_rows * n * 2 * (OPS_MUL + OPS_ADD) + 2 * n * (5 * OPS_MUL + 2 * OPS_ADD),
+    )
+
+
+def _fold_case(device) -> dict:
+    """Kernel E at the leaf: the one round of arity 2^3 over m = 2048 values
+    held as (256, 16) leaf rows, folded into the natural-order last layer."""
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+
+    c = _fri_leaf_case(device, seed=5)
+    a, log_m = c["schedule"][0], c["lde_bits"]
+    m = 1 << log_m
+    leaves = c["oracles"][1].lde.reshape(-1)[: 2 * m].reshape(m >> a, 2 << a).clone()
+    beta = F.rand_felts(2, c["rng"])
+    args = (beta, a, log_m, 0, 0)
+    leaves_cpu = leaves.cpu()
+    return dict(
+        run=lambda: fri.fold_round(leaves, *args),
+        plain=lambda: fri.fold_round_plain(leaves_cpu, *args), plain_on_host=True,
+        bytes=(2 * m + 2 * (m >> a)) * 8,
+        # a binary fold: e + o, e - o, the twiddle, beta, the sum and the
+        # halving; m - m' outputs over the a folds
+        ops=(m - (m >> a)) * (9 * OPS_MUL + 8 * OPS_ADD),
+    )
+
+
+def _gather_case(device) -> dict:
+    """Kernel F at the leaf: the 28 queries' leaf rows and Merkle paths of
+    the four oracles and the FRI round's leaves and path."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.hash import merkle
+
+    c = _fri_leaf_case(device, seed=6)
+    data = c["data"]
+    cfg = data.config.fri_config
+    m = 1 << c["lde_bits"]
+    a = c["schedule"][0]
+    trees = [merkle.build_merkle_tree(o.lde.T, cfg.cap_height) for o in c["oracles"]]
+    leaves = c["oracles"][1].lde.reshape(-1)[: 2 * m].reshape(m >> a, 2 << a).clone()
+    layer_tree = merkle.build_merkle_tree(leaves, min(cfg.cap_height, c["lde_bits"] - a))
+    sources = [fri.GatherSource(o.lde.T, m - 1) for o in c["oracles"]]
+    for t in trees:
+        sources += fri._sibling_sources(t, m - 1)
+    sources.append(fri.GatherSource(leaves, (m >> a) - 1))
+    sources += fri._sibling_sources(layer_tree, (m >> a) - 1)
+    indices = [0, m - 1] + [int(i) for i in c["rng"].integers(0, m, cfg.num_query_rounds - 2)]
+    cpu = [fri.GatherSource(s.matrix.cpu(), s.mask, s.shift, s.flip) for s in sources]
+    width = sum(s.matrix.shape[1] for s in sources)
+    return dict(
+        run=lambda: fri.query_gather(sources, indices),
+        plain=lambda: fri.query_gather_plain(cpu, indices), plain_on_host=True,
+        bytes=2 * len(indices) * width * 8 + len(indices) * 8,
+        ops=0,
+    )
+
+
 def _host_median_ms(fn, runs: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
@@ -374,6 +555,8 @@ def phase_kernels(kernels) -> None:
         torch.cuda.synchronize()
         if k.get("plain_on_host") and [f.launches for f in elementwise] != before:
             raise AssertionError(f"{k['name']}: the fused kernel called the field wrappers")
+        if [tuple(g.shape) for g in got] != [tuple(w.shape) for w in want]:
+            raise AssertionError(f"{k['name']}: shapes differ from the plain version")
         err = max(int((g.cpu() != w.cpu()).sum()) for g, w in zip(got, want))
         if err:
             raise AssertionError(f"{k['name']}: {err} elements differ from the plain version")
@@ -424,17 +607,25 @@ def phase_main_path(kernels) -> None:
         digest = hashlib.sha256(b).hexdigest()
         if len(b) != meta["len"] or digest != meta["sha256"]:
             raise AssertionError(f"{name} proof differs from the fixture: {len(b)} B, {digest}")
-    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    missing = [k["name"] for k in kernels if k.get("path", True) and k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    fused = {k["name"]: k["launches"] for k in kernels if k["name"] in ("quotient", "permutation_polys")}
-    if max(fused.values()) > 2:
-        raise AssertionError(f"a fused stage took more than two launches: {fused}")
+    rounds = len(cfg.fri_config.reduction_strategy.schedule(prover.data.degree_bits))
+    limits = {"quotient": (1, 2), "permutation_polys": (1, 2), "fri_composition": (1, 2),
+              "eval_openings": (1, 1), "fri_fold": (rounds, rounds), "query_gather": (1, 1)}
+    fused = {k["name"]: k["launches"] for k in kernels if k["name"] in limits}
+    off = {name: n for name, n in fused.items() if not limits[name][0] <= n <= limits[name][1]}
+    if off:
+        raise AssertionError(f"fused stages outside their launch limits {limits}: {off}")
+    kernel1 = {k["name"]: k["launches"] for k in kernels if not k.get("path", True)}
+    if sum(kernel1.values()) > 5:
+        raise AssertionError(f"kernel 1 launched {kernel1} times on the main path (at most 5)")
     counts = ", ".join(f"{k['name']}={k['launches']}" for k in kernels)
     print(f"[main] leaf: {cfg.num_wires} wires, degree_bits {prover.data.degree_bits}, "
-          f"{cfg.fri_config.num_query_rounds} queries, {cfg.fri_config.proof_of_work_bits} PoW bits; "
-          f"build {build_s:.2f} s, prove cold {1e3 * cold_s:.1f} ms, warm {1e3 * warm_s:.1f} ms; "
-          f"proof {len(blob)} B == fixture; launches per proof: {counts}", flush=True)
+          f"{cfg.fri_config.num_query_rounds} queries, {cfg.fri_config.proof_of_work_bits} PoW bits, "
+          f"{rounds} FRI round(s); build {build_s:.2f} s, prove cold {1e3 * cold_s:.1f} ms, "
+          f"warm {1e3 * warm_s:.1f} ms; proof {len(blob)} B == fixture; launches per proof: "
+          f"{counts}; kernel-1 launches per proof: {sum(kernel1.values())}", flush=True)
 
 
 def main() -> int:

@@ -42,6 +42,10 @@ _ENTRIES = {
     "qzk_quotient_set_constants": [_P, _P, _P],
     "qzk_quotient": [_P] * 11 + [_I] * 10 + [_P],
     "qzk_permutation": [_P] * 6 + [_I] * 4 + [_P],
+    "qzk_fri_composition": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _P],
+    "qzk_eval_openings": [_P, _I, _P, _P, _I, _P],
+    "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "qzk_query_gather": [_P, _I, _I, _P, _LL, _P],
 }
 
 _lib = None

@@ -42,4 +42,17 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
   return reduce128(a * b, __umul64hi(a, b));
 }
 
+// a^(p-2) by square and multiply, MSB first: the inverse of a nonzero a, and
+// inv(0) = 0 as field/goldilocks.py::inv gives.
+__device__ __forceinline__ uint64_t inv(uint64_t a) {
+  constexpr uint64_t E = P - 2;
+  uint64_t r = 1;
+#pragma unroll 1
+  for (int b = 63; b >= 0; --b) {
+    r = mul(r, r);
+    if ((E >> b) & 1) r = mul(r, a);
+  }
+  return r;
+}
+
 }  // namespace gl

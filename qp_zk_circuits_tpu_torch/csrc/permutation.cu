@@ -47,18 +47,6 @@ struct Challenges {
   uint64_t gamma[MAX_NC];
 };
 
-// a^(p-2): the inverse of a nonzero a (square and multiply, MSB first)
-__device__ __forceinline__ uint64_t fermat_inv(uint64_t a) {
-  constexpr uint64_t E = gl::P - 2;
-  uint64_t r = 1;
-#pragma unroll 1
-  for (int b = 63; b >= 0; --b) {
-    r = gl::mul(r, r);
-    if ((E >> b) & 1) r = gl::mul(r, a);
-  }
-  return r;
-}
-
 // out rows: [Z_0 .. Z_{nc-1}, pp_{0,0} .. pp_{0,npp-1}, pp_{1,0} ..], each n long.
 __global__ void __launch_bounds__(THREADS) perm_ratios_kernel(
     const uint64_t* __restrict__ wires, const uint64_t* __restrict__ ids,
@@ -88,7 +76,7 @@ __global__ void __launch_bounds__(THREADS) perm_ratios_kernel(
       pre[j] = run;
     }
   }
-  uint64_t inv = fermat_inv(run);  // inverse of the product of nonzero cd
+  uint64_t inv = gl::inv(run);  // inverse of the product of nonzero cd
 #pragma unroll
   for (int j = MAX_CHUNKS - 1; j >= 0; --j) {
     if (j < nchunks) {

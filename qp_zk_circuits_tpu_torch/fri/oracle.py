@@ -8,7 +8,8 @@ with a cap (the `lde_size = 2^(degree_bits + rate_bits)` object of reference
 
 Device path: the iNTT (from values) and the LDE are kernel-3 launches over all
 columns; the tree hashes the LDE's rows in place (the (C, M) matrix read as
-(M, C) rows, no transpose copy) with kernel 2. This module commits non-ZK
+(M, C) rows, no transpose copy) with kernel 2, and its levels stay on the
+device. The openings are kernel D (csrc/fri.cu). This module commits non-ZK
 oracles only: no salt columns.
 """
 
@@ -19,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import _cuda
 from ..field import extension as ext
 from ..field import goldilocks as gl
 from ..hash import merkle
@@ -27,7 +29,7 @@ from ..poly import ntt
 
 @dataclass
 class PolynomialBatch:
-    """Committed batch: device coefficients (C, N) + LDE (C, M) + host tree."""
+    """Committed batch: device coefficients (C, N) + LDE (C, M) + device tree."""
 
     coeffs: torch.Tensor  # (C, N) coefficient forms
     lde: torch.Tensor  # (C, M) evaluations over the LDE coset
@@ -65,6 +67,11 @@ def commit(values, rate_bits: int, cap_height: int, device=None,
     )
 
 
+#: kernel D takes the oracles and the next-point rows as at most this many
+#: row segments
+MAX_SEGMENTS = 9
+
+
 def _eval_at(coeffs: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
     """y_c = sum_i coeffs[c, i] * z^i for ext powers zp (N, 2) -> (C, 2)."""
     y0 = gl.sum_tree(gl.mul(coeffs, zp[:, 0]), 1)
@@ -72,17 +79,15 @@ def _eval_at(coeffs: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def eval_openings(oracles, zeta, zeta_next, next_oracle: int = 2, next_count: int = 0):
-    """Evaluate ALL oracles at zeta (+ `next_count` cols of one oracle at
-    zeta_next) on the device, with ONE transfer. Returns (per-oracle (C,2)
-    arrays, next (next_count,2))."""
-    dev = oracles[0].coeffs.device
-    n = oracles[0].coeffs.shape[1]
-    zp = gl.from_u64(ext.powers_table(np.asarray(zeta, dtype=np.uint64), n), dev)
-    zpn = gl.from_u64(ext.powers_table(np.asarray(zeta_next, dtype=np.uint64), n), dev)
-    at_zeta = _eval_at(torch.cat([o.coeffs for o in oracles], dim=0), zp)
-    at_next = _eval_at(oracles[next_oracle].coeffs[:next_count], zpn)
-    host = gl.to_u64(torch.cat([at_zeta, at_next], dim=0))
+def _zeta_powers(zeta, zeta_next, n: int) -> np.ndarray:
+    """(2, n, 2) host powers of zeta and zeta_next."""
+    return np.stack([
+        ext.powers_table(np.asarray(zeta, dtype=np.uint64), n),
+        ext.powers_table(np.asarray(zeta_next, dtype=np.uint64), n),
+    ])
+
+
+def _split(host: np.ndarray, oracles, next_count: int):
     parts, off = [], 0
     for o in oracles:
         c = o.coeffs.shape[0]
@@ -91,16 +96,57 @@ def eval_openings(oracles, zeta, zeta_next, next_oracle: int = 2, next_count: in
     return parts, host[off : off + next_count]
 
 
-def open_rows_many(oracles, indices) -> list[np.ndarray]:
-    """Leaf rows of ALL oracles at the query indices — one gather, one
-    transfer. Returns per-oracle (Q, C) host arrays."""
-    dev = oracles[0].lde.device
-    idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=dev)
-    rows = torch.cat([o.lde.index_select(1, idx) for o in oracles], dim=0)  # (sum C, Q)
-    full = gl.to_u64(rows.T)
-    out, off = [], 0
-    for o in oracles:
-        c = o.lde.shape[0]
-        out.append(full[:, off : off + c])
-        off += c
-    return out
+def _openings_limits(oracles, next_oracle: int, next_count: int) -> None:
+    n = oracles[0].coeffs.shape[1]
+    if len(oracles) + 1 > MAX_SEGMENTS:
+        raise ValueError(f"{len(oracles)} oracles: kernel D takes at most {MAX_SEGMENTS - 1}")
+    if any(o.coeffs.dim() != 2 or o.coeffs.shape[1] != n for o in oracles):
+        raise ValueError("the oracles' coefficient matrices differ in length")
+    if not 0 <= next_count <= oracles[next_oracle].coeffs.shape[0]:
+        raise ValueError(f"{next_count} rows at zeta_next, oracle {next_oracle} has fewer")
+
+
+def eval_openings_plain(oracles, zeta, zeta_next, next_oracle: int = 2, next_count: int = 0):
+    """Plain torch version of `eval_openings` (same arguments and result)."""
+    _openings_limits(oracles, next_oracle, next_count)
+    dev = oracles[0].coeffs.device
+    zp = gl.from_u64(_zeta_powers(zeta, zeta_next, oracles[0].coeffs.shape[1]), dev)
+    at_zeta = _eval_at(torch.cat([o.coeffs for o in oracles], dim=0), zp[0])
+    at_next = _eval_at(oracles[next_oracle].coeffs[:next_count], zp[1])
+    return _split(gl.to_u64(torch.cat([at_zeta, at_next], dim=0)), oracles, next_count)
+
+
+def eval_openings(oracles, zeta, zeta_next, next_oracle: int = 2, next_count: int = 0):
+    """Evaluate ALL oracles at zeta (+ `next_count` rows of one oracle at
+    zeta_next) with ONE transfer. Returns (per-oracle (C,2) arrays, next
+    (next_count,2)).
+
+    On CUDA coefficients: kernel D (csrc/fri.cu), one launch that forms the
+    powers of zeta in registers. On CPU coefficients: the plain version."""
+    _openings_limits(oracles, next_oracle, next_count)
+    if oracles[0].coeffs.device.type == "cpu":
+        return eval_openings_plain(oracles, zeta, zeta_next, next_oracle, next_count)
+    _cuda.require_cuda_int64(*(o.coeffs for o in oracles))
+    return _split(_launch_openings(oracles, zeta, zeta_next, next_oracle, next_count),
+                  oracles, next_count)
+
+
+def _launch_openings(oracles, zeta, zeta_next, next_oracle, next_count) -> np.ndarray:
+    dev = oracles[0].coeffs.device
+    n = oracles[0].coeffs.shape[1]
+    coeffs = [o.coeffs.contiguous() for o in oracles]
+    segs = [(c.data_ptr(), c.shape[0], 0) for c in coeffs]
+    if next_count:
+        segs.append((coeffs[next_oracle].data_ptr(), next_count, 1))
+    segs = np.array(segs, dtype=np.uint64)
+    points = np.array([zeta, zeta_next], dtype=np.uint64).reshape(2, 2)
+    out = torch.empty((int(segs[:, 1].sum()), 2), dtype=torch.int64, device=dev)
+    err = _cuda.lib().qzk_eval_openings(
+        segs.ctypes.data, len(segs), points.ctypes.data, out.data_ptr(), n, _cuda.stream()
+    )
+    _cuda.check(err, "qzk_eval_openings")
+    eval_openings.launches += 1
+    return gl.to_u64(out)
+
+
+eval_openings.launches = 0

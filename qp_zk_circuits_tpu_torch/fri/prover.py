@@ -2,32 +2,40 @@
 
 Implements the low-degree opening argument consumed by the PLONK prover
 (the reference hot loop "FRI commit/fold (ConstantArityBits(4,5)) -> 28 query
-rounds -> 16-bit PoW", SURVEY §3.1). Device layout:
+rounds -> 16-bit PoW", SURVEY §3.1). Device layout, kernels C, E and F of
+csrc/fri.cu:
 
   * The composition polynomial Q(X) = sum_k alpha^k (p_k(X) - y_k)/(X - z_b)
-    is computed **in evaluation form over the whole LDE domain on device**:
-    per opening point one weighted column-sum of the committed LDE matrices
-    and one vectorised Fermat inverse of (x - z), all kernel-1 field ops.
-  * Arity-2^a folds run as `a` binary folds with betas beta^(2^t); each fold
-    is a few elementwise extension ops over the layer, with the
-    inverse-twiddle tables cached per (layer size, shift).
-  * Commit-phase leaves regroup the layer so one query opens the whole arity
-    coset: leaf q = [v[q + j*M'] for j < 2^a]; each layer is a kernel-2 tree.
-  * The final polynomial is a kernel-3 inverse NTT of the last layer; the PoW
-    grind is a kernel-2 sweep (plonk/transcript.py).
+    is computed **in evaluation form over the whole LDE domain on device**
+    by kernel C, two launches: the alpha powers and each batch's
+    sum_k alpha^k y_k, then Q, whose committed LDE columns are read in place
+    through a per-circuit (oracle, row) table; each point inverts its own
+    x - z_b.
+  * A round's layer is held as the leaf matrix its Merkle tree hashes: leaf
+    q = [v[q + j*M'] for j < 2^a], so one query opens the whole arity coset.
+    Kernel C writes Q in the first round's leaf layout; kernel E folds a
+    round's leaves a times with betas beta^(2^t), in registers, and writes
+    the result in the next round's leaf layout (one launch a round). Each
+    layer is a kernel-2 tree whose levels stay on the device.
+  * The final polynomial is one kernel-3 inverse NTT of the last layer with
+    the coset unshift folded in; the PoW grind is a kernel-2 sweep
+    (plonk/transcript.py).
+  * The queries' leaf rows, layer leaves and Merkle siblings of every tree
+    are gathered by kernel F into one packed buffer: one launch, one
+    transfer.
 
-Host keeps: transcript, tree materialisation, query assembly.
+Host keeps: transcript, the beta powers, query assembly.
 """
 
 from __future__ import annotations
 
 import functools
-import itertools
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from .. import _cuda
 from ..field import extension as ext
 from ..field import gf_np as F
 from ..field import goldilocks as gl
@@ -35,7 +43,13 @@ from ..hash import merkle
 from ..plonk import transcript as ts
 from ..poly import ntt
 from .config import FriConfig
-from .oracle import PolynomialBatch, open_rows_many
+from .oracle import PolynomialBatch
+
+#: kernel C reads at most this many oracles and batches (opening points)
+MAX_ORACLES = 8
+MAX_BATCHES = 4
+#: kernel E folds a round in registers: 2^a extension values a thread
+MAX_ARITY_BITS = 4
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +98,7 @@ class FriProof:
 
 
 # ---------------------------------------------------------------------------
-# cached host tables
+# cached tables
 
 
 @functools.cache
@@ -108,11 +122,171 @@ def _domain_points(lde_bits: int) -> np.ndarray:
     )
 
 
+@functools.cache
+def _device_domain_points(lde_bits: int, device: torch.device) -> torch.Tensor:
+    return gl.from_u64(_domain_points(lde_bits), device)
+
+
+@functools.cache
+def _device_inv_x(log_m: int, shift_pow: int, a_bits: int, device: torch.device) -> torch.Tensor:
+    """Kernel E's inverse twiddles for one round: the a fold tables, concatenated."""
+    return gl.from_u64(
+        np.concatenate([_inv_x_table(log_m - t, shift_pow + t) for t in range(a_bits)]), device
+    )
+
+
+@functools.cache
+def _term_table(polys_per_batch: tuple) -> np.ndarray:
+    """Kernel C's column table: (K, 2) int32 (oracle, row), the batches'
+    terms in order."""
+    rows = [t for polys in polys_per_batch for t in polys]
+    return np.array(rows, dtype=np.int32).reshape(-1, 2)
+
+
+@functools.cache
+def _device_term_table(polys_per_batch: tuple, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_term_table(polys_per_batch), device=device)
+
+
 _INV2 = int(pow(2, 0xFFFFFFFF00000001 - 2, 0xFFFFFFFF00000001))
 
 
 # ---------------------------------------------------------------------------
-# device steps
+# layers as leaf rows
+
+
+def _regroup_leaves(values: torch.Tensor, arity_bits: int) -> torch.Tensor:
+    """(m, 2) ext -> (m/2^a, 2^(a+1)) felts: leaf q = [v(q + j*m') for j], with
+    each extension element flattened (c0, c1)."""
+    m = values.shape[0]
+    a = 1 << arity_bits
+    mp = m // a
+    return values.reshape(a, mp, 2).transpose(0, 1).reshape(mp, 2 * a)
+
+
+def _ungroup_leaves(leaves: torch.Tensor, arity_bits: int) -> torch.Tensor:
+    """The inverse of `_regroup_leaves`: (m', 2^(a+1)) leaf rows -> (m, 2)."""
+    mp = leaves.shape[0]
+    a = 1 << arity_bits
+    return leaves.reshape(mp, a, 2).transpose(0, 1).reshape(mp * a, 2)
+
+
+# ---------------------------------------------------------------------------
+# kernel C: the composition
+
+
+def _composition_limits(oracles, instance: FriInstance, lde_bits: int, arity_bits: int) -> None:
+    m = 1 << lde_bits
+    if not 1 <= len(oracles) <= MAX_ORACLES or not 1 <= len(instance.batches) <= MAX_BATCHES:
+        raise ValueError(
+            f"{len(oracles)} oracles and {len(instance.batches)} batches: kernel C takes "
+            f"1..{MAX_ORACLES} and 1..{MAX_BATCHES}"
+        )
+    if any(o.lde.dim() != 2 or o.lde.shape[1] != m for o in oracles):
+        raise ValueError(f"an oracle's LDE is not (C, {m})")
+    if any(not b.polys for b in instance.batches):
+        raise ValueError("a batch opens no polynomial")
+    terms = _term_table(tuple(b.polys for b in instance.batches))
+    rows = np.array([o.lde.shape[0] for o in oracles])
+    if terms[:, 0].min() < 0 or terms[:, 0].max() >= len(oracles) or \
+            (terms[:, 1] < 0).any() or (terms[:, 1] >= rows[terms[:, 0]]).any():
+        raise ValueError("the instance names a column outside the oracles")
+    if not 0 <= arity_bits <= min(MAX_ARITY_BITS, lde_bits):
+        raise ValueError(f"arity bits {arity_bits} outside 0..{MAX_ARITY_BITS}")
+
+
+def compute_composition_plain(
+    oracles: list[PolynomialBatch],
+    instance: FriInstance,
+    openings: list[np.ndarray],
+    alpha: np.ndarray,
+    lde_bits: int,
+    arity_bits: int = 0,
+) -> torch.Tensor:
+    """Plain torch version of `compute_composition` (same arguments)."""
+    _composition_limits(oracles, instance, lde_bits, arity_bits)
+    dev = oracles[0].lde.device
+    xs = gl.from_u64(_domain_points(lde_bits), dev)
+    term = 0
+    q = None
+    for b_idx, batch in enumerate(instance.batches):
+        k = len(batch.polys)
+        apows = ext.powers_table(np.asarray(alpha, dtype=np.uint64), term + k)[term:]
+        term += k
+        y = np.asarray(openings[b_idx], dtype=np.uint64).reshape(k, 2)
+        c_b = gl.from_u64(ext.sum_axis0(ext.mul(apows, y)), dev)
+        cols = torch.stack([oracles[oi].lde[pj] for oi, pj in batch.polys])  # (k, m)
+        ja = gl.from_u64(apows, dev)  # (k, 2)
+        # S_b(x) = sum_k alpha^k p_k(x): weighted column sum
+        s_b = torch.stack([
+            gl.sum_tree(gl.mul(cols, ja[:, 0:1]), 0),
+            gl.sum_tree(gl.mul(cols, ja[:, 1:2]), 0),
+        ], dim=-1)  # (m, 2)
+        z0 = gl.felt(batch.point[0], dev)
+        z1 = gl.felt(batch.point[1], dev)
+        xz = torch.stack([gl.sub(xs, z0), gl.neg(z1).expand_as(xs)], dim=-1)
+        contrib = ext.j_mul(gl.sub(s_b, c_b), ext.j_inv(xz))
+        q = contrib if q is None else gl.add(q, contrib)
+    return _regroup_leaves(q, arity_bits)
+
+
+def compute_composition(
+    oracles: list[PolynomialBatch],
+    instance: FriInstance,
+    openings: list[np.ndarray],
+    alpha: np.ndarray,
+    lde_bits: int,
+    arity_bits: int = 0,
+) -> torch.Tensor:
+    """Q over the full LDE domain, as the (m >> a, 2^(a+1)) leaf rows of a
+    first FRI round of arity 2^a (a = 0: natural order, (m, 2)).
+
+    openings: per batch, (K_b, 2) claimed values for the batch's polys. On
+    CUDA LDEs: kernel C (csrc/fri.cu), two launches (the alpha powers and
+    the batches' c_b, then Q), the claimed values uploaded once. On CPU
+    LDEs: the plain version."""
+    _composition_limits(oracles, instance, lde_bits, arity_bits)
+    if oracles[0].lde.device.type == "cpu":
+        return compute_composition_plain(oracles, instance, openings, alpha, lde_bits, arity_bits)
+    _cuda.require_cuda_int64(*(o.lde for o in oracles))
+    return _launch_composition(oracles, instance, openings, alpha, lde_bits, arity_bits)
+
+
+def _launch_composition(oracles, instance, openings, alpha, lde_bits, arity_bits):
+    dev = oracles[0].lde.device
+    m = 1 << lde_bits
+    ldes = [o.lde.contiguous() for o in oracles]
+    ys = np.concatenate([np.asarray(y, dtype=np.uint64).reshape(-1, 2) for y in openings])
+    k = instance.num_terms()
+    if ys.shape[0] != k:
+        raise ValueError(f"{ys.shape[0]} claimed openings for {k} terms")
+    ends = np.cumsum([len(b.polys) for b in instance.batches])
+    batches = np.array(
+        [[end, int(b.point[0]) % gl.P, int(b.point[1]) % gl.P]
+         for end, b in zip(ends, instance.batches)], dtype=np.uint64)
+    alpha_h = np.ascontiguousarray(np.asarray(alpha, dtype=np.uint64).reshape(2))
+    ys_d = gl.from_u64(ys, dev)
+    terms = _device_term_table(tuple(b.polys for b in instance.batches), dev)
+    xs = _device_domain_points(lde_bits, dev)
+    ptrs = np.array([t.data_ptr() for t in ldes], dtype=np.uint64)
+    apows = torch.empty((k, 2), dtype=torch.int64, device=dev)
+    cb = torch.empty((len(batches), 2), dtype=torch.int64, device=dev)
+    out = torch.empty((m >> arity_bits, 2 << arity_bits), dtype=torch.int64, device=dev)
+    err = _cuda.lib().qzk_fri_composition(
+        ptrs.ctypes.data, len(ldes), terms.data_ptr(), ys_d.data_ptr(), xs.data_ptr(),
+        batches.ctypes.data, len(batches), alpha_h.ctypes.data, apows.data_ptr(), cb.data_ptr(),
+        out.data_ptr(), m, arity_bits, _cuda.stream(),
+    )
+    _cuda.check(err, "qzk_fri_composition")
+    compute_composition.launches += 2
+    return out
+
+
+compute_composition.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel E: a round's folds
 
 
 def _fold_step(values: torch.Tensor, beta: torch.Tensor, inv_x: torch.Tensor) -> torch.Tensor:
@@ -125,53 +299,175 @@ def _fold_step(values: torch.Tensor, beta: torch.Tensor, inv_x: torch.Tensor) ->
     return gl.mul_const(gl.add(s, d), _INV2)
 
 
-def _regroup_leaves(values: torch.Tensor, arity_bits: int) -> torch.Tensor:
-    """(m, 2) ext -> (m/2^a, 2^(a+1)) felts: leaf q = [v(q + j*m') for j], with
-    each extension element flattened (c0, c1)."""
-    m = values.shape[0]
-    a = 1 << arity_bits
-    mp = m // a
-    return values.reshape(a, mp, 2).transpose(0, 1).reshape(mp, 2 * a)
+def _beta_powers(beta, a_bits: int) -> np.ndarray:
+    """beta^(2^t) for t < a_bits, (a_bits, 2)."""
+    out = []
+    bt = np.asarray(beta, dtype=np.uint64).reshape(2).copy()
+    for _ in range(a_bits):
+        out.append(bt)
+        bt = ext.mul(bt, bt)
+    return np.array(out, dtype=np.uint64).reshape(a_bits, 2)
 
 
-def compute_composition(
-    oracles: list[PolynomialBatch],
-    instance: FriInstance,
-    openings: list[np.ndarray],
-    alpha: np.ndarray,
-    lde_bits: int,
-) -> torch.Tensor:
-    """Device evaluation of Q over the full LDE domain (natural order) -> (m, 2).
+def _fold_limits(leaves: torch.Tensor, a_bits: int, log_m: int, next_bits: int) -> None:
+    if not 1 <= a_bits <= MAX_ARITY_BITS or not 0 <= next_bits <= MAX_ARITY_BITS:
+        raise ValueError(
+            f"arity bits {a_bits} (next {next_bits}): kernel E folds 1..{MAX_ARITY_BITS} "
+            f"bits a round"
+        )
+    if leaves.dim() != 2 or leaves.shape[1] != 2 << a_bits or \
+            leaves.shape[0] << a_bits != 1 << log_m:
+        raise ValueError(f"leaves {tuple(leaves.shape)} are not a 2^{log_m} layer of arity 2^{a_bits}")
+    if next_bits > log_m - a_bits:
+        raise ValueError(f"next arity bits {next_bits} above the folded layer's {log_m - a_bits}")
 
-    openings: per batch, (K_b, 2) claimed values for the batch's polys."""
-    dev = oracles[0].lde.device
-    xs = gl.from_u64(_domain_points(lde_bits), dev)
-    term = 0
-    q = None
-    for b_idx, batch in enumerate(instance.batches):
-        k = len(batch.polys)
-        apows = ext.powers_table(np.asarray(alpha, dtype=np.uint64), term + k)[term:]
-        term += k
-        y = np.asarray(openings[b_idx], dtype=np.uint64).reshape(k, 2)
-        c_b = gl.from_u64(ext.sum_axis0(ext.mul(apows, y)), dev)
-        # the batch's columns in order, one gather per run of one oracle
-        cols = torch.cat([
-            oracles[oi].lde.index_select(0, torch.as_tensor(
-                [pj for _, pj in run], dtype=torch.int64, device=dev))
-            for oi, run in itertools.groupby(batch.polys, key=lambda t: t[0])
-        ], dim=0)  # (k, m)
-        ja = gl.from_u64(apows, dev)  # (k, 2)
-        # S_b(x) = sum_k alpha^k p_k(x): weighted column sum
-        s_b = torch.stack([
-            gl.sum_tree(gl.mul(cols, ja[:, 0:1]), 0),
-            gl.sum_tree(gl.mul(cols, ja[:, 1:2]), 0),
-        ], dim=-1)  # (m, 2)
-        z0 = gl.felt(batch.point[0], dev)
-        z1 = gl.felt(batch.point[1], dev)
-        xz = torch.stack([gl.sub(xs, z0), gl.neg(z1).expand_as(xs)], dim=-1)
-        contrib = ext.j_mul(gl.sub(s_b, c_b), ext.j_inv(xz))
-        q = contrib if q is None else gl.add(q, contrib)
-    return q
+
+def fold_round_plain(leaves, beta, a_bits: int, log_m: int, shift_pow: int, next_bits: int = 0):
+    """Plain torch version of `fold_round` (same arguments)."""
+    _fold_limits(leaves, a_bits, log_m, next_bits)
+    dev = leaves.device
+    values = _ungroup_leaves(leaves, a_bits)
+    for t, bt in enumerate(_beta_powers(beta, a_bits)):
+        inv_x = gl.from_u64(_inv_x_table(log_m - t, shift_pow + t), dev)
+        values = _fold_step(values, gl.from_u64(bt, dev), inv_x)
+    return _regroup_leaves(values, next_bits)
+
+
+def fold_round(leaves: torch.Tensor, beta, a_bits: int, log_m: int, shift_pow: int,
+               next_bits: int = 0) -> torch.Tensor:
+    """One FRI round's a binary folds of a layer of 2^log_m values over the
+    coset g^(2^shift_pow) H, given as its (m', 2^(a+1)) leaf rows, with
+    betas beta^(2^t). Returns the folded layer as the leaf rows of the next
+    round, of arity 2^next_bits (0: natural order, (m', 2)).
+
+    On a CUDA tensor: kernel E (csrc/fri.cu), one launch; the inverse
+    twiddles are uploaded once per device. On a CPU tensor: the plain
+    version."""
+    _fold_limits(leaves, a_bits, log_m, next_bits)
+    if leaves.device.type == "cpu":
+        return fold_round_plain(leaves, beta, a_bits, log_m, shift_pow, next_bits)
+    _cuda.require_cuda_int64(leaves)
+    return _launch_fold(leaves, beta, a_bits, log_m, shift_pow, next_bits)
+
+
+def _launch_fold(leaves, beta, a_bits, log_m, shift_pow, next_bits):
+    dev = leaves.device
+    leaves = leaves.contiguous()
+    mp = leaves.shape[0]
+    inv_x = _device_inv_x(log_m, shift_pow, a_bits, dev)
+    betas = np.ascontiguousarray(_beta_powers(beta, a_bits))
+    out = torch.empty((mp >> next_bits, 2 << next_bits), dtype=torch.int64, device=dev)
+    err = _cuda.lib().qzk_fri_fold(
+        leaves.data_ptr(), inv_x.data_ptr(), betas.ctypes.data, out.data_ptr(), mp, a_bits,
+        next_bits, _cuda.stream(),
+    )
+    _cuda.check(err, "qzk_fri_fold")
+    fold_round.launches += 1
+    return out
+
+
+fold_round.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel F: the query gather
+
+
+@dataclass(frozen=True)
+class GatherSource:
+    """Rows of `matrix` (R, W) picked by a query index q: row
+    ((q & mask) >> shift) ^ flip. Strided matrices are read in place."""
+
+    matrix: torch.Tensor
+    mask: int
+    shift: int = 0
+    flip: int = 0
+
+
+def query_gather_plain(sources: list[GatherSource], indices) -> torch.Tensor:
+    """Plain torch version of `query_gather` (same arguments)."""
+    q = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=sources[0].matrix.device)
+    return torch.cat(
+        [s.matrix[((q & s.mask) >> s.shift) ^ s.flip] for s in sources], dim=1
+    )
+
+
+def query_gather(sources: list[GatherSource], indices) -> torch.Tensor:
+    """For each query index, the picked rows of every source side by side:
+    (Q, sum of widths). On CUDA sources: kernel F (csrc/fri.cu), one launch
+    with its plan uploaded once. On CPU sources: the plain version."""
+    if not sources or len(indices) == 0:
+        raise ValueError("query_gather needs sources and indices")
+    if any(s.matrix.dim() != 2 for s in sources):
+        raise ValueError("a gather source is not a matrix")
+    if all(s.matrix.device.type == "cpu" for s in sources):
+        return query_gather_plain(sources, indices)
+    _cuda.require_cuda_int64(*(s.matrix for s in sources))
+    return _launch_gather(sources, indices)
+
+
+def _launch_gather(sources, indices):
+    dev = sources[0].matrix.device
+    rows, width = [], 0
+    for s in sources:
+        mat = s.matrix
+        rows.append([mat.data_ptr(), mat.stride(0), mat.stride(1), mat.shape[1],
+                     s.mask, s.shift, s.flip, width])
+        width += mat.shape[1]
+    plan = np.concatenate([np.asarray(indices, dtype=np.int64),
+                           np.array(rows, dtype=np.int64).ravel()])
+    plan_d = torch.as_tensor(plan, device=dev)
+    out = torch.empty((len(indices), width), dtype=torch.int64, device=dev)
+    err = _cuda.lib().qzk_query_gather(
+        plan_d.data_ptr(), len(indices), len(sources), out.data_ptr(), width, _cuda.stream()
+    )
+    _cuda.check(err, "qzk_query_gather")
+    query_gather.launches += 1
+    return out
+
+
+query_gather.launches = 0
+
+
+def _sibling_sources(tree: merkle.MerkleTree, mask: int) -> list[GatherSource]:
+    """A Merkle path: level l's sibling of leaf q is digest (q >> l) ^ 1,
+    for every level below the cap."""
+    return [GatherSource(lvl, mask, shift=l, flip=1) for l, lvl in enumerate(tree.digests[:-1])]
+
+
+def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
+    """Every query's opening: the oracles' leaf rows and Merkle paths, then
+    per FRI round the leaf and its path. `layers`: (leaves, tree) per round.
+    One kernel-F gather, one transfer, then the host unpacks."""
+    m0 = oracles[0].lde.shape[1]
+    sources = [GatherSource(o.lde.T, m0 - 1) for o in oracles]
+    for o in oracles:
+        sources += _sibling_sources(o.tree, m0 - 1)
+    for leaves, tree in layers:
+        mask = leaves.shape[0] - 1  # q mod m' of the round
+        sources.append(GatherSource(leaves, mask))
+        sources += _sibling_sources(tree, mask)
+    packed = gl.to_u64(query_gather(sources, indices))
+    widths = [o.lde.shape[0] for o in oracles]
+    widths += [4 * (len(o.tree.digests) - 1) for o in oracles]
+    for leaves, tree in layers:
+        widths += [leaves.shape[1], 4 * (len(tree.digests) - 1)]
+    cuts = np.cumsum([0] + widths)
+    nor = len(oracles)
+    rounds = []
+    for row in packed:
+        part = [row[cuts[i] : cuts[i + 1]] for i in range(len(widths))]
+        steps = [
+            FriQueryStep(leaf_values=part[2 * nor + 2 * li].reshape(-1, 2),
+                         siblings=part[2 * nor + 2 * li + 1].reshape(-1, 4))
+            for li in range(len(layers))
+        ]
+        rounds.append(FriQueryRound(
+            initial_rows=part[:nor],
+            initial_siblings=[p.reshape(-1, 4) for p in part[nor : 2 * nor]],
+            steps=steps,
+        ))
+    return rounds
 
 
 # ---------------------------------------------------------------------------
@@ -186,41 +482,32 @@ def fri_prove(
     config: FriConfig,
     degree_bits: int,
 ) -> FriProof:
-    dev = oracles[0].lde.device
     alpha = challenger.challenge_ext()
     lde_bits = degree_bits + config.rate_bits
     m0 = 1 << lde_bits
-    values = compute_composition(oracles, instance, openings, alpha, lde_bits)
-
     schedule = config.reduction_strategy.schedule(degree_bits)
+    arities = list(schedule) + [0]  # each layer's leaf arity; the last is natural order
+    layer = compute_composition(oracles, instance, openings, alpha, lde_bits, arities[0])
+
     caps = []
-    layer_trees = []
-    layer_leaves_host = []
+    layers = []
     log_m = lde_bits
     shift_pow = 0  # current coset shift is g^(2^shift_pow)
-
-    for a_bits in schedule:
-        leaves = _regroup_leaves(values, a_bits)
+    for r, a_bits in enumerate(schedule):
         cap_h = min(config.cap_height, log_m - a_bits)
-        tree = merkle.build_merkle_tree(leaves, cap_h)
-        layer_trees.append(tree)
-        layer_leaves_host.append(gl.to_u64(leaves))
+        tree = merkle.build_merkle_tree(layer, cap_h)
+        layers.append((layer, tree))
         caps.append(tree.cap)
         challenger.observe_cap(tree.cap)
         beta = challenger.challenge_ext()
-        beta_t = beta.copy()
-        for _ in range(a_bits):
-            inv_x = gl.from_u64(_inv_x_table(log_m, shift_pow), dev)
-            values = _fold_step(values, gl.from_u64(beta_t, dev), inv_x)
-            beta_t = ext.mul(beta_t, beta_t)
-            log_m -= 1
-            shift_pow += 1
+        layer = fold_round(layer, beta, a_bits, log_m, shift_pow, arities[r + 1])
+        log_m -= a_bits
+        shift_pow += a_bits
 
-    # final polynomial: coset-iNTT of the remaining values
+    # final polynomial: coset-iNTT of the remaining values, unshift folded in
     final_shift = F.pow_scalar(F.MULTIPLICATIVE_GROUP_GENERATOR, 1 << shift_pow)
-    coeffs = ntt.intt(values.T)  # (2, len)
-    inv_shift_pows = F.powers_table(F.inv(final_shift), coeffs.shape[1])
-    coeffs = gl.to_u64(gl.mul(coeffs, gl.from_u64(inv_shift_pows, dev)).T)  # (len, 2)
+    coeffs = ntt.batched_ntt(layer.T, log_m, inverse=True, out_shift=int(F.inv(final_shift)))
+    coeffs = gl.to_u64(coeffs.T)  # (len, 2)
     fpb = config.reduction_strategy.final_poly_bits
     # the honest degree bound after folding (may be below 2^fpb for tiny circuits)
     final_len = min(1 << fpb, 1 << (degree_bits - sum(schedule)))
@@ -230,40 +517,17 @@ def fri_prove(
     challenger.observe_many(final_poly)
 
     # proof-of-work grind
-    pow_witness = ts.grind_pow(challenger, config.proof_of_work_bits, dev)
+    pow_witness = ts.grind_pow(challenger, config.proof_of_work_bits, oracles[0].lde.device)
     challenger.observe(pow_witness)
     pow_response = challenger.challenge()
     if int(pow_response) >= 1 << (64 - config.proof_of_work_bits):
         raise AssertionError("PoW response above the grind threshold")
 
-    # queries
+    # queries: every opening of every query in one gather and one transfer
     indices = [challenger.challenge_index(m0) for _ in range(config.num_query_rounds)]
-    # gather all initial rows of all oracles in ONE device call/transfer
-    rows_per_oracle = open_rows_many(oracles, indices)
-    query_rounds = []
-    for qi, q0 in enumerate(indices):
-        initial_rows = [rows_per_oracle[oi][qi] for oi in range(len(oracles))]
-        initial_sibs = [o.tree.prove(q0) for o in oracles]
-        steps = []
-        q = q0
-        for li, a_bits in enumerate(schedule):
-            mp = layer_leaves_host[li].shape[0]
-            q_next = q % mp
-            leaf = layer_leaves_host[li][q_next].reshape(-1, 2)
-            steps.append(
-                FriQueryStep(
-                    leaf_values=leaf, siblings=layer_trees[li].prove(q_next)
-                )
-            )
-            q = q_next
-        query_rounds.append(
-            FriQueryRound(
-                initial_rows=initial_rows, initial_siblings=initial_sibs, steps=steps
-            )
-        )
     return FriProof(
         commit_caps=caps,
         final_poly=final_poly,
         pow_witness=pow_witness,
-        query_rounds=query_rounds,
+        query_rounds=gather_query_rounds(oracles, layers, indices),
     )

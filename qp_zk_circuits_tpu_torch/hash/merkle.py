@@ -1,4 +1,4 @@
-"""Poseidon2 Merkle trees with caps — device build, host proofs.
+"""Poseidon2 Merkle trees with caps — device build, device query gathers.
 
 Commitment scheme of the prover: leaves are rows of an LDE matrix (all
 polynomial evaluations at one domain point), leaf digest = hash_or_noop of the
@@ -8,13 +8,16 @@ reference's `1 << cap_height` Merkle cap policy, `common/src/circuit.rs:459-468`
 
 Device mapping: leaf hashing is one kernel-2 `hash_rows` launch over all rows
 (strided rows are read in place), and every tree level is one `two_to_one`
-launch over the even and odd nodes of the level below. The digest levels go
-to the host once per commitment for query-time proof extraction.
+launch over the even and odd nodes of the level below. The digest levels stay
+on the device; only the cap goes to the host at each commitment, because the
+transcript observes it. The prover's query paths are gathered on the device
+by kernel F (fri/prover.py::query_rounds); `MerkleTree.prove` copies the
+levels to the host once, for callers outside the prover path.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -42,14 +45,25 @@ def build_levels(leaves: torch.Tensor, cap_height: int) -> list[torch.Tensor]:
 
 @dataclass
 class MerkleTree:
-    """Host-side materialised tree (digest levels as numpy (n_i, 4) u64)."""
+    """A tree whose digest levels live on the build device; the cap is also
+    kept on the host."""
 
-    levels: list  # [np.ndarray (n_i, 4)] — levels[0] = leaf digests
+    digests: list  # [torch.Tensor (n_i, 4)] — digests[0] = leaf digests
+    cap: np.ndarray  # host copy of the last level, (2^cap_height, 4) u64
     cap_height: int
+    _host: list | None = field(default=None, repr=False)
 
     @property
-    def cap(self) -> np.ndarray:
-        return self.levels[-1]
+    def levels(self) -> list:
+        """Host copies of the digest levels as numpy (n_i, 4) u64, made with
+        one transfer at first use."""
+        if self._host is None:
+            host = gl.to_u64(torch.cat(self.digests, dim=0))
+            self._host, off = [], 0
+            for lvl in self.digests:
+                self._host.append(host[off : off + lvl.shape[0]])
+                off += lvl.shape[0]
+        return self._host
 
     def prove(self, index: int) -> np.ndarray:
         """Sibling digests from leaf level up to (but excluding) the cap."""
@@ -62,12 +76,6 @@ class MerkleTree:
 
 
 def build_merkle_tree(leaves: torch.Tensor, cap_height: int) -> MerkleTree:
-    """Build on the leaves' device, materialise the levels on the host with
-    one transfer."""
+    """Build on the leaves' device; only the cap goes to the host."""
     levels = build_levels(leaves, cap_height)
-    host = gl.to_u64(torch.cat(levels, dim=0))
-    host_levels, off = [], 0
-    for lvl in levels:
-        host_levels.append(host[off : off + lvl.shape[0]])
-        off += lvl.shape[0]
-    return MerkleTree(levels=host_levels, cap_height=cap_height)
+    return MerkleTree(digests=levels, cap=gl.to_u64(levels[-1]), cap_height=cap_height)

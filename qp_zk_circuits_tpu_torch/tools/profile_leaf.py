@@ -9,8 +9,10 @@ up, then:
     and spread of the prove time;
   * one proof with each prover stage wrapped in a host timer that
     synchronizes on exit (witness generation, the three commits, the
-    permutation argument, the quotient, openings, FRI composition, folds,
-    the grind, query gathers), printed as inclusive times and call counts;
+    permutation argument, the quotient, openings, FRI composition, fold
+    rounds, the grind, the query stage: kernel F's gather, its transfer
+    and the host's unpacking into query rounds, and the transcript's host
+    Poseidon2 duplexes), printed as inclusive times and call counts;
   * one proof under torch.profiler: device time by kernel and the number of
     device launches; the device's busy share is that device time over the
     median prove time.
@@ -39,20 +41,21 @@ from ..plonk import transcript as ts
 from ..wormhole.prover import WormholeProver
 from ..wormhole.test_helpers import test_inputs_0
 
-# (module, attribute, stage name): the prover's stages as the modules that
-# call them see them
+# (module or class, attribute, stage name): the prover's stages as the
+# modules that call them see them
 STAGES = (
     (plonk_prover, "generate_witness", "witness (host)"),
     (fo, "commit", "oracle commit (iNTT + LDE + tree)"),
-    (merkle, "build_merkle_tree", "merkle tree (hash + levels + transfer)"),
+    (merkle, "build_merkle_tree", "merkle tree (hash + levels + cap transfer)"),
     (plonk_prover, "compute_permutation_polys", "permutation argument"),
     (plonk_prover, "compute_quotient", "quotient"),
     (fo, "eval_openings", "openings"),
     (plonk_prover, "fri_prove", "fri (all)"),
     (fri_prover, "compute_composition", "fri composition"),
-    (fri_prover, "_fold_step", "fri fold step"),
+    (fri_prover, "fold_round", "fri fold round"),
     (ts, "grind_pow", "pow grind"),
-    (fri_prover, "open_rows_many", "query row gather"),
+    (fri_prover, "gather_query_rounds", "queries (gather + transfer + unpack)"),
+    (ts.Challenger, "_duplex", "transcript duplex (host Poseidon2)"),
 )
 
 

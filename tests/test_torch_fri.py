@@ -1,0 +1,269 @@
+"""The port's FRI tail (kernels C-F of csrc/fri.cu) against the JAX package.
+
+On the CPU the port's wrappers run their plain versions; inputs are made with
+numpy from a seed and go through the JAX package's functions on the CPU
+(jitted, no Pallas kernel involved) and through the port. The field is exact,
+so every comparison is bit-exact:
+
+  * the composition against `fri/prover.py::compute_composition` (two
+    batches, the second on a subset of one oracle; one case with x - z = 0);
+  * the openings against `fri/oracle.py::eval_openings`;
+  * one round's folds against `_fold_step` applied a times and
+    `_regroup_leaves`, for a = 1..4;
+  * the query gather against `fri/oracle.py::open_rows_many` and
+    `hash/merkle.py::MerkleTree.prove`, indices 0 and m - 1 included.
+
+The `gpu` cases hold each kernel against its plain version at the leaf's
+shapes with the edge values p - 1, 0 and 2^32; they skip without a card.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from qp_zk_circuits_tpu.field import extension as jext
+from qp_zk_circuits_tpu.field import gf_np as JF
+from qp_zk_circuits_tpu.field import goldilocks as jgl
+from qp_zk_circuits_tpu.fri import oracle as joracle
+from qp_zk_circuits_tpu.fri import prover as jfri
+from qp_zk_circuits_tpu.hash import merkle as jmerkle
+from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+from qp_zk_circuits_tpu_torch.fri import oracle as toracle
+from qp_zk_circuits_tpu_torch.fri import prover as tfri
+from qp_zk_circuits_tpu_torch.hash import merkle as tmerkle
+
+P = 0xFFFFFFFF00000001
+EDGES = np.array([P - 1, 0, 1 << 32], dtype=np.uint64)
+ROWS = (5, 9, 4)  # three oracles' column counts
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernels run only on the GPU")
+    return torch.device("cuda")
+
+
+def _felts(shape, rng, edges=False):
+    x = JF.rand_felts(shape, rng)
+    if edges:
+        x.reshape(-1)[: EDGES.size] = EDGES
+    return x
+
+
+def _case(lde_bits, seed, zero_point=False, edges=False):
+    """Random LDEs of three oracles, two batches (the second on three
+    columns of oracle 1), claimed openings and alpha."""
+    rng = np.random.default_rng(seed)
+    m = 1 << lde_bits
+    ldes = [_felts((c, m), rng, edges) for c in ROWS]
+    polys0 = tuple((o, k) for o, c in enumerate(ROWS) for k in range(c))
+    polys1 = ((1, 2), (1, 0), (1, 7))
+    z0, z1 = (int(v) for v in JF.rand_felts(2, rng))
+    if zero_point:  # z = x_3, so x - z = 0 at point 3
+        z0, z1 = int(tfri._domain_points(lde_bits)[3]), 0
+    zn = [int(v) for v in JF.rand_felts(2, rng)]
+    return dict(
+        ldes=ldes, lde_bits=lde_bits, polys=(polys0, polys1), points=((z0, z1), tuple(zn)),
+        openings=[JF.rand_felts((len(polys0), 2), rng), JF.rand_felts((len(polys1), 2), rng)],
+        alpha=JF.rand_felts(2, rng),
+    )
+
+
+def _instance(mod, case):
+    return mod.FriInstance(batches=tuple(
+        mod.FriBatchInfo(point=pt, polys=polys) for pt, polys in zip(case["points"], case["polys"])
+    ))
+
+
+def _port_oracles(case, device="cpu"):
+    return [SimpleNamespace(lde=gl.from_u64(l, device)) for l in case["ldes"]]
+
+
+def _reference_composition(case) -> np.ndarray:
+    oracles = [SimpleNamespace(lde=jgl.from_u64(l)) for l in case["ldes"]]
+    q = jfri.compute_composition(oracles, _instance(jfri, case), case["openings"],
+                                 case["alpha"], case["lde_bits"])
+    return jext.j_to_u64(q)
+
+
+@pytest.mark.parametrize("lde_bits, zero_point", [(6, False), (7, False), (6, True)])
+def test_composition_matches_reference(lde_bits, zero_point):
+    case = _case(lde_bits, seed=lde_bits, zero_point=zero_point)
+    want = _reference_composition(case)
+    if zero_point:
+        assert jext.eq(jext.inv(np.zeros(2, np.uint64)), np.zeros(2, np.uint64))
+    args = (_port_oracles(case), _instance(tfri, case), case["openings"], case["alpha"], lde_bits)
+    assert np.array_equal(gl.to_u64(tfri.compute_composition(*args)), want)
+    # in the leaf layout of a first round of arity 2^3: row q holds v[q + j m']
+    leaves = gl.to_u64(tfri.compute_composition(*args, arity_bits=3))
+    mp = want.shape[0] >> 3
+    assert np.array_equal(leaves.reshape(mp, 8, 2), want.reshape(8, mp, 2).transpose(1, 0, 2))
+
+
+def test_composition_limits_hold_on_every_device():
+    case = _case(6, seed=1)
+    args = (_port_oracles(case), _instance(tfri, case), case["openings"], case["alpha"], 6)
+    with pytest.raises(ValueError):
+        tfri.compute_composition(*args, arity_bits=tfri.MAX_ARITY_BITS + 1)
+    bad = dict(case, polys=(case["polys"][0], ((2, 4),)))  # oracle 2 has 4 columns
+    with pytest.raises(ValueError):
+        tfri.compute_composition(_port_oracles(bad), _instance(tfri, bad), bad["openings"],
+                                 bad["alpha"], 6)
+    with pytest.raises(ValueError):
+        tfri.compute_composition(*args[:4], 7)  # LDEs of 2^6 points, not 2^7
+
+
+def test_eval_openings_match_reference():
+    rng = np.random.default_rng(11)
+    n = 1 << 5
+    coeffs = [_felts((c, n), rng) for c in ROWS + (2,)]
+    zeta, zeta_next = JF.rand_felts(2, rng), JF.rand_felts(2, rng)
+    jparts, jnext = joracle.eval_openings(
+        [SimpleNamespace(coeffs_dev=jgl.from_u64(c)) for c in coeffs], zeta, zeta_next,
+        next_oracle=2, next_count=3,
+    )
+    tparts, tnext = toracle.eval_openings(
+        [SimpleNamespace(coeffs=gl.from_u64(c, "cpu")) for c in coeffs], zeta, zeta_next,
+        next_oracle=2, next_count=3,
+    )
+    for t, j in zip(tparts + [tnext], list(jparts) + [jnext]):
+        assert np.array_equal(t, j)
+
+
+def _reference_round(values, beta, a_bits, log_m, shift_pow, next_bits):
+    """The JAX package's round: its leaves, then a binary folds, then the
+    next round's leaves."""
+    gv = jext.j_from_u64(values)
+    leaves = jgl.to_u64(jfri._get_regroup_jit(a_bits)(gv))
+    beta_t = np.asarray(beta, dtype=np.uint64)
+    for t in range(a_bits):
+        inv_x = jfri._inv_x_table(log_m - t, shift_pow + t)
+        gv = jfri._get_fold_jit()(gv, jext.j_from_u64(beta_t), jgl.from_u64(inv_x))
+        beta_t = jext.mul(beta_t, beta_t)
+    folded = jext.j_to_u64(gv)
+    nxt = jgl.to_u64(jfri._get_regroup_jit(next_bits)(gv)) if next_bits else folded
+    return leaves, nxt
+
+
+@pytest.mark.parametrize("a_bits", [1, 2, 3, 4])
+def test_fold_round_matches_reference(a_bits):
+    log_m, shift_pow = 6, 2
+    rng = np.random.default_rng(20 + a_bits)
+    values = _felts((1 << log_m, 2), rng, edges=True)
+    beta = JF.rand_felts(2, rng)
+    next_bits = 1 if a_bits < 4 else 0
+    want_leaves, want_next = _reference_round(values, beta, a_bits, log_m, shift_pow, next_bits)
+    leaves = tfri._regroup_leaves(gl.from_u64(values, "cpu"), a_bits)
+    assert np.array_equal(gl.to_u64(leaves), want_leaves)
+    got = tfri.fold_round(leaves, beta, a_bits, log_m, shift_pow, next_bits)
+    assert np.array_equal(gl.to_u64(got), want_next)
+
+
+def test_fold_round_refuses_arity_above_its_limit():
+    leaves = torch.zeros((4, 2 << 5), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        tfri.fold_round(leaves, np.zeros(2, np.uint64), 5, 7, 0)
+
+
+def test_query_gather_matches_reference():
+    """Initial rows and Merkle paths of three oracles and one FRI round's
+    leaves and path, for indices that include 0 and m - 1."""
+    rng = np.random.default_rng(30)
+    log_m, a_bits, cap_h = 6, 2, 1
+    m = 1 << log_m
+    ldes = [_felts((c, m), rng) for c in ROWS]
+    oracles = []
+    for l in ldes:
+        lde = gl.from_u64(l, "cpu")
+        oracles.append(SimpleNamespace(lde=lde, tree=tmerkle.build_merkle_tree(lde.T, cap_h)))
+    leaves = gl.from_u64(_felts((m >> a_bits, 2 << a_bits), rng), "cpu")
+    layer_tree = tmerkle.build_merkle_tree(leaves, cap_h)
+    indices = [0, m - 1, 5, 37, 5]
+    rounds = tfri.gather_query_rounds(oracles, [(leaves, layer_tree)], indices)
+
+    rows = joracle.open_rows_many([SimpleNamespace(lde=jgl.from_u64(l)) for l in ldes], indices)
+    jtrees = [jmerkle.MerkleTree(levels=o.tree.levels, cap_height=cap_h) for o in oracles]
+    jlayer = jmerkle.MerkleTree(levels=layer_tree.levels, cap_height=cap_h)
+    leaves_host = gl.to_u64(leaves)
+    for qi, q in enumerate(indices):
+        r = rounds[qi]
+        for oi in range(len(oracles)):
+            assert np.array_equal(r.initial_rows[oi], rows[oi][qi])
+            assert np.array_equal(r.initial_siblings[oi], jtrees[oi].prove(q))
+        q1 = q % leaves_host.shape[0]
+        (step,) = r.steps
+        assert np.array_equal(step.leaf_values, leaves_host[q1].reshape(-1, 2))
+        assert np.array_equal(step.siblings, jlayer.prove(q1))
+    # the trees' digest levels stay where they were built; the cap is on the host
+    assert all(isinstance(d, torch.Tensor) for d in layer_tree.digests)
+    assert isinstance(layer_tree.cap, np.ndarray)
+
+
+def test_wrappers_refuse_non_cuda_accelerator_tensors():
+    case = _case(6, seed=3)
+    meta = [SimpleNamespace(lde=torch.zeros((c, 64), dtype=torch.int64, device="meta"))
+            for c in ROWS]
+    with pytest.raises(ValueError):
+        tfri.compute_composition(meta, _instance(tfri, case), case["openings"], case["alpha"], 6)
+    with pytest.raises(ValueError):
+        tfri.fold_round(torch.zeros((16, 8), dtype=torch.int64, device="meta"),
+                        np.zeros(2, np.uint64), 2, 6, 0)
+    with pytest.raises(ValueError):
+        toracle.eval_openings([SimpleNamespace(coeffs=o.lde) for o in meta], (1, 2), (3, 4))
+    with pytest.raises(ValueError):
+        tfri.query_gather([tfri.GatherSource(meta[0].lde, 63)], [1])
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version, leaf shapes
+
+
+def _leaf_shapes():
+    """The leaf's FRI shapes: the four oracles' column counts, m = 2048."""
+    return (8 + 6 + 80, 135, 20, 16), 11
+
+
+@pytest.mark.gpu
+def test_fri_kernels_match_plain_on_card(cuda):
+    rows, lde_bits = _leaf_shapes()
+    m = 1 << lde_bits
+    rng = np.random.default_rng(40)
+    case = _case(lde_bits, seed=41, edges=True)
+    case["ldes"] = [_felts((c, m), rng, edges=True) for c in rows]
+    case["polys"] = (tuple((o, k) for o, c in enumerate(rows) for k in range(c)),
+                     ((2, 0), (2, 1)))
+    case["openings"] = [JF.rand_felts((sum(rows), 2), rng), JF.rand_felts((2, 2), rng)]
+    args = (_instance(tfri, case), case["openings"], case["alpha"], lde_bits)
+    before = [f.launches for f in (gl.add, gl.sub, gl.mul)]
+    for arity in (3, 0, 4):  # the leaf's first round, natural order, the largest
+        got = tfri.compute_composition(_port_oracles(case, cuda), *args, arity)
+        assert torch.equal(got.cpu(), tfri.compute_composition(_port_oracles(case), *args, arity))
+
+    beta = JF.rand_felts(2, rng)
+    for a in (3, 1, 2, 4):
+        for next_bits in (0, 2):
+            leaves = gl.from_u64(_felts((m >> a, 2 << a), rng, edges=True), cuda)
+            got_f = tfri.fold_round(leaves, beta, a, lde_bits, 1, next_bits)
+            want_f = tfri.fold_round(leaves.cpu(), beta, a, lde_bits, 1, next_bits)
+            assert torch.equal(got_f.cpu(), want_f), (a, next_bits)
+
+    coeffs = [SimpleNamespace(coeffs=gl.from_u64(_felts((c, m >> 3), rng, edges=True), cuda))
+              for c in rows]
+    zeta, zn = JF.rand_felts(2, rng), JF.rand_felts(2, rng)
+    got_o = toracle.eval_openings(coeffs, zeta, zn, next_oracle=2, next_count=2)
+    want_o = toracle.eval_openings([SimpleNamespace(coeffs=c.coeffs.cpu()) for c in coeffs],
+                                   zeta, zn, next_oracle=2, next_count=2)
+    for g, w in zip(got_o[0] + [got_o[1]], want_o[0] + [want_o[1]]):
+        assert np.array_equal(g, w)
+
+    lde = gl.from_u64(case["ldes"][1], cuda)
+    tree = tmerkle.build_merkle_tree(lde.T, 4)
+    sources = [tfri.GatherSource(lde.T, m - 1)] + tfri._sibling_sources(tree, m - 1)
+    indices = [0, m - 1, 7, 1000]
+    got_g = tfri.query_gather(sources, indices)
+    cpu_sources = [tfri.GatherSource(s.matrix.cpu(), s.mask, s.shift, s.flip) for s in sources]
+    assert torch.equal(got_g.cpu(), tfri.query_gather(cpu_sources, indices))
+    assert [f.launches for f in (gl.add, gl.sub, gl.mul)] == before
