@@ -12,14 +12,21 @@ package. Phases, each printing one line:
      kernels A-F against their plain versions run on CPU copies of the same
      inputs, so no kernel is on the reference side); median wrapper times over
      CUDA-event-timed runs, each kernel's device-only time from
-     torch.profiler, and each kernel's bound;
-  4. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
+     torch.profiler, and each kernel's bound; kernel 2's permutation, row
+     hash and 2-to-1 in both permutation forms, and its tree at the four
+     trees of a leaf proof;
+  4. aggregation tree — the Merkle tree at 2^19 x 135: 256 sampled nodes of
+     every level against the plain hashes of their inputs, its time beside
+     the per-level form's (hash_rows, then one two_to_one launch a level);
+  5. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
      prove_inputs(seed=0) cold and warm; the proof bytes must equal the
      committed fixture (length and SHA-256), every kernel of the path must
      have been launched during the cold proof, within its launch limits
      (quotient and permutation argument at most two each, composition at most
-     two, openings one, one fold a FRI round, one query gather), and kernel 1
-     (off the path since the FRI tail got its own kernels) at most five times.
+     two, openings one, one fold a FRI round, one query gather, one tree call
+     of at most two launches a commit and a FRI round, no per-level
+     two_to_one), and kernel 1 (off the path since the FRI tail got its own
+     kernels) at most five times.
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -123,6 +130,30 @@ def fri_field_ops(m: int, terms: int, batches: int) -> tuple[int, int]:
             m * per_point_adds + terms * (2 * 2 + 2))
 
 
+def tree_perms(rows: int, cols: int, cap: int) -> int:
+    """Permutations of a Merkle tree: ceil(cols / 8) a row (none when the rows
+    are at most a digest wide), and one a node above the leaves, down to the
+    cap of 2^cap."""
+    per_row = 0 if cols <= 4 else -(-cols // 8)
+    return rows * per_row + rows - (1 << cap)
+
+
+def _leaf_trees(device, rng, wires_rows, cap):
+    """The four trees of a leaf proof against the plain version: wires (135
+    columns), Z and partial products (20), quotient (16), each over a strided
+    lde.T, and the FRI layer's contiguous (256, 16) rows."""
+    from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
+
+    m = wires_rows.shape[0]
+    leaves = [wires_rows, _felts((20, m), rng, device).T, _felts((16, m), rng, device).T,
+              _felts((m >> 3, 16), rng, device)]
+    got, want = [], []
+    for x in leaves:
+        got += ps.merkle_levels(x, cap)
+        want += ps.merkle_levels_plain(x, cap)
+    return got, want
+
+
 def _median_ms(fn, runs: int, warmup: int = 2) -> float:
     import torch
 
@@ -200,7 +231,7 @@ def kernel_table(device) -> list[dict]:
     from qp_zk_circuits_tpu_torch.poly import ntt
 
     rng = np.random.default_rng(0)
-    wires, lde_bits, rate = 135, 11, 3
+    wires, lde_bits, rate, cap = 135, 11, 3, 4
     m = 1 << lde_bits
     a = _felts((wires, m), rng, device)
     b = _felts((wires, m), rng, device)
@@ -210,46 +241,77 @@ def kernel_table(device) -> list[dict]:
     n_el = a.numel()
     grind = _felts((1 << 17, ps.WIDTH), rng, device)
     lde = _felts((wires, m), rng, device)
+    lde.view(-1)[: ea.numel()] = ea
     rows = lde.T  # the leaf matrix as the commit hashes it: strided rows
     level = _felts((m, ps.DIGEST_LEN), rng, device)
+    level.view(-1)[: ea.numel()] = ea
+    # batches that are not a multiple of a block, led by the edge values
+    odd_states = _felts((1029, ps.WIDTH), rng, device)
+    odd_states.view(-1)[: ea.numel()] = ea
+    odd_rows = _felts((wires, 2051), rng, device).T
     coeffs = _felts((wires, m >> rate), rng, device)
     quot = _felts((2, m), rng, device)  # the quotient's nc rows
     unshift = int(F.inv(np.uint64(7)))  # g^-1, the coset iNTT's unshift
     perms_per_row = -(-wires // ps.RATE)
+    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
+    tree_nodes = sum(m >> lvl for lvl in range(lde_bits - cap + 1))
     ew_bytes = 3 * 8 * n_el
+    forms = (ps.SPLIT, 1)
 
     def ntt_all(f_lde, f_inv, f_coset_inv):
         return [f_lde(coeffs), f_inv(coeffs), f_inv(quot), f_coset_inv(quot)]
 
+    def both_forms(launch, plain, *cases):
+        """Each case through both permutation forms against the plain version."""
+        wants = [plain(*c) for c in cases]
+        return ([launch(*c, f) for f in forms for c in cases], [w for _ in forms for w in wants])
+
+    def pairs(x):
+        return (x[0::2], x[1::2])
+
     return [
-        dict(name="goldilocks_add", wrapper=gl.add, path=False, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
+        dict(name="goldilocks_add", wrapper=gl.add, path=False, kernel1=True, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
              replaces="qp_zk_circuits_tpu/field/goldilocks.py:137",
              run=lambda: gl.add(a, b), plain=lambda: gl.add_plain(a, b),
              bytes=ew_bytes, ops=OPS_ADD * n_el),
-        dict(name="goldilocks_sub", wrapper=gl.sub, path=False, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
+        dict(name="goldilocks_sub", wrapper=gl.sub, path=False, kernel1=True, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
              replaces="qp_zk_circuits_tpu/field/goldilocks.py:145",
              run=lambda: gl.sub(a, b), plain=lambda: gl.sub_plain(a, b),
              bytes=ew_bytes, ops=OPS_ADD * n_el),
-        dict(name="goldilocks_mul", wrapper=gl.mul, path=False, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
+        dict(name="goldilocks_mul", wrapper=gl.mul, path=False, kernel1=True, source="qp_zk_circuits_tpu_torch/csrc/field_kernels.cu",
              replaces="qp_zk_circuits_tpu/ops/field_kernels.py:100",
              run=lambda: gl.mul(a, b), plain=lambda: gl.mul_plain(a, b),
              bytes=ew_bytes, ops=OPS_MUL * n_el),
+        # the grind's 2^17 states; checked in both forms, and at 1029 states
         dict(name="poseidon2_permute", wrapper=ps.permute, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
              replaces="qp_zk_circuits_tpu/hash/poseidon2.py:415",
              run=lambda: ps.permute(grind), plain=lambda: ps.permute_plain(grind),
-             bytes=2 * grind.numel() * 8,
-             ops=grind.shape[0] * (PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD)),
-        dict(name="poseidon2_hash_rows", wrapper=ps.hash_rows, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
+             check=lambda: both_forms(ps._launch_permute, ps.permute_plain, (grind,), (odd_states,)),
+             bytes=2 * grind.numel() * 8, ops=grind.shape[0] * perm_ops),
+        # off the main path since the tree has its own entry; checked in both
+        # forms at the wires' shape and at 2051 rows
+        dict(name="poseidon2_hash_rows", wrapper=ps.hash_rows, path=False, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
              replaces="qp_zk_circuits_tpu/hash/poseidon2.py:449",
              run=lambda: ps.hash_rows(rows), plain=lambda: ps.hash_rows_plain(rows),
+             check=lambda: both_forms(ps._launch_hash_rows, ps.hash_rows_plain, (rows,), (odd_rows,)),
              bytes=(rows.numel() + m * ps.DIGEST_LEN) * 8,
-             ops=m * perms_per_row * (PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD)),
-        dict(name="poseidon2_two_to_one", wrapper=ps.two_to_one, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
+             ops=m * perms_per_row * perm_ops),
+        dict(name="poseidon2_two_to_one", wrapper=ps.two_to_one, path=False, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
              replaces="qp_zk_circuits_tpu/hash/poseidon2.py:492",
-             run=lambda: ps.two_to_one(level[0::2], level[1::2]),
-             plain=lambda: ps.two_to_one_plain(level[0::2], level[1::2]),
+             run=lambda: ps.two_to_one(*pairs(level)),
+             plain=lambda: ps.two_to_one_plain(*pairs(level)),
+             check=lambda: both_forms(ps._launch_two_to_one, ps.two_to_one_plain, pairs(level),
+                                      pairs(odd_states[:, : 2 * ps.DIGEST_LEN].reshape(-1, ps.DIGEST_LEN))),
              bytes=(level.numel() + level.numel() // 2) * 8,
-             ops=(m // 2) * (PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD)),
+             ops=(m // 2) * perm_ops),
+        # the wires tree, 2048 x 135 to a cap of 16: the row sponges and the
+        # levels; checked at the four trees of a leaf proof
+        dict(name="poseidon2_merkle_tree", wrapper=ps.merkle_levels, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
+             replaces="qp_zk_circuits_tpu/hash/merkle.py:37",
+             run=lambda: ps.merkle_levels(rows, cap), plain=lambda: ps.merkle_levels_plain(rows, cap),
+             check=lambda: _leaf_trees(device, rng, rows, cap),
+             bytes=(rows.numel() + tree_nodes * ps.DIGEST_LEN) * 8,
+             ops=tree_perms(m, wires, cap) * perm_ops),
         # timed at the leaf LDE (135 x 256 -> 2048); checked in all three modes
         dict(name="ntt", wrapper=ntt.batched_ntt, source="qp_zk_circuits_tpu_torch/csrc/ntt.cu",
              replaces="qp_zk_circuits_tpu/poly/ntt.py:132",
@@ -576,6 +638,66 @@ def phase_kernels(kernels) -> None:
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
 
 
+def phase_aggregation_tree(device, log_rows: int = 19, cols: int = 135,
+                           cap: int = 4, sample: int = 256) -> None:
+    """The tree at the private batch's wires shape, 2^19 x 135 (553 MB):
+    timed as one call and as the per-level form (hash_rows, then one
+    two_to_one launch a level); the plain version is too slow here, so 256
+    nodes of every level are checked against hash_rows_plain of their rows
+    or two_to_one_plain of their children in the kernel's level below."""
+    import torch
+
+    from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    # uniform below 2^63 < p: canonical felts, made on the card from a seed
+    lde = torch.randint(0, (1 << 63) - 1, (cols, 1 << log_rows), generator=gen,
+                        dtype=torch.int64, device=device)
+    rows = lde.T
+
+    def per_level():
+        cur = ps.hash_rows(rows)
+        while cur.shape[0] > 1 << cap:
+            cur = ps.two_to_one(cur[0::2], cur[1::2])
+        return cur
+
+    levels = ps.merkle_levels(rows, cap)
+    torch.cuda.synchronize()
+    idx_gen = torch.Generator(device=device).manual_seed(20)
+    checked = 0
+    for lvl, got in enumerate(levels):
+        n = got.shape[0]
+        idx = torch.randint(0, n, (min(sample, n),), generator=idx_gen, device=device)
+        if lvl == 0:
+            want = ps.hash_rows_plain(rows[idx])
+        else:
+            below = levels[lvl - 1]
+            want = ps.two_to_one_plain(below[2 * idx], below[2 * idx + 1])
+        bad = int((got[idx] != want).sum())
+        if bad:
+            raise AssertionError(f"2^{log_rows} tree level {lvl}: {bad} sampled values differ")
+        checked += idx.numel()
+    if not torch.equal(levels[-1], per_level()):
+        raise AssertionError(f"2^{log_rows} tree cap differs from the per-level build")
+    # CUDA events only: the tree is one or two launches, so its span is its
+    # device time, and a profiler window over these long kernels has been
+    # seen to miss some of them
+    tree_ms = _median_ms(lambda: ps.merkle_levels(rows, cap), runs=5)
+    per_level_ms = _median_ms(per_level, runs=5)
+    nodes = sum((1 << log_rows) >> lvl for lvl in range(log_rows - cap + 1))
+    work_bytes = (lde.numel() + nodes * ps.DIGEST_LEN) * 8
+    ops = tree_perms(1 << log_rows, cols, cap) * (PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD)
+    bound_by = "bytes" if work_bytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
+    bound_ms = 1e3 * max(work_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+    plan = ps.tree_plan(1 << log_rows, cap, ps._sm_count(torch.device(device).index))
+    print(f"[tree 2^{log_rows}] {cols} columns, cap 2^{cap}, plan {plan}: {checked} sampled "
+          f"nodes over {len(levels)} levels equal their plain hashes, cap equal to the "
+          f"per-level build; tree {tree_ms:.4f} ms, per-level form {per_level_ms:.4f} ms "
+          f"(CUDA events); bound {bound_ms:.4f} ms by {bound_by}", flush=True)
+    del lde, rows, levels
+    torch.cuda.empty_cache()
+
+
 def phase_main_path(kernels) -> None:
     import torch
 
@@ -611,13 +733,17 @@ def phase_main_path(kernels) -> None:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     rounds = len(cfg.fri_config.reduction_strategy.schedule(prover.data.degree_bits))
+    # one tree a commit (wires, Z and partial products, quotient) and one a
+    # FRI round, at most two launches each; no per-level 2-to-1 launch
+    trees = 3 + rounds
     limits = {"quotient": (1, 2), "permutation_polys": (1, 2), "fri_composition": (1, 2),
-              "eval_openings": (1, 1), "fri_fold": (rounds, rounds), "query_gather": (1, 1)}
+              "eval_openings": (1, 1), "fri_fold": (rounds, rounds), "query_gather": (1, 1),
+              "poseidon2_merkle_tree": (trees, 2 * trees), "poseidon2_two_to_one": (0, 0)}
     fused = {k["name"]: k["launches"] for k in kernels if k["name"] in limits}
     off = {name: n for name, n in fused.items() if not limits[name][0] <= n <= limits[name][1]}
     if off:
-        raise AssertionError(f"fused stages outside their launch limits {limits}: {off}")
-    kernel1 = {k["name"]: k["launches"] for k in kernels if not k.get("path", True)}
+        raise AssertionError(f"stages outside their launch limits {limits}: {off}")
+    kernel1 = {k["name"]: k["launches"] for k in kernels if k.get("kernel1")}
     if sum(kernel1.values()) > 5:
         raise AssertionError(f"kernel 1 launched {kernel1} times on the main path (at most 5)")
     counts = ", ".join(f"{k['name']}={k['launches']}" for k in kernels)
@@ -634,6 +760,7 @@ def main() -> int:
     phase_build()
     kernels = kernel_table("cuda")
     phase_kernels(kernels)
+    phase_aggregation_tree("cuda")
     phase_main_path(kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

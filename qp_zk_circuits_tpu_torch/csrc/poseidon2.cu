@@ -1,23 +1,39 @@
-// Kernel 2: Poseidon2 over Goldilocks, width 12 (rate 8, 4-felt digest, x^7).
+// Kernel 2: Poseidon2 over Goldilocks, width 12 (rate 8, 4-felt digest, x^7),
+// and the Merkle tree built on it.
 //
 // Replaces the XLA-compiled jnp functions hash/poseidon2.py::permute_j,
-// hash_no_pad_j and two_to_one_j of the JAX package (with
-// hash/merkle.py::_leaf_hash_j), which carried each lane as a u32 pair and
-// ran the rounds under lax.scan.
-//
-// Design: one thread per state, the 12 lanes in registers for the whole
-// permutation (initial external matrix, 4 full rounds, 22 partial rounds,
-// 4 full rounds). Round constants and the internal diagonal sit in
-// __constant__ memory; they are uploaded once from the port's Grain-LFSR
-// derived tables (qzk_poseidon2_set_constants), so no table is written here.
-// The S-box and the linear layers live in poseidon2.cuh, shared with the
-// Poseidon2 gate of kernel A (quotient.cu).
+// hash_no_pad_j and two_to_one_j of the JAX package, with
+// hash/merkle.py::_leaf_hash_j and build_levels_j (the whole tree), which
+// carried each lane as a u32 pair and ran the rounds under lax.scan.
 //
 // Bound on the H100: operations. One permutation is about 500 field
 // multiplies (118 S-boxes of 4 multiplies plus the internal diagonal), each a
-// few 64-bit integer instructions, against 96 or 128 input bytes, so the
-// integer pipes and not memory bound it. Rows of a leaf matrix are read with
-// arbitrary strides so a column-major LDE is hashed without a transpose copy.
+// few 64-bit integer instructions, against 96 or 128 input bytes. But a leaf
+// commit is small: 2048 rows, each a sponge of 17 permutations in series,
+// then 7 tree levels, each one permutation deep. With one thread a state the
+// whole launch is 64 warps, one on each of 64 sub-partitions of the card's
+// 528, so it runs at the issue rate of one warp per state chain, far above
+// the operations bound.
+//
+// Design: two forms of the permutation, the same arithmetic.
+//  * one thread a state (T = 1): the 12 lanes in registers, for launches that
+//    already fill the card (the grind's 2^17 states, aggregation-size rows);
+//  * lane-split (T = 4, poseidon2.cuh): a quad of threads holds a state, one
+//    lane of each M4 group a thread, so a full round is 3 S-boxes a thread
+//    instead of 12 and the leaf shape runs four times as many warps.
+// The wrapper of a flat launch (permute, hash_rows, two_to_one) picks the
+// form from the number of states against the SM count. A Merkle tree is one
+// call, lane-split at every size: a first launch where each block hashes a
+// run of rows and reduces its subtree in shared memory, writing every level,
+// and a second launch (only if levels are left) where a block per cap node
+// reduces the rest through the output buffer. Rows are read in place through
+// (row_stride, col_stride), so a column-major LDE needs no transpose copy,
+// and neighbouring rows' threads read neighbouring addresses.
+//
+// Round constants and the internal diagonal sit in __constant__ memory,
+// uploaded once a device from the port's Grain-LFSR tables
+// (qzk_poseidon2_set_constants); the S-box and linear layers live in
+// poseidon2.cuh, shared with the Poseidon2 gate of kernel A (quotient.cu).
 #include <cuda_runtime.h>
 
 #include "poseidon2.cuh"
@@ -28,6 +44,8 @@ using p2::DIGEST;
 using p2::RATE;
 using p2::ROUNDS_F;
 using p2::ROUNDS_P;
+using p2::SPLIT;
+using p2::SPLIT_SLOTS;
 using p2::WIDTH;
 using p2::external_linear;
 using p2::sbox;
@@ -54,63 +72,235 @@ __device__ void permute(uint64_t* x) {
   }
 }
 
-__global__ void permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
-                               long long batch) {
-  long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  uint64_t x[WIDTH];
+// The same permutation on a split state (thread j of the quad, lanes j, 4 + j,
+// 8 + j). Thread 0 holds lane 0, so its S-box is the partial rounds' one; the
+// other threads compute it too and drop it, which keeps the warp converged.
+__device__ void permute_split(uint64_t* x, int j) {
+  uint64_t d[SPLIT_SLOTS];
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) x[i] = in[b * WIDTH + i];
-  permute(x);
+  for (int s = 0; s < SPLIT_SLOTS; ++s) d[s] = c_diag[SPLIT * s + j];
+  p2::external_linear_split(x, j);
+  for (int r = 0; r < 4; ++r) {
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) out[b * WIDTH + i] = x[i];
+    for (int s = 0; s < SPLIT_SLOTS; ++s) x[s] = sbox(gl::add(x[s], c_ext_rc[r][SPLIT * s + j]));
+    p2::external_linear_split(x, j);
+  }
+  for (int r = 0; r < ROUNDS_P; ++r) {
+    const uint64_t s0 = sbox(gl::add(x[0], c_int_rc[r]));
+    x[0] = j == 0 ? s0 : x[0];
+    p2::internal_linear_split(x, d);
+  }
+  for (int r = 4; r < ROUNDS_F; ++r) {
+#pragma unroll
+    for (int s = 0; s < SPLIT_SLOTS; ++s) x[s] = sbox(gl::add(x[s], c_ext_rc[r][SPLIT * s + j]));
+    p2::external_linear_split(x, j);
+  }
+}
+
+// T threads a state: slot s of thread j holds state lane lane_of<T>(s, j).
+template <int T>
+__device__ __forceinline__ int lane_of(int s, int j) {
+  return T == 1 ? s : SPLIT * s + j;
+}
+
+template <int T>
+__device__ __forceinline__ void permute_form(uint64_t* x, int j) {
+  if constexpr (T == 1) {
+    permute(x);
+  } else {
+    permute_split(x, j);
+  }
+}
+
+// Threads past the last state still run the permutation on zeros, so a
+// quad's shuffles always see the whole warp; a warp wholly past the end exits.
+template <int T>
+__device__ __forceinline__ bool warp_past(long long gid, long long states) {
+  return (gid - (threadIdx.x & 31)) / T >= states;
 }
 
 // Overwrite-mode sponge over one row (hash_no_pad); rows of <= 4 felts pass
-// through zero-padded, unhashed (hash_or_noop).
+// through zero-padded, unhashed (hash_or_noop). The digest is lanes 0..3.
+template <int T>
+__device__ __forceinline__ void hash_row(uint64_t* x, const uint64_t* __restrict__ in,
+                                         long long r, bool valid, int cols, long long row_stride,
+                                         long long col_stride, int j) {
+  const uint64_t* row = in + (valid ? r : 0) * row_stride;
+#pragma unroll
+  for (int s = 0; s < WIDTH / T; ++s) x[s] = 0;
+  if (cols <= DIGEST) {
+#pragma unroll
+    for (int s = 0; s < WIDTH / T; ++s) {
+      const int lane = lane_of<T>(s, j);
+      if (valid && lane < cols) x[s] = row[lane * col_stride];
+    }
+    return;
+  }
+  for (int start = 0; start < cols; start += RATE) {
+    const int len = cols - start < RATE ? cols - start : RATE;
+#pragma unroll
+    for (int s = 0; s < WIDTH / T; ++s) {
+      const int lane = lane_of<T>(s, j);
+      if (valid && lane < len) x[s] = row[(long long)(start + lane) * col_stride];
+    }
+    permute_form<T>(x, j);
+  }
+}
+
+// A 2-to-1 state from two digests: [left(4) | right(4) | 0(4)].
+template <int T>
+__device__ __forceinline__ void load_pair(uint64_t* x, const uint64_t* left, const uint64_t* right,
+                                          bool valid, int j) {
+#pragma unroll
+  for (int s = 0; s < WIDTH / T; ++s) {
+    const int lane = lane_of<T>(s, j);
+    x[s] = !valid              ? 0
+           : lane < DIGEST     ? left[lane]
+           : lane < 2 * DIGEST ? right[lane - DIGEST]
+                               : 0;
+  }
+}
+
+template <int T>
+__device__ __forceinline__ void store_digest(uint64_t* out, const uint64_t* x, int j) {
+#pragma unroll
+  for (int s = 0; s < WIDTH / T; ++s) {
+    const int lane = lane_of<T>(s, j);
+    if (lane < DIGEST) out[lane] = x[s];
+  }
+}
+
+template <int T>
+__global__ void permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                               long long batch) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (warp_past<T>(gid, batch)) return;
+  const long long b = gid / T;
+  const int j = (int)(gid % T);
+  const bool valid = b < batch;
+  uint64_t x[WIDTH / T];
+#pragma unroll
+  for (int s = 0; s < WIDTH / T; ++s) x[s] = valid ? in[b * WIDTH + lane_of<T>(s, j)] : 0;
+  permute_form<T>(x, j);
+  if (valid) {
+#pragma unroll
+    for (int s = 0; s < WIDTH / T; ++s) out[b * WIDTH + lane_of<T>(s, j)] = x[s];
+  }
+}
+
+template <int T>
 __global__ void hash_rows_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                                  long long rows, int cols, long long row_stride,
                                  long long col_stride) {
-  long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const uint64_t* row = in + r * row_stride;
-  uint64_t x[WIDTH];
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) x[i] = 0;
-  if (cols <= DIGEST) {
-    for (int i = 0; i < cols; ++i) x[i] = row[i * col_stride];
-  } else {
-    for (int start = 0; start < cols; start += RATE) {
-      int len = cols - start < RATE ? cols - start : RATE;
-      for (int i = 0; i < len; ++i) x[i] = row[(long long)(start + i) * col_stride];
-      permute(x);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < DIGEST; ++i) out[r * DIGEST + i] = x[i];
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (warp_past<T>(gid, rows)) return;
+  const long long r = gid / T;
+  const int j = (int)(gid % T);
+  const bool valid = r < rows;
+  uint64_t x[WIDTH / T];
+  hash_row<T>(x, in, r, valid, cols, row_stride, col_stride, j);
+  if (valid) store_digest<T>(out + r * DIGEST, x, j);
 }
 
-// state = [left(4) | right(4) | 0(4)], one permutation, digest = lanes 0..3.
+template <int T>
 __global__ void two_to_one_kernel(const uint64_t* __restrict__ left, long long left_stride,
                                   const uint64_t* __restrict__ right, long long right_stride,
                                   uint64_t* __restrict__ out, long long batch) {
-  long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  uint64_t x[WIDTH];
-#pragma unroll
-  for (int i = 0; i < DIGEST; ++i) {
-    x[i] = left[b * left_stride + i];
-    x[DIGEST + i] = right[b * right_stride + i];
-    x[2 * DIGEST + i] = 0;
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (warp_past<T>(gid, batch)) return;
+  const long long b = gid / T;
+  const int j = (int)(gid % T);
+  const bool valid = b < batch;
+  uint64_t x[WIDTH / T];
+  const long long bb = valid ? b : 0;
+  load_pair<T>(x, left + bb * left_stride, right + bb * right_stride, valid, j);
+  permute_form<T>(x, j);
+  if (valid) store_digest<T>(out + b * DIGEST, x, j);
+}
+
+// The tree runs the lane-split form at every size: with one thread a state
+// its blocks hold their registers through the long subtree levels, and that
+// tree measured far slower than the row hash alone at every size tried,
+// while the lane-split tree stays close to its row hash (PERF.md).
+constexpr int TREE_T = SPLIT;
+constexpr int TREE_MAX_RUN = 64;    // rows a block of the first launch: 256 threads
+constexpr int TREE_MAX_STATES = 128;  // states a block of the second launch: 512 threads
+
+// The tree's first launch: block b hashes rows [b run, (b + 1) run), one state
+// a row, writes the leaf digests, then reduces `levels` levels of its subtree
+// through shared memory, writing each level's nodes after the levels below
+// (level l has rows >> l nodes; out is every level, one after the other).
+__global__ void tree_leaves_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                                   long long rows, int cols, long long row_stride,
+                                   long long col_stride, int run, int levels) {
+  constexpr int T = TREE_T;
+  __shared__ uint64_t sh[TREE_MAX_RUN][DIGEST];
+  const int q = threadIdx.x / T;
+  const int j = threadIdx.x % T;
+  const int warp_first = (threadIdx.x & ~31) / T;
+  const long long r = (long long)blockIdx.x * run + q;
+  const bool valid = q < run && r < rows;
+  uint64_t x[WIDTH / T];
+  hash_row<T>(x, in, r, valid, cols, row_stride, col_stride, j);
+  if (valid) {
+    store_digest<T>(out + r * DIGEST, x, j);
+    store_digest<T>(sh[q], x, j);
   }
-  permute(x);
-#pragma unroll
-  for (int i = 0; i < DIGEST; ++i) out[b * DIGEST + i] = x[i];
+  long long off = 0, n = rows;  // the current level's first node and size
+  int active = run;             // this block's nodes on the current level
+  for (int t = 1; t <= levels; ++t) {
+    off += n;
+    n >>= 1;
+    active >>= 1;
+    __syncthreads();
+    const bool on = q < active;
+    load_pair<T>(x, sh[on ? 2 * q : 0], sh[on ? 2 * q + 1 : 0], on, j);
+    __syncthreads();
+    if (warp_first < active) {
+      permute_form<T>(x, j);
+      if (on) {
+        store_digest<T>(out + (off + (long long)blockIdx.x * active + q) * DIGEST, x, j);
+        store_digest<T>(sh[q], x, j);
+      }
+    }
+  }
+}
+
+// The tree's second launch: the level at node `off` has n nodes; block b
+// reduces its 2^levels of them to one node, level by level through `buf`
+// (written by this block's own threads, so no read-only cache path: the
+// barrier makes one level's stores visible to the next level's loads).
+__global__ void tree_levels_kernel(uint64_t* buf, long long off, long long n, int levels) {
+  constexpr int T = TREE_T;
+  const int q = threadIdx.x / T;
+  const int j = threadIdx.x % T;
+  const int states = blockDim.x / T;
+  const int warp_first = (threadIdx.x & ~31) / T;
+  long long active = 1ll << levels;
+  for (int t = 1; t <= levels; ++t) {
+    const uint64_t* src = buf + (off + (long long)blockIdx.x * active) * DIGEST;
+    off += n;
+    n >>= 1;
+    active >>= 1;
+    uint64_t* dst = buf + (off + (long long)blockIdx.x * active) * DIGEST;
+    for (long long i0 = 0; i0 + warp_first < active; i0 += states) {
+      const long long i = i0 + q;
+      const bool on = i < active;
+      uint64_t x[WIDTH / T];
+      const long long ii = on ? i : 0;
+      load_pair<T>(x, src + 2 * ii * DIGEST, src + (2 * ii + 1) * DIGEST, on, j);
+      permute_form<T>(x, j);
+      if (on) store_digest<T>(dst + i * DIGEST, x, j);
+    }
+    __syncthreads();
+  }
 }
 
 constexpr int THREADS = 128;
 
-unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
+unsigned blocks_for(long long states, int tps) {
+  return (unsigned)((states * tps + THREADS - 1) / THREADS);
+}
 
 }  // namespace
 
@@ -122,28 +312,89 @@ extern "C" int qzk_poseidon2_set_constants(const void* ext_rc, const void* int_r
   return (int)e;
 }
 
-extern "C" int qzk_poseidon2_permute(const void* in, void* out, long long batch, void* stream) {
+// Every entry takes `tps`, the threads a state: 1 or 4 (the lane-split form).
+extern "C" int qzk_poseidon2_permute(const void* in, void* out, long long batch, int tps,
+                                     void* stream) {
   if (batch <= 0) return 0;
-  permute_kernel<<<blocks_for(batch), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)in, (uint64_t*)out, batch);
+  auto s = (cudaStream_t)stream;
+  auto src = (const uint64_t*)in;
+  auto dst = (uint64_t*)out;
+  if (tps == 1) {
+    permute_kernel<1><<<blocks_for(batch, 1), THREADS, 0, s>>>(src, dst, batch);
+  } else if (tps == SPLIT) {
+    permute_kernel<SPLIT><<<blocks_for(batch, SPLIT), THREADS, 0, s>>>(src, dst, batch);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int qzk_poseidon2_hash_rows(const void* in, void* out, long long rows, int cols,
-                                       long long row_stride, long long col_stride,
+                                       long long row_stride, long long col_stride, int tps,
                                        void* stream) {
   if (rows <= 0) return 0;
-  hash_rows_kernel<<<blocks_for(rows), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)in, (uint64_t*)out, rows, cols, row_stride, col_stride);
+  auto s = (cudaStream_t)stream;
+  auto src = (const uint64_t*)in;
+  auto dst = (uint64_t*)out;
+  if (tps == 1) {
+    hash_rows_kernel<1><<<blocks_for(rows, 1), THREADS, 0, s>>>(src, dst, rows, cols,
+                                                                 row_stride, col_stride);
+  } else if (tps == SPLIT) {
+    hash_rows_kernel<SPLIT><<<blocks_for(rows, SPLIT), THREADS, 0, s>>>(src, dst, rows, cols,
+                                                                         row_stride, col_stride);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int qzk_poseidon2_two_to_one(const void* left, long long left_stride,
                                         const void* right, long long right_stride, void* out,
-                                        long long batch, void* stream) {
+                                        long long batch, int tps, void* stream) {
   if (batch <= 0) return 0;
-  two_to_one_kernel<<<blocks_for(batch), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)left, left_stride, (const uint64_t*)right, right_stride,
-      (uint64_t*)out, batch);
+  auto s = (cudaStream_t)stream;
+  auto l = (const uint64_t*)left;
+  auto r = (const uint64_t*)right;
+  auto dst = (uint64_t*)out;
+  if (tps == 1) {
+    two_to_one_kernel<1><<<blocks_for(batch, 1), THREADS, 0, s>>>(l, left_stride, r,
+                                                                   right_stride, dst, batch);
+  } else if (tps == SPLIT) {
+    two_to_one_kernel<SPLIT><<<blocks_for(batch, SPLIT), THREADS, 0, s>>>(
+        l, left_stride, r, right_stride, dst, batch);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// A whole tree in one or two launches (the second only when levels_left > 0):
+// rows (a power of two) of `cols` felts read through the strides, `run` rows a
+// block of the first launch reducing `levels_in_block` levels, then one block
+// a cap node reducing `levels_left` levels. `out` holds every level in order.
+extern "C" int qzk_poseidon2_merkle_tree(const void* in, void* out, long long rows, int cols,
+                                         long long row_stride, long long col_stride, int run,
+                                         int levels_in_block, int levels_left, void* stream) {
+  if (rows <= 0) return 0;
+  if (run < 1 || run > TREE_MAX_RUN || rows % run != 0 || (1 << levels_in_block) > run ||
+      levels_left < 0 || (rows >> levels_in_block) < (1ll << levels_left))
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  auto dst = (uint64_t*)out;
+  constexpr int T = TREE_T;
+  const int leaf_states = run < 32 / T ? 32 / T : run;
+  tree_leaves_kernel<<<(unsigned)(rows / run), leaf_states * T, 0, s>>>(
+      (const uint64_t*)in, dst, rows, cols, row_stride, col_stride, run, levels_in_block);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || levels_left == 0) return (int)e;
+  long long off = 0, n = rows;  // the level the second launch starts from
+  for (int t = 0; t < levels_in_block; ++t) {
+    off += n;
+    n >>= 1;
+  }
+  // as many states as the subtree's first level has nodes, one warp at least
+  const long long half = 1ll << (levels_left - 1);
+  const int states = (int)(half < 32 / T ? 32 / T : half > TREE_MAX_STATES ? TREE_MAX_STATES : half);
+  tree_levels_kernel<<<(unsigned)(n >> levels_left), states * T, 0, s>>>(dst, off, n, levels_left);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,8 @@
 //
 // Linear layers accumulate 128-bit sums of small multiples and reduce once;
 // every function is exact, so it equals the host's op-by-op version bit for
-// bit.
+// bit. The lane-split layers (a state over a quad of threads) regroup the
+// same sums, so they give the same bits too; kernel 2 uses them.
 #pragma once
 
 #include <stdint.h>
@@ -83,6 +84,65 @@ __device__ __forceinline__ void internal_linear(uint64_t* x, const uint64_t* dia
     mac(v, x[i], diag[i]);
     mac(v, t, 1);
     x[i] = gl::reduce128(v.lo, v.hi);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Lane-split form: the four threads of an aligned quad of a warp hold one
+// state, thread j (= lane % 4) lanes j, 4 + j and 8 + j in x[0], x[1], x[2]:
+// one lane of each M4 group. Every thread of the warp must make the same
+// calls (the shuffles name the full warp).
+constexpr int SPLIT = 4;
+constexpr int SPLIT_SLOTS = WIDTH / SPLIT;
+
+__device__ __forceinline__ uint64_t quad_shfl(uint64_t v, int src) {
+  return (uint64_t)__shfl_sync(0xffffffffu, (unsigned long long)v, src, SPLIT);
+}
+
+__device__ __forceinline__ uint64_t quad_shfl_xor(uint64_t v, int mask) {
+  return (uint64_t)__shfl_xor_sync(0xffffffffu, (unsigned long long)v, mask, SPLIT);
+}
+
+// Row j of M4 packed a nibble a coefficient: M4[j][k] = (M4_ROWS >> (16 j + 4 k)) & 15.
+constexpr uint64_t M4_ROWS = 0x6411ull << 48 | 0x7531ull << 32 | 0x1164ull << 16 | 0x3175ull;
+
+// M_E on a split state: thread j gathers its group's four lanes from the
+// quad and forms output lane j of each group; the sum over the three groups
+// then stays in the thread. The same 128-bit sums as external_linear.
+__device__ __forceinline__ void external_linear_split(uint64_t* x, int j) {
+  const uint64_t row = M4_ROWS >> (16 * j);
+  U128 y[SPLIT_SLOTS];
+#pragma unroll
+  for (int g = 0; g < SPLIT_SLOTS; ++g) {
+    U128 acc = {0, 0};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mac(acc, quad_shfl(x[g], k), (row >> (4 * k)) & 15);
+    y[g] = acc;
+  }
+  const U128 s = add128(add128(y[0], y[1]), y[2]);
+#pragma unroll
+  for (int g = 0; g < SPLIT_SLOTS; ++g) {
+    U128 v = add128(y[g], s);
+    x[g] = gl::reduce128(v.lo, v.hi);
+  }
+}
+
+// M_I on a split state: each thread's 3-lane sum, reduced, then two xor
+// shuffles add the quad's partial sums (exact mod p, so the same total).
+// d holds diag[j], diag[4 + j], diag[8 + j].
+__device__ __forceinline__ void internal_linear_split(uint64_t* x, const uint64_t* d) {
+  U128 part = {0, 0};
+#pragma unroll
+  for (int s = 0; s < SPLIT_SLOTS; ++s) mac(part, x[s], 1);
+  uint64_t t = gl::reduce128(part.lo, part.hi);
+  t = gl::add(t, quad_shfl_xor(t, 1));
+  t = gl::add(t, quad_shfl_xor(t, 2));
+#pragma unroll
+  for (int s = 0; s < SPLIT_SLOTS; ++s) {
+    U128 v = {0, 0};
+    mac(v, x[s], d[s]);
+    mac(v, t, 1);
+    x[s] = gl::reduce128(v.lo, v.hi);
   }
 }
 

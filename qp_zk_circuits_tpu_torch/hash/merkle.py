@@ -6,13 +6,16 @@ row, internal nodes = two_to_one compressions, stopping `cap_height` levels
 early so the commitment is a **cap** of `2^cap_height` digests (the
 reference's `1 << cap_height` Merkle cap policy, `common/src/circuit.rs:459-468`).
 
-Device mapping: leaf hashing is one kernel-2 `hash_rows` launch over all rows
-(strided rows are read in place), and every tree level is one `two_to_one`
-launch over the even and odd nodes of the level below. The digest levels stay
-on the device; only the cap goes to the host at each commitment, because the
-transcript observes it. The prover's query paths are gathered on the device
-by kernel F (fri/prover.py::query_rounds); `MerkleTree.prove` copies the
-levels to the host once, for callers outside the prover path.
+Device mapping: a whole tree is one kernel-2 wrapper call
+(`poseidon2.merkle_levels`) of at most two launches: blocks hash runs of rows
+(strided rows are read in place) and reduce their subtrees, then, where
+levels are left, one block per cap digest reduces the rest. Every level lands
+in one device buffer; `MerkleTree.digests` holds its (n_l, 4) views. The
+digest levels stay on the device; only the cap goes to the host at each
+commitment, because the transcript observes it. The prover's query paths are
+gathered on the device by kernel F (fri/prover.py::query_rounds);
+`MerkleTree.prove` copies the levels to the host once, for callers outside
+the prover path.
 """
 
 from __future__ import annotations
@@ -27,20 +30,10 @@ from . import poseidon2 as ps
 
 
 def build_levels(leaves: torch.Tensor, cap_height: int) -> list[torch.Tensor]:
-    """Device tree build. leaves: (L, K) int64. Returns the digest levels,
-    level 0 = leaf digests (L, 4), last = cap (2^cap_height, 4)."""
-    n = leaves.shape[0]
-    log_n = n.bit_length() - 1
-    if 1 << log_n != n:
-        raise ValueError("leaf count must be a power of two")
-    if cap_height > log_n:
-        raise ValueError(f"cap height {cap_height} above the tree height {log_n}")
-    cur = ps.hash_rows(leaves)
-    levels = [cur]
-    while cur.shape[0] > (1 << cap_height):
-        cur = ps.two_to_one(cur[0::2], cur[1::2])
-        levels.append(cur)
-    return levels
+    """Device tree build, one `merkle_levels` call. leaves: (L, K) int64.
+    Returns the digest levels, level 0 = leaf digests (L, 4), last = cap
+    (2^cap_height, 4)."""
+    return ps.merkle_levels(leaves, cap_height)
 
 
 @dataclass

@@ -26,9 +26,19 @@ single swap point should those tables become available.
 
 Two implementations, tested bit-identical:
   * host: numpy uint64 (transcript, witness generation, host hashing);
-  * device: kernel 2 (csrc/poseidon2.cu) behind `permute`, `hash_rows` and
-    `two_to_one` on int64 tensors, with plain torch versions for CPU tensors —
-    leaf hashing, Merkle levels and the PoW grind.
+  * device: kernel 2 (csrc/poseidon2.cu) behind `permute`, `hash_rows`,
+    `two_to_one` and `merkle_levels` on int64 tensors, with plain torch
+    versions for CPU tensors — the PoW grind, and a Merkle tree (leaf
+    hashing and every level up to the cap) in one call.
+
+Kernel 2 has two forms of the permutation: one thread a state, or four (the
+lane-split form). `permute`, `hash_rows` and `two_to_one` pick theirs from
+the number of states against the card's SM count (`threads_per_state`):
+below `WIDE_STATES_PER_SM` states an SM (a leaf commit's 2048 rows, its
+Merkle levels) the lane-split form, which gives the launch four times the
+warps; from there on (the grind's 2^17 states, aggregation-size row counts)
+one thread a state, which spends the fewest instructions once the card is
+full. `merkle_levels` runs the lane-split form at every size (`tree_plan`).
 """
 
 from __future__ import annotations
@@ -410,6 +420,69 @@ def two_to_one_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     return permute_plain(torch.cat([left, right, zeros], dim=-1))[:, :DIGEST_LEN]
 
 
+def merkle_levels_plain(leaves: torch.Tensor, cap_height: int) -> list[torch.Tensor]:
+    """Plain torch Merkle levels: the leaf digests (hash_or_noop of each row),
+    then node i of level l + 1 = two_to_one(level_l[2i], level_l[2i + 1]),
+    up to the cap of 2^cap_height digests."""
+    _tree_height(leaves, cap_height)
+    cur = hash_rows_plain(leaves)
+    levels = [cur]
+    while cur.shape[0] > 1 << cap_height:
+        cur = two_to_one_plain(cur[0::2], cur[1::2])
+        levels.append(cur)
+    return levels
+
+
+def _tree_height(leaves: torch.Tensor, cap_height: int) -> int:
+    """log2 of the leaf count; raises unless the tree is well formed."""
+    if leaves.dim() != 2:
+        raise ValueError(f"a Merkle tree takes an (L, K) matrix, got {tuple(leaves.shape)}")
+    n = leaves.shape[0]
+    log_n = n.bit_length() - 1
+    if n == 0 or 1 << log_n != n:
+        raise ValueError("leaf count must be a power of two")
+    if not 0 <= cap_height <= log_n:
+        raise ValueError(f"cap height {cap_height} outside the tree height {log_n}")
+    return log_n
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: launch plans and wrappers
+
+#: threads a state of the lane-split form (csrc/poseidon2.cuh, SPLIT)
+SPLIT = 4
+#: from this many states an SM on, one thread a state is the faster form of
+#: a flat launch (tools/bench_tree.py --sweep on an H100: the lane-split
+#: permute is faster up to 8,192 states, one thread a state from 32,768 on)
+WIDE_STATES_PER_SM = 128
+#: rows a block of the tree's first launch takes: at most 64, halved (down
+#: to 8, one warp) until the blocks cover every SM
+TREE_RUN_MAX, TREE_RUN_MIN = 64, 8
+
+
+def threads_per_state(states: int, sms: int) -> int:
+    """The permutation form of a flat launch of `states` states on `sms` SMs."""
+    return 1 if states >= WIDE_STATES_PER_SM * sms else SPLIT
+
+
+def tree_plan(rows: int, cap_height: int, sms: int) -> tuple[int, int, int]:
+    """(rows a block of the first launch, levels each of its blocks reduces,
+    levels the second launch reduces; 0 means no second launch). The tree is
+    lane-split at every size (csrc/poseidon2.cu says why)."""
+    levels = (rows.bit_length() - 1) - cap_height
+    run = TREE_RUN_MAX
+    while run > TREE_RUN_MIN and rows // run < sms:
+        run //= 2
+    run = min(run, rows)
+    in_block = min(run.bit_length() - 1, levels)
+    return run, in_block, levels - in_block
+
+
+@functools.cache
+def _sm_count(index: int | None) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _kernel_lib(index: int | None):
     """The kernel library with the round constants in the __constant__ memory
@@ -439,10 +512,15 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     if state.device.type == "cpu":
         return permute_plain(state)
     _cuda.require_cuda_int64(state)
+    batch = state.numel() // WIDTH
+    return _launch_permute(state, threads_per_state(batch, _sm_count(state.device.index)))
+
+
+def _launch_permute(state: torch.Tensor, tps: int) -> torch.Tensor:
     state = state.contiguous()
     out = torch.empty_like(state)
     _launch("qzk_poseidon2_permute", state.device,
-            state.data_ptr(), out.data_ptr(), state.numel() // WIDTH)
+            state.data_ptr(), out.data_ptr(), state.numel() // WIDTH, tps)
     permute.launches += 1
     return out
 
@@ -456,10 +534,14 @@ def hash_rows(rows: torch.Tensor) -> torch.Tensor:
     if rows.device.type == "cpu":
         return hash_rows_plain(rows)
     _cuda.require_cuda_int64(rows)
+    return _launch_hash_rows(rows, threads_per_state(rows.shape[0], _sm_count(rows.device.index)))
+
+
+def _launch_hash_rows(rows: torch.Tensor, tps: int) -> torch.Tensor:
     r, c = rows.shape
     out = torch.empty((r, DIGEST_LEN), dtype=torch.int64, device=rows.device)
     _launch("qzk_poseidon2_hash_rows", rows.device,
-            rows.data_ptr(), out.data_ptr(), r, c, rows.stride(0), rows.stride(1))
+            rows.data_ptr(), out.data_ptr(), r, c, rows.stride(0), rows.stride(1), tps)
     hash_rows.launches += 1
     return out
 
@@ -473,20 +555,51 @@ def two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     if left.device.type == "cpu" and right.device.type == "cpu":
         return two_to_one_plain(left, right)
     _cuda.require_cuda_int64(left, right)
+    tps = threads_per_state(left.shape[0], _sm_count(left.device.index))
+    return _launch_two_to_one(left, right, tps)
+
+
+def _launch_two_to_one(left: torch.Tensor, right: torch.Tensor, tps: int) -> torch.Tensor:
     if left.stride(1) != 1:
         left = left.contiguous()
     if right.stride(1) != 1:
         right = right.contiguous()
     b = left.shape[0]
     out = torch.empty((b, DIGEST_LEN), dtype=torch.int64, device=left.device)
-    _launch("qzk_poseidon2_two_to_one", left.device,
-            left.data_ptr(), left.stride(0), right.data_ptr(), right.stride(0), out.data_ptr(), b)
+    _launch("qzk_poseidon2_two_to_one", left.device, left.data_ptr(), left.stride(0),
+            right.data_ptr(), right.stride(0), out.data_ptr(), b, tps)
     two_to_one.launches += 1
     return out
+
+
+def merkle_levels(leaves: torch.Tensor, cap_height: int) -> list[torch.Tensor]:
+    """Kernel-2 Merkle tree over the rows of an (L, K) int64 matrix: the leaf
+    digests and every level up to the cap of 2^cap_height, as (n_l, 4) views
+    of one device buffer, in one or two launches (`tree_plan`).
+
+    Rows may be strided (a transposed column-major LDE is read in place)."""
+    _tree_height(leaves, cap_height)
+    if leaves.device.type == "cpu":
+        return merkle_levels_plain(leaves, cap_height)
+    _cuda.require_cuda_int64(leaves)
+    return _launch_tree(leaves, cap_height, tree_plan(
+        leaves.shape[0], cap_height, _sm_count(leaves.device.index)))
+
+
+def _launch_tree(leaves: torch.Tensor, cap_height: int, plan) -> list[torch.Tensor]:
+    left = plan[2]
+    rows, cols = leaves.shape
+    sizes = [rows >> lvl for lvl in range(rows.bit_length() - cap_height)]
+    buf = torch.empty((sum(sizes), DIGEST_LEN), dtype=torch.int64, device=leaves.device)
+    _launch("qzk_poseidon2_merkle_tree", leaves.device, leaves.data_ptr(), buf.data_ptr(),
+            rows, cols, leaves.stride(0), leaves.stride(1), *plan)
+    merkle_levels.launches += 2 if left else 1
+    return list(buf.split(sizes))
 
 
 permute.launches = 0
 hash_rows.launches = 0
 two_to_one.launches = 0
+merkle_levels.launches = 0
 
 

@@ -101,6 +101,117 @@ def test_merkle_levels_match_host_tree():
     assert verify_merkle_proof(leaves[13], 13, tree.prove(13), tree.cap)
 
 
+def _host_levels(leaves, cap_height):
+    """The reference's host walk: hash_or_noop of each row, then two_to_one
+    of each pair up to the cap."""
+    level = np.stack([jps.hash_or_noop(r) for r in leaves])
+    levels = [level]
+    while level.shape[0] > 1 << cap_height:
+        level = np.stack([jps.two_to_one(level[i], level[i + 1]) for i in range(0, len(level), 2)])
+        levels.append(level)
+    return levels
+
+
+@pytest.mark.parametrize("cap", [0, 2, "log_n"])
+@pytest.mark.parametrize("leaves", [16, 256])
+@pytest.mark.parametrize("cols", [4, 5, 135])
+def test_merkle_levels_match_host_walk(cols, leaves, cap):
+    cap = leaves.bit_length() - 1 if cap == "log_n" else cap
+    rows = JF.rand_felts((leaves, cols), np.random.default_rng(cols * leaves + cap))
+    got = tps.merkle_levels(_t(rows), cap)
+    want = _host_levels(rows, cap)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        assert np.array_equal(gl.to_u64(g), w)
+
+
+def test_merkle_tree_matches_jax_build_merkle_tree():
+    """One tree against the JAX package's own builder; a path from
+    MerkleTree.prove passes the reference's verify_merkle_proof."""
+    from qp_zk_circuits_tpu.field import goldilocks as jgl
+    from qp_zk_circuits_tpu.hash import merkle as jmerkle
+
+    # the shape of tests/test_poly_merkle.py's tree: one compiled JAX graph
+    rows = JF.rand_felts((64, 7), np.random.default_rng(11))
+    ref = jmerkle.build_merkle_tree(jgl.from_u64(rows), cap_height=2)
+    tree = tmerkle.build_merkle_tree(_t(rows), cap_height=2)
+    assert len(tree.levels) == len(ref.levels)
+    for mine, theirs in zip(tree.levels, ref.levels):
+        assert np.array_equal(mine, theirs)
+    assert np.array_equal(tree.cap, ref.cap)
+    for idx in (0, 6, 63):
+        assert jmerkle.verify_merkle_proof(rows[idx], idx, tree.prove(idx), tree.cap)
+    assert not jmerkle.verify_merkle_proof(rows[7], 6, tree.prove(6), tree.cap)
+
+
+def test_merkle_levels_read_strided_lde():
+    """A commit's tree over lde.T, read in place (row stride 1, column stride
+    M), equals the tree over the same rows made contiguous and the host walk."""
+    lde = _t(JF.rand_felts((11, 32), np.random.default_rng(12)))
+    rows = lde.T
+    assert rows.stride() == (1, 32)
+    got = tps.merkle_levels(rows, 2)
+    for g, c, w in zip(got, tps.merkle_levels(rows.contiguous(), 2),
+                       _host_levels(gl.to_u64(rows.contiguous()), 2)):
+        assert torch.equal(g, c)
+        assert np.array_equal(gl.to_u64(g), w)
+
+
+def test_tree_plan_at_the_leaf():
+    """The four trees of a leaf proof on a 132-SM card: blocks of 8 rows (one
+    warp) so that the blocks cover the SMs, at most two launches each; an
+    aggregation-size tree takes 64-row blocks."""
+    sms = 132
+    assert tps.tree_plan(2048, 4, sms) == (8, 3, 4)  # the LDE trees
+    assert tps.tree_plan(256, 4, sms) == (8, 3, 1)  # the FRI layer
+    assert tps.tree_plan(2048, 11, sms) == (8, 0, 0)  # the leaves are the cap
+    assert tps.tree_plan(1 << 19, 4, sms) == (64, 6, 9)
+    assert tps.tree_plan(4, 0, sms) == (4, 2, 0)
+    for rows in (1, 2, 16, 256, 2048, 1 << 15, 1 << 19):
+        for cap in range(rows.bit_length()):
+            run, in_block, left = tps.tree_plan(rows, cap, sms)
+            assert rows % run == 0 and (1 << in_block) <= run <= 64
+            assert in_block + left == rows.bit_length() - 1 - cap
+    assert tps.threads_per_state(2048, sms) == tps.SPLIT
+    assert tps.threads_per_state(1 << 17, sms) == 1
+    assert tps.threads_per_state(tps.WIDE_STATES_PER_SM * sms - 1, sms) == tps.SPLIT
+
+
+def test_merkle_levels_launch_writes_one_buffer(monkeypatch):
+    """The device path makes one entry call a tree, counts its launches and
+    hands back (n_l, 4) views of one buffer in level order."""
+    calls = []
+    monkeypatch.setattr(tps, "_launch", lambda entry, device, *args: calls.append((entry, args)))
+    before = tps.merkle_levels.launches
+    leaves = torch.zeros((135, 2048), dtype=torch.int64).T
+    levels = tps._launch_tree(leaves, 4, tps.tree_plan(2048, 4, 132))
+    assert tps.merkle_levels.launches == before + 2
+    (entry, args), = calls
+    assert entry == "qzk_poseidon2_merkle_tree"
+    assert args[2:] == (2048, 135, 1, 2048, 8, 3, 4)
+    assert [lvl.shape[0] for lvl in levels] == [2048 >> i for i in range(8)]
+    base = levels[0].data_ptr()
+    offsets = [(lvl.data_ptr() - base) // 8 for lvl in levels]
+    assert offsets == [4 * sum(2048 >> j for j in range(i)) for i in range(8)]
+    assert args[1] == base
+    tps._launch_tree(torch.zeros((256, 16), dtype=torch.int64), 4, tps.tree_plan(256, 4, 132))
+    tps._launch_tree(torch.zeros((16, 16), dtype=torch.int64), 4, tps.tree_plan(16, 4, 132))
+    assert tps.merkle_levels.launches == before + 5
+
+
+@pytest.mark.parametrize("shape, cap", [((6, 4), 0), ((8, 4), 4), ((8,), 0)])
+def test_merkle_levels_refuse_bad_trees(shape, cap):
+    with pytest.raises(ValueError):
+        tps.merkle_levels(torch.zeros(shape, dtype=torch.int64), cap)
+
+
+def test_merkle_levels_refuse_other_devices():
+    """A tensor neither on the CPU nor on a CUDA card raises; nothing falls
+    back to the plain version."""
+    with pytest.raises(ValueError):
+        tps.merkle_levels(torch.zeros((8, 5), dtype=torch.int64, device="meta"), 1)
+
+
 def _lowest_witness(challenger, pow_bits):
     w = 0
     while not jts.check_pow(challenger.fork(), np.uint64(w), pow_bits):
@@ -122,6 +233,20 @@ def test_grind_returns_lowest_witness(pending):
     assert got == _lowest_witness(ref, 8)
 
 
+_EDGES = np.array([0, 1, gl.P - 1, gl.P - 2, (1 << 32) - 1, 1 << 32], dtype=np.uint64)
+
+
+def _edge_felts(shape, rng):
+    """Random felts led by the field edge values: each repeated 12 times,
+    then the six in turn, 12 times over."""
+    x = JF.rand_felts(shape, rng)
+    flat = x.reshape(-1)
+    edges = np.concatenate([np.repeat(_EDGES, 12), np.tile(_EDGES, 12)])
+    n = min(flat.size, edges.size)
+    flat[:n] = edges[:n]
+    return x
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card(cuda):
     rng = np.random.default_rng(7)
@@ -134,3 +259,26 @@ def test_kernels_match_plain_on_card(cuda):
         tps.two_to_one(level[0::2], level[1::2]),
         tps.two_to_one_plain(level[0::2], level[1::2]),
     )
+    # both permutation forms, at batches that are not a multiple of a block,
+    # with the field edge values in the states
+    for form in (tps.SPLIT, 1):
+        for batch in (1, 31, 33, 1029):
+            s = _t(_edge_felts((batch, 12), rng), cuda)
+            assert torch.equal(tps._launch_permute(s, form), tps.permute_plain(s)), (form, batch)
+        rows = _t(_edge_felts((135, 2051), rng), cuda).T
+        assert torch.equal(tps._launch_hash_rows(rows, form), tps.hash_rows_plain(rows)), form
+        pairs = _t(_edge_felts((2 * 1029, 4), rng), cuda)
+        assert torch.equal(tps._launch_two_to_one(pairs[0::2], pairs[1::2], form),
+                           tps.two_to_one_plain(pairs[0::2], pairs[1::2])), form
+    # the leaf proof's four trees: wires, Z and partial products, quotient
+    # (each over a strided lde.T), and the FRI layer's contiguous rows
+    for cols, m, strided, cap in ((135, 2048, True, 4), (20, 2048, True, 4),
+                                  (16, 2048, True, 4), (16, 256, False, 4)):
+        x = _t(_edge_felts((cols, m) if strided else (m, cols), rng), cuda)
+        leaves = x.T if strided else x
+        got = tps.merkle_levels(leaves, cap)
+        want = tps.merkle_levels_plain(leaves, cap)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (cols, m)
+        assert got[0].data_ptr() + 8 * got[0].numel() == got[1].data_ptr()
