@@ -12,9 +12,10 @@ package. Phases, each printing one line:
      kernels A-F against their plain versions run on CPU copies of the same
      inputs, so no kernel is on the reference side); median wrapper times over
      CUDA-event-timed runs, each kernel's device-only time from
-     torch.profiler, and each kernel's bound; kernel 2's permutation, row
-     hash and 2-to-1 in both permutation forms, and its tree at the four
-     trees of a leaf proof;
+     torch.profiler, and each kernel's bound; kernel 2's permutation (one
+     thread a state), row hash and 2-to-1 (lane-split) at batches that are
+     not a multiple of a block, and its tree at the four trees of a leaf
+     proof and at the plans' edges;
   4. aggregation tree — the Merkle tree at 2^19 x 135: 256 sampled nodes of
      every level against the plain hashes of their inputs, its time beside
      the per-level form's (hash_rows, then one two_to_one launch a level);
@@ -39,7 +40,6 @@ import functools
 import hashlib
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -138,37 +138,24 @@ def tree_perms(rows: int, cols: int, cap: int) -> int:
     return rows * per_row + rows - (1 << cap)
 
 
-def _leaf_trees(device, rng, wires_rows, cap):
-    """The four trees of a leaf proof against the plain version: wires (135
+def _tree_cases(device, rng, wires_rows, cap):
+    """Trees against the plain version: the four of a leaf proof, wires (135
     columns), Z and partial products (20), quotient (16), each over a strided
-    lde.T, and the FRI layer's contiguous (256, 16) rows."""
+    lde.T, and the FRI layer's contiguous (256, 16) rows; then the plans'
+    edges, rows of 4, 5 and 135 felts (4: unhashed) over 16 and 256 leaves to
+    caps of 2^0, 2^2 and the leaves themselves (no level above them)."""
     from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
 
     m = wires_rows.shape[0]
-    leaves = [wires_rows, _felts((20, m), rng, device).T, _felts((16, m), rng, device).T,
-              _felts((m >> 3, 16), rng, device)]
+    cases = [(wires_rows, cap), (_felts((20, m), rng, device).T, cap),
+             (_felts((16, m), rng, device).T, cap), (_felts((m >> 3, 16), rng, device), cap)]
+    cases += [(_felts((n, cols), rng, device), c) for cols in (4, 5, 135) for n in (16, 256)
+              for c in (0, 2, n.bit_length() - 1)]
     got, want = [], []
-    for x in leaves:
-        got += ps.merkle_levels(x, cap)
-        want += ps.merkle_levels_plain(x, cap)
+    for x, c in cases:
+        got += ps.merkle_levels(x, c)
+        want += ps.merkle_levels_plain(x, c)
     return got, want
-
-
-def _median_ms(fn, runs: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def phase_device() -> dict:
@@ -176,10 +163,10 @@ def phase_device() -> dict:
 
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    # the package is imported only once a card is there
+    from qp_zk_circuits_tpu_torch.tools.timing import card
+
+    smi = card()
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"gpus {torch.cuda.device_count()}", flush=True)
     print(smi, flush=True)
@@ -248,7 +235,9 @@ def kernel_table(device) -> list[dict]:
     # batches that are not a multiple of a block, led by the edge values
     odd_states = _felts((1029, ps.WIDTH), rng, device)
     odd_states.view(-1)[: ea.numel()] = ea
-    odd_rows = _felts((wires, 2051), rng, device).T
+    odd_rows = _felts((wires, 2051), rng, device)
+    odd_rows.view(-1)[: ea.numel()] = ea
+    odd_rows = odd_rows.T
     coeffs = _felts((wires, m >> rate), rng, device)
     quot = _felts((2, m), rng, device)  # the quotient's nc rows
     unshift = int(F.inv(np.uint64(7)))  # g^-1, the coset iNTT's unshift
@@ -256,15 +245,13 @@ def kernel_table(device) -> list[dict]:
     perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
     tree_nodes = sum(m >> lvl for lvl in range(lde_bits - cap + 1))
     ew_bytes = 3 * 8 * n_el
-    forms = (ps.SPLIT, 1)
 
     def ntt_all(f_lde, f_inv, f_coset_inv):
         return [f_lde(coeffs), f_inv(coeffs), f_inv(quot), f_coset_inv(quot)]
 
-    def both_forms(launch, plain, *cases):
-        """Each case through both permutation forms against the plain version."""
-        wants = [plain(*c) for c in cases]
-        return ([launch(*c, f) for f in forms for c in cases], [w for _ in forms for w in wants])
+    def cases(fn, plain, *args):
+        """Each argument tuple through the wrapper and the plain version."""
+        return [fn(*a) for a in args], [plain(*a) for a in args]
 
     def pairs(x):
         return (x[0::2], x[1::2])
@@ -282,34 +269,35 @@ def kernel_table(device) -> list[dict]:
              replaces="qp_zk_circuits_tpu/ops/field_kernels.py:100",
              run=lambda: gl.mul(a, b), plain=lambda: gl.mul_plain(a, b),
              bytes=ew_bytes, ops=OPS_MUL * n_el),
-        # the grind's 2^17 states; checked in both forms, and at 1029 states
+        # the grind's 2^17 states, one thread a state; checked at 1029 states too
         dict(name="poseidon2_permute", wrapper=ps.permute, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
              replaces="qp_zk_circuits_tpu/hash/poseidon2.py:415",
              run=lambda: ps.permute(grind), plain=lambda: ps.permute_plain(grind),
-             check=lambda: both_forms(ps._launch_permute, ps.permute_plain, (grind,), (odd_states,)),
+             check=lambda: cases(ps.permute, ps.permute_plain, (grind,), (odd_states,)),
              bytes=2 * grind.numel() * 8, ops=grind.shape[0] * perm_ops),
-        # off the main path since the tree has its own entry; checked in both
-        # forms at the wires' shape and at 2051 rows
+        # lane-split, off the main path since the tree has its own entry;
+        # checked at the wires' shape and at 2051 rows of 135 and of 4 felts
         dict(name="poseidon2_hash_rows", wrapper=ps.hash_rows, path=False, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
              replaces="qp_zk_circuits_tpu/hash/poseidon2.py:449",
              run=lambda: ps.hash_rows(rows), plain=lambda: ps.hash_rows_plain(rows),
-             check=lambda: both_forms(ps._launch_hash_rows, ps.hash_rows_plain, (rows,), (odd_rows,)),
+             check=lambda: cases(ps.hash_rows, ps.hash_rows_plain, (rows,), (odd_rows,),
+                                 (odd_rows[:, : ps.DIGEST_LEN],)),
              bytes=(rows.numel() + m * ps.DIGEST_LEN) * 8,
              ops=m * perms_per_row * perm_ops),
         dict(name="poseidon2_two_to_one", wrapper=ps.two_to_one, path=False, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
              replaces="qp_zk_circuits_tpu/hash/poseidon2.py:492",
              run=lambda: ps.two_to_one(*pairs(level)),
              plain=lambda: ps.two_to_one_plain(*pairs(level)),
-             check=lambda: both_forms(ps._launch_two_to_one, ps.two_to_one_plain, pairs(level),
-                                      pairs(odd_states[:, : 2 * ps.DIGEST_LEN].reshape(-1, ps.DIGEST_LEN))),
+             check=lambda: cases(ps.two_to_one, ps.two_to_one_plain, pairs(level),
+                                 pairs(odd_states[:, : 2 * ps.DIGEST_LEN].reshape(-1, ps.DIGEST_LEN))),
              bytes=(level.numel() + level.numel() // 2) * 8,
              ops=(m // 2) * perm_ops),
         # the wires tree, 2048 x 135 to a cap of 16: the row sponges and the
-        # levels; checked at the four trees of a leaf proof
+        # levels; checked at the four trees of a leaf proof and the plans' edges
         dict(name="poseidon2_merkle_tree", wrapper=ps.merkle_levels, source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
              replaces="qp_zk_circuits_tpu/hash/merkle.py:37",
              run=lambda: ps.merkle_levels(rows, cap), plain=lambda: ps.merkle_levels_plain(rows, cap),
-             check=lambda: _leaf_trees(device, rng, rows, cap),
+             check=lambda: _tree_cases(device, rng, rows, cap),
              bytes=(rows.numel() + tree_nodes * ps.DIGEST_LEN) * 8,
              ops=tree_perms(m, wires, cap) * perm_ops),
         # timed at the leaf LDE (135 x 256 -> 2048); checked in all three modes
@@ -582,28 +570,11 @@ def _host_median_ms(fn, runs: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, runs: int = 5):
-    """Device-only time of one call: every device event torch.profiler
-    records over `runs` calls, divided by `runs`; None if it records none."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        return None
-    return sum(e.self_device_time_total for e in events) / 1e3 / runs
-
-
 def phase_kernels(kernels) -> None:
     import torch
 
     from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+    from qp_zk_circuits_tpu_torch.tools.timing import device_ms, median_ms
 
     elementwise = (gl.add, gl.sub, gl.mul)
     for k in kernels:
@@ -623,12 +594,12 @@ def phase_kernels(kernels) -> None:
         if err:
             raise AssertionError(f"{k['name']}: {err} elements differ from the plain version")
         k["max_abs_err"] = 0
-        k["ms"] = _median_ms(k["run"], runs=20)
-        k["device_ms"] = _device_ms(k["run"])
+        k["ms"] = median_ms(k["run"], runs=20)
+        k["device_ms"] = device_ms(k["run"])
         if k.get("plain_on_host"):
             k["plain_ms"] = _host_median_ms(k["plain"], runs=3)
         else:
-            k["plain_ms"] = _median_ms(k["plain"], runs=3, warmup=1)
+            k["plain_ms"] = median_ms(k["plain"], runs=3, warmup=1)
         k["bound_by"] = "bytes" if k["bytes"] / HBM_BYTES_PER_S >= k["ops"] / INT32_OPS_PER_S else "operations"
         k["bound_ms"] = 1e3 * max(k["bytes"] / HBM_BYTES_PER_S, k["ops"] / INT32_OPS_PER_S)
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
@@ -648,6 +619,7 @@ def phase_aggregation_tree(device, log_rows: int = 19, cols: int = 135,
     import torch
 
     from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
+    from qp_zk_circuits_tpu_torch.tools.timing import median_ms
 
     gen = torch.Generator(device=device).manual_seed(19)
     # uniform below 2^63 < p: canonical felts, made on the card from a seed
@@ -682,8 +654,8 @@ def phase_aggregation_tree(device, log_rows: int = 19, cols: int = 135,
     # CUDA events only: the tree is one or two launches, so its span is its
     # device time, and a profiler window over these long kernels has been
     # seen to miss some of them
-    tree_ms = _median_ms(lambda: ps.merkle_levels(rows, cap), runs=5)
-    per_level_ms = _median_ms(per_level, runs=5)
+    tree_ms = median_ms(lambda: ps.merkle_levels(rows, cap), runs=5)
+    per_level_ms = median_ms(per_level, runs=5)
     nodes = sum((1 << log_rows) >> lvl for lvl in range(log_rows - cap + 1))
     work_bytes = (lde.numel() + nodes * ps.DIGEST_LEN) * 8
     ops = tree_perms(1 << log_rows, cols, cap) * (PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD)
@@ -755,8 +727,8 @@ def phase_main_path(kernels) -> None:
 
 
 def main() -> int:
-    device_info = phase_device()
     sys.path.insert(0, str(ROOT))
+    device_info = phase_device()
     phase_build()
     kernels = kernel_table("cuda")
     phase_kernels(kernels)

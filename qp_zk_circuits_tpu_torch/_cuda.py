@@ -35,9 +35,9 @@ _ULL = ctypes.c_ulonglong
 _ENTRIES = {
     "qzk_field_binary": [_I, _P, _P, _P, _LL, _P],
     "qzk_poseidon2_set_constants": [_P, _P, _P],
-    "qzk_poseidon2_permute": [_P, _P, _LL, _I, _P],
-    "qzk_poseidon2_hash_rows": [_P, _P, _LL, _I, _LL, _LL, _I, _P],
-    "qzk_poseidon2_two_to_one": [_P, _LL, _P, _LL, _P, _LL, _I, _P],
+    "qzk_poseidon2_permute": [_P, _P, _LL, _P],
+    "qzk_poseidon2_hash_rows": [_P, _P, _LL, _I, _LL, _LL, _P],
+    "qzk_poseidon2_two_to_one": [_P, _LL, _P, _LL, _P, _LL, _P],
     "qzk_poseidon2_merkle_tree": [_P, _P, _LL, _I, _LL, _LL, _I, _I, _I, _P],
     "qzk_ntt": [_P, _P, _P, _P, _P, _LL, _I, _I, _ULL, _I, _P],
     "qzk_quotient_set_constants": [_P, _P, _P],

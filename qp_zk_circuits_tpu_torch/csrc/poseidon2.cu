@@ -16,17 +16,16 @@
 // the operations bound.
 //
 // Design: two forms of the permutation, the same arithmetic.
-//  * one thread a state (T = 1): the 12 lanes in registers, for launches that
-//    already fill the card (the grind's 2^17 states, aggregation-size rows);
-//  * lane-split (T = 4, poseidon2.cuh): a quad of threads holds a state, one
-//    lane of each M4 group a thread, so a full round is 3 S-boxes a thread
-//    instead of 12 and the leaf shape runs four times as many warps.
-// The wrapper of a flat launch (permute, hash_rows, two_to_one) picks the
-// form from the number of states against the SM count. A Merkle tree is one
-// call, lane-split at every size: a first launch where each block hashes a
-// run of rows and reduces its subtree in shared memory, writing every level,
-// and a second launch (only if levels are left) where a block per cap node
-// reduces the rest through the output buffer. Rows are read in place through
+//  * one thread a state: the 12 lanes in registers. `permute` (the grind's
+//    2^17 states, a launch that fills the card) runs it;
+//  * lane-split (poseidon2.cuh): a quad of threads holds a state, one lane of
+//    each M4 group a thread, so a full round is 3 S-boxes a thread instead of
+//    12 and the leaf's 2048 rows run as 256 warps instead of 64. The row hash,
+//    the 2-to-1 and the tree run it.
+// A Merkle tree is one call: a first launch where each block hashes a run of
+// rows and reduces its subtree in shared memory, writing every level, and a
+// second launch (only if levels are left) where a block per cap node reduces
+// the rest through the output buffer. Rows are read in place through
 // (row_stride, col_stride), so a column-major LDE needs no transpose copy,
 // and neighbouring rows' threads read neighbouring addresses.
 //
@@ -97,132 +96,88 @@ __device__ void permute_split(uint64_t* x, int j) {
   }
 }
 
-// T threads a state: slot s of thread j holds state lane lane_of<T>(s, j).
-template <int T>
-__device__ __forceinline__ int lane_of(int s, int j) {
-  return T == 1 ? s : SPLIT * s + j;
-}
-
-template <int T>
-__device__ __forceinline__ void permute_form(uint64_t* x, int j) {
-  if constexpr (T == 1) {
-    permute(x);
-  } else {
-    permute_split(x, j);
-  }
-}
-
 // Threads past the last state still run the permutation on zeros, so a
 // quad's shuffles always see the whole warp; a warp wholly past the end exits.
-template <int T>
 __device__ __forceinline__ bool warp_past(long long gid, long long states) {
-  return (gid - (threadIdx.x & 31)) / T >= states;
+  return (gid - (threadIdx.x & 31)) / SPLIT >= states;
 }
 
-// Overwrite-mode sponge over one row (hash_no_pad); rows of <= 4 felts pass
-// through zero-padded, unhashed (hash_or_noop). The digest is lanes 0..3.
-template <int T>
+// Overwrite-mode sponge over one row (hash_no_pad) on a split state; rows of
+// <= 4 felts pass through zero-padded, unhashed (hash_or_noop). The digest is
+// lanes 0..3, slot 0 of the quad's four threads.
 __device__ __forceinline__ void hash_row(uint64_t* x, const uint64_t* __restrict__ in,
                                          long long r, bool valid, int cols, long long row_stride,
                                          long long col_stride, int j) {
   const uint64_t* row = in + (valid ? r : 0) * row_stride;
 #pragma unroll
-  for (int s = 0; s < WIDTH / T; ++s) x[s] = 0;
+  for (int s = 0; s < SPLIT_SLOTS; ++s) x[s] = 0;
   if (cols <= DIGEST) {
-#pragma unroll
-    for (int s = 0; s < WIDTH / T; ++s) {
-      const int lane = lane_of<T>(s, j);
-      if (valid && lane < cols) x[s] = row[lane * col_stride];
-    }
+    if (valid && j < cols) x[0] = row[j * col_stride];
     return;
   }
   for (int start = 0; start < cols; start += RATE) {
     const int len = cols - start < RATE ? cols - start : RATE;
 #pragma unroll
-    for (int s = 0; s < WIDTH / T; ++s) {
-      const int lane = lane_of<T>(s, j);
+    for (int s = 0; s < SPLIT_SLOTS; ++s) {
+      const int lane = SPLIT * s + j;
       if (valid && lane < len) x[s] = row[(long long)(start + lane) * col_stride];
     }
-    permute_form<T>(x, j);
+    permute_split(x, j);
   }
 }
 
-// A 2-to-1 state from two digests: [left(4) | right(4) | 0(4)].
-template <int T>
+// A split 2-to-1 state from two digests: [left(4) | right(4) | 0(4)].
 __device__ __forceinline__ void load_pair(uint64_t* x, const uint64_t* left, const uint64_t* right,
                                           bool valid, int j) {
-#pragma unroll
-  for (int s = 0; s < WIDTH / T; ++s) {
-    const int lane = lane_of<T>(s, j);
-    x[s] = !valid              ? 0
-           : lane < DIGEST     ? left[lane]
-           : lane < 2 * DIGEST ? right[lane - DIGEST]
-                               : 0;
-  }
+  x[0] = valid ? left[j] : 0;
+  x[1] = valid ? right[j] : 0;
+  x[2] = 0;
 }
 
-template <int T>
-__device__ __forceinline__ void store_digest(uint64_t* out, const uint64_t* x, int j) {
-#pragma unroll
-  for (int s = 0; s < WIDTH / T; ++s) {
-    const int lane = lane_of<T>(s, j);
-    if (lane < DIGEST) out[lane] = x[s];
-  }
-}
-
-template <int T>
 __global__ void permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                                long long batch) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (warp_past<T>(gid, batch)) return;
-  const long long b = gid / T;
-  const int j = (int)(gid % T);
-  const bool valid = b < batch;
-  uint64_t x[WIDTH / T];
+  long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  uint64_t x[WIDTH];
 #pragma unroll
-  for (int s = 0; s < WIDTH / T; ++s) x[s] = valid ? in[b * WIDTH + lane_of<T>(s, j)] : 0;
-  permute_form<T>(x, j);
-  if (valid) {
+  for (int i = 0; i < WIDTH; ++i) x[i] = in[b * WIDTH + i];
+  permute(x);
 #pragma unroll
-    for (int s = 0; s < WIDTH / T; ++s) out[b * WIDTH + lane_of<T>(s, j)] = x[s];
-  }
+  for (int i = 0; i < WIDTH; ++i) out[b * WIDTH + i] = x[i];
 }
 
-template <int T>
 __global__ void hash_rows_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                                  long long rows, int cols, long long row_stride,
                                  long long col_stride) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (warp_past<T>(gid, rows)) return;
-  const long long r = gid / T;
-  const int j = (int)(gid % T);
+  if (warp_past(gid, rows)) return;
+  const long long r = gid / SPLIT;
+  const int j = (int)(gid % SPLIT);
   const bool valid = r < rows;
-  uint64_t x[WIDTH / T];
-  hash_row<T>(x, in, r, valid, cols, row_stride, col_stride, j);
-  if (valid) store_digest<T>(out + r * DIGEST, x, j);
+  uint64_t x[SPLIT_SLOTS];
+  hash_row(x, in, r, valid, cols, row_stride, col_stride, j);
+  if (valid) out[r * DIGEST + j] = x[0];
 }
 
-template <int T>
 __global__ void two_to_one_kernel(const uint64_t* __restrict__ left, long long left_stride,
                                   const uint64_t* __restrict__ right, long long right_stride,
                                   uint64_t* __restrict__ out, long long batch) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (warp_past<T>(gid, batch)) return;
-  const long long b = gid / T;
-  const int j = (int)(gid % T);
+  if (warp_past(gid, batch)) return;
+  const long long b = gid / SPLIT;
+  const int j = (int)(gid % SPLIT);
   const bool valid = b < batch;
-  uint64_t x[WIDTH / T];
   const long long bb = valid ? b : 0;
-  load_pair<T>(x, left + bb * left_stride, right + bb * right_stride, valid, j);
-  permute_form<T>(x, j);
-  if (valid) store_digest<T>(out + b * DIGEST, x, j);
+  uint64_t x[SPLIT_SLOTS];
+  load_pair(x, left + bb * left_stride, right + bb * right_stride, valid, j);
+  permute_split(x, j);
+  if (valid) out[b * DIGEST + j] = x[0];
 }
 
 // The tree runs the lane-split form at every size: with one thread a state
 // its blocks hold their registers through the long subtree levels, and that
-// tree measured far slower than the row hash alone at every size tried,
-// while the lane-split tree stays close to its row hash (PERF.md).
-constexpr int TREE_T = SPLIT;
+// tree measured 1.4-1.8x slower than the lane-split one from 2^11 to 2^19
+// rows (PERF.md).
 constexpr int TREE_MAX_RUN = 64;    // rows a block of the first launch: 256 threads
 constexpr int TREE_MAX_STATES = 128;  // states a block of the second launch: 512 threads
 
@@ -233,18 +188,17 @@ constexpr int TREE_MAX_STATES = 128;  // states a block of the second launch: 51
 __global__ void tree_leaves_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                                    long long rows, int cols, long long row_stride,
                                    long long col_stride, int run, int levels) {
-  constexpr int T = TREE_T;
   __shared__ uint64_t sh[TREE_MAX_RUN][DIGEST];
-  const int q = threadIdx.x / T;
-  const int j = threadIdx.x % T;
-  const int warp_first = (threadIdx.x & ~31) / T;
+  const int q = threadIdx.x / SPLIT;
+  const int j = threadIdx.x % SPLIT;
+  const int warp_first = (threadIdx.x & ~31) / SPLIT;
   const long long r = (long long)blockIdx.x * run + q;
   const bool valid = q < run && r < rows;
-  uint64_t x[WIDTH / T];
-  hash_row<T>(x, in, r, valid, cols, row_stride, col_stride, j);
+  uint64_t x[SPLIT_SLOTS];
+  hash_row(x, in, r, valid, cols, row_stride, col_stride, j);
   if (valid) {
-    store_digest<T>(out + r * DIGEST, x, j);
-    store_digest<T>(sh[q], x, j);
+    out[r * DIGEST + j] = x[0];
+    sh[q][j] = x[0];
   }
   long long off = 0, n = rows;  // the current level's first node and size
   int active = run;             // this block's nodes on the current level
@@ -254,13 +208,13 @@ __global__ void tree_leaves_kernel(const uint64_t* __restrict__ in, uint64_t* __
     active >>= 1;
     __syncthreads();
     const bool on = q < active;
-    load_pair<T>(x, sh[on ? 2 * q : 0], sh[on ? 2 * q + 1 : 0], on, j);
+    load_pair(x, sh[on ? 2 * q : 0], sh[on ? 2 * q + 1 : 0], on, j);
     __syncthreads();
     if (warp_first < active) {
-      permute_form<T>(x, j);
+      permute_split(x, j);
       if (on) {
-        store_digest<T>(out + (off + (long long)blockIdx.x * active + q) * DIGEST, x, j);
-        store_digest<T>(sh[q], x, j);
+        out[(off + (long long)blockIdx.x * active + q) * DIGEST + j] = x[0];
+        sh[q][j] = x[0];
       }
     }
   }
@@ -271,11 +225,10 @@ __global__ void tree_leaves_kernel(const uint64_t* __restrict__ in, uint64_t* __
 // (written by this block's own threads, so no read-only cache path: the
 // barrier makes one level's stores visible to the next level's loads).
 __global__ void tree_levels_kernel(uint64_t* buf, long long off, long long n, int levels) {
-  constexpr int T = TREE_T;
-  const int q = threadIdx.x / T;
-  const int j = threadIdx.x % T;
-  const int states = blockDim.x / T;
-  const int warp_first = (threadIdx.x & ~31) / T;
+  const int q = threadIdx.x / SPLIT;
+  const int j = threadIdx.x % SPLIT;
+  const int states = blockDim.x / SPLIT;
+  const int warp_first = (threadIdx.x & ~31) / SPLIT;
   long long active = 1ll << levels;
   for (int t = 1; t <= levels; ++t) {
     const uint64_t* src = buf + (off + (long long)blockIdx.x * active) * DIGEST;
@@ -286,11 +239,11 @@ __global__ void tree_levels_kernel(uint64_t* buf, long long off, long long n, in
     for (long long i0 = 0; i0 + warp_first < active; i0 += states) {
       const long long i = i0 + q;
       const bool on = i < active;
-      uint64_t x[WIDTH / T];
+      uint64_t x[SPLIT_SLOTS];
       const long long ii = on ? i : 0;
-      load_pair<T>(x, src + 2 * ii * DIGEST, src + (2 * ii + 1) * DIGEST, on, j);
-      permute_form<T>(x, j);
-      if (on) store_digest<T>(dst + i * DIGEST, x, j);
+      load_pair(x, src + 2 * ii * DIGEST, src + (2 * ii + 1) * DIGEST, on, j);
+      permute_split(x, j);
+      if (on) dst[i * DIGEST + j] = x[0];
     }
     __syncthreads();
   }
@@ -298,9 +251,8 @@ __global__ void tree_levels_kernel(uint64_t* buf, long long off, long long n, in
 
 constexpr int THREADS = 128;
 
-unsigned blocks_for(long long states, int tps) {
-  return (unsigned)((states * tps + THREADS - 1) / THREADS);
-}
+// Blocks for `threads` threads (one a state, or SPLIT).
+unsigned blocks_for(long long threads) { return (unsigned)((threads + THREADS - 1) / THREADS); }
 
 }  // namespace
 
@@ -312,59 +264,29 @@ extern "C" int qzk_poseidon2_set_constants(const void* ext_rc, const void* int_r
   return (int)e;
 }
 
-// Every entry takes `tps`, the threads a state: 1 or 4 (the lane-split form).
-extern "C" int qzk_poseidon2_permute(const void* in, void* out, long long batch, int tps,
-                                     void* stream) {
+extern "C" int qzk_poseidon2_permute(const void* in, void* out, long long batch, void* stream) {
   if (batch <= 0) return 0;
-  auto s = (cudaStream_t)stream;
-  auto src = (const uint64_t*)in;
-  auto dst = (uint64_t*)out;
-  if (tps == 1) {
-    permute_kernel<1><<<blocks_for(batch, 1), THREADS, 0, s>>>(src, dst, batch);
-  } else if (tps == SPLIT) {
-    permute_kernel<SPLIT><<<blocks_for(batch, SPLIT), THREADS, 0, s>>>(src, dst, batch);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  permute_kernel<<<blocks_for(batch), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)in, (uint64_t*)out, batch);
   return (int)cudaGetLastError();
 }
 
 extern "C" int qzk_poseidon2_hash_rows(const void* in, void* out, long long rows, int cols,
-                                       long long row_stride, long long col_stride, int tps,
+                                       long long row_stride, long long col_stride,
                                        void* stream) {
   if (rows <= 0) return 0;
-  auto s = (cudaStream_t)stream;
-  auto src = (const uint64_t*)in;
-  auto dst = (uint64_t*)out;
-  if (tps == 1) {
-    hash_rows_kernel<1><<<blocks_for(rows, 1), THREADS, 0, s>>>(src, dst, rows, cols,
-                                                                 row_stride, col_stride);
-  } else if (tps == SPLIT) {
-    hash_rows_kernel<SPLIT><<<blocks_for(rows, SPLIT), THREADS, 0, s>>>(src, dst, rows, cols,
-                                                                         row_stride, col_stride);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  hash_rows_kernel<<<blocks_for(rows * SPLIT), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)in, (uint64_t*)out, rows, cols, row_stride, col_stride);
   return (int)cudaGetLastError();
 }
 
 extern "C" int qzk_poseidon2_two_to_one(const void* left, long long left_stride,
                                         const void* right, long long right_stride, void* out,
-                                        long long batch, int tps, void* stream) {
+                                        long long batch, void* stream) {
   if (batch <= 0) return 0;
-  auto s = (cudaStream_t)stream;
-  auto l = (const uint64_t*)left;
-  auto r = (const uint64_t*)right;
-  auto dst = (uint64_t*)out;
-  if (tps == 1) {
-    two_to_one_kernel<1><<<blocks_for(batch, 1), THREADS, 0, s>>>(l, left_stride, r,
-                                                                   right_stride, dst, batch);
-  } else if (tps == SPLIT) {
-    two_to_one_kernel<SPLIT><<<blocks_for(batch, SPLIT), THREADS, 0, s>>>(
-        l, left_stride, r, right_stride, dst, batch);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  two_to_one_kernel<<<blocks_for(batch * SPLIT), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)left, left_stride, (const uint64_t*)right, right_stride,
+      (uint64_t*)out, batch);
   return (int)cudaGetLastError();
 }
 
@@ -381,9 +303,8 @@ extern "C" int qzk_poseidon2_merkle_tree(const void* in, void* out, long long ro
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   auto dst = (uint64_t*)out;
-  constexpr int T = TREE_T;
-  const int leaf_states = run < 32 / T ? 32 / T : run;
-  tree_leaves_kernel<<<(unsigned)(rows / run), leaf_states * T, 0, s>>>(
+  const int leaf_states = run < 32 / SPLIT ? 32 / SPLIT : run;
+  tree_leaves_kernel<<<(unsigned)(rows / run), leaf_states * SPLIT, 0, s>>>(
       (const uint64_t*)in, dst, rows, cols, row_stride, col_stride, run, levels_in_block);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || levels_left == 0) return (int)e;
@@ -394,7 +315,8 @@ extern "C" int qzk_poseidon2_merkle_tree(const void* in, void* out, long long ro
   }
   // as many states as the subtree's first level has nodes, one warp at least
   const long long half = 1ll << (levels_left - 1);
-  const int states = (int)(half < 32 / T ? 32 / T : half > TREE_MAX_STATES ? TREE_MAX_STATES : half);
-  tree_levels_kernel<<<(unsigned)(n >> levels_left), states * T, 0, s>>>(dst, off, n, levels_left);
+  const int states =
+      (int)(half < 32 / SPLIT ? 32 / SPLIT : half > TREE_MAX_STATES ? TREE_MAX_STATES : half);
+  tree_levels_kernel<<<(unsigned)(n >> levels_left), states * SPLIT, 0, s>>>(dst, off, n, levels_left);
   return (int)cudaGetLastError();
 }

@@ -31,14 +31,13 @@ Two implementations, tested bit-identical:
     versions for CPU tensors — the PoW grind, and a Merkle tree (leaf
     hashing and every level up to the cap) in one call.
 
-Kernel 2 has two forms of the permutation: one thread a state, or four (the
-lane-split form). `permute`, `hash_rows` and `two_to_one` pick theirs from
-the number of states against the card's SM count (`threads_per_state`):
-below `WIDE_STATES_PER_SM` states an SM (a leaf commit's 2048 rows, its
-Merkle levels) the lane-split form, which gives the launch four times the
-warps; from there on (the grind's 2^17 states, aggregation-size row counts)
-one thread a state, which spends the fewest instructions once the card is
-full. `merkle_levels` runs the lane-split form at every size (`tree_plan`).
+Kernel 2 has two forms of the permutation (csrc/poseidon2.cu), one per
+wrapper at every size: `permute` runs one thread a state (its caller, the
+grind, launches 2^17 states, enough to fill the card); `merkle_levels`,
+`hash_rows` and `two_to_one` run the lane-split form, four threads a state,
+which gives a leaf commit's 2048 rows four times the warps. The prover
+builds every tree through `merkle_levels`; `hash_rows` and `two_to_one` are
+the same kernels' flat forms, with no caller in the prover.
 """
 
 from __future__ import annotations
@@ -449,20 +448,9 @@ def _tree_height(leaves: torch.Tensor, cap_height: int) -> int:
 # ---------------------------------------------------------------------------
 # kernel 2: launch plans and wrappers
 
-#: threads a state of the lane-split form (csrc/poseidon2.cuh, SPLIT)
-SPLIT = 4
-#: from this many states an SM on, one thread a state is the faster form of
-#: a flat launch (tools/bench_tree.py --sweep on an H100: the lane-split
-#: permute is faster up to 8,192 states, one thread a state from 32,768 on)
-WIDE_STATES_PER_SM = 128
 #: rows a block of the tree's first launch takes: at most 64, halved (down
 #: to 8, one warp) until the blocks cover every SM
 TREE_RUN_MAX, TREE_RUN_MIN = 64, 8
-
-
-def threads_per_state(states: int, sms: int) -> int:
-    """The permutation form of a flat launch of `states` states on `sms` SMs."""
-    return 1 if states >= WIDE_STATES_PER_SM * sms else SPLIT
 
 
 def tree_plan(rows: int, cap_height: int, sms: int) -> tuple[int, int, int]:
@@ -512,15 +500,10 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     if state.device.type == "cpu":
         return permute_plain(state)
     _cuda.require_cuda_int64(state)
-    batch = state.numel() // WIDTH
-    return _launch_permute(state, threads_per_state(batch, _sm_count(state.device.index)))
-
-
-def _launch_permute(state: torch.Tensor, tps: int) -> torch.Tensor:
     state = state.contiguous()
     out = torch.empty_like(state)
     _launch("qzk_poseidon2_permute", state.device,
-            state.data_ptr(), out.data_ptr(), state.numel() // WIDTH, tps)
+            state.data_ptr(), out.data_ptr(), state.numel() // WIDTH)
     permute.launches += 1
     return out
 
@@ -534,14 +517,10 @@ def hash_rows(rows: torch.Tensor) -> torch.Tensor:
     if rows.device.type == "cpu":
         return hash_rows_plain(rows)
     _cuda.require_cuda_int64(rows)
-    return _launch_hash_rows(rows, threads_per_state(rows.shape[0], _sm_count(rows.device.index)))
-
-
-def _launch_hash_rows(rows: torch.Tensor, tps: int) -> torch.Tensor:
     r, c = rows.shape
     out = torch.empty((r, DIGEST_LEN), dtype=torch.int64, device=rows.device)
     _launch("qzk_poseidon2_hash_rows", rows.device,
-            rows.data_ptr(), out.data_ptr(), r, c, rows.stride(0), rows.stride(1), tps)
+            rows.data_ptr(), out.data_ptr(), r, c, rows.stride(0), rows.stride(1))
     hash_rows.launches += 1
     return out
 
@@ -555,19 +534,14 @@ def two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     if left.device.type == "cpu" and right.device.type == "cpu":
         return two_to_one_plain(left, right)
     _cuda.require_cuda_int64(left, right)
-    tps = threads_per_state(left.shape[0], _sm_count(left.device.index))
-    return _launch_two_to_one(left, right, tps)
-
-
-def _launch_two_to_one(left: torch.Tensor, right: torch.Tensor, tps: int) -> torch.Tensor:
     if left.stride(1) != 1:
         left = left.contiguous()
     if right.stride(1) != 1:
         right = right.contiguous()
     b = left.shape[0]
     out = torch.empty((b, DIGEST_LEN), dtype=torch.int64, device=left.device)
-    _launch("qzk_poseidon2_two_to_one", left.device, left.data_ptr(), left.stride(0),
-            right.data_ptr(), right.stride(0), out.data_ptr(), b, tps)
+    _launch("qzk_poseidon2_two_to_one", left.device,
+            left.data_ptr(), left.stride(0), right.data_ptr(), right.stride(0), out.data_ptr(), b)
     two_to_one.launches += 1
     return out
 

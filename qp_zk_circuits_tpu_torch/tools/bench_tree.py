@@ -1,13 +1,13 @@
 """Time a commit's Merkle tree on one CUDA card, for one checkout of the port.
 
-    python qp_zk_circuits_tpu_torch/tools/bench_tree.py [--root DIR] [--sweep]
+    python qp_zk_circuits_tpu_torch/tools/bench_tree.py [--root DIR]
 
-Imports `qp_zk_circuits_tpu_torch` from `--root` (default: the checkout this
-file lies in), so two checkouts can be timed in turns by separate processes
-within one machine session (parent, change, change, parent). For each shape,
-the leaf's wires tree (2048 x 135, cap 2^4) and the private batch's
-(2^19 x 135, cap 2^4), it times `hash/merkle.py::build_levels` over a strided
-lde.T, as every checkout of the port has it:
+Times `hash/merkle.py::build_levels` of the checkout at `--root` (default:
+the checkout this file lies in), as every checkout of the port has it, so
+two checkouts can be timed in turns by separate processes within one
+machine session (parent, change, change, parent). The timing helpers are
+this checkout's. Shapes: the leaf's wires tree (2048 x 135, cap 2^4) and the
+private batch's (2^19 x 135, cap 2^4), over a strided lde.T:
 
   * `ms`: CUDA events around one call, median of --runs (the card's span,
     gaps between launches included);
@@ -15,10 +15,7 @@ lde.T, as every checkout of the port has it:
     divided by 5 (the kernels alone);
   * the cap's SHA-256, so two checkouts can be seen to agree.
 
-With --sweep (a checkout that has kernel 2's two permutation forms) it also
-times `permute` and `hash_rows` (135 columns) in each form, and the tree,
-over a range of sizes, for the rule that picks the form. Prints one line a
-measurement, the card from nvidia-smi, and a JSON object as its last line.
+Prints one line a shape, the card from nvidia-smi, and a JSON object last.
 """
 
 from __future__ import annotations
@@ -26,129 +23,49 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
-
-
-def _median_ms(fn, runs: int) -> float:
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _device_ms(fn, runs: int = 5):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in events) / 1e3 / runs if events else None
-
-
-def _felts(shape, seed):
-    """Uniform below 2^63 < p: canonical felts, made on the card from a seed."""
-    import torch
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randint(0, (1 << 63) - 1, shape, generator=gen, dtype=torch.int64, device="cuda")
-
-
-def trees(runs: int) -> list[dict]:
-    import torch
-
-    from qp_zk_circuits_tpu_torch.hash import merkle
-
-    out = []
-    for log_rows, cols, cap in ((11, 135, 4), (19, 135, 4)):
-        lde = _felts((cols, 1 << log_rows), seed=log_rows)
-        rows = lde.T
-        fn = lambda: merkle.build_levels(rows, cap)  # noqa: E731
-        cap_digest = hashlib.sha256(fn()[-1].cpu().numpy().tobytes()).hexdigest()[:16]
-        row = dict(shape=f"2^{log_rows} x {cols}", cap=cap, ms=_median_ms(fn, runs),
-                   device_ms=_device_ms(fn), cap_sha256=cap_digest)
-        print(f"[tree] {row['shape']} cap 2^{cap}: {row['ms']:.4f} ms, device "
-              f"{row['device_ms']} ms, cap {cap_digest}", flush=True)
-        out.append(row)
-        del lde, rows
-        torch.cuda.empty_cache()
-    return out
-
-
-def sweep(runs: int) -> list[dict]:
-    import torch
-
-    from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
-
-    sms = ps._sm_count(torch.cuda.current_device())
-    out = []
-
-    def add(what, size, form, fn):
-        row = dict(what=what, size=size, form=form, ms=_median_ms(fn, runs))
-        print(f"[sweep] {what} {size} threads a state {form}: {row['ms']:.4f} ms", flush=True)
-        out.append(row)
-
-    for log_n in (11, 13, 15, 16, 17, 18, 19):
-        states = _felts((1 << log_n, ps.WIDTH), seed=log_n)
-        for form in (ps.SPLIT, 1):
-            add("permute", 1 << log_n, form, lambda: ps._launch_permute(states, form))
-        del states
-    for log_n in (11, 13, 15, 17, 19):
-        rows = _felts((135, 1 << log_n), seed=log_n).T
-        for form in (ps.SPLIT, 1):
-            add("hash_rows", 1 << log_n, form, lambda: ps._launch_hash_rows(rows, form))
-        plan = ps.tree_plan(1 << log_n, 4, sms)
-        add(f"tree {plan}", 1 << log_n, ps.SPLIT, lambda: ps._launch_tree(rows, 4, plan))
-        if log_n == 11:  # the leaf: larger blocks, fewer levels left
-            for run in (16, 32, 64):
-                k = run.bit_length() - 1
-                plan = (run, k, log_n - 4 - k)
-                add(f"tree {plan}", 1 << log_n, ps.SPLIT, lambda: ps._launch_tree(rows, 4, plan))
-        del rows
-        torch.cuda.empty_cache()
-    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=20)
-    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
-    sys.path.insert(0, str(Path(args.root).resolve()))
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import torch
+
+    from qp_zk_circuits_tpu_torch.tools import timing
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_tree needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    # the tree is the one of the checkout at --root: forget this checkout's
+    # package, so that the import below finds that one
+    for name in [n for n in sys.modules if n.partition(".")[0] == "qp_zk_circuits_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, str(Path(args.root).resolve()))
     import qp_zk_circuits_tpu_torch
+    from qp_zk_circuits_tpu_torch.hash import merkle
 
-    result = {"root": args.root, "package": qp_zk_circuits_tpu_torch.__file__, "card": card,
-              "trees": trees(args.runs)}
-    if args.sweep:
-        result["sweep"] = sweep(args.runs)
+    trees = []
+    for log_rows, cols, cap in ((11, 135, 4), (19, 135, 4)):
+        # uniform below 2^63 < p: canonical felts, made on the card from a seed
+        gen = torch.Generator(device="cuda").manual_seed(log_rows)
+        lde = torch.randint(0, (1 << 63) - 1, (cols, 1 << log_rows), generator=gen,
+                            dtype=torch.int64, device="cuda")
+        fn = lambda: merkle.build_levels(lde.T, cap)  # noqa: E731
+        cap_digest = hashlib.sha256(fn()[-1].cpu().numpy().tobytes()).hexdigest()[:16]
+        row = dict(shape=f"2^{log_rows} x {cols}", cap=cap, ms=timing.median_ms(fn, args.runs),
+                   device_ms=timing.device_ms(fn), cap_sha256=cap_digest)
+        print(f"[tree] {row['shape']} cap 2^{cap}: {row['ms']:.4f} ms, device "
+              f"{row['device_ms']} ms, cap {cap_digest}", flush=True)
+        trees.append(row)
+        del lde
+        torch.cuda.empty_cache()
+    card = timing.card()
     print(card)
-    print(json.dumps(result))
+    print(json.dumps({"root": args.root, "package": qp_zk_circuits_tpu_torch.__file__,
+                      "card": card, "trees": trees}))
 
 
 if __name__ == "__main__":

@@ -28,7 +28,6 @@ import collections
 import functools
 import json
 import statistics
-import subprocess
 import time
 
 import torch
@@ -38,6 +37,7 @@ from ..fri import prover as fri_prover
 from ..hash import merkle
 from ..plonk import prover as plonk_prover
 from ..plonk import transcript as ts
+from ..tools.timing import card
 from ..wormhole.prover import WormholeProver
 from ..wormhole.test_helpers import test_inputs_0
 
@@ -120,10 +120,6 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_leaf needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     prover = WormholeProver(device="cuda")
     inputs = test_inputs_0()
     prover.prove_inputs(inputs, seed=0)  # warm-up: kernel build, cached tables
@@ -141,7 +137,7 @@ def main() -> None:
         print(f"[kernel] {name[:70]}: {v['device_ms']:.3f} ms device, {v['count']} launches")
     median = statistics.median(times)
     result = {
-        "card": card,
+        "card": card(),
         "prove_ms": {"median": median, "min": min(times), "max": max(times), "n": len(times)},
         "stages": stages,
         **{k: v for k, v in device.items() if k != "top_kernels"},

@@ -172,9 +172,6 @@ def test_tree_plan_at_the_leaf():
             run, in_block, left = tps.tree_plan(rows, cap, sms)
             assert rows % run == 0 and (1 << in_block) <= run <= 64
             assert in_block + left == rows.bit_length() - 1 - cap
-    assert tps.threads_per_state(2048, sms) == tps.SPLIT
-    assert tps.threads_per_state(1 << 17, sms) == 1
-    assert tps.threads_per_state(tps.WIDE_STATES_PER_SM * sms - 1, sms) == tps.SPLIT
 
 
 def test_merkle_levels_launch_writes_one_buffer(monkeypatch):
@@ -259,17 +256,29 @@ def test_kernels_match_plain_on_card(cuda):
         tps.two_to_one(level[0::2], level[1::2]),
         tps.two_to_one_plain(level[0::2], level[1::2]),
     )
-    # both permutation forms, at batches that are not a multiple of a block,
-    # with the field edge values in the states
-    for form in (tps.SPLIT, 1):
-        for batch in (1, 31, 33, 1029):
-            s = _t(_edge_felts((batch, 12), rng), cuda)
-            assert torch.equal(tps._launch_permute(s, form), tps.permute_plain(s)), (form, batch)
-        rows = _t(_edge_felts((135, 2051), rng), cuda).T
-        assert torch.equal(tps._launch_hash_rows(rows, form), tps.hash_rows_plain(rows)), form
-        pairs = _t(_edge_felts((2 * 1029, 4), rng), cuda)
-        assert torch.equal(tps._launch_two_to_one(pairs[0::2], pairs[1::2], form),
-                           tps.two_to_one_plain(pairs[0::2], pairs[1::2])), form
+    # batches that are not a multiple of a block, with the field edge values
+    # in the states: permute runs one thread a state, hash_rows and
+    # two_to_one the lane-split form (rows of <= 4 felts pass unhashed)
+    for batch in (1, 31, 33, 1029):
+        s = _t(_edge_felts((batch, 12), rng), cuda)
+        assert torch.equal(tps.permute(s), tps.permute_plain(s)), batch
+        pairs = _t(_edge_felts((2 * batch, 4), rng), cuda)
+        assert torch.equal(tps.two_to_one(pairs[0::2], pairs[1::2]),
+                           tps.two_to_one_plain(pairs[0::2], pairs[1::2])), batch
+    for cols in (1, 4, 5, 135):
+        rows = _t(_edge_felts((cols, 2051), rng), cuda).T
+        assert torch.equal(tps.hash_rows(rows), tps.hash_rows_plain(rows)), cols
+    # the tree's edge plans: rows of <= 4 felts, the leaves as the cap
+    # (cap == log_n), no second launch
+    for cols in (4, 5, 135):
+        for n in (16, 256):
+            for cap in (0, 2, n.bit_length() - 1):
+                leaves = _t(_edge_felts((n, cols), rng), cuda)
+                got = tps.merkle_levels(leaves, cap)
+                want = tps.merkle_levels_plain(leaves, cap)
+                assert len(got) == len(want)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (cols, n, cap)
     # the leaf proof's four trees: wires, Z and partial products, quotient
     # (each over a strided lde.T), and the FRI layer's contiguous rows
     for cols, m, strided, cap in ((135, 2048, True, 4), (20, 2048, True, 4),
