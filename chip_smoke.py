@@ -11,15 +11,22 @@ package. Phases, each printing one line:
      the shapes of the leaf prover, plus the field edge vectors (the fused
      kernels A-F against their plain versions run on CPU copies of the same
      inputs, so no kernel is on the reference side); median wrapper times over
-     CUDA-event-timed runs, each kernel's device-only time from
-     torch.profiler, and each kernel's bound; kernel 2's permutation (one
-     thread a state), row hash and 2-to-1 (lane-split) at batches that are
-     not a multiple of a block, and its tree at the four trees of a leaf
-     proof and at the plans' edges;
+     CUDA-event-timed runs, each kernel's device-only time (its library
+     launches replayed in a CUDA graph, `tools/timing.py::device_ms`), and
+     each kernel's bound; kernel 2's permutation (one thread a state), row
+     hash and 2-to-1 (lane-split) at batches that are not a multiple of a
+     block, and its tree at the four trees of a leaf proof and at the plans'
+     edges; kernels A and B with 1, 2 and 4 challenges and with 60 routed
+     wires (a ragged last chunk), B also over four tiles with zero
+     denominators on both sides of a tile boundary;
   4. aggregation tree — the Merkle tree at 2^19 x 135: 256 sampled nodes of
      every level against the plain hashes of their inputs, its time beside
      the per-level form's (hash_rows, then one two_to_one launch a level);
-  5. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
+  5. aggregation fused — kernels A and B at the private batch's degree 16
+     (the leaf's config and gates, random tables): B at n = 2^16 against its
+     plain version on CPU copies, A at m = 2^19 against its plain version
+     run on the card, both in full, each beside its bound;
+  6. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
      prove_inputs(seed=0) cold and warm; the proof bytes must equal the
      committed fixture (length and SHA-256), every kernel of the path must
      have been launched during the cold proof, within its launch limits
@@ -107,7 +114,7 @@ def quotient_field_ops(data) -> tuple[int, int]:
     }
     desc, k_total = tprover.quotient_descriptors(data)
     muls, adds = nr, 0  # k_i * x, shared by the challenges
-    for tid, p0, p1, _p2, sel, _first in desc.tolist():
+    for tid, p0, p1, _p2, sel, *_ in desc.tolist():
         m, a = per_row[tid](p0, p1)
         muls, adds = muls + m, adds + a
         if sel >= 0 and (m or a):  # the selector masks each challenge's gate sum
@@ -355,59 +362,130 @@ def _cpu(xs):
     return [x.cpu() if hasattr(x, "cpu") else x for x in xs]
 
 
-def _quotient_case(device) -> dict:
-    """Kernel A at the leaf: random LDE wires and Z/pp rows, the circuit's
-    own constants, selectors and sigmas, random challenges."""
-    import numpy as np
+def _variant(data, **config):
+    """The circuit data with its config changed (a fresh object: no tables
+    cached), routing tables cut to the routed wires."""
+    import dataclasses
 
+    cfg = dataclasses.replace(data.config, **config)
+    nr = cfg.num_routed_wires
+    return dataclasses.replace(data, config=cfg, id_coords=data.id_coords[:nr],
+                               sigma_vals=data.sigma_vals[:nr])
+
+
+def _fused_variants(data) -> list:
+    """The leaf with 1, 2 and 4 challenges, and the canonical ZK profile's
+    routing (60 routed wires, qdf 8: a ragged last chunk of 4)."""
+    return [data, _variant(data, num_challenges=1), _variant(data, num_challenges=4),
+            _variant(data, num_routed_wires=60)]
+
+
+def _quotient_args(data, rng, device):
+    """Random LDE wires and Z/pp rows, random challenges and PI hash."""
     from qp_zk_circuits_tpu_torch.field import gf_np as F
-    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
 
-    data = _leaf_data(device)
     cfg = data.config
-    rng = np.random.default_rng(1)
     m = data.n << cfg.rate_bits
     nc = cfg.num_challenges
     npp = -(-cfg.num_routed_wires // cfg.max_quotient_degree_factor) - 1
-    args = [_felts((cfg.num_wires, m), rng, device), _felts((nc + nc * npp, m), rng, device),
+    return [_felts((cfg.num_wires, m), rng, device), _felts((nc + nc * npp, m), rng, device),
             *(F.rand_felts(nc, rng) for _ in range(3)), F.rand_felts(4, rng)]
-    consts = data.constants_oracle.lde
-    cpu_args = _cpu(args)
+
+
+def _quotient_work(data) -> tuple[int, int]:
+    """Kernel A's bytes and integer operations: each input read once, the
+    (nc, m) output written once; the field ops of `quotient_field_ops`."""
+    cfg = data.config
+    m = data.n << cfg.rate_bits
+    nc = cfg.num_challenges
+    npp = -(-cfg.num_routed_wires // cfg.max_quotient_degree_factor) - 1
     muls, adds = quotient_field_ops(data)
+    rows = cfg.num_wires + data.constants_oracle.lde.shape[0] + nc + nc * npp + 3 + nc
+    return rows * m * 8, m * (muls * OPS_MUL + adds * OPS_ADD)
+
+
+def _permutation_work(data) -> tuple[int, int]:
+    """Kernel B's bytes and integer operations. Per (row, challenge): beta
+    times id_i and sigma_i with 2 adds each, the chunk products, one batch
+    inverse across all rows (3 muls a chunk denominator), cn_j * cd_j^-1, and
+    one multiply a ratio for the running products that give Z and the
+    partial products; per challenge one Fermat inverse."""
+    cfg = data.config
+    nc, nr, n = cfg.num_challenges, cfg.num_routed_wires, data.n
+    nchunks = -(-nr // cfg.max_quotient_degree_factor)
+    muls = 2 * nr + 2 * (nr - nchunks) + 3 * nchunks + nchunks + nchunks
+    return ((3 * nr * n + nc * nchunks * n) * 8,
+            nc * ((n * muls + INV_MULS) * OPS_MUL + n * 4 * nr * OPS_ADD))
+
+
+def _permutation_args(data, rng, device, zeros=()):
+    """A random trace and random beta, gamma; each (challenge, row, wire) of
+    `zeros` gets the wire value that makes its denominator factor 0."""
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+
+    cfg = data.config
+    nc = cfg.num_challenges
+    trace = F.rand_felts((cfg.num_wires, data.n), rng)
+    betas, gammas = F.rand_felts(nc, rng), F.rand_felts(nc, rng)
+    for c, row, wire in zeros:
+        trace[wire, row] = -(int(betas[c]) * int(data.sigma_vals[wire, row]) + int(gammas[c])) % gl.P
+    return [gl.from_u64(trace, device), betas, gammas]
+
+
+def _quotient_case(device) -> dict:
+    """Kernel A at the leaf: random LDE wires and Z/pp rows, the circuit's
+    own constants, selectors and sigmas, random challenges; checked with 1, 2
+    and 4 challenges and with the ragged last chunk of 60 routed wires."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+
+    data = _leaf_data(device)
+    rng = np.random.default_rng(1)
+    cases = [(d, _quotient_args(d, rng, device)) for d in _fused_variants(data)]
+    args = cases[0][1]
+    cpu_args = _cpu(args)
+    work_bytes, ops = _quotient_work(data)
     return dict(
         run=lambda: tprover.quotient_evals(data, *args),
         plain=lambda: tprover.quotient_evals_plain(data, *cpu_args), plain_on_host=True,
-        bytes=(args[0].numel() + consts.numel() + args[1].numel() + 3 * m + nc * m) * 8,
-        ops=m * (muls * OPS_MUL + adds * OPS_ADD),
+        check=lambda: ([tprover.quotient_evals(d, *a) for d, a in cases],
+                       [tprover.quotient_evals_plain(d, *_cpu(a)) for d, a in cases]),
+        bytes=work_bytes, ops=ops,
     )
 
 
 def _permutation_case(device) -> dict:
-    """Kernel B at the leaf: a random trace and random beta, gamma."""
+    """Kernel B at the leaf: a random trace and random beta, gamma (one tile
+    of 256 rows); checked with 1, 2 and 4 challenges, 60 routed wires, and at
+    1024 rows (four tiles) with zero denominators on both sides of a tile
+    boundary (rows 255 and 256) and in the last row."""
+    import dataclasses
+
     import numpy as np
 
-    from qp_zk_circuits_tpu_torch.field import gf_np as F
     from qp_zk_circuits_tpu_torch.plonk import prover as tprover
 
     data = _leaf_data(device)
-    cfg = data.config
     rng = np.random.default_rng(2)
-    nc, nr, n = cfg.num_challenges, cfg.num_routed_wires, data.n
-    nchunks = -(-nr // cfg.max_quotient_degree_factor)
-    args = [_felts((cfg.num_wires, n), rng, device), F.rand_felts(nc, rng), F.rand_felts(nc, rng)]
+    rows = 4 * data.n
+    four_tiles = dataclasses.replace(data, degree_bits=rows.bit_length() - 1,
+                                     id_coords=np.tile(data.id_coords, 4),
+                                     sigma_vals=np.tile(data.sigma_vals, 4))
+    cases = [(d, _permutation_args(d, rng, device)) for d in _fused_variants(data)]
+    cases.append((four_tiles, _permutation_args(
+        four_tiles, rng, device, zeros=[(0, 255, 3), (0, 256, 70), (1, 256, 0), (1, rows - 1, 9)])))
+    args = cases[0][1]
     cpu_args = _cpu(args)
-    # per (row, challenge): beta times id_i and sigma_i with 2 adds each, the
-    # chunk products, one batch inverse across all rows (3 muls a chunk
-    # denominator), cn_j * cd_j^-1, and one multiply a ratio for the running
-    # products that give Z and the partial products; per challenge one
-    # Fermat inverse
-    muls = 2 * nr + 2 * (nr - nchunks) + 3 * nchunks + nchunks + nchunks
+    work_bytes, ops = _permutation_work(data)
     return dict(
         run=lambda: tprover.compute_permutation_polys(data, *args),
         plain=lambda: tprover.compute_permutation_polys_plain(data, *cpu_args),
         plain_on_host=True,
-        bytes=(3 * nr * n + nc * nchunks * n) * 8,
-        ops=nc * ((n * muls + INV_MULS) * OPS_MUL + n * 4 * nr * OPS_ADD),
+        check=lambda: ([tprover.compute_permutation_polys(d, *a) for d, a in cases],
+                       [tprover.compute_permutation_polys_plain(d, *_cpu(a)) for d, a in cases]),
+        bytes=work_bytes, ops=ops,
     )
 
 
@@ -670,6 +748,73 @@ def phase_aggregation_tree(device, log_rows: int = 19, cols: int = 135,
     torch.cuda.empty_cache()
 
 
+def phase_aggregation_fused(device, degree_bits: int = 16) -> None:
+    """Kernels A and B at the private batch's size: the leaf's config and
+    gate table on a circuit of 2^16 rows, with random constants, selectors,
+    sigmas (m = 2^19 LDE rows) and routing tables. B against its plain
+    version on CPU copies, in full, with zero denominators on both sides of a
+    tile boundary; A against `quotient_evals_plain` run on the card, in full
+    (its field ops go through kernel 1, which the kernel phase holds
+    bit-exact against its plain version). Each timed (CUDA events around a
+    call, and the kernels' own device time) beside its bound."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+    from qp_zk_circuits_tpu_torch.tools.timing import device_ms, median_ms
+
+    leaf = _leaf_data(device)
+    cfg = leaf.config
+    n = 1 << degree_bits
+    m = n << cfg.rate_bits
+    rng = np.random.default_rng(16)
+    nr = cfg.num_routed_wires
+    data = dataclasses.replace(
+        leaf, degree_bits=degree_bits,
+        id_coords=F.rand_felts((nr, n), rng), sigma_vals=F.rand_felts((nr, n), rng),
+        constants_oracle=SimpleNamespace(
+            lde=_felts((leaf.constants_oracle.lde.shape[0], m), rng, device)),
+    )
+
+    def report(name, fn, got, want, work):
+        if tuple(got.shape) != tuple(want.shape) or not torch.equal(got.cpu(), want.cpu()):
+            raise AssertionError(f"{name}: differs from the plain version")
+        work_bytes, ops = work
+        bound_by = "bytes" if work_bytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
+        bound = 1e3 * max(work_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+        return (f"{median_ms(fn, runs=5):.4f} ms, device {device_ms(fn):.4f} ms, bound "
+                f"{bound:.4f} ms by {bound_by}")
+
+    args = _permutation_args(data, rng, device, zeros=[(0, 255, 3), (0, 256, 70), (1, 256, 0)])
+    before = tprover.compute_permutation_polys.launches
+    got = tprover.compute_permutation_polys(data, *args)
+    launches = tprover.compute_permutation_polys.launches - before
+    t0 = time.perf_counter()
+    want = tprover.compute_permutation_polys_plain(data, *_cpu(args))
+    plain_s = time.perf_counter() - t0
+    line = report("permutation_polys 2^16", lambda: tprover.compute_permutation_polys(data, *args),
+                  got, want, _permutation_work(data))
+    print(f"[fused 2^{degree_bits}] permutation_polys n = {n}: {launches} launches, all "
+          f"{want.numel()} values equal the plain version on CPU copies ({plain_s:.1f} s), "
+          f"zero denominators at rows 255 and 256; {line}", flush=True)
+    del args, got, want
+
+    args = _quotient_args(data, rng, device)
+    got = tprover.quotient_evals(data, *args)
+    want = tprover.quotient_evals_plain(data, *args)
+    line = report("quotient 2^19", lambda: tprover.quotient_evals(data, *args), got, want,
+                  _quotient_work(data))
+    print(f"[fused 2^{degree_bits}] quotient m = {m}: all {want.numel()} values equal "
+          f"quotient_evals_plain run on the card (its field ops on kernel 1, held bit-exact "
+          f"in the kernel phase); {line}", flush=True)
+    del args, got, want, data
+    torch.cuda.empty_cache()
+
+
 def phase_main_path(kernels) -> None:
     import torch
 
@@ -733,6 +878,7 @@ def main() -> int:
     kernels = kernel_table("cuda")
     phase_kernels(kernels)
     phase_aggregation_tree("cuda")
+    phase_aggregation_fused("cuda")
     phase_main_path(kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -42,17 +42,39 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
   return reduce128(a * b, __umul64hi(a, b));
 }
 
-// a^(p-2) by square and multiply, MSB first: the inverse of a nonzero a, and
-// inv(0) = 0 as field/goldilocks.py::inv gives.
-__device__ __forceinline__ uint64_t inv(uint64_t a) {
-  constexpr uint64_t E = P - 2;
+// a^e for a small exponent (kernel A's alpha powers), square and multiply.
+__device__ __forceinline__ uint64_t pow(uint64_t a, unsigned e) {
   uint64_t r = 1;
-#pragma unroll 1
-  for (int b = 63; b >= 0; --b) {
-    r = mul(r, r);
-    if ((E >> b) & 1) r = mul(r, a);
+  while (e) {
+    if (e & 1) r = mul(r, a);
+    e >>= 1;
+    if (e) a = mul(a, a);
   }
   return r;
+}
+
+// x^(2^k): k squarings.
+__device__ __forceinline__ uint64_t sqr_n(uint64_t x, int k) {
+#pragma unroll 1
+  for (int i = 0; i < k; ++i) x = mul(x, x);
+  return x;
+}
+
+// a^(p-2), the inverse of a nonzero a, and inv(0) = 0 as
+// field/goldilocks.py::inv gives. p - 2 = (2^32 - 2) * 2^32 + (2^32 - 1), so
+// with t_k = a^(2^k - 1) built by t_{j+k} = t_j^(2^k) * t_k: 63 squarings
+// and 9 multiplies in one dependent chain, where square and multiply takes
+// 127.
+__device__ __forceinline__ uint64_t inv(uint64_t a) {
+  const uint64_t t2 = mul(mul(a, a), a);
+  const uint64_t t3 = mul(mul(t2, t2), a);
+  const uint64_t t6 = mul(sqr_n(t3, 3), t3);
+  const uint64_t t12 = mul(sqr_n(t6, 6), t6);
+  const uint64_t t24 = mul(sqr_n(t12, 12), t12);
+  const uint64_t t30 = mul(sqr_n(t24, 6), t6);
+  const uint64_t t31 = mul(mul(t30, t30), a);
+  const uint64_t hi = mul(t31, t31);  // a^(2^32 - 2)
+  return mul(sqr_n(hi, 32), mul(hi, a));
 }
 
 }  // namespace gl

@@ -11,25 +11,30 @@
 //   ratio_j = N_j * D_j^{-1}  (with 0^{-1} = 0, as goldilocks.py::inv),
 //   Z(r) = prod_{u < r} prod_j ratio_j(u),   pp_j(r) = Z(r) * prod_{t <= j} ratio_t(r).
 //
-// Design: two launches. Phase 1 has one thread per (row, challenge): the
-// chunk products in registers, one Fermat inverse per thread through
-// Montgomery's batch trick (a zero denominator is replaced by 1 in the batch
-// and its inverse set to 0, so inv(0) = 0 holds exactly), and the running
-// ratio products. It writes prod_{t <= j} ratio_t into the pp rows of the
-// output and the row's whole ratio into the Z row. Phase 2 has one block per
-// challenge: each of up to 1024 threads takes a segment of at most 16 rows,
-// the block scans the segment products in shared memory, and each thread
-// then rewrites its rows in place: Z(r) is the exclusive prefix product and
-// pp_j(r) is Z(r) times the stored partial ratio. So n is limited to
-// 1024 * 16 = 2^14 rows (the wrapper refuses more on every device); a scan
-// across blocks comes with aggregation.
+// Design: a block takes a tile of TILE rows of one challenge, a row a
+// thread. Each thread forms its row's chunk products (a chunk's reads issued
+// together) and the product of its nonzero denominators. Montgomery's batch
+// trick then runs across the tile: a forward and a backward product scan
+// over the threads (warp shuffles, then warp 0 over the warps' products) and
+// one Fermat inverse of the tile's product, so a row's inverse is that
+// inverse times its two scans, and a chunk's is taken out of the row's by the
+// same trick (a zero denominator is left out of the products and its
+// inverse set to 0, so inv(0) = 0 holds exactly). A second scan over the
+// rows' ratios gives Z within the tile; the block writes Z and the partial
+// products and its tile's product. A second launch, when there is more than
+// one tile, gives each later tile the product of the tiles before it (a
+// reduction over the tile products) and multiplies it into the tile's Z and
+// partial products in place. So a call is one launch up to TILE rows (the
+// leaf's 256) and two above; one Fermat inverse per (tile, challenge).
 //
-// Bound on the H100: integer operations at the leaf (n = 256). The function
-// needs about 350 field multiplies per (row, challenge), most of them the
-// chunk factors and products, and one Fermat inverse per challenge when a
-// batch inverse runs across all rows, against 3 * 80 reads. This kernel
-// spends a Fermat inverse (127 multiplies) per (row, challenge) instead.
-// Phase 2 is a latency-bound scan.
+// Bound on the H100: integer operations at the leaf (n = 256) and at
+// aggregation sizes. The function needs about 350 field multiplies per
+// (row, challenge), most of them the chunk factors and products, and one
+// Fermat inverse per challenge when a batch inverse runs across all rows,
+// against 3 * 80 reads. At the leaf the kernel runs as two blocks, so its
+// time is the latency of one thread's chain (a dependent field multiply
+// takes about 71 cycles) and of fetching its code cold: the loops stay
+// rolled.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -38,110 +43,182 @@ namespace {
 
 constexpr int MAX_NC = 4;
 constexpr int MAX_CHUNKS = 16;
-constexpr int SCAN_THREADS = 1024;
-constexpr int MAX_SEGMENT = 16;
-constexpr int THREADS = 128;
+constexpr int TILE = 256;  // rows a tile and threads a block, plonk/prover.py::PERMUTATION_TILE
+constexpr int WARPS = TILE / 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int BATCH = 8;  // reads in flight a thread
 
 struct Challenges {
   uint64_t beta[MAX_NC];
   uint64_t gamma[MAX_NC];
 };
 
-// out rows: [Z_0 .. Z_{nc-1}, pp_{0,0} .. pp_{0,npp-1}, pp_{1,0} ..], each n long.
-__global__ void __launch_bounds__(THREADS) perm_ratios_kernel(
-    const uint64_t* __restrict__ wires, const uint64_t* __restrict__ ids,
-    const uint64_t* __restrict__ sigmas, uint64_t* __restrict__ out, Challenges ch, int n,
-    int nr, int qdf, int nchunks, int nc) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = blockIdx.y;
-  if (r >= n) return;
-  const uint64_t beta = ch.beta[c], gamma = ch.gamma[c];
-  const int npp = nchunks - 1;
-  uint64_t cn[MAX_CHUNKS], cd[MAX_CHUNKS], pre[MAX_CHUNKS];
-  uint64_t run = 1;  // product of the nonzero denominators so far
-#pragma unroll
-  for (int j = 0; j < MAX_CHUNKS; ++j) {
-    if (j < nchunks) {
-      uint64_t num = 1, den = 1;
-      const int end = min(nr, (j + 1) * qdf);
-      for (int i = j * qdf; i < end; ++i) {
-        const long long at = (long long)i * n + r;
-        const uint64_t w = wires[at];
-        num = gl::mul(num, gl::add(gl::add(w, gl::mul(beta, ids[at])), gamma));
-        den = gl::mul(den, gl::add(gl::add(w, gl::mul(beta, sigmas[at])), gamma));
-      }
-      cn[j] = num;
-      cd[j] = den;
-      if (den != 0) run = gl::mul(run, den);
-      pre[j] = run;
+// Exclusive product scans of v over the block's threads in order: `before`
+// is the product over the lower threads, `after` (when AFTER) over the
+// higher ones. Returns the block's product. Each warp scans its lanes with
+// shuffles, warp 0 then scans the warps' products, so a thread's chain is
+// 5 + log2(WARPS) multiplies deep. Every thread calls it; sh holds
+// 2 * WARPS + 1 words.
+template <bool AFTER>
+__device__ __forceinline__ uint64_t block_scan(uint64_t v, uint64_t& before, uint64_t& after,
+                                               uint64_t* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint64_t up = v, down = v;  // products over lanes 0..lane and lane..31
+#pragma unroll 1
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint64_t u = __shfl_up_sync(FULL, (unsigned long long)up, d);
+    if (lane >= d) up = gl::mul(u, up);
+    if (AFTER) {
+      const uint64_t w = __shfl_down_sync(FULL, (unsigned long long)down, d);
+      if (lane + d < 32) down = gl::mul(w, down);
     }
   }
-  uint64_t inv = gl::inv(run);  // inverse of the product of nonzero cd
-#pragma unroll
-  for (int j = MAX_CHUNKS - 1; j >= 0; --j) {
-    if (j < nchunks) {
-      const uint64_t before = j ? pre[j - 1] : 1;
-      if (cd[j] != 0) {
-        cn[j] = gl::mul(cn[j], gl::mul(inv, before));  // ratio_j
-        inv = gl::mul(inv, cd[j]);
-      } else {
-        cn[j] = 0;
+  if (lane == 31) sh[warp] = up;
+  __syncthreads();
+  if (warp == 0) {
+    // the same scans over the warps' products, on warp 0
+    const uint64_t t = lane < WARPS ? sh[lane] : 1;
+    uint64_t wup = t, wdown = t;
+#pragma unroll 1
+    for (int d = 1; d < WARPS; d <<= 1) {
+      const uint64_t u = __shfl_up_sync(FULL, (unsigned long long)wup, d);
+      if (lane >= d) wup = gl::mul(u, wup);
+      if (AFTER) {
+        const uint64_t w = __shfl_down_sync(FULL, (unsigned long long)wdown, d);
+        if (lane + d < WARPS) wdown = gl::mul(w, wdown);
       }
     }
-  }
-  uint64_t q = 1;
-#pragma unroll
-  for (int j = 0; j < MAX_CHUNKS; ++j) {
-    if (j < nchunks) {
-      q = gl::mul(q, cn[j]);
-      if (j < npp) out[((long long)nc + c * npp + j) * n + r] = q;
+    const uint64_t wex = __shfl_up_sync(FULL, (unsigned long long)wup, 1);
+    const uint64_t wex_down = __shfl_down_sync(FULL, (unsigned long long)wdown, 1);
+    __syncwarp();
+    if (lane < WARPS) {
+      sh[lane] = lane ? wex : 1;
+      if (AFTER) sh[WARPS + lane] = lane + 1 < WARPS ? wex_down : 1;
     }
+    if (lane == WARPS - 1) sh[2 * WARPS] = wup;
   }
-  out[(long long)c * n + r] = q;
+  __syncthreads();
+  const uint64_t ex = __shfl_up_sync(FULL, (unsigned long long)up, 1);
+  before = gl::mul(sh[warp], lane ? ex : 1);
+  if (AFTER) {
+    const uint64_t ex_down = __shfl_down_sync(FULL, (unsigned long long)down, 1);
+    after = gl::mul(sh[WARPS + warp], lane < 31 ? ex_down : 1);
+  }
+  const uint64_t total = sh[2 * WARPS];
+  __syncthreads();  // sh is free for the next scan
+  return total;
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS) perm_scan_kernel(uint64_t* __restrict__ out,
-                                                                  int n, int npp, int nc,
-                                                                  int segment) {
-  __shared__ uint64_t s[SCAN_THREADS];
-  const int c = blockIdx.x;
-  const int t = threadIdx.x;
-  uint64_t* z = out + (long long)c * n;
-  const int lo = min(n, t * segment), hi = min(n, lo + segment);
-  uint64_t local = 1;
-  for (int i = lo; i < hi; ++i) local = gl::mul(local, z[i]);
-  s[t] = local;
-  __syncthreads();
-  // inclusive Hillis-Steele product scan over the segment products
-  for (int d = 1; d < blockDim.x; d <<= 1) {
-    uint64_t v = s[t];
-    if (t >= d) v = gl::mul(s[t - d], v);
-    __syncthreads();
-    s[t] = v;
-    __syncthreads();
-  }
-  uint64_t run = t ? s[t - 1] : 1;
-  for (int i = lo; i < hi; ++i) {
-    const uint64_t ratio = z[i];
-    z[i] = run;
-    for (int j = 0; j < npp; ++j) {
-      uint64_t* pp = out + ((long long)nc + c * npp + j) * n + i;
-      *pp = gl::mul(run, *pp);
+// out rows: [Z_0 .. Z_{nc-1}, pp_{0,0} .. pp_{0,npp-1}, pp_{1,0} ..], each n
+// long; tile_prod: (nc, tiles) the product of each tile's row ratios.
+__global__ void __launch_bounds__(TILE) perm_tile_kernel(
+    const uint64_t* __restrict__ wires, const uint64_t* __restrict__ ids,
+    const uint64_t* __restrict__ sigmas, uint64_t* __restrict__ out,
+    uint64_t* __restrict__ tile_prod, Challenges ch, int n, int nr, int qdf, int nchunks,
+    int nc) {
+  __shared__ uint64_t sh[2 * WARPS + 1];
+  __shared__ uint64_t tile_inv;
+  const int r = blockIdx.x * TILE + threadIdx.x;
+  const int c = blockIdx.y;
+  const bool live = r < n;  // a row past n takes part in the scans as 1
+  const uint64_t beta = ch.beta[c], gamma = ch.gamma[c];
+  const int npp = nchunks - 1;
+  // rolled loops (the arrays live in local memory); a chunk's reads are
+  // issued together, eight at a time
+  uint64_t cn[MAX_CHUNKS], cd[MAX_CHUNKS], pre[MAX_CHUNKS];
+  uint64_t run = 1;  // product of the row's nonzero denominators so far
+#pragma unroll 1
+  for (int j = 0; j < nchunks; ++j) {
+    uint64_t num = 1, den = 1;
+    const int end = live ? min(nr, (j + 1) * qdf) : 0;
+#pragma unroll 1
+    for (int i0 = j * qdf; i0 < end; i0 += BATCH) {
+      uint64_t w[BATCH], id[BATCH], sg[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const long long at = (long long)min(i0 + u, end - 1) * n + r;
+        w[u] = wires[at];
+        id[u] = ids[at];
+        sg[u] = sigmas[at];
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        if (i0 + u < end) {
+          num = gl::mul(num, gl::add(gl::add(w[u], gl::mul(beta, id[u])), gamma));
+          den = gl::mul(den, gl::add(gl::add(w[u], gl::mul(beta, sg[u])), gamma));
+        }
+      }
     }
-    run = gl::mul(run, ratio);
+    cn[j] = num;
+    cd[j] = den;
+    if (den != 0) run = gl::mul(run, den);
+    pre[j] = run;
+  }
+  // the tile's batch inverse: 1/run = (1/the tile's product of runs) * the
+  // runs of the other rows
+  uint64_t lower, higher;
+  const uint64_t all = block_scan<true>(run, lower, higher, sh);
+  if (threadIdx.x == 0) tile_inv = gl::inv(all);
+  __syncthreads();
+  uint64_t inv = gl::mul(tile_inv, gl::mul(lower, higher));
+#pragma unroll 1
+  for (int j = nchunks - 1; j >= 0; --j) {
+    const uint64_t before = j ? pre[j - 1] : 1;
+    if (cd[j] != 0) {
+      cn[j] = gl::mul(cn[j], gl::mul(inv, before));  // ratio_j
+      inv = gl::mul(inv, cd[j]);
+    } else {
+      cn[j] = 0;
+    }
+  }
+  uint64_t q = 1;  // prod_{t <= j} ratio_t, kept in cn[j]
+#pragma unroll 1
+  for (int j = 0; j < nchunks; ++j) {
+    q = gl::mul(q, cn[j]);
+    cn[j] = q;
+  }
+  // Z within the tile: the exclusive product of the row ratios
+  uint64_t z, unused;
+  const uint64_t prod = block_scan<false>(q, z, unused, sh);
+  if (live) {
+    out[(long long)c * n + r] = z;
+#pragma unroll 1
+    for (int j = 0; j < npp; ++j) out[((long long)nc + c * npp + j) * n + r] = gl::mul(z, cn[j]);
+  }
+  if (threadIdx.x == 0) tile_prod[(long long)c * gridDim.x + blockIdx.x] = prod;
+}
+
+// Tile t > 0 of challenge c: its Z and partial products times the product of
+// the tiles before it.
+__global__ void __launch_bounds__(TILE) perm_carry_kernel(uint64_t* __restrict__ out,
+                                                          const uint64_t* __restrict__ tile_prod,
+                                                          int n, int npp, int nc, int tiles) {
+  __shared__ uint64_t sh[2 * WARPS + 1];
+  const int t = blockIdx.x + 1;
+  const int c = blockIdx.y;
+  uint64_t v = 1;
+  for (int u = threadIdx.x; u < t; u += TILE) v = gl::mul(v, tile_prod[(long long)c * tiles + u]);
+  uint64_t unused_before, unused_after;
+  const uint64_t carry = block_scan<false>(v, unused_before, unused_after, sh);
+  const int r = t * TILE + threadIdx.x;
+  if (r >= n) return;
+  uint64_t* z = out + (long long)c * n + r;
+  *z = gl::mul(carry, *z);
+  for (int j = 0; j < npp; ++j) {
+    uint64_t* pp = out + ((long long)nc + c * npp + j) * n + r;
+    *pp = gl::mul(carry, *pp);
   }
 }
 
 }  // namespace
 
 // wires, ids, sigmas: (nr, n) with row stride n; betas, gammas: nc host
-// felts; out: (nc + nc * npp, n).
+// felts; out: (nc + nc * npp, n); tile_prod: (nc, ceil(n / TILE)) scratch.
 extern "C" int qzk_permutation(const void* wires, const void* ids, const void* sigmas,
-                               const void* betas, const void* gammas, void* out, int n, int nr,
-                               int qdf, int nc, void* stream) {
-  const int nchunks = (nr + qdf - 1) / qdf;
-  if (nc < 1 || nc > MAX_NC || qdf < 1 || nr < 1 || nchunks > MAX_CHUNKS || n < 1 ||
-      n > SCAN_THREADS * MAX_SEGMENT)
+                               const void* betas, const void* gammas, void* out, void* tile_prod,
+                               int n, int nr, int qdf, int nc, void* stream) {
+  const int nchunks = qdf < 1 ? 0 : (nr + qdf - 1) / qdf;
+  if (nc < 1 || nc > MAX_NC || qdf < 1 || nr < 1 || nchunks > MAX_CHUNKS || n < 1)
     return (int)cudaErrorInvalidValue;
   Challenges ch{};
   for (int c = 0; c < nc; ++c) {
@@ -149,16 +226,13 @@ extern "C" int qzk_permutation(const void* wires, const void* ids, const void* s
     ch.gamma[c] = ((const uint64_t*)gammas)[c];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((unsigned)((n + THREADS - 1) / THREADS), (unsigned)nc);
-  perm_ratios_kernel<<<grid, THREADS, 0, s>>>((const uint64_t*)wires, (const uint64_t*)ids,
-                                              (const uint64_t*)sigmas, (uint64_t*)out, ch, n,
-                                              nr, qdf, nchunks, nc);
+  const int tiles = (n + TILE - 1) / TILE;
+  perm_tile_kernel<<<dim3((unsigned)tiles, (unsigned)nc), TILE, 0, s>>>(
+      (const uint64_t*)wires, (const uint64_t*)ids, (const uint64_t*)sigmas, (uint64_t*)out,
+      (uint64_t*)tile_prod, ch, n, nr, qdf, nchunks, nc);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  // one row a thread up to 1024 rows, then segments of up to 16 rows
-  const int rounded = ((n + 31) / 32) * 32;
-  const int threads = rounded < SCAN_THREADS ? rounded : SCAN_THREADS;
-  const int segment = (n + threads - 1) / threads;
-  perm_scan_kernel<<<(unsigned)nc, threads, 0, s>>>((uint64_t*)out, n, nchunks - 1, nc, segment);
+  if (e != cudaSuccess || tiles == 1) return (int)e;
+  perm_carry_kernel<<<dim3((unsigned)(tiles - 1), (unsigned)nc), TILE, 0, s>>>(
+      (uint64_t*)out, (const uint64_t*)tile_prod, n, nchunks - 1, nc, tiles);
   return (int)cudaGetLastError();
 }

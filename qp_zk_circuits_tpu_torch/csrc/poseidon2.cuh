@@ -106,17 +106,22 @@ __device__ __forceinline__ uint64_t quad_shfl_xor(uint64_t v, int mask) {
 // Row j of M4 packed a nibble a coefficient: M4[j][k] = (M4_ROWS >> (16 j + 4 k)) & 15.
 constexpr uint64_t M4_ROWS = 0x6411ull << 48 | 0x7531ull << 32 | 0x1164ull << 16 | 0x3175ull;
 
-// M_E on a split state: thread j gathers its group's four lanes from the
-// quad and forms output lane j of each group; the sum over the three groups
-// then stays in the thread. The same 128-bit sums as external_linear.
+// M_E on a split state: thread j gathers its group's other three lanes from
+// the quad, lane (j + k) % 4 by the k-th shuffle, and forms output lane j of
+// each group; the sum over the three groups then stays in the thread. The
+// same 128-bit sums as external_linear.
 __device__ __forceinline__ void external_linear_split(uint64_t* x, int j) {
   const uint64_t row = M4_ROWS >> (16 * j);
   U128 y[SPLIT_SLOTS];
 #pragma unroll
   for (int g = 0; g < SPLIT_SLOTS; ++g) {
     U128 acc = {0, 0};
+    mac(acc, x[g], (row >> (4 * j)) & 15);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) mac(acc, quad_shfl(x[g], k), (row >> (4 * k)) & 15);
+    for (int k = 1; k < 4; ++k) {
+      const int src = (j + k) & 3;
+      mac(acc, quad_shfl(x[g], src), (row >> (4 * src)) & 15);
+    }
     y[g] = acc;
   }
   const U128 s = add128(add128(y[0], y[1]), y[2]);

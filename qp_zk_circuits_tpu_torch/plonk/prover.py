@@ -33,21 +33,41 @@ from ..hash import poseidon2 as ps
 from ..poly import ntt
 from . import transcript as ts
 from .builder import CircuitData, PartialWitness, coset_shifts, generate_witness
-from .gates import PERMUTATION_TYPE_ID, DeviceBatchCtx, gate_descriptor
+from .gates import (
+    GATE_TYPE_IDS,
+    PERMUTATION_TYPE_ID,
+    DeviceBatchCtx,
+    Poseidon2Gate,
+    gate_descriptor,
+)
 from .proof import OpeningSet, Proof, fri_instance, zs_pp_layout
 from .vanishing import num_partial_products, permutation_chunks
 
 
-#: kernel A keeps one accumulator a challenge in registers; kernel B's
+#: kernel A keeps one accumulator a challenge in registers; both kernels'
 #: challenges travel as launch arguments
 MAX_CHALLENGES = 4
 #: kernel B keeps a row's chunk products in registers
 MAX_CHUNKS = 16
-#: kernel B scans Z in one block: 1024 threads x at most 16 rows
-MAX_PERMUTATION_ROWS = 1 << 14
+#: kernel B's rows a block (csrc/permutation.cu TILE): one Fermat inverse a
+#: tile and challenge, and a second launch above one tile
+PERMUTATION_TILE = 256
+#: kernel B's second launch multiplies, in each tile's block, the products of
+#: the tiles before it: its work grows as (n / PERMUTATION_TILE)^2, and at
+#: 2^20 rows it is still a few percent of the first launch's
+MAX_PERMUTATION_ROWS = 1 << 20
 #: a kernel-A descriptor row: type, p0, p1, p2, selector row, first
-#: constraint index
-DESC_WIDTH = 6
+#: constraint index, threads a point, first block
+DESC_WIDTH = 8
+#: kernel A's threads a block (csrc/quotient.cu THREADS)
+QUOTIENT_THREADS = 128
+#: kernel A's threads a point by group type: the Poseidon2 gate's lane-split
+#: form takes a quad (it needs four), a permutation row spreads its chunks
+#: over four; the other gate types take one
+QUOTIENT_LANES = {GATE_TYPE_IDS[Poseidon2Gate]: 4, PERMUTATION_TYPE_ID: 4}
+#: kernel A's blocks a group at most: past it a block loops over tiles of
+#: points, so it forms its alpha-power table once for many tiles
+QUOTIENT_GROUP_BLOCKS = 1024
 
 
 def _prefix_prod_inclusive(a: torch.Tensor) -> torch.Tensor:
@@ -61,33 +81,58 @@ def _prefix_prod_inclusive(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _group_blocks(lanes: int, m: int) -> int:
+    """Kernel A's blocks for a group of `lanes` threads a point over m points."""
+    return min(-(-m * lanes // QUOTIENT_THREADS), QUOTIENT_GROUP_BLOCKS)
+
+
 def quotient_descriptors(data: CircuitData) -> tuple[np.ndarray, int]:
     """Kernel A's descriptor table (G, DESC_WIDTH) int32 and the total
     constraint count K. One row per gate type (its constraints are masked by
     selector row nconst + s), then one row per challenge for its boundary and
     permutation transitions; column 5 is the row's first index in the
-    canonical constraint list of `vanishing.eval_constraints`."""
+    canonical constraint list of `vanishing.eval_constraints`, column 6 its
+    threads a point (QUOTIENT_LANES) and column 7 its first block."""
     cfg = data.config
+    m = data.n << cfg.rate_bits
     nconst = data.const_cols.shape[0]
     nchunks = len(permutation_chunks(cfg.num_routed_wires, cfg.max_quotient_degree_factor))
-    rows = []
-    k = 0
-    for s, gate in enumerate(data.gate_types):
-        rows.append([*gate_descriptor(gate), nconst + s, k])
-        k += gate.num_constraints
-    for c in range(cfg.num_challenges):
-        rows.append([PERMUTATION_TYPE_ID, c, 0, 0, -1, k])
-        k += 1 + nchunks
+    # (type, p0, p1, p2, selector row, constraint count) a group
+    groups = [(*gate_descriptor(gate), nconst + s, gate.num_constraints)
+              for s, gate in enumerate(data.gate_types)]
+    groups += [(PERMUTATION_TYPE_ID, c, 0, 0, -1, 1 + nchunks) for c in range(cfg.num_challenges)]
+    rows, k, block = [], 0, 0
+    for *head, count in groups:
+        lanes = QUOTIENT_LANES.get(head[0], 1)
+        rows.append([*head, k, lanes, block])
+        k += count
+        block += _group_blocks(lanes, m)
     return np.array(rows, dtype=np.int32).reshape(-1, DESC_WIDTH), k
 
 
-def _tables(data: CircuitData, dev) -> dict:
-    """Per-circuit tables on device `dev` (cached on the circuit data)."""
+def _cached(data: CircuitData, dev, key: str, make) -> dict:
+    """make(dev) once per circuit and device, kept on the circuit data."""
     dev = torch.device(dev)
-    per_device = data.__dict__.setdefault("_torch_tables", {})
-    cached = per_device.get(dev)
-    if cached is not None:
-        return cached
+    per_device = data.__dict__.setdefault(key, {})
+    if dev not in per_device:
+        per_device[dev] = make(dev)
+    return per_device[dev]
+
+
+def _routing_tables(data: CircuitData, dev) -> dict:
+    """Kernel B's per-circuit tables on device `dev`."""
+    return _cached(data, dev, "_torch_routing", lambda d: {
+        "id_coords": gl.from_u64(data.id_coords, d),
+        "sigma_vals": gl.from_u64(data.sigma_vals, d),
+    })
+
+
+def _quotient_tables(data: CircuitData, dev) -> dict:
+    """Kernel A's per-circuit tables on device `dev`."""
+    return _cached(data, dev, "_torch_tables", lambda d: _build_quotient_tables(data, d))
+
+
+def _build_quotient_tables(data: CircuitData, dev) -> dict:
     cfg = data.config
     m = data.n << cfg.rate_bits
     xs = F.mul(
@@ -96,18 +141,17 @@ def _tables(data: CircuitData, dev) -> dict:
     )
     l1, inv_zh = _l1_and_inv_zh(data, xs)
     desc, k_total = quotient_descriptors(data)
-    tables = {
-        "id_coords": gl.from_u64(data.id_coords, dev),
-        "sigma_vals": gl.from_u64(data.sigma_vals, dev),
+    counts = np.diff(np.append(desc[:, 5], k_total))
+    return {
         "xs": gl.from_u64(xs, dev),
         "l1": gl.from_u64(l1, dev),
         "inv_zh": gl.from_u64(inv_zh, dev),
         "ks": gl.from_u64(np.asarray(coset_shifts(cfg.num_routed_wires), dtype=np.uint64), dev),
         "desc": torch.as_tensor(desc, device=dev),
         "num_constraints": k_total,
+        "blocks": int(desc[-1, 7]) + _group_blocks(int(desc[-1, 6]), m),
+        "max_count": int(counts.max()),
     }
-    per_device[dev] = tables
-    return tables
 
 
 def _l1_and_inv_zh(data: CircuitData, xs: np.ndarray):
@@ -149,9 +193,7 @@ def _permutation_limits(data: CircuitData, trace: torch.Tensor) -> None:
     if trace.dim() != 2 or trace.shape[0] < cfg.num_routed_wires or trace.shape[1] != data.n:
         raise ValueError(f"trace {tuple(trace.shape)} does not fit the circuit")
     if data.n > MAX_PERMUTATION_ROWS:
-        raise ValueError(
-            f"{data.n} rows: the one-block Z scan takes at most {MAX_PERMUTATION_ROWS}"
-        )
+        raise ValueError(f"{data.n} rows: kernel B takes at most {MAX_PERMUTATION_ROWS}")
     if not 1 <= cfg.num_challenges <= MAX_CHALLENGES or nchunks > MAX_CHUNKS:
         raise ValueError(
             f"{cfg.num_challenges} challenges and {nchunks} permutation chunks: "
@@ -168,7 +210,7 @@ def compute_permutation_polys_plain(data: CircuitData, trace: torch.Tensor, beta
     chunks = permutation_chunks(nr, qdf)
     npp = num_partial_products(nr, qdf)
     dev = trace.device
-    tab = _tables(data, dev)
+    tab = _routing_tables(data, dev)
     wires = trace[:nr]  # (nr, n)
     zs, pps = [], []
     for c in range(cfg.num_challenges):
@@ -193,9 +235,9 @@ def compute_permutation_polys(data: CircuitData, trace: torch.Tensor, betas, gam
     """Z and partial-product columns per challenge -> (num_cols, n) on the
     trace's device: [Z_0, Z_1, ..., pp_0_*, pp_1_*, ...].
 
-    On a CUDA trace: kernel B (csrc/permutation.cu), two launches. On a CPU
-    trace: the plain version. n is at most MAX_PERMUTATION_ROWS on every
-    device."""
+    On a CUDA trace: kernel B (csrc/permutation.cu), one launch up to
+    PERMUTATION_TILE rows and two above. On a CPU trace: the plain version.
+    n is at most MAX_PERMUTATION_ROWS on every device."""
     _permutation_limits(data, trace)
     if trace.device.type == "cpu":
         return compute_permutation_polys_plain(data, trace, betas, gammas)
@@ -207,19 +249,26 @@ def _launch_permutation(data: CircuitData, trace: torch.Tensor, betas, gammas):
     cfg = data.config
     nr, nc = cfg.num_routed_wires, cfg.num_challenges
     npp = num_partial_products(nr, cfg.max_quotient_degree_factor)
-    tab = _tables(data, trace.device)
+    tab = _routing_tables(data, trace.device)
     wires = trace[:nr].contiguous()
     out = torch.empty((nc + nc * npp, data.n), dtype=torch.int64, device=trace.device)
-    b = np.ascontiguousarray(np.asarray(betas, dtype=np.uint64)[:nc])
-    g = np.ascontiguousarray(np.asarray(gammas, dtype=np.uint64)[:nc])
+    tiles = -(-data.n // PERMUTATION_TILE)
+    tile_prod = torch.empty((nc, tiles), dtype=torch.int64, device=trace.device)
+    b, g = (_host_felts(v, nc) for v in (betas, gammas))
     err = _cuda.lib().qzk_permutation(
         wires.data_ptr(), tab["id_coords"].data_ptr(), tab["sigma_vals"].data_ptr(),
-        b.ctypes.data, g.ctypes.data, out.data_ptr(),
+        b.ctypes.data, g.ctypes.data, out.data_ptr(), tile_prod.data_ptr(),
         data.n, nr, cfg.max_quotient_degree_factor, nc, _cuda.stream(),
     )
     _cuda.check(err, "qzk_permutation")
-    compute_permutation_polys.launches += 2
+    compute_permutation_polys.launches += 1 if tiles == 1 else 2
     return out
+
+
+def _host_felts(values, count: int) -> np.ndarray:
+    """The first `count` felts of `values` as a contiguous uint64 array, for
+    a kernel entry that takes them by value."""
+    return np.ascontiguousarray(np.asarray(values, dtype=np.uint64)[:count])
 
 
 compute_permutation_polys.launches = 0
@@ -264,7 +313,7 @@ def quotient_evals_plain(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_h
     nconst = data.const_cols.shape[0]
     nsel = data.num_selectors
     dev = wires_lde.device
-    tab = _tables(data, dev)
+    tab = _quotient_tables(data, dev)
 
     ctx = DeviceBatchCtx(
         wires_lde[: cfg.num_wires],
@@ -334,16 +383,9 @@ def _launch_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash,
     nc = cfg.num_challenges
     m = data.n << cfg.rate_bits
     dev = wires_lde.device
-    tab = _tables(data, dev)
-    k_total = tab["num_constraints"]
-    apows = [F.powers_table(np.uint64(alphas[c]), k_total) for c in range(nc)]
-    scal = gl.from_u64(
-        np.concatenate([
-            np.asarray(betas, dtype=np.uint64)[:nc], np.asarray(gammas, dtype=np.uint64)[:nc],
-            np.asarray(pi_hash, dtype=np.uint64), *apows,
-        ]),
-        dev,
-    )
+    tab = _quotient_tables(data, dev)
+    alphas, betas, gammas = (_host_felts(v, nc) for v in (alphas, betas, gammas))
+    pi_hash = _host_felts(pi_hash, 4)
     wires_lde, consts_lde, zs_pp_lde = (t.contiguous() for t in (wires_lde, consts_lde, zs_pp_lde))
     groups = tab["desc"].shape[0]
     partial = torch.empty((groups, nc, m), dtype=torch.int64, device=dev)
@@ -354,11 +396,13 @@ def _launch_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash,
         err = lib.qzk_quotient(
             wires_lde.data_ptr(), consts_lde.data_ptr(), zs_pp_lde.data_ptr(),
             tab["xs"].data_ptr(), tab["l1"].data_ptr(), tab["inv_zh"].data_ptr(),
-            tab["ks"].data_ptr(), scal.data_ptr(), tab["desc"].data_ptr(),
-            partial.data_ptr(), out.data_ptr(),
-            groups, m, 1 << cfg.rate_bits, cfg.num_routed_wires, cfg.max_quotient_degree_factor,
+            tab["ks"].data_ptr(), tab["desc"].data_ptr(), partial.data_ptr(), out.data_ptr(),
+            alphas.ctypes.data, betas.ctypes.data, gammas.ctypes.data, pi_hash.ctypes.data,
+            groups, tab["blocks"], m, 1 << cfg.rate_bits, cfg.num_routed_wires,
+            cfg.max_quotient_degree_factor,
             num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor), nc,
-            data.const_cols.shape[0], data.num_selectors, k_total, _cuda.stream(),
+            data.const_cols.shape[0], data.num_selectors, tab["num_constraints"],
+            tab["max_count"], _cuda.stream(),
         )
     _cuda.check(err, "qzk_quotient")
     quotient_evals.launches += 2

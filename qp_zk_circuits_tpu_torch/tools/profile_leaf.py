@@ -15,7 +15,10 @@ up, then:
     Poseidon2 duplexes), printed as inclusive times and call counts;
   * one proof under torch.profiler: device time by kernel and the number of
     device launches; the device's busy share is that device time over the
-    median prove time.
+    median prove time;
+  * one proof with each call into the kernel library replayed in a CUDA
+    graph (`tools/timing.py::device_split`): the port's own kernels' device
+    time by library entry, torch's glue kernels left out.
 
 Prints a JSON object as its last line. The stage timers and the profiler
 each add host overhead, so the timed proofs run without them.
@@ -37,7 +40,7 @@ from ..fri import prover as fri_prover
 from ..hash import merkle
 from ..plonk import prover as plonk_prover
 from ..plonk import transcript as ts
-from ..tools.timing import card
+from ..tools.timing import card, device_split
 from ..wormhole.prover import WormholeProver
 from ..wormhole.test_helpers import test_inputs_0
 
@@ -131,16 +134,21 @@ def main() -> None:
         times.append(1e3 * (time.perf_counter() - t0))
     stages = _stage_times(prover, inputs)
     device = _device_profile(prover, inputs)
+    _, split = device_split(lambda: prover.prove_inputs(inputs, seed=0))
     for name, v in stages.items():
         print(f"[stage] {name}: {v['ms']:.2f} ms over {v['calls']} calls")
     for name, v in device["top_kernels"].items():
         print(f"[kernel] {name[:70]}: {v['device_ms']:.3f} ms device, {v['count']} launches")
+    for name, (ms, calls) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        print(f"[entry] {name}: {ms:.4f} ms device over {calls} calls (graph replay)")
     median = statistics.median(times)
     result = {
         "card": card(),
         "prove_ms": {"median": median, "min": min(times), "max": max(times), "n": len(times)},
         "stages": stages,
         **{k: v for k, v in device.items() if k != "top_kernels"},
+        "entry_device_ms": {name: ms for name, (ms, _) in split.items()},
+        "entry_calls": {name: calls for name, (_, calls) in split.items()},
         # the profiler slows the host, not the kernels: the busy share is the
         # profiled proof's device time over the unprofiled median
         "device_busy_share": None if device["device_ms"] is None else device["device_ms"] / median,

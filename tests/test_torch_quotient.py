@@ -205,6 +205,14 @@ def test_descriptor_table_covers_every_gate_type(small):
     assert desc[:, 5].tolist() == np.cumsum([0] + counts[:-1]).tolist()
     assert k_total == sum(counts)
     assert tuple(desc[5, :4]) == (5, 3, 1, 20)  # ReducingGate(3, ext, scratch 20)
+    # threads a point: a quad for the Poseidon2 gate and the permutation
+    # rows, one otherwise; each group's blocks follow the last group's
+    lanes = [4 if t in (4, tgates.PERMUTATION_TYPE_ID) else 1 for t in desc[:, 0]]
+    assert desc[:, 6].tolist() == lanes
+    m = data.n << cfg.rate_bits
+    blocks = [min(-(-m * lane // tprover.QUOTIENT_THREADS), tprover.QUOTIENT_GROUP_BLOCKS)
+              for lane in lanes]
+    assert desc[:, 7].tolist() == np.cumsum([0] + blocks[:-1]).tolist()
 
 
 def test_unknown_gate_is_refused(small):
@@ -246,13 +254,41 @@ def test_permutation_polys_match_reference(small, zero_den):
 
 
 def test_permutation_size_limit_holds_on_every_device(small):
+    """Kernel B takes up to MAX_PERMUTATION_ROWS rows (its tile scan has no
+    one-block cap); both wrappers refuse more, on every device, before they
+    read the trace (a stride-0 view of the right shape)."""
     _, tdata = small
-    big = dataclasses.replace(tdata, degree_bits=15)
-    trace = torch.zeros((tdata.config.num_wires, 1 << 15), dtype=torch.int64)
+    bits = tprover.MAX_PERMUTATION_ROWS.bit_length()
+    assert tprover.MAX_PERMUTATION_ROWS >= 1 << 20
+    big = dataclasses.replace(tdata, degree_bits=bits)
+    trace = torch.zeros((tdata.config.num_wires, 1), dtype=torch.int64).expand(-1, 1 << bits)
     with pytest.raises(ValueError):
         tprover.compute_permutation_polys(big, trace, [1, 1], [1, 1])
     with pytest.raises(ValueError):
         tprover.compute_permutation_polys_plain(big, trace, [1, 1], [1, 1])
+
+
+def test_permutation_polys_plain_above_old_cap_match_reference(small):
+    """At n = 2^15 (above the one-block scan's old 2^14 cap) the plain
+    version equals the JAX package's host compute_permutation_polys on the
+    same stub circuit: 9 routed wires (two chunks, the last ragged), one
+    challenge, random routing tables, and a zero denominator."""
+    jdata, tdata = small
+    n = 1 << 15
+    rng = np.random.default_rng(15)
+    ids, sigmas = JF.rand_felts((9, n), rng), JF.rand_felts((9, n), rng)
+    trace = JF.rand_felts((9, n), rng)
+    betas, gammas = JF.rand_felts(1, rng), JF.rand_felts(1, rng)
+    trace[8, n - 2] = (-(int(betas[0]) * int(sigmas[8, n - 2]) + int(gammas[0]))) % P
+    config = {"num_routed_wires": 9, "num_challenges": 1}
+    jstub = SimpleNamespace(config=dataclasses.replace(jdata.config, **config),
+                            id_coords=ids, sigma_vals=sigmas)
+    tstub = dataclasses.replace(tdata, degree_bits=15, id_coords=ids, sigma_vals=sigmas,
+                                config=dataclasses.replace(tdata.config, **config))
+    want = jprover.compute_permutation_polys(jstub, trace, betas, gammas)
+    got = tprover.compute_permutation_polys(tstub, gl.from_u64(trace, "cpu"), betas, gammas)
+    assert np.array_equal(gl.to_u64(got), want)
+    assert (want[0, n - 1:] == 0).all() and want[0, n - 2] != 0
 
 
 def test_wrappers_refuse_non_cuda_accelerator_tensors(small):
@@ -356,19 +392,38 @@ def test_quotient_kernel_per_gate_on_card(small, cuda, name, make):
     assert torch.equal(got.cpu(), _port_evals(tone, x)), name
 
 
+def _variant(data, **config):
+    """The circuit data with its config changed, routing tables cut to the
+    routed wires (a fresh object, so no tables are cached)."""
+    cfg = dataclasses.replace(data.config, **config)
+    nr = cfg.num_routed_wires
+    return dataclasses.replace(data, config=cfg, id_coords=data.id_coords[:nr],
+                               sigma_vals=data.sigma_vals[:nr])
+
+
+# the leaf with 1, 2 and 4 challenges, and the canonical ZK profile's 60
+# routed wires (qdf 8: a ragged last chunk)
+VARIANTS = {"nc2": {}, "nc1": {"num_challenges": 1}, "nc4": {"num_challenges": 4},
+            "routed60": {"num_routed_wires": 60}}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("circuit", ["small", "leaf"])
+@pytest.mark.parametrize("circuit", ["small", *(f"leaf_{v}" for v in VARIANTS)])
 def test_fused_kernels_match_plain_on_card(small, cuda, circuit):
     from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
 
-    data = small[1] if circuit == "small" else WormholeProver(device="cpu").data
+    if circuit == "small":
+        data = small[1]
+    else:
+        data = _variant(WormholeProver(device="cpu").data, **VARIANTS[circuit[5:]])
+    nc = data.config.num_challenges
     x = _inputs(data, seed=7)
     got = _port_evals(data, x, cuda)
     assert torch.equal(got.cpu(), _port_evals(data, x))
     rng = np.random.default_rng(8)
     trace = JF.rand_felts((data.config.num_wires, data.n), rng)
-    betas, gammas = JF.rand_felts(2, rng), JF.rand_felts(2, rng)
-    gammas[1] = (-(int(trace[5, 7]) + int(betas[1]) * int(data.sigma_vals[5, 7]))) % P
+    betas, gammas = JF.rand_felts(nc, rng), JF.rand_felts(nc, rng)
+    gammas[-1] = (-(int(trace[5, 7]) + int(betas[-1]) * int(data.sigma_vals[5, 7]))) % P
     before = _field_launches()
     got = tprover.compute_permutation_polys(data, gl.from_u64(trace, cuda), betas, gammas)
     assert _field_launches() == before
@@ -376,3 +431,25 @@ def test_fused_kernels_match_plain_on_card(small, cuda, circuit):
     assert torch.equal(got.cpu(), want)
     vals = gl.from_u64(JF.rand_felts((2, data.n << 3), rng), cuda)
     assert torch.equal(tntt.coset_intt(vals).cpu(), tntt.coset_intt(vals.cpu()))
+
+
+@pytest.mark.gpu
+def test_permutation_kernel_across_tiles_on_card(cuda):
+    """The leaf's routing over four tiles of rows (n = 1024): zero
+    denominators on both sides of the tile boundary at row 256 and in the
+    last row; two launches, equal to the plain version."""
+    from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+
+    leaf = WormholeProver(device="cpu").data
+    data = dataclasses.replace(leaf, degree_bits=10, id_coords=np.tile(leaf.id_coords, 4),
+                               sigma_vals=np.tile(leaf.sigma_vals, 4))
+    rng = np.random.default_rng(9)
+    trace = JF.rand_felts((data.config.num_wires, data.n), rng)
+    betas, gammas = JF.rand_felts(2, rng), JF.rand_felts(2, rng)
+    for c, row, wire in ((0, 255, 3), (0, 256, 70), (1, 256, 0), (1, data.n - 1, 9)):
+        trace[wire, row] = (-(int(betas[c]) * int(data.sigma_vals[wire, row]) + int(gammas[c]))) % P
+    before = tprover.compute_permutation_polys.launches
+    got = tprover.compute_permutation_polys(data, gl.from_u64(trace, cuda), betas, gammas)
+    assert tprover.compute_permutation_polys.launches - before == 2
+    want = tprover.compute_permutation_polys_plain(data, gl.from_u64(trace, "cpu"), betas, gammas)
+    assert torch.equal(got.cpu(), want)
