@@ -18,20 +18,30 @@ package. Phases, each printing one line:
      block, and its tree at the four trees of a leaf proof and at the plans'
      edges; kernels A and B with 1, 2 and 4 challenges and with 60 routed
      wires (a ragged last chunk), B also over four tiles with zero
-     denominators on both sides of a tile boundary;
+     denominators on both sides of a tile boundary; kernel 3 at the leaf
+     proof's NTT shapes and in all four modes (forward, inverse, LDE with
+     the coset shift, inverse with the unshift) at 2^12 (one pass) and
+     2^13, 2^14 (two passes);
   4. aggregation tree — the Merkle tree at 2^19 x 135: 256 sampled nodes of
      every level against the plain hashes of their inputs, its time beside
      the per-level form's (hash_rows, then one two_to_one launch a level);
-  5. aggregation fused — kernels A and B at the private batch's degree 16
+  5. aggregation NTT — kernel 3 at the private batch's shapes: the LDE
+     135 x 2^16 -> 2^19 (8 columns in full against the plain version on the
+     card), the round trip intt(ntt(x)) == x on 135 x 2^16, the coset iNTT
+     2 x 2^19 in full, each beside its bound;
+  6. aggregation fused — kernels A and B at the private batch's degree 16
      (the leaf's config and gates, random tables): B at n = 2^16 against its
      plain version on CPU copies, A at m = 2^19 against its plain version
-     run on the card, both in full, each beside its bound;
-  6. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
+     run on the card, and C at m = 2^19 (the leaf's oracles and opening
+     instance) against its plain version run on the card, all in full, each
+     beside its bound;
+  7. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
      prove_inputs(seed=0) cold and warm; the proof bytes must equal the
      committed fixture (length and SHA-256), every kernel of the path must
      have been launched during the cold proof, within its launch limits
-     (quotient and permutation argument at most two each, composition at most
-     two, openings one, one fold a FRI round, one query gather, one tree call
+     (NTT at most seven, quotient and permutation argument at most two
+     each, composition at most two (one since it forms its scalars itself),
+     openings one, one fold a FRI round, one query gather, one tree call
      of at most two launches a commit and a FRI round, no per-level
      two_to_one), and kernel 1 (off the path since the FRI tail got its own
      kernels) at most five times.
@@ -145,6 +155,52 @@ def tree_perms(rows: int, cols: int, cap: int) -> int:
     return rows * per_row + rows - (1 << cap)
 
 
+def ntt_work(cols: int, n_in: int, log_n: int, shift: bool = False,
+             inverse: bool = False, out_shift: bool = False) -> tuple[int, int]:
+    """Kernel 3's bytes and integer operations for C columns of n_in inputs
+    to N = 2^log_n points: each input read and each output written once; a
+    butterfly (a multiply, an add, a sub) for each of N / 2 pairs in each
+    stage that combines nonzero values (log N - r stages when the inputs
+    past N >> r are zero padding: the first r stages only copy); the shift's
+    multiply an input and the scale's or unshift's an output."""
+    n = 1 << log_n
+    stages = min(log_n, (n_in - 1).bit_length())
+    muls = (n // 2) * stages + (n_in if shift else 0) + (n if inverse or out_shift else 0)
+    adds = (n // 2) * stages * 2
+    return cols * (n_in + n) * 8, cols * (muls * OPS_MUL + adds * OPS_ADD)
+
+
+def _bound(work) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations") of (bytes, integer operations)."""
+    work_bytes, ops = work
+    by = "bytes" if work_bytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
+    return 1e3 * max(work_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S), by
+
+
+def _ntt_cases(device, rng, coeffs, quot):
+    """Kernel 3's calls to check: the leaf proof's shapes (the iNTTs of
+    135 x 256 and 20 x 256, the LDEs of 135, 20 and 16 x 256 -> 2048, the
+    coset iNTT of 2 x 2048, the final polynomial's 2 x 256 with its
+    unshift) and a forward 135 x 256; then all four modes (forward,
+    inverse, the LDE of 2^(log_n - 3) inputs with the shift, inverse with
+    the unshift) on 3 columns at 2^12 (one pass) and 2^13, 2^14 (two)."""
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+
+    unshift = int(F.inv(F.MULTIPLICATIVE_GROUP_GENERATOR))
+    lde_bits = quot.shape[1].bit_length() - 1
+    cases = [(coeffs, 8, dict(inverse=True)), (coeffs[:20], 8, dict(inverse=True)),
+             (coeffs, lde_bits, dict(shift=7)), (coeffs[:20], lde_bits, dict(shift=7)),
+             (coeffs[:16], lde_bits, dict(shift=7)),
+             (quot, lde_bits, dict(inverse=True, out_shift=unshift)),
+             (quot[:, :256], 8, dict(inverse=True, out_shift=unshift)), (coeffs, 8, {})]
+    for log_n in (12, 13, 14):
+        x = _felts((3, 1 << log_n), rng, device)
+        cases += [(x, log_n, {}), (x, log_n, dict(inverse=True)),
+                  (x[:, : 1 << (log_n - 3)], log_n, dict(shift=7)),
+                  (x, log_n, dict(inverse=True, out_shift=unshift))]
+    return cases
+
+
 def _tree_cases(device, rng, wires_rows, cap):
     """Trees against the plain version: the four of a leaf proof, wires (135
     columns), Z and partial products (20), quotient (16), each over a strided
@@ -247,14 +303,10 @@ def kernel_table(device) -> list[dict]:
     odd_rows = odd_rows.T
     coeffs = _felts((wires, m >> rate), rng, device)
     quot = _felts((2, m), rng, device)  # the quotient's nc rows
-    unshift = int(F.inv(np.uint64(7)))  # g^-1, the coset iNTT's unshift
     perms_per_row = -(-wires // ps.RATE)
     perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
     tree_nodes = sum(m >> lvl for lvl in range(lde_bits - cap + 1))
     ew_bytes = 3 * 8 * n_el
-
-    def ntt_all(f_lde, f_inv, f_coset_inv):
-        return [f_lde(coeffs), f_inv(coeffs), f_inv(quot), f_coset_inv(quot)]
 
     def cases(fn, plain, *args):
         """Each argument tuple through the wrapper and the plain version."""
@@ -307,21 +359,17 @@ def kernel_table(device) -> list[dict]:
              check=lambda: _tree_cases(device, rng, rows, cap),
              bytes=(rows.numel() + tree_nodes * ps.DIGEST_LEN) * 8,
              ops=tree_perms(m, wires, cap) * perm_ops),
-        # timed at the leaf LDE (135 x 256 -> 2048); checked in all three modes
+        # timed at the leaf LDE (135 x 256 -> 2048); checked at the leaf
+        # proof's shapes and in all four modes on both sides of the one-pass
+        # limit (and at 2^19 in phase_aggregation_ntt)
         dict(name="ntt", wrapper=ntt.batched_ntt, source="qp_zk_circuits_tpu_torch/csrc/ntt.cu",
              replaces="qp_zk_circuits_tpu/poly/ntt.py:132",
              run=lambda: ntt.batched_ntt(coeffs, lde_bits, shift=7),
              plain=lambda: ntt.batched_ntt_plain(coeffs, lde_bits, shift=7),
-             check=lambda: (
-                 ntt_all(lambda x: ntt.batched_ntt(x, lde_bits, shift=7),
-                         lambda x: ntt.batched_ntt(x, x.shape[1].bit_length() - 1, inverse=True),
-                         lambda x: ntt.batched_ntt(x, lde_bits, inverse=True, out_shift=unshift)),
-                 ntt_all(lambda x: ntt.batched_ntt_plain(x, lde_bits, shift=7),
-                         lambda x: ntt.batched_ntt_plain(x, x.shape[1].bit_length() - 1, inverse=True),
-                         lambda x: ntt.batched_ntt_plain(x, lde_bits, inverse=True, out_shift=unshift)),
-             ),
-             bytes=(coeffs.numel() + wires * m) * 8,
-             ops=wires * ((m // 2) * lde_bits * (OPS_MUL + 2 * OPS_ADD) + (m >> rate) * OPS_MUL)),
+             check=lambda: cases(ntt.batched_ntt, ntt.batched_ntt_plain, *(
+                 (x, log_n, kw.get("inverse", False), kw.get("shift"), kw.get("out_shift"))
+                 for x, log_n, kw in _ntt_cases(device, rng, coeffs, quot))),
+             **dict(zip(("bytes", "ops"), ntt_work(wires, m >> rate, lde_bits, shift=True)))),
         dict(name="quotient", wrapper=tprover.quotient_evals,
              source="qp_zk_circuits_tpu_torch/csrc/quotient.cu",
              replaces="qp_zk_circuits_tpu/plonk/prover.py:114",
@@ -678,8 +726,7 @@ def phase_kernels(kernels) -> None:
             k["plain_ms"] = _host_median_ms(k["plain"], runs=3)
         else:
             k["plain_ms"] = median_ms(k["plain"], runs=3, warmup=1)
-        k["bound_by"] = "bytes" if k["bytes"] / HBM_BYTES_PER_S >= k["ops"] / INT32_OPS_PER_S else "operations"
-        k["bound_ms"] = 1e3 * max(k["bytes"] / HBM_BYTES_PER_S, k["ops"] / INT32_OPS_PER_S)
+        k["bound_ms"], k["bound_by"] = _bound((k["bytes"], k["ops"]))
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         where = "host" if k.get("plain_on_host") else "card"
         print(f"[kernel] {k['name']}: bit-exact; {k['ms']:.4f} ms, device {dev} "
@@ -737,14 +784,127 @@ def phase_aggregation_tree(device, log_rows: int = 19, cols: int = 135,
     nodes = sum((1 << log_rows) >> lvl for lvl in range(log_rows - cap + 1))
     work_bytes = (lde.numel() + nodes * ps.DIGEST_LEN) * 8
     ops = tree_perms(1 << log_rows, cols, cap) * (PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD)
-    bound_by = "bytes" if work_bytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
-    bound_ms = 1e3 * max(work_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+    bound_ms, bound_by = _bound((work_bytes, ops))
     plan = ps.tree_plan(1 << log_rows, cap, ps._sm_count(torch.device(device).index))
     print(f"[tree 2^{log_rows}] {cols} columns, cap 2^{cap}, plan {plan}: {checked} sampled "
           f"nodes over {len(levels)} levels equal their plain hashes, cap equal to the "
           f"per-level build; tree {tree_ms:.4f} ms, per-level form {per_level_ms:.4f} ms "
           f"(CUDA events); bound {bound_ms:.4f} ms by {bound_by}", flush=True)
     del lde, rows, levels
+    torch.cuda.empty_cache()
+
+
+def _card_felts(shape, seed: int, device):
+    """Canonical felts made on the card from a seed (uniform below 2^63 < p)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, (1 << 63) - 1, shape, generator=gen, dtype=torch.int64,
+                         device=device)
+
+
+def _timed(fn, work) -> str:
+    """CUDA-event span of one call (median of 5), its kernels' device time
+    (graph replay) and the bound of `work`."""
+    from qp_zk_circuits_tpu_torch.tools.timing import device_ms, median_ms
+
+    bound_ms, by = _bound(work)
+    return (f"{median_ms(fn, runs=5):.4f} ms, device {device_ms(fn):.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {by}")
+
+
+def phase_aggregation_ntt(device, degree_bits: int = 16, rate: int = 3, checked: int = 8) -> None:
+    """Kernel 3 at the private batch's shapes (two passes): the commit's LDE
+    of 135 columns 2^16 -> 2^19 (the first `checked` columns in full
+    against `batched_ntt_plain` run on the card), the round trip
+    intt(ntt(x)) == x on all 135 columns of 2^16, and the quotient's coset
+    iNTT of 2 x 2^19 in full against the plain version on the card. Each
+    timed beside its bound."""
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.poly import ntt
+
+    wires, n = 135, 1 << degree_bits
+    log_m = degree_bits + rate
+    coeffs = _card_felts((wires, n), 21, device)
+    before = ntt.batched_ntt.launches
+    lde = ntt.batched_ntt(coeffs, log_m, shift=7)
+    launches = ntt.batched_ntt.launches - before
+    want = ntt.batched_ntt_plain(coeffs[:checked], log_m, shift=7)
+    if not torch.equal(lde[:checked], want):
+        raise AssertionError(f"2^{log_m} LDE differs from the plain version")
+    line = _timed(lambda: ntt.batched_ntt(coeffs, log_m, shift=7),
+                  ntt_work(wires, n, log_m, shift=True))
+    print(f"[ntt 2^{log_m}] LDE {wires} x 2^{degree_bits} -> 2^{log_m}, passes "
+          f"{ntt.pass_bits(log_m)}, {launches} launches: the first {checked} columns "
+          f"({checked << log_m} values) equal batched_ntt_plain on the card; {line}", flush=True)
+    del lde, want
+
+    evals = ntt.batched_ntt(coeffs, degree_bits)
+    back = ntt.batched_ntt(evals, degree_bits, inverse=True)
+    if not torch.equal(back, coeffs):
+        raise AssertionError(f"intt(ntt(x)) != x at {wires} x 2^{degree_bits}")
+    line = _timed(lambda: ntt.batched_ntt(evals, degree_bits, inverse=True),
+                  ntt_work(wires, n, degree_bits, inverse=True))
+    print(f"[ntt 2^{degree_bits}] iNTT {wires} x 2^{degree_bits}, passes "
+          f"{ntt.pass_bits(degree_bits)}: intt(ntt(x)) == x on all {wires} columns; {line}",
+          flush=True)
+    del coeffs, evals, back
+
+    quot = _card_felts((2, 1 << log_m), 22, device)
+    unshift = int(F.inv(F.MULTIPLICATIVE_GROUP_GENERATOR))
+    got = ntt.batched_ntt(quot, log_m, inverse=True, out_shift=unshift)
+    if not torch.equal(got, ntt.batched_ntt_plain(quot, log_m, inverse=True, out_shift=unshift)):
+        raise AssertionError(f"2 x 2^{log_m} coset iNTT differs from the plain version")
+    line = _timed(lambda: ntt.batched_ntt(quot, log_m, inverse=True, out_shift=unshift),
+                  ntt_work(2, 1 << log_m, log_m, inverse=True))
+    print(f"[ntt 2^{log_m}] coset iNTT 2 x 2^{log_m}: all {got.numel()} values equal the "
+          f"plain version on the card; {line}", flush=True)
+    del quot, got
+    torch.cuda.empty_cache()
+
+
+def _composition_2_19(leaf, device, lde_bits: int) -> None:
+    """Kernel C at m = 2^lde_bits: the leaf's four oracles' column counts and
+    opening instance, random LDEs made on the card, Q in the leaf layout of
+    the first arity of schedule(lde_bits - rate), against
+    `compute_composition_plain` run on the card (its field ops on kernel 1)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.plonk.proof import fri_instance
+
+    cfg = leaf.config
+    m = 1 << lde_bits
+    nc, qdf = cfg.num_challenges, cfg.max_quotient_degree_factor
+    npp = -(-cfg.num_routed_wires // qdf) - 1
+    rows = [leaf.constants_oracle.lde.shape[0], cfg.num_wires, nc + nc * npp, nc * qdf]
+    oracles = [SimpleNamespace(lde=_card_felts((c, m), 30 + i, device)) for i, c in enumerate(rows)]
+    rng = np.random.default_rng(19)
+    instance = fri_instance(leaf, F.rand_felts(2, rng), F.rand_felts(2, rng))
+    openings = [F.rand_felts((len(b.polys), 2), rng) for b in instance.batches]
+    arity = cfg.fri_config.reduction_strategy.schedule(lde_bits - cfg.rate_bits)[0]
+    args = (instance, openings, F.rand_felts(2, rng), lde_bits, arity)
+    before = fri.compute_composition.launches
+    got = fri.compute_composition(oracles, *args)
+    launches = fri.compute_composition.launches - before
+    if not torch.equal(got, fri.compute_composition_plain(oracles, *args)):
+        raise AssertionError(f"composition at m = 2^{lde_bits} differs from the plain version")
+    k = instance.num_terms()
+    cols = len({t for b in instance.batches for t in b.polys})
+    muls, adds = fri_field_ops(m, k, len(instance.batches))
+    line = _timed(lambda: fri.compute_composition(oracles, *args),
+                  ((cols * m + 2 * k + 2 * m) * 8, muls * OPS_MUL + adds * OPS_ADD))
+    print(f"[fused 2^{lde_bits - cfg.rate_bits}] composition m = {m}, {k} terms over {cols} "
+          f"columns, arity 2^{arity}, {launches} launch(es): all {got.numel()} values equal "
+          f"compute_composition_plain run on the card (its field ops on kernel 1); {line}",
+          flush=True)
+    del oracles, got
     torch.cuda.empty_cache()
 
 
@@ -765,7 +925,6 @@ def phase_aggregation_fused(device, degree_bits: int = 16) -> None:
 
     from qp_zk_circuits_tpu_torch.field import gf_np as F
     from qp_zk_circuits_tpu_torch.plonk import prover as tprover
-    from qp_zk_circuits_tpu_torch.tools.timing import device_ms, median_ms
 
     leaf = _leaf_data(device)
     cfg = leaf.config
@@ -783,11 +942,7 @@ def phase_aggregation_fused(device, degree_bits: int = 16) -> None:
     def report(name, fn, got, want, work):
         if tuple(got.shape) != tuple(want.shape) or not torch.equal(got.cpu(), want.cpu()):
             raise AssertionError(f"{name}: differs from the plain version")
-        work_bytes, ops = work
-        bound_by = "bytes" if work_bytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
-        bound = 1e3 * max(work_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
-        return (f"{median_ms(fn, runs=5):.4f} ms, device {device_ms(fn):.4f} ms, bound "
-                f"{bound:.4f} ms by {bound_by}")
+        return _timed(fn, work)
 
     args = _permutation_args(data, rng, device, zeros=[(0, 255, 3), (0, 256, 70), (1, 256, 0)])
     before = tprover.compute_permutation_polys.launches
@@ -813,6 +968,8 @@ def phase_aggregation_fused(device, degree_bits: int = 16) -> None:
           f"in the kernel phase); {line}", flush=True)
     del args, got, want, data
     torch.cuda.empty_cache()
+
+    _composition_2_19(leaf, device, degree_bits + cfg.rate_bits)
 
 
 def phase_main_path(kernels) -> None:
@@ -853,7 +1010,8 @@ def phase_main_path(kernels) -> None:
     # one tree a commit (wires, Z and partial products, quotient) and one a
     # FRI round, at most two launches each; no per-level 2-to-1 launch
     trees = 3 + rounds
-    limits = {"quotient": (1, 2), "permutation_polys": (1, 2), "fri_composition": (1, 2),
+    limits = {"ntt": (1, 7), "quotient": (1, 2), "permutation_polys": (1, 2),
+              "fri_composition": (1, 2),
               "eval_openings": (1, 1), "fri_fold": (rounds, rounds), "query_gather": (1, 1),
               "poseidon2_merkle_tree": (trees, 2 * trees), "poseidon2_two_to_one": (0, 0)}
     fused = {k["name"]: k["launches"] for k in kernels if k["name"] in limits}
@@ -878,6 +1036,7 @@ def main() -> int:
     kernels = kernel_table("cuda")
     phase_kernels(kernels)
     phase_aggregation_tree("cuda")
+    phase_aggregation_ntt("cuda")
     phase_aggregation_fused("cuda")
     phase_main_path(kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

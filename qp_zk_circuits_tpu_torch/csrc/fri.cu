@@ -1,24 +1,27 @@
 // Kernels C-F: the FRI tail of the prover, from the quotient commit to the
-// proof. Each entry launches on the caller's stream (kernel C twice, the
-// others once), allocates nothing and returns the launches' cudaError_t.
+// proof. Each entry launches once on the caller's stream, allocates nothing and returns the launches' cudaError_t.
 //
 // Kernel C, qzk_fri_composition (fri/prover.py::compute_composition).
 //   Replaces the JAX package's fri/prover.py::compute_composition (its
 //   _get_q_jit run) and plonk/prover_fused.py::fused lines 655-696:
 //     Q(x_i) = sum_b (sum_{k in b} alpha^k p_k(x_i) - c_b) / (x_i - z_b)
-//   over the m LDE points. Two launches: one block forms alpha^k for every
-//   term (the powers run on across the batches) and each batch's
-//   c_b = sum_k alpha^k y_k from the claimed openings y, so the host does no
-//   extension arithmetic; then the main launch reads the columns p_k in
-//   place from the oracles' (C, m) LDEs through a per-circuit (oracle, row)
-//   table. A block takes 32 points and splits each batch's column sum
-//   across 8 thread rows, which reduce in shared memory; then thread row b
-//   finishes batch b (one Fermat power of the norm of x - z_b, inv(0) = 0)
-//   and row 0 adds the batches. Q is written in the leaf layout of the
-//   first FRI round (see kernel E). Bound: every column
-//   read once (about 255 x 2048 x 8 B = 4.2 MB at the leaf, 1.25 us at
-//   3.35 TB/s) and two multiplies and two adds a term and point (1.35 us at
-//   the card's 32-bit integer rate): operations, just. Any m.
+//   over the m LDE points, c_b = sum_{k in b} alpha^k y_k from the claimed
+//   openings y, so the host does no extension arithmetic. One launch. Each
+//   block first stages, in shared memory, every term's column address (the
+//   oracles' (C, m) LDEs read in place through a per-circuit (oracle, row)
+//   table) and alpha^k, and forms the c_b; then it walks a run of
+//   neighbouring tiles of 16 points (as many blocks as fit the card, so a
+//   block streams through each column). In a tile, thread rows 2..15 split
+//   each batch's terms and load 8 columns at a time, so 8 loads are in
+//   flight a thread (128 B a row of 16 points); meanwhile warp 0 (rows 0
+//   and 1) inverts the next tile's x - z_b, one batch inverse a batch:
+//   Montgomery's trick on the norms by shuffle scans and one Fermat power,
+//   zeros replaced by 1 so that inv(0) = 0 stays. Then row b finishes batch
+//   b and row 0 adds the batches. Q is written in the leaf layout of the
+//   first FRI round (see kernel E). Bound: every column read once (about
+//   255 x m x 8 B: 4.2 MB at the leaf, 1.07 GB at m = 2^19) and two
+//   multiplies and two adds a term and point: operations, just, with bytes
+//   close behind. Any m, at most MAX_TERMS terms.
 //
 // Kernel D, qzk_eval_openings (fri/oracle.py::eval_openings).
 //   Replaces the JAX package's fri/oracle.py::eval_openings
@@ -77,8 +80,19 @@ __device__ __forceinline__ long long leaf_slot(long long i, long long rows, int 
 // ---------------------------------------------------------------------------
 // kernel C
 
-constexpr int C_POINTS = 32;
-constexpr int C_GROUPS = 8;  // >= MAX_BATCHES: thread row b finishes batch b
+constexpr int C_POINTS = 16;  // points a tile, one thread row's lanes
+constexpr int C_GROUPS = 16;  // thread rows
+constexpr int C_INV_ROWS = 2;  // rows 0, 1 (warp 0) invert the denominators
+constexpr int C_SUM_ROWS = C_GROUPS - C_INV_ROWS;  // the others sum the terms
+constexpr int C_THREADS = C_POINTS * C_GROUPS;
+constexpr int C_INV_WARPS = C_INV_ROWS * C_POINTS / 32;
+constexpr int C_SETUP = C_THREADS - 32 * C_INV_WARPS;  // the other warps stage the scalars
+constexpr int C_UNROLL = 8;  // column loads in flight a thread
+constexpr int MAX_TERMS = 4096;
+constexpr int C_PART = MAX_BATCHES * 2 * C_THREADS;  // the c_b shares; holds the tile's sums too
+constexpr int C_DINV = 2 * MAX_BATCHES * 2 * C_POINTS;  // two tiles' 1 / (x - z_b)
+constexpr int C_POW = 32 + MAX_TERMS / 32;  // alpha^j, j < 32, then alpha^(32 j)
+constexpr int C_MAX_SMEM = (3 * MAX_TERMS + C_PART + C_DINV + 2 * C_POW + 2 * MAX_BATCHES) * 8;
 
 struct Sources {
   const uint64_t* p[MAX_ORACLES];
@@ -90,94 +104,251 @@ struct Batches {
   uint64_t z0[MAX_BATCHES], z1[MAX_BATCHES];  // the batch's point
 };
 
-constexpr int S_THREADS = 256;
+int c_smem_words(int terms) { return 3 * terms + C_PART + C_DINV + 2 * C_POW + 2 * MAX_BATCHES; }
 
-// apows[k] = alpha^k for every term; cb[b] = sum over batch b's terms of
-// alpha^k y_k. One block: thread t walks k = t, t + 256, ...
-__global__ void __launch_bounds__(S_THREADS)
-    composition_scalars_kernel(ext::E alpha, const uint64_t* __restrict__ ys, Batches b,
-                               uint64_t* __restrict__ apows, uint64_t* __restrict__ cb) {
-  __shared__ uint64_t red[MAX_BATCHES][2][S_THREADS];
-  const int t = threadIdx.x;
-  ext::E part[MAX_BATCHES];
+// the barrier of the setup warps (1..7) alone
+__device__ __forceinline__ void setup_sync() { asm volatile("bar.sync 1, %0;" ::"r"(C_SETUP)); }
+
+// Warp 0: 1 / (x_i - z_b) for the 16 points of `tile`, every batch, into
+// dinv[b][c][lane]: row g takes batches g, g + 2, one batch inverse each
+// (Montgomery's trick on the norms by shuffle scans over the row's 16
+// lanes and one Fermat power; a zero norm gives 0).
+__device__ void invert_tile(long long tile, const uint64_t* __restrict__ xs, const Batches& b,
+                            long long m, uint64_t* dinv) {
+  const int tx = threadIdx.x, g = threadIdx.y;
+  const long long i = tile * C_POINTS + tx;
+  const bool live = i < m;
+#pragma unroll 1
+  for (int bp = 0; bp < b.n; bp += C_INV_ROWS) {  // the same trips for both rows
+    const int bi = bp + g;
+    const bool mine = bi < b.n && live;
+    const int bb = bi < b.n ? bi : 0;
+    const ext::E xz = {gl::sub(xs[live ? i : 0], b.z0[bb]), gl::sub(0, b.z1[bb])};
+    const uint64_t norm =
+        mine ? gl::sub(gl::mul(xz.c0, xz.c0), gl::mul(ext::W, gl::mul(xz.c1, xz.c1))) : 1;
+    const uint64_t nz = norm == 0 ? 1 : norm;  // inv(0) = 0 stays
+    uint64_t pre = nz, suf = nz;  // inclusive prefix and suffix products
 #pragma unroll
-  for (int bi = 0; bi < MAX_BATCHES; ++bi) part[bi] = {0, 0};
-  ext::E ak = ext::pow(alpha, t);
-  const ext::E step = ext::pow(alpha, S_THREADS);
-  for (int k = t; k < b.start[b.n]; k += S_THREADS) {
-    apows[2 * k] = ak.c0;
-    apows[2 * k + 1] = ak.c1;
-    const ext::E term = ext::mul(ak, {ys[2 * k], ys[2 * k + 1]});
-#pragma unroll
-    for (int bi = 0; bi < MAX_BATCHES; ++bi)
-      if (bi < b.n && k >= b.start[bi] && k < b.start[bi + 1]) part[bi] = ext::add(part[bi], term);
-    ak = ext::mul(ak, step);
-  }
-#pragma unroll
-  for (int bi = 0; bi < MAX_BATCHES; ++bi) {
-    red[bi][0][t] = part[bi].c0;
-    red[bi][1][t] = part[bi].c1;
-  }
-  __syncthreads();
-  for (int s = S_THREADS / 2; s > 0; s >>= 1) {
-    if (t < s) {
-#pragma unroll
-      for (int bi = 0; bi < MAX_BATCHES; ++bi) {
-        red[bi][0][t] = gl::add(red[bi][0][t], red[bi][0][t + s]);
-        red[bi][1][t] = gl::add(red[bi][1][t], red[bi][1][t + s]);
-      }
+    for (int d = 1; d < C_POINTS; d <<= 1) {
+      const uint64_t a = __shfl_up_sync(0xffffffffu, (unsigned long long)pre, d, C_POINTS);
+      const uint64_t c = __shfl_down_sync(0xffffffffu, (unsigned long long)suf, d, C_POINTS);
+      if (tx >= d) pre = gl::mul(pre, a);
+      if (tx + d < C_POINTS) suf = gl::mul(suf, c);
     }
-    __syncthreads();
-  }
-  if (t < b.n) {
-    cb[2 * t] = red[t][0][0];
-    cb[2 * t + 1] = red[t][1][0];
+    uint64_t total_inv = 0;
+    if (tx == C_POINTS - 1) total_inv = gl::inv(pre);
+    total_inv = __shfl_sync(0xffffffffu, (unsigned long long)total_inv, C_POINTS - 1, C_POINTS);
+    uint64_t before = __shfl_up_sync(0xffffffffu, (unsigned long long)pre, 1, C_POINTS);
+    uint64_t after = __shfl_down_sync(0xffffffffu, (unsigned long long)suf, 1, C_POINTS);
+    if (tx == 0) before = 1;
+    if (tx == C_POINTS - 1) after = 1;
+    const uint64_t ninv = norm == 0 ? 0 : gl::mul(total_inv, gl::mul(before, after));
+    if (bi < b.n) {  // 1 / (x - z_b) = conj(x - z_b) / norm
+      dinv[(2 * bi) * C_POINTS + tx] = gl::mul(xz.c0, ninv);
+      dinv[(2 * bi + 1) * C_POINTS + tx] = gl::mul(gl::sub(0, xz.c1), ninv);
+    }
   }
 }
 
-__global__ void __launch_bounds__(C_POINTS* C_GROUPS)
-    composition_kernel(Sources src, const int* __restrict__ terms,
-                       const uint64_t* __restrict__ apows, const uint64_t* __restrict__ cb,
-                       const uint64_t* __restrict__ xs, Batches b, uint64_t* __restrict__ out,
-                       long long m, int a_bits) {
-  __shared__ const uint64_t* base[MAX_ORACLES];
-  __shared__ uint64_t part[MAX_BATCHES][2][C_GROUPS][C_POINTS];
-  const int tx = threadIdx.x, g = threadIdx.y;
-  if (tx == 0 && g == 0) {
-#pragma unroll
-    for (int o = 0; o < MAX_ORACLES; ++o) base[o] = src.p[o];
-  }
-  __syncthreads();
-  const long long i = (long long)blockIdx.x * C_POINTS + tx;
-  const bool live = i < m;
+// Thread rows 2..15 (warps 1..7): each batch's sum_k alpha^k p_k(x_i) over
+// the 16 points of `tile`, the terms split across the rows, C_UNROLL column
+// loads in flight a thread; per component a 192-bit sum of the 128-bit
+// products, reduced once. Row r's sums go to part[b][c][r][lane].
+__device__ void accumulate(long long tile, const uint64_t* const* col, const uint64_t* apow,
+                           const Batches& b, long long m, uint64_t* part) {
+  const int tx = threadIdx.x, r = threadIdx.y - C_INV_ROWS;
+  const long long i = tile * C_POINTS + tx;
+  const long long at = i < m ? i : 0;  // dead lanes read point 0
+#pragma unroll 1
   for (int bi = 0; bi < b.n; ++bi) {
-    ext::E acc = {0, 0};
-    if (live) {
-      for (int k = b.start[bi] + g; k < b.start[bi + 1]; k += C_GROUPS) {
-        const uint64_t v = base[terms[2 * k]][(long long)terms[2 * k + 1] * m + i];
-        acc = ext::add(acc, ext::scale({apows[2 * k], apows[2 * k + 1]}, v));
+    uint64_t lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
+    unsigned top0 = 0, top1 = 0;
+    const int end = b.start[bi + 1];
+#pragma unroll 1
+    for (int k0 = b.start[bi] + r; k0 < end; k0 += C_SUM_ROWS * C_UNROLL) {
+      uint64_t v[C_UNROLL];
+#pragma unroll
+      for (int u = 0; u < C_UNROLL; ++u) {
+        const int k = k0 + u * C_SUM_ROWS;
+        v[u] = k < end ? col[k][at] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < C_UNROLL; ++u) {
+        const int k = k0 + u * C_SUM_ROWS;
+        if (k < end) {
+          gl::mac(lo0, hi0, top0, apow[2 * k], v[u]);
+          gl::mac(lo1, hi1, top1, apow[2 * k + 1], v[u]);
+        }
       }
     }
-    part[bi][0][g][tx] = acc.c0;
-    part[bi][1][g][tx] = acc.c1;
+    part[((2 * bi) * C_SUM_ROWS + r) * C_POINTS + tx] = gl::reduce192(lo0, hi0, top0);
+    part[((2 * bi + 1) * C_SUM_ROWS + r) * C_POINTS + tx] = gl::reduce192(lo1, hi1, top1);
+  }
+}
+
+__global__ void __launch_bounds__(C_THREADS)
+    composition_kernel(Sources src, const int* __restrict__ terms, const uint64_t* __restrict__ ys,
+                       ext::E alpha, const uint64_t* __restrict__ xs, Batches b,
+                       uint64_t* __restrict__ out, long long m, int a_bits, long long per_block) {
+  extern __shared__ uint64_t csm[];
+  const int n_terms = b.start[b.n];
+  const uint64_t** col = (const uint64_t**)csm;  // term k's column
+  uint64_t* apow = csm + n_terms;                 // alpha^k as (c0, c1)
+  uint64_t* part = apow + 2 * n_terms;            // [batch][c][thread], then [batch][c][row][lane]
+  uint64_t* dinv = part + C_PART;                 // two tiles' [batch][c][lane]
+  uint64_t* pw = dinv + C_DINV;                   // alpha^j, j < 32, then alpha^(32 j)
+  uint64_t* cb = pw + 2 * C_POW;                  // c_b as (c0, c1)
+  const int tx = threadIdx.x, g = threadIdx.y;
+  const int tid = tx + C_POINTS * g;
+  const int lane = tid & 31, warp = tid >> 5;
+  // the block's run of neighbouring tiles [t0, tiles): each column is read
+  // in one stream a block
+  const long long t0 = blockIdx.x * per_block;
+  const long long all = (m + C_POINTS - 1) / C_POINTS;
+  const long long tiles = t0 + per_block < all ? t0 + per_block : all;
+
+  // A software pipeline over the block's tiles:
+  // warp 0 inverts the denominators a tile ahead of the sums, in two
+  // buffers, while warps 1..7 sum the next tile's terms.
+  if (warp < C_INV_WARPS) {
+    // the first two tiles' denominators while the other warps stage the
+    // scalars and sum the first tile
+    invert_tile(t0, xs, b, m, dinv);
+    if (t0 + 1 < tiles) invert_tile(t0 + 1, xs, b, m, dinv + C_DINV / 2);
+  } else {
+    const int st = tid - 32 * C_INV_WARPS, sw = warp - C_INV_WARPS;
+    // the first term's reads, in flight during the scans
+    int o0 = 0, r0 = 0;
+    uint64_t y0 = 0, y1 = 0;
+    if (st < n_terms) {
+      o0 = terms[2 * st];
+      r0 = terms[2 * st + 1];
+      y0 = ys[2 * st];
+      y1 = ys[2 * st + 1];
+    }
+    if (sw <= 1) {
+      // setup warp 0: alpha^j by a shuffle scan; 1: alpha^(32 j), the scan
+      // of alpha^32, and alpha^(32 j + 1024 i) above 32
+      ext::E x = alpha;
+      if (sw == 1) {
+#pragma unroll 1
+        for (int r = 0; r < 5; ++r) x = ext::mul(x, x);
+      }
+      const ext::E base = x;
+      if (lane == 0) x = {1, 0};
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const ext::E o = {__shfl_up_sync(0xffffffffu, (unsigned long long)x.c0, d),
+                          __shfl_up_sync(0xffffffffu, (unsigned long long)x.c1, d)};
+        if (lane >= d) x = ext::mul(x, o);
+      }
+      const int at = sw == 0 ? lane : 32 + lane;
+      pw[2 * at] = x.c0;
+      pw[2 * at + 1] = x.c1;
+      if (sw == 1 && n_terms > 1024) {
+        // alpha^1024 = alpha^(32 * 31) alpha^32, from lane 31
+        ext::E top = {__shfl_sync(0xffffffffu, (unsigned long long)x.c0, 31),
+                      __shfl_sync(0xffffffffu, (unsigned long long)x.c1, 31)};
+        top = ext::mul(top, base);
+        ext::E y = x;
+#pragma unroll 1
+        for (int r = 1; 32 * r < C_POW - 32; ++r) {
+          y = ext::mul(y, top);
+          pw[2 * (32 + 32 * r + lane)] = y.c0;
+          pw[2 * (32 + 32 * r + lane) + 1] = y.c1;
+        }
+      }
+    }
+#pragma unroll 1
+    for (int k = st; k < n_terms; k += C_SETUP) {
+      const bool first = k == st;
+      col[k] = src.p[first ? o0 : terms[2 * k]] + (long long)(first ? r0 : terms[2 * k + 1]) * m;
+    }
+    setup_sync();
+    // alpha^k and each setup thread's share of every c_b
+    ext::E own[MAX_BATCHES];
+#pragma unroll
+    for (int bi = 0; bi < MAX_BATCHES; ++bi) own[bi] = {0, 0};
+#pragma unroll 1
+    for (int k = st; k < n_terms; k += C_SETUP) {
+      const ext::E ak = ext::mul({pw[2 * (k & 31)], pw[2 * (k & 31) + 1]},
+                                 {pw[2 * (32 + (k >> 5))], pw[2 * (32 + (k >> 5)) + 1]});
+      apow[2 * k] = ak.c0;
+      apow[2 * k + 1] = ak.c1;
+      const bool first = k == st;
+      const ext::E term =
+          ext::mul(ak, {first ? y0 : ys[2 * k], first ? y1 : ys[2 * k + 1]});
+#pragma unroll
+      for (int bi = 0; bi < MAX_BATCHES; ++bi)
+        if (bi < b.n && k >= b.start[bi] && k < b.start[bi + 1]) own[bi] = ext::add(own[bi], term);
+    }
+#pragma unroll
+    for (int bi = 0; bi < MAX_BATCHES; ++bi) {
+      part[(2 * bi) * C_THREADS + st] = own[bi].c0;
+      part[(2 * bi + 1) * C_THREADS + st] = own[bi].c1;
+    }
+    setup_sync();
+    // setup warp w adds batch w's shares, 7 a lane, then a butterfly of shuffles
+    const int w = sw;
+    if (w < b.n) {
+      ext::E s = {0, 0};
+#pragma unroll 1
+      for (int t = lane; t < C_SETUP; t += 32)
+        s = ext::add(s, {part[(2 * w) * C_THREADS + t], part[(2 * w + 1) * C_THREADS + t]});
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const uint64_t o0 = __shfl_xor_sync(0xffffffffu, (unsigned long long)s.c0, off);
+        const uint64_t o1 = __shfl_xor_sync(0xffffffffu, (unsigned long long)s.c1, off);
+        s = ext::add(s, {o0, o1});
+      }
+      if (lane == 0) {
+        cb[2 * w] = s.c0;
+        cb[2 * w + 1] = s.c1;
+      }
+    }
+    setup_sync();  // part is free again
+    accumulate(t0, col, apow, b, m, part);
   }
   __syncthreads();
-  if (g < b.n && live) {
-    // only this thread touches part[g][*][*][tx] here
-    ext::E s = {part[g][0][0][tx], part[g][1][0][tx]};
-    for (int h = 1; h < C_GROUPS; ++h) s = ext::add(s, {part[g][0][h][tx], part[g][1][h][tx]});
-    const ext::E xz = {gl::sub(xs[i], b.z0[g]), gl::sub(0, b.z1[g])};
-    const ext::E c = ext::mul(ext::sub(s, {cb[2 * g], cb[2 * g + 1]}), ext::inv(xz));
-    part[g][0][0][tx] = c.c0;
-    part[g][1][0][tx] = c.c1;
-  }
-  __syncthreads();
-  if (g == 0 && live) {
-    ext::E q = {part[0][0][0][tx], part[0][1][0][tx]};
-    for (int bi = 1; bi < b.n; ++bi) q = ext::add(q, {part[bi][0][0][tx], part[bi][1][0][tx]});
-    const long long at = leaf_slot(i, m >> a_bits, a_bits);
-    out[2 * at] = q.c0;
-    out[2 * at + 1] = q.c1;
+
+  int buf = 0;
+#pragma unroll 1
+  for (long long tile = t0; tile < tiles; ++tile, buf ^= 1) {
+    // part holds this tile's sums, dinv[buf] its denominators' inverses
+    const long long i = tile * C_POINTS + tx;
+    const bool live = i < m;
+    const uint64_t* inv = dinv + buf * (C_DINV / 2);
+    if (g < b.n && live) {
+      // row g finishes batch g; only this thread touches its slot
+      ext::E s = {0, 0};
+#pragma unroll 1
+      for (int h = 0; h < C_SUM_ROWS; ++h)
+        s = ext::add(s, {part[((2 * g) * C_SUM_ROWS + h) * C_POINTS + tx],
+                         part[((2 * g + 1) * C_SUM_ROWS + h) * C_POINTS + tx]});
+      const ext::E c = ext::mul(ext::sub(s, {cb[2 * g], cb[2 * g + 1]}),
+                                {inv[(2 * g) * C_POINTS + tx], inv[(2 * g + 1) * C_POINTS + tx]});
+      part[(2 * g) * C_SUM_ROWS * C_POINTS + tx] = c.c0;
+      part[(2 * g + 1) * C_SUM_ROWS * C_POINTS + tx] = c.c1;
+    }
+    __syncthreads();
+    if (g == 0 && live) {
+      ext::E q = {0, 0};
+      for (int bi = 0; bi < b.n; ++bi)
+        q = ext::add(q, {part[(2 * bi) * C_SUM_ROWS * C_POINTS + tx],
+                         part[(2 * bi + 1) * C_SUM_ROWS * C_POINTS + tx]});
+      const long long slot = leaf_slot(i, m >> a_bits, a_bits);
+      out[2 * slot] = q.c0;
+      out[2 * slot + 1] = q.c1;
+    }
+    const long long next = tile + 1;
+    if (next >= tiles) break;  // uniform across the block
+    __syncthreads();  // part and dinv[buf] are free
+    if (warp < C_INV_WARPS) {
+      if (next + 1 < tiles) invert_tile(next + 1, xs, b, m, dinv + buf * (C_DINV / 2));
+    } else {
+      accumulate(next, col, apow, b, m, part);
+    }
+    __syncthreads();
   }
 }
 
@@ -302,16 +473,15 @@ bool grid_fits(long long blocks) { return blocks >= 1 && blocks <= 0x7FFFFFFFLL;
 // LDEs); terms: device int32 (K, 2) (oracle, row); ys: device (K, 2) claimed
 // openings; xs: device (m,) domain points; batches: host uint64
 // (n_batches, 3) rows (end, z0, z1), batch b's terms [end[b - 1], end[b]);
-// alpha: host uint64 (2,); apows (K, 2) and cb (n_batches, 2): device
-// scratch; out: m extension values as (m >> a_bits, 2^(a_bits + 1)) leaf
-// rows. Two launches.
+// alpha: host uint64 (2,); out: m extension values as
+// (m >> a_bits, 2^(a_bits + 1)) leaf rows. One launch.
 extern "C" int qzk_fri_composition(const void* sources, int n_sources, const void* terms,
                                    const void* ys, const void* xs, const void* batches,
-                                   int n_batches, const void* alpha, void* apows, void* cb,
-                                   void* out, long long m, int a_bits, void* stream) {
-  const long long blocks = (m + C_POINTS - 1) / C_POINTS;
+                                   int n_batches, const void* alpha, void* out, long long m,
+                                   int a_bits, void* stream) {
+  const long long tiles = (m + C_POINTS - 1) / C_POINTS;
   if (n_sources < 1 || n_sources > MAX_ORACLES || n_batches < 1 || n_batches > MAX_BATCHES ||
-      !grid_fits(blocks) || a_bits < 0 || a_bits > MAX_ARITY_BITS || (m & (m - 1)) ||
+      !grid_fits(tiles) || a_bits < 0 || a_bits > MAX_ARITY_BITS || (m & (m - 1)) ||
       (m >> a_bits) < 1)
     return (int)cudaErrorInvalidValue;
   Sources src{};
@@ -323,17 +493,33 @@ extern "C" int qzk_fri_composition(const void* sources, int n_sources, const voi
     b.start[t + 1] = (int)h[3 * t];
     b.z0[t] = h[3 * t + 1];
     b.z1[t] = h[3 * t + 2];
-    if (b.start[t + 1] < b.start[t]) return (int)cudaErrorInvalidValue;
+    if (b.start[t + 1] <= b.start[t]) return (int)cudaErrorInvalidValue;
   }
-  const ext::E a = {((const uint64_t*)alpha)[0], ((const uint64_t*)alpha)[1]};
-  cudaStream_t s = (cudaStream_t)stream;
-  composition_scalars_kernel<<<1, S_THREADS, 0, s>>>(a, (const uint64_t*)ys, b, (uint64_t*)apows,
-                                                     (uint64_t*)cb);
-  cudaError_t e = cudaGetLastError();
+  if (b.start[n_batches] > MAX_TERMS) return (int)cudaErrorInvalidValue;
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  composition_kernel<<<(unsigned)blocks, dim3(C_POINTS, C_GROUPS), 0, s>>>(
-      src, (const int*)terms, (const uint64_t*)apows, (const uint64_t*)cb, (const uint64_t*)xs, b,
-      (uint64_t*)out, m, a_bits);
+  if (dev < 64 && !raised[dev]) {
+    e = cudaFuncSetAttribute(composition_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C_MAX_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    raised[dev] = true;
+  }
+  const int smem = c_smem_words(b.start[n_batches]) * 8;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, composition_kernel, C_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  long long blocks = (long long)sms * (per_sm < 1 ? 1 : per_sm);
+  if (blocks > tiles) blocks = tiles;
+  const long long per_block = (tiles + blocks - 1) / blocks;
+  blocks = (tiles + per_block - 1) / per_block;
+  const ext::E a = {((const uint64_t*)alpha)[0], ((const uint64_t*)alpha)[1]};
+  composition_kernel<<<(unsigned)blocks, dim3(C_POINTS, C_GROUPS), smem, (cudaStream_t)stream>>>(
+      src, (const int*)terms, (const uint64_t*)ys, a, (const uint64_t*)xs, b, (uint64_t*)out, m,
+      a_bits, per_block);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,24 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
   return reduce128(a * b, __umul64hi(a, b));
 }
 
+// (lo, hi, top) += a * b: a sum of 128-bit products in 192 bits, reduced
+// once by reduce192 (top counts the carries out of 2^128).
+__device__ __forceinline__ void mac(uint64_t& lo, uint64_t& hi, unsigned& top, uint64_t a,
+                                    uint64_t b) {
+  const uint64_t pl = a * b;
+  const uint64_t ph = __umul64hi(a, b);
+  lo += pl;
+  const uint64_t t = ph + (lo < pl);  // ph < 2^64 - 1: no wrap
+  hi += t;
+  top += hi < t;
+}
+
+// (lo + hi 2^64 + top 2^128) mod p, canonical, top < 2^32 - 1: 2^128 = -2^32
+// mod p, and reduce128 takes any 128-bit value.
+__device__ __forceinline__ uint64_t reduce192(uint64_t lo, uint64_t hi, unsigned top) {
+  return sub(reduce128(lo, hi), (uint64_t)top << 32);
+}
+
 // a^e for a small exponent (kernel A's alpha powers), square and multiply.
 __device__ __forceinline__ uint64_t pow(uint64_t a, unsigned e) {
   uint64_t r = 1;

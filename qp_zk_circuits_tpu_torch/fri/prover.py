@@ -45,9 +45,11 @@ from ..poly import ntt
 from .config import FriConfig
 from .oracle import PolynomialBatch
 
-#: kernel C reads at most this many oracles and batches (opening points)
+#: kernel C reads at most this many oracles and batches (opening points),
+#: and stages at most this many terms in a block's shared memory
 MAX_ORACLES = 8
 MAX_BATCHES = 4
+MAX_TERMS = 4096
 #: kernel E folds a round in registers: 2^a extension values a thread
 MAX_ARITY_BITS = 4
 
@@ -187,6 +189,8 @@ def _composition_limits(oracles, instance: FriInstance, lde_bits: int, arity_bit
     if any(not b.polys for b in instance.batches):
         raise ValueError("a batch opens no polynomial")
     terms = _term_table(tuple(b.polys for b in instance.batches))
+    if len(terms) > MAX_TERMS:
+        raise ValueError(f"{len(terms)} terms: kernel C takes at most {MAX_TERMS}")
     rows = np.array([o.lde.shape[0] for o in oracles])
     if terms[:, 0].min() < 0 or terms[:, 0].max() >= len(oracles) or \
             (terms[:, 1] < 0).any() or (terms[:, 1] >= rows[terms[:, 0]]).any():
@@ -242,8 +246,8 @@ def compute_composition(
     first FRI round of arity 2^a (a = 0: natural order, (m, 2)).
 
     openings: per batch, (K_b, 2) claimed values for the batch's polys. On
-    CUDA LDEs: kernel C (csrc/fri.cu), two launches (the alpha powers and
-    the batches' c_b, then Q), the claimed values uploaded once. On CPU
+    CUDA LDEs: kernel C (csrc/fri.cu), one launch that also forms the alpha
+    powers and the batches' c_b, the claimed values uploaded once. On CPU
     LDEs: the plain version."""
     _composition_limits(oracles, instance, lde_bits, arity_bits)
     if oracles[0].lde.device.type == "cpu":
@@ -269,16 +273,14 @@ def _launch_composition(oracles, instance, openings, alpha, lde_bits, arity_bits
     terms = _device_term_table(tuple(b.polys for b in instance.batches), dev)
     xs = _device_domain_points(lde_bits, dev)
     ptrs = np.array([t.data_ptr() for t in ldes], dtype=np.uint64)
-    apows = torch.empty((k, 2), dtype=torch.int64, device=dev)
-    cb = torch.empty((len(batches), 2), dtype=torch.int64, device=dev)
     out = torch.empty((m >> arity_bits, 2 << arity_bits), dtype=torch.int64, device=dev)
     err = _cuda.lib().qzk_fri_composition(
         ptrs.ctypes.data, len(ldes), terms.data_ptr(), ys_d.data_ptr(), xs.data_ptr(),
-        batches.ctypes.data, len(batches), alpha_h.ctypes.data, apows.data_ptr(), cb.data_ptr(),
-        out.data_ptr(), m, arity_bits, _cuda.stream(),
+        batches.ctypes.data, len(batches), alpha_h.ctypes.data, out.data_ptr(), m, arity_bits,
+        _cuda.stream(),
     )
     _cuda.check(err, "qzk_fri_composition")
-    compute_composition.launches += 2
+    compute_composition.launches += 1
     return out
 
 

@@ -1,10 +1,14 @@
-"""Batched radix-2 NTT / iNTT / coset LDE over Goldilocks, on torch tensors.
+"""Batched NTT / iNTT / coset LDE over Goldilocks, on torch tensors.
 
-Polynomials are processed as a batch (..., N) sharing one set of twiddles:
-iterative Cooley-Tukey, decimation in time, natural order in and out with a
-bit-reversed gather up front, evaluations f(w^i) at index i. The device work
-is kernel 3 (csrc/ntt.cu) behind `batched_ntt`; CPU tensors take its plain
-torch version. `ntt`, `intt` and `coset_lde` are the three modes of it.
+Polynomials are processed as a batch (..., N) sharing one set of twiddles,
+natural order in and out, evaluations f(w^i) at index i. The device work is
+kernel 3 (csrc/ntt.cu) behind `batched_ntt`: one pass of register stages in
+shared memory for N <= 2^12, two passes (the four-step split N = N1 N2
+through a scratch buffer) above, up to 2^24; a one-pass coset LDE of
+N >> r coefficients runs as 2^r transforms of that size. CPU tensors take its
+plain torch version, the iterative radix-2 Cooley-Tukey of the JAX package
+(a bit-reversed gather, then log N decimation-in-time stages). `ntt`,
+`intt`, `coset_intt` and `coset_lde` are modes of it.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ from .. import _cuda
 from ..field import gf_np as F
 from ..field import goldilocks as gl
 
-#: one block holds a column in shared memory: N * 8 bytes up to 128 KB
-MAX_LOG_N = 14
+#: two passes of at most 2^12 points each
+MAX_LOG_N = 24
+#: the points one pass transforms in one block
+MAX_PASS_LOG_N = 12
 
 
 # ---------------------------------------------------------------------------
@@ -36,27 +42,65 @@ def bit_reversal_perm(log_n: int) -> np.ndarray:
     return rev
 
 
+def _root(log_n: int, inverse: bool) -> np.uint64:
+    w = F.primitive_root_of_unity(log_n)
+    return F.inv(w) if inverse else w
+
+
 @functools.cache
 def stage_twiddles(log_n: int, inverse: bool) -> tuple[np.ndarray, ...]:
     """Twiddles per stage s = 1..log_n: w_{2^s}^j for j < 2^(s-1)."""
-    out = []
-    for s in range(1, log_n + 1):
-        w = F.primitive_root_of_unity(s)
-        if inverse:
-            w = F.inv(w)
-        out.append(F.powers(w, 1 << (s - 1)))
-    return tuple(out)
+    return tuple(F.powers_table(_root(s, inverse), 1 << (s - 1)) for s in range(1, log_n + 1))
+
+
+def pass_bits(log_n: int) -> tuple[int, int]:
+    """(log N1, log N2) of kernel 3's passes: (log_n, 0) for one pass."""
+    if log_n <= MAX_PASS_LOG_N:
+        return log_n, 0
+    return (log_n + 1) // 2, log_n // 2
 
 
 @functools.cache
-def _device_twiddles(log_n: int, inverse: bool, device: torch.device) -> torch.Tensor:
-    """All stage twiddles concatenated: stage s at offset 2^(s-1) - 1."""
-    return gl.from_u64(np.concatenate(stage_twiddles(log_n, inverse)), device)
+def _device_root_powers(log_n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """w^e for e < 2^(log_n - 1), w the primitive 2^log_n-th root (inverse)."""
+    return gl.from_u64(F.powers_table(_root(log_n, inverse), 1 << (log_n - 1)), device)
+
+
+#: up to 2^20 points kernel 3's four-step twiddle is one table of N felts
+FULL_TWIDDLE_LOG_N = 20
 
 
 @functools.cache
-def _device_powers(base: int, n: int, device: torch.device) -> torch.Tensor:
-    return gl.from_u64(F.powers(np.uint64(base), n), device)
+def _device_four_step(log_n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """The four-step twiddle w_N^e: for e < N up to 2^FULL_TWIDDLE_LOG_N
+    points; above, two tables, w_N^e for e < 2^h, then w_N^(2^h e') for
+    e' < 2^(log_n - h), h = (log_n + 1) // 2."""
+    w = _root(log_n, inverse)
+    if log_n <= FULL_TWIDDLE_LOG_N:
+        return gl.from_u64(F.powers_table(w, 1 << log_n), device)
+    h = (log_n + 1) // 2
+    lo = F.powers_table(w, 1 << h)
+    hi = F.powers_table(F.pow_scalar(w, 1 << h), 1 << (log_n - h))
+    return gl.from_u64(np.concatenate([lo, hi]), device)
+
+
+@functools.cache
+def _device_coset_powers(shift: int, log_n: int, rate_bits: int, device: torch.device) -> torch.Tensor:
+    """(2^rate_bits, 2^(log_n - rate_bits)): row r holds (shift w_N^r)^k,
+    w_N the primitive 2^log_n-th root."""
+    w = _root(log_n, False)
+    bases = F.mul(np.uint64(shift), F.powers(w, 1 << rate_bits))
+    n = 1 << (log_n - rate_bits)
+    return gl.from_u64(np.stack([F.powers_table(b, n) for b in bases]), device)
+
+
+@functools.cache
+def _device_powers(base: int, n: int, device: torch.device, scale: int = 1) -> torch.Tensor:
+    """scale * base^j for j < n."""
+    pows = F.powers_table(np.uint64(base), n)
+    if scale != 1:
+        pows = F.mul(pows, np.uint64(scale))
+    return gl.from_u64(pows, device)
 
 
 # ---------------------------------------------------------------------------
@@ -94,38 +138,53 @@ def batched_ntt(
     x: torch.Tensor, log_n: int, inverse: bool = False, shift: int | None = None,
     out_shift: int | None = None,
 ) -> torch.Tensor:
-    """Kernel-3 transform of every row of x (C, n_in), n_in <= 2^log_n, for
-    1 <= log_n <= MAX_LOG_N on every device (the CPU path keeps the kernel's
-    limits).
+    """Kernel-3 transform of every row of x (C, n_in), 1 <= n_in <= 2^log_n,
+    for 1 <= log_n <= MAX_LOG_N on every device.
 
     Element j of each row is first scaled by shift^j (when `shift` is given)
     and the rows are zero-padded to 2^log_n; `inverse` selects inverse twiddles and the 1/N
     scale; output element j is multiplied by out_shift^j (when given). Returns
-    (C, 2^log_n) in natural order."""
-    if x.dim() != 2 or x.shape[1] > 1 << log_n:
-        raise ValueError(f"batched_ntt takes (C, n <= 2^{log_n}), got {tuple(x.shape)}")
+    (C, 2^log_n) in natural order. One launch a pass (`pass_bits`)."""
+    if x.dim() != 2 or not 1 <= x.shape[1] <= 1 << log_n:
+        raise ValueError(f"batched_ntt takes (C, 1 <= n <= 2^{log_n}), got {tuple(x.shape)}")
     if not 1 <= log_n <= MAX_LOG_N:
-        raise ValueError(
-            f"NTT size 2^{log_n} outside the one-block kernel's range 2^1..2^{MAX_LOG_N}"
-        )
+        raise ValueError(f"NTT size 2^{log_n} outside kernel 3's range 2^1..2^{MAX_LOG_N}")
     if x.device.type == "cpu":
         return batched_ntt_plain(x, log_n, inverse, shift, out_shift)
     _cuda.require_cuda_int64(x)
-    x = x.contiguous()
+    return _launch_ntt(x.contiguous(), log_n, inverse, shift, out_shift)
+
+
+def _launch_ntt(x, log_n, inverse, shift, out_shift):
+    dev = x.device
     c, n_in = x.shape
-    out = torch.empty((c, 1 << log_n), dtype=torch.int64, device=x.device)
-    tw = _device_twiddles(log_n, inverse, x.device)
-    sp = _device_powers(shift, n_in, x.device) if shift is not None else None
-    post = _device_powers(out_shift, 1 << log_n, x.device) if out_shift is not None else None
-    scale = int(F.inv(np.uint64(1 << log_n))) if inverse else 1
+    n = 1 << log_n
+    l1, l2 = pass_bits(log_n)
+    # a one-pass LDE of 2^(log_n - r) inputs runs as 2^r transforms of that size
+    coset_bits = log_n - (n_in.bit_length() - 1) if (
+        shift is not None and not l2 and not inverse and n_in & (n_in - 1) == 0 and 1 < n_in < n
+    ) else 0
+    out = torch.empty((c, n), dtype=torch.int64, device=dev)
+    scratch = torch.empty((c, n), dtype=torch.int64, device=dev) if l2 else None
+    tw1 = _device_root_powers(l1 - coset_bits, inverse, dev)
+    tw2 = _device_root_powers(l2, inverse, dev) if l2 else None
+    twn = _device_four_step(log_n, inverse, dev) if l2 else None
+    scale = int(F.inv(np.uint64(n))) if inverse else 1
+    if coset_bits:
+        pre = _device_coset_powers(shift, log_n, coset_bits, dev)
+    else:
+        pre = _device_powers(shift, n_in, dev) if shift is not None else None
+    post = _device_powers(out_shift, n, dev, scale) if out_shift is not None else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = _cuda.lib().qzk_ntt(
-        x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-        None if sp is None else sp.data_ptr(),
-        None if post is None else post.data_ptr(),
-        c, n_in, log_n, scale, int(inverse), _cuda.stream(),
+        x.data_ptr(), out.data_ptr(), ptr(scratch), tw1.data_ptr(), ptr(tw2), ptr(twn),
+        ptr(pre), ptr(post), c, n_in, log_n, l1, coset_bits, scale, int(inverse), _cuda.stream(),
     )
     _cuda.check(err, "qzk_ntt")
-    batched_ntt.launches += 1
+    batched_ntt.launches += 2 if l2 else 1
     return out
 
 

@@ -1,0 +1,150 @@
+"""Time a checkout's kernel 3 (NTT) and kernel C (FRI composition) on one
+CUDA card.
+
+    python qp_zk_circuits_tpu_torch/tools/bench_ntt.py [--root DIR] [--runs N]
+
+Times `poly/ntt.py::batched_ntt` and `fri/prover.py::compute_composition`
+of the checkout at `--root` (default: the checkout this file lies in), as
+every checkout of the port has them, so two checkouts can be timed in turns
+by separate processes on one card, one after another (parent, change, change,
+parent). The timing helpers and the bounds (`chip_smoke.py::ntt_work`,
+`fri_field_ops`) are this checkout's. Shapes: the leaf proof's NTT calls
+(iNTT 135 x 256 and 20 x 256; LDE 135, 20 and 16 x 256 -> 2048; coset iNTT
+2 x 2048; the final polynomial's iNTT 2 x 256 with its unshift) and its
+composition (the leaf's four oracles and opening instance, m = 2048, first
+FRI arity 2^3); then the private batch's (LDE 135 x 2^16 -> 2^19, iNTT
+135 x 2^16, coset iNTT 2 x 2^19, the composition at m = 2^19). Inputs are
+random felts made on the card from fixed seeds.
+
+  * `ms`: CUDA events around one wrapper call, median of --runs (host work
+    and the gaps between launches included);
+  * `device_ms`: the wrapper's kernel-library launches replayed in a CUDA
+    graph (`tools/timing.py::device_ms`), the kernels alone;
+  * `bound_ms`: the larger of bytes over 3.35 TB/s and integer operations
+    over 16.7 T op/s;
+  * the output's SHA-256, so two checkouts can be seen to agree.
+
+A size a checkout refuses is reported as refused. Prints one line a case,
+the card from nvidia-smi, and a JSON object last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+HERE = Path(__file__).resolve().parents[2]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--runs", type=int, default=20)
+    args = ap.parse_args()
+    sys.path.insert(0, str(HERE))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from qp_zk_circuits_tpu_torch.tools import timing
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_ntt needs a CUDA card")
+    # the kernels are those of the checkout at --root: forget this
+    # checkout's package, so that the imports below find that one
+    for name in [n for n in sys.modules if n.partition(".")[0] == "qp_zk_circuits_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import qp_zk_circuits_tpu_torch
+    from qp_zk_circuits_tpu_torch import _cuda
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.plonk.proof import fri_instance
+    from qp_zk_circuits_tpu_torch.poly import ntt
+    from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+
+    def felts(shape, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randint(0, (1 << 63) - 1, shape, generator=gen, dtype=torch.int64,
+                             device="cuda")
+
+    unshift = int(F.inv(F.MULTIPLICATIVE_GROUP_GENERATOR))
+
+    def transform(name, cols, n_in, log_n, seed, **kw):
+        def make():
+            x = felts((cols, n_in), seed)
+            work = cs.ntt_work(cols, n_in, log_n, shift="shift" in kw,
+                               inverse=kw.get("inverse", False), out_shift="out_shift" in kw)
+            return (lambda: ntt.batched_ntt(x, log_n, **kw)), work
+        return name, make
+
+    leaf = WormholeProver(device="cuda").data
+    cfg = leaf.config
+
+    def composition(lde_bits):
+        def make():
+            m = 1 << lde_bits
+            nc, qdf = cfg.num_challenges, cfg.max_quotient_degree_factor
+            npp = -(-cfg.num_routed_wires // qdf) - 1
+            rows = [leaf.constants_oracle.lde.shape[0], cfg.num_wires, nc + nc * npp, nc * qdf]
+            oracles = [SimpleNamespace(lde=felts((c, m), 40 + i)) for i, c in enumerate(rows)]
+            rng = np.random.default_rng(lde_bits)
+            inst = fri_instance(leaf, F.rand_felts(2, rng), F.rand_felts(2, rng))
+            openings = [F.rand_felts((len(b.polys), 2), rng) for b in inst.batches]
+            arity = cfg.fri_config.reduction_strategy.schedule(lde_bits - cfg.rate_bits)[0]
+            call_args = (inst, openings, F.rand_felts(2, rng), lde_bits, arity)
+            k = inst.num_terms()
+            cols = len({t for b in inst.batches for t in b.polys})
+            muls, adds = cs.fri_field_ops(m, k, len(inst.batches))
+            work = ((cols * m + 2 * k + 2 * m) * 8, muls * cs.OPS_MUL + adds * cs.OPS_ADD)
+            return (lambda: fri.compute_composition(oracles, *call_args)), work
+        return f"composition m = 2^{lde_bits}", make
+
+    lb = leaf.degree_bits
+    lm = lb + cfg.rate_bits
+    cases = [
+        transform(f"iNTT 135 x 2^{lb}", 135, 1 << lb, lb, 1, inverse=True),
+        transform(f"iNTT 20 x 2^{lb}", 20, 1 << lb, lb, 2, inverse=True),
+        transform(f"LDE 135 x 2^{lb} -> 2^{lm}", 135, 1 << lb, lm, 3, shift=7),
+        transform(f"LDE 20 x 2^{lb} -> 2^{lm}", 20, 1 << lb, lm, 4, shift=7),
+        transform(f"LDE 16 x 2^{lb} -> 2^{lm}", 16, 1 << lb, lm, 5, shift=7),
+        transform(f"coset iNTT 2 x 2^{lm}", 2, 1 << lm, lm, 6, inverse=True, out_shift=unshift),
+        transform(f"final iNTT 2 x 2^{lb}", 2, 1 << lb, lb, 7, inverse=True, out_shift=unshift),
+        composition(lm),
+        transform("LDE 135 x 2^16 -> 2^19", 135, 1 << 16, 19, 8, shift=7),
+        transform("iNTT 135 x 2^16", 135, 1 << 16, 16, 9, inverse=True),
+        transform("coset iNTT 2 x 2^19", 2, 1 << 19, 19, 10, inverse=True, out_shift=unshift),
+        composition(16 + cfg.rate_bits),
+    ]
+    rows = []
+    for name, make in cases:
+        fn, work = make()
+        bound_ms, by = cs._bound(work)
+        try:
+            out = fn()
+        except ValueError as e:  # a size this checkout refuses
+            print(f"[bench] {name}: refused ({e})", flush=True)
+            rows.append(dict(case=name, refused=str(e), bound_ms=bound_ms, bound_by=by))
+            continue
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        row = dict(case=name, ms=timing.median_ms(fn, args.runs),
+                   device_ms=timing.device_ms(fn, cuda=_cuda), bound_ms=bound_ms, bound_by=by,
+                   sha256=digest)
+        print(f"[bench] {name}: {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, bound "
+              f"{bound_ms:.5f} ms by {by}, out {digest}", flush=True)
+        rows.append(row)
+        del fn, out
+        torch.cuda.empty_cache()
+    card = timing.card()
+    print(card)
+    print(json.dumps({"root": args.root, "package": qp_zk_circuits_tpu_torch.__file__,
+                      "card": card, "cases": rows}))
+
+
+if __name__ == "__main__":
+    main()

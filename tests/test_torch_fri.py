@@ -103,11 +103,26 @@ def test_composition_matches_reference(lde_bits, zero_point):
     assert np.array_equal(leaves.reshape(mp, 8, 2), want.reshape(8, mp, 2).transpose(1, 0, 2))
 
 
+def test_composition_at_arity_4_with_zero_denominator_matches_reference():
+    """The largest arity's leaf layout with x_3 - z = 0 in the first batch."""
+    case = _case(7, seed=17, zero_point=True)
+    want = _reference_composition(case)
+    args = (_port_oracles(case), _instance(tfri, case), case["openings"], case["alpha"], 7)
+    leaves = gl.to_u64(tfri.compute_composition(*args, arity_bits=4))
+    mp = want.shape[0] >> 4
+    assert np.array_equal(leaves.reshape(mp, 16, 2), want.reshape(16, mp, 2).transpose(1, 0, 2))
+
+
 def test_composition_limits_hold_on_every_device():
     case = _case(6, seed=1)
     args = (_port_oracles(case), _instance(tfri, case), case["openings"], case["alpha"], 6)
     with pytest.raises(ValueError):
         tfri.compute_composition(*args, arity_bits=tfri.MAX_ARITY_BITS + 1)
+    many = dict(case, polys=(((0, 0),) * (tfri.MAX_TERMS + 1),),
+                openings=[np.zeros((tfri.MAX_TERMS + 1, 2), np.uint64)])
+    with pytest.raises(ValueError):
+        tfri.compute_composition(_port_oracles(many), _instance(tfri, many), many["openings"],
+                                 many["alpha"], 6)
     bad = dict(case, polys=(case["polys"][0], ((2, 4),)))  # oracle 2 has 4 columns
     with pytest.raises(ValueError):
         tfri.compute_composition(_port_oracles(bad), _instance(tfri, bad), bad["openings"],
@@ -267,3 +282,26 @@ def test_fri_kernels_match_plain_on_card(cuda):
     cpu_sources = [tfri.GatherSource(s.matrix.cpu(), s.mask, s.shift, s.flip) for s in sources]
     assert torch.equal(got_g.cpu(), tfri.query_gather(cpu_sources, indices))
     assert [f.launches for f in (gl.add, gl.sub, gl.mul)] == before
+
+
+@pytest.mark.gpu
+def test_composition_matches_plain_over_many_tiles_on_card(cuda):
+    """Kernel C at m = 2^13 (512 tiles of 16 points, several a block) with
+    three batches, two of them at domain points (zero denominators), in
+    every arity's leaf layout."""
+    rows, lde_bits = _leaf_shapes()
+    lde_bits += 2
+    m = 1 << lde_bits
+    rng = np.random.default_rng(42)
+    case = _case(lde_bits, seed=43, edges=True)
+    case["ldes"] = [_felts((c, m), rng, edges=True) for c in rows]
+    xs = tfri._domain_points(lde_bits)
+    case["polys"] = (tuple((o, k) for o, c in enumerate(rows) for k in range(c)),
+                     ((2, 0), (2, 1)), ((1, 5),))
+    case["points"] = ((int(xs[15]), 0), tuple(int(v) for v in JF.rand_felts(2, rng)),
+                      (int(xs[16]), 0))
+    case["openings"] = [JF.rand_felts((len(p), 2), rng) for p in case["polys"]]
+    args = (_instance(tfri, case), case["openings"], case["alpha"], lde_bits)
+    for arity in range(tfri.MAX_ARITY_BITS + 1):
+        got = tfri.compute_composition(_port_oracles(case, cuda), *args, arity)
+        assert torch.equal(got.cpu(), tfri.compute_composition(_port_oracles(case), *args, arity))
