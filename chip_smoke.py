@@ -21,7 +21,11 @@ package. Phases, each printing one line:
      denominators on both sides of a tile boundary; kernel 3 at the leaf
      proof's NTT shapes and in all four modes (forward, inverse, LDE with
      the coset shift, inverse with the unshift) at 2^12 (one pass) and
-     2^13, 2^14 (two passes);
+     2^13, 2^14 (two passes); kernel D also with no row at g * zeta, at
+     n = 1, 32 and 2^12 (two launches), with one-row segments and row
+     counts off its tiles; kernel E at every arity into natural order and
+     into leaves of arity 2^4, with fewer rows than a block and above its
+     spread limit;
   4. aggregation tree — the Merkle tree at 2^19 x 135: 256 sampled nodes of
      every level against the plain hashes of their inputs, its time beside
      the per-level form's (hash_rows, then one two_to_one launch a level);
@@ -35,7 +39,12 @@ package. Phases, each printing one line:
      run on the card, and C at m = 2^19 (the leaf's oracles and opening
      instance) against its plain version run on the card, all in full, each
      beside its bound;
-  7. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
+  7. aggregation FRI tail — kernels D, E and F at degree 16: D on 264 rows
+     of 2^16 coefficients, E's three rounds of schedule(16) in sequence
+     (from m = 2^19), each against its plain version run on the card in
+     full, and F's 28-query gather at m = 2^19 with the three rounds, each
+     beside its bound;
+  8. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
      prove_inputs(seed=0) cold and warm; the proof bytes must equal the
      committed fixture (length and SHA-256), every kernel of the path must
      have been launched during the cold proof, within its launch limits
@@ -145,6 +154,54 @@ def fri_field_ops(m: int, terms: int, batches: int) -> tuple[int, int]:
     per_point_adds = 2 * terms + batches * (2 + 1 + 1 + 2 + 2)
     return (m * per_point_muls + batches * INV_MULS + terms * 2 * 5,
             m * per_point_adds + terms * (2 * 2 + 2))
+
+
+def openings_work(rows: int, out_rows: int, n: int) -> tuple[int, int]:
+    """Kernel D's bytes and integer operations: each of the `rows`
+    coefficient rows of n read once (the g * zeta rows are rows of an oracle
+    read at zeta), the (out_rows, 2) result written; two multiplies and two
+    adds a coefficient of each output row; the powers of the two points, one
+    extension product each."""
+    return ((rows * n + 2 * out_rows) * 8,
+            out_rows * n * 2 * (OPS_MUL + OPS_ADD) + 2 * n * (5 * OPS_MUL + 2 * OPS_ADD))
+
+
+def fold_work(m: int, a_bits: int) -> tuple[int, int]:
+    """Kernel E's bytes and integer operations for a round of arity 2^a over
+    m values: the layer read, the m' = m >> a folded values written; a binary
+    fold is e + o, e - o, the twiddle, beta, the sum and the halving (nine
+    multiplies, eight adds), m - m' outputs over the a folds. No twiddle
+    table: the function needs none."""
+    mp = m >> a_bits
+    return (2 * m + 2 * mp) * 8, (m - mp) * (9 * OPS_MUL + 8 * OPS_ADD)
+
+
+def gather_work(queries: int, width: int) -> tuple[int, int]:
+    """Kernel F's bytes: each query's index read, its packed row of `width`
+    values read and written."""
+    return 2 * queries * width * 8 + queries * 8, 0
+
+
+def leaf_oracle_rows(data) -> list[int]:
+    """Row counts of the leaf's four committed oracles: constants and
+    sigmas, wires, Z and partial products, quotient chunks."""
+    cfg = data.config
+    nc, qdf = cfg.num_challenges, cfg.max_quotient_degree_factor
+    npp = -(-cfg.num_routed_wires // qdf) - 1
+    return [data.constants_oracle.lde.shape[0], cfg.num_wires, nc + nc * npp, nc * qdf]
+
+
+def fri_rounds(data, degree_bits: int) -> list[tuple[int, int, int]]:
+    """(log m, arity bits, next arity bits) of each FRI round of a proof of
+    2^degree_bits rows with `data`'s config (next 0 after the last: natural
+    order)."""
+    cfg = data.config
+    schedule = cfg.fri_config.reduction_strategy.schedule(degree_bits)
+    out, bits = [], degree_bits + cfg.rate_bits
+    for r, a in enumerate(schedule):
+        out.append((bits, a, schedule[r + 1] if r + 1 < len(schedule) else 0))
+        bits -= a
+    return out
 
 
 def tree_perms(rows: int, cols: int, cap: int) -> int:
@@ -553,9 +610,8 @@ def _fri_leaf_case(device, seed):
     cfg = data.config
     rng = np.random.default_rng(seed)
     m = data.n << cfg.rate_bits
-    nc, qdf = cfg.num_challenges, cfg.max_quotient_degree_factor
-    npp = -(-cfg.num_routed_wires // qdf) - 1
-    rows = [data.constants_oracle.lde.shape[0], cfg.num_wires, nc + nc * npp, nc * qdf]
+    nc = cfg.num_challenges
+    rows = leaf_oracle_rows(data)
     edges = np.array([gl.P - 1, 0, 1 << 32], dtype=np.uint64)
 
     def felts(shape):
@@ -602,7 +658,12 @@ def _composition_case(device) -> dict:
 
 def _openings_case(device) -> dict:
     """Kernel D at the leaf: every oracle's coefficient rows at zeta and the
-    Z rows at g * zeta, one (rows, 2) result."""
+    Z rows at g * zeta, one (rows, 2) result. Checked also with no row at
+    g * zeta, at n = 1, 32 and 2^12 (four chunks: two launches), with
+    one-row segments and with row counts that are not a multiple of a
+    block's tile (8 rows a block at one chunk, 32 above)."""
+    from types import SimpleNamespace
+
     import numpy as np
     import torch
 
@@ -613,26 +674,38 @@ def _openings_case(device) -> dict:
     n = c["oracles"][0].coeffs.shape[1]
     rows = sum(o.coeffs.shape[0] for o in c["oracles"])
     args = (c["zeta"], c["zeta_next"], 2, c["nz"])
+    counts = [o.coeffs.shape[0] for o in c["oracles"]]
+    edges = [(counts, 256, 2, 0), (counts, 1, 2, 2), (counts, 32, 2, 2), (counts, 1 << 12, 2, 2),
+             ([1, 33, 1], 300, 2, 1), ([3, 5], 3000, 2, 0), ([7], 1025, 1, 0)]
+    cases = []
+    for shape, n_e, nz, nxt in edges:
+        oracles = [SimpleNamespace(coeffs=_felts((r, n_e), c["rng"], device)) for r in shape]
+        cases.append((oracles, (c["zeta"], c["zeta_next"], nxt, nz)))
 
     def joined(parts):
         return torch.as_tensor(np.concatenate(list(parts[0]) + [parts[1]]).view(np.int64))
 
-    out_rows = rows + c["nz"]
+    def check():
+        got = [joined(fo.eval_openings(c["oracles"], *args))]
+        want = [joined(fo.eval_openings_plain(cpu, *args))]
+        for oracles, a in cases:
+            got.append(joined(fo.eval_openings(oracles, *a)))
+            want.append(joined(fo.eval_openings_plain(_cpu_oracles(oracles), *a)))
+        return got, want
+
     return dict(
         run=lambda: fo.eval_openings(c["oracles"], *args),
-        plain=lambda: fo.eval_openings_plain(cpu, *args), plain_on_host=True,
-        check=lambda: ([joined(fo.eval_openings(c["oracles"], *args))],
-                       [joined(fo.eval_openings_plain(cpu, *args))]),
-        bytes=(rows * n + 2 * out_rows) * 8,
-        # two multiplies and two adds a coefficient; the powers of the two
-        # points, one extension product each
-        ops=out_rows * n * 2 * (OPS_MUL + OPS_ADD) + 2 * n * (5 * OPS_MUL + 2 * OPS_ADD),
+        plain=lambda: fo.eval_openings_plain(cpu, *args), plain_on_host=True, check=check,
+        **dict(zip(("bytes", "ops"), openings_work(rows, rows + c["nz"], n))),
     )
 
 
 def _fold_case(device) -> dict:
     """Kernel E at the leaf: the one round of arity 2^3 over m = 2048 values
-    held as (256, 16) leaf rows, folded into the natural-order last layer."""
+    held as (256, 16) leaf rows, folded into the natural-order last layer.
+    Checked also at every arity 2^1..2^4 into natural order and into leaves
+    of arity 2^4, with a layer of fewer rows than a block and one above the
+    spread limit (one or two threads a row), each with another coset shift."""
     from qp_zk_circuits_tpu_torch.field import gf_np as F
     from qp_zk_circuits_tpu_torch.fri import prover as fri
 
@@ -643,13 +716,25 @@ def _fold_case(device) -> dict:
     beta = F.rand_felts(2, c["rng"])
     args = (beta, a, log_m, 0, 0)
     leaves_cpu = leaves.cpu()
+    cases = []
+    for a_e in range(1, fri.MAX_ARITY_BITS + 1):
+        # the leaf's layer, fewer rows than a block, more than E_SPREAD_ROWS
+        for log_m_e in (log_m, a_e + 3, a_e + 14):
+            for nxt in (0, 4):
+                if nxt <= log_m_e - a_e:
+                    cases.append((_felts((1 << (log_m_e - a_e), 2 << a_e), c["rng"], device),
+                                  (F.rand_felts(2, c["rng"]), a_e, log_m_e, a_e + nxt, nxt)))
+
+    def check():
+        got = [fri.fold_round(leaves, *args)] + [fri.fold_round(x, *ar) for x, ar in cases]
+        want = [fri.fold_round_plain(leaves_cpu, *args)]
+        want += [fri.fold_round_plain(x.cpu(), *ar) for x, ar in cases]
+        return got, want
+
     return dict(
         run=lambda: fri.fold_round(leaves, *args),
-        plain=lambda: fri.fold_round_plain(leaves_cpu, *args), plain_on_host=True,
-        bytes=(2 * m + 2 * (m >> a)) * 8,
-        # a binary fold: e + o, e - o, the twiddle, beta, the sum and the
-        # halving; m - m' outputs over the a folds
-        ops=(m - (m >> a)) * (9 * OPS_MUL + 8 * OPS_ADD),
+        plain=lambda: fri.fold_round_plain(leaves_cpu, *args), plain_on_host=True, check=check,
+        **dict(zip(("bytes", "ops"), fold_work(m, a))),
     )
 
 
@@ -680,8 +765,7 @@ def _gather_case(device) -> dict:
     return dict(
         run=lambda: fri.query_gather(sources, indices),
         plain=lambda: fri.query_gather_plain(cpu, indices), plain_on_host=True,
-        bytes=2 * len(indices) * width * 8 + len(indices) * 8,
-        ops=0,
+        **dict(zip(("bytes", "ops"), gather_work(len(indices), width))),
     )
 
 
@@ -881,9 +965,7 @@ def _composition_2_19(leaf, device, lde_bits: int) -> None:
 
     cfg = leaf.config
     m = 1 << lde_bits
-    nc, qdf = cfg.num_challenges, cfg.max_quotient_degree_factor
-    npp = -(-cfg.num_routed_wires // qdf) - 1
-    rows = [leaf.constants_oracle.lde.shape[0], cfg.num_wires, nc + nc * npp, nc * qdf]
+    rows = leaf_oracle_rows(leaf)
     oracles = [SimpleNamespace(lde=_card_felts((c, m), 30 + i, device)) for i, c in enumerate(rows)]
     rng = np.random.default_rng(19)
     instance = fri_instance(leaf, F.rand_felts(2, rng), F.rand_felts(2, rng))
@@ -972,6 +1054,91 @@ def phase_aggregation_fused(device, degree_bits: int = 16) -> None:
     _composition_2_19(leaf, device, degree_bits + cfg.rate_bits)
 
 
+def phase_aggregation_fri_tail(device, degree_bits: int = 16) -> None:
+    """Kernels D, E and F at the private batch's degree 16 (the leaf's config
+    and its four oracles' row counts): D on all 264 rows of 2^16 coefficients
+    (262 at zeta, 2 at g * zeta), every row against `eval_openings_plain` run
+    on the card; E's three rounds of schedule(16) in sequence (2^19 values
+    in leaves of arity 2^4, then 2^15, then 2^11 into the last layer), each
+    round's every value against `fold_round_plain` run on the card on the
+    same input; F, unchanged, gathering 28 queries' rows and paths of the
+    four oracles at m = 2^19 and of the three rounds, against the plain
+    gather. Each timed beside its bound."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.fri import oracle as fo
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.hash import merkle
+
+    leaf = _leaf_data(device)
+    cfg = leaf.config
+    fri_cfg = cfg.fri_config
+    n = 1 << degree_bits
+    lde_bits = degree_bits + cfg.rate_bits
+    m = 1 << lde_bits
+    nc = cfg.num_challenges
+    rows = leaf_oracle_rows(leaf)
+    rng = np.random.default_rng(17)
+
+    oracles = [SimpleNamespace(coeffs=_card_felts((r, n), 40 + i, device))
+               for i, r in enumerate(rows)]
+    args = (F.rand_felts(2, rng), F.rand_felts(2, rng), 2, nc)
+    before = fo.eval_openings.launches
+    got = fo.eval_openings(oracles, *args)
+    launches = fo.eval_openings.launches - before
+    want = fo.eval_openings_plain(oracles, *args)
+    if not all(np.array_equal(g, w) for g, w in zip(got[0] + [got[1]], want[0] + [want[1]])):
+        raise AssertionError(f"openings at n = 2^{degree_bits} differ from the plain version")
+    line = _timed(lambda: fo.eval_openings(oracles, *args),
+                  openings_work(sum(rows), sum(rows) + nc, n))
+    print(f"[fri tail 2^{degree_bits}] openings {sum(rows) + nc} rows x 2^{degree_bits}, "
+          f"{launches} launches: every row equals eval_openings_plain run on the card; {line}",
+          flush=True)
+    del oracles, got, want
+
+    rounds = fri_rounds(leaf, degree_bits)
+    layer = _card_felts((m >> rounds[0][1], 2 << rounds[0][1]), 45, device)
+    layers, shift_pow = [], 0
+    for r, (bits, a, nxt) in enumerate(rounds):
+        beta = F.rand_felts(2, rng)
+        call = (beta, a, bits, shift_pow, nxt)
+        layers.append(layer)
+        folded = fri.fold_round(layer, *call)
+        if not torch.equal(folded, fri.fold_round_plain(layer, *call)):
+            raise AssertionError(f"fold round {r} at m = 2^{bits} differs from the plain version")
+        line = _timed(lambda: fri.fold_round(layers[-1], *call), fold_work(1 << bits, a))
+        print(f"[fri tail 2^{degree_bits}] fold round {r}: m = 2^{bits}, arity 2^{a}, next "
+              f"2^{nxt}: all {folded.numel()} values equal fold_round_plain run on the card; "
+              f"{line}", flush=True)
+        layer, shift_pow = folded, shift_pow + a
+
+    sources = []
+    for i, r in enumerate(rows):
+        lde = _card_felts((r, m), 50 + i, device)
+        sources.append(fri.GatherSource(lde.T, m - 1))
+        sources += fri._sibling_sources(merkle.build_merkle_tree(lde.T, fri_cfg.cap_height), m - 1)
+    for leaves in layers:
+        mask = leaves.shape[0] - 1
+        tree = merkle.build_merkle_tree(leaves, min(fri_cfg.cap_height, mask.bit_length()))
+        sources.append(fri.GatherSource(leaves, mask))
+        sources += fri._sibling_sources(tree, mask)
+    q = fri_cfg.num_query_rounds
+    indices = [0, m - 1] + [int(i) for i in rng.integers(0, m, q - 2)]
+    got = fri.query_gather(sources, indices)
+    if not torch.equal(got, fri.query_gather_plain(sources, indices)):
+        raise AssertionError(f"query gather at m = 2^{lde_bits} differs from the plain version")
+    line = _timed(lambda: fri.query_gather(sources, indices), gather_work(q, got.shape[1]))
+    print(f"[fri tail 2^{degree_bits}] query gather m = 2^{lde_bits}, {q} queries, "
+          f"{len(sources)} segments, {got.shape[1]} values a query: equal to the plain gather; "
+          f"{line}", flush=True)
+    del sources, layers, layer, got
+    torch.cuda.empty_cache()
+
+
 def phase_main_path(kernels) -> None:
     import torch
 
@@ -1038,6 +1205,7 @@ def main() -> int:
     phase_aggregation_tree("cuda")
     phase_aggregation_ntt("cuda")
     phase_aggregation_fused("cuda")
+    phase_aggregation_fri_tail("cuda")
     phase_main_path(kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

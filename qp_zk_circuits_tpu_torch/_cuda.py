@@ -44,7 +44,7 @@ _ENTRIES = {
     "qzk_quotient": [_P] * 14 + [_I] * 12 + [_P],
     "qzk_permutation": [_P] * 7 + [_I] * 4 + [_P],
     "qzk_fri_composition": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _P],
-    "qzk_eval_openings": [_P, _I, _P, _P, _I, _P],
+    "qzk_eval_openings": [_P, _I, _P, _P, _P, _I, _P],
     "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "qzk_query_gather": [_P, _I, _I, _P, _LL, _P],
 }

@@ -28,10 +28,22 @@
 //   (_jitted_eval_many) and the fused prover's _eval_coeffs_at with
 //   _ext_powers_j: every listed coefficient row at its point,
 //     y_c = sum_i coeffs[c, i] * z^i   (z = zeta or g * zeta, extension).
-//   One warp per row: lane l forms z^l and z^32 in registers and strides the
-//   n coefficients, then a shuffle reduction. Bound: the rows read once
-//   (about 0.5 MB at the leaf, 0.16 us) and two multiplies and two adds a
-//   coefficient, slightly more: operations. Any n.
+//   Bound: the rows read once (0.5 MB at the leaf, 139 MB at 264 x 2^16)
+//   and two multiplies and two adds a coefficient: operations and bytes
+//   nearly equal. Block (row tile, chunk of D_CHUNK coefficients): lanes
+//   find their rows' segments by a ballot, then two warps a point the tile
+//   needs form z^l and z^(32 l) by shuffle scans over the lanes the chunk
+//   uses (the first row's loads in flight meanwhile); warp w takes rw rows,
+//   lane l sums c_(l + 32 k) z^(32 k) over its coefficients l + 32 k (8
+//   loads in flight, z^(32 k) a shared broadcast, 192-bit lazy sums in two
+//   chains a component, reduced once), multiplies the sum by z^l once, and
+//   a shuffle sum ends the row. A row of one chunk is written out (one
+//   launch, rw = 1: a warp a row, 33 blocks at the leaf); above, z^l is
+//   times z^c0 (square and multiply, in warps 4 and 5 beside the scans),
+//   the partial sums go to a scratch (rows, chunks), and a second launch
+//   adds them, a warp a row. Field addition is exact: any order gives the
+//   plain version's bits. Any n up to 65535 chunks, any segment layout of
+//   at most MAX_SEGS.
 //
 // Kernel E, qzk_fri_fold (fri/prover.py::fold_round).
 //   Replaces the JAX package's fri/prover.py::_fold_step applied a times and
@@ -40,15 +52,21 @@
 //   row q is the arity coset v[q + j m'], j < 2^a. The round's beta comes
 //   from the transcript after that tree's cap, so the leaves cannot wait for
 //   the fold: the layer's producer writes them (kernel C for the first
-//   round, this kernel for the next), and no transpose copy is made. Thread q
-//   reads leaf row q and runs the a binary folds in registers,
-//     new_i = (e_i + o_i + beta^(2^t) inv_x_t[i] (e_i - o_i)) / 2,
-//   with the inverse twiddles of fri/prover.py::_inv_x_table, all a tables
-//   concatenated, uploaded once per device; it writes its value into the
-//   next round's leaf layout (arity 0: natural order, for the final
-//   polynomial). a = 1..4 (one instantiation each). Bound: operations, about
-//   nine multiplies and eight adds for each of the m - m' values the folds
-//   make, against m values read and m' written. Any m.
+//   round, this kernel for the next), and no transpose copy is made.
+//   Bound: operations, nine multiplies and eight adds for each of the m -
+//   m' values the folds make, against m values read and m' written. The
+//   inverse twiddles are formed on the card, no table: value q + j m' of
+//   fold t has x^-1 = w^(-2^t q) c_tj, w^-q from the bits of q (a butterfly
+//   across the warp for the bits above 4) and 2^a - 1 constants c_tj =
+//   shift^(-2^t) w_t^(-j m') passed by value (fri/prover.py::_fold_consts),
+//   times beta^(2^t) once a block. A fold is e + o + u (e - o) c beta: two
+//   multiplies by u and a 192-bit lazy sum a component; the a halvings are
+//   one multiply by 2^-a at the end. Up to E_SPREAD_ROWS rows (the leaf,
+//   the later degree-16 rounds) a row takes 2^(a - 1) threads, each one
+//   pair of the first fold, the others by shuffles; above, two threads a
+//   row (one instantiation per a and spread). The value goes straight to
+//   its slot in the next round's leaf layout (arity 0: natural order, for
+//   the final polynomial). a = 1..4, m' up to 2^31.
 //
 // Kernel F, qzk_query_gather (fri/prover.py::query_gather, called by
 // gather_query_rounds).
@@ -61,6 +79,7 @@
 //   ((q >> l) ^ 1), each FRI round's leaf and its siblings. Block (query,
 //   segment) copies one segment. Bound: bytes, the values gathered.
 #include <cuda_runtime.h>
+#include <string.h>
 
 #include "extension.cuh"
 
@@ -69,7 +88,6 @@ namespace {
 constexpr int MAX_ORACLES = 8;
 constexpr int MAX_BATCHES = 4;
 constexpr int MAX_ARITY_BITS = 4;
-constexpr uint64_t INV2 = 0x7FFFFFFF80000001ULL;  // 1/2 = (p + 1) / 2
 
 // Value i of a layer held as leaf rows of arity 2^a_bits, rows = m >> a_bits:
 // row i mod rows, column i / rows (a_bits = 0 is natural order).
@@ -356,55 +374,175 @@ __global__ void __launch_bounds__(C_THREADS)
 // kernel D
 
 constexpr int D_WARPS = 8;
+constexpr int D_THREADS = 32 * D_WARPS;
+constexpr int D_CHUNK = 1024;           // coefficients a block
+constexpr int D_LANE = D_CHUNK / 32;    // coefficients a lane a row
+constexpr int D_LOADS = 8;              // coefficient loads in flight a lane (16 measured slower)
+constexpr int D_MAX_RW = 4;             // rows a warp above one chunk (2 and 8 measured slower)
 constexpr int MAX_SEGS = MAX_ORACLES + 1;
 
-// consecutive output rows: segment s is rows[s] coefficient rows from p[s],
-// evaluated at point[s] (0 = zeta, 1 = g * zeta)
+// consecutive output rows: segment s is rows start[s] .. start[s + 1] - 1,
+// coefficient rows from p[s] evaluated at point[s] (0 = zeta, 1 = g * zeta)
 struct Rows {
   const uint64_t* p[MAX_SEGS];
-  long long rows[MAX_SEGS];
+  long long start[MAX_SEGS + 1];
   int point[MAX_SEGS];
   int n;
   uint64_t z0[2], z1[2];  // zeta and g * zeta
 };
 
-__global__ void __launch_bounds__(32 * D_WARPS)
-    openings_kernel(Rows rows, uint64_t* __restrict__ out, long long total, int n) {
+__device__ __forceinline__ ext::E point_of(const Rows& rows, int pt) {
+  return {pt ? rows.z0[1] : rows.z0[0], pt ? rows.z1[1] : rows.z1[0]};
+}
+
+// Row r's coefficients from c0 on and its point (-1 past the last row):
+// lane s checks segment s, the warp's ballot names the one that holds r.
+__device__ __forceinline__ int find_row(const Rows& rows, long long r, int n, long long c0,
+                                        const uint64_t*& src) {
   const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * D_WARPS + (threadIdx.x >> 5);
-  const uint64_t* col = nullptr;
-  int pt = 0;
-  long long rem = r;
+  const bool mine = lane < rows.n && r >= rows.start[lane] && r < rows.start[lane + 1];
+  const unsigned owner = __ballot_sync(0xffffffffu, mine);
+  if (owner == 0) return -1;
+  const int s = __ffs(owner) - 1;
+  src = rows.p[s] + (r - rows.start[s]) * n + c0;
+  return rows.point[s];
+}
+
+// Block (tile, chunk): the partial sums over coefficients [c0, c0 + D_CHUNK)
+// of the tile's 8 rw rows (warp w takes rows w rw .. w rw + rw - 1, one at a
+// time, lane l coefficients c0 + l + 32 k), times z^c0, into dst[row][chunk]
+// (dst = out when the rows have one chunk). Lane l sums c_(l + 32 k)
+// z^(32 k) and multiplies the sum by z^l (times z^c0) once a row.
+__global__ void __launch_bounds__(D_THREADS)
+    openings_kernel(const __grid_constant__ Rows rows, uint64_t* __restrict__ dst,
+                    long long total, int n, int rw, int chunks) {
+  __shared__ ulonglong2 scan[2][2][32];  // [point][z^l, z^(32 l)]
+  __shared__ ulonglong2 cpow[2];         // z^c0
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long r0 = (long long)blockIdx.x * D_WARPS * rw;
+  const long long c0 = (long long)blockIdx.y * D_CHUNK;
+  const int len = n - c0 < D_CHUNK ? (int)(n - c0) : D_CHUNK;
+
+  // the points the tile's rows need: lane s checks segment s
+  const bool meets = lane < rows.n && rows.start[lane] < rows.start[lane + 1] &&
+                     rows.start[lane + 1] > r0 && rows.start[lane] < r0 + D_WARPS * rw;
+  const bool need0 = __ballot_sync(0xffffffffu, meets && rows.point[lane] == 0) != 0;
+  const bool need1 = __ballot_sync(0xffffffffu, meets && rows.point[lane] == 1) != 0;
+
+  // the warp's first row's loads, in flight while the powers are formed
+  const uint64_t* src = nullptr;
+  int pt = find_row(rows, r0 + warp * rw, n, c0, src);
+  uint64_t v[D_LOADS];
 #pragma unroll
-  for (int s = 0; s < MAX_SEGS; ++s) {
-    if (col == nullptr && s < rows.n && r < total) {
-      if (rem < rows.rows[s]) {
-        col = rows.p[s] + rem * n;
-        pt = rows.point[s];
-      } else {
-        rem -= rows.rows[s];
+  for (int u = 0; u < D_LOADS; ++u) {
+    const int j = lane + 32 * u;
+    v[u] = pt >= 0 && j < len ? __ldg((const unsigned long long*)src + j) : 0;
+  }
+
+  // warps 0, 1 (zeta) and 2, 3 (g zeta): z^l and z^(32 l) by shuffle scans
+  // over the lanes the chunk uses; warps 4, 5: z^c0 (square and multiply)
+  // when the rows have more chunks
+  if (warp < 4) {
+    const int p = warp >> 1;
+    if (p == 0 ? need0 : need1) {
+      ext::E x = point_of(rows, p);
+      if (warp & 1) {
+#pragma unroll 1
+        for (int r = 0; r < 5; ++r) x = ext::mul(x, x);
+      }
+      if (lane == 0) x = {1, 0};
+      const int used = warp & 1 ? (len + 31) / 32 : (len < 32 ? len : 32);
+#pragma unroll 1
+      for (int d = 1; d < used; d <<= 1) {
+        const ext::E o = {__shfl_up_sync(0xffffffffu, (unsigned long long)x.c0, d),
+                          __shfl_up_sync(0xffffffffu, (unsigned long long)x.c1, d)};
+        if (lane >= d) x = ext::mul(x, o);
+      }
+      scan[p][warp & 1][lane] = make_ulonglong2(x.c0, x.c1);
+    }
+  } else if (warp < 6 && chunks > 1) {
+    const int p = warp - 4;
+    if (p == 0 ? need0 : need1) {
+      const ext::E x = ext::pow(point_of(rows, p), (unsigned long long)c0);
+      if (lane == 0) cpow[p] = make_ulonglong2(x.c0, x.c1);
+    }
+  }
+  __syncthreads();
+  // lane l's factor z^l (times z^c0) for each point the tile needs
+  ext::E fac[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    fac[p] = {1, 0};
+    if (p == 0 ? need0 : need1) {
+      fac[p] = {scan[p][0][lane].x, scan[p][0][lane].y};
+      if (c0 > 0) fac[p] = ext::mul(fac[p], {cpow[p].x, cpow[p].y});
+    }
+  }
+
+#pragma unroll 1
+  for (int i = 0; i < rw; ++i) {
+    if (i > 0) pt = find_row(rows, r0 + warp * rw + i, n, c0, src);
+    if (pt < 0) break;  // the tile's last rows lie past the end; uniform in the warp
+    const ulonglong2* hi = scan[pt][1];
+    // two chains of 192-bit sums a component: even and odd steps
+    uint64_t lo[4] = {0, 0, 0, 0}, hh[4] = {0, 0, 0, 0};
+    unsigned top[4] = {0, 0, 0, 0};
+#pragma unroll 1
+    for (int k0 = 0; k0 < D_LANE && 32 * k0 < len; k0 += D_LOADS) {
+      if (i > 0 || k0 > 0) {
+#pragma unroll
+        for (int u = 0; u < D_LOADS; ++u) {
+          const int j = lane + 32 * (k0 + u);
+          v[u] = j < len ? __ldg((const unsigned long long*)src + j) : 0;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < D_LOADS; ++u) {  // past len: v = 0, whatever hi holds
+        const ulonglong2 z = hi[k0 + u];
+        const int c = 2 * (u & 1);
+        gl::mac(lo[c], hh[c], top[c], z.x, v[u]);
+        gl::mac(lo[c + 1], hh[c + 1], top[c + 1], z.y, v[u]);
       }
     }
-  }
-  ext::E acc = {0, 0};
-  if (col != nullptr) {
-    const ext::E z = {pt ? rows.z0[1] : rows.z0[0], pt ? rows.z1[1] : rows.z1[0]};
-    const ext::E z32 = ext::pow(z, 32);
-    ext::E zi = ext::pow(z, lane);  // z^i for i = lane, lane + 32, ...
-    for (int i = lane; i < n; i += 32) {
-      acc = ext::add(acc, ext::scale(zi, col[i]));
-      zi = ext::mul(zi, z32);
+    ext::E s = {gl::add(gl::reduce192(lo[0], hh[0], top[0]), gl::reduce192(lo[2], hh[2], top[2])),
+                gl::add(gl::reduce192(lo[1], hh[1], top[1]), gl::reduce192(lo[3], hh[3], top[3]))};
+    s = ext::mul(s, pt ? fac[1] : fac[0]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s.c0 = gl::add(s.c0, __shfl_down_sync(0xffffffffu, (unsigned long long)s.c0, off));
+      s.c1 = gl::add(s.c1, __shfl_down_sync(0xffffffffu, (unsigned long long)s.c1, off));
+    }
+    if (lane == 0) {
+      const long long r = r0 + warp * rw + i;
+      const long long at = chunks > 1 ? r * chunks + blockIdx.y : r;
+      dst[2 * at] = s.c0;
+      dst[2 * at + 1] = s.c1;
     }
   }
-  // every lane of the warp takes part: the warp shares one row
+}
+
+// The chunks' partial sums of each row, one warp a row.
+__global__ void __launch_bounds__(D_THREADS)
+    openings_sum_kernel(const uint64_t* __restrict__ part, uint64_t* __restrict__ out,
+                        long long total, int chunks) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * D_WARPS + (threadIdx.x >> 5);
+  if (r >= total) return;  // the whole warp
+  ext::E s = {0, 0};
+  const uint64_t* p = part + 2 * r * chunks;
+#pragma unroll 4
+  for (int c = lane; c < chunks; c += 32) {
+    const ulonglong2 x = __ldg((const ulonglong2*)p + c);
+    s = ext::add(s, {x.x, x.y});
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    acc.c0 = gl::add(acc.c0, __shfl_down_sync(0xffffffffu, (unsigned long long)acc.c0, off));
-    acc.c1 = gl::add(acc.c1, __shfl_down_sync(0xffffffffu, (unsigned long long)acc.c1, off));
+    s.c0 = gl::add(s.c0, __shfl_down_sync(0xffffffffu, (unsigned long long)s.c0, off));
+    s.c1 = gl::add(s.c1, __shfl_down_sync(0xffffffffu, (unsigned long long)s.c1, off));
   }
-  if (lane == 0 && col != nullptr) {
-    out[2 * r] = acc.c0;
-    out[2 * r + 1] = acc.c1;
+  if (lane == 0) {
+    out[2 * r] = s.c0;
+    out[2 * r + 1] = s.c1;
   }
 }
 
@@ -412,38 +550,139 @@ __global__ void __launch_bounds__(32 * D_WARPS)
 // kernel E
 
 constexpr int E_THREADS = 128;
+// at most this many rows in a round: 2^(a - 1) threads a row, else
+// 2^E_LARGE_S (at m = 2^19, a = 4: two threads a row measured faster than
+// one or four)
+constexpr long long E_SPREAD_ROWS = 1 << 13;
+constexpr int E_LARGE_S = 1;
 
-struct Betas {
-  uint64_t c0[MAX_ARITY_BITS], c1[MAX_ARITY_BITS];  // beta^(2^t)
+// A round's constants, by value: the inverse twiddle of value q + j m' in
+// fold t is w^(-2^t q) c_tj with c_tj = shift^(-2^t) w_t^(-j m') (w of
+// order m, w_t = w^(2^t))
+struct FoldConsts {
+  uint64_t wb[32];                        // w^(-2^b)
+  uint64_t c[(1 << MAX_ARITY_BITS) - 1];  // c_tj at 2^a - 2^(a - t) + j
+  uint64_t scale;                         // 2^-a: the a halvings, applied once
+  uint64_t beta0[MAX_ARITY_BITS], beta1[MAX_ARITY_BITS];  // beta^(2^t)
 };
+constexpr int FOLD_CONST_WORDS = 32 + (1 << MAX_ARITY_BITS) - 1 + 1;
 
-template <int A_BITS>
+// 2 x one binary fold, e + o + u (e - o) cb with cb = c_tj beta^(2^t) as
+// (cb0, cb1, W cb1): two multiplies by u, then per component one 192-bit
+// sum of e, o and two products, reduced once (the halving is left to the end)
+__device__ __forceinline__ ext::E fold2(ext::E e, ext::E o, uint64_t u, const uint64_t* cb) {
+  const uint64_t d0 = gl::mul(u, gl::sub(e.c0, o.c0)), d1 = gl::mul(u, gl::sub(e.c1, o.c1));
+  uint64_t lo0 = e.c0 + o.c0, lo1 = e.c1 + o.c1;
+  uint64_t hi0 = lo0 < e.c0, hi1 = lo1 < e.c1;
+  unsigned top0 = 0, top1 = 0;
+  gl::mac(lo0, hi0, top0, d0, cb[0]);
+  gl::mac(lo0, hi0, top0, d1, cb[2]);
+  gl::mac(lo1, hi1, top1, d0, cb[1]);
+  gl::mac(lo1, hi1, top1, d1, cb[0]);
+  return {gl::reduce192(lo0, hi0, top0), gl::reduce192(lo1, hi1, top1)};
+}
+
+// Block: E_THREADS / 2^S_BITS leaf rows, 2^S_BITS threads a row, thread h
+// holding the pairs h + 2^S_BITS i of the first fold; the first A_BITS -
+// S_BITS folds in registers, the last S_BITS by shuffles among the row's
+// threads. One thread a row (S_BITS = 0) stages the block's rows in shared
+// memory by 16-byte loads; with more, the row's threads read its two halves
+// as 32 B or more a row, straight from memory.
+template <int A_BITS, int S_BITS>
 __global__ void __launch_bounds__(E_THREADS)
-    fold_kernel(const uint64_t* __restrict__ leaves, const uint64_t* __restrict__ inv_x, Betas beta,
-                uint64_t* __restrict__ out, long long mp, int next_bits) {
-  constexpr int A = 1 << A_BITS;
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= mp) return;
-  ext::E v[A];
+    fold_kernel(const uint64_t* __restrict__ leaves, const __grid_constant__ FoldConsts k,
+                uint64_t* __restrict__ out, long long mp, int mp_bits, int next_bits) {
+  constexpr int A = 1 << A_BITS, T = 1 << S_BITS, ROWS = E_THREADS / T;
+  constexpr int PAIRS = A / (2 * T);        // first-fold pairs a thread
+  constexpr int LOCAL = A_BITS - S_BITS;    // folds within a thread
+  constexpr int STRIDE = 2 * A + 1;         // staged row: an odd stride, rows in distinct banks
+  __shared__ uint64_t st[S_BITS == 0 ? ROWS * STRIDE : 1];
+  __shared__ uint64_t cb[A - 1][3];         // c_tj beta^(2^t) as (c0, c1, W c1)
+  const int tid = threadIdx.x, lane = tid & 31, h = tid & (T - 1);
+  const long long q0 = (long long)blockIdx.x * ROWS;
+  const long long q = q0 + (tid >> S_BITS);
+  const ulonglong2* src = (const ulonglong2*)leaves;  // a value a unit
+  ulonglong2 ld[S_BITS == 0 ? A : 2 * PAIRS];
+  const int units = (mp - q0 < ROWS ? (int)(mp - q0) : ROWS) * A;
+  if (S_BITS == 0) {
 #pragma unroll
-  for (int j = 0; j < A; ++j) v[j] = {leaves[q * 2 * A + 2 * j], leaves[q * 2 * A + 2 * j + 1]};
-  long long off = 0;              // fold t's table within inv_x
-  long long half = mp * (A / 2);  // half the layer folded by fold t
-#pragma unroll
-  for (int t = 0; t < A_BITS; ++t) {
-    const ext::E bt = {beta.c0[t], beta.c1[t]};
-#pragma unroll
-    for (int j = 0; j < (A >> (t + 1)); ++j) {
-      const ext::E e = v[j], o = v[j + (A >> (t + 1))];
-      const ext::E d = ext::mul(ext::scale(ext::sub(e, o), inv_x[off + q + j * mp]), bt);
-      v[j] = ext::scale(ext::add(ext::add(e, o), d), INV2);
+    for (int p = 0; p < A; ++p) {
+      const int i = tid + p * E_THREADS;
+      if (i < units) ld[p] = __ldg(src + q0 * A + i);
     }
-    off += half;
-    half >>= 1;
+  } else if (q < mp) {
+#pragma unroll
+    for (int i = 0; i < PAIRS; ++i) {
+      ld[i] = __ldg(src + q * A + h + T * i);
+      ld[PAIRS + i] = __ldg(src + q * A + h + T * i + A / 2);
+    }
   }
-  const long long at = leaf_slot(q, mp >> next_bits, next_bits);
-  out[2 * at] = v[0].c0;
-  out[2 * at + 1] = v[0].c1;
+  if (tid < A - 1) {
+    int t = 0;
+    while (tid >= A - (A >> (t + 1))) ++t;  // tid's fold
+    const uint64_t c0 = gl::mul(k.c[tid], k.beta0[t]), c1 = gl::mul(k.c[tid], k.beta1[t]);
+    cb[tid][0] = c0;
+    cb[tid][1] = c1;
+    cb[tid][2] = gl::mul(ext::W, c1);
+  }
+
+  // u = w^-q: the bits of q above 4 by a butterfly across the warp (its rows
+  // lie in one aligned run of 32), the low five in the thread
+  uint64_t hi = lane >= 5 && ((q >> lane) & 1) ? k.wb[lane] : 1;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    hi = gl::mul(hi, __shfl_xor_sync(0xffffffffu, (unsigned long long)hi, off));
+  const uint64_t b0 = q & 1 ? k.wb[0] : 1, b1 = q & 2 ? k.wb[1] : 1, b2 = q & 4 ? k.wb[2] : 1,
+                 b3 = q & 8 ? k.wb[3] : 1, b4 = q & 16 ? k.wb[4] : 1;
+  uint64_t ut = gl::mul(gl::mul(gl::mul(b0, b1), gl::mul(b2, b3)), gl::mul(b4, hi));
+
+  ext::E f[PAIRS];
+  if (S_BITS == 0) {
+#pragma unroll
+    for (int p = 0; p < A; ++p) {
+      const int i = tid + p * E_THREADS;
+      if (i < units) {
+        uint64_t* at = st + (i / A) * STRIDE + 2 * (i % A);
+        at[0] = ld[p].x;
+        at[1] = ld[p].y;
+      }
+    }
+  }
+  __syncthreads();
+  if (S_BITS == 0) {
+    const uint64_t* row = st + tid * STRIDE;
+#pragma unroll
+    for (int j = 0; j < PAIRS; ++j)
+      f[j] = fold2({row[2 * j], row[2 * j + 1]}, {row[2 * (j + A / 2)], row[2 * (j + A / 2) + 1]},
+                   ut, cb[j]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < PAIRS; ++i)
+      f[i] = fold2({ld[i].x, ld[i].y}, {ld[PAIRS + i].x, ld[PAIRS + i].y}, ut, cb[h + T * i]);
+  }
+#pragma unroll
+  for (int t = 1; t < LOCAL; ++t) {
+    ut = gl::mul(ut, ut);
+    const int pairs = (A >> (t + 1)) / T;
+#pragma unroll
+    for (int i = 0; i < pairs; ++i)
+      f[i] = fold2(f[i], f[i + pairs], ut, cb[A - (A >> t) + h + T * i]);
+  }
+  ext::E v = f[0];
+#pragma unroll
+  for (int t = LOCAL; t < A_BITS; ++t) {
+    ut = gl::mul(ut, ut);
+    const int half = A >> (t + 1);
+    const ext::E o = {__shfl_down_sync(0xffffffffu, (unsigned long long)v.c0, half, T),
+                      __shfl_down_sync(0xffffffffu, (unsigned long long)v.c1, half, T)};
+    v = fold2(v, o, ut, cb[A - (A >> t) + (h & (half - 1))]);
+  }
+  if (h == 0 && q < mp) {
+    const int nb = mp_bits - next_bits;
+    const long long at = ((q & ((1LL << nb) - 1)) << next_bits) + (q >> nb);
+    out[2 * at] = gl::mul(v.c0, k.scale);
+    out[2 * at + 1] = gl::mul(v.c1, k.scale);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -524,62 +763,91 @@ extern "C" int qzk_fri_composition(const void* sources, int n_sources, const voi
 }
 
 // segs: host uint64 (n_segs, 3) rows (device address of the first row,
-// row count, point); points: host uint64 (2, 2), zeta and g * zeta;
-// out: (total rows, 2).
+// row count, point); points: host uint64 (2, 2), zeta and g * zeta; out:
+// (total rows, 2); part: device scratch of (total rows, chunks, 2) for n
+// above D_CHUNK (chunks = ceil(n / D_CHUNK); unused, may be null, at or
+// below). One launch at or below D_CHUNK, two above.
 extern "C" int qzk_eval_openings(const void* segs, int n_segs, const void* points, void* out,
-                                 int n, void* stream) {
+                                 void* part, int n, void* stream) {
   if (n_segs < 1 || n_segs > MAX_SEGS || n < 1) return (int)cudaErrorInvalidValue;
   Rows rows{};
   rows.n = n_segs;
-  long long total = 0;
   const uint64_t* h = (const uint64_t*)segs;
   for (int s = 0; s < n_segs; ++s) {
     rows.p[s] = (const uint64_t*)h[3 * s];
-    rows.rows[s] = (long long)h[3 * s + 1];
+    rows.start[s + 1] = rows.start[s] + (long long)h[3 * s + 1];
     rows.point[s] = (int)h[3 * s + 2];
     if (rows.point[s] < 0 || rows.point[s] > 1) return (int)cudaErrorInvalidValue;
-    total += rows.rows[s];
   }
+  const long long total = rows.start[n_segs];
   const uint64_t* z = (const uint64_t*)points;
   for (int pt = 0; pt < 2; ++pt) {
     rows.z0[pt] = z[2 * pt];
     rows.z1[pt] = z[2 * pt + 1];
   }
-  const long long blocks = (total + D_WARPS - 1) / D_WARPS;
-  if (!grid_fits(blocks)) return (int)cudaErrorInvalidValue;
-  openings_kernel<<<(unsigned)blocks, 32 * D_WARPS, 0, (cudaStream_t)stream>>>(
-      rows, (uint64_t*)out, total, n);
+  const int chunks = (n + D_CHUNK - 1) / D_CHUNK;
+  // one chunk: a warp a row, for blocks enough; more: D_MAX_RW rows a warp
+  // share the block's scans
+  const int rw = chunks == 1 ? 1 : D_MAX_RW;
+  const long long tiles = (total + D_WARPS * rw - 1) / (D_WARPS * rw);
+  if (!grid_fits(tiles) || chunks > 65535 || (chunks > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  openings_kernel<<<dim3((unsigned)tiles, (unsigned)chunks), D_THREADS, 0, s>>>(
+      rows, (uint64_t*)(chunks > 1 ? part : out), total, n, rw, chunks);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || chunks == 1) return (int)e;
+  openings_sum_kernel<<<(unsigned)((total + D_WARPS - 1) / D_WARPS), D_THREADS, 0, s>>>(
+      (const uint64_t*)part, (uint64_t*)out, total, chunks);
   return (int)cudaGetLastError();
 }
 
-// leaves: device (mp, 2^(a_bits + 1)), the round's layer; inv_x: device,
-// the a fold tables concatenated; betas: host uint64 (a_bits, 2)
-// beta^(2^t); out: mp extension values as (mp >> next_bits,
-// 2^(next_bits + 1)) leaf rows of the next round.
-extern "C" int qzk_fri_fold(const void* leaves, const void* inv_x, const void* betas, void* out,
-                            long long mp, int a_bits, int next_bits, void* stream) {
-  const long long blocks = (mp + E_THREADS - 1) / E_THREADS;
-  if (a_bits < 1 || a_bits > MAX_ARITY_BITS || next_bits < 0 || next_bits > MAX_ARITY_BITS ||
-      (mp & (mp - 1)) || (mp >> next_bits) < 1 || !grid_fits(blocks))
-    return (int)cudaErrorInvalidValue;
-  Betas b{};
-  const uint64_t* h = (const uint64_t*)betas;
-  for (int t = 0; t < a_bits; ++t) {
-    b.c0[t] = h[2 * t];
-    b.c1[t] = h[2 * t + 1];
+template <int A_BITS>
+cudaError_t launch_fold(const uint64_t* leaves, const FoldConsts& k, uint64_t* out, long long mp,
+                        int mp_bits, int next_bits, cudaStream_t s) {
+  constexpr int SMALL = A_BITS - 1;  // threads a row 2^S: small layers
+  constexpr int LARGE = E_LARGE_S < SMALL ? E_LARGE_S : SMALL;
+  if (mp <= E_SPREAD_ROWS) {
+    const long long blocks = (mp + (E_THREADS >> SMALL) - 1) / (E_THREADS >> SMALL);
+    fold_kernel<A_BITS, SMALL><<<(unsigned)blocks, E_THREADS, 0, s>>>(leaves, k, out, mp,
+                                                                      mp_bits, next_bits);
+  } else {
+    const long long blocks = (mp + (E_THREADS >> LARGE) - 1) / (E_THREADS >> LARGE);
+    fold_kernel<A_BITS, LARGE><<<(unsigned)blocks, E_THREADS, 0, s>>>(leaves, k, out, mp,
+                                                                      mp_bits, next_bits);
   }
+  return cudaGetLastError();
+}
+
+// leaves: device (mp, 2^(a_bits + 1)), the round's layer; consts: host
+// uint64 (FOLD_CONST_WORDS,): w^(-2^b) for b < 32, the fold constants
+// shift^(-2^t) w_t^(-j m') (2^a - 1 used) and 2^-a (fri/prover.py::
+// _fold_consts); betas: host uint64 (a_bits, 2) beta^(2^t); out: mp
+// extension values as (mp >> next_bits, 2^(next_bits + 1)) leaf rows of the
+// next round.
+extern "C" int qzk_fri_fold(const void* leaves, const void* consts, const void* betas, void* out,
+                            long long mp, int a_bits, int next_bits, void* stream) {
+  if (a_bits < 1 || a_bits > MAX_ARITY_BITS || next_bits < 0 || next_bits > MAX_ARITY_BITS ||
+      mp < 1 || (mp & (mp - 1)) || mp > (1LL << 31) || (mp >> next_bits) < 1)
+    return (int)cudaErrorInvalidValue;
+  FoldConsts k{};
+  memcpy(&k, consts, FOLD_CONST_WORDS * sizeof(uint64_t));
+  const uint64_t* b = (const uint64_t*)betas;
+  for (int t = 0; t < a_bits; ++t) {
+    k.beta0[t] = b[2 * t];
+    k.beta1[t] = b[2 * t + 1];
+  }
+  int mp_bits = 0;
+  while ((1LL << mp_bits) < mp) ++mp_bits;
   auto lv = (const uint64_t*)leaves;
-  auto ix = (const uint64_t*)inv_x;
   auto o = (uint64_t*)out;
-  const int nb = next_bits;
   cudaStream_t s = (cudaStream_t)stream;
   switch (a_bits) {
-    case 1: fold_kernel<1><<<(unsigned)blocks, E_THREADS, 0, s>>>(lv, ix, b, o, mp, nb); break;
-    case 2: fold_kernel<2><<<(unsigned)blocks, E_THREADS, 0, s>>>(lv, ix, b, o, mp, nb); break;
-    case 3: fold_kernel<3><<<(unsigned)blocks, E_THREADS, 0, s>>>(lv, ix, b, o, mp, nb); break;
-    default: fold_kernel<4><<<(unsigned)blocks, E_THREADS, 0, s>>>(lv, ix, b, o, mp, nb); break;
+    case 1: return (int)launch_fold<1>(lv, k, o, mp, mp_bits, next_bits, s);
+    case 2: return (int)launch_fold<2>(lv, k, o, mp, mp_bits, next_bits, s);
+    case 3: return (int)launch_fold<3>(lv, k, o, mp, mp_bits, next_bits, s);
+    default: return (int)launch_fold<4>(lv, k, o, mp, mp_bits, next_bits, s);
   }
-  return (int)cudaGetLastError();
 }
 
 // plan: device int64, the query indices then (segments, SEG_W) rows; out:

@@ -70,6 +70,9 @@ def commit(values, rate_bits: int, cap_height: int, device=None,
 #: kernel D takes the oracles and the next-point rows as at most this many
 #: row segments
 MAX_SEGMENTS = 9
+#: kernel D's coefficients a block (csrc/fri.cu's D_CHUNK); longer rows
+#: take a second launch that adds the blocks' partial sums
+D_CHUNK = 1024
 
 
 def _eval_at(coeffs: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
@@ -121,8 +124,9 @@ def eval_openings(oracles, zeta, zeta_next, next_oracle: int = 2, next_count: in
     zeta_next) with ONE transfer. Returns (per-oracle (C,2) arrays, next
     (next_count,2)).
 
-    On CUDA coefficients: kernel D (csrc/fri.cu), one launch that forms the
-    powers of zeta in registers. On CPU coefficients: the plain version."""
+    On CUDA coefficients: kernel D (csrc/fri.cu), which forms the points'
+    powers on the card: one launch for rows of at most D_CHUNK coefficients,
+    two above. On CPU coefficients: the plain version."""
     _openings_limits(oracles, next_oracle, next_count)
     if oracles[0].coeffs.device.type == "cpu":
         return eval_openings_plain(oracles, zeta, zeta_next, next_oracle, next_count)
@@ -140,12 +144,16 @@ def _launch_openings(oracles, zeta, zeta_next, next_oracle, next_count) -> np.nd
         segs.append((coeffs[next_oracle].data_ptr(), next_count, 1))
     segs = np.array(segs, dtype=np.uint64)
     points = np.array([zeta, zeta_next], dtype=np.uint64).reshape(2, 2)
-    out = torch.empty((int(segs[:, 1].sum()), 2), dtype=torch.int64, device=dev)
+    rows = int(segs[:, 1].sum())
+    chunks = -(-n // D_CHUNK)
+    out = torch.empty((rows, 2), dtype=torch.int64, device=dev)
+    part = torch.empty((rows, chunks, 2), dtype=torch.int64, device=dev) if chunks > 1 else None
     err = _cuda.lib().qzk_eval_openings(
-        segs.ctypes.data, len(segs), points.ctypes.data, out.data_ptr(), n, _cuda.stream()
+        segs.ctypes.data, len(segs), points.ctypes.data, out.data_ptr(),
+        None if part is None else part.data_ptr(), n, _cuda.stream()
     )
     _cuda.check(err, "qzk_eval_openings")
-    eval_openings.launches += 1
+    eval_openings.launches += 1 if chunks == 1 else 2
     return gl.to_u64(out)
 
 

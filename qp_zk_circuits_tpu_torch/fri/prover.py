@@ -14,8 +14,9 @@ csrc/fri.cu:
   * A round's layer is held as the leaf matrix its Merkle tree hashes: leaf
     q = [v[q + j*M'] for j < 2^a], so one query opens the whole arity coset.
     Kernel C writes Q in the first round's leaf layout; kernel E folds a
-    round's leaves a times with betas beta^(2^t), in registers, and writes
-    the result in the next round's leaf layout (one launch a round). Each
+    round's leaves a times with betas beta^(2^t), forming the inverse
+    twiddles on the card, and writes the result in the next round's leaf
+    layout (one launch a round). Each
     layer is a kernel-2 tree whose levels stay on the device.
   * The final polynomial is one kernel-3 inverse NTT of the last layer with
     the coset unshift folded in; the PoW grind is a kernel-2 sweep
@@ -50,7 +51,7 @@ from .oracle import PolynomialBatch
 MAX_ORACLES = 8
 MAX_BATCHES = 4
 MAX_TERMS = 4096
-#: kernel E folds a round in registers: 2^a extension values a thread
+#: kernel E folds at most 2^4 values a leaf row in a round
 MAX_ARITY_BITS = 4
 
 
@@ -130,11 +131,21 @@ def _device_domain_points(lde_bits: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.cache
-def _device_inv_x(log_m: int, shift_pow: int, a_bits: int, device: torch.device) -> torch.Tensor:
-    """Kernel E's inverse twiddles for one round: the a fold tables, concatenated."""
-    return gl.from_u64(
-        np.concatenate([_inv_x_table(log_m - t, shift_pow + t) for t in range(a_bits)]), device
-    )
+def _fold_consts(log_m: int, shift_pow: int, a_bits: int) -> np.ndarray:
+    """Kernel E's constants for one round, passed by value: w^(-2^b) for
+    b < 32 (w of order m = 2^log_m); c_tj = shift^(-2^t) w_t^(-j m') for t <
+    a, j < 2^(a - t - 1) (at 2^a - 2^(a - t) + j, zero-padded to 15), with
+    shift = g^(2^shift_pow) and w_t = w^(2^t); and 2^-a. The inverse twiddle
+    of value q + j m' in fold t is w^(-2^t q) c_tj: the kernel forms it."""
+    p = int(F.P)
+    inv_w = int(F.inv(F.primitive_root_of_unity(log_m)))
+    inv_shift = int(F.inv(F.pow_scalar(F.MULTIPLICATIVE_GROUP_GENERATOR, 1 << shift_pow)))
+    mp = 1 << (log_m - a_bits)
+    wb = [pow(inv_w, 1 << b, p) for b in range(32)]
+    c = [pow(inv_shift, 1 << t, p) * pow(inv_w, (j * mp) << t, p) % p
+         for t in range(a_bits) for j in range(1 << (a_bits - t - 1))]
+    c += [0] * ((1 << MAX_ARITY_BITS) - 1 - len(c))
+    return np.array(wb + c + [pow(_INV2, a_bits, p)], dtype=np.uint64)
 
 
 @functools.cache
@@ -342,9 +353,9 @@ def fold_round(leaves: torch.Tensor, beta, a_bits: int, log_m: int, shift_pow: i
     betas beta^(2^t). Returns the folded layer as the leaf rows of the next
     round, of arity 2^next_bits (0: natural order, (m', 2)).
 
-    On a CUDA tensor: kernel E (csrc/fri.cu), one launch; the inverse
-    twiddles are uploaded once per device. On a CPU tensor: the plain
-    version."""
+    On a CUDA tensor: kernel E (csrc/fri.cu), one launch that forms the
+    inverse twiddles on the card from a few constants passed by value
+    (`_fold_consts`). On a CPU tensor: the plain version."""
     _fold_limits(leaves, a_bits, log_m, next_bits)
     if leaves.device.type == "cpu":
         return fold_round_plain(leaves, beta, a_bits, log_m, shift_pow, next_bits)
@@ -356,11 +367,11 @@ def _launch_fold(leaves, beta, a_bits, log_m, shift_pow, next_bits):
     dev = leaves.device
     leaves = leaves.contiguous()
     mp = leaves.shape[0]
-    inv_x = _device_inv_x(log_m, shift_pow, a_bits, dev)
+    consts = _fold_consts(log_m, shift_pow, a_bits)
     betas = np.ascontiguousarray(_beta_powers(beta, a_bits))
     out = torch.empty((mp >> next_bits, 2 << next_bits), dtype=torch.int64, device=dev)
     err = _cuda.lib().qzk_fri_fold(
-        leaves.data_ptr(), inv_x.data_ptr(), betas.ctypes.data, out.data_ptr(), mp, a_bits,
+        leaves.data_ptr(), consts.ctypes.data, betas.ctypes.data, out.data_ptr(), mp, a_bits,
         next_bits, _cuda.stream(),
     )
     _cuda.check(err, "qzk_fri_fold")

@@ -1,20 +1,30 @@
-"""Time a checkout's kernel 3 (NTT) and kernel C (FRI composition) on one
+"""Time a checkout's kernel 3 (NTT) and the FRI tail's kernels C-F on one
 CUDA card.
 
-    python qp_zk_circuits_tpu_torch/tools/bench_ntt.py [--root DIR] [--runs N]
+    python qp_zk_circuits_tpu_torch/tools/bench_ntt.py [--root DIR] [--runs N] [--cases A,B]
 
-Times `poly/ntt.py::batched_ntt` and `fri/prover.py::compute_composition`
-of the checkout at `--root` (default: the checkout this file lies in), as
-every checkout of the port has them, so two checkouts can be timed in turns
-by separate processes on one card, one after another (parent, change, change,
-parent). The timing helpers and the bounds (`chip_smoke.py::ntt_work`,
-`fri_field_ops`) are this checkout's. Shapes: the leaf proof's NTT calls
-(iNTT 135 x 256 and 20 x 256; LDE 135, 20 and 16 x 256 -> 2048; coset iNTT
-2 x 2048; the final polynomial's iNTT 2 x 256 with its unshift) and its
-composition (the leaf's four oracles and opening instance, m = 2048, first
-FRI arity 2^3); then the private batch's (LDE 135 x 2^16 -> 2^19, iNTT
-135 x 2^16, coset iNTT 2 x 2^19, the composition at m = 2^19). Inputs are
-random felts made on the card from fixed seeds.
+Times `poly/ntt.py::batched_ntt`, `fri/prover.py::compute_composition`,
+`fri/oracle.py::eval_openings` (kernel D), `fri/prover.py::fold_round`
+(kernel E) and `fri/prover.py::query_gather` (kernel F) of the checkout at
+`--root` (default: the checkout this file lies in), as every checkout of the
+port has them, so two checkouts can be timed in turns by separate processes
+on one card, one after another (parent, change, change, parent). The timing
+helpers and the bounds (`chip_smoke.py::ntt_work`, `fri_field_ops`,
+`openings_work`, `fold_work`, `gather_work`) are this checkout's. Shapes:
+the leaf proof's NTT calls (iNTT 135 x 256 and 20 x 256; LDE 135, 20 and
+16 x 256 -> 2048; coset iNTT 2 x 2048; the final polynomial's iNTT 2 x 256
+with its unshift), its composition (the leaf's four oracles and opening
+instance, m = 2048, first FRI arity 2^3), its openings (the four oracles'
+262 coefficient rows of 256 at zeta, 2 at g * zeta), its one fold round
+(m = 2048, arity 2^3, natural order out) and its query gather (28 queries:
+the four oracles' rows and paths, the round's leaf and path); then the
+private batch's at degree 16 (LDE 135 x 2^16 -> 2^19, iNTT 135 x 2^16,
+coset iNTT 2 x 2^19, the composition at m = 2^19, the openings of the same
+264 rows at n = 2^16, the three fold rounds of schedule(16) = [4, 4, 3]
+(m = 2^19 to 2^15 leaves of arity 2^4, 2^15 to 2^11 of 2^3, 2^11 to the
+last layer), and the gather at m = 2^19 with its three rounds). Inputs are
+random felts made on the card from fixed seeds. `--cases` keeps the cases
+whose names contain one of the given words.
 
   * `ms`: CUDA events around one wrapper call, median of --runs (host work
     and the gaps between launches included);
@@ -44,6 +54,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--runs", type=int, default=20)
+    ap.add_argument("--cases", default="", help="comma-separated words; a case runs if its "
+                    "name contains one (default: all)")
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     import numpy as np
@@ -62,7 +74,9 @@ def main() -> None:
     import qp_zk_circuits_tpu_torch
     from qp_zk_circuits_tpu_torch import _cuda
     from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.fri import oracle as fo
     from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.hash import merkle
     from qp_zk_circuits_tpu_torch.plonk.proof import fri_instance
     from qp_zk_circuits_tpu_torch.poly import ntt
     from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
@@ -88,10 +102,8 @@ def main() -> None:
     def composition(lde_bits):
         def make():
             m = 1 << lde_bits
-            nc, qdf = cfg.num_challenges, cfg.max_quotient_degree_factor
-            npp = -(-cfg.num_routed_wires // qdf) - 1
-            rows = [leaf.constants_oracle.lde.shape[0], cfg.num_wires, nc + nc * npp, nc * qdf]
-            oracles = [SimpleNamespace(lde=felts((c, m), 40 + i)) for i, c in enumerate(rows)]
+            oracles = [SimpleNamespace(lde=felts((c, m), 40 + i))
+                       for i, c in enumerate(cs.leaf_oracle_rows(leaf))]
             rng = np.random.default_rng(lde_bits)
             inst = fri_instance(leaf, F.rand_felts(2, rng), F.rand_felts(2, rng))
             openings = [F.rand_felts((len(b.polys), 2), rng) for b in inst.batches]
@@ -104,6 +116,55 @@ def main() -> None:
             return (lambda: fri.compute_composition(oracles, *call_args)), work
         return f"composition m = 2^{lde_bits}", make
 
+    nc = cfg.num_challenges
+    oracle_rows = cs.leaf_oracle_rows(leaf)
+    fri_cfg = cfg.fri_config
+
+    def openings(degree_bits):
+        def make():
+            n = 1 << degree_bits
+            oracles = [SimpleNamespace(coeffs=felts((c, n), 50 + i))
+                       for i, c in enumerate(oracle_rows)]
+            rng = np.random.default_rng(degree_bits)
+            call_args = (F.rand_felts(2, rng), F.rand_felts(2, rng), 2, nc)
+            rows = sum(oracle_rows)
+            return ((lambda: fo.eval_openings(oracles, *call_args)),
+                    cs.openings_work(rows, rows + nc, n))
+        return f"openings {sum(oracle_rows) + nc} x 2^{degree_bits}", make
+
+    def fold(degree_bits, log_m, a, next_bits, seed):
+        def make():
+            leaves = felts((1 << (log_m - a), 2 << a), seed)
+            beta = F.rand_felts(2, np.random.default_rng(seed))
+            return ((lambda: fri.fold_round(leaves, beta, a, log_m, 0, next_bits)),
+                    cs.fold_work(1 << log_m, a))
+        return f"fold m = 2^{log_m}, arity 2^{a}, next 2^{next_bits} (degree {degree_bits})", make
+
+    def gather(degree_bits):
+        def make():
+            lde_bits = degree_bits + cfg.rate_bits
+            m = 1 << lde_bits
+            schedule = fri_cfg.reduction_strategy.schedule(degree_bits)
+            sources = []
+            for i, c in enumerate(oracle_rows):
+                lde = felts((c, m), 60 + i)
+                sources.append(fri.GatherSource(lde.T, m - 1))
+                sources += fri._sibling_sources(
+                    merkle.build_merkle_tree(lde.T, fri_cfg.cap_height), m - 1)
+            bits = lde_bits
+            for r, a in enumerate(schedule):
+                leaves = felts((1 << (bits - a), 2 << a), 70 + r)
+                tree = merkle.build_merkle_tree(leaves, min(fri_cfg.cap_height, bits - a))
+                sources.append(fri.GatherSource(leaves, (1 << (bits - a)) - 1))
+                sources += fri._sibling_sources(tree, (1 << (bits - a)) - 1)
+                bits -= a
+            rng = np.random.default_rng(lde_bits)
+            q = fri_cfg.num_query_rounds
+            indices = [0, m - 1] + [int(i) for i in rng.integers(0, m, q - 2)]
+            width = sum(s.matrix.shape[1] for s in sources)
+            return (lambda: fri.query_gather(sources, indices)), cs.gather_work(q, width)
+        return f"gather m = 2^{degree_bits + cfg.rate_bits}, {fri_cfg.num_query_rounds} queries", make
+
     lb = leaf.degree_bits
     lm = lb + cfg.rate_bits
     cases = [
@@ -115,11 +176,20 @@ def main() -> None:
         transform(f"coset iNTT 2 x 2^{lm}", 2, 1 << lm, lm, 6, inverse=True, out_shift=unshift),
         transform(f"final iNTT 2 x 2^{lb}", 2, 1 << lb, lb, 7, inverse=True, out_shift=unshift),
         composition(lm),
+        openings(lb),
+        *(fold(lb, bits, a, nxt, 80 + r) for r, (bits, a, nxt) in enumerate(cs.fri_rounds(leaf, lb))),
+        gather(lb),
         transform("LDE 135 x 2^16 -> 2^19", 135, 1 << 16, 19, 8, shift=7),
         transform("iNTT 135 x 2^16", 135, 1 << 16, 16, 9, inverse=True),
         transform("coset iNTT 2 x 2^19", 2, 1 << 19, 19, 10, inverse=True, out_shift=unshift),
         composition(16 + cfg.rate_bits),
+        openings(16),
+        *(fold(16, bits, a, nxt, 90 + r) for r, (bits, a, nxt) in enumerate(cs.fri_rounds(leaf, 16))),
+        gather(16),
     ]
+    if args.cases:
+        words = args.cases.split(",")
+        cases = [c for c in cases if any(w in c[0] for w in words)]
     rows = []
     for name, make in cases:
         fn, work = make()
@@ -131,7 +201,7 @@ def main() -> None:
             rows.append(dict(case=name, refused=str(e), bound_ms=bound_ms, bound_by=by))
             continue
         torch.cuda.synchronize()
-        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        digest = _digest(out)
         row = dict(case=name, ms=timing.median_ms(fn, args.runs),
                    device_ms=timing.device_ms(fn, cuda=_cuda), bound_ms=bound_ms, bound_by=by,
                    sha256=digest)
@@ -144,6 +214,18 @@ def main() -> None:
     print(card)
     print(json.dumps({"root": args.root, "package": qp_zk_circuits_tpu_torch.__file__,
                       "card": card, "cases": rows}))
+
+
+def _digest(out) -> str:
+    """SHA-256 (16 hex digits) of a result: a tensor, or the openings' per-oracle
+    arrays and next rows."""
+    import numpy as np
+
+    if isinstance(out, tuple):
+        data = np.concatenate([np.asarray(a).reshape(-1) for a in (*out[0], out[1])])
+    else:
+        data = out.cpu().numpy()
+    return hashlib.sha256(data.tobytes()).hexdigest()[:16]
 
 
 if __name__ == "__main__":

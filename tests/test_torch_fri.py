@@ -7,14 +7,21 @@ so every comparison is bit-exact:
 
   * the composition against `fri/prover.py::compute_composition` (two
     batches, the second on a subset of one oracle; one case with x - z = 0);
-  * the openings against `fri/oracle.py::eval_openings`;
+  * the openings against `fri/oracle.py::eval_openings`, also at n = 2^12
+    with the leaf's segment layout (four oracles, then rows of the third at
+    g * zeta), with none and with three rows at g * zeta;
   * one round's folds against `_fold_step` applied a times and
-    `_regroup_leaves`, for a = 1..4;
+    `_regroup_leaves`, for a = 1..4, and two rounds of arity 2^4 in a chain
+    (2^12 values into leaves of arity 2^4, then into natural order), the
+    pattern of the degree-16 schedule; kernel E's constants against the
+    JAX package's inverse twiddle tables;
   * the query gather against `fri/oracle.py::open_rows_many` and
     `hash/merkle.py::MerkleTree.prove`, indices 0 and m - 1 included.
 
 The `gpu` cases hold each kernel against its plain version at the leaf's
-shapes with the edge values p - 1, 0 and 2^32; they skip without a card.
+shapes with the edge values p - 1, 0 and 2^32, kernel D's sum across blocks
+at n = 2^16 and kernel E's on-card twiddles at every arity and coset shift up
+to m = 2^19; they skip without a card.
 """
 
 from types import SimpleNamespace
@@ -148,6 +155,35 @@ def test_eval_openings_match_reference():
         assert np.array_equal(t, j)
 
 
+@pytest.fixture(scope="module")
+def leaf_layout_openings():
+    """n = 2^12 (four of kernel D's chunks), the leaf's four oracle segments
+    and three rows of the third at g * zeta, through the JAX package once."""
+    rows, _ = _leaf_shapes()
+    rng = np.random.default_rng(12)
+    coeffs = [_felts((c, 1 << 12), rng, edges=True) for c in rows]
+    zeta, zeta_next = JF.rand_felts(2, rng), JF.rand_felts(2, rng)
+    want = joracle.eval_openings(
+        [SimpleNamespace(coeffs_dev=jgl.from_u64(c)) for c in coeffs], zeta, zeta_next,
+        next_oracle=2, next_count=3,
+    )
+    return coeffs, zeta, zeta_next, want
+
+
+@pytest.mark.parametrize("next_count", [0, 3])
+def test_eval_openings_at_leaf_layout_match_reference(leaf_layout_openings, next_count):
+    """The rows at zeta do not depend on next_count, so one JAX call holds
+    both cases."""
+    coeffs, zeta, zeta_next, (jparts, jnext) = leaf_layout_openings
+    tparts, tnext = toracle.eval_openings(
+        [SimpleNamespace(coeffs=gl.from_u64(c, "cpu")) for c in coeffs], zeta, zeta_next,
+        next_oracle=2, next_count=next_count,
+    )
+    for t, j in zip(tparts, jparts):
+        assert np.array_equal(t, j)
+    assert np.array_equal(tnext, jnext[:next_count])
+
+
 def _reference_round(values, beta, a_bits, log_m, shift_pow, next_bits):
     """The JAX package's round: its leaves, then a binary folds, then the
     next round's leaves."""
@@ -175,6 +211,46 @@ def test_fold_round_matches_reference(a_bits):
     assert np.array_equal(gl.to_u64(leaves), want_leaves)
     got = tfri.fold_round(leaves, beta, a_bits, log_m, shift_pow, next_bits)
     assert np.array_equal(gl.to_u64(got), want_next)
+
+
+def test_fold_rounds_in_a_chain_match_reference():
+    """Two rounds of arity 2^4 as the degree-16 schedule runs them: 2^12
+    values into leaves of arity 2^4, folded into natural order."""
+    log_m, shift_pow = 12, 1
+    rng = np.random.default_rng(28)
+    values = _felts((1 << log_m, 2), rng, edges=True)
+    betas = [JF.rand_felts(2, rng) for _ in range(2)]
+    want_leaves, want_next = _reference_round(values, betas[0], 4, log_m, shift_pow, 4)
+    leaves = tfri._regroup_leaves(gl.from_u64(values, "cpu"), 4)
+    assert np.array_equal(gl.to_u64(leaves), want_leaves)
+    got = tfri.fold_round(leaves, betas[0], 4, log_m, shift_pow, 4)
+    assert np.array_equal(gl.to_u64(got), want_next)
+    folded = gl.to_u64(tfri._ungroup_leaves(got, 4))
+    _, want_last = _reference_round(folded, betas[1], 4, log_m - 4, shift_pow + 4, 0)
+    last = tfri.fold_round(got, betas[1], 4, log_m - 4, shift_pow + 4, 0)
+    assert np.array_equal(gl.to_u64(last), want_last)
+
+
+@pytest.mark.parametrize("log_m, shift_pow, a_bits", [(11, 0, 3), (19, 0, 4), (15, 4, 4), (7, 3, 1)])
+def test_fold_consts_give_the_inverse_twiddles(log_m, shift_pow, a_bits):
+    """Kernel E forms fold t's inverse twiddle of value q + j m' as
+    w^(-2^t q) c_tj from `_fold_consts`; the product must equal the plain
+    version's `_inv_x_table` (the JAX package's table) at rows 0, 1, m' - 1
+    and one between."""
+    consts = [int(x) for x in tfri._fold_consts(log_m, shift_pow, a_bits)]
+    wb, c, scale = consts[:32], consts[32:47], consts[47]
+    mp = 1 << (log_m - a_bits)
+    assert scale * pow(2, a_bits, P) % P == 1
+    for t in range(a_bits):
+        table = jfri._inv_x_table(log_m - t, shift_pow + t)
+        for q in (0, 1, mp - 1, mp // 3):
+            w_q = 1
+            for b in range(32):
+                if q >> b & 1:
+                    w_q = w_q * wb[b] % P
+            for j in range(1 << (a_bits - t - 1)):
+                got = pow(w_q, 1 << t, P) * c[(1 << a_bits) - (1 << (a_bits - t)) + j] % P
+                assert got == int(table[q + j * mp]), (t, q, j)
 
 
 def test_fold_round_refuses_arity_above_its_limit():
@@ -305,3 +381,41 @@ def test_composition_matches_plain_over_many_tiles_on_card(cuda):
     for arity in range(tfri.MAX_ARITY_BITS + 1):
         got = tfri.compute_composition(_port_oracles(case, cuda), *args, arity)
         assert torch.equal(got.cpu(), tfri.compute_composition(_port_oracles(case), *args, arity))
+
+
+@pytest.mark.gpu
+def test_openings_sum_across_blocks_on_card(cuda):
+    """Kernel D at n = 2^16 (64 chunks: partial sums, then a second launch),
+    265 rows at zeta and 2 at g * zeta (not a multiple of a 32-row tile),
+    and at 2^16 + 1 (a last chunk of one coefficient), against the plain
+    version run on the card."""
+    rows, _ = _leaf_shapes()
+    rng = np.random.default_rng(44)
+    for n in (1 << 16, (1 << 16) + 1):
+        oracles = [SimpleNamespace(coeffs=gl.from_u64(_felts((c, n), rng, edges=True), cuda))
+                   for c in rows]
+        zeta, zn = JF.rand_felts(2, rng), JF.rand_felts(2, rng)
+        before = toracle.eval_openings.launches
+        got = toracle.eval_openings(oracles, zeta, zn, next_oracle=2, next_count=2)
+        assert toracle.eval_openings.launches - before == 2
+        want = toracle.eval_openings_plain(oracles, zeta, zn, next_oracle=2, next_count=2)
+        for g, w in zip(got[0] + [got[1]], want[0] + [want[1]]):
+            assert np.array_equal(g, w), n
+
+
+@pytest.mark.gpu
+def test_fold_twiddles_on_card_match_plain(cuda):
+    """Kernel E forms its inverse twiddles on the card: every arity 2^1..2^4
+    and coset shift g^(2^0..2^3), at a layer of fewer rows than a block, the
+    leaf's 2^11, and up to m = 2^19 (above the spread limit), against the
+    plain version run on the card."""
+    rng = np.random.default_rng(45)
+    for a in range(1, tfri.MAX_ARITY_BITS + 1):
+        for log_m in (a + 3, 11, 15 + a):
+            leaves = gl.from_u64(_felts((1 << (log_m - a), 2 << a), rng, edges=True), cuda)
+            for shift_pow in range(4):
+                beta = JF.rand_felts(2, rng)
+                nxt = min(4, log_m - a) if shift_pow % 2 else 0
+                got = tfri.fold_round(leaves, beta, a, log_m, shift_pow, nxt)
+                want = tfri.fold_round_plain(leaves, beta, a, log_m, shift_pow, nxt)
+                assert torch.equal(got, want), (a, log_m, shift_pow)
