@@ -25,7 +25,13 @@ package. Phases, each printing one line:
      n = 1, 32 and 2^12 (two launches), with one-row segments and row
      counts off its tiles; kernel E at every arity into natural order and
      into leaves of arity 2^4, with fewer rows than a block and above its
-     spread limit;
+     spread limit; kernel F at the leaf's 10 segments (a Merkle path a
+     tree) and 37 (a level a segment), with indices 0 and m - 1, at its
+     plan's largest (128 segments, one of width 1, 128
+     queries, a packed row of 382 values, not a multiple of a warp) with a
+     warp and with the default block, into pinned host memory by both
+     returns, and one segment and one query over the plan, which must
+     raise;
   4. aggregation tree — the Merkle tree at 2^19 x 135: 256 sampled nodes of
      every level against the plain hashes of their inputs, its time beside
      the per-level form's (hash_rows, then one two_to_one launch a level);
@@ -42,8 +48,10 @@ package. Phases, each printing one line:
   7. aggregation FRI tail — kernels D, E and F at degree 16: D on 264 rows
      of 2^16 coefficients, E's three rounds of schedule(16) in sequence
      (from m = 2^19), each against its plain version run on the card in
-     full, and F's 28-query gather at m = 2^19 with the three rounds, each
-     beside its bound;
+     full, and F's 28-query gather at m = 2^19 with the three rounds (14
+     segments, a Merkle path a tree; 89 with a segment a level) into device
+     memory and into pinned host memory by both returns, each beside its
+     bound;
   8. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
      prove_inputs(seed=0) cold and warm; the proof bytes must equal the
      committed fixture (length and SHA-256), every kernel of the path must
@@ -53,7 +61,13 @@ package. Phases, each printing one line:
      openings one, one fold a FRI round, one query gather, one tree call
      of at most two launches a commit and a FRI round, no per-level
      two_to_one), and kernel 1 (off the path since the FRI tail got its own
-     kernels) at most five times.
+     kernels) at most five times; then the path's close on the host: the
+     port's WormholeVerifier accepts the cold and the warm proof, the
+     verifier.bin / common.bin pair built from the card's circuit data
+     hashes to the keccak pins and loads with the pins enforced, the loaded
+     verifier accepts the warm proof, and copies with one FRI query leaf
+     value or one public input changed are rejected; the host verify time
+     is printed beside the card.
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -738,10 +752,50 @@ def _fold_case(device) -> dict:
     )
 
 
+def _cpu_sources(sources):
+    """CPU copies of gather sources; a Merkle path's whole buffer is copied
+    (its levels above level 0 lie past the matrix's own view)."""
+    import torch
+
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+
+    out = []
+    for s in sources:
+        mat = s.matrix
+        if s.levels:
+            full = torch.empty(0, dtype=mat.dtype, device=mat.device).set_(mat.untyped_storage())
+            mat = full.cpu().as_strided(mat.shape, mat.stride(), mat.storage_offset())
+        else:
+            mat = mat.cpu()
+        out.append(fri.GatherSource(mat, s.mask, s.shift, s.flip, s.levels))
+    return out
+
+
+def _per_level(sources, trees):
+    """The same gather with a segment a tree level: each path source of
+    `sources` replaced by its tree's levels (`trees` in path order)."""
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+
+    out, paths = [], iter(trees)
+    for s in sources:
+        if not s.levels:
+            out.append(s)
+            continue
+        out += [fri.GatherSource(lvl, s.mask, shift=l, flip=1)
+                for l, lvl in enumerate(next(paths).digests[:-1])]
+    return out
+
+
 def _gather_case(device) -> dict:
     """Kernel F at the leaf: the 28 queries' leaf rows and Merkle paths of
-    the four oracles and the FRI round's leaves and path."""
+    the four oracles and the FRI round's leaves and path (10 segments, a
+    tree's path one), indices 0 and m - 1 among them. Checked also with a
+    segment a level (the leaf's 37), at the plan's largest (128 segments,
+    one of width 1, 128 queries, a packed row of 382 values), a warp a block
+    and the default block, into pinned host memory by both returns; one
+    segment or one query over the plan must raise."""
     import numpy as np
+    import torch
 
     from qp_zk_circuits_tpu_torch.fri import prover as fri
     from qp_zk_circuits_tpu_torch.hash import merkle
@@ -760,11 +814,47 @@ def _gather_case(device) -> dict:
     sources.append(fri.GatherSource(leaves, (m >> a) - 1))
     sources += fri._sibling_sources(layer_tree, (m >> a) - 1)
     indices = [0, m - 1] + [int(i) for i in c["rng"].integers(0, m, cfg.num_query_rounds - 2)]
-    cpu = [fri.GatherSource(s.matrix.cpu(), s.mask, s.shift, s.flip) for s in sources]
-    width = sum(s.matrix.shape[1] for s in sources)
+    cpu = _cpu_sources(sources)
+    width = fri.pack_gather_plan(sources, indices)[1]
+    levels = _per_level(sources, trees + [layer_tree])
+    # the plan's largest: 127 segments of 3 values and one of 1, 128 queries
+    buf = _felts((1 << 12,), c["rng"], device)
+    big = [fri.GatherSource(buf.as_strided((256, 3), (3, 1)), 255, shift=k % 3, flip=k % 2)
+           for k in range(fri.MAX_GATHER_SEGMENTS - 1)]
+    big.append(fri.GatherSource(buf.as_strided((256, 1), (1, 1)), 255))
+    big_idx = [0, 255] + [int(i) for i in c["rng"].integers(0, 256, fri.MAX_GATHER_QUERIES - 2)]
+    cases = [(sources, cpu, indices), (levels, _cpu_sources(levels), indices),
+             (big, _cpu_sources(big), big_idx)]
+
+    def check():
+        if (len(sources), len(levels)) != (10, 37):
+            raise AssertionError(f"leaf gather plans of {len(sources)} and {len(levels)} "
+                                 "segments, expected 10 and 37")
+        got, want = [], []
+        saved = (fri.GATHER_THREADS, fri.GATHER_RETURN)
+        try:
+            for threads in (0, 32):
+                for ret in ("mapped", "copy"):
+                    fri.GATHER_THREADS, fri.GATHER_RETURN = threads, ret
+                    for srcs, srcs_cpu, idx in cases:
+                        plain = fri.query_gather_plain(srcs_cpu, idx)
+                        got += [fri.query_gather(srcs, idx),
+                                torch.as_tensor(fri.gather_to_host(srcs, idx).view(np.int64))]
+                        want += [plain, plain]
+        finally:
+            fri.GATHER_THREADS, fri.GATHER_RETURN = saved
+        for srcs, idx in ((big + big[:1], big_idx), (big, big_idx + [0])):
+            try:
+                fri.query_gather(srcs, idx)
+            except ValueError:
+                continue
+            raise AssertionError(f"kernel F took a plan over its capacity: {len(srcs)} "
+                                 f"segments, {len(idx)} queries")
+        return got, want
+
     return dict(
         run=lambda: fri.query_gather(sources, indices),
-        plain=lambda: fri.query_gather_plain(cpu, indices), plain_on_host=True,
+        plain=lambda: fri.query_gather_plain(cpu, indices), plain_on_host=True, check=check,
         **dict(zip(("bytes", "ops"), gather_work(len(indices), width))),
     )
 
@@ -1061,15 +1151,17 @@ def phase_aggregation_fri_tail(device, degree_bits: int = 16) -> None:
     on the card; E's three rounds of schedule(16) in sequence (2^19 values
     in leaves of arity 2^4, then 2^15, then 2^11 into the last layer), each
     round's every value against `fold_round_plain` run on the card on the
-    same input; F, unchanged, gathering 28 queries' rows and paths of the
-    four oracles at m = 2^19 and of the three rounds, against the plain
-    gather. Each timed beside its bound."""
+    same input; F gathering 28 queries' rows and paths of the four oracles
+    at m = 2^19 and of the three rounds (14 segments, a path a tree; 89 with
+    a segment a level), against the plain gather, on the card and into
+    pinned host memory by both returns. Each timed beside its bound."""
     from types import SimpleNamespace
 
     import numpy as np
     import torch
 
     from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
     from qp_zk_circuits_tpu_torch.fri import oracle as fo
     from qp_zk_circuits_tpu_torch.fri import prover as fri
     from qp_zk_circuits_tpu_torch.hash import merkle
@@ -1116,27 +1208,104 @@ def phase_aggregation_fri_tail(device, degree_bits: int = 16) -> None:
               f"{line}", flush=True)
         layer, shift_pow = folded, shift_pow + a
 
-    sources = []
+    sources, trees = [], []
     for i, r in enumerate(rows):
         lde = _card_felts((r, m), 50 + i, device)
         sources.append(fri.GatherSource(lde.T, m - 1))
-        sources += fri._sibling_sources(merkle.build_merkle_tree(lde.T, fri_cfg.cap_height), m - 1)
+        trees.append(merkle.build_merkle_tree(lde.T, fri_cfg.cap_height))
+    for t in trees:
+        sources += fri._sibling_sources(t, m - 1)
     for leaves in layers:
         mask = leaves.shape[0] - 1
-        tree = merkle.build_merkle_tree(leaves, min(fri_cfg.cap_height, mask.bit_length()))
+        trees.append(merkle.build_merkle_tree(leaves, min(fri_cfg.cap_height, mask.bit_length())))
         sources.append(fri.GatherSource(leaves, mask))
-        sources += fri._sibling_sources(tree, mask)
+        sources += fri._sibling_sources(trees[-1], mask)
+    levels = _per_level(sources, trees)
     q = fri_cfg.num_query_rounds
     indices = [0, m - 1] + [int(i) for i in rng.integers(0, m, q - 2)]
     got = fri.query_gather(sources, indices)
-    if not torch.equal(got, fri.query_gather_plain(sources, indices)):
+    want = fri.query_gather_plain(sources, indices)
+    if not torch.equal(got, want) or not torch.equal(fri.query_gather(levels, indices), want):
         raise AssertionError(f"query gather at m = 2^{lde_bits} differs from the plain version")
+    saved = fri.GATHER_RETURN
+    try:
+        for ret in ("mapped", "copy"):
+            fri.GATHER_RETURN = ret
+            if not np.array_equal(fri.gather_to_host(sources, indices), gl.to_u64(want)):
+                raise AssertionError(f"query gather to the host ({ret}) at m = 2^{lde_bits} "
+                                     "differs from the plain version")
+    finally:
+        fri.GATHER_RETURN = saved
     line = _timed(lambda: fri.query_gather(sources, indices), gather_work(q, got.shape[1]))
     print(f"[fri tail 2^{degree_bits}] query gather m = 2^{lde_bits}, {q} queries, "
-          f"{len(sources)} segments, {got.shape[1]} values a query: equal to the plain gather; "
-          f"{line}", flush=True)
+          f"{len(sources)} segments ({len(levels)} a segment a level), {got.shape[1]} values "
+          f"a query: equal to the plain gather in both forms, also into pinned host memory by "
+          f"both returns; {line}", flush=True)
     del sources, layers, layer, got
     torch.cuda.empty_cache()
+
+
+def _verify_path(prover, blobs: list[bytes]) -> str:
+    """Close the main path on the host: the port's WormholeVerifier on the
+    card-built circuit data accepts each proof; the verifier.bin /
+    common.bin pair of that data hashes to the keccak pins and loads with
+    the pins enforced, and the loaded verifier accepts the last proof;
+    copies of it with one FRI query leaf value or one public input changed
+    are rejected. Returns a line with the host verify times."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_from_bytes
+    from qp_zk_circuits_tpu_torch.plonk.verifier import VerificationError
+    from qp_zk_circuits_tpu_torch.tools.timing import card
+    from qp_zk_circuits_tpu_torch.wormhole import artifacts
+    from qp_zk_circuits_tpu_torch.wormhole import canonical_pins as pins
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    verifier = WormholeVerifier(prover.data)
+    times = []
+    for blob in blobs:
+        proof = proof_from_bytes(blob)
+        t = time.perf_counter()
+        verifier.verify(proof)
+        times.append(1e3 * (time.perf_counter() - t))
+    pair = artifacts.leaf_verifier_artifacts(prover.data)
+    for name, pin in (("verifier.bin", pins.CANONICAL_LEAF_VERIFIER_KECCAK256),
+                      ("common.bin", pins.CANONICAL_LEAF_COMMON_KECCAK256)):
+        if artifacts.artifact_keccak(pair[name]) != pin:
+            raise AssertionError(f"{name} of the card-built circuit data misses its keccak pin")
+    loaded = WormholeVerifier.new_from_bytes(pair["verifier.bin"], pair["common.bin"],
+                                             enforce_pins=True)
+    t = time.perf_counter()
+    public = loaded.verify(proof_from_bytes(blobs[-1]))
+    loaded_ms = 1e3 * (time.perf_counter() - t)
+    P = (1 << 64) - (1 << 32) + 1
+
+    def leaf_value(p):
+        step = p.fri_proof.query_rounds[0].steps[0]
+        lv = np.array(step.leaf_values, dtype=np.uint64)
+        lv[0, 0] = np.uint64((int(lv[0, 0]) + 1) % P)
+        step.leaf_values = lv
+
+    def public_input(p):
+        pis = np.array(p.public_inputs, dtype=np.uint64)
+        pis[3] = np.uint64((int(pis[3]) + 1) % P)
+        p.public_inputs = pis
+
+    rejected = []
+    for name, tamper in (("a FRI query leaf value", leaf_value), ("a public input", public_input)):
+        bad = proof_from_bytes(blobs[-1])
+        tamper(bad)
+        try:
+            loaded.verify(bad)
+        except VerificationError as e:
+            rejected.append(f"{name}: {e}")
+            continue
+        raise AssertionError(f"the verifier accepted a proof with {name} changed")
+    return (f"[verify] WormholeVerifier accepts the cold and warm proofs (host "
+            f"{', '.join(f'{t:.1f}' for t in times)} ms); verifier.bin and common.bin of the "
+            f"card-built circuit data hash to the keccak pins and load with the pins enforced; "
+            f"the loaded verifier accepts the warm proof ({loaded_ms:.1f} ms, volume_fee_bps "
+            f"{public.volume_fee_bps}) and rejects {'; '.join(rejected)}; {card()}")
 
 
 def phase_main_path(kernels) -> None:
@@ -1170,6 +1339,7 @@ def phase_main_path(kernels) -> None:
         digest = hashlib.sha256(b).hexdigest()
         if len(b) != meta["len"] or digest != meta["sha256"]:
             raise AssertionError(f"{name} proof differs from the fixture: {len(b)} B, {digest}")
+    verify_line = _verify_path(prover, [blob, blob2])
     missing = [k["name"] for k in kernels if k.get("path", True) and k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
@@ -1194,6 +1364,7 @@ def phase_main_path(kernels) -> None:
           f"{rounds} FRI round(s); build {build_s:.2f} s, prove cold {1e3 * cold_s:.1f} ms, "
           f"warm {1e3 * warm_s:.1f} ms; proof {len(blob)} B == fixture; launches per proof: "
           f"{counts}; kernel-1 launches per proof: {sum(kernel1.values())}", flush=True)
+    print(verify_line, flush=True)
 
 
 def main() -> int:

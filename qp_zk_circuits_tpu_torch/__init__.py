@@ -8,12 +8,15 @@ tensors. The package imports torch and numpy, never jax, and nothing from
 qp_zk_circuits_tpu. Layout mirrors the JAX package:
 
   field/     Goldilocks on int64 tensors (kernel 1) + numpy host oracle + D=2 extension
-  hash/      Poseidon2 (kernel 2) and Merkle trees with caps
+  hash/      Poseidon2 (kernel 2), Merkle trees with caps, keccak256 (host)
   poly/      batched NTT / iNTT / coset LDE (kernel 3)
-  fri/       oracles (commit, openings), FRI prover
-  plonk/     builder, gates, transcript, prover, proof serialization
+  fri/       oracles (commit, openings), FRI prover and verifier
+  plonk/     builder, gates, transcript, prover, verifier, serialization
   utils/     byte<->felt codecs, config policy, gadgets
-  wormhole/  the Wormhole leaf circuit and WormholeProver
+  wormhole/  the Wormhole leaf circuit, WormholeProver, WormholeVerifier and
+             its keccak-pinned artifacts
+
+The verifiers run on the host (numpy and Python ints).
 """
 
 __version__ = "0.1.0"

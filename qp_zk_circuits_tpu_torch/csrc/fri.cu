@@ -74,10 +74,21 @@
 //   (_jitted_open_rows), hash/merkle.py::MerkleTree.prove on the host, and
 //   the fused prover's query gathers (lines 740-779). A plan of segments
 //   (source matrix, strides, width, and the row rule
-//   r = ((q & mask) >> shift) ^ flip) says where each value of a query's
-//   packed row comes from: the oracles' leaf rows, their Merkle siblings
-//   ((q >> l) ^ 1), each FRI round's leaf and its siblings. Block (query,
-//   segment) copies one segment. Bound: bytes, the values gathered.
+//   r = ((q & (2^mask_bits - 1)) >> shift) ^ flip) says where each value of
+//   a query's packed row comes from: the oracles' leaf rows, their Merkle
+//   siblings ((q >> l) ^ 1), each FRI round's leaf and its siblings; a
+//   tree's whole path is one segment (its levels lie one after another in
+//   one buffer), so a leaf proof's plan has 10 segments, degree 16's 14.
+//   Bound: bytes, the values gathered (91 KB at the leaf); the device time
+//   is a launch's. What a proof pays is the call (the host packing the plan
+//   was most of it), so the plan travels by value and stays short: the
+//   segments (24 bytes each) and the 32-bit query indices are one
+//   __grid_constant__ parameter of at most 3,608 bytes, inside the classic
+//   4 KB kernel parameter limit (no upload, no plan tensor). A block takes a
+//   query; its threads stride over the packed row, each finds its segment by
+//   a binary search of the offsets in parameter space, makes one load and
+//   one coalesced store. The output may be device memory or mapped pinned
+//   host memory (the kernel writes across the bus, no copy launch).
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -688,20 +699,60 @@ __global__ void __launch_bounds__(E_THREADS)
 // ---------------------------------------------------------------------------
 // kernel F
 
-constexpr int F_THREADS = 64;
-// a plan segment: source address, row stride, column stride, width, mask,
-// shift, flip, offset in the packed row
-constexpr int SEG_W = 8;
+constexpr int F_MAX_SEGS = 128;
+constexpr int F_MAX_QUERIES = 128;
+constexpr int F_MAX_THREADS = 1024;
 
-__global__ void __launch_bounds__(F_THREADS)
-    gather_kernel(const long long* __restrict__ plan, int queries, uint64_t* __restrict__ out,
-                  long long row_width) {
-  const long long* seg = plan + queries + (long long)SEG_W * blockIdx.y;
-  const long long q = plan[blockIdx.x];
-  const uint64_t* src = (const uint64_t*)seg[0];
-  const long long r = ((q & seg[4]) >> seg[5]) ^ seg[6];
-  uint64_t* dst = out + (long long)blockIdx.x * row_width + seg[7];
-  for (long long j = threadIdx.x; j < seg[3]; j += blockDim.x) dst[j] = src[r * seg[1] + j * seg[2]];
+// a plan segment, 24 bytes, at `offset` in the packed row. levels = 0: the
+// row r of `src` picked by the query index, values src[r * row_stride +
+// j * col_stride] for j < width. levels = L > 0: a Merkle path, L levels of
+// 4-value digests stored one after another from `src` (level l has
+// 2^(mask_bits - l) rows, level 0 2^mask_bits), at level l the row
+// ((q & mask) >> l) ^ flip; width 4 L.
+struct GatherSeg {
+  const uint64_t* src;
+  int row_stride, col_stride;
+  unsigned short offset, width;
+  unsigned char mask_bits, shift, flip, levels;
+};
+
+struct GatherPlan {
+  uint64_t* out;  // (queries, row_width)
+  int queries, segments, row_width, pad;
+  GatherSeg seg[F_MAX_SEGS];
+  unsigned q[F_MAX_QUERIES];
+};
+static_assert(sizeof(GatherSeg) == 24, "the wrapper packs 24-byte segments");
+static_assert(sizeof(GatherPlan) == 24 + 24 * F_MAX_SEGS + 4 * F_MAX_QUERIES,
+              "the wrapper packs the plan without padding");
+static_assert(sizeof(GatherPlan) <= 4096 - 64, "the plan fits the classic 4 KB parameter limit");
+
+__global__ void __launch_bounds__(F_MAX_THREADS) gather_kernel(const __grid_constant__ GatherPlan p) {
+  const unsigned q = p.q[blockIdx.x];
+  uint64_t* dst = p.out + (long long)blockIdx.x * p.row_width;
+  int s = 0;
+  for (int c = threadIdx.x; c < p.row_width; c += blockDim.x) {
+    // the last segment that starts at or before c (columns only grow)
+    int hi = p.segments - 1;
+    while (s < hi) {
+      const int mid = (s + hi + 1) >> 1;
+      if (p.seg[mid].offset <= c)
+        s = mid;
+      else
+        hi = mid - 1;
+    }
+    const GatherSeg& g = p.seg[s];
+    const unsigned mask = g.mask_bits >= 32 ? 0xFFFFFFFFu : (1u << g.mask_bits) - 1u;
+    int j = c - g.offset, level = 0;
+    long long base = 0;  // rows before level `level`: 2 n0 - 2 (n0 >> level)
+    if (g.levels) {
+      level = j >> 2;
+      j &= 3;
+      base = ((2LL << g.mask_bits) - ((2LL << g.mask_bits) >> level)) * g.row_stride;
+    }
+    const long long r = (long long)(((q & mask) >> (g.shift + level)) ^ g.flip);
+    dst[c] = __ldg(g.src + base + r * g.row_stride + (long long)j * g.col_stride);
+  }
 }
 
 bool grid_fits(long long blocks) { return blocks >= 1 && blocks <= 0x7FFFFFFFLL; }
@@ -850,13 +901,33 @@ extern "C" int qzk_fri_fold(const void* leaves, const void* consts, const void* 
   }
 }
 
-// plan: device int64, the query indices then (segments, SEG_W) rows; out:
-// (queries, row_width).
-extern "C" int qzk_query_gather(const void* plan, int queries, int segments, void* out,
-                                long long row_width, void* stream) {
-  if (queries < 1 || segments < 1 || segments > 65535) return (int)cudaErrorInvalidValue;
-  gather_kernel<<<dim3((unsigned)queries, (unsigned)segments), F_THREADS, 0,
-                  (cudaStream_t)stream>>>((const long long*)plan, queries, (uint64_t*)out,
-                                          row_width);
+// plan: host bytes of a GatherPlan (fri/prover.py::pack_gather_plan):
+// its out pointer, counts, segments in packed-row order and query indices;
+// threads: the block's threads (a multiple of 32); mapped: 1 if out is
+// pinned host memory, translated here to its device address. One launch,
+// a block a query.
+extern "C" int qzk_query_gather(const void* plan, int threads, int mapped, void* stream) {
+  GatherPlan p;
+  memcpy(&p, plan, sizeof(GatherPlan));
+  if (p.queries < 1 || p.queries > F_MAX_QUERIES || p.segments < 1 ||
+      p.segments > F_MAX_SEGS || p.row_width < 1 || threads < 32 || threads > F_MAX_THREADS ||
+      threads % 32)
+    return (int)cudaErrorInvalidValue;
+  int end = 0;
+  for (int s = 0; s < p.segments; ++s) {
+    const GatherSeg& g = p.seg[s];
+    if (g.offset != end || g.width < 1 || g.mask_bits > 32 || g.src == nullptr ||
+        (g.levels && (g.width != 4 * g.levels || g.shift || g.levels > g.mask_bits)))
+      return (int)cudaErrorInvalidValue;
+    end += g.width;
+  }
+  if (end != p.row_width) return (int)cudaErrorInvalidValue;
+  if (mapped) {
+    void* dev = nullptr;
+    const cudaError_t e = cudaHostGetDevicePointer(&dev, p.out, 0);
+    if (e != cudaSuccess) return (int)e;
+    p.out = (uint64_t*)dev;
+  }
+  gather_kernel<<<(unsigned)p.queries, threads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

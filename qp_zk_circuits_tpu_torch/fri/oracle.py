@@ -10,7 +10,8 @@ Device path: the iNTT (from values) and the LDE are kernel-3 launches over all
 columns; the tree hashes the LDE's rows in place (the (C, M) matrix read as
 (M, C) rows, no transpose copy) with kernel 2, and its levels stay on the
 device. The openings are kernel D (csrc/fri.cu). This module commits non-ZK
-oracles only: no salt columns.
+oracles only: no salt columns. `verify_row` is the verifier's host check of
+an opened row.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .. import _cuda
 from ..field import extension as ext
 from ..field import goldilocks as gl
 from ..hash import merkle
+from ..hash import poseidon2 as ps
 from ..poly import ntt
 
 
@@ -158,3 +160,13 @@ def _launch_openings(oracles, zeta, zeta_next, next_oracle, next_count) -> np.nd
 
 
 eval_openings.launches = 0
+
+
+def verify_row(
+    batch_cap: np.ndarray, row: np.ndarray, index: int, siblings: np.ndarray
+) -> bool:
+    """Host check: a claimed leaf row against an oracle cap."""
+    digest = ps.hash_or_noop(row)
+    root = merkle.merkle_root_from_proof(digest, index, siblings)
+    cap_index = index >> len(siblings)
+    return bool(np.array_equal(root, np.asarray(batch_cap, dtype=np.uint64)[cap_index]))

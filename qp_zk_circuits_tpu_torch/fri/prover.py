@@ -22,8 +22,8 @@ csrc/fri.cu:
     the coset unshift folded in; the PoW grind is a kernel-2 sweep
     (plonk/transcript.py).
   * The queries' leaf rows, layer leaves and Merkle siblings of every tree
-    are gathered by kernel F into one packed buffer: one launch, one
-    transfer.
+    are gathered by kernel F, its plan passed by value, into one packed
+    buffer of pinned host memory: one launch, no copy.
 
 Host keeps: transcript, the beta powers, query assembly.
 """
@@ -31,7 +31,9 @@ Host keeps: transcript, the beta powers, query assembly.
 from __future__ import annotations
 
 import functools
+import struct
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -385,73 +387,223 @@ fold_round.launches = 0
 # ---------------------------------------------------------------------------
 # kernel F: the query gather
 
+#: kernel F's plan (csrc/fri.cu GatherPlan) travels by value in the kernel's
+#: parameters: at most this many segments and query indices, 16-bit segment
+#: offsets and widths, 32-bit indices and strides
+MAX_GATHER_SEGMENTS = 128
+MAX_GATHER_QUERIES = 128
+MAX_GATHER_WIDTH = (1 << 16) - 1
+_PLAN_HEAD = struct.Struct("<Q4i")  # out, queries, segments, row width, pad
+_PLAN_SEG = struct.Struct("<QiiHHBBBB")  # src, strides, offset, width, mask bits, shift, flip, levels
+_PLAN_QUERIES_AT = _PLAN_HEAD.size + MAX_GATHER_SEGMENTS * _PLAN_SEG.size
+GATHER_PLAN_BYTES = _PLAN_QUERIES_AT + 4 * MAX_GATHER_QUERIES
+#: threads of a kernel-F block (a block a query); 0: the packed row's width
+#: rounded up to a warp, at most 1024
+GATHER_THREADS = 0
+#: how `gather_to_host` brings the packed rows to the host: "mapped"
+#: (kernel F writes them into pinned host memory) or "copy" (into device
+#: memory, then one copy to a pinned buffer)
+GATHER_RETURN = "mapped"
 
-@dataclass(frozen=True)
-class GatherSource:
+
+class GatherSource(NamedTuple):
     """Rows of `matrix` (R, W) picked by a query index q: row
-    ((q & mask) >> shift) ^ flip. Strided matrices are read in place."""
+    ((q & mask) >> shift) ^ flip. Strided matrices are read in place.
+
+    With `levels` = L > 0, a Merkle path instead: `matrix` is level 0 of a
+    tree's digests, (mask + 1, 4), and levels 1..L-1 follow it in the same
+    buffer (`poseidon2.merkle_levels`' layout); level l gives the digest
+    ((q & mask) >> l) ^ flip, 4 L values in all."""
 
     matrix: torch.Tensor
     mask: int
     shift: int = 0
     flip: int = 0
+    levels: int = 0
+
+
+def _path_level(s: GatherSource, level: int) -> torch.Tensor:
+    """Level `level` of a path source's tree, a view of the same buffer."""
+    n0 = s.matrix.shape[0]
+    rs, cs = s.matrix.stride()
+    return s.matrix.as_strided((n0 >> level, 4), (rs, cs),
+                               s.matrix.storage_offset() + rs * (2 * n0 - (2 * n0 >> level)))
 
 
 def query_gather_plain(sources: list[GatherSource], indices) -> torch.Tensor:
     """Plain torch version of `query_gather` (same arguments)."""
     q = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=sources[0].matrix.device)
-    return torch.cat(
-        [s.matrix[((q & s.mask) >> s.shift) ^ s.flip] for s in sources], dim=1
-    )
+    parts = []
+    for s in sources:
+        if s.levels:
+            parts += [_path_level(s, l)[((q & s.mask) >> l) ^ s.flip] for l in range(s.levels)]
+        else:
+            parts.append(s.matrix[((q & s.mask) >> s.shift) ^ s.flip])
+    return torch.cat(parts, dim=1)
+
+
+def pack_gather_plan(sources: list[GatherSource], indices) -> tuple[bytearray, int]:
+    """Kernel F's plan (csrc/fri.cu GatherPlan) as the bytes of its kernel
+    parameter: the output address (0 until the launch sets it), the counts,
+    a 24-byte segment a source in packed-row order, the 32-bit query
+    indices; and the packed row's width. Raises on what the kernel cannot
+    read and above its capacity: there is no other path. One pass over the
+    sources: this runs on every proof."""
+    n, nq = len(sources), len(indices)
+    if not 1 <= n <= MAX_GATHER_SEGMENTS or not 1 <= nq <= MAX_GATHER_QUERIES:
+        raise ValueError(f"{n} gather segments and {nq} queries: kernel F's plan holds 1 to "
+                         f"{MAX_GATHER_SEGMENTS} and 1 to {MAX_GATHER_QUERIES}")
+    buf = bytearray(GATHER_PLAN_BYTES)
+    pack, at, width = _PLAN_SEG.pack_into, _PLAN_HEAD.size, 0
+    for s in sources:
+        mat, mask, shift, flip, levels = s.matrix, s.mask, s.shift, s.flip, s.levels
+        if mat.dim() != 2:
+            raise ValueError("a gather source is not a matrix")
+        rows, w = mat.shape
+        rs, cs = mat.stride()
+        if (mask < 0 or mask & (mask + 1) or mask >> 32 or not 0 <= shift < 32
+                or not 0 <= flip < 256 or (mask >> shift) | flip >= rows or w < 1):
+            raise ValueError(f"gather rule (mask {mask}, shift {shift}, flip {flip}) on "
+                             f"{rows} rows: kernel F takes masks 2^k - 1 (k <= 32), shifts "
+                             "below 32, flips below 256, rows within the matrix")
+        if levels:
+            # level 0 of 2^k digests, the levels above it in the same buffer
+            if (w != 4 or shift or rows != mask + 1 or not 0 < levels < mask.bit_length() + 1
+                    or mat.untyped_storage().nbytes() < 8 * (
+                        mat.storage_offset() + rs * (2 * rows - (2 * rows >> levels)))):
+                raise ValueError(f"a Merkle path of {levels} levels over {rows} digests of "
+                                 f"{w} values: kernel F takes 2^k digest rows of 4 values, "
+                                 "at most k levels, all in the matrix's buffer")
+            w = 4 * levels
+        if rs >> 31 or cs >> 31:
+            raise ValueError(f"gather strides {rs, cs} do not fit 32 bits")
+        if width + w > MAX_GATHER_WIDTH:
+            raise ValueError(f"packed row above {MAX_GATHER_WIDTH} values: kernel F's plan "
+                             "holds no more")
+        pack(buf, at, mat.data_ptr(), rs, cs, width, w, mask.bit_length(), shift, flip, levels)
+        at += _PLAN_SEG.size
+        width += w
+    _PLAN_HEAD.pack_into(buf, 0, 0, nq, n, width, 0)
+    try:
+        struct.pack_into(f"<{nq}I", buf, _PLAN_QUERIES_AT, *indices)
+    except struct.error as e:
+        raise ValueError(f"kernel F takes query indices below 2^32: {e}") from None
+    return buf, width
+
+
+def query_gather_packed_plain(plan: bytes, memory: list[torch.Tensor]) -> torch.Tensor:
+    """Plain version of kernel F reading a packed plan (`pack_gather_plan`),
+    for the tests: each value is read from the CPU tensors in `memory` at
+    the plan's addresses, strides and path levels, as the kernel reads it.
+    Checks the plan as the kernel's entry does."""
+    _, queries, segments, width, _ = _PLAN_HEAD.unpack_from(plan, 0)
+    if not (1 <= queries <= MAX_GATHER_QUERIES and 1 <= segments <= MAX_GATHER_SEGMENTS):
+        raise ValueError("plan counts out of range")
+    q = torch.tensor(struct.unpack_from(f"<{queries}I", plan, _PLAN_QUERIES_AT),
+                     dtype=torch.int64)
+    stores = []
+    for t in memory:
+        st = t.untyped_storage()
+        stores.append((st.data_ptr(), st.nbytes(), torch.empty(0, dtype=torch.int64).set_(st)))
+    out = torch.empty((queries, width), dtype=torch.int64)
+    end = 0
+    for i in range(segments):
+        src, rs, cs, off, w, bits, shift, flip, levels = _PLAN_SEG.unpack_from(
+            plan, _PLAN_HEAD.size + i * _PLAN_SEG.size)
+        if off != end or w < 1 or bits > 32 or (levels and (w != 4 * levels or shift)):
+            raise ValueError(f"plan segment {i} is malformed")
+        end += w
+        base, _, flat = next(st for st in stores if st[0] <= src < st[0] + st[1])
+        col = torch.arange(w)
+        level = col // 4 if levels else torch.zeros_like(col)
+        j = col % 4 if levels else col
+        n0 = 1 << bits
+        before = (2 * n0 - (2 * n0 >> level)) * rs  # rows below the level; 0 at level 0
+        rows = ((q[:, None] & (n0 - 1)) >> (shift + level)[None, :]) ^ flip
+        out[:, off : off + w] = flat[(src - base) // 8 + before + rows * rs + j * cs]
+    if end != width:
+        raise ValueError("plan segments do not cover the packed row")
+    return out
 
 
 def query_gather(sources: list[GatherSource], indices) -> torch.Tensor:
     """For each query index, the picked rows of every source side by side:
-    (Q, sum of widths). On CUDA sources: kernel F (csrc/fri.cu), one launch
-    with its plan uploaded once. On CPU sources: the plain version."""
-    if not sources or len(indices) == 0:
-        raise ValueError("query_gather needs sources and indices")
-    if any(s.matrix.dim() != 2 for s in sources):
-        raise ValueError("a gather source is not a matrix")
-    if all(s.matrix.device.type == "cpu" for s in sources):
+    (Q, sum of widths). On CUDA sources: kernel F (csrc/fri.cu), one launch,
+    its plan passed by value. On CPU sources: the plain version. Raises
+    above the plan's capacity on either."""
+    if not sources or all(s.matrix.device.type == "cpu" for s in sources):
+        pack_gather_plan(sources, indices)  # the kernel's limits hold here too
         return query_gather_plain(sources, indices)
     _cuda.require_cuda_int64(*(s.matrix for s in sources))
-    return _launch_gather(sources, indices)
+    plan, width = pack_gather_plan(sources, indices)
+    out = torch.empty((len(indices), width), dtype=torch.int64, device=sources[0].matrix.device)
+    _launch_gather(plan, out)
+    return out
 
 
-def _launch_gather(sources, indices):
-    dev = sources[0].matrix.device
-    rows, width = [], 0
-    for s in sources:
-        mat = s.matrix
-        rows.append([mat.data_ptr(), mat.stride(0), mat.stride(1), mat.shape[1],
-                     s.mask, s.shift, s.flip, width])
-        width += mat.shape[1]
-    plan = np.concatenate([np.asarray(indices, dtype=np.int64),
-                           np.array(rows, dtype=np.int64).ravel()])
-    plan_d = torch.as_tensor(plan, device=dev)
-    out = torch.empty((len(indices), width), dtype=torch.int64, device=dev)
-    err = _cuda.lib().qzk_query_gather(
-        plan_d.data_ptr(), len(indices), len(sources), out.data_ptr(), width, _cuda.stream()
-    )
+def _launch_gather(plan: bytearray, out: torch.Tensor, mapped: bool = False) -> None:
+    """Kernel F into `out`: device memory, or pinned host memory (mapped)."""
+    struct.pack_into("<Q", plan, 0, out.data_ptr())
+    threads = GATHER_THREADS or min(1024, -(-out.shape[1] // 32) * 32)
+    err = _cuda.lib().qzk_query_gather(bytes(plan), threads, int(mapped), _cuda.stream())
     _cuda.check(err, "qzk_query_gather")
     query_gather.launches += 1
-    return out
 
 
 query_gather.launches = 0
 
+_pinned: dict = {}
+
+
+def _pinned_rows(queries: int, width: int) -> torch.Tensor:
+    """A pinned host (queries, width) int64 buffer, one a shape."""
+    key = (queries, width)
+    if key not in _pinned:
+        _pinned[key] = torch.empty(key, dtype=torch.int64, pin_memory=True)
+    return _pinned[key]
+
+
+def gather_to_host(sources: list[GatherSource], indices) -> np.ndarray:
+    """`query_gather` brought to the host as a (Q, width) uint64 array: on
+    CUDA sources kernel F writes into a pinned buffer (GATHER_RETURN
+    "mapped") or into device memory copied to it ("copy"); the stream is
+    synchronized and the rows copied out of the buffer."""
+    if not sources or all(s.matrix.device.type == "cpu" for s in sources):
+        pack_gather_plan(sources, indices)  # the kernel's limits hold here too
+        return gl.to_u64(query_gather_plain(sources, indices))
+    _cuda.require_cuda_int64(*(s.matrix for s in sources))
+    plan, width = pack_gather_plan(sources, indices)
+    host = _pinned_rows(len(indices), width)
+    if GATHER_RETURN == "mapped":
+        _launch_gather(plan, host, mapped=True)
+    else:
+        rows = torch.empty(host.shape, dtype=torch.int64, device=sources[0].matrix.device)
+        _launch_gather(plan, rows)
+        host.copy_(rows, non_blocking=True)
+    torch.cuda.current_stream(sources[0].matrix.device).synchronize()
+    return host.numpy().view(np.uint64).copy()
+
 
 def _sibling_sources(tree: merkle.MerkleTree, mask: int) -> list[GatherSource]:
-    """A Merkle path: level l's sibling of leaf q is digest (q >> l) ^ 1,
-    for every level below the cap."""
-    return [GatherSource(lvl, mask, shift=l, flip=1) for l, lvl in enumerate(tree.digests[:-1])]
+    """A Merkle path as one source: level l's sibling of leaf q is digest
+    (q >> l) ^ 1, for every level below the cap (the levels lie one after
+    another in one buffer; raises if they do not)."""
+    levels = len(tree.digests) - 1
+    if not levels:
+        return []
+    first = tree.digests[0]
+    n0 = first.shape[0]
+    if tree.digests[-1].data_ptr() != first.data_ptr() + 8 * first.stride(0) * (
+            2 * n0 - (2 * n0 >> levels)):
+        raise ValueError("the tree's digest levels are not one buffer")
+    return [GatherSource(first, mask, flip=1, levels=levels)]
 
 
 def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
     """Every query's opening: the oracles' leaf rows and Merkle paths, then
     per FRI round the leaf and its path. `layers`: (leaves, tree) per round.
-    One kernel-F gather, one transfer, then the host unpacks."""
+    One kernel-F gather into pinned host memory, then the host cuts the
+    (Q, width) rows into views a segment group at a time."""
     m0 = oracles[0].lde.shape[1]
     sources = [GatherSource(o.lde.T, m0 - 1) for o in oracles]
     for o in oracles:
@@ -460,27 +612,23 @@ def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
         mask = leaves.shape[0] - 1  # q mod m' of the round
         sources.append(GatherSource(leaves, mask))
         sources += _sibling_sources(tree, mask)
-    packed = gl.to_u64(query_gather(sources, indices))
+    packed = gather_to_host(sources, indices)
+    q = packed.shape[0]
     widths = [o.lde.shape[0] for o in oracles]
     widths += [4 * (len(o.tree.digests) - 1) for o in oracles]
     for leaves, tree in layers:
         widths += [leaves.shape[1], 4 * (len(tree.digests) - 1)]
     cuts = np.cumsum([0] + widths)
+    part = [packed[:, cuts[i] : cuts[i + 1]] for i in range(len(widths))]
     nor = len(oracles)
-    rounds = []
-    for row in packed:
-        part = [row[cuts[i] : cuts[i + 1]] for i in range(len(widths))]
-        steps = [
-            FriQueryStep(leaf_values=part[2 * nor + 2 * li].reshape(-1, 2),
-                         siblings=part[2 * nor + 2 * li + 1].reshape(-1, 4))
-            for li in range(len(layers))
-        ]
-        rounds.append(FriQueryRound(
-            initial_rows=part[:nor],
-            initial_siblings=[p.reshape(-1, 4) for p in part[nor : 2 * nor]],
-            steps=steps,
-        ))
-    return rounds
+    rows = zip(*part[:nor])
+    sibs = zip(*(p.reshape(q, -1, 4) for p in part[nor : 2 * nor]))
+    steps = [[FriQueryStep(leaf_values=lv, siblings=sb) for lv, sb in zip(
+        part[2 * nor + 2 * li].reshape(q, -1, 2), part[2 * nor + 2 * li + 1].reshape(q, -1, 4))]
+        for li in range(len(layers))]
+    return [FriQueryRound(initial_rows=list(r), initial_siblings=list(s),
+                          steps=[st[i] for st in steps])
+            for i, (r, s) in enumerate(zip(rows, sibs))]
 
 
 # ---------------------------------------------------------------------------

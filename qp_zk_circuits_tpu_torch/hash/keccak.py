@@ -1,0 +1,70 @@
+"""Pure-Python keccak256 (original Keccak padding 0x01, NOT sha3's 0x06).
+
+Used only for artifact pinning — the reference pins canonical verifier
+artifacts by keccak256 digest (tiny-keccak; reference
+`wormhole/verifier/src/lib.rs:101-112`), and so does the port
+(wormhole/canonical_pins.py). Cold-path host code, the JAX package's
+hash/keccak.py copied; sizes are <= 64 MiB artifacts, and pinning happens
+once per process.
+"""
+
+from __future__ import annotations
+
+_ROUND_CONSTANTS = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A, 0x8000000080008000,
+    0x000000000000808B, 0x0000000080000001, 0x8000000080008081, 0x8000000000008009,
+    0x000000000000008A, 0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089, 0x8000000000008003,
+    0x8000000000008002, 0x8000000000000080, 0x000000000000800A, 0x800000008000000A,
+    0x8000000080008081, 0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+_ROTATIONS = [
+    [0, 36, 3, 41, 18],
+    [1, 44, 10, 45, 2],
+    [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56],
+    [27, 20, 39, 8, 14],
+]
+_MASK = (1 << 64) - 1
+
+
+def _rol(x: int, s: int) -> int:
+    return ((x << s) | (x >> (64 - s))) & _MASK
+
+
+def _keccak_f(state: list[int]) -> None:
+    for rc in _ROUND_CONSTANTS:
+        # theta
+        c = [state[x] ^ state[x + 5] ^ state[x + 10] ^ state[x + 15] ^ state[x + 20] for x in range(5)]
+        d = [c[(x - 1) % 5] ^ _rol(c[(x + 1) % 5], 1) for x in range(5)]
+        for x in range(5):
+            for y in range(5):
+                state[x + 5 * y] ^= d[x]
+        # rho + pi
+        b = [0] * 25
+        for x in range(5):
+            for y in range(5):
+                b[y + 5 * ((2 * x + 3 * y) % 5)] = _rol(state[x + 5 * y], _ROTATIONS[x][y])
+        # chi
+        for x in range(5):
+            for y in range(5):
+                state[x + 5 * y] = b[x + 5 * y] ^ ((~b[(x + 1) % 5 + 5 * y]) & b[(x + 2) % 5 + 5 * y] & _MASK)
+        # iota
+        state[0] ^= rc
+
+
+def keccak256(data: bytes) -> bytes:
+    rate = 136  # bytes, for 256-bit output
+    state = [0] * 25
+    # pad10*1 with domain byte 0x01 (keccak, not sha3)
+    buf = bytes(data) + b"\x01"
+    buf += b"\x00" * ((-len(buf)) % rate)
+    buf = bytearray(buf)
+    buf[-1] |= 0x80
+    for off in range(0, len(buf), rate):
+        block = buf[off : off + rate]
+        for i in range(rate // 8):
+            state[i] ^= int.from_bytes(block[8 * i : 8 * i + 8], "little")
+        _keccak_f(state)
+    out = b"".join(state[i].to_bytes(8, "little") for i in range(4))
+    return out

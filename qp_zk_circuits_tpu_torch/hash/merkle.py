@@ -15,7 +15,8 @@ digest levels stay on the device; only the cap goes to the host at each
 commitment, because the transcript observes it. The prover's query paths are
 gathered on the device by kernel F (fri/prover.py::query_rounds);
 `MerkleTree.prove` copies the levels to the host once, for callers outside
-the prover path.
+the prover path. `verify_merkle_proof` and `merkle_root_from_proof` are the
+verifier's host walk (numpy, the host Poseidon2 of `poseidon2.py`).
 """
 
 from __future__ import annotations
@@ -72,3 +73,26 @@ def build_merkle_tree(leaves: torch.Tensor, cap_height: int) -> MerkleTree:
     """Build on the leaves' device; only the cap goes to the host."""
     levels = build_levels(leaves, cap_height)
     return MerkleTree(digests=levels, cap=gl.to_u64(levels[-1]), cap_height=cap_height)
+
+
+def merkle_root_from_proof(leaf_digest: np.ndarray, index: int, siblings: np.ndarray) -> np.ndarray:
+    """Host walk: recompute the cap entry from a leaf digest and its siblings."""
+    cur = np.asarray(leaf_digest, dtype=np.uint64)
+    idx = index
+    for sib in siblings:
+        if idx & 1:
+            cur = ps.two_to_one_np(sib, cur)
+        else:
+            cur = ps.two_to_one_np(cur, sib)
+        idx >>= 1
+    return cur
+
+
+def verify_merkle_proof(
+    leaf_felts: np.ndarray, index: int, siblings: np.ndarray, cap: np.ndarray
+) -> bool:
+    """Host verification against a cap. leaf_felts: the raw row (K,) felts."""
+    digest = ps.hash_or_noop(leaf_felts)
+    root = merkle_root_from_proof(digest, index, siblings)
+    cap_index = index >> len(siblings)
+    return bool(np.array_equal(root, np.asarray(cap, dtype=np.uint64)[cap_index]))

@@ -422,14 +422,15 @@ def two_to_one_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 def merkle_levels_plain(leaves: torch.Tensor, cap_height: int) -> list[torch.Tensor]:
     """Plain torch Merkle levels: the leaf digests (hash_or_noop of each row),
     then node i of level l + 1 = two_to_one(level_l[2i], level_l[2i + 1]),
-    up to the cap of 2^cap_height digests."""
+    up to the cap of 2^cap_height digests; views of one buffer, as the
+    kernel's."""
     _tree_height(leaves, cap_height)
     cur = hash_rows_plain(leaves)
     levels = [cur]
     while cur.shape[0] > 1 << cap_height:
         cur = two_to_one_plain(cur[0::2], cur[1::2])
         levels.append(cur)
-    return levels
+    return list(torch.cat(levels).split([lvl.shape[0] for lvl in levels]))
 
 
 def _tree_height(leaves: torch.Tensor, cap_height: int) -> int:

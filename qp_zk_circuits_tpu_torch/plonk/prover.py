@@ -14,6 +14,10 @@ csrc/permutation.cu):
 
 For non-ZK circuits the proof bytes equal the JAX package's `prove` (and its
 staged and fused provers, which are pinned equal to each other).
+
+`verify_vanishing_at_zeta` is the verifier's host check of the same
+constraint list at zeta (`vanishing.py::eval_constraints` in `HostExtAlg`),
+so prover and verifier share one constraint evaluation.
 """
 
 from __future__ import annotations
@@ -37,11 +41,12 @@ from .gates import (
     GATE_TYPE_IDS,
     PERMUTATION_TYPE_ID,
     DeviceBatchCtx,
+    HostExtCtx,
     Poseidon2Gate,
     gate_descriptor,
 )
 from .proof import OpeningSet, Proof, fri_instance, zs_pp_layout
-from .vanishing import num_partial_products, permutation_chunks
+from .vanishing import HostExtAlg, eval_constraints, num_partial_products, permutation_chunks
 
 
 #: kernel A keeps one accumulator a challenge in registers; both kernels'
@@ -507,3 +512,66 @@ def prove_from_trace(
         fri_proof=fri_proof,
         public_inputs=pis,
     )
+
+
+def verify_vanishing_at_zeta(data, openings: OpeningSet, pi_hash, alphas, betas, gammas, zeta):
+    """Host check: alpha-combined constraints at zeta == Z_H(zeta)*t(zeta).
+
+    The pure-Python walk of the JAX package's `_verify_vanishing_pure`; its
+    compiled constraint tape (the reference's fast path) is not ported."""
+    return _verify_vanishing_pure(data, openings, pi_hash, alphas, betas, gammas, zeta)
+
+
+def _verify_vanishing_pure(data, openings: OpeningSet, pi_hash, alphas, betas, gammas, zeta):
+    cfg = data.config
+    nc = cfg.num_challenges
+    nr = cfg.num_routed_wires
+    alg = HostExtAlg()
+    # scalar host verification runs in the (int, int) tuple domain — pure
+    # Python-int arithmetic through the SAME shared ext ops / constraint
+    # definitions as the prover's
+    tp = ext.pair
+    wires = [tp(openings.wires[i]) for i in range(cfg.num_wires)]
+    constants_vals = [tp(openings.constants[k]) for k in range(openings.constants.shape[0])]
+    selector_vals = [tp(openings.selectors[s]) for s in range(data.num_selectors)]
+    sigma_vals = [tp(openings.sigmas[i]) for i in range(nr)]
+    zs = [tp(openings.zs[c]) for c in range(nc)]
+    zs_next = [tp(openings.zs_next[c]) for c in range(nc)]
+    npp = num_partial_products(nr, cfg.max_quotient_degree_factor)
+    pps = [[tp(openings.pps[c * npp + j]) for j in range(npp)] for c in range(nc)]
+    zeta_t = tp(zeta)
+    id_coords = [ext.scalar_mul(zeta_t, int(k)) for k in coset_shifts(nr)]
+    one = (1, 0)
+    zeta_n, base, e = one, zeta_t, data.n
+    while e:
+        if e & 1:
+            zeta_n = ext.mul(zeta_n, base)
+        base = ext.mul(base, base)
+        e >>= 1
+    zh = ext.sub(zeta_n, one)
+    l1 = ext.mul(zh, ext.inv(ext.scalar_mul(ext.sub(zeta_t, one), data.n)))
+    ctx = HostExtCtx(wires, constants_vals, [(int(pi_hash[i]), 0) for i in range(4)])
+    betas_e = [(int(b), 0) for b in betas]
+    gammas_e = [(int(g), 0) for g in gammas]
+    constraints = eval_constraints(
+        ctx, data, wires, constants_vals, selector_vals, sigma_vals,
+        zs, zs_next, pps, id_coords, l1, betas_e, gammas_e, alg,
+    )
+    qdf = cfg.max_quotient_degree_factor
+    ok = True
+    for c in range(nc):
+        acc = (0, 0)
+        apow = one
+        alpha_e = (int(alphas[c]), 0)
+        for cons in constraints:
+            acc = ext.add(acc, ext.mul(apow, cons))
+            apow = ext.mul(apow, alpha_e)
+        # t_c(zeta) = sum_j zeta^{n j} t_{c,j}(zeta)
+        t = (0, 0)
+        zpow = one
+        for j in range(qdf):
+            t = ext.add(t, ext.mul(zpow, tp(openings.quotient[c * qdf + j])))
+            zpow = ext.mul(zpow, zeta_n)
+        if acc != ext.mul(zh, t):
+            ok = False
+    return ok

@@ -5,10 +5,12 @@ The reference pins artifacts by raw-byte equality and keccak digests
 so serialization must be byte-exact and deterministic: little-endian u64
 arrays with u32 length prefixes, no floats, no maps.
 
+Layout mirrors the roles of the reference's artifact pair:
+  * CommonCircuitData  — config + degree + gate set + column layout;
+  * VerifierOnlyData   — constants-oracle cap + circuit digest.
 Proof bytes carry caps, openings, PIs and the full FRI proof (the reference
-walks the same structure at `utils.rs:333-540`), byte-identical to the JAX
-package's `proof_to_bytes`. The verifier-data half (VerifierCircuitData and
-the config codec) belongs to the verifier stack and is not ported yet.
+walks the same structure at `utils.rs:333-540`). Every byte equals the JAX
+package's: proofs, the full verifier data and both artifact views.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import struct
 
 import numpy as np
 
+from ..fri.config import FriConfig, FriReductionStrategy
 from ..fri.prover import FriProof, FriQueryRound, FriQueryStep
+from .config import CircuitConfig
 from .gates import (
     ArithmeticGate,
     BaseSumGate,
@@ -136,6 +140,240 @@ def gate_from_key(key: str):
         nc, scratch = key[7:].split("s")
         return ReducingGate(int(nc), ext, int(scratch))
     raise SerializationError(f"unknown gate key: {key}")
+
+
+# ---------------------------------------------------------------------------
+# config
+
+
+def write_config(w: Writer, cfg: CircuitConfig):
+    w.u32(cfg.num_wires)
+    w.u32(cfg.num_routed_wires)
+    w.u32(cfg.num_challenges)
+    w.u32(cfg.security_bits)
+    w.u32(cfg.max_quotient_degree_factor)
+    w.bool_(cfg.zero_knowledge)
+    f = cfg.fri_config
+    w.u32(f.rate_bits)
+    w.u32(f.cap_height)
+    w.u32(f.proof_of_work_bits)
+    w.u32(f.num_query_rounds)
+    w.u32(f.reduction_strategy.arity_bits)
+    w.u32(f.reduction_strategy.final_poly_bits)
+
+
+def read_config(r: Reader) -> CircuitConfig:
+    num_wires = r.u32()
+    num_routed = r.u32()
+    nc = r.u32()
+    sec = r.u32()
+    qdf = r.u32()
+    zk = r.bool_()
+    fri = FriConfig(
+        rate_bits=r.u32(),
+        cap_height=r.u32(),
+        proof_of_work_bits=r.u32(),
+        num_query_rounds=r.u32(),
+        reduction_strategy=FriReductionStrategy(r.u32(), r.u32()),
+    )
+    return CircuitConfig(
+        num_wires=num_wires,
+        num_routed_wires=num_routed,
+        num_challenges=nc,
+        security_bits=sec,
+        max_quotient_degree_factor=qdf,
+        zero_knowledge=zk,
+        fri_config=fri,
+    )
+
+
+# ---------------------------------------------------------------------------
+# verifier data
+
+
+class VerifierCircuitData:
+    """Lean verifier view (reference VerifierCircuitData + CommonCircuitData)."""
+
+    def __init__(self, config, degree_bits, gate_types, num_selectors, num_const_cols,
+                 constants_cap, circuit_digest, num_public_inputs):
+        self.config = config
+        self.degree_bits = degree_bits
+        self.gate_types = gate_types
+        self.num_selectors = num_selectors
+        self.num_const_cols = num_const_cols
+        self.constants_cap = np.asarray(constants_cap, dtype=np.uint64)
+        self.circuit_digest = np.asarray(circuit_digest, dtype=np.uint64)
+        self.num_public_inputs = num_public_inputs
+
+    @property
+    def n(self):
+        return 1 << self.degree_bits
+
+    @property
+    def num_preprocessed(self):
+        return self.num_const_cols + self.num_selectors + self.config.num_routed_wires
+
+    # CircuitData-compat views used by the verifier paths
+    @property
+    def const_cols(self):
+        class _Shape:
+            def __init__(s, k):
+                s.shape = (k, None)
+
+        return _Shape(self.num_const_cols)
+
+    class _Oracle:
+        def __init__(self, cap):
+            self.cap = cap
+
+    @property
+    def constants_oracle(self):
+        return VerifierCircuitData._Oracle(self.constants_cap)
+
+    @classmethod
+    def from_circuit_data(cls, data) -> "VerifierCircuitData":
+        return cls(
+            config=data.config,
+            degree_bits=data.degree_bits,
+            gate_types=list(data.gate_types),
+            num_selectors=data.num_selectors,
+            num_const_cols=data.const_cols.shape[0],
+            constants_cap=data.constants_oracle.cap,
+            circuit_digest=data.circuit_digest,
+            num_public_inputs=len(data.public_input_targets),
+        )
+
+    def to_bytes(self) -> bytes:
+        w = Writer()
+        w.buf.write(MAGIC)
+        w.u32(VERSION)
+        write_config(w, self.config)
+        w.u32(self.degree_bits)
+        w.u32(len(self.gate_types))
+        for g in self.gate_types:
+            w.string(g.key())
+        w.u32(self.num_selectors)
+        w.u32(self.num_const_cols)
+        w.u32(self.num_public_inputs)
+        w.arr(self.constants_cap)
+        w.arr(self.circuit_digest)
+        return w.bytes_()
+
+    # -- split artifact views (reference separates VerifierOnlyCircuitData
+    #    from CommonCircuitData — `wormhole/verifier/src/lib.rs:199-204`) ----
+
+    def to_common_bytes(self) -> bytes:
+        """CommonCircuitData view: config + degree + gate set + column layout
+        + PI count. No cap, no digest — those are the VerifierOnly view."""
+        w = Writer()
+        w.buf.write(MAGIC)
+        w.u32(VERSION + 200)  # common-data format tag
+        write_config(w, self.config)
+        w.u32(self.degree_bits)
+        w.u32(len(self.gate_types))
+        for g in self.gate_types:
+            w.string(g.key())
+        w.u32(self.num_selectors)
+        w.u32(self.num_const_cols)
+        w.u32(self.num_public_inputs)
+        return w.bytes_()
+
+    def to_verifier_only_bytes(self) -> bytes:
+        """VerifierOnlyCircuitData view: constants-oracle cap + circuit
+        digest (the digest binds the full identity across both views)."""
+        w = Writer()
+        w.buf.write(MAGIC)
+        w.u32(VERSION + 300)  # verifier-only format tag
+        w.arr(self.constants_cap)
+        w.arr(self.circuit_digest)
+        return w.bytes_()
+
+    @classmethod
+    def from_artifact_bytes(
+        cls, verifier_only: bytes, common: bytes, max_len: int = 1 << 20
+    ) -> "VerifierCircuitData":
+        """Rebuild from the (verifier.bin, common.bin) artifact pair. The
+        recomputed circuit digest binds the two views together: swapping
+        either against a different circuit's artifact fails."""
+        r = Reader(common, max_len=max_len)
+        if r._read(4) != MAGIC:
+            raise SerializationError("bad magic (common data)")
+        if r.u32() != VERSION + 200:
+            raise SerializationError("unsupported common-data version")
+        cfg = read_config(r)
+        degree_bits = r.u32()
+        if degree_bits > 30:
+            raise SerializationError("degree_bits too large")
+        n_gates = r.u32()
+        if n_gates > 64:
+            raise SerializationError("too many gate types")
+        gates = [gate_from_key(r.string()) for _ in range(n_gates)]
+        num_selectors = r.u32()
+        num_const_cols = r.u32()
+        num_pis = r.u32()
+        r.expect_end()
+
+        r2 = Reader(verifier_only, max_len=max_len)
+        if r2._read(4) != MAGIC:
+            raise SerializationError("bad magic (verifier-only data)")
+        if r2.u32() != VERSION + 300:
+            raise SerializationError("unsupported verifier-only version")
+        cap = r2.arr()
+        digest = r2.arr()
+        r2.expect_end()
+        if cap.shape != (1 << cfg.fri_config.cap_height, 4):
+            raise SerializationError("malformed constants cap")
+        if digest.shape != (4,):
+            raise SerializationError("malformed circuit digest")
+        from .builder import compute_circuit_digest
+
+        expect = compute_circuit_digest(
+            cap, cfg, degree_bits, [g.key() for g in gates],
+            num_selectors, num_const_cols, num_pis,
+        )
+        if not np.array_equal(expect, digest):
+            raise SerializationError(
+                "circuit digest does not bind the verifier/common artifact pair"
+            )
+        return cls(cfg, degree_bits, gates, num_selectors, num_const_cols, cap, digest, num_pis)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, max_len: int = 1 << 20) -> "VerifierCircuitData":
+        r = Reader(data, max_len=max_len)
+        if r._read(4) != MAGIC:
+            raise SerializationError("bad magic")
+        if r.u32() != VERSION:
+            raise SerializationError("unsupported version")
+        cfg = read_config(r)
+        degree_bits = r.u32()
+        if degree_bits > 30:
+            raise SerializationError("degree_bits too large")
+        n_gates = r.u32()
+        if n_gates > 64:
+            raise SerializationError("too many gate types")
+        gates = [gate_from_key(r.string()) for _ in range(n_gates)]
+        num_selectors = r.u32()
+        num_const_cols = r.u32()
+        num_pis = r.u32()
+        cap = r.arr()
+        digest = r.arr()
+        r.expect_end()
+        if cap.shape != (1 << cfg.fri_config.cap_height, 4):
+            raise SerializationError("malformed constants cap")
+        if digest.shape != (4,):
+            raise SerializationError("malformed circuit digest")
+        # the digest binds the FULL verifier identity (cap, config, gate set,
+        # layout, PI count): recompute so a tampered artifact can never pass
+        # while changing which constraints get evaluated
+        from .builder import compute_circuit_digest
+
+        expect = compute_circuit_digest(
+            cap, cfg, degree_bits, [g.key() for g in gates],
+            num_selectors, num_const_cols, num_pis,
+        )
+        if not np.array_equal(expect, digest):
+            raise SerializationError("circuit digest does not match verifier data")
+        return cls(cfg, degree_bits, gates, num_selectors, num_const_cols, cap, digest, num_pis)
 
 
 # ---------------------------------------------------------------------------

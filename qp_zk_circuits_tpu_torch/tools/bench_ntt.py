@@ -2,6 +2,7 @@
 CUDA card.
 
     python qp_zk_circuits_tpu_torch/tools/bench_ntt.py [--root DIR] [--runs N] [--cases A,B]
+        [--gather-threads T] [--gather-return mapped|copy]
 
 Times `poly/ntt.py::batched_ntt`, `fri/prover.py::compute_composition`,
 `fri/oracle.py::eval_openings` (kernel D), `fri/prover.py::fold_round`
@@ -22,14 +23,22 @@ private batch's at degree 16 (LDE 135 x 2^16 -> 2^19, iNTT 135 x 2^16,
 coset iNTT 2 x 2^19, the composition at m = 2^19, the openings of the same
 264 rows at n = 2^16, the three fold rounds of schedule(16) = [4, 4, 3]
 (m = 2^19 to 2^15 leaves of arity 2^4, 2^15 to 2^11 of 2^3, 2^11 to the
-last layer), and the gather at m = 2^19 with its three rounds). Inputs are
-random felts made on the card from fixed seeds. `--cases` keeps the cases
-whose names contain one of the given words.
+last layer), and the gather at m = 2^19 with its three rounds). The
+"queries stage" cases time `fri/prover.py::gather_query_rounds` (kernel F's
+gather, its return to the host and the unpacking into query rounds) at the
+leaf and at m = 2^19 on the host's clock; the "timer floor" case is
+`goldilocks_add` on 8 felts, the least a launch reads by these timers.
+Inputs are random felts made on the card from fixed seeds. `--cases` keeps
+the cases whose names contain one of the given words. `--gather-threads`
+and `--gather-return` set kernel F's block size and its return to the host
+(`GATHER_THREADS`, `GATHER_RETURN`) in a checkout that has them.
 
   * `ms`: CUDA events around one wrapper call, median of --runs (host work
     and the gaps between launches included);
   * `device_ms`: the wrapper's kernel-library launches replayed in a CUDA
     graph (`tools/timing.py::device_ms`), the kernels alone;
+  * `host_ms` (queries stage): the host clock around one call, which ends
+    with the rows on the host, median of --runs;
   * `bound_ms`: the larger of bytes over 3.35 TB/s and integer operations
     over 16.7 T op/s;
   * the output's SHA-256, so two checkouts can be seen to agree.
@@ -56,6 +65,8 @@ def main() -> None:
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--cases", default="", help="comma-separated words; a case runs if its "
                     "name contains one (default: all)")
+    ap.add_argument("--gather-threads", type=int, default=None)
+    ap.add_argument("--gather-return", default=None, choices=("mapped", "copy"))
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     import numpy as np
@@ -79,7 +90,13 @@ def main() -> None:
     from qp_zk_circuits_tpu_torch.hash import merkle
     from qp_zk_circuits_tpu_torch.plonk.proof import fri_instance
     from qp_zk_circuits_tpu_torch.poly import ntt
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
     from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+
+    if args.gather_threads is not None and hasattr(fri, "GATHER_THREADS"):
+        fri.GATHER_THREADS = args.gather_threads
+    if args.gather_return is not None and hasattr(fri, "GATHER_RETURN"):
+        fri.GATHER_RETURN = args.gather_return
 
     def felts(shape, seed):
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -140,34 +157,60 @@ def main() -> None:
                     cs.fold_work(1 << log_m, a))
         return f"fold m = 2^{log_m}, arity 2^{a}, next 2^{next_bits} (degree {degree_bits})", make
 
+    def gather_layout(degree_bits):
+        """The prover's gather sources: the four oracles' rows and paths, then
+        each FRI round's leaves and path; also the oracles and layers as
+        `gather_query_rounds` takes them."""
+        lde_bits = degree_bits + cfg.rate_bits
+        m = 1 << lde_bits
+        schedule = fri_cfg.reduction_strategy.schedule(degree_bits)
+        oracles, layers = [], []
+        for i, c in enumerate(oracle_rows):
+            lde = felts((c, m), 60 + i)
+            oracles.append(SimpleNamespace(
+                lde=lde, tree=merkle.build_merkle_tree(lde.T, fri_cfg.cap_height)))
+        bits = lde_bits
+        for r, a in enumerate(schedule):
+            leaves = felts((1 << (bits - a), 2 << a), 70 + r)
+            layers.append((leaves, merkle.build_merkle_tree(leaves, min(fri_cfg.cap_height,
+                                                                         bits - a))))
+            bits -= a
+        sources = [fri.GatherSource(o.lde.T, m - 1) for o in oracles]
+        for o in oracles:
+            sources += fri._sibling_sources(o.tree, m - 1)
+        for leaves, tree in layers:
+            sources.append(fri.GatherSource(leaves, leaves.shape[0] - 1))
+            sources += fri._sibling_sources(tree, leaves.shape[0] - 1)
+        rng = np.random.default_rng(lde_bits)
+        q = fri_cfg.num_query_rounds
+        indices = [0, m - 1] + [int(i) for i in rng.integers(0, m, q - 2)]
+        trees = [o.tree for o in oracles] + [t for _, t in layers]
+        width = (sum(oracle_rows) + sum(leaves.shape[1] for leaves, _ in layers)
+                 + sum(4 * (len(t.digests) - 1) for t in trees))
+        return sources, oracles, layers, indices, cs.gather_work(q, width)
+
     def gather(degree_bits):
         def make():
-            lde_bits = degree_bits + cfg.rate_bits
-            m = 1 << lde_bits
-            schedule = fri_cfg.reduction_strategy.schedule(degree_bits)
-            sources = []
-            for i, c in enumerate(oracle_rows):
-                lde = felts((c, m), 60 + i)
-                sources.append(fri.GatherSource(lde.T, m - 1))
-                sources += fri._sibling_sources(
-                    merkle.build_merkle_tree(lde.T, fri_cfg.cap_height), m - 1)
-            bits = lde_bits
-            for r, a in enumerate(schedule):
-                leaves = felts((1 << (bits - a), 2 << a), 70 + r)
-                tree = merkle.build_merkle_tree(leaves, min(fri_cfg.cap_height, bits - a))
-                sources.append(fri.GatherSource(leaves, (1 << (bits - a)) - 1))
-                sources += fri._sibling_sources(tree, (1 << (bits - a)) - 1)
-                bits -= a
-            rng = np.random.default_rng(lde_bits)
-            q = fri_cfg.num_query_rounds
-            indices = [0, m - 1] + [int(i) for i in rng.integers(0, m, q - 2)]
-            width = sum(s.matrix.shape[1] for s in sources)
-            return (lambda: fri.query_gather(sources, indices)), cs.gather_work(q, width)
+            sources, _, _, indices, work = gather_layout(degree_bits)
+            return (lambda: fri.query_gather(sources, indices)), work
         return f"gather m = 2^{degree_bits + cfg.rate_bits}, {fri_cfg.num_query_rounds} queries", make
+
+    def queries_stage(degree_bits):
+        def make():
+            _, oracles, layers, indices, work = gather_layout(degree_bits)
+            return (lambda: fri.gather_query_rounds(oracles, layers, indices)), work
+        return f"queries stage m = 2^{degree_bits + cfg.rate_bits}", make
+
+    def floor():
+        def make():
+            a, b = felts((8,), 98), felts((8,), 99)
+            return (lambda: gl.add(a, b)), (3 * 8 * 8, 8 * cs.OPS_ADD)
+        return "timer floor: goldilocks_add of 8 felts", make
 
     lb = leaf.degree_bits
     lm = lb + cfg.rate_bits
     cases = [
+        floor(),
         transform(f"iNTT 135 x 2^{lb}", 135, 1 << lb, lb, 1, inverse=True),
         transform(f"iNTT 20 x 2^{lb}", 20, 1 << lb, lb, 2, inverse=True),
         transform(f"LDE 135 x 2^{lb} -> 2^{lm}", 135, 1 << lb, lm, 3, shift=7),
@@ -179,6 +222,7 @@ def main() -> None:
         openings(lb),
         *(fold(lb, bits, a, nxt, 80 + r) for r, (bits, a, nxt) in enumerate(cs.fri_rounds(leaf, lb))),
         gather(lb),
+        queries_stage(lb),
         transform("LDE 135 x 2^16 -> 2^19", 135, 1 << 16, 19, 8, shift=7),
         transform("iNTT 135 x 2^16", 135, 1 << 16, 16, 9, inverse=True),
         transform("coset iNTT 2 x 2^19", 2, 1 << 19, 19, 10, inverse=True, out_shift=unshift),
@@ -186,6 +230,7 @@ def main() -> None:
         openings(16),
         *(fold(16, bits, a, nxt, 90 + r) for r, (bits, a, nxt) in enumerate(cs.fri_rounds(leaf, 16))),
         gather(16),
+        queries_stage(16),
     ]
     if args.cases:
         words = args.cases.split(",")
@@ -205,8 +250,12 @@ def main() -> None:
         row = dict(case=name, ms=timing.median_ms(fn, args.runs),
                    device_ms=timing.device_ms(fn, cuda=_cuda), bound_ms=bound_ms, bound_by=by,
                    sha256=digest)
-        print(f"[bench] {name}: {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, bound "
-              f"{bound_ms:.5f} ms by {by}, out {digest}", flush=True)
+        host = ""
+        if name.startswith("queries stage"):
+            row["host_ms"] = _host_ms(fn, args.runs)
+            host = f", host {row['host_ms']:.4f} ms"
+        print(f"[bench] {name}: {row['ms']:.4f} ms{host}, device {row['device_ms']:.4f} ms, "
+              f"bound {bound_ms:.5f} ms by {by}, out {digest}", flush=True)
         rows.append(row)
         del fn, out
         torch.cuda.empty_cache()
@@ -216,12 +265,31 @@ def main() -> None:
                       "card": card, "cases": rows}))
 
 
+def _host_ms(fn, runs: int) -> float:
+    """Median host-clock ms of one call (after two warm-up calls)."""
+    import statistics
+    import time
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
 def _digest(out) -> str:
-    """SHA-256 (16 hex digits) of a result: a tensor, or the openings' per-oracle
-    arrays and next rows."""
+    """SHA-256 (16 hex digits) of a result: a tensor, the openings' per-oracle
+    arrays and next rows, or query rounds."""
     import numpy as np
 
-    if isinstance(out, tuple):
+    if isinstance(out, list):  # query rounds
+        data = np.concatenate([np.asarray(a, dtype=np.uint64).reshape(-1) for r in out for a in (
+            *r.initial_rows, *r.initial_siblings,
+            *(x for st in r.steps for x in (st.leaf_values, st.siblings)))])
+    elif isinstance(out, tuple):
         data = np.concatenate([np.asarray(a).reshape(-1) for a in (*out[0], out[1])])
     else:
         data = out.cpu().numpy()

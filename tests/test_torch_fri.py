@@ -16,12 +16,18 @@ so every comparison is bit-exact:
     pattern of the degree-16 schedule; kernel E's constants against the
     JAX package's inverse twiddle tables;
   * the query gather against `fri/oracle.py::open_rows_many` and
-    `hash/merkle.py::MerkleTree.prove`, indices 0 and m - 1 included.
+    `hash/merkle.py::MerkleTree.prove`, indices 0 and m - 1 included;
+    kernel F's packed parameter plan, decoded by its plain reader, against
+    the plain gather at the leaf's and the degree-16 tail's layouts (a
+    Merkle path a segment: 10 and 14 segments; a level a segment: 37 and
+    89), and its capacity edges.
 
 The `gpu` cases hold each kernel against its plain version at the leaf's
 shapes with the edge values p - 1, 0 and 2^32, kernel D's sum across blocks
-at n = 2^16 and kernel E's on-card twiddles at every arity and coset shift up
-to m = 2^19; they skip without a card.
+at n = 2^16, kernel E's on-card twiddles at every arity and coset shift up
+to m = 2^19, and kernel F at its plan's edges (a width-1 segment, rows not a
+multiple of a warp, the largest plan, both returns to the host); they skip
+without a card.
 """
 
 from types import SimpleNamespace
@@ -308,6 +314,126 @@ def test_wrappers_refuse_non_cuda_accelerator_tensors():
         tfri.query_gather([tfri.GatherSource(meta[0].lde, 63)], [1])
 
 
+def _gather_layout(lde_bits, schedule, rows, cap=4, seed=0, device="cpu", paths=True):
+    """Kernel F's sources as the prover lays them out (chip_smoke.py's
+    construction): each oracle's rows (its LDE read as (m, C) rows) and the
+    Merkle siblings of every level below the cap, then each FRI round's
+    leaves and siblings; a tree's path as one source (`paths`, the prover's
+    form: its levels one after another in one buffer) or a source a level.
+    Every source is a strided view of one random buffer, so m = 2^19 costs
+    a few tens of MB; the packing, not the hashing, is under test."""
+    m = 1 << lde_bits
+    buf = torch.randint(0, 1 << 62, (8 * m + 4096,), generator=torch.Generator().manual_seed(seed),
+                        dtype=torch.int64).to(device)
+
+    def view(n, w, rs, cs):
+        return buf.as_strided((n, w), (rs, cs))
+
+    def siblings(bits):
+        mask = (1 << bits) - 1
+        if paths:
+            return [tfri.GatherSource(view(1 << bits, 4, 4, 1), mask, flip=1, levels=bits - cap)]
+        return [tfri.GatherSource(view(1 << (bits - l), 4, 4 if bits - l < 10 else 1, 1),
+                                  mask, shift=l, flip=1) for l in range(bits - cap)]
+
+    sources = []
+    for c in rows:
+        sources.append(tfri.GatherSource(view(m, c, 1, 7), m - 1))
+    for _ in rows:
+        sources += siblings(lde_bits)
+    bits = lde_bits
+    for a in schedule:
+        bits -= a
+        sources.append(tfri.GatherSource(view(1 << bits, 2 << a, 2 << a if bits < 10 else 3, 1),
+                                         (1 << bits) - 1))
+        sources += siblings(bits) if bits > cap else []
+    return sources, buf
+
+
+def _gather_indices(m, count, seed):
+    rng = np.random.default_rng(seed)
+    return [0, m - 1] + [int(i) for i in rng.integers(0, m, count - 2)]
+
+
+GATHER_LAYOUTS = [(11, [3], True, 10), (19, [4, 4, 3], True, 14),
+                  (11, [3], False, 37), (19, [4, 4, 3], False, 89)]
+
+
+@pytest.mark.parametrize("lde_bits, schedule, paths, segments", GATHER_LAYOUTS)
+def test_packed_gather_plan_gives_the_plain_gather(lde_bits, schedule, paths, segments):
+    """The leaf's plan (m = 2^11, one round of arity 2^3) and the degree-16
+    tail's (m = 2^19, schedule [4, 4, 3]), with a tree's path as one segment
+    (10 and 14 segments, the prover's form) or a segment a level (37 and
+    89), 28 queries with 0 and m - 1: the plan kernel F receives, read back
+    by its plain reader, gives `query_gather_plain`'s rows, and a path
+    gives what its levels give one by one."""
+    rows, _ = _leaf_shapes()
+    sources, buf = _gather_layout(lde_bits, schedule, rows, seed=lde_bits, paths=paths)
+    assert len(sources) == segments
+    indices = _gather_indices(1 << lde_bits, 28, lde_bits)
+    plan, width = tfri.pack_gather_plan(sources, indices)
+    assert len(plan) == tfri.GATHER_PLAN_BYTES <= 4096
+    want = tfri.query_gather_plain(sources, indices)
+    assert width == want.shape[1]
+    assert torch.equal(tfri.query_gather_packed_plain(plan, [buf]), want)
+    assert torch.equal(tfri.query_gather(sources, indices), want)
+
+
+def test_merkle_path_source_gives_the_levels():
+    """`_sibling_sources` of a built tree is one path source whose gather
+    equals the per-level siblings ((q >> l) ^ 1 at level l)."""
+    lde = torch.randint(0, 1 << 62, (5, 64), generator=torch.Generator().manual_seed(3))
+    tree = tmerkle.build_merkle_tree(lde.T, 1)
+    (path,) = tfri._sibling_sources(tree, 63)
+    assert path.levels == len(tree.digests) - 1 == 5
+    indices = [0, 63, 17, 40]
+    want = torch.cat([lvl[[(q >> l) ^ 1 for q in indices]] for l, lvl in
+                      enumerate(tree.digests[:-1])], dim=1)
+    assert torch.equal(tfri.query_gather([path], indices), want)
+    plan, _ = tfri.pack_gather_plan([path], indices)
+    assert torch.equal(tfri.query_gather_packed_plain(plan, [tree.digests[0]]), want)
+    with pytest.raises(ValueError):  # levels that are not one buffer
+        tfri._sibling_sources(tmerkle.MerkleTree([d.clone() for d in tree.digests], tree.cap, 1), 63)
+
+
+def test_gather_plan_capacity():
+    """The largest plan (128 segments, one of width 1, 128 queries) packs and
+    reads back; one segment or one query over it raises, on the CPU too."""
+    buf = torch.arange(1 << 12, dtype=torch.int64)
+    sources = [tfri.GatherSource(buf.as_strided((256, 3), (3, 1)), 255, shift=k % 3, flip=k % 2)
+               for k in range(tfri.MAX_GATHER_SEGMENTS - 1)]
+    sources.append(tfri.GatherSource(buf.as_strided((256, 1), (1, 1)), 255))
+    indices = _gather_indices(256, tfri.MAX_GATHER_QUERIES, 1)
+    plan, width = tfri.pack_gather_plan(sources, indices)
+    want = tfri.query_gather_plain(sources, indices)
+    assert width == 3 * (tfri.MAX_GATHER_SEGMENTS - 1) + 1
+    assert torch.equal(tfri.query_gather_packed_plain(plan, [buf]), want)
+    assert torch.equal(tfri.query_gather(sources, indices), want)
+    for srcs, idx in ((sources + sources[:1], indices), (sources, indices + [7])):
+        with pytest.raises(ValueError):
+            tfri.pack_gather_plan(srcs, idx)
+        with pytest.raises(ValueError):
+            tfri.query_gather(srcs, idx)
+        with pytest.raises(ValueError):
+            tfri.gather_to_host(srcs, idx)
+
+
+@pytest.mark.parametrize("source, indices", [
+    (dict(mask=6), [1]),  # not 2^k - 1
+    (dict(mask=255, shift=32), [1]),
+    (dict(mask=511), [1]),  # rows past the matrix
+    (dict(mask=255), [-1]),
+    (dict(mask=255), [1 << 32]),
+    (dict(mask=255, levels=9), [1]),  # more levels than the tree has
+    (dict(mask=255, levels=8), [1]),  # levels past the buffer
+    (dict(mask=255, shift=1, levels=2), [1]),
+])
+def test_gather_plan_refuses_what_the_kernel_cannot_read(source, indices):
+    mat = torch.zeros((256, 4), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        tfri.pack_gather_plan([tfri.GatherSource(mat, **source)], indices)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version, leaf shapes
 
@@ -355,8 +481,8 @@ def test_fri_kernels_match_plain_on_card(cuda):
     sources = [tfri.GatherSource(lde.T, m - 1)] + tfri._sibling_sources(tree, m - 1)
     indices = [0, m - 1, 7, 1000]
     got_g = tfri.query_gather(sources, indices)
-    cpu_sources = [tfri.GatherSource(s.matrix.cpu(), s.mask, s.shift, s.flip) for s in sources]
-    assert torch.equal(got_g.cpu(), tfri.query_gather(cpu_sources, indices))
+    assert len(sources) == 2  # the rows, and the Merkle path as one segment
+    assert torch.equal(got_g, tfri.query_gather_plain(sources, indices))
     assert [f.launches for f in (gl.add, gl.sub, gl.mul)] == before
 
 
@@ -419,3 +545,41 @@ def test_fold_twiddles_on_card_match_plain(cuda):
                 got = tfri.fold_round(leaves, beta, a, log_m, shift_pow, nxt)
                 want = tfri.fold_round_plain(leaves, beta, a, log_m, shift_pow, nxt)
                 assert torch.equal(got, want), (a, log_m, shift_pow)
+
+
+@pytest.mark.gpu
+def test_query_gather_plan_edges_on_card(cuda):
+    """Kernel F against the plain gather: the leaf's and the degree-16
+    tail's layouts (10 and 14 segments with a path a tree, 37 and 89 with a
+    segment a level; indices 0 and m - 1), the largest plan (128 segments,
+    one of width 1, 128 queries, a packed row of 382 values: not a multiple
+    of a warp), one block a warp and the default block, and
+    `gather_to_host` by both returns; one over the plan raises."""
+    rows, _ = _leaf_shapes()
+    cases = []
+    for lde_bits, schedule, paths, _ in GATHER_LAYOUTS:
+        sources, _ = _gather_layout(lde_bits, schedule, rows, seed=lde_bits, device=cuda,
+                                    paths=paths)
+        cases.append((sources, _gather_indices(1 << lde_bits, 28, lde_bits)))
+    buf = torch.arange(1 << 12, dtype=torch.int64, device=cuda)
+    big = [tfri.GatherSource(buf.as_strided((256, 3), (3, 1)), 255, shift=k % 3, flip=k % 2)
+           for k in range(tfri.MAX_GATHER_SEGMENTS - 1)]
+    big.append(tfri.GatherSource(buf.as_strided((256, 1), (1, 1)), 255))
+    cases.append((big, _gather_indices(256, tfri.MAX_GATHER_QUERIES, 2)))
+    saved = (tfri.GATHER_THREADS, tfri.GATHER_RETURN)
+    try:
+        for threads in (32, 0):
+            for ret in ("mapped", "copy"):
+                tfri.GATHER_THREADS, tfri.GATHER_RETURN = threads, ret
+                for sources, indices in cases:
+                    want = tfri.query_gather_plain(sources, indices)
+                    before = tfri.query_gather.launches
+                    assert torch.equal(tfri.query_gather(sources, indices), want)
+                    assert np.array_equal(tfri.gather_to_host(sources, indices), gl.to_u64(want))
+                    assert tfri.query_gather.launches - before == 2
+    finally:
+        tfri.GATHER_THREADS, tfri.GATHER_RETURN = saved
+    with pytest.raises(ValueError):
+        tfri.query_gather(big + big[:1], cases[-1][1])
+    with pytest.raises(ValueError):
+        tfri.query_gather(big, cases[-1][1] + [0])

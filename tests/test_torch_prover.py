@@ -5,7 +5,8 @@ check, copy constraints, in-circuit hash, public inputs), built by each
 package's own builder. The reference proof is the JAX package's
 `prove_staged` output, committed by tests/torch_fixtures/make_leaf_fixture.py
 (proving it here would compile the JAX prover graphs for over a minute).
-Everything is bit-exact.
+Everything is bit-exact, and each package's verifier accepts the port's
+proof.
 """
 
 import dataclasses
@@ -31,7 +32,9 @@ from qp_zk_circuits_tpu_torch.plonk import builder as tbuilder
 from qp_zk_circuits_tpu_torch.plonk import gates as tgates
 from qp_zk_circuits_tpu_torch.plonk import prover as tprover
 from qp_zk_circuits_tpu_torch.plonk.config import CircuitConfig
+from qp_zk_circuits_tpu_torch.plonk.serialization import proof_from_bytes as t_proof_from_bytes
 from qp_zk_circuits_tpu_torch.plonk.serialization import proof_to_bytes
+from qp_zk_circuits_tpu_torch.plonk.verifier import verify as t_verify
 
 FIXTURES = Path(__file__).parent / "torch_fixtures"
 
@@ -119,6 +122,13 @@ def test_reference_verifier_accepts_port_proof(small, port_proof):
         len(jdata.public_input_targets),
     )
     j_verify(vdata, j_proof_from_bytes(port_proof))
+
+
+def test_port_verifier_accepts_port_proof(small, port_proof):
+    """The port's own verifier, on the port's circuit data (its constants
+    cap and digest as committed by the port), accepts the port's proof."""
+    _, _, tdata, _ = small
+    t_verify(tdata, t_proof_from_bytes(port_proof))
 
 
 def test_permutation_polys_match_reference(small):
