@@ -28,10 +28,10 @@ package. Phases, each printing one line:
      spread limit; kernel F at the leaf's 10 segments (a Merkle path a
      tree) and 37 (a level a segment), with indices 0 and m - 1, at its
      plan's largest (128 segments, one of width 1, 128
-     queries, a packed row of 382 values, not a multiple of a warp) with a
-     warp and with the default block, into pinned host memory by both
-     returns, and one segment and one query over the plan, which must
-     raise;
+     queries, a packed row of 382 values, not a multiple of a warp), at a
+     packed row of 1,200 values (wider than a block: threads stride), into
+     pinned host memory, and one segment and one query over the plan, which
+     must raise;
   4. aggregation tree — the Merkle tree at 2^19 x 135: 256 sampled nodes of
      every level against the plain hashes of their inputs, its time beside
      the per-level form's (hash_rows, then one two_to_one launch a level);
@@ -49,9 +49,8 @@ package. Phases, each printing one line:
      of 2^16 coefficients, E's three rounds of schedule(16) in sequence
      (from m = 2^19), each against its plain version run on the card in
      full, and F's 28-query gather at m = 2^19 with the three rounds (14
-     segments, a Merkle path a tree; 89 with a segment a level) into device
-     memory and into pinned host memory by both returns, each beside its
-     bound;
+     segments, a Merkle path a tree; 89 with a segment a level) into pinned
+     host memory, each beside its bound;
   8. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
      prove_inputs(seed=0) cold and warm; the proof bytes must equal the
      committed fixture (length and SHA-256), every kernel of the path must
@@ -92,6 +91,9 @@ FIXTURE_META = ROOT / "tests" / "torch_fixtures" / "fixtures.json"
 # cores = 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz. Hopper has 64 INT32
 # lanes an SM, so the 32-bit integer peak is 132 x 64 x 1.98 GHz = 16.7 T op/s.
 HBM_BYTES_PER_S = 3.35e12
+# the card's host link, PCIe Gen5 x16: 128 GB/s both ways (NVIDIA's H100 SXM
+# data sheet), 64 GB/s each way; kernel F writes its rows across it
+HOST_LINK_BYTES_PER_S = 64e9
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # 32-bit integer instructions per field op, counted from the sources: a mul
 # is a 64x64->128 product (4 IMAD.WIDE-class ops, 8 instructions) plus the
@@ -190,10 +192,11 @@ def fold_work(m: int, a_bits: int) -> tuple[int, int]:
     return (2 * m + 2 * mp) * 8, (m - mp) * (9 * OPS_MUL + 8 * OPS_ADD)
 
 
-def gather_work(queries: int, width: int) -> tuple[int, int]:
-    """Kernel F's bytes: each query's index read, its packed row of `width`
-    values read and written."""
-    return 2 * queries * width * 8 + queries * 8, 0
+def gather_work(queries: int, width: int) -> tuple[int, int, int]:
+    """Kernel F's bytes: each query's packed row of `width` values read from
+    the card's memory and written across the host link into pinned host
+    memory (the query indices ride in the kernel's parameters)."""
+    return queries * width * 8, 0, queries * width * 8
 
 
 def leaf_oracle_rows(data) -> list[int]:
@@ -242,10 +245,13 @@ def ntt_work(cols: int, n_in: int, log_n: int, shift: bool = False,
 
 
 def _bound(work) -> tuple[float, str]:
-    """(bound ms, "bytes" or "operations") of (bytes, integer operations)."""
-    work_bytes, ops = work
-    by = "bytes" if work_bytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S else "operations"
-    return 1e3 * max(work_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S), by
+    """(bound ms, "bytes" or "operations") of (bytes, integer operations[,
+    bytes across the host link]): the bytes' time is the larger of the
+    card's memory's and the host link's."""
+    work_bytes, ops, host_bytes = (*work, 0)[:3]
+    moved = max(work_bytes / HBM_BYTES_PER_S, host_bytes / HOST_LINK_BYTES_PER_S)
+    by = "bytes" if moved >= ops / INT32_OPS_PER_S else "operations"
+    return 1e3 * max(moved, ops / INT32_OPS_PER_S), by
 
 
 def _ntt_cases(device, rng, coeffs, quot):
@@ -791,9 +797,9 @@ def _gather_case(device) -> dict:
     the four oracles and the FRI round's leaves and path (10 segments, a
     tree's path one), indices 0 and m - 1 among them. Checked also with a
     segment a level (the leaf's 37), at the plan's largest (128 segments,
-    one of width 1, 128 queries, a packed row of 382 values), a warp a block
-    and the default block, into pinned host memory by both returns; one
-    segment or one query over the plan must raise."""
+    one of width 1, 128 queries, a packed row of 382 values) and at a row of
+    1,200 values (wider than a block), each into pinned host memory in one
+    launch; one segment or one query over the plan must raise."""
     import numpy as np
     import torch
 
@@ -823,26 +829,23 @@ def _gather_case(device) -> dict:
            for k in range(fri.MAX_GATHER_SEGMENTS - 1)]
     big.append(fri.GatherSource(buf.as_strided((256, 1), (1, 1)), 255))
     big_idx = [0, 255] + [int(i) for i in c["rng"].integers(0, 256, fri.MAX_GATHER_QUERIES - 2)]
+    # a packed row wider than a block (1,200 values): its threads stride
+    wide_mat = _felts((64, 600), c["rng"], device)
+    wide = [fri.GatherSource(wide_mat, 63), fri.GatherSource(wide_mat, 63, flip=1)]
     cases = [(sources, cpu, indices), (levels, _cpu_sources(levels), indices),
-             (big, _cpu_sources(big), big_idx)]
+             (big, _cpu_sources(big), big_idx), (wide, _cpu_sources(wide), big_idx[:28])]
 
     def check():
         if (len(sources), len(levels)) != (10, 37):
             raise AssertionError(f"leaf gather plans of {len(sources)} and {len(levels)} "
                                  "segments, expected 10 and 37")
         got, want = [], []
-        saved = (fri.GATHER_THREADS, fri.GATHER_RETURN)
-        try:
-            for threads in (0, 32):
-                for ret in ("mapped", "copy"):
-                    fri.GATHER_THREADS, fri.GATHER_RETURN = threads, ret
-                    for srcs, srcs_cpu, idx in cases:
-                        plain = fri.query_gather_plain(srcs_cpu, idx)
-                        got += [fri.query_gather(srcs, idx),
-                                torch.as_tensor(fri.gather_to_host(srcs, idx).view(np.int64))]
-                        want += [plain, plain]
-        finally:
-            fri.GATHER_THREADS, fri.GATHER_RETURN = saved
+        for srcs, srcs_cpu, idx in cases:
+            before = fri.query_gather.launches
+            got.append(torch.as_tensor(fri.query_gather(srcs, idx).view(np.int64)))
+            if fri.query_gather.launches - before != 1:
+                raise AssertionError("kernel F's gather took other than one launch")
+            want.append(fri.query_gather_plain(srcs_cpu, idx))
         for srcs, idx in ((big + big[:1], big_idx), (big, big_idx + [0])):
             try:
                 fri.query_gather(srcs, idx)
@@ -855,7 +858,7 @@ def _gather_case(device) -> dict:
     return dict(
         run=lambda: fri.query_gather(sources, indices),
         plain=lambda: fri.query_gather_plain(cpu, indices), plain_on_host=True, check=check,
-        **dict(zip(("bytes", "ops"), gather_work(len(indices), width))),
+        **dict(zip(("bytes", "ops", "host_bytes"), gather_work(len(indices), width))),
     )
 
 
@@ -900,7 +903,7 @@ def phase_kernels(kernels) -> None:
             k["plain_ms"] = _host_median_ms(k["plain"], runs=3)
         else:
             k["plain_ms"] = median_ms(k["plain"], runs=3, warmup=1)
-        k["bound_ms"], k["bound_by"] = _bound((k["bytes"], k["ops"]))
+        k["bound_ms"], k["bound_by"] = _bound((k["bytes"], k["ops"], k.get("host_bytes", 0)))
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         where = "host" if k.get("plain_on_host") else "card"
         print(f"[kernel] {k['name']}: bit-exact; {k['ms']:.4f} ms, device {dev} "
@@ -1153,8 +1156,8 @@ def phase_aggregation_fri_tail(device, degree_bits: int = 16) -> None:
     round's every value against `fold_round_plain` run on the card on the
     same input; F gathering 28 queries' rows and paths of the four oracles
     at m = 2^19 and of the three rounds (14 segments, a path a tree; 89 with
-    a segment a level), against the plain gather, on the card and into
-    pinned host memory by both returns. Each timed beside its bound."""
+    a segment a level), into pinned host memory, against the plain gather.
+    Each timed beside its bound."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -1224,23 +1227,14 @@ def phase_aggregation_fri_tail(device, degree_bits: int = 16) -> None:
     q = fri_cfg.num_query_rounds
     indices = [0, m - 1] + [int(i) for i in rng.integers(0, m, q - 2)]
     got = fri.query_gather(sources, indices)
-    want = fri.query_gather_plain(sources, indices)
-    if not torch.equal(got, want) or not torch.equal(fri.query_gather(levels, indices), want):
+    want = gl.to_u64(fri.query_gather_plain(sources, indices))
+    if not np.array_equal(got, want) or not np.array_equal(fri.query_gather(levels, indices), want):
         raise AssertionError(f"query gather at m = 2^{lde_bits} differs from the plain version")
-    saved = fri.GATHER_RETURN
-    try:
-        for ret in ("mapped", "copy"):
-            fri.GATHER_RETURN = ret
-            if not np.array_equal(fri.gather_to_host(sources, indices), gl.to_u64(want)):
-                raise AssertionError(f"query gather to the host ({ret}) at m = 2^{lde_bits} "
-                                     "differs from the plain version")
-    finally:
-        fri.GATHER_RETURN = saved
     line = _timed(lambda: fri.query_gather(sources, indices), gather_work(q, got.shape[1]))
     print(f"[fri tail 2^{degree_bits}] query gather m = 2^{lde_bits}, {q} queries, "
           f"{len(sources)} segments ({len(levels)} a segment a level), {got.shape[1]} values "
-          f"a query: equal to the plain gather in both forms, also into pinned host memory by "
-          f"both returns; {line}", flush=True)
+          f"a query into pinned host memory: equal to the plain gather in both forms; {line}",
+          flush=True)
     del sources, layers, layer, got
     torch.cuda.empty_cache()
 

@@ -46,7 +46,7 @@ _ENTRIES = {
     "qzk_fri_composition": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _P],
     "qzk_eval_openings": [_P, _I, _P, _P, _P, _I, _P],
     "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _P],
-    "qzk_query_gather": [_P, _I, _I, _P],
+    "qzk_query_gather": [_P, _P],
 }
 
 _lib = None

@@ -87,8 +87,8 @@
 //   4 KB kernel parameter limit (no upload, no plan tensor). A block takes a
 //   query; its threads stride over the packed row, each finds its segment by
 //   a binary search of the offsets in parameter space, makes one load and
-//   one coalesced store. The output may be device memory or mapped pinned
-//   host memory (the kernel writes across the bus, no copy launch).
+//   one coalesced store. The output is pinned host memory, mapped: the
+//   kernel writes across the bus, no copy launch.
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -902,16 +902,15 @@ extern "C" int qzk_fri_fold(const void* leaves, const void* consts, const void* 
 }
 
 // plan: host bytes of a GatherPlan (fri/prover.py::pack_gather_plan):
-// its out pointer, counts, segments in packed-row order and query indices;
-// threads: the block's threads (a multiple of 32); mapped: 1 if out is
-// pinned host memory, translated here to its device address. One launch,
-// a block a query.
-extern "C" int qzk_query_gather(const void* plan, int threads, int mapped, void* stream) {
+// its out pointer (pinned host memory, translated here to its device
+// address), counts, segments in packed-row order and query indices. One
+// launch, a block a query of the packed row's width rounded up to a warp
+// (at most F_MAX_THREADS).
+extern "C" int qzk_query_gather(const void* plan, void* stream) {
   GatherPlan p;
   memcpy(&p, plan, sizeof(GatherPlan));
   if (p.queries < 1 || p.queries > F_MAX_QUERIES || p.segments < 1 ||
-      p.segments > F_MAX_SEGS || p.row_width < 1 || threads < 32 || threads > F_MAX_THREADS ||
-      threads % 32)
+      p.segments > F_MAX_SEGS || p.row_width < 1)
     return (int)cudaErrorInvalidValue;
   int end = 0;
   for (int s = 0; s < p.segments; ++s) {
@@ -922,12 +921,11 @@ extern "C" int qzk_query_gather(const void* plan, int threads, int mapped, void*
     end += g.width;
   }
   if (end != p.row_width) return (int)cudaErrorInvalidValue;
-  if (mapped) {
-    void* dev = nullptr;
-    const cudaError_t e = cudaHostGetDevicePointer(&dev, p.out, 0);
-    if (e != cudaSuccess) return (int)e;
-    p.out = (uint64_t*)dev;
-  }
+  void* dev = nullptr;
+  const cudaError_t e = cudaHostGetDevicePointer(&dev, p.out, 0);
+  if (e != cudaSuccess) return (int)e;
+  p.out = (uint64_t*)dev;
+  const int threads = p.row_width >= F_MAX_THREADS ? F_MAX_THREADS : (p.row_width + 31) / 32 * 32;
   gather_kernel<<<(unsigned)p.queries, threads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

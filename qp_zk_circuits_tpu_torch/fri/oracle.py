@@ -25,7 +25,6 @@ from .. import _cuda
 from ..field import extension as ext
 from ..field import goldilocks as gl
 from ..hash import merkle
-from ..hash import poseidon2 as ps
 from ..poly import ntt
 
 
@@ -166,7 +165,4 @@ def verify_row(
     batch_cap: np.ndarray, row: np.ndarray, index: int, siblings: np.ndarray
 ) -> bool:
     """Host check: a claimed leaf row against an oracle cap."""
-    digest = ps.hash_or_noop(row)
-    root = merkle.merkle_root_from_proof(digest, index, siblings)
-    cap_index = index >> len(siblings)
-    return bool(np.array_equal(root, np.asarray(batch_cap, dtype=np.uint64)[cap_index]))
+    return merkle.verify_merkle_proof(row, index, siblings, batch_cap)

@@ -397,13 +397,6 @@ _PLAN_HEAD = struct.Struct("<Q4i")  # out, queries, segments, row width, pad
 _PLAN_SEG = struct.Struct("<QiiHHBBBB")  # src, strides, offset, width, mask bits, shift, flip, levels
 _PLAN_QUERIES_AT = _PLAN_HEAD.size + MAX_GATHER_SEGMENTS * _PLAN_SEG.size
 GATHER_PLAN_BYTES = _PLAN_QUERIES_AT + 4 * MAX_GATHER_QUERIES
-#: threads of a kernel-F block (a block a query); 0: the packed row's width
-#: rounded up to a warp, at most 1024
-GATHER_THREADS = 0
-#: how `gather_to_host` brings the packed rows to the host: "mapped"
-#: (kernel F writes them into pinned host memory) or "copy" (into device
-#: memory, then one copy to a pinned buffer)
-GATHER_RETURN = "mapped"
 
 
 class GatherSource(NamedTuple):
@@ -431,7 +424,8 @@ def _path_level(s: GatherSource, level: int) -> torch.Tensor:
 
 
 def query_gather_plain(sources: list[GatherSource], indices) -> torch.Tensor:
-    """Plain torch version of `query_gather` (same arguments)."""
+    """Plain torch version of `query_gather` (same arguments): the rows as an
+    int64 tensor on the sources' device."""
     q = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=sources[0].matrix.device)
     parts = []
     for s in sources:
@@ -526,62 +520,34 @@ def query_gather_packed_plain(plan: bytes, memory: list[torch.Tensor]) -> torch.
     return out
 
 
-def query_gather(sources: list[GatherSource], indices) -> torch.Tensor:
-    """For each query index, the picked rows of every source side by side:
-    (Q, sum of widths). On CUDA sources: kernel F (csrc/fri.cu), one launch,
-    its plan passed by value. On CPU sources: the plain version. Raises
-    above the plan's capacity on either."""
-    if not sources or all(s.matrix.device.type == "cpu" for s in sources):
-        pack_gather_plan(sources, indices)  # the kernel's limits hold here too
-        return query_gather_plain(sources, indices)
-    _cuda.require_cuda_int64(*(s.matrix for s in sources))
-    plan, width = pack_gather_plan(sources, indices)
-    out = torch.empty((len(indices), width), dtype=torch.int64, device=sources[0].matrix.device)
-    _launch_gather(plan, out)
-    return out
-
-
-def _launch_gather(plan: bytearray, out: torch.Tensor, mapped: bool = False) -> None:
-    """Kernel F into `out`: device memory, or pinned host memory (mapped)."""
-    struct.pack_into("<Q", plan, 0, out.data_ptr())
-    threads = GATHER_THREADS or min(1024, -(-out.shape[1] // 32) * 32)
-    err = _cuda.lib().qzk_query_gather(bytes(plan), threads, int(mapped), _cuda.stream())
-    _cuda.check(err, "qzk_query_gather")
-    query_gather.launches += 1
-
-
-query_gather.launches = 0
-
+#: kernel F's pinned host buffers, one a (queries, width) shape
 _pinned: dict = {}
 
 
-def _pinned_rows(queries: int, width: int) -> torch.Tensor:
-    """A pinned host (queries, width) int64 buffer, one a shape."""
-    key = (queries, width)
-    if key not in _pinned:
-        _pinned[key] = torch.empty(key, dtype=torch.int64, pin_memory=True)
-    return _pinned[key]
-
-
-def gather_to_host(sources: list[GatherSource], indices) -> np.ndarray:
-    """`query_gather` brought to the host as a (Q, width) uint64 array: on
-    CUDA sources kernel F writes into a pinned buffer (GATHER_RETURN
-    "mapped") or into device memory copied to it ("copy"); the stream is
-    synchronized and the rows copied out of the buffer."""
+def query_gather(sources: list[GatherSource], indices) -> np.ndarray:
+    """For each query index, the picked rows of every source side by side,
+    on the host: a (Q, sum of widths) uint64 array. On CUDA sources: kernel
+    F (csrc/fri.cu), one launch, its plan passed by value, writing the rows
+    into a pinned host buffer (one a shape); the stream is synchronized and
+    the rows copied out. On CPU sources: the plain version. Raises above the
+    plan's capacity on either."""
     if not sources or all(s.matrix.device.type == "cpu" for s in sources):
         pack_gather_plan(sources, indices)  # the kernel's limits hold here too
         return gl.to_u64(query_gather_plain(sources, indices))
     _cuda.require_cuda_int64(*(s.matrix for s in sources))
     plan, width = pack_gather_plan(sources, indices)
-    host = _pinned_rows(len(indices), width)
-    if GATHER_RETURN == "mapped":
-        _launch_gather(plan, host, mapped=True)
-    else:
-        rows = torch.empty(host.shape, dtype=torch.int64, device=sources[0].matrix.device)
-        _launch_gather(plan, rows)
-        host.copy_(rows, non_blocking=True)
+    key = (len(indices), width)
+    if key not in _pinned:
+        _pinned[key] = torch.empty(key, dtype=torch.int64, pin_memory=True)
+    host = _pinned[key]
+    struct.pack_into("<Q", plan, 0, host.data_ptr())
+    _cuda.check(_cuda.lib().qzk_query_gather(bytes(plan), _cuda.stream()), "qzk_query_gather")
+    query_gather.launches += 1
     torch.cuda.current_stream(sources[0].matrix.device).synchronize()
     return host.numpy().view(np.uint64).copy()
+
+
+query_gather.launches = 0
 
 
 def _sibling_sources(tree: merkle.MerkleTree, mask: int) -> list[GatherSource]:
@@ -612,7 +578,7 @@ def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
         mask = leaves.shape[0] - 1  # q mod m' of the round
         sources.append(GatherSource(leaves, mask))
         sources += _sibling_sources(tree, mask)
-    packed = gather_to_host(sources, indices)
+    packed = query_gather(sources, indices)
     q = packed.shape[0]
     widths = [o.lde.shape[0] for o in oracles]
     widths += [4 * (len(o.tree.digests) - 1) for o in oracles]

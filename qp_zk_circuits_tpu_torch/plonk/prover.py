@@ -519,10 +519,6 @@ def verify_vanishing_at_zeta(data, openings: OpeningSet, pi_hash, alphas, betas,
 
     The pure-Python walk of the JAX package's `_verify_vanishing_pure`; its
     compiled constraint tape (the reference's fast path) is not ported."""
-    return _verify_vanishing_pure(data, openings, pi_hash, alphas, betas, gammas, zeta)
-
-
-def _verify_vanishing_pure(data, openings: OpeningSet, pi_hash, alphas, betas, gammas, zeta):
     cfg = data.config
     nc = cfg.num_challenges
     nr = cfg.num_routed_wires

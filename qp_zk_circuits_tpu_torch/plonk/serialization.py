@@ -243,10 +243,9 @@ class VerifierCircuitData:
             num_public_inputs=len(data.public_input_targets),
         )
 
-    def to_bytes(self) -> bytes:
-        w = Writer()
-        w.buf.write(MAGIC)
-        w.u32(VERSION)
+    def _write_layout(self, w: Writer) -> None:
+        """Config, degree, gate set, column layout and PI count: the part
+        that the full and the common views share."""
         write_config(w, self.config)
         w.u32(self.degree_bits)
         w.u32(len(self.gate_types))
@@ -255,6 +254,12 @@ class VerifierCircuitData:
         w.u32(self.num_selectors)
         w.u32(self.num_const_cols)
         w.u32(self.num_public_inputs)
+
+    def to_bytes(self) -> bytes:
+        w = Writer()
+        w.buf.write(MAGIC)
+        w.u32(VERSION)
+        self._write_layout(w)
         w.arr(self.constants_cap)
         w.arr(self.circuit_digest)
         return w.bytes_()
@@ -268,14 +273,7 @@ class VerifierCircuitData:
         w = Writer()
         w.buf.write(MAGIC)
         w.u32(VERSION + 200)  # common-data format tag
-        write_config(w, self.config)
-        w.u32(self.degree_bits)
-        w.u32(len(self.gate_types))
-        for g in self.gate_types:
-            w.string(g.key())
-        w.u32(self.num_selectors)
-        w.u32(self.num_const_cols)
-        w.u32(self.num_public_inputs)
+        self._write_layout(w)
         return w.bytes_()
 
     def to_verifier_only_bytes(self) -> bytes:
@@ -287,6 +285,40 @@ class VerifierCircuitData:
         w.arr(self.constants_cap)
         w.arr(self.circuit_digest)
         return w.bytes_()
+
+    @staticmethod
+    def _read_layout(r: Reader) -> tuple:
+        """`_write_layout`'s fields, each checked as it is read."""
+        cfg = read_config(r)
+        degree_bits = r.u32()
+        if degree_bits > 30:
+            raise SerializationError("degree_bits too large")
+        n_gates = r.u32()
+        if n_gates > 64:
+            raise SerializationError("too many gate types")
+        gates = [gate_from_key(r.string()) for _ in range(n_gates)]
+        return cfg, degree_bits, gates, r.u32(), r.u32(), r.u32()
+
+    @classmethod
+    def _from_parts(cls, layout: tuple, cap, digest, mismatch: str) -> "VerifierCircuitData":
+        """The verifier data of a read layout, cap and digest. The digest
+        binds the FULL verifier identity (cap, config, gate set, layout, PI
+        count): it is recomputed so a tampered artifact can never pass while
+        changing which constraints get evaluated."""
+        cfg, degree_bits, gates, num_selectors, num_const_cols, num_pis = layout
+        if cap.shape != (1 << cfg.fri_config.cap_height, 4):
+            raise SerializationError("malformed constants cap")
+        if digest.shape != (4,):
+            raise SerializationError("malformed circuit digest")
+        from .builder import compute_circuit_digest
+
+        expect = compute_circuit_digest(
+            cap, cfg, degree_bits, [g.key() for g in gates],
+            num_selectors, num_const_cols, num_pis,
+        )
+        if not np.array_equal(expect, digest):
+            raise SerializationError(mismatch)
+        return cls(cfg, degree_bits, gates, num_selectors, num_const_cols, cap, digest, num_pis)
 
     @classmethod
     def from_artifact_bytes(
@@ -300,17 +332,7 @@ class VerifierCircuitData:
             raise SerializationError("bad magic (common data)")
         if r.u32() != VERSION + 200:
             raise SerializationError("unsupported common-data version")
-        cfg = read_config(r)
-        degree_bits = r.u32()
-        if degree_bits > 30:
-            raise SerializationError("degree_bits too large")
-        n_gates = r.u32()
-        if n_gates > 64:
-            raise SerializationError("too many gate types")
-        gates = [gate_from_key(r.string()) for _ in range(n_gates)]
-        num_selectors = r.u32()
-        num_const_cols = r.u32()
-        num_pis = r.u32()
+        layout = cls._read_layout(r)
         r.expect_end()
 
         r2 = Reader(verifier_only, max_len=max_len)
@@ -321,21 +343,8 @@ class VerifierCircuitData:
         cap = r2.arr()
         digest = r2.arr()
         r2.expect_end()
-        if cap.shape != (1 << cfg.fri_config.cap_height, 4):
-            raise SerializationError("malformed constants cap")
-        if digest.shape != (4,):
-            raise SerializationError("malformed circuit digest")
-        from .builder import compute_circuit_digest
-
-        expect = compute_circuit_digest(
-            cap, cfg, degree_bits, [g.key() for g in gates],
-            num_selectors, num_const_cols, num_pis,
-        )
-        if not np.array_equal(expect, digest):
-            raise SerializationError(
-                "circuit digest does not bind the verifier/common artifact pair"
-            )
-        return cls(cfg, degree_bits, gates, num_selectors, num_const_cols, cap, digest, num_pis)
+        return cls._from_parts(layout, cap, digest,
+                          "circuit digest does not bind the verifier/common artifact pair")
 
     @classmethod
     def from_bytes(cls, data: bytes, max_len: int = 1 << 20) -> "VerifierCircuitData":
@@ -344,36 +353,11 @@ class VerifierCircuitData:
             raise SerializationError("bad magic")
         if r.u32() != VERSION:
             raise SerializationError("unsupported version")
-        cfg = read_config(r)
-        degree_bits = r.u32()
-        if degree_bits > 30:
-            raise SerializationError("degree_bits too large")
-        n_gates = r.u32()
-        if n_gates > 64:
-            raise SerializationError("too many gate types")
-        gates = [gate_from_key(r.string()) for _ in range(n_gates)]
-        num_selectors = r.u32()
-        num_const_cols = r.u32()
-        num_pis = r.u32()
+        layout = cls._read_layout(r)
         cap = r.arr()
         digest = r.arr()
         r.expect_end()
-        if cap.shape != (1 << cfg.fri_config.cap_height, 4):
-            raise SerializationError("malformed constants cap")
-        if digest.shape != (4,):
-            raise SerializationError("malformed circuit digest")
-        # the digest binds the FULL verifier identity (cap, config, gate set,
-        # layout, PI count): recompute so a tampered artifact can never pass
-        # while changing which constraints get evaluated
-        from .builder import compute_circuit_digest
-
-        expect = compute_circuit_digest(
-            cap, cfg, degree_bits, [g.key() for g in gates],
-            num_selectors, num_const_cols, num_pis,
-        )
-        if not np.array_equal(expect, digest):
-            raise SerializationError("circuit digest does not match verifier data")
-        return cls(cfg, degree_bits, gates, num_selectors, num_const_cols, cap, digest, num_pis)
+        return cls._from_parts(layout, cap, digest, "circuit digest does not match verifier data")
 
 
 # ---------------------------------------------------------------------------

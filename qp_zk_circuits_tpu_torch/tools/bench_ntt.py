@@ -2,7 +2,6 @@
 CUDA card.
 
     python qp_zk_circuits_tpu_torch/tools/bench_ntt.py [--root DIR] [--runs N] [--cases A,B]
-        [--gather-threads T] [--gather-return mapped|copy]
 
 Times `poly/ntt.py::batched_ntt`, `fri/prover.py::compute_composition`,
 `fri/oracle.py::eval_openings` (kernel D), `fri/prover.py::fold_round`
@@ -23,15 +22,16 @@ private batch's at degree 16 (LDE 135 x 2^16 -> 2^19, iNTT 135 x 2^16,
 coset iNTT 2 x 2^19, the composition at m = 2^19, the openings of the same
 264 rows at n = 2^16, the three fold rounds of schedule(16) = [4, 4, 3]
 (m = 2^19 to 2^15 leaves of arity 2^4, 2^15 to 2^11 of 2^3, 2^11 to the
-last layer), and the gather at m = 2^19 with its three rounds). The
+last layer), and the gather at m = 2^19 with its three rounds). A gather
+case ends with the rows on the host, as the prover takes them: where a
+checkout's `query_gather` returns them on the card, they are brought back
+with `goldilocks.to_u64` as that checkout's `gather_query_rounds` does. The
 "queries stage" cases time `fri/prover.py::gather_query_rounds` (kernel F's
 gather, its return to the host and the unpacking into query rounds) at the
 leaf and at m = 2^19 on the host's clock; the "timer floor" case is
 `goldilocks_add` on 8 felts, the least a launch reads by these timers.
 Inputs are random felts made on the card from fixed seeds. `--cases` keeps
-the cases whose names contain one of the given words. `--gather-threads`
-and `--gather-return` set kernel F's block size and its return to the host
-(`GATHER_THREADS`, `GATHER_RETURN`) in a checkout that has them.
+the cases whose names contain one of the given words.
 
   * `ms`: CUDA events around one wrapper call, median of --runs (host work
     and the gaps between launches included);
@@ -39,8 +39,8 @@ and `--gather-return` set kernel F's block size and its return to the host
     graph (`tools/timing.py::device_ms`), the kernels alone;
   * `host_ms` (queries stage): the host clock around one call, which ends
     with the rows on the host, median of --runs;
-  * `bound_ms`: the larger of bytes over 3.35 TB/s and integer operations
-    over 16.7 T op/s;
+  * `bound_ms`: the larger of bytes over 3.35 TB/s (bytes written across the
+    host link over 64 GB/s) and integer operations over 16.7 T op/s;
   * the output's SHA-256, so two checkouts can be seen to agree.
 
 A size a checkout refuses is reported as refused. Prints one line a case,
@@ -65,8 +65,6 @@ def main() -> None:
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--cases", default="", help="comma-separated words; a case runs if its "
                     "name contains one (default: all)")
-    ap.add_argument("--gather-threads", type=int, default=None)
-    ap.add_argument("--gather-return", default=None, choices=("mapped", "copy"))
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     import numpy as np
@@ -92,11 +90,6 @@ def main() -> None:
     from qp_zk_circuits_tpu_torch.poly import ntt
     from qp_zk_circuits_tpu_torch.field import goldilocks as gl
     from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
-
-    if args.gather_threads is not None and hasattr(fri, "GATHER_THREADS"):
-        fri.GATHER_THREADS = args.gather_threads
-    if args.gather_return is not None and hasattr(fri, "GATHER_RETURN"):
-        fri.GATHER_RETURN = args.gather_return
 
     def felts(shape, seed):
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -192,7 +185,12 @@ def main() -> None:
     def gather(degree_bits):
         def make():
             sources, _, _, indices, work = gather_layout(degree_bits)
-            return (lambda: fri.query_gather(sources, indices)), work
+
+            def to_host():
+                rows = fri.query_gather(sources, indices)
+                return gl.to_u64(rows) if isinstance(rows, torch.Tensor) else rows
+
+            return to_host, work
         return f"gather m = 2^{degree_bits + cfg.rate_bits}, {fri_cfg.num_query_rounds} queries", make
 
     def queries_stage(degree_bits):
@@ -291,6 +289,8 @@ def _digest(out) -> str:
             *(x for st in r.steps for x in (st.leaf_values, st.siblings)))])
     elif isinstance(out, tuple):
         data = np.concatenate([np.asarray(a).reshape(-1) for a in (*out[0], out[1])])
+    elif isinstance(out, np.ndarray):
+        data = out.view(np.int64)
     else:
         data = out.cpu().numpy()
     return hashlib.sha256(data.tobytes()).hexdigest()[:16]

@@ -26,7 +26,7 @@ The `gpu` cases hold each kernel against its plain version at the leaf's
 shapes with the edge values p - 1, 0 and 2^32, kernel D's sum across blocks
 at n = 2^16, kernel E's on-card twiddles at every arity and coset shift up
 to m = 2^19, and kernel F at its plan's edges (a width-1 segment, rows not a
-multiple of a warp, the largest plan, both returns to the host); they skip
+multiple of a warp, the largest plan, a row wider than a block); they skip
 without a card.
 """
 
@@ -376,7 +376,7 @@ def test_packed_gather_plan_gives_the_plain_gather(lde_bits, schedule, paths, se
     want = tfri.query_gather_plain(sources, indices)
     assert width == want.shape[1]
     assert torch.equal(tfri.query_gather_packed_plain(plan, [buf]), want)
-    assert torch.equal(tfri.query_gather(sources, indices), want)
+    assert np.array_equal(tfri.query_gather(sources, indices), gl.to_u64(want))
 
 
 def test_merkle_path_source_gives_the_levels():
@@ -389,7 +389,7 @@ def test_merkle_path_source_gives_the_levels():
     indices = [0, 63, 17, 40]
     want = torch.cat([lvl[[(q >> l) ^ 1 for q in indices]] for l, lvl in
                       enumerate(tree.digests[:-1])], dim=1)
-    assert torch.equal(tfri.query_gather([path], indices), want)
+    assert np.array_equal(tfri.query_gather([path], indices), gl.to_u64(want))
     plan, _ = tfri.pack_gather_plan([path], indices)
     assert torch.equal(tfri.query_gather_packed_plain(plan, [tree.digests[0]]), want)
     with pytest.raises(ValueError):  # levels that are not one buffer
@@ -408,14 +408,12 @@ def test_gather_plan_capacity():
     want = tfri.query_gather_plain(sources, indices)
     assert width == 3 * (tfri.MAX_GATHER_SEGMENTS - 1) + 1
     assert torch.equal(tfri.query_gather_packed_plain(plan, [buf]), want)
-    assert torch.equal(tfri.query_gather(sources, indices), want)
+    assert np.array_equal(tfri.query_gather(sources, indices), gl.to_u64(want))
     for srcs, idx in ((sources + sources[:1], indices), (sources, indices + [7])):
         with pytest.raises(ValueError):
             tfri.pack_gather_plan(srcs, idx)
         with pytest.raises(ValueError):
             tfri.query_gather(srcs, idx)
-        with pytest.raises(ValueError):
-            tfri.gather_to_host(srcs, idx)
 
 
 @pytest.mark.parametrize("source, indices", [
@@ -482,7 +480,7 @@ def test_fri_kernels_match_plain_on_card(cuda):
     indices = [0, m - 1, 7, 1000]
     got_g = tfri.query_gather(sources, indices)
     assert len(sources) == 2  # the rows, and the Merkle path as one segment
-    assert torch.equal(got_g, tfri.query_gather_plain(sources, indices))
+    assert np.array_equal(got_g, gl.to_u64(tfri.query_gather_plain(sources, indices)))
     assert [f.launches for f in (gl.add, gl.sub, gl.mul)] == before
 
 
@@ -553,8 +551,9 @@ def test_query_gather_plan_edges_on_card(cuda):
     tail's layouts (10 and 14 segments with a path a tree, 37 and 89 with a
     segment a level; indices 0 and m - 1), the largest plan (128 segments,
     one of width 1, 128 queries, a packed row of 382 values: not a multiple
-    of a warp), one block a warp and the default block, and
-    `gather_to_host` by both returns; one over the plan raises."""
+    of a warp) and a packed row of 1,200 values (wider than a block: its
+    threads stride), each in one launch into pinned host memory; one over
+    the plan raises."""
     rows, _ = _leaf_shapes()
     cases = []
     for lde_bits, schedule, paths, _ in GATHER_LAYOUTS:
@@ -565,21 +564,17 @@ def test_query_gather_plan_edges_on_card(cuda):
     big = [tfri.GatherSource(buf.as_strided((256, 3), (3, 1)), 255, shift=k % 3, flip=k % 2)
            for k in range(tfri.MAX_GATHER_SEGMENTS - 1)]
     big.append(tfri.GatherSource(buf.as_strided((256, 1), (1, 1)), 255))
-    cases.append((big, _gather_indices(256, tfri.MAX_GATHER_QUERIES, 2)))
-    saved = (tfri.GATHER_THREADS, tfri.GATHER_RETURN)
-    try:
-        for threads in (32, 0):
-            for ret in ("mapped", "copy"):
-                tfri.GATHER_THREADS, tfri.GATHER_RETURN = threads, ret
-                for sources, indices in cases:
-                    want = tfri.query_gather_plain(sources, indices)
-                    before = tfri.query_gather.launches
-                    assert torch.equal(tfri.query_gather(sources, indices), want)
-                    assert np.array_equal(tfri.gather_to_host(sources, indices), gl.to_u64(want))
-                    assert tfri.query_gather.launches - before == 2
-    finally:
-        tfri.GATHER_THREADS, tfri.GATHER_RETURN = saved
+    big_idx = _gather_indices(256, tfri.MAX_GATHER_QUERIES, 2)
+    cases.append((big, big_idx))
+    wide = torch.arange(64 * 600, dtype=torch.int64, device=cuda).reshape(64, 600)
+    cases.append(([tfri.GatherSource(wide, 63), tfri.GatherSource(wide, 63, flip=1)],
+                  _gather_indices(64, 28, 3)))
+    for sources, indices in cases:
+        want = tfri.query_gather_plain(sources, indices)
+        before = tfri.query_gather.launches
+        assert np.array_equal(tfri.query_gather(sources, indices), gl.to_u64(want))
+        assert tfri.query_gather.launches - before == 1
     with pytest.raises(ValueError):
-        tfri.query_gather(big + big[:1], cases[-1][1])
+        tfri.query_gather(big + big[:1], big_idx)
     with pytest.raises(ValueError):
-        tfri.query_gather(big, cases[-1][1] + [0])
+        tfri.query_gather(big, big_idx + [0])
