@@ -7,6 +7,15 @@ package. Phases, each printing one line:
 
   1. device — torch/CUDA versions and `nvidia-smi` name + power limit;
   2. build — compiles csrc/*.cu with nvcc for sm_90a (one process a source);
+     then host — builds the host library (native/*.c, the system C
+     compiler; its seconds and flags printed) and holds each of its
+     functions against its Python form on this host, bit-exact, at the
+     leaf's shapes: a transcript duplex, a Poseidon2 gate row, the sponge
+     over each oracle's row and a FRI leaf, a 2-to-1, a Merkle path of the
+     leaf's depth, an absorb of the openings, the leaf's witness (the tape
+     against the Python replay), and the leaf fixture's vanishing check and
+     FRI query rounds, accepted and, with a FRI leaf value changed,
+     rejected alike; C and Python times on the host clock;
   3. kernels — each kernel against its plain PyTorch version, bit-exact, at
      the shapes of the leaf prover, plus the field edge vectors (the fused
      kernels A-F against their plain versions run on CPU copies of the same
@@ -60,8 +69,13 @@ package. Phases, each printing one line:
      openings one, one fold a FRI round, one query gather, one tree call
      of at most two launches a commit and a FRI round, no per-level
      two_to_one), and kernel 1 (off the path since the FRI tail got its own
-     kernels) at most five times; then the path's close on the host: the
-     port's WormholeVerifier accepts the cold and the warm proof, the
+     kernels) at most five times; that the cold proof ran no witness tape
+     and the warm proof's witness came from one tape run, and that the
+     warm proof's transcript duplexes and absorbs went through the host
+     library; the witness and transcript times of a stage-timed proof;
+     then the path's close on the host: the port's WormholeVerifier
+     accepts the cold and the warm proof, each through the compiled FRI
+     query rounds and constraint tape (one verify's split printed), the
      verifier.bin / common.bin pair built from the card's circuit data
      hashes to the keccak pins and loads with the pins enforced, the loaded
      verifier accepts the warm proof, and copies with one FRI query leaf
@@ -321,6 +335,192 @@ def phase_build() -> None:
     so = _cuda.build()
     _cuda.lib()
     print(f"[build] {so.name} in {time.time() - t0:.1f} s", flush=True)
+
+
+def _fixture_verifier_data(data):
+    """The leaf's VerifierCircuitData: a shape-only build's layout with the
+    committed fixture's constants cap and circuit digest."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.plonk.serialization import VerifierCircuitData
+
+    meta = json.loads(FIXTURE_META.read_text())[FIXTURE.name]
+    return VerifierCircuitData(
+        data.config, data.degree_bits, list(data.gate_types), data.num_selectors,
+        data.const_cols.shape[0], np.array(meta["constants_cap"], dtype=np.uint64),
+        np.array(meta["circuit_digest"], dtype=np.uint64), len(data.public_input_targets))
+
+
+def _spy(owner, attr, calls):
+    """Replace owner.attr by a wrapper that records each call's arguments;
+    returns the undo."""
+    fn = getattr(owner, attr)
+
+    def inner(*args):
+        calls.append(args)
+        return fn(*args)
+
+    setattr(owner, attr, inner)
+    return lambda: setattr(owner, attr, fn)
+
+
+def _outcome(fn) -> str:
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the class and message are compared
+        return f"{type(e).__name__}: {e}"
+    return "accepted"
+
+
+def phase_host() -> None:
+    """Build the host library (native/*.c, the system C compiler) and hold
+    each compiled function against its Python form on this host, at the
+    leaf's shapes, bit-exact: a transcript duplex, a Poseidon2 gate row,
+    the sponge over each oracle's row width and a FRI leaf, a 2-to-1, a
+    Merkle path of the leaf's depth, an absorb of the leaf's openings, the
+    leaf's witness (the tape against the Python replay), and the leaf
+    fixture's vanishing check (tape) and FRI query rounds, accepted and
+    rejected alike; medians on the host clock."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch import native as nat
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.fri import verifier as fv
+    from qp_zk_circuits_tpu_torch.hash import merkle
+    from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
+    from qp_zk_circuits_tpu_torch.plonk import builder, prover
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
+    from qp_zk_circuits_tpu_torch.plonk import verifier as pv
+    from qp_zk_circuits_tpu_torch.plonk.gates import Poseidon2Gate
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_from_bytes
+    from qp_zk_circuits_tpu_torch.wormhole import leaf_circuit
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import test_inputs_0
+
+    t0 = time.time()
+    so = nat.build()
+    nat.lib()
+    print(f"[host] {so.name} built by cc in {time.time() - t0:.1f} s; flags: {nat.flags()}",
+          flush=True)
+    rng = np.random.default_rng(9)
+    circuit = leaf_circuit.WormholeCircuit()
+    data = circuit.build(shape_only=True)
+    cfg = data.config
+
+    def same(a, b) -> bool:
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return np.array_equal(np.asarray(a), np.asarray(b))
+
+    def check(name, fast, pure, runs=50, pure_runs=5):
+        if not same(fast(), pure()):
+            raise AssertionError(f"[host] {name}: the C library and its Python form differ")
+        c_ms = _host_median_ms(fast, runs)
+        py_ms = _host_median_ms(pure, pure_runs)
+        print(f"[host] {name}: bit-exact; C {c_ms:.4f} ms, Python {py_ms:.3f} ms", flush=True)
+
+    state = F.rand_felts(12, rng)
+    check("permute, one state (a transcript duplex)",
+          lambda: ps.permute_np(state), lambda: ps._permute_scalar_pure(state))
+    gate_in = F.rand_felts(12, rng)
+
+    def fill(fn):
+        out = {}
+        fn(lambda c: int(gate_in[c]) if c < 12 else 0, out.__setitem__)
+        return out
+
+    check("permute trace (a Poseidon2 gate row)", lambda: fill(Poseidon2Gate().fill_row),
+          lambda: fill(Poseidon2Gate()._fill_row_pure))
+    nc, qdf = cfg.num_challenges, cfg.max_quotient_degree_factor
+    npp = -(-cfg.num_routed_wires // qdf) - 1
+    arity = 1 << cfg.fri_config.reduction_strategy.schedule(data.degree_bits)[0]
+    for what, width in (("constants and sigmas", data.num_preprocessed), ("wires", cfg.num_wires),
+                        ("Z and partial products", nc + nc * npp), ("quotient", nc * qdf),
+                        ("FRI leaf", 2 * arity)):
+        row = F.rand_felts(width, rng)
+        check(f"sponge over a {what} row ({width} felts)", lambda row=row: ps.hash_no_pad(row),
+              lambda row=row: ps._hash_no_pad_pure(row))
+    left, right = F.rand_felts(4, rng), F.rand_felts(4, rng)
+    check("2-to-1", lambda: ps.two_to_one_np(left, right), lambda: ps._two_to_one_pure(left, right))
+    levels = data.degree_bits + cfg.fri_config.rate_bits - cfg.fri_config.cap_height
+    leaf, sibs = F.rand_felts(4, rng), F.rand_felts((levels, 4), rng)
+    check(f"Merkle walk of {levels} levels",
+          lambda: merkle.merkle_root_from_proof(leaf, 77, sibs),
+          lambda: merkle._merkle_root_from_proof_pure(leaf, 77, sibs))
+    felts = F.rand_felts(2 * (data.num_preprocessed + cfg.num_wires + 2 * nc + nc * npp + nc * qdf),
+                         rng)
+
+    def absorb(per_felt):
+        ch = ts.Challenger()
+        ch.observe(np.uint64(5))
+        if per_felt:
+            for f in felts:
+                ch.observe(f)
+        else:
+            ch.observe_many(felts)
+        return ch.state, ch.input_buf, ch.output_buf, ch.challenge()
+
+    check(f"absorb of {felts.size} felts (the openings)", lambda: absorb(False),
+          lambda: absorb(True))
+
+    def witness_pw():
+        pw = builder.PartialWitness()
+        leaf_circuit.fill_witness(pw, test_inputs_0(), circuit.targets)
+        return pw
+
+    t = time.perf_counter()
+    builder.witness_root_values(data, witness_pw())  # records the program
+    record_ms = 1e3 * (time.perf_counter() - t)
+
+    def replay():
+        arr = np.zeros(data.num_targets, dtype=np.uint64)
+        for r, v in builder.run_generators(data, witness_pw()).items():
+            arr[r] = v
+        return arr
+
+    tapes = nat.counts["wt_run"]
+    check("leaf witness (tape against the Python replay)",
+          lambda: builder.witness_root_values(data, witness_pw()), replay, runs=20, pure_runs=3)
+    if nat.counts["wt_run"] <= tapes:
+        raise AssertionError("[host] the leaf's witness did not run the tape")
+    print(f"[host] the leaf's first witness (records the program) {record_ms:.2f} ms", flush=True)
+
+    vdata = _fixture_verifier_data(data)
+    blob = FIXTURE.read_bytes()
+    vanishing, rounds = [], []
+    undo = [_spy(pv, "verify_vanishing_at_zeta", vanishing), _spy(fv, "_query_rounds", rounds)]
+    try:
+        t = time.perf_counter()
+        pv.verify(vdata, proof_from_bytes(blob))
+        first_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        for u in undo:
+            u()
+    print(f"[host] the fixture's first verify (records the constraint tape) {first_ms:.2f} ms",
+          flush=True)
+    args = vanishing[0]
+    check("vanishing check (constraint tape), fixture", lambda: prover.verify_vanishing_at_zeta(*args),
+          lambda: prover._verify_vanishing_pure(*args), runs=20, pure_runs=3)
+    bad_openings = proof_from_bytes(blob).openings
+    bad_openings.wires = np.array(bad_openings.wires, dtype=np.uint64)
+    bad_openings.wires[0, 1] = (int(bad_openings.wires[0, 1]) + 1) % F.P
+    bad = (args[0], bad_openings, *args[2:])
+    if prover.verify_vanishing_at_zeta(*bad) or prover._verify_vanishing_pure(*bad):
+        raise AssertionError("[host] a changed opening passed the vanishing check")
+    qargs = rounds[0]
+    check("FRI query rounds, fixture (Python: the loop)", lambda: _outcome(lambda: fv._query_rounds(*qargs)),
+          lambda: _outcome(lambda: fv._query_rounds_pure(*qargs)), runs=20, pure_runs=3)
+    proof = proof_from_bytes(blob)
+    step = proof.fri_proof.query_rounds[3].steps[0]
+    step.leaf_values = np.array(step.leaf_values, dtype=np.uint64)
+    step.leaf_values[1, 0] = (int(step.leaf_values[1, 0]) + 1) % F.P
+    tampered = (*qargs[:4], proof.fri_proof, *qargs[5:])
+    got = _outcome(lambda: fv._query_rounds(*tampered))
+    want = _outcome(lambda: fv._query_rounds_pure(*tampered))
+    if want == "accepted" or got != f"{want} (query round 3)":
+        raise AssertionError(f"[host] a changed FRI leaf: C {got!r}, Python {want!r}")
+    print(f"[host] a changed FRI leaf value: C and Python reject it ({got})", flush=True)
 
 
 def _felts(shape, rng, device):
@@ -1255,13 +1455,21 @@ def _verify_path(prover, blobs: list[bytes]) -> str:
     from qp_zk_circuits_tpu_torch.wormhole import canonical_pins as pins
     from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
 
+    from qp_zk_circuits_tpu_torch import native as nat
+    from qp_zk_circuits_tpu_torch.tools.profile_leaf import TRANSCRIPT_STAGES, VERIFY_STAGES, stage_times
+
     verifier = WormholeVerifier(prover.data)
     times = []
     for blob in blobs:
         proof = proof_from_bytes(blob)
+        before = (nat.counts["fri_verify_queries"], nat.counts["eval_tape"])
         t = time.perf_counter()
         verifier.verify(proof)
         times.append(1e3 * (time.perf_counter() - t))
+        if (nat.counts["fri_verify_queries"], nat.counts["eval_tape"]) != (before[0] + 1, before[1] + 1):
+            raise AssertionError("a verify did not take the compiled FRI and vanishing paths")
+    split = stage_times(VERIFY_STAGES + TRANSCRIPT_STAGES,
+                        lambda: verifier.verify(proof_from_bytes(blobs[-1])))
     pair = artifacts.leaf_verifier_artifacts(prover.data)
     for name, pin in (("verifier.bin", pins.CANONICAL_LEAF_VERIFIER_KECCAK256),
                       ("common.bin", pins.CANONICAL_LEAF_COMMON_KECCAK256)):
@@ -1295,7 +1503,10 @@ def _verify_path(prover, blobs: list[bytes]) -> str:
             rejected.append(f"{name}: {e}")
             continue
         raise AssertionError(f"the verifier accepted a proof with {name} changed")
-    return (f"[verify] WormholeVerifier accepts the cold and warm proofs (host "
+    parts = "; ".join(f"{name} {v['ms']:.3f} ms ({v['calls']} calls)" for name, v in split.items())
+    print(f"[verify split] one verify of the warm proof: {parts}", flush=True)
+    return (f"[verify] WormholeVerifier accepts the cold and warm proofs through the compiled "
+            f"query rounds and constraint tape (host "
             f"{', '.join(f'{t:.1f}' for t in times)} ms); verifier.bin and common.bin of the "
             f"card-built circuit data hash to the keccak pins and load with the pins enforced; "
             f"the loaded verifier accepts the warm proof ({loaded_ms:.1f} ms, volume_fee_bps "
@@ -1305,7 +1516,10 @@ def _verify_path(prover, blobs: list[bytes]) -> str:
 def phase_main_path(kernels) -> None:
     import torch
 
+    from qp_zk_circuits_tpu_torch import native as nat
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
     from qp_zk_circuits_tpu_torch.plonk.serialization import proof_to_bytes
+    from qp_zk_circuits_tpu_torch.tools.profile_leaf import PROVE_STAGES, TRANSCRIPT_STAGES, stage_times
     from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
     from qp_zk_circuits_tpu_torch.wormhole.test_helpers import test_inputs_0
 
@@ -1325,10 +1539,34 @@ def phase_main_path(kernels) -> None:
 
     for k in kernels:
         k["wrapper"].launches = 0
+    tapes = nat.counts["wt_run"]
     blob, cold_s = prove_once()
     for k in kernels:
         k["launches"] = k["wrapper"].launches
-    blob2, warm_s = prove_once()
+    if nat.counts["wt_run"] != tapes:
+        raise AssertionError("the cold proof ran a witness tape before its program was recorded")
+    # the warm proof: its witness from the tape, the transcript's permutations
+    # (a duplex each, and those of its absorbs) through the host library
+    duplexes = []
+    restore = _spy(ts.Challenger, "_duplex", duplexes)
+    before = dict(nat.counts)
+    try:
+        blob2, warm_s = prove_once()
+    finally:
+        restore()
+    ran = {k: nat.counts[k] - before.get(k, 0) for k in nat.counts}
+    if ran.get("wt_run") != 1:
+        raise AssertionError(f"the warm proof's witness did not come from the tape: {ran}")
+    if not duplexes or ran.get("permute_batch", 0) < len(duplexes) or not ran.get("absorb_many"):
+        raise AssertionError(f"the transcript's {len(duplexes)} duplexes did not all go through "
+                             f"the host library: {ran}")
+    stages = stage_times(PROVE_STAGES + TRANSCRIPT_STAGES, prove_once)
+    transcript = stages["transcript (duplex + absorb)"]["ms"]
+    print(f"[main] warm proof: witness from the tape (1 run); transcript {len(duplexes)} duplexes "
+          f"and {ran['absorb_many']} absorbs through the host library ({ran['permutations']} "
+          f"permutations in all); "
+          f"stage-timed proof {stages['total']['ms']:.2f} ms: witness "
+          f"{stages['witness (host)']['ms']:.2f} ms, transcript {transcript:.2f} ms", flush=True)
     for name, b in (("cold", blob), ("warm", blob2)):
         digest = hashlib.sha256(b).hexdigest()
         if len(b) != meta["len"] or digest != meta["sha256"]:
@@ -1365,6 +1603,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     device_info = phase_device()
     phase_build()
+    phase_host()
     kernels = kernel_table("cuda")
     phase_kernels(kernels)
     phase_aggregation_tree("cuda")

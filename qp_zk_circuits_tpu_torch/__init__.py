@@ -15,8 +15,11 @@ qp_zk_circuits_tpu. Layout mirrors the JAX package:
   utils/     byte<->felt codecs, config policy, gadgets
   wormhole/  the Wormhole leaf circuit, WormholeProver, WormholeVerifier and
              its keccak-pinned artifacts
+  native/    the host's work in C (Poseidon2, transcript absorb, witness
+             tape, constraint tape, FRI query verifier), built with the
+             system C compiler at first use
 
-The verifiers run on the host (numpy and Python ints).
+The verifiers run on the host.
 """
 
 __version__ = "0.1.0"

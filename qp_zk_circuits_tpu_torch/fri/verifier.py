@@ -7,15 +7,20 @@ Fiat-Shamir transcript, checks the PoW grind, and for every query round:
 verifies all Merkle openings, recomputes the composition value Q(x), walks
 the fold layers, and checks the final polynomial evaluation.
 
-The JAX package's pure-Python query loop, check for check and message for
-message; its compiled query verifier (native/fri_verify.c) is not ported.
-Nothing here touches a device.
+The query rounds run in one call into the C library
+(`native/fri_verify.c::fri_verify_queries`, flattened by `_native_flatten`);
+a rejection there names its check and query round. A layout the C code does
+not take (more than 8 oracles, 16 layers or arity 2^6, more than 1024
+opening terms, a malformed shape) goes to `_query_rounds_pure`, the
+Python-int loop, which also is the tests' oracle. Nothing here touches a
+device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native as nat
 from ..field import extension as ext
 from ..field import gf_np as F
 from ..plonk import transcript as ts
@@ -32,6 +37,118 @@ class FriVerificationError(Exception):
 
 def _fail(msg: str):
     raise FriVerificationError(msg)
+
+
+def _native_flatten(
+    oracle_caps, instance, openings, proof, config, lde_bits, schedule
+):
+    """Try to flatten proof + instance into the contiguous arrays the compiled
+    query verifier consumes. Returns the kwargs dict, or None when any shape
+    deviates from the canonical layout (the pure-Python loop then handles it
+    and reports the precise failure)."""
+    cap_h = config.cap_height
+    n_oracles = len(oracle_caps)
+    if n_oracles > 8 or len(schedule) > 16 or max(schedule, default=0) > 6:
+        return None
+    caps = []
+    for c in oracle_caps:
+        c = np.asarray(c, dtype=np.uint64)
+        if c.shape != (1 << cap_h, 4):
+            return None
+        caps.append(c.reshape(-1))
+    rounds = proof.query_rounds
+    if not rounds or len(rounds[0].initial_rows) != n_oracles:
+        return None
+    widths = [np.asarray(r).shape for r in rounds[0].initial_rows]
+    if any(len(s) != 1 for s in widths):
+        return None
+    widths = [s[0] for s in widths]
+    init_sib = lde_bits - cap_h
+    # per-layer geometry
+    step_geom = []
+    log_m = lde_bits
+    for a_bits in schedule:
+        mp = log_m - a_bits
+        cl = min(cap_h, mp)
+        step_geom.append((1 << a_bits, mp - cl, cl))
+        log_m = mp
+    ccaps = []
+    for (arity, sib_l, cl), cap in zip(step_geom, proof.commit_caps):
+        cap = np.asarray(cap, dtype=np.uint64)
+        if cap.shape != (1 << cl, 4):
+            return None
+        ccaps.append(cap.reshape(-1))
+    total_terms = instance.num_terms()
+    if total_terms > 1024:
+        return None
+    all_rows, all_isibs, all_leaves, all_ssibs = [], [], [], []
+    for rd in rounds:
+        if len(rd.initial_rows) != n_oracles or len(rd.steps) != len(schedule):
+            return None
+        for oi, (row, sibs) in enumerate(zip(rd.initial_rows, rd.initial_siblings)):
+            row = np.asarray(row, dtype=np.uint64)
+            sibs = np.asarray(sibs, dtype=np.uint64)
+            if row.shape != (widths[oi],) or sibs.shape != (init_sib, 4):
+                return None
+            all_rows.append(row)
+            all_isibs.append(sibs.reshape(-1))
+        for (arity, sib_l, _), st in zip(step_geom, rd.steps):
+            leaf = np.asarray(st.leaf_values, dtype=np.uint64)
+            sibs = np.asarray(st.siblings, dtype=np.uint64)
+            if leaf.shape != (arity, 2) or sibs.shape != (sib_l, 4):
+                return None
+            all_leaves.append(leaf.reshape(-1))
+            all_ssibs.append(sibs.reshape(-1))
+    bsizes, poly_oi, poly_pj, bpoints = [], [], [], []
+    for b in instance.batches:
+        bsizes.append(len(b.polys))
+        bpoints.extend((int(b.point[0]), int(b.point[1])))
+        for oi, pj in b.polys:
+            if pj >= widths[oi]:
+                return None
+            poly_oi.append(oi)
+            poly_pj.append(pj)
+    opens = np.concatenate(
+        [np.asarray(o, dtype=np.uint64).reshape(-1, 2) for o in openings]
+    )
+    if opens.shape[0] != total_terms:
+        return None
+    cat = lambda parts: (  # noqa: E731
+        np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint64)
+    )
+    return dict(
+        lde_bits=lde_bits,
+        schedule=np.asarray(schedule, dtype=np.uint64),
+        oracle_widths=np.asarray(widths, dtype=np.uint64),
+        oracle_caps=cat(caps),
+        cap_height=cap_h,
+        batch_sizes=np.asarray(bsizes, dtype=np.uint64),
+        batch_points=np.asarray(bpoints, dtype=np.uint64),
+        poly_oi=np.asarray(poly_oi, dtype=np.uint64),
+        poly_pj=np.asarray(poly_pj, dtype=np.uint64),
+        openings=opens.reshape(-1),
+        commit_caps=cat(ccaps),
+        initial_rows=cat(all_rows),
+        initial_sibs=cat(all_isibs),
+        step_leaves=cat(all_leaves),
+        step_sibs=cat(all_ssibs),
+    )
+
+
+_NATIVE_ERRORS = {
+    1: "initial Merkle proof failed (oracle {sub})",
+    2: "fold consistency failed at layer {sub}",
+    3: "commit-phase Merkle proof failed at layer {sub}",
+    4: "final polynomial check failed",
+}
+
+
+_NATIVE_ERRORS = {
+    1: "initial Merkle proof failed (oracle {sub})",
+    2: "fold consistency failed at layer {sub}",
+    3: "commit-phase Merkle proof failed at layer {sub}",
+    4: "final polynomial check failed",
+}
 
 
 def fri_verify(
@@ -75,7 +192,42 @@ def fri_verify(
     indices = [challenger.challenge_index(m0) for _ in range(config.num_query_rounds)]
     if len(proof.query_rounds) != len(indices):
         _fail("wrong number of query rounds")
+    _query_rounds(oracle_caps, oracle_num_polys, instance, openings, proof, config,
+                  degree_bits, alpha, betas, indices)
 
+
+def _query_rounds(oracle_caps, oracle_num_polys, instance, openings, proof, config,
+                  degree_bits, alpha, betas, indices) -> None:
+    """Every query round in one call into the C library; a layout it does
+    not take, or its capacity code (9), goes to the Python loop."""
+    lde_bits = degree_bits + config.rate_bits
+    schedule = config.reduction_strategy.schedule(degree_bits)
+    flat = _native_flatten(oracle_caps, instance, openings, proof, config, lde_bits, schedule)
+    if flat is not None:
+        code = nat.fri_verify_queries(
+            alpha=np.asarray(alpha, dtype=np.uint64),
+            betas=np.asarray(betas, dtype=np.uint64).reshape(-1),
+            final_poly=np.asarray(proof.final_poly, dtype=np.uint64).reshape(-1),
+            g=int(F.MULTIPLICATIVE_GROUP_GENERATOR),
+            w0=int(F.primitive_root_of_unity(lde_bits)),
+            indices=np.asarray(indices, dtype=np.uint64),
+            **flat,
+        )
+        if code == 0:
+            return
+        kind, rnd, sub = code >> 32, (code >> 16) & 0xFFFF, code & 0xFFFF
+        if kind in _NATIVE_ERRORS:
+            _fail(_NATIVE_ERRORS[kind].format(sub=sub) + f" (query round {rnd})")
+    _query_rounds_pure(oracle_caps, oracle_num_polys, instance, openings, proof, config,
+                       degree_bits, alpha, betas, indices)
+
+
+def _query_rounds_pure(oracle_caps, oracle_num_polys, instance, openings, proof, config,
+                       degree_bits, alpha, betas, indices) -> None:
+    """The query rounds in Python ints (the tests' oracle)."""
+    lde_bits = degree_bits + config.rate_bits
+    m0 = 1 << lde_bits
+    schedule = config.reduction_strategy.schedule(degree_bits)
     # the query loop runs in the (int, int) ext-tuple domain: pure Python-int
     # arithmetic through the shared ext ops (no numpy packing per op)
     alpha_t = ext.pair(alpha)

@@ -16,7 +16,8 @@ commitment, because the transcript observes it. The prover's query paths are
 gathered on the device by kernel F (fri/prover.py::query_rounds);
 `MerkleTree.prove` copies the levels to the host once, for callers outside
 the prover path. `verify_merkle_proof` and `merkle_root_from_proof` are the
-verifier's host walk (numpy, the host Poseidon2 of `poseidon2.py`).
+verifier's host walk: one call into the C library of native/ a path
+(`_merkle_root_from_proof_pure` is the tests' oracle).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import native as nat
 from ..field import goldilocks as gl
 from . import poseidon2 as ps
 
@@ -76,14 +78,20 @@ def build_merkle_tree(leaves: torch.Tensor, cap_height: int) -> MerkleTree:
 
 
 def merkle_root_from_proof(leaf_digest: np.ndarray, index: int, siblings: np.ndarray) -> np.ndarray:
-    """Host walk: recompute the cap entry from a leaf digest and its siblings."""
+    """Host walk: recompute the cap entry from a leaf digest and its
+    siblings, in one call into the C library."""
+    return nat.merkle_walk(leaf_digest, index, siblings)
+
+
+def _merkle_root_from_proof_pure(leaf_digest: np.ndarray, index: int, siblings: np.ndarray) -> np.ndarray:
+    """merkle_root_from_proof in pure Python ints (the tests' oracle)."""
     cur = np.asarray(leaf_digest, dtype=np.uint64)
     idx = index
     for sib in siblings:
         if idx & 1:
-            cur = ps.two_to_one_np(sib, cur)
+            cur = ps._two_to_one_pure(sib, cur)
         else:
-            cur = ps.two_to_one_np(cur, sib)
+            cur = ps._two_to_one_pure(cur, sib)
         idx >>= 1
     return cur
 

@@ -25,7 +25,10 @@ searched — 112+ encoding/sponge/table variants); `_constants()` remains the
 single swap point should those tables become available.
 
 Two implementations, tested bit-identical:
-  * host: numpy uint64 (transcript, witness generation, host hashing);
+  * host: the C library of native/ (transcript, witness generation, host
+    hashing) behind `permute_np`, `hash_no_pad` and `two_to_one_np`; the
+    pure-Python forms (`_permute_scalar_pure`, `_permute_np_pure`,
+    `_hash_no_pad_pure`, `_two_to_one_pure`) are the tests' oracles;
   * device: kernel 2 (csrc/poseidon2.cu) behind `permute`, `hash_rows`,
     `two_to_one` and `merkle_levels` on int64 tensors, with plain torch
     versions for CPU tensors — the PoW grind, and a Merkle tree (leaf
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import _cuda
+from .. import native as nat
 from ..field import gf_np as F
 from ..field import goldilocks as gl
 
@@ -171,7 +175,8 @@ _M4 = ((5, 7, 1, 3), (4, 6, 1, 1), (1, 3, 5, 7), (1, 1, 4, 6))
 
 
 # ---------------------------------------------------------------------------
-# host (numpy) permutation — state shape (..., 12)
+# host permutation, state shape (..., 12): `permute_np` in the C library; the
+# numpy and Python-int forms are the tests' oracles
 
 
 def _sbox_np(x):
@@ -229,9 +234,8 @@ def _scalar_ext_linear(s):
     return [(y[i] + t[i & 3]) % _P_INT for i in range(12)]
 
 
-def _permute_scalar(state) -> list[int]:
-    """Single-state permutation on Python ints (~100x faster than numpy for
-    one small state)."""
+def _permute_scalar_pure(state) -> list[int]:
+    """Single-state permutation in pure Python ints (the tests' oracle)."""
     ext_rcs, int_rcs, diag = _int_constants()
     ext_linear = _scalar_ext_linear
     x = ext_linear([int(v) for v in state])
@@ -250,20 +254,13 @@ def _permute_scalar(state) -> list[int]:
 
 
 def permute_np(state: np.ndarray) -> np.ndarray:
-    """Poseidon2 permutation on host; state (..., 12) uint64 canonical.
-
-    Single states take the scalar Python-int path; batches vectorise in
-    numpy."""
-    state = np.asarray(state, dtype=np.uint64)
-    if state.size == WIDTH:
-        return np.array(_permute_scalar(state.ravel()), dtype=np.uint64).reshape(
-            state.shape
-        )
-    return _permute_np_pure(state)
+    """Poseidon2 permutation on host; state (..., 12) uint64 canonical, in
+    the C library."""
+    return nat.permute_batch(state)
 
 
 def _permute_np_pure(state: np.ndarray) -> np.ndarray:
-    """Vectorised numpy permutation."""
+    """Vectorised numpy permutation (the tests' oracle)."""
     ext_rcs, int_rcs, diag = _constants()
     x = _external_linear_np(np.asarray(state, dtype=np.uint64))
     for r in range(4):
@@ -287,15 +284,20 @@ def _permute_np_pure(state: np.ndarray) -> np.ndarray:
 
 def hash_no_pad(inputs: np.ndarray) -> np.ndarray:
     """plonky2-style hash_n_to_hash_no_pad: absorb rate-8 chunks (overwrite),
-    permute per chunk, squeeze 4. inputs: 1-D uint64 felts."""
-    inputs = np.asarray(inputs, dtype=np.uint64)
-    state = np.zeros(WIDTH, dtype=np.uint64)
-    for start in range(0, len(inputs), RATE):
-        chunk = inputs[start : start + RATE]
-        state = state.copy()
+    permute per chunk, squeeze 4. inputs: 1-D uint64 felts. In the C
+    library."""
+    return nat.hash_no_pad(inputs)
+
+
+def _hash_no_pad_pure(inputs: np.ndarray) -> np.ndarray:
+    """hash_no_pad in pure Python ints (the tests' oracle)."""
+    state = [0] * WIDTH
+    felts = [int(v) for v in np.asarray(inputs, dtype=np.uint64).ravel()]
+    for start in range(0, len(felts), RATE):
+        chunk = felts[start : start + RATE]
         state[: len(chunk)] = chunk
-        state = permute_np(state)
-    return state[:DIGEST_LEN].copy()
+        state = _permute_scalar_pure(state)
+    return np.array(state[:DIGEST_LEN], dtype=np.uint64)
 
 
 def hash_padded(inputs: np.ndarray) -> np.ndarray:
@@ -317,11 +319,16 @@ def hash_padded(inputs: np.ndarray) -> np.ndarray:
 
 
 def two_to_one_np(left: np.ndarray, right: np.ndarray) -> np.ndarray:
-    """Merkle 2-to-1 compression: state = [left(4) | right(4) | 0^4], one permute."""
-    state = np.zeros(WIDTH, dtype=np.uint64)
-    state[:DIGEST_LEN] = left
-    state[DIGEST_LEN : 2 * DIGEST_LEN] = right
-    return permute_np(state)[:DIGEST_LEN].copy()
+    """Merkle 2-to-1 compression: state = [left(4) | right(4) | 0^4], one
+    permute, in the C library."""
+    return nat.two_to_one_many(left, right)[0]
+
+
+def _two_to_one_pure(left: np.ndarray, right: np.ndarray) -> np.ndarray:
+    """two_to_one_np in pure Python ints (the tests' oracle)."""
+    state = [int(v) for v in np.asarray(left, dtype=np.uint64).ravel()]
+    state += [int(v) for v in np.asarray(right, dtype=np.uint64).ravel()] + [0] * CAPACITY
+    return np.array(_permute_scalar_pure(state)[:DIGEST_LEN], dtype=np.uint64)
 
 
 def hash_or_noop(inputs: np.ndarray) -> np.ndarray:

@@ -31,6 +31,7 @@ import numpy as np
 
 from ..field import gf_np as F
 from ..hash import poseidon2 as ps
+from . import witness_tape
 from .config import CircuitConfig
 from .gates import (
     ArithmeticGate,
@@ -183,10 +184,10 @@ class CircuitBuilder:
 
     # -- generators --------------------------------------------------------
     def _simple_generator(self, deps: list[int], fn, outputs: list[int], desc=None) -> None:
-        """fn(get) -> list of output values (ints). `desc` is the reference
-        builder's witness-tape descriptor, a tuple like ("fmadd", c0, c1, a,
-        b, c); the port keeps it for layout parity and replays generators in
-        Python."""
+        """fn(get) -> list of output values (ints). `desc` is the witness-tape
+        descriptor (plonk/witness_tape.py), a tuple like ("fmadd", c0, c1, a,
+        b, c), that lets the recorded program be lowered to the C VM; a
+        generator without one makes its circuit replay in Python."""
         self.generators.append((tuple(deps), (fn, tuple(outputs), desc)))
 
     # -- arithmetic --------------------------------------------------------
@@ -634,12 +635,13 @@ class CircuitData:
 class PartialWitness:
     """Caller-supplied target assignments (the reference's PartialWitness).
 
-    Large `set_many` calls are kept as (targets, values) numpy chunks (the
-    reference's layout, vectorized for its witness tape).
+    Large `set_many` calls are kept as (targets, values) numpy chunks, so
+    the witness tape's seeding stays vectorized.
 
     Assignment semantics are WRITE-ONCE: re-assigning a target with the same
     canonical value is a no-op; a differing value raises WitnessError
-    immediately on the dict path and in `run_generators` for bulk chunks.
+    immediately on the dict path and in `run_generators` / `run_tape` for
+    bulk chunks.
     Values are canonicalized with a Python-int `% P` (negative ints
     accepted) before any uint64 cast."""
 
@@ -675,6 +677,15 @@ class PartialWitness:
         yield from self.values.items()
         for ts, vs in self.bulk:
             yield from zip(ts.tolist(), vs.tolist())
+
+    def seed_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """All assignments as (targets int64, values uint64) arrays."""
+        parts_t = [np.fromiter(self.values.keys(), np.int64, len(self.values))]
+        parts_v = [np.fromiter(self.values.values(), np.uint64, len(self.values))]
+        for ts, vs in self.bulk:
+            parts_t.append(ts)
+            parts_v.append(vs)
+        return np.concatenate(parts_t), np.concatenate(parts_v)
 
 
 class WitnessError(Exception):
@@ -784,8 +795,14 @@ def witness_scatter_tables(data: CircuitData):
 
 
 def witness_root_values(data: CircuitData, pw: PartialWitness) -> np.ndarray:
-    """(num_targets,) uint64 array of root-target values from the Python
-    generator replay (`run_generators`). Unset roots are zero."""
+    """(num_targets,) uint64 array of root-target values. Runs the circuit's
+    witness tape in C (plonk/witness_tape.py) once its program is recorded
+    and lowered; the first proof of a circuit (or of a new seed keyset), and
+    a program that does not lower, take the Python replay
+    (`run_generators`), which records it. Unset roots are zero."""
+    arr = witness_tape.run_tape(data, pw)
+    if arr is not None:
+        return arr
     values = run_generators(data, pw)
     arr = np.zeros(data.num_targets, dtype=np.uint64)
     if values:

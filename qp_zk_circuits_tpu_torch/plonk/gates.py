@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native as nat
 from ..field import goldilocks as gl
 from ..hash import poseidon2 as ps
 
@@ -383,7 +384,17 @@ class Poseidon2Gate(Gate):
         return torch.cat(cons, dim=0)
 
     def fill_row(self, get, set_):
-        # scalar Python-int path (the numpy tiny-state path costs ~16 ms/row)
+        """The row's S-box outputs from one traced permutation in the C
+        library (`native.permute_trace_batch`)."""
+        ins = np.array([int(get(self.W_IN + i)) for i in range(12)], dtype=np.uint64)
+        traced = nat.permute_trace_batch(ins)  # ext_a (4 x 12), internal (22), ext_b (3 x 12), out
+        cols = [*range(self.W_EXT_A, self.W_EXT_A + 48), *range(self.W_INT, self.W_INT + 22),
+                *range(self.W_EXT_B, self.W_EXT_B + 36), *range(self.W_OUT, self.W_OUT + 12)]
+        for col, v in zip(cols, np.concatenate([t.ravel() for t in traced]).tolist()):
+            set_(col, v)
+
+    def _fill_row_pure(self, get, set_):
+        """fill_row in pure Python ints (the tests' oracle)."""
         ext_rcs, int_rcs, diag = ps._int_constants()
         P = P_INT
         ext_linear = ps._scalar_ext_linear

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import _cuda
+from .. import native as nat
 from ..field import extension as ext
 from ..field import gf_np as F
 from ..field import goldilocks as gl
@@ -35,6 +36,7 @@ from ..fri import oracle as fo
 from ..fri.prover import fri_prove
 from ..hash import poseidon2 as ps
 from ..poly import ntt
+from . import constraint_tape
 from . import transcript as ts
 from .builder import CircuitData, PartialWitness, coset_shifts, generate_witness
 from .gates import (
@@ -514,11 +516,76 @@ def prove_from_trace(
     )
 
 
+def _zh_l1(data, zeta) -> tuple:
+    """(zeta^n, Z_H(zeta), L_1(zeta)) as extension pairs."""
+    zeta_t = ext.pair(zeta)
+    one = (1, 0)
+    zeta_n, base, e = one, zeta_t, data.n
+    while e:
+        if e & 1:
+            zeta_n = ext.mul(zeta_n, base)
+        base = ext.mul(base, base)
+        e >>= 1
+    zh = ext.sub(zeta_n, one)
+    l1 = ext.mul(zh, ext.inv(ext.scalar_mul(ext.sub(zeta_t, one), data.n)))
+    return zeta_n, zh, l1
+
+
+def _zh_times_t(data, openings: OpeningSet, c: int, zeta_n, zh) -> tuple:
+    """Z_H(zeta) * t_c(zeta), t_c(zeta) = sum_j zeta^{n j} t_{c,j}(zeta)."""
+    qdf = data.config.max_quotient_degree_factor
+    t = (0, 0)
+    zpow = (1, 0)
+    for j in range(qdf):
+        t = ext.add(t, ext.mul(zpow, ext.pair(openings.quotient[c * qdf + j])))
+        zpow = ext.mul(zpow, zeta_n)
+    return ext.mul(zh, t)
+
+
 def verify_vanishing_at_zeta(data, openings: OpeningSet, pi_hash, alphas, betas, gammas, zeta):
     """Host check: alpha-combined constraints at zeta == Z_H(zeta)*t(zeta).
 
-    The pure-Python walk of the JAX package's `_verify_vanishing_pure`; its
-    compiled constraint tape (the reference's fast path) is not ported."""
+    The circuit's constraint tape (plonk/constraint_tape.py, recorded from
+    the shared definitions at a circuit's first verify) evaluated in one
+    call into the C library. `_verify_vanishing_pure` walks the definitions
+    in Python and is the tests' oracle."""
+    cfg = data.config
+    nr = cfg.num_routed_wires
+    tape = constraint_tape.get_tape(data)
+    s = tape.slices
+    inp = np.zeros((s["_total"][1], 2), dtype=np.uint64)
+
+    def put(name, arr):
+        st, cnt = s[name]
+        a = np.asarray(arr, dtype=np.uint64).reshape(cnt, -1)
+        if a.shape[1] == 1:  # base-field scalars embed as (v, 0)
+            inp[st : st + cnt, 0] = a[:, 0]
+        else:
+            inp[st : st + cnt] = a
+
+    put("wires", openings.wires)
+    put("constants", openings.constants)
+    put("selectors", openings.selectors)
+    put("sigmas", openings.sigmas)
+    put("zs", openings.zs)
+    put("zs_next", openings.zs_next)
+    put("pps", openings.pps)
+    ks = np.asarray(coset_shifts(nr), dtype=np.uint64)
+    put("id_coords", np.stack([F.mul(ks, np.uint64(zeta[0])), F.mul(ks, np.uint64(zeta[1]))], -1))
+    zeta_n, zh, l1 = _zh_l1(data, zeta)
+    put("l1", np.array([l1], dtype=np.uint64))
+    put("betas", betas)
+    put("gammas", gammas)
+    put("alphas", alphas)
+    put("pi_hash", np.asarray(pi_hash, dtype=np.uint64)[:4])
+    acc = nat.eval_tape(tape, inp)  # (num_challenges, 2)
+    return all((int(acc[c, 0]), int(acc[c, 1])) == _zh_times_t(data, openings, c, zeta_n, zh)
+               for c in range(cfg.num_challenges))
+
+
+def _verify_vanishing_pure(data, openings: OpeningSet, pi_hash, alphas, betas, gammas, zeta):
+    """verify_vanishing_at_zeta walking the shared constraint definitions in
+    Python ints (the tests' oracle)."""
     cfg = data.config
     nc = cfg.num_challenges
     nr = cfg.num_routed_wires
@@ -538,14 +605,7 @@ def verify_vanishing_at_zeta(data, openings: OpeningSet, pi_hash, alphas, betas,
     zeta_t = tp(zeta)
     id_coords = [ext.scalar_mul(zeta_t, int(k)) for k in coset_shifts(nr)]
     one = (1, 0)
-    zeta_n, base, e = one, zeta_t, data.n
-    while e:
-        if e & 1:
-            zeta_n = ext.mul(zeta_n, base)
-        base = ext.mul(base, base)
-        e >>= 1
-    zh = ext.sub(zeta_n, one)
-    l1 = ext.mul(zh, ext.inv(ext.scalar_mul(ext.sub(zeta_t, one), data.n)))
+    zeta_n, zh, l1 = _zh_l1(data, zeta)
     ctx = HostExtCtx(wires, constants_vals, [(int(pi_hash[i]), 0) for i in range(4)])
     betas_e = [(int(b), 0) for b in betas]
     gammas_e = [(int(g), 0) for g in gammas]
@@ -553,7 +613,6 @@ def verify_vanishing_at_zeta(data, openings: OpeningSet, pi_hash, alphas, betas,
         ctx, data, wires, constants_vals, selector_vals, sigma_vals,
         zs, zs_next, pps, id_coords, l1, betas_e, gammas_e, alg,
     )
-    qdf = cfg.max_quotient_degree_factor
     ok = True
     for c in range(nc):
         acc = (0, 0)
@@ -562,12 +621,6 @@ def verify_vanishing_at_zeta(data, openings: OpeningSet, pi_hash, alphas, betas,
         for cons in constraints:
             acc = ext.add(acc, ext.mul(apow, cons))
             apow = ext.mul(apow, alpha_e)
-        # t_c(zeta) = sum_j zeta^{n j} t_{c,j}(zeta)
-        t = (0, 0)
-        zpow = one
-        for j in range(qdf):
-            t = ext.add(t, ext.mul(zpow, tp(openings.quotient[c * qdf + j])))
-            zpow = ext.mul(zpow, zeta_n)
-        if acc != ext.mul(zh, t):
+        if acc != _zh_times_t(data, openings, c, zeta_n, zh):
             ok = False
     return ok

@@ -3,9 +3,11 @@
 Mirrors the role of plonky2's `Challenger` (the reference's transcripts must
 reproduce Fiat-Shamir exactly for cross-verification — SURVEY §7 "Hard
 parts"): observe proof elements as felts, derive challenges by duplexing.
-The challenger is pure host logic (numpy, tiny state) — challenges gate the
-device pipeline stages, so they live where the control flow lives. Only the
-PoW grind runs on the device.
+The challenger is host logic (a tiny state) — challenges gate the device
+pipeline stages, so they live where the control flow lives. Its
+permutations run in the C library of native/ (`_duplex` through
+`poseidon2.permute_np`; `observe_many` absorbs 16 felts or more in one call,
+`native.absorb_many`). Only the PoW grind runs on the device.
 
 Determinism contract: the prover and verifier drive a Challenger through the
 identical observe/challenge schedule; any reordering breaks verification
@@ -18,6 +20,7 @@ import numpy as np
 
 import torch
 
+from .. import native as nat
 from ..field import goldilocks as gl
 from ..hash import poseidon2 as ps
 
@@ -37,6 +40,15 @@ class Challenger:
 
     def observe_many(self, felts) -> None:
         arr = np.asarray(felts, dtype=np.uint64).ravel()
+        if arr.size >= 16:
+            # one C call; observe()'s output-buffer rule: the buffer holds the
+            # rate only when the last felt completed a block
+            self.output_buf.clear()
+            before = len(self.input_buf)
+            self.state, self.input_buf = nat.absorb_many(self.state, self.input_buf, arr)
+            if (before + arr.size) % ps.RATE == 0:
+                self.output_buf = list(self.state[: ps.RATE])
+            return
         for f in arr:
             self.observe(f)
 

@@ -1,18 +1,34 @@
-"""Where the time of one Wormhole leaf proof goes, on one CUDA card.
+"""Where the time of one Wormhole leaf proof and its verify goes, on one CUDA
+card and its host.
 
-    python -m qp_zk_circuits_tpu_torch.tools.profile_leaf [--proofs 5]
+    python qp_zk_circuits_tpu_torch/tools/profile_leaf.py [--root DIR] [--proofs 5] [--verifies 5]
 
-Builds `WormholeProver(device="cuda")`, proves `test_inputs_0()` once to warm
-up, then:
+Runs the checkout at `--root` (default: the checkout this file lies in), so
+two checkouts can be timed in turns by separate processes, one after the
+other (parent, change, change, parent); a stage a checkout does not have is
+left out. Builds the kernel library (and the host library, where the
+checkout has one), then `WormholeProver(device="cuda")` on `test_inputs_0()`:
 
+  * the cold proof, the first of the prover (it also records the witness
+    program by the Python replay), host clock;
   * `--proofs` timed proofs (host clock, ending in a synchronize): median
-    and spread of the prove time;
-  * one proof with each prover stage wrapped in a host timer that
-    synchronizes on exit (witness generation, the three commits, the
-    permutation argument, the quotient, openings, FRI composition, fold
-    rounds, the grind, the query stage: kernel F's gather, its transfer
-    and the host's unpacking into query rounds, and the transcript's host
-    Poseidon2 duplexes), printed as inclusive times and call counts;
+    and spread of the prove time, and the first of them alone (the second
+    proof of the prover, which lowers the witness tape where the checkout
+    has one);
+  * one proof with each prover stage wrapped in a host timer, printed as
+    inclusive times and call counts: witness generation, the three commits,
+    the permutation argument, the quotient, openings, FRI composition, fold
+    rounds, the grind, the query stage (kernel F's gather, its transfer and
+    the host's unpacking into query rounds), and the transcript's host
+    Poseidon2 (`Challenger._duplex`, and `native.absorb_many` where the
+    checkout has it). A stage that launches kernels ends in a synchronize;
+    the transcript's stages launch none and do not synchronize;
+  * the verify of the warm proof by `WormholeVerifier(prover.data)`: the
+    first verify (it records the constraint tape where the checkout has
+    one), the median of `--verifies` more, and one verify split into the
+    transcript (its duplexes and absorbs), the vanishing check, the FRI
+    query rounds (`fri/verifier.py::_query_rounds`, where the checkout has
+    it) and all of `fri_verify` (the FRI transcript and the query rounds);
   * one proof under torch.profiler: device time by kernel and the number of
     device launches; the device's busy share is that device time over the
     median prove time;
@@ -29,45 +45,64 @@ from __future__ import annotations
 import argparse
 import collections
 import functools
+import importlib
 import json
 import statistics
+import sys
 import time
+from pathlib import Path
 
-import torch
+HERE = Path(__file__).resolve().parents[2]
 
-from ..fri import oracle as fo
-from ..fri import prover as fri_prover
-from ..hash import merkle
-from ..plonk import prover as plonk_prover
-from ..plonk import transcript as ts
-from ..tools.timing import card, device_split
-from ..wormhole.prover import WormholeProver
-from ..wormhole.test_helpers import test_inputs_0
-
-# (module or class, attribute, stage name): the prover's stages as the
-# modules that call them see them
-STAGES = (
-    (plonk_prover, "generate_witness", "witness (host)"),
-    (fo, "commit", "oracle commit (iNTT + LDE + tree)"),
-    (merkle, "build_merkle_tree", "merkle tree (hash + levels + cap transfer)"),
-    (plonk_prover, "compute_permutation_polys", "permutation argument"),
-    (plonk_prover, "compute_quotient", "quotient"),
-    (fo, "eval_openings", "openings"),
-    (plonk_prover, "fri_prove", "fri (all)"),
-    (fri_prover, "compute_composition", "fri composition"),
-    (fri_prover, "fold_round", "fri fold round"),
-    (ts, "grind_pow", "pow grind"),
-    (fri_prover, "gather_query_rounds", "queries (gather + transfer + unpack)"),
-    (ts.Challenger, "_duplex", "transcript duplex (host Poseidon2)"),
+# (module, attribute, stage name, synchronizes): the prover's stages as the
+# modules that call them see them; module names under qp_zk_circuits_tpu_torch
+PROVE_STAGES = (
+    ("plonk.prover", "generate_witness", "witness (host)", True),
+    ("fri.oracle", "commit", "oracle commit (iNTT + LDE + tree)", True),
+    ("hash.merkle", "build_merkle_tree", "merkle tree (hash + levels + cap transfer)", True),
+    ("plonk.prover", "compute_permutation_polys", "permutation argument", True),
+    ("plonk.prover", "compute_quotient", "quotient", True),
+    ("fri.oracle", "eval_openings", "openings", True),
+    ("plonk.prover", "fri_prove", "fri (all)", True),
+    ("fri.prover", "compute_composition", "fri composition", True),
+    ("fri.prover", "fold_round", "fri fold round", True),
+    ("plonk.transcript", "grind_pow", "pow grind", True),
+    ("fri.prover", "gather_query_rounds", "queries (gather + transfer + unpack)", True),
+)
+TRANSCRIPT_STAGES = (
+    ("plonk.transcript.Challenger", "_duplex", "transcript duplex (host Poseidon2)", False),
+    ("native", "absorb_many", "transcript absorb (host Poseidon2)", False),
+)
+VERIFY_STAGES = (
+    ("plonk.verifier", "verify_vanishing_at_zeta", "vanishing check", False),
+    ("fri.verifier", "_query_rounds", "fri query rounds", False),
+    ("plonk.verifier", "fri_verify", "fri_verify (transcript + query rounds)", False),
 )
 
 
-def _timed(fn, name, acc):
+def _resolve(path: str):
+    """The module or class at `qp_zk_circuits_tpu_torch.<path>`, or None."""
+    parts = path.split(".")
+    for cut in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module("qp_zk_circuits_tpu_torch." + ".".join(parts[:cut]))
+        except ImportError:
+            continue
+        for attr in parts[cut:]:
+            obj = getattr(obj, attr, None)
+        return obj
+    return None
+
+
+def _timed(fn, name, acc, sync):
+    import torch
+
     @functools.wraps(fn)
     def inner(*args, **kwargs):
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         acc[name][0] += time.perf_counter() - t0
         acc[name][1] += 1
         return out
@@ -75,30 +110,42 @@ def _timed(fn, name, acc):
     return inner
 
 
-def _stage_times(prover, inputs) -> dict:
+def stage_times(stages, run) -> dict:
+    """Run `run()` once with each stage present in the checkout wrapped in a
+    timer; returns {stage: {"ms", "calls"}}, the total, and the transcript's
+    stages summed."""
+    import torch
+
     acc = collections.defaultdict(lambda: [0.0, 0])
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in STAGES]
+    present = [(owner, attr, name, sync) for path, attr, name, sync in stages
+               if (owner := _resolve(path)) is not None and hasattr(owner, attr)]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _, _ in present]
     try:
-        for mod, attr, name in STAGES:
-            setattr(mod, attr, _timed(getattr(mod, attr), name, acc))
+        for owner, attr, name, sync in present:
+            setattr(owner, attr, _timed(getattr(owner, attr), name, acc, sync))
         t0 = time.perf_counter()
-        prover.prove_inputs(inputs, seed=0)
+        run()
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-    out = {name: {"ms": 1e3 * acc[name][0], "calls": acc[name][1]} for _, _, name in STAGES}
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    out = {name: {"ms": 1e3 * acc[name][0], "calls": acc[name][1]} for _, _, name, _ in present}
     out["total"] = {"ms": 1e3 * total, "calls": 1}
+    names = [name for _, _, name, _ in TRANSCRIPT_STAGES if name in out]
+    if names:
+        out["transcript (duplex + absorb)"] = {key: sum(out[n][key] for n in names)
+                                               for key in ("ms", "calls")}
     return out
 
 
-def _device_profile(prover, inputs) -> dict:
+def _device_profile(prove) -> dict:
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prover.prove_inputs(inputs, seed=0)
+        prove()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
@@ -117,38 +164,93 @@ def _device_profile(prover, inputs) -> dict:
     }
 
 
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--proofs", type=int, default=5)
+    ap.add_argument("--verifies", type=int, default=5)
     args = ap.parse_args()
+    import torch
+
     if not torch.cuda.is_available():
         raise SystemExit("profile_leaf needs a CUDA card")
+    # the package is the checkout's at --root: forget any other copy
+    for name in [n for n in sys.modules if n.partition(".")[0] == "qp_zk_circuits_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import qp_zk_circuits_tpu_torch
+    from qp_zk_circuits_tpu_torch import _cuda
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_from_bytes, proof_to_bytes
+    from qp_zk_circuits_tpu_torch.tools.timing import card, device_split
+    from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import test_inputs_0
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    _cuda.lib()
+    native = _resolve("native")
+    host_flags = None
+    if native is not None:
+        host_flags = native.flags()
+    t0 = time.perf_counter()
     prover = WormholeProver(device="cuda")
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
     inputs = test_inputs_0()
-    prover.prove_inputs(inputs, seed=0)  # warm-up: kernel build, cached tables
-    times = []
-    for _ in range(args.proofs):
-        t0 = time.perf_counter()
-        prover.prove_inputs(inputs, seed=0)
+
+    def prove():
+        out = prover.prove_inputs(inputs, seed=0)
         torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    stages = _stage_times(prover, inputs)
-    device = _device_profile(prover, inputs)
-    _, split = device_split(lambda: prover.prove_inputs(inputs, seed=0))
+        return out
+
+    cold_ms = _host_ms(prove)
+    times = [_host_ms(prove) for _ in range(args.proofs)]
+    stages = stage_times(PROVE_STAGES + TRANSCRIPT_STAGES, prove)
+
+    blob = proof_to_bytes(prove())
+    verifier = WormholeVerifier(prover.data)
+    first_verify_ms = _host_ms(lambda: verifier.verify(proof_from_bytes(blob)))
+    proofs = [proof_from_bytes(blob) for _ in range(args.verifies + 1)]
+    verify_times = [_host_ms(lambda p=p: verifier.verify(p)) for p in proofs[:-1]]
+    split = stage_times(VERIFY_STAGES + TRANSCRIPT_STAGES, lambda: verifier.verify(proofs[-1]))
+
+    device = _device_profile(prove)
+    _, entries = device_split(prove)
+    print(f"[package] {qp_zk_circuits_tpu_torch.__file__}; host library flags: {host_flags}")
+    print(f"[prove] build {build_ms:.2f} ms, cold proof {cold_ms:.2f} ms, second proof "
+          f"{times[0]:.2f} ms, warm median {statistics.median(times):.2f} ms over {len(times)}")
     for name, v in stages.items():
         print(f"[stage] {name}: {v['ms']:.2f} ms over {v['calls']} calls")
+    print(f"[verify] first {first_verify_ms:.2f} ms, median {statistics.median(verify_times):.2f} "
+          f"ms over {len(verify_times)}")
+    for name, v in split.items():
+        print(f"[verify stage] {name}: {v['ms']:.2f} ms over {v['calls']} calls")
     for name, v in device["top_kernels"].items():
         print(f"[kernel] {name[:70]}: {v['device_ms']:.3f} ms device, {v['count']} launches")
-    for name, (ms, calls) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+    for name, (ms, calls) in sorted(entries.items(), key=lambda kv: -kv[1][0]):
         print(f"[entry] {name}: {ms:.4f} ms device over {calls} calls (graph replay)")
     median = statistics.median(times)
     result = {
         "card": card(),
+        "root": args.root,
+        "host_flags": host_flags,
+        "build_ms": build_ms,
+        "cold_prove_ms": cold_ms,
+        "second_prove_ms": times[0],
         "prove_ms": {"median": median, "min": min(times), "max": max(times), "n": len(times)},
         "stages": stages,
+        "verify_ms": {"first": first_verify_ms, "median": statistics.median(verify_times),
+                      "min": min(verify_times), "max": max(verify_times),
+                      "n": len(verify_times)},
+        "verify_stages": split,
         **{k: v for k, v in device.items() if k != "top_kernels"},
-        "entry_device_ms": {name: ms for name, (ms, _) in split.items()},
-        "entry_calls": {name: calls for name, (_, calls) in split.items()},
+        "entry_device_ms": {name: ms for name, (ms, _) in entries.items()},
+        "entry_calls": {name: calls for name, (_, calls) in entries.items()},
         # the profiler slows the host, not the kernels: the busy share is the
         # profiled proof's device time over the unprofiled median
         "device_busy_share": None if device["device_ms"] is None else device["device_ms"] / median,

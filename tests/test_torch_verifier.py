@@ -5,10 +5,16 @@ No JAX graph is built: the proofs are the committed reference fixtures
 `VerifierCircuitData` from a shape-only build of the circuit with the
 fixture's constants cap and circuit digest. The checks:
 
-  * the port verifies the small-circuit and the leaf fixture, and its
-    `WormholeVerifier` returns the reference's public inputs;
+  * the port verifies the small-circuit and the leaf fixture through its
+    compiled host paths (the constraint tape and the C query rounds), and
+    its `WormholeVerifier` returns the reference's public inputs;
   * on each tampered proof both verifiers reject with the same error class
-    and message, the reference on its pure path (its native library off);
+    and message: the port's compiled paths against the reference's native
+    library, and the port's pure paths (the Python query loop and vanishing
+    walk) against the reference with its native library off;
+  * the port's and the reference's C libraries, loaded in one process, each
+    compute with their own constants, and a compiler that does not exist
+    makes the port's build raise;
   * `keccak256` against the empty-input vector and the reference on seeded
     inputs of 0-300 bytes, the 135- and 136-byte rate edges included;
   * the verifier data's bytes (full, common, verifier-only) equal the
@@ -25,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from qp_zk_circuits_tpu import native as jnat
 from qp_zk_circuits_tpu.hash import keccak as jkeccak
 from qp_zk_circuits_tpu.hash import merkle as jmerkle
 from qp_zk_circuits_tpu.hash import poseidon2 as jps
@@ -33,8 +40,12 @@ from qp_zk_circuits_tpu.wormhole import artifacts as jartifacts
 from qp_zk_circuits_tpu.wormhole import canonical_pins as jpins
 from qp_zk_circuits_tpu.wormhole import verifier as jwverifier
 from qp_zk_circuits_tpu.wormhole.leaf_circuit import WormholeCircuit as JWormholeCircuit
+from qp_zk_circuits_tpu_torch import native as tnat
+from qp_zk_circuits_tpu_torch.fri import verifier as tfverifier
 from qp_zk_circuits_tpu_torch.hash import keccak as tkeccak
 from qp_zk_circuits_tpu_torch.hash import merkle as tmerkle
+from qp_zk_circuits_tpu_torch.hash import poseidon2 as tps
+from qp_zk_circuits_tpu_torch.plonk import prover as tprover
 from qp_zk_circuits_tpu_torch.plonk import serialization as tser
 from qp_zk_circuits_tpu_torch.plonk import verifier as tverifier
 from qp_zk_circuits_tpu_torch.wormhole import artifacts as tartifacts
@@ -87,6 +98,18 @@ def small():
 def reference_pure(monkeypatch):
     """The reference verifier on its pure path: no compiled library."""
     monkeypatch.setattr(jps, "_NATIVE", None)
+
+
+@pytest.fixture
+def port_pure(monkeypatch):
+    """The port's verifier on its pure paths: the Python query loop and the
+    Python walk of the vanishing check, reached by their own names."""
+    monkeypatch.setattr(tfverifier, "_query_rounds", tfverifier._query_rounds_pure)
+    monkeypatch.setattr(tverifier, "verify_vanishing_at_zeta", tprover._verify_vanishing_pure)
+
+
+def _compiled_calls():
+    return tnat.counts["fri_verify_queries"], tnat.counts["eval_tape"]
 
 
 def _outcome(fn):
@@ -165,6 +188,24 @@ def test_port_verifies_small_circuit_fixture(small):
     tverifier.verify(mine, tser.proof_from_bytes((FIXTURES / SMALL).read_bytes()))
 
 
+@pytest.mark.parametrize("name", [SMALL, LEAF])
+def test_compiled_paths_verify_fixture(leaf, small, name):
+    """Each fixture's verify runs one C query verify and one tape, and the
+    pure paths accept it too."""
+    _, mine = small if name == SMALL else leaf
+    fri0, tape0 = _compiled_calls()
+    tverifier.verify(mine, tser.proof_from_bytes((FIXTURES / name).read_bytes()))
+    assert _compiled_calls() == (fri0 + 1, tape0 + 1)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tfverifier, "_query_rounds", tfverifier._query_rounds_pure)
+    mp.setattr(tverifier, "verify_vanishing_at_zeta", tprover._verify_vanishing_pure)
+    try:
+        tverifier.verify(mine, tser.proof_from_bytes((FIXTURES / name).read_bytes()))
+    finally:
+        mp.undo()
+    assert _compiled_calls() == (fri0 + 1, tape0 + 1)
+
+
 def test_port_verifies_leaf_fixture_from_pinned_artifacts(leaf):
     ref, mine = leaf
     blob = (FIXTURES / LEAF).read_bytes()
@@ -207,7 +248,7 @@ TAMPERS = {
 
 
 @pytest.mark.parametrize("name", list(TAMPERS))
-def test_tampered_leaf_proof_rejected_like_reference(leaf, reference_pure, name):
+def test_tampered_leaf_proof_rejected_like_reference(leaf, reference_pure, port_pure, name):
     ref, mine = leaf
     blob = (FIXTURES / LEAF).read_bytes()
     jproof, tproof = jser.proof_from_bytes(blob), tser.proof_from_bytes(blob)
@@ -217,6 +258,61 @@ def test_tampered_leaf_proof_rejected_like_reference(leaf, reference_pure, name)
     got = _outcome(lambda: twverifier.WormholeVerifier(mine).verify(tproof))
     assert want != "accepted"
     assert got == want
+
+
+@pytest.mark.parametrize("name", list(TAMPERS))
+def test_tampered_leaf_proof_rejected_like_reference_compiled(leaf, name):
+    """The port's compiled paths against the reference's native library:
+    the same class and message, query round included."""
+    assert jps._native() is not None
+    ref, mine = leaf
+    blob = (FIXTURES / LEAF).read_bytes()
+    jproof, tproof = jser.proof_from_bytes(blob), tser.proof_from_bytes(blob)
+    TAMPERS[name](jproof)
+    TAMPERS[name](tproof)
+    want = _outcome(lambda: jwverifier.WormholeVerifier(ref).verify(jproof))
+    got = _outcome(lambda: twverifier.WormholeVerifier(mine).verify(tproof))
+    assert want != "accepted"
+    assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the host library
+
+
+def test_both_libraries_in_one_process():
+    """Each package's library answers with its own constants: the port's,
+    given other tables, changes its permutations and no others; restored,
+    it agrees with the reference's again."""
+    assert jnat.available()
+    states = np.random.default_rng(10).integers(0, P, (3, 12), dtype=np.uint64)
+    want = tps._permute_np_pure(states)
+    assert tnat.library_path().parent != jnat._SO.parent
+    assert np.array_equal(tnat.permute_batch(states), want)
+    assert np.array_equal(jnat.permute_batch(states), want)
+    int_rcs = tps._constants()[1].copy()
+    int_rcs[0] ^= np.uint64(1)
+    try:
+        tnat.set_constants(tnat.lib(), int_rcs=int_rcs)
+        swapped = tnat.permute_batch(states)
+        assert not np.array_equal(swapped, want)
+        assert np.array_equal(jnat.permute_batch(states), want)
+        fold = np.random.default_rng(11).integers(0, P, (3, 4), dtype=np.uint64)
+        assert np.array_equal(jnat.merkle_walk(fold[0], 5, fold[1:]),
+                              tmerkle._merkle_root_from_proof_pure(fold[0], 5, fold[1:]))
+    finally:
+        tnat.set_constants(tnat.lib())
+    assert np.array_equal(tnat.permute_batch(states), want)
+
+
+def test_failed_build_raises(tmp_path):
+    """A compiler that does not exist: the build raises with its error and
+    publishes no library."""
+    missing = str(tmp_path / "no-such-cc")
+    with pytest.raises(RuntimeError, match="did not build") as err:
+        tnat.build(cc=missing)
+    assert "no-such-cc" in str(err.value)
+    assert not tnat.library_path(missing).exists()
 
 
 # ---------------------------------------------------------------------------
