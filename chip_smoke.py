@@ -15,7 +15,10 @@ package. Phases, each printing one line:
      leaf's depth, an absorb of the openings, the leaf's witness (the tape
      against the Python replay), and the leaf fixture's vanishing check and
      FRI query rounds, accepted and, with a FRI leaf value changed,
-     rejected alike; C and Python times on the host clock;
+     rejected alike; C and Python times on the host clock; then the batch
+     path's host calls, 16 at once against 16 single calls, bit-exact and
+     both timed: the transcripts' absorb of the openings and duplex, and the
+     leaf's witness tape over 16 witnesses;
   3. kernels — each kernel against its plain PyTorch version, bit-exact, at
      the shapes of the leaf prover, plus the field edge vectors (the fused
      kernels A-F against their plain versions run on CPU copies of the same
@@ -40,7 +43,12 @@ package. Phases, each printing one line:
      queries, a packed row of 382 values, not a multiple of a warp), at a
      packed row of 1,200 values (wider than a block: threads stride), into
      pinned host memory, and one segment and one query over the plan, which
-     must raise;
+     must raise; and the batch path's kernels with a proof axis, at K = 16
+     and at K = 17 (kernels A and B's cap of 16 proofs a launch, plus one):
+     kernel 2's forest (sixteen 2048 x 135 LDEs read in place, against the
+     plain version on the card), A and B (the leaf's shapes, each proof its
+     own challenges, against their plain versions on CPU copies), each
+     timed at K = 16 beside K times a proof's bound;
   4. aggregation tree — the Merkle tree at 2^19 x 135: 256 sampled nodes of
      every level against the plain hashes of their inputs, its time beside
      the per-level form's (hash_rows, then one two_to_one launch a level);
@@ -80,7 +88,19 @@ package. Phases, each printing one line:
      hashes to the keccak pins and loads with the pins enforced, the loaded
      verifier accepts the warm proof, and copies with one FRI query leaf
      value or one public input changed are rejected; the host verify time
-     is printed beside the card.
+     is printed beside the card;
+  9. batch — WormholeProver(device="cuda") on the two real spends of
+     two_real_leaves_same_block(), alternating: prove_inputs_batch of 16
+     (cold, then warm) and prove_inputs_stream of 48 in chunks of 16 from a
+     generator, each run with the counts set to 0 just before it and read
+     just after: every proof equals its committed JAX fixture and the
+     port's verifier accepts it, and every stage stays within its launch
+     limits for the batch (`_batch_limits`: one stacked kernel-3 call and
+     one forest call a commit, A and B once a group of 16, the grind one
+     permute launch a sweep for all proofs, C-F and the FRI rounds' trees
+     once a proof); the batch rows of the JSON line take their launches
+     from the warm batch; then per-proof ms of K = 1, 4 and 16 batches and
+     of a single proof.
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -388,7 +408,7 @@ def phase_host() -> None:
     from qp_zk_circuits_tpu_torch.fri import verifier as fv
     from qp_zk_circuits_tpu_torch.hash import merkle
     from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
-    from qp_zk_circuits_tpu_torch.plonk import builder, prover
+    from qp_zk_circuits_tpu_torch.plonk import builder, prover, witness_tape
     from qp_zk_circuits_tpu_torch.plonk import transcript as ts
     from qp_zk_circuits_tpu_torch.plonk import verifier as pv
     from qp_zk_circuits_tpu_torch.plonk.gates import Poseidon2Gate
@@ -521,6 +541,35 @@ def phase_host() -> None:
     if want == "accepted" or got != f"{want} (query round 3)":
         raise AssertionError(f"[host] a changed FRI leaf: C {got!r}, Python {want!r}")
     print(f"[host] a changed FRI leaf value: C and Python reject it ({got})", flush=True)
+
+    # the batch path's host calls, K = 16 at once against 16 single calls:
+    # the transcripts' absorb (the openings) and duplex, and the leaf's tape
+    k = 16
+    states, bufs = F.rand_felts((k, 12), rng), F.rand_felts((k, 3), rng)
+    rows = F.rand_felts((k, felts.size), rng)
+
+    def versus(name, batched, singles, runs=20):
+        if not same(batched(), singles()):
+            raise AssertionError(f"[host] {name}: one call over {k} differs from {k} calls")
+        one, many = _host_median_ms(batched, runs), _host_median_ms(singles, runs)
+        print(f"[host] {name}: bit-exact; one call over {k} {one:.4f} ms, {k} single calls "
+              f"{many:.4f} ms (OpenMP over the {k}, flags above)", flush=True)
+
+    def absorbs():
+        out = [nat.absorb_many(states[i], list(bufs[i]), rows[i]) for i in range(k)]
+        return np.stack([st for st, _ in out]), np.array([b for _, b in out], dtype=np.uint64)
+
+    def duplexes():
+        x = states.copy()
+        x[:, :3] = bufs
+        return np.stack([ps.permute_np(row) for row in x])
+
+    versus(f"absorb of {felts.size} felts, {k} transcripts",
+           lambda: nat.absorb_batch(states, bufs, rows), absorbs)
+    versus(f"duplex, {k} transcripts", lambda: nat.duplex_batch(states, bufs), duplexes)
+    pws = [witness_pw() for _ in range(k)]
+    versus(f"leaf witness tape, {k} witnesses", lambda: witness_tape.run_tape_many(data, pws),
+           lambda: [witness_tape.run_tape(data, pw) for pw in pws], runs=5)
 
 
 def _felts(shape, rng, device):
@@ -671,6 +720,20 @@ def kernel_table(device) -> list[dict]:
              source="qp_zk_circuits_tpu_torch/csrc/fri.cu",
              replaces="qp_zk_circuits_tpu/fri/oracle.py:225",
              setup=lambda: _gather_case(device)),
+        # the batch path's kernels (phase_batch reads their launches): a
+        # proof axis in kernel 2's tree, A and B, at the K = 16 leaf batch
+        dict(name="poseidon2_merkle_forest", wrapper=ps.merkle_forest, path="batch",
+             source="qp_zk_circuits_tpu_torch/csrc/poseidon2.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
+             setup=lambda: _forest_case(device)),
+        dict(name="quotient_batch", wrapper=tprover.quotient_evals_batch, path="batch",
+             source="qp_zk_circuits_tpu_torch/csrc/quotient.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
+             setup=lambda: _quotient_batch_case(device)),
+        dict(name="permutation_polys_batch", wrapper=tprover.compute_permutation_polys_batch,
+             path="batch", source="qp_zk_circuits_tpu_torch/csrc/permutation.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
+             setup=lambda: _permutation_batch_case(device)),
     ]
 
 
@@ -811,6 +874,123 @@ def _permutation_case(device) -> dict:
         check=lambda: ([tprover.compute_permutation_polys(d, *a) for d, a in cases],
                        [tprover.compute_permutation_polys_plain(d, *_cpu(a)) for d, a in cases]),
         bytes=work_bytes, ops=ops,
+    )
+
+
+#: the batch path's proofs a batch (chip_smoke's K), and the stream's length
+BATCH_K = 16
+STREAM_LEN = 48
+
+
+def _forest_case(device) -> dict:
+    """Kernel 2's forest at the K = 16 batch's wires commit: sixteen LDEs of
+    135 x 2048 read as rows in place, each to a cap of 16; checked at K = 16
+    and K = 17 (kernels A and B's cap plus one) against the plain version
+    on the card, bit-exact."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
+
+    rng = np.random.default_rng(11)
+    wires, m, cap = 135, 2048, 4
+    k = BATCH_K
+    stack = _felts((k + 1, wires, m), rng, device)
+
+    def leaves(n):
+        return stack[:n].transpose(1, 2)
+
+    def flat(forest):
+        return [lvl for tree in forest for lvl in tree]
+
+    tree_nodes = sum(m >> lvl for lvl in range(m.bit_length() - 1 - cap + 1))
+    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
+    return dict(
+        run=lambda: ps.merkle_forest(leaves(k), cap),
+        plain=lambda: ps.merkle_forest_plain(leaves(k), cap),
+        check=lambda: (flat(ps.merkle_forest(leaves(k), cap)) + flat(ps.merkle_forest(leaves(k + 1), cap)),
+                       flat(ps.merkle_forest_plain(leaves(k), cap))
+                       + flat(ps.merkle_forest_plain(leaves(k + 1), cap))),
+        bytes=k * (wires * m + tree_nodes * ps.DIGEST_LEN) * 8,
+        ops=k * tree_perms(m, wires, cap) * perm_ops,
+    )
+
+
+def _stacked(per_proof, n, device=None):
+    """The first n proofs' arguments stacked: tensors along a new first axis
+    (moved to `device` when given), host felts as (n, ...) arrays."""
+    import numpy as np
+    import torch
+
+    out = []
+    for col in zip(*per_proof[:n]):
+        if hasattr(col[0], "cpu"):
+            t = torch.stack(col)
+            out.append(t if device is None else t.to(device))
+        else:
+            out.append(np.stack(col))
+    return out
+
+
+def _quotient_batch_case(device) -> dict:
+    """Kernel A with a proof axis at the leaf: K = 16 proofs' random LDE
+    wires and Z/pp rows and their own challenges and PI hashes; checked at
+    K = 16 (one launch pair) and K = 17 (two) against the plain version run
+    on CPU copies. Its work: each proof's operands and output once, the
+    circuit's tables once, K times one proof's operations."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+
+    data = _leaf_data(device)
+    cfg = data.config
+    m = data.n << cfg.rate_bits
+    nc = cfg.num_challenges
+    rng = np.random.default_rng(12)
+    k = BATCH_K
+    per = [_quotient_args(data, rng, device) for _ in range(k + 1)]
+    args, args17 = _stacked(per, k), _stacked(per, k + 1)
+    cpu, cpu17 = _stacked(per, k, "cpu"), _stacked(per, k + 1, "cpu")
+    _, ops = _quotient_work(data)
+    zrows = per[0][1].shape[0]
+    shared = data.constants_oracle.lde.shape[0] + 3
+    return dict(
+        run=lambda: tprover.quotient_evals_batch(data, *args),
+        plain=lambda: tprover.quotient_evals_batch_plain(data, *cpu), plain_on_host=True,
+        check=lambda: ([tprover.quotient_evals_batch(data, *a) for a in (args, args17)],
+                       [tprover.quotient_evals_batch_plain(data, *a) for a in (cpu, cpu17)]),
+        bytes=(k * (cfg.num_wires + zrows + nc) + shared) * m * 8, ops=k * ops,
+    )
+
+
+def _permutation_batch_case(device) -> dict:
+    """Kernel B with a proof axis at the leaf: K = 16 random traces with
+    their own betas and gammas, zero denominators in two proofs; checked at
+    K = 16 and K = 17 against the plain version run on CPU copies. Its work:
+    each proof's wires and columns once, the routing tables once, K times
+    one proof's operations."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+
+    data = _leaf_data(device)
+    cfg = data.config
+    rng = np.random.default_rng(13)
+    k = BATCH_K
+    per = [_permutation_args(data, rng, device,
+                             zeros=[(0, 17, 3), (1, 255, 79)] if i in (2, k) else ())
+           for i in range(k + 1)]
+    args, args17 = _stacked(per, k), _stacked(per, k + 1)
+    cpu, cpu17 = _stacked(per, k, "cpu"), _stacked(per, k + 1, "cpu")
+    nr, n, nc = cfg.num_routed_wires, data.n, cfg.num_challenges
+    nchunks = -(-nr // cfg.max_quotient_degree_factor)
+    _, ops = _permutation_work(data)
+    return dict(
+        run=lambda: tprover.compute_permutation_polys_batch(data, *args),
+        plain=lambda: tprover.compute_permutation_polys_batch_plain(data, *cpu),
+        plain_on_host=True,
+        check=lambda: ([tprover.compute_permutation_polys_batch(data, *a) for a in (args, args17)],
+                       [tprover.compute_permutation_polys_batch_plain(data, *a) for a in (cpu, cpu17)]),
+        bytes=(k * (nr * n + nc * nchunks * n) + 2 * nr * n) * 8, ops=k * ops,
     )
 
 
@@ -1572,7 +1752,7 @@ def phase_main_path(kernels) -> None:
         if len(b) != meta["len"] or digest != meta["sha256"]:
             raise AssertionError(f"{name} proof differs from the fixture: {len(b)} B, {digest}")
     verify_line = _verify_path(prover, [blob, blob2])
-    missing = [k["name"] for k in kernels if k.get("path", True) and k["launches"] <= 0]
+    missing = [k["name"] for k in kernels if k.get("path", True) is True and k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     rounds = len(cfg.fri_config.reduction_strategy.schedule(prover.data.degree_bits))
@@ -1599,6 +1779,136 @@ def phase_main_path(kernels) -> None:
     print(verify_line, flush=True)
 
 
+def _batch_limits(k: int, rounds: int) -> dict:
+    """The launch limits of a batch of k leaf proofs: (least, most) a
+    wrapper. Kernel 3: one stacked iNTT and LDE a commit (at most six) and
+    the final polynomial's iNTT a proof; the forest: one call of at most two
+    launches a commit; A and B at most two launches a group of
+    PROOFS_PER_LAUNCH proofs; C, D, F once a proof, E a round a proof, the FRI rounds' trees
+    one call a round a proof; the grind one permute launch a sweep for all
+    proofs (set by the caller from the witnesses); the single-proof forms
+    of A and B and the per-level 2-to-1 never."""
+    from qp_zk_circuits_tpu_torch.plonk.prover import PROOFS_PER_LAUNCH
+
+    groups = -(-k // PROOFS_PER_LAUNCH)
+    return {"ntt": (k + 1, 6 + k), "poseidon2_merkle_forest": (3, 6),
+            "poseidon2_merkle_tree": (rounds * k, 2 * rounds * k),
+            "quotient_batch": (2 * groups, 2 * groups),
+            "permutation_polys_batch": (groups, 2 * groups),
+            "quotient": (0, 0), "permutation_polys": (0, 0), "poseidon2_two_to_one": (0, 0),
+            "fri_composition": (k, k), "eval_openings": (k, k), "fri_fold": (rounds * k, rounds * k),
+            "query_gather": (k, k)}
+
+
+def phase_batch(kernels) -> None:
+    """The batch and stream paths: WormholeProver(device="cuda") on the two
+    real spends of two_real_leaves_same_block(), alternating, as a K = 16
+    batch and as a 48-leaf stream in chunks of 16 (bench.py's shape). Each
+    path runs with every wrapper's count set to 0 just before it and read
+    just after: each proof's bytes equal its JAX fixture, the port's
+    verifier accepts it, and each stage stays within its launch limits
+    (`_batch_limits`); the batch rows of the kernel table take their
+    launches from the K = 16 batch. Then per-proof times of K = 1, 4 and 16
+    batches and of the stream, beside a single proof, on the host clock; and
+    the batched grind's first sweep (2^17 states for each of 16 proofs, one
+    permute launch) against its plain version, timed beside its bound."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_to_bytes
+    from qp_zk_circuits_tpu_torch.tools.timing import card, device_ms, median_ms
+    from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import two_real_leaves_same_block
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    meta = json.loads(FIXTURE_META.read_text())
+    names = ("leaf_proof_real0.bin", "leaf_proof_real1.bin")
+    want = [FIXTURE.parent.joinpath(n).read_bytes() for n in names]
+    for name, blob in zip(names, want):
+        if len(blob) != meta[name]["len"] or hashlib.sha256(blob).hexdigest() != meta[name]["sha256"]:
+            raise AssertionError(f"{name} is not the committed fixture")
+    leaves = two_real_leaves_same_block()
+    prover = WormholeProver(device="cuda")
+    verifier = WormholeVerifier(prover.data)
+    cfg = prover.data.config
+    rounds = len(cfg.fri_config.reduction_strategy.schedule(prover.data.degree_bits))
+    sweep = 1 << 17
+
+    def run(label, fn, count):
+        """fn() with the counts at 0; checks the bytes, the verifier, the
+        launch limits of count / BATCH_K batches; returns (s, launches)."""
+        for k in kernels:
+            k["wrapper"].launches = 0
+        t = time.perf_counter()
+        proofs = fn()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        launches = {k["name"]: k["wrapper"].launches for k in kernels}
+        if len(proofs) != count:
+            raise AssertionError(f"[batch] {label}: {len(proofs)} proofs for {count} inputs")
+        for i, proof in enumerate(proofs):
+            if proof_to_bytes(proof) != want[i % 2]:
+                raise AssertionError(f"[batch] {label}: proof {i} differs from its fixture")
+            verifier.verify(proof)
+        chunks = count // BATCH_K
+        sweeps = sum(1 + max(int(p.fri_proof.pow_witness) for p in proofs[c * BATCH_K:(c + 1) * BATCH_K])
+                     // sweep for c in range(chunks))
+        limits = _batch_limits(BATCH_K, rounds)
+        limits = {n: (chunks * lo, chunks * hi) for n, (lo, hi) in limits.items()}
+        limits["poseidon2_permute"] = (sweeps, sweeps)
+        off = {n: launches[n] for n, (lo, hi) in limits.items() if not lo <= launches[n] <= hi}
+        kernel1 = sum(launches[k["name"]] for k in kernels if k.get("kernel1"))
+        if off or kernel1 > 5 * chunks:
+            raise AssertionError(f"[batch] {label}: launches outside their limits {limits}: "
+                                 f"{off}, kernel 1 {kernel1}")
+        return took, launches
+
+    inputs = [leaves[i % 2] for i in range(STREAM_LEN)]
+    cold_s, _ = run("cold batch", lambda: prover.prove_inputs_batch(inputs[:BATCH_K], seed=0),
+                    BATCH_K)
+    batch_s, launches = run(f"batch of {BATCH_K}",
+                            lambda: prover.prove_inputs_batch(inputs[:BATCH_K], seed=0), BATCH_K)
+    for k in kernels:
+        if k.get("path") == "batch":
+            k["launches"] = launches[k["name"]]
+    total = sum(launches.values())
+    print(f"[batch] K = {BATCH_K} leaf batch (the two real spends alternating): cold "
+          f"{1e3 * cold_s:.1f} ms, warm {1e3 * batch_s:.1f} ms ({1e3 * batch_s / BATCH_K:.2f} ms "
+          f"a proof); every proof equals its fixture and verifies; {total} kernel launches: "
+          f"{', '.join(f'{n}={v}' for n, v in launches.items() if v)}", flush=True)
+    stream_s, stream_launches = run(
+        f"stream of {STREAM_LEN}", lambda: prover.prove_inputs_stream(
+            (x for x in inputs), batch=BATCH_K, seed=0), STREAM_LEN)
+    print(f"[batch] stream of {STREAM_LEN} leaves in chunks of {BATCH_K} (a generator of "
+          f"inputs): {1e3 * stream_s:.1f} ms, {1e3 * stream_s / STREAM_LEN:.2f} ms a proof; every "
+          f"proof equals its fixture and verifies; {sum(stream_launches.values())} kernel "
+          f"launches", flush=True)
+    per_proof = {}
+    for k in (1, 4, BATCH_K):
+        per_proof[k] = _host_median_ms(
+            lambda k=k: (prover.prove_inputs_batch(inputs[:k], seed=0), torch.cuda.synchronize()),
+            runs=3) / k
+    single = _host_median_ms(lambda: (prover.prove_inputs(inputs[0], seed=0),
+                                      torch.cuda.synchronize()), runs=5)
+    print(f"[batch] ms a proof (median of 3 batches): "
+          f"{', '.join(f'K = {k}: {v:.2f}' for k, v in per_proof.items())}; single proof "
+          f"{single:.2f}; {card()}", flush=True)
+    # the batched grind's first sweep: 2^17 candidates for each of 16 proofs
+    # in one kernel-2 permute launch
+    states = _felts((BATCH_K << 17, ps.WIDTH), np.random.default_rng(14), "cuda")
+    got, want = ps.permute(states), ps.permute_plain(states)
+    if not torch.equal(got, want):
+        raise AssertionError("[batch] the grind's sweep of 16 proofs differs from the plain version")
+    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
+    bound, by = _bound((2 * states.numel() * 8, states.shape[0] * perm_ops))
+    plain = median_ms(lambda: ps.permute_plain(states), runs=1, warmup=0)
+    print(f"[batch] the grind's sweep for {BATCH_K} proofs ({states.shape[0]} states, one "
+          f"permute launch): bit-exact; {median_ms(lambda: ps.permute(states), runs=10):.4f} ms, "
+          f"device {device_ms(lambda: ps.permute(states)):.4f} ms (plain on the card "
+          f"{plain:.3f} ms, bound {bound:.4f} ms by {by})", flush=True)
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     device_info = phase_device()
@@ -1611,6 +1921,7 @@ def main() -> int:
     phase_aggregation_fused("cuda")
     phase_aggregation_fri_tail("cuda")
     phase_main_path(kernels)
+    phase_batch(kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

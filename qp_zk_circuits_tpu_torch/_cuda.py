@@ -38,11 +38,11 @@ _ENTRIES = {
     "qzk_poseidon2_permute": [_P, _P, _LL, _P],
     "qzk_poseidon2_hash_rows": [_P, _P, _LL, _I, _LL, _LL, _P],
     "qzk_poseidon2_two_to_one": [_P, _LL, _P, _LL, _P, _LL, _P],
-    "qzk_poseidon2_merkle_tree": [_P, _P, _LL, _I, _LL, _LL, _I, _I, _I, _P],
+    "qzk_poseidon2_merkle_forest": [_P, _P, _LL, _LL, _LL, _I, _LL, _LL, _I, _I, _I, _P],
     "qzk_ntt": [_P] * 8 + [_LL, _LL, _I, _I, _I, _ULL, _I, _P],
     "qzk_quotient_set_constants": [_P, _P, _P],
-    "qzk_quotient": [_P] * 14 + [_I] * 12 + [_P],
-    "qzk_permutation": [_P] * 7 + [_I] * 4 + [_P],
+    "qzk_quotient": [_P, _LL, _P, _P, _LL] + [_P] * 11 + [_I] * 13 + [_P],
+    "qzk_permutation": [_P, _LL] + [_P] * 6 + [_I] * 5 + [_P],
     "qzk_fri_composition": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _P],
     "qzk_eval_openings": [_P, _I, _P, _P, _P, _I, _P],
     "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _P],

@@ -35,6 +35,15 @@
 // time is the latency of one thread's chain (a dependent field multiply
 // takes about 71 cycles) and of fetching its code cold: the loops stay
 // rolled.
+//
+// A batch of proofs (the JAX package's vmap of the fused prover,
+// plonk/prover_fused.py:1007) is the grid's third axis: proof p reads its
+// wires at p * wire_stride, writes its columns and tile products after the
+// proofs before it, and takes its own betas and gammas, which travel by
+// value for up to MAX_PROOFS proofs (1 KB of the kernel's parameters): the
+// wrapper splits a larger batch into launches of at most MAX_PROOFS. At the
+// leaf a proof is one tile on one SM, so sixteen proofs run sixteen tiles a
+// challenge side by side in the time of one.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -47,10 +56,11 @@ constexpr int TILE = 256;  // rows a tile and threads a block, plonk/prover.py::
 constexpr int WARPS = TILE / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BATCH = 8;  // reads in flight a thread
+constexpr int MAX_PROOFS = 16;  // plonk/prover.py::PROOFS_PER_LAUNCH
 
 struct Challenges {
-  uint64_t beta[MAX_NC];
-  uint64_t gamma[MAX_NC];
+  uint64_t beta[MAX_PROOFS][MAX_NC];
+  uint64_t gamma[MAX_PROOFS][MAX_NC];
 };
 
 // Exclusive product scans of v over the block's threads in order: `before`
@@ -109,20 +119,25 @@ __device__ __forceinline__ uint64_t block_scan(uint64_t v, uint64_t& before, uin
   return total;
 }
 
-// out rows: [Z_0 .. Z_{nc-1}, pp_{0,0} .. pp_{0,npp-1}, pp_{1,0} ..], each n
-// long; tile_prod: (nc, tiles) the product of each tile's row ratios.
+// out rows of proof p (blockIdx.z), after the proofs before it: [Z_0 ..
+// Z_{nc-1}, pp_{0,0} .. pp_{0,npp-1}, pp_{1,0} ..], each n long; tile_prod:
+// (proofs, nc, tiles) the product of each tile's row ratios.
 __global__ void __launch_bounds__(TILE) perm_tile_kernel(
-    const uint64_t* __restrict__ wires, const uint64_t* __restrict__ ids,
+    const uint64_t* __restrict__ wires, long long wire_stride, const uint64_t* __restrict__ ids,
     const uint64_t* __restrict__ sigmas, uint64_t* __restrict__ out,
-    uint64_t* __restrict__ tile_prod, Challenges ch, int n, int nr, int qdf, int nchunks,
-    int nc) {
+    uint64_t* __restrict__ tile_prod, const __grid_constant__ Challenges ch, int n, int nr,
+    int qdf, int nchunks, int nc) {
   __shared__ uint64_t sh[2 * WARPS + 1];
   __shared__ uint64_t tile_inv;
   const int r = blockIdx.x * TILE + threadIdx.x;
   const int c = blockIdx.y;
+  const int proof = blockIdx.z;
   const bool live = r < n;  // a row past n takes part in the scans as 1
-  const uint64_t beta = ch.beta[c], gamma = ch.gamma[c];
+  const uint64_t beta = ch.beta[proof][c], gamma = ch.gamma[proof][c];
   const int npp = nchunks - 1;
+  wires += proof * wire_stride;
+  out += (long long)proof * (nc + nc * npp) * n;
+  tile_prod += (long long)proof * nc * gridDim.x;
   // rolled loops (the arrays live in local memory); a chunk's reads are
   // issued together, eight at a time
   uint64_t cn[MAX_CHUNKS], cd[MAX_CHUNKS], pre[MAX_CHUNKS];
@@ -196,6 +211,8 @@ __global__ void __launch_bounds__(TILE) perm_carry_kernel(uint64_t* __restrict__
   __shared__ uint64_t sh[2 * WARPS + 1];
   const int t = blockIdx.x + 1;
   const int c = blockIdx.y;
+  out += (long long)blockIdx.z * (nc + nc * npp) * n;
+  tile_prod += (long long)blockIdx.z * nc * tiles;
   uint64_t v = 1;
   for (int u = threadIdx.x; u < t; u += TILE) v = gl::mul(v, tile_prod[(long long)c * tiles + u]);
   uint64_t unused_before, unused_after;
@@ -212,27 +229,33 @@ __global__ void __launch_bounds__(TILE) perm_carry_kernel(uint64_t* __restrict__
 
 }  // namespace
 
-// wires, ids, sigmas: (nr, n) with row stride n; betas, gammas: nc host
-// felts; out: (nc + nc * npp, n); tile_prod: (nc, ceil(n / TILE)) scratch.
-extern "C" int qzk_permutation(const void* wires, const void* ids, const void* sigmas,
-                               const void* betas, const void* gammas, void* out, void* tile_prod,
-                               int n, int nr, int qdf, int nc, void* stream) {
+// `proofs` proofs (at most MAX_PROOFS): proof p's wires (nr, n) with row
+// stride n at wires + p * wire_stride; ids, sigmas: (nr, n), the circuit's;
+// betas, gammas: (proofs, nc) host felts; out: (proofs, nc + nc * npp, n);
+// tile_prod: (proofs, nc, ceil(n / TILE)) scratch.
+extern "C" int qzk_permutation(const void* wires, long long wire_stride, const void* ids,
+                               const void* sigmas, const void* betas, const void* gammas,
+                               void* out, void* tile_prod, int proofs, int n, int nr, int qdf,
+                               int nc, void* stream) {
   const int nchunks = qdf < 1 ? 0 : (nr + qdf - 1) / qdf;
-  if (nc < 1 || nc > MAX_NC || qdf < 1 || nr < 1 || nchunks > MAX_CHUNKS || n < 1)
+  if (nc < 1 || nc > MAX_NC || qdf < 1 || nr < 1 || nchunks > MAX_CHUNKS || n < 1 ||
+      proofs < 1 || proofs > MAX_PROOFS)
     return (int)cudaErrorInvalidValue;
   Challenges ch{};
-  for (int c = 0; c < nc; ++c) {
-    ch.beta[c] = ((const uint64_t*)betas)[c];
-    ch.gamma[c] = ((const uint64_t*)gammas)[c];
+  for (int p = 0; p < proofs; ++p) {
+    for (int c = 0; c < nc; ++c) {
+      ch.beta[p][c] = ((const uint64_t*)betas)[p * nc + c];
+      ch.gamma[p][c] = ((const uint64_t*)gammas)[p * nc + c];
+    }
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int tiles = (n + TILE - 1) / TILE;
-  perm_tile_kernel<<<dim3((unsigned)tiles, (unsigned)nc), TILE, 0, s>>>(
-      (const uint64_t*)wires, (const uint64_t*)ids, (const uint64_t*)sigmas, (uint64_t*)out,
-      (uint64_t*)tile_prod, ch, n, nr, qdf, nchunks, nc);
+  perm_tile_kernel<<<dim3((unsigned)tiles, (unsigned)nc, (unsigned)proofs), TILE, 0, s>>>(
+      (const uint64_t*)wires, wire_stride, (const uint64_t*)ids, (const uint64_t*)sigmas,
+      (uint64_t*)out, (uint64_t*)tile_prod, ch, n, nr, qdf, nchunks, nc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || tiles == 1) return (int)e;
-  perm_carry_kernel<<<dim3((unsigned)(tiles - 1), (unsigned)nc), TILE, 0, s>>>(
+  perm_carry_kernel<<<dim3((unsigned)(tiles - 1), (unsigned)nc, (unsigned)proofs), TILE, 0, s>>>(
       (uint64_t*)out, (const uint64_t*)tile_prod, n, nchunks - 1, nc, tiles);
   return (int)cudaGetLastError();
 }

@@ -22,12 +22,20 @@
 //    each M4 group a thread, so a full round is 3 S-boxes a thread instead of
 //    12 and the leaf's 2048 rows run as 256 warps instead of 64. The row hash,
 //    the 2-to-1 and the tree run it.
-// A Merkle tree is one call: a first launch where each block hashes a run of
+// A Merkle tree is one call (a forest of one): a first launch where each block hashes a run of
 // rows and reduces its subtree in shared memory, writing every level, and a
 // second launch (only if levels are left) where a block per cap node reduces
 // the rest through the output buffer. Rows are read in place through
 // (row_stride, col_stride), so a column-major LDE needs no transpose copy,
 // and neighbouring rows' threads read neighbouring addresses.
+//
+// A forest is K trees of one shape in the same call and the same two
+// launches (the batch of K proofs' commits, which the JAX package's
+// prove_fused_batch vmaps at plonk/prover_fused.py:1007): the grid's second
+// axis is the tree, tree t reads its rows at t * tree_stride and writes its
+// levels at t times one tree's nodes. At the leaf a single tree's 2048 rows
+// fill only 256 of the card's blocks of 8 rows; sixteen trees give the first
+// launch 2048 blocks, or 512 of 64 rows with six levels each in the block.
 //
 // Round constants and the internal diagonal sit in __constant__ memory,
 // uploaded once a device from the port's Grain-LFSR tables
@@ -185,10 +193,15 @@ constexpr int TREE_MAX_STATES = 128;  // states a block of the second launch: 51
 // a row, writes the leaf digests, then reduces `levels` levels of its subtree
 // through shared memory, writing each level's nodes after the levels below
 // (level l has rows >> l nodes; out is every level, one after the other).
+// Tree blockIdx.y of a forest: its rows at in + blockIdx.y * tree_stride, its
+// levels at out + blockIdx.y * tree_nodes * DIGEST.
 __global__ void tree_leaves_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                                    long long rows, int cols, long long row_stride,
-                                   long long col_stride, int run, int levels) {
+                                   long long col_stride, int run, int levels,
+                                   long long tree_stride, long long tree_nodes) {
   __shared__ uint64_t sh[TREE_MAX_RUN][DIGEST];
+  in += blockIdx.y * tree_stride;
+  out += blockIdx.y * tree_nodes * DIGEST;
   const int q = threadIdx.x / SPLIT;
   const int j = threadIdx.x % SPLIT;
   const int warp_first = (threadIdx.x & ~31) / SPLIT;
@@ -224,7 +237,9 @@ __global__ void tree_leaves_kernel(const uint64_t* __restrict__ in, uint64_t* __
 // reduces its 2^levels of them to one node, level by level through `buf`
 // (written by this block's own threads, so no read-only cache path: the
 // barrier makes one level's stores visible to the next level's loads).
-__global__ void tree_levels_kernel(uint64_t* buf, long long off, long long n, int levels) {
+__global__ void tree_levels_kernel(uint64_t* buf, long long off, long long n, int levels,
+                                   long long tree_nodes) {
+  buf += blockIdx.y * tree_nodes * DIGEST;
   const int q = threadIdx.x / SPLIT;
   const int j = threadIdx.x % SPLIT;
   const int states = blockDim.x / SPLIT;
@@ -290,22 +305,29 @@ extern "C" int qzk_poseidon2_two_to_one(const void* left, long long left_stride,
   return (int)cudaGetLastError();
 }
 
-// A whole tree in one or two launches (the second only when levels_left > 0):
-// rows (a power of two) of `cols` felts read through the strides, `run` rows a
+// A tree, or a forest of `trees` trees, in one or two launches (the second only when
+// levels_left > 0): each tree's rows (a power of two) of `cols` felts read
+// through the strides, tree t's first row at t * tree_stride; `run` rows a
 // block of the first launch reducing `levels_in_block` levels, then one block
-// a cap node reducing `levels_left` levels. `out` holds every level in order.
-extern "C" int qzk_poseidon2_merkle_tree(const void* in, void* out, long long rows, int cols,
-                                         long long row_stride, long long col_stride, int run,
-                                         int levels_in_block, int levels_left, void* stream) {
-  if (rows <= 0) return 0;
+// a cap node reducing `levels_left` levels. `out` holds each tree's levels in
+// order, one tree after the other.
+extern "C" int qzk_poseidon2_merkle_forest(const void* in, void* out, long long trees,
+                                           long long tree_stride, long long rows, int cols,
+                                           long long row_stride, long long col_stride, int run,
+                                           int levels_in_block, int levels_left, void* stream) {
+  if (rows <= 0 || trees <= 0) return 0;
   if (run < 1 || run > TREE_MAX_RUN || rows % run != 0 || (1 << levels_in_block) > run ||
-      levels_left < 0 || (rows >> levels_in_block) < (1ll << levels_left))
+      levels_left < 0 || (rows >> levels_in_block) < (1ll << levels_left) || trees > 65535)
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   auto dst = (uint64_t*)out;
+  long long nodes = 0;  // one tree's nodes, every level
+  for (long long n = rows; n >= (rows >> (levels_in_block + levels_left)) && n > 0; n >>= 1)
+    nodes += n;
   const int leaf_states = run < 32 / SPLIT ? 32 / SPLIT : run;
-  tree_leaves_kernel<<<(unsigned)(rows / run), leaf_states * SPLIT, 0, s>>>(
-      (const uint64_t*)in, dst, rows, cols, row_stride, col_stride, run, levels_in_block);
+  tree_leaves_kernel<<<dim3((unsigned)(rows / run), (unsigned)trees), leaf_states * SPLIT, 0, s>>>(
+      (const uint64_t*)in, dst, rows, cols, row_stride, col_stride, run, levels_in_block,
+      tree_stride, nodes);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || levels_left == 0) return (int)e;
   long long off = 0, n = rows;  // the level the second launch starts from
@@ -317,6 +339,7 @@ extern "C" int qzk_poseidon2_merkle_tree(const void* in, void* out, long long ro
   const long long half = 1ll << (levels_left - 1);
   const int states =
       (int)(half < 32 / SPLIT ? 32 / SPLIT : half > TREE_MAX_STATES ? TREE_MAX_STATES : half);
-  tree_levels_kernel<<<(unsigned)(n >> levels_left), states * SPLIT, 0, s>>>(dst, off, n, levels_left);
+  tree_levels_kernel<<<dim3((unsigned)(n >> levels_left), (unsigned)trees), states * SPLIT, 0, s>>>(
+      dst, off, n, levels_left, nodes);
   return (int)cudaGetLastError();
 }

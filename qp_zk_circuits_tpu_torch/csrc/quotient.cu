@@ -48,6 +48,17 @@
 // about 71 cycles, and the code is fetched cold, so the kernel keeps its
 // loops rolled, its challenge count a template parameter (an emit spends
 // exactly nc multiplies) and its reads batched ahead of their use.
+//
+// A batch of proofs (the JAX package's vmap of the fused prover,
+// plonk/prover_fused.py:1007) is the grid's second axis: proof p reads its
+// wire and Z rows at p times their proof strides and writes its partials
+// and output after the proofs before it; the constants, selectors, sigmas,
+// domain tables and descriptors are the circuit's, read by every proof.
+// Each proof's alphas, betas, gammas and PI hash travel by value, 128 bytes
+// a proof, for at most MAX_PROOFS proofs a launch (2 KB, inside the classic
+// 4 KB of parameters): the wrapper splits a larger batch into launches of
+// at most MAX_PROOFS. At the leaf one proof's 2048 points fill a fraction of
+// the card; sixteen fill sixteen times the blocks in one launch.
 #include <cuda_runtime.h>
 
 #include "poseidon2.cuh"
@@ -59,6 +70,7 @@ constexpr int DESC_W = 8;  // plonk/prover.py::DESC_WIDTH
 constexpr int THREADS = 128;  // plonk/prover.py::QUOTIENT_THREADS
 constexpr int MAX_SHARED = 48 * 1024;
 constexpr int BATCH = 4;  // a permutation chunk's reads in flight a thread
+constexpr int MAX_PROOFS = 16;  // plonk/prover.py::PROOFS_PER_LAUNCH
 
 // descriptor columns: type, p0, p1, p2, selector row (or -1), first
 // constraint index, threads a point, first block
@@ -86,17 +98,23 @@ __constant__ uint64_t c_ext_rc[p2::ROUNDS_F][p2::WIDTH];
 __constant__ uint64_t c_int_rc[p2::ROUNDS_P];
 __constant__ uint64_t c_diag[p2::WIDTH];
 
+// one proof's challenges and PI hash
+struct Challenges {
+  uint64_t alpha[MAX_NC], beta[MAX_NC], gamma[MAX_NC], pi[4];
+};
+
 struct Args {
-  const uint64_t* wires;   // (num_wires, m)
+  const uint64_t* wires;   // proof p's (num_wires, m) at p * wire_stride
   const uint64_t* consts;  // (nconst + nsel + nr, m): constants, selectors, sigmas
-  const uint64_t* zpp;     // (nc + nc * npp, m): Z per challenge, then partial products
+  const uint64_t* zpp;     // proof p's (nc + nc * npp, m): Z per challenge, then partial products
   const uint64_t* xs;      // (m,) the coset points
   const uint64_t* l1;      // (m,) L_1(x)
   const uint64_t* ks;      // (nr,) coset shifts k_i
   const int* desc;         // (G, DESC_W)
-  uint64_t* partial;       // (G, nc, m)
-  uint64_t alpha[MAX_NC], beta[MAX_NC], gamma[MAX_NC], pi[4];
+  uint64_t* partial;       // (proofs, G, nc, m)
+  long long wire_stride, zpp_stride;
   int m, rate, nr, qdf, npp, nc, nconst, nsel, K, groups, blocks;
+  Challenges ch[MAX_PROOFS];
 };
 
 // One point of one group on one thread: operand reads, and the
@@ -106,6 +124,9 @@ struct Args {
 template <int NC>
 struct Point {
   const Args& a;
+  const uint64_t* wires;  // this proof's rows
+  const uint64_t* zpp_rows;
+  const Challenges& ch;
   int x;
   const uint64_t* apow;  // (nc, count) alpha_c^(first + i), shared memory
   int count;
@@ -113,13 +134,13 @@ struct Point {
   uint64_t acc[NC];
 
   __device__ __forceinline__ uint64_t wire(int i) const {
-    return __ldg(a.wires + (long long)i * a.m + x);
+    return __ldg(wires + (long long)i * a.m + x);
   }
   __device__ __forceinline__ uint64_t constant(int row) const {
     return __ldg(a.consts + (long long)row * a.m + x);
   }
   __device__ __forceinline__ uint64_t zpp(int row, int at) const {
-    return __ldg(a.zpp + (long long)row * a.m + at);
+    return __ldg(zpp_rows + (long long)row * a.m + at);
   }
   // acc_c += alpha_c^(first + i) * con
   __device__ __forceinline__ void emit_at(int i, uint64_t con) {
@@ -262,7 +283,7 @@ __device__ __forceinline__ void eval_base_sum(P& p, int num_bits) {
 template <class P>
 __device__ __forceinline__ void eval_permutation(P& p, int c, int lane, int lanes) {
   const Args& a = p.a;
-  const uint64_t beta = a.beta[c], gamma = a.gamma[c];
+  const uint64_t beta = p.ch.beta[c], gamma = p.ch.gamma[c];
   const uint64_t x = __ldg(a.xs + p.x);
   const uint64_t z = p.zpp(c, p.x);
   if (lane == 0) p.emit_at(0, gl::mul(__ldg(a.l1 + p.x), gl::sub(z, 1)));
@@ -305,6 +326,11 @@ __global__ void __launch_bounds__(THREADS, 4) quotient_partial_kernel(const __gr
   // the Poseidon2 gate's internal S-box inputs, a row a point of the tile
   __shared__ uint64_t held[THREADS / p2::SPLIT][p2::ROUNDS_P];
   const int b = blockIdx.x;
+  const int proof = blockIdx.y;
+  const Challenges& ch = a.ch[proof];
+  const uint64_t* wires = a.wires + proof * a.wire_stride;
+  const uint64_t* zpp_rows = a.zpp + proof * a.zpp_stride;
+  uint64_t* partial = a.partial + (long long)proof * a.groups * NC * a.m;
   int g = 0;
   while (g + 1 < a.groups && a.desc[(g + 1) * DESC_W + D_BLOCK] <= b) ++g;
   const int* d = a.desc + g * DESC_W;
@@ -316,7 +342,7 @@ __global__ void __launch_bounds__(THREADS, 4) quotient_partial_kernel(const __gr
   // alpha_c^(first + i) for the group's constraints
   for (int i = threadIdx.x; i < a.nc * count; i += THREADS) {
     const int c = i / count;
-    apow[i] = gl::pow(a.alpha[c], (unsigned)(first + i - c * count));
+    apow[i] = gl::pow(ch.alpha[c], (unsigned)(first + i - c * count));
   }
   __syncthreads();
   const int type = d[D_TYPE], sel = d[D_SEL];
@@ -327,7 +353,7 @@ __global__ void __launch_bounds__(THREADS, 4) quotient_partial_kernel(const __gr
     const int x = t * per_tile + threadIdx.x / lanes;
     // a point past m repeats the last one, so that every thread of a warp
     // makes the same shuffles, and writes nothing
-    Point<NC> p{a, min(x, a.m - 1), apow, count, 0, {}};
+    Point<NC> p{a, wires, zpp_rows, ch, min(x, a.m - 1), apow, count, 0, {}};
     switch (type) {
       case T_ARITH: eval_arith(p, d[D_P0]); break;
       case T_CONST:
@@ -335,7 +361,7 @@ __global__ void __launch_bounds__(THREADS, 4) quotient_partial_kernel(const __gr
         for (int i = 0; i < d[D_P0]; ++i) p.emit(gl::sub(p.wire(i), p.constant(i)));
         break;
       case T_PUBLIC_INPUT:
-        for (int i = 0; i < 4; ++i) p.emit(gl::sub(p.wire(i), a.pi[i]));
+        for (int i = 0; i < 4; ++i) p.emit(gl::sub(p.wire(i), ch.pi[i]));
         break;
       case T_POSEIDON2: eval_poseidon2(p, lane, held, threadIdx.x / lanes); break;
       case T_REDUCING: eval_reducing(p, d[D_P0], d[D_P1], d[D_P2]); break;
@@ -356,20 +382,25 @@ __global__ void __launch_bounds__(THREADS, 4) quotient_partial_kernel(const __gr
       const uint64_t s = sel >= 0 ? p.constant(sel) : 1;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        a.partial[((long long)g * NC + c) * a.m + x] = sel >= 0 ? gl::mul(p.acc[c], s) : p.acc[c];
+        partial[((long long)g * NC + c) * a.m + x] = sel >= 0 ? gl::mul(p.acc[c], s) : p.acc[c];
       }
     }
   }
 }
 
+// out: (proofs, nc, m); proof p's partials are (G, nc, m) after the proofs
+// before it.
 __global__ void __launch_bounds__(THREADS) quotient_combine_kernel(
     const uint64_t* __restrict__ partial, const uint64_t* __restrict__ inv_zh,
-    uint64_t* __restrict__ out, int groups, int nc, int m) {
+    uint64_t* __restrict__ out, int groups, int nc, int m, int proofs) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)nc * m) return;
-  const int x = (int)(idx % m);
+  const long long per_proof = (long long)nc * m;
+  if (idx >= proofs * per_proof) return;
+  const long long proof = idx / per_proof, at = idx % per_proof;
+  const int x = (int)(at % m);
+  const uint64_t* src = partial + proof * groups * per_proof + at;
   uint64_t s = 0;
-  for (int g = 0; g < groups; ++g) s = gl::add(s, partial[(long long)g * nc * m + idx]);
+  for (int g = 0; g < groups; ++g) s = gl::add(s, src[(long long)g * per_proof]);
   out[idx] = gl::mul(s, inv_zh[x]);
 }
 
@@ -384,42 +415,48 @@ extern "C" int qzk_quotient_set_constants(const void* ext_rc, const void* int_rc
 }
 
 // Two launches: the partial sums of the `groups` descriptor rows over
-// `blocks` blocks, then their sum times 1/Z_H into out (nc, m). alphas,
-// betas, gammas: nc host felts each; pi: 4 host felts; max_count: the most
-// constraints of one group (its alpha table).
-extern "C" int qzk_quotient(const void* wires, const void* consts, const void* zpp,
-                            const void* xs, const void* l1, const void* inv_zh, const void* ks,
+// `blocks` blocks for each of `proofs` proofs (at most MAX_PROOFS), then
+// their sum times 1/Z_H into out (proofs, nc, m). Proof p's wires and Z rows
+// at p * wire_stride and p * zpp_stride; alphas, betas, gammas: (proofs, nc)
+// host felts; pi: (proofs, 4) host felts; partial: (proofs, groups, nc, m);
+// max_count: the most constraints of one group (its alpha table).
+extern "C" int qzk_quotient(const void* wires, long long wire_stride, const void* consts,
+                            const void* zpp, long long zpp_stride, const void* xs,
+                            const void* l1, const void* inv_zh, const void* ks,
                             const void* desc, void* partial, void* out, const void* alphas,
-                            const void* betas, const void* gammas, const void* pi, int groups,
-                            int blocks, int m, int rate, int nr, int qdf, int npp, int nc,
-                            int nconst, int nsel, int num_constraints, int max_count,
+                            const void* betas, const void* gammas, const void* pi, int proofs,
+                            int groups, int blocks, int m, int rate, int nr, int qdf, int npp,
+                            int nc, int nconst, int nsel, int num_constraints, int max_count,
                             void* stream) {
   const size_t smem = sizeof(uint64_t) * (size_t)nc * (size_t)max_count;
   if (nc < 1 || nc > MAX_NC || m < 1 || groups < 1 || blocks < groups || qdf < 1 ||
-      max_count < 0 || smem > MAX_SHARED)
+      max_count < 0 || smem > MAX_SHARED || proofs < 1 || proofs > MAX_PROOFS)
     return (int)cudaErrorInvalidValue;
   Args a{(const uint64_t*)wires, (const uint64_t*)consts, (const uint64_t*)zpp,
          (const uint64_t*)xs, (const uint64_t*)l1, (const uint64_t*)ks, (const int*)desc,
-         (uint64_t*)partial, {}, {}, {}, {},
-         m, rate, nr, qdf, npp, nc, nconst, nsel, num_constraints, groups, blocks};
-  for (int c = 0; c < nc; ++c) {
-    a.alpha[c] = ((const uint64_t*)alphas)[c];
-    a.beta[c] = ((const uint64_t*)betas)[c];
-    a.gamma[c] = ((const uint64_t*)gammas)[c];
+         (uint64_t*)partial, wire_stride, zpp_stride,
+         m, rate, nr, qdf, npp, nc, nconst, nsel, num_constraints, groups, blocks, {}};
+  for (int p = 0; p < proofs; ++p) {
+    for (int c = 0; c < nc; ++c) {
+      a.ch[p].alpha[c] = ((const uint64_t*)alphas)[p * nc + c];
+      a.ch[p].beta[c] = ((const uint64_t*)betas)[p * nc + c];
+      a.ch[p].gamma[c] = ((const uint64_t*)gammas)[p * nc + c];
+    }
+    for (int i = 0; i < 4; ++i) a.ch[p].pi[i] = ((const uint64_t*)pi)[p * 4 + i];
   }
-  for (int i = 0; i < 4; ++i) a.pi[i] = ((const uint64_t*)pi)[i];
   cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((unsigned)blocks, (unsigned)proofs);
   // one kernel a challenge count
   switch (nc) {
-    case 1: quotient_partial_kernel<1><<<(unsigned)blocks, THREADS, smem, s>>>(a); break;
-    case 2: quotient_partial_kernel<2><<<(unsigned)blocks, THREADS, smem, s>>>(a); break;
-    case 3: quotient_partial_kernel<3><<<(unsigned)blocks, THREADS, smem, s>>>(a); break;
-    default: quotient_partial_kernel<4><<<(unsigned)blocks, THREADS, smem, s>>>(a); break;
+    case 1: quotient_partial_kernel<1><<<grid, THREADS, smem, s>>>(a); break;
+    case 2: quotient_partial_kernel<2><<<grid, THREADS, smem, s>>>(a); break;
+    case 3: quotient_partial_kernel<3><<<grid, THREADS, smem, s>>>(a); break;
+    default: quotient_partial_kernel<4><<<grid, THREADS, smem, s>>>(a); break;
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long total = (long long)nc * m;
+  const long long total = (long long)proofs * nc * m;
   quotient_combine_kernel<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, s>>>(
-      (const uint64_t*)partial, (const uint64_t*)inv_zh, (uint64_t*)out, groups, nc, m);
+      (const uint64_t*)partial, (const uint64_t*)inv_zh, (uint64_t*)out, groups, nc, m, proofs);
   return (int)cudaGetLastError();
 }

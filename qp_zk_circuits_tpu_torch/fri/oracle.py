@@ -68,6 +68,39 @@ def commit(values, rate_bits: int, cap_height: int, device=None,
     )
 
 
+def commit_batch(values: torch.Tensor, rate_bits: int, cap_height: int,
+                 from_values: bool = False) -> list[PolynomialBatch]:
+    """`commit` for K batches of C polynomials of one shape, values (K, C, N)
+    on the device: the K C columns stacked into one kernel-3 iNTT (when
+    `from_values`) and one LDE, then one kernel-2 forest over the K LDEs read
+    in place. Returns K `PolynomialBatch` views of the stacked coefficients
+    and LDE, each with its tree."""
+    k, c, n = values.shape
+    degree_bits = n.bit_length() - 1
+    if 1 << degree_bits != n:
+        raise ValueError(f"polynomial length {n} is not a power of two")
+    flat = values.reshape(k * c, n)
+    coeffs = ntt.intt(flat) if from_values else flat
+    lde = ntt.coset_lde(coeffs, rate_bits)
+    m = lde.shape[1]
+    trees = merkle.build_merkle_forest(lde.view(k, c, m).transpose(1, 2), cap_height)
+    return [PolynomialBatch(coeffs=coeffs[i * c : (i + 1) * c], lde=lde[i * c : (i + 1) * c],
+                            tree=tree, degree_bits=degree_bits, rate_bits=rate_bits)
+            for i, tree in enumerate(trees)]
+
+
+def stacked_lde(batches: list[PolynomialBatch]) -> torch.Tensor:
+    """The LDEs of `commit_batch`'s K views as one (K, C, M) view of the
+    buffer they share (raises for batches that do not lie one after
+    another in one buffer)."""
+    first = batches[0].lde
+    c, m = first.shape
+    for i, b in enumerate(batches):
+        if b.lde.shape != first.shape or b.lde.data_ptr() != first.data_ptr() + 8 * i * c * m:
+            raise ValueError("the batches' LDEs are not one stacked buffer")
+    return first.as_strided((len(batches), c, m), (c * m, m, 1))
+
+
 #: kernel D takes the oracles and the next-point rows as at most this many
 #: row segments
 MAX_SEGMENTS = 9

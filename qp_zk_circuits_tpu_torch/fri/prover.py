@@ -601,17 +601,29 @@ def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
 # main prover entry
 
 
-def fri_prove(
+@dataclass
+class FriCommitment:
+    """What FRI's commit phase leaves for the grind and the queries: each
+    round's (leaf rows, tree) and cap, and the final polynomial."""
+
+    layers: list
+    caps: list
+    final_poly: np.ndarray
+
+
+def fri_commit_phase(
     oracles: list[PolynomialBatch],
     instance: FriInstance,
     openings: list[np.ndarray],
     challenger: ts.Challenger,
     config: FriConfig,
     degree_bits: int,
-) -> FriProof:
+) -> FriCommitment:
+    """FRI's first phase: the composition (kernel C), each round's tree, cap
+    and fold (kernel E), and the final polynomial (a kernel-3 iNTT), with
+    the transcript's alpha, betas and the final polynomial observed."""
     alpha = challenger.challenge_ext()
     lde_bits = degree_bits + config.rate_bits
-    m0 = 1 << lde_bits
     schedule = config.reduction_strategy.schedule(degree_bits)
     arities = list(schedule) + [0]  # each layer's leaf arity; the last is natural order
     layer = compute_composition(oracles, instance, openings, alpha, lde_bits, arities[0])
@@ -642,19 +654,45 @@ def fri_prove(
         raise AssertionError("final poly exceeds degree bound")
     final_poly = coeffs[:final_len]
     challenger.observe_many(final_poly)
+    return FriCommitment(layers=layers, caps=caps, final_poly=final_poly)
 
-    # proof-of-work grind
-    pow_witness = ts.grind_pow(challenger, config.proof_of_work_bits, oracles[0].lde.device)
+
+def fri_query_phase(
+    oracles: list[PolynomialBatch],
+    commitment: FriCommitment,
+    pow_witness: np.uint64,
+    challenger: ts.Challenger,
+    config: FriConfig,
+    degree_bits: int,
+) -> FriProof:
+    """FRI's last phase, after the grind: the PoW witness observed and its
+    response checked, the query indices drawn, and every opening of every
+    query in one gather and one transfer (kernel F)."""
     challenger.observe(pow_witness)
     pow_response = challenger.challenge()
     if int(pow_response) >= 1 << (64 - config.proof_of_work_bits):
         raise AssertionError("PoW response above the grind threshold")
-
-    # queries: every opening of every query in one gather and one transfer
+    m0 = 1 << (degree_bits + config.rate_bits)
     indices = [challenger.challenge_index(m0) for _ in range(config.num_query_rounds)]
     return FriProof(
-        commit_caps=caps,
-        final_poly=final_poly,
+        commit_caps=commitment.caps,
+        final_poly=commitment.final_poly,
         pow_witness=pow_witness,
-        query_rounds=gather_query_rounds(oracles, layers, indices),
+        query_rounds=gather_query_rounds(oracles, commitment.layers, indices),
     )
+
+
+def fri_prove(
+    oracles: list[PolynomialBatch],
+    instance: FriInstance,
+    openings: list[np.ndarray],
+    challenger: ts.Challenger,
+    config: FriConfig,
+    degree_bits: int,
+) -> FriProof:
+    """FRI for one proof: the commit phase, the proof-of-work grind, the
+    queries. A batch of proofs runs each phase for all its proofs before
+    the next (plonk/prover.py::prove_from_traces), so the grind is one."""
+    commitment = fri_commit_phase(oracles, instance, openings, challenger, config, degree_bits)
+    pow_witness = ts.grind_pow(challenger, config.proof_of_work_bits, oracles[0].lde.device)
+    return fri_query_phase(oracles, commitment, pow_witness, challenger, config, degree_bits)

@@ -15,7 +15,8 @@ digest levels stay on the device; only the cap goes to the host at each
 commitment, because the transcript observes it. The prover's query paths are
 gathered on the device by kernel F (fri/prover.py::query_rounds);
 `MerkleTree.prove` copies the levels to the host once, for callers outside
-the prover path. `verify_merkle_proof` and `merkle_root_from_proof` are the
+the prover path. A batch of proofs commits K trees of one shape in one
+call (`build_merkle_forest`, kernel 2's forest), each a `MerkleTree` view. `verify_merkle_proof` and `merkle_root_from_proof` are the
 verifier's host walk: one call into the C library of native/ a path
 (`_merkle_root_from_proof_pure` is the tests' oracle).
 """
@@ -75,6 +76,16 @@ def build_merkle_tree(leaves: torch.Tensor, cap_height: int) -> MerkleTree:
     """Build on the leaves' device; only the cap goes to the host."""
     levels = build_levels(leaves, cap_height)
     return MerkleTree(digests=levels, cap=gl.to_u64(levels[-1]), cap_height=cap_height)
+
+
+def build_merkle_forest(leaves: torch.Tensor, cap_height: int) -> list[MerkleTree]:
+    """Trees of one shape in one `merkle_forest` call: leaves (T, L, K), tree
+    t over the rows of leaves[t]. Every cap goes to the host in one
+    transfer."""
+    forest = ps.merkle_forest(leaves, cap_height)
+    caps = gl.to_u64(torch.stack([levels[-1] for levels in forest]))
+    return [MerkleTree(digests=levels, cap=cap, cap_height=cap_height)
+            for levels, cap in zip(forest, caps)]
 
 
 def merkle_root_from_proof(leaf_digest: np.ndarray, index: int, siblings: np.ndarray) -> np.ndarray:

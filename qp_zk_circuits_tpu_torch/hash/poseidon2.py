@@ -461,13 +461,14 @@ def _tree_height(leaves: torch.Tensor, cap_height: int) -> int:
 TREE_RUN_MAX, TREE_RUN_MIN = 64, 8
 
 
-def tree_plan(rows: int, cap_height: int, sms: int) -> tuple[int, int, int]:
+def tree_plan(rows: int, cap_height: int, sms: int, trees: int = 1) -> tuple[int, int, int]:
     """(rows a block of the first launch, levels each of its blocks reduces,
-    levels the second launch reduces; 0 means no second launch). The tree is
-    lane-split at every size (csrc/poseidon2.cu says why)."""
+    levels the second launch reduces; 0 means no second launch), for a
+    forest of `trees` trees of `rows` rows. The tree is lane-split at every
+    size (csrc/poseidon2.cu says why)."""
     levels = (rows.bit_length() - 1) - cap_height
     run = TREE_RUN_MAX
-    while run > TREE_RUN_MIN and rows // run < sms:
+    while run > TREE_RUN_MIN and trees * rows // run < sms:
         run //= 2
     run = min(run, rows)
     in_block = min(run.bit_length() - 1, levels)
@@ -568,20 +569,70 @@ def merkle_levels(leaves: torch.Tensor, cap_height: int) -> list[torch.Tensor]:
         leaves.shape[0], cap_height, _sm_count(leaves.device.index)))
 
 
+#: at most this many trees in one forest call (the grid's second axis)
+MAX_FOREST_TREES = 65535
+
+
+def _forest_shape(leaves: torch.Tensor, cap_height: int) -> None:
+    if leaves.dim() != 3 or not 1 <= leaves.shape[0] <= MAX_FOREST_TREES:
+        raise ValueError(f"a forest takes a (T, L, K) stack of 1..{MAX_FOREST_TREES} trees' "
+                         f"leaves, got {tuple(leaves.shape)}")
+    _tree_height(leaves[0], cap_height)
+
+
+def merkle_forest_plain(leaves: torch.Tensor, cap_height: int) -> list[list[torch.Tensor]]:
+    """Plain torch version of `merkle_forest` (same arguments and layout):
+    `merkle_levels_plain` over every tree at once, each level's pairs taken
+    within each tree."""
+    _forest_shape(leaves, cap_height)
+    trees, rows, cols = leaves.shape
+    cur = hash_rows_plain(leaves.reshape(trees * rows, cols)).reshape(trees, rows, DIGEST_LEN)
+    levels = [cur]
+    while cur.shape[1] > 1 << cap_height:
+        pairs = cur.reshape(trees, -1, 2, DIGEST_LEN)
+        cur = two_to_one_plain(pairs[:, :, 0].reshape(-1, DIGEST_LEN),
+                               pairs[:, :, 1].reshape(-1, DIGEST_LEN)).reshape(trees, -1, DIGEST_LEN)
+        levels.append(cur)
+    sizes = [lvl.shape[1] for lvl in levels]
+    return [list(b.split(sizes)) for b in torch.cat(levels, dim=1)]
+
+
+def merkle_forest(leaves: torch.Tensor, cap_height: int) -> list[list[torch.Tensor]]:
+    """Kernel-2 Merkle trees of one shape, in one call: leaves (T, L, K)
+    holds tree t's (L, K) rows at leaves[t], any strides (the stacked LDEs
+    of a batch of proofs, read in place). Returns each tree's levels as in
+    `merkle_levels`, tree t's in its own part of one device buffer. One or
+    two launches for all T trees (`tree_plan` with the forest's size)."""
+    _forest_shape(leaves, cap_height)
+    if leaves.device.type == "cpu":
+        return merkle_forest_plain(leaves, cap_height)
+    _cuda.require_cuda_int64(leaves)
+    return _launch_forest(leaves, cap_height, tree_plan(
+        leaves.shape[1], cap_height, _sm_count(leaves.device.index), leaves.shape[0]),
+        merkle_forest)
+
+
 def _launch_tree(leaves: torch.Tensor, cap_height: int, plan) -> list[torch.Tensor]:
-    left = plan[2]
-    rows, cols = leaves.shape
+    return _launch_forest(leaves.unsqueeze(0), cap_height, plan, merkle_levels)[0]
+
+
+def _launch_forest(leaves: torch.Tensor, cap_height: int, plan, counter) -> list[list[torch.Tensor]]:
+    """The forest entry over (T, L, K) leaves, its launches added to
+    `counter`'s count (`merkle_levels`' for a single tree)."""
+    trees, rows, cols = leaves.shape
     sizes = [rows >> lvl for lvl in range(rows.bit_length() - cap_height)]
-    buf = torch.empty((sum(sizes), DIGEST_LEN), dtype=torch.int64, device=leaves.device)
-    _launch("qzk_poseidon2_merkle_tree", leaves.device, leaves.data_ptr(), buf.data_ptr(),
-            rows, cols, leaves.stride(0), leaves.stride(1), *plan)
-    merkle_levels.launches += 2 if left else 1
-    return list(buf.split(sizes))
+    buf = torch.empty((trees, sum(sizes), DIGEST_LEN), dtype=torch.int64, device=leaves.device)
+    ts, rs, cs = leaves.stride()
+    _launch("qzk_poseidon2_merkle_forest", leaves.device, leaves.data_ptr(), buf.data_ptr(),
+            trees, ts, rows, cols, rs, cs, *plan)
+    counter.launches += 2 if plan[2] else 1
+    return [list(b.split(sizes)) for b in buf]
 
 
 permute.launches = 0
 hash_rows.launches = 0
 two_to_one.launches = 0
 merkle_levels.launches = 0
+merkle_forest.launches = 0
 
 

@@ -15,7 +15,10 @@ is no Python fallback. Nothing here runs at import time.
 `lib()` loads the library at first use and injects the Poseidon2 constants
 of hash/poseidon2.py (`_constants()`, `_M4`). `counts` records the calls
 made through the wrappers below, by wrapper, and the permutations they ran
-(`"permutations"`; a tape or a query verify counts one call).
+(`"permutations"`; a tape or a query verify counts one call). The
+wrappers tally under a lock, so the counts stay right when threads call
+into the library at once (ctypes releases the GIL for each call: a stream's
+witness thread runs its tapes while the proving thread absorbs).
 """
 
 from __future__ import annotations
@@ -71,10 +74,22 @@ _ENTRIES = {
                            + [_u64p] * 5),                 # indices, rows, sibs, leaves, step sibs
     "eval_tape": (None, [_u8p, _u32p, _u32p, _U64, _u64p, _U64, _u64p]),
     "wt_run": (_I64, [_i32p, _I64, _u64p, _u64p, _u8p, _I64]),
+    "wt_run_many": (None, [_i32p, _I64, _u64p, _u64p, _u8p, _I64, _I64, _I64,
+                           ctypes.POINTER(ctypes.c_int64)]),
+    "p2_absorb_batch": (_I64, [_u64p, _u64p, _I64, _u64p, _U64, _I64]),
+    "p2_duplex_batch": (None, [_u64p, _u64p, _I64, _I64]),
 }
 
 _lock = threading.Lock()
+_counts_lock = threading.Lock()
 _lib = None
+
+
+def _tally(name: str, permutations: int = 0) -> None:
+    """One call of wrapper `name` and the permutations it ran, in `counts`."""
+    with _counts_lock:
+        counts[name] += 1
+        counts["permutations"] += permutations
 
 
 def _cpu_tag() -> str:
@@ -184,8 +199,7 @@ def permute_batch(states: np.ndarray) -> np.ndarray:
     out = _u64(states, 12).copy()
     n = out.size // 12
     lib().p2_permute_batch(_ptr(out), n)
-    counts["permute_batch"] += 1
-    counts["permutations"] += n
+    _tally("permute_batch", n)
     return out
 
 
@@ -199,8 +213,7 @@ def permute_trace_batch(states: np.ndarray):
     ext_b = np.empty((n, 3, 12), dtype=np.uint64)
     out = np.empty((n, 12), dtype=np.uint64)
     lib().p2_permute_trace_batch(_ptr(arr), n, _ptr(ext_a), _ptr(inter), _ptr(ext_b), _ptr(out))
-    counts["permute_trace_batch"] += 1
-    counts["permutations"] += n
+    _tally("permute_trace_batch", n)
     return ext_a, inter, ext_b, out
 
 
@@ -209,8 +222,7 @@ def hash_no_pad(inputs: np.ndarray) -> np.ndarray:
     arr = _u64(inputs).ravel()
     digest = np.empty(4, dtype=np.uint64)
     lib().p2_hash_no_pad(_ptr(arr), arr.size, _ptr(digest))
-    counts["hash_no_pad"] += 1
-    counts["permutations"] += -(-arr.size // 8)
+    _tally("hash_no_pad", -(-arr.size // 8))
     return digest
 
 
@@ -222,8 +234,7 @@ def hash_no_pad_many(rows: np.ndarray) -> np.ndarray:
     n, length = arr.shape
     digests = np.empty((n, 4), dtype=np.uint64)
     lib().p2_hash_no_pad_many(_ptr(arr), n, length, _ptr(digests))
-    counts["hash_no_pad_many"] += 1
-    counts["permutations"] += n * -(-length // 8)
+    _tally("hash_no_pad_many", n * -(-length // 8))
     return digests
 
 
@@ -235,8 +246,7 @@ def two_to_one_many(left: np.ndarray, right: np.ndarray) -> np.ndarray:
         raise ValueError(f"left {lt.shape} and right {rt.shape} differ")
     out = np.empty_like(lt)
     lib().p2_two_to_one_many(_ptr(lt), _ptr(rt), lt.shape[0], _ptr(out))
-    counts["two_to_one_many"] += 1
-    counts["permutations"] += lt.shape[0]
+    _tally("two_to_one_many", lt.shape[0])
     return out
 
 
@@ -251,8 +261,7 @@ def merkle_walk(leaf_digest: np.ndarray, index: int, siblings: np.ndarray) -> np
         raise ValueError(f"leaf index {index} out of range")
     out = np.empty(4, dtype=np.uint64)
     lib().p2_merkle_walk(_ptr(leaf), int(index), _ptr(sibs), sibs.shape[0], _ptr(out))
-    counts["merkle_walk"] += 1
-    counts["permutations"] += sibs.shape[0]
+    _tally("merkle_walk", sibs.shape[0])
     return out
 
 
@@ -268,8 +277,7 @@ def absorb_many(state: np.ndarray, buf: list, felts: np.ndarray) -> tuple[np.nda
     b[:k] = buf
     arr = _u64(felts).ravel()
     k2 = int(lib().p2_absorb_many(_ptr(st), _ptr(b), k, _ptr(arr), arr.size))
-    counts["absorb_many"] += 1
-    counts["permutations"] += (k + arr.size) // 8
+    _tally("absorb_many", (k + arr.size) // 8)
     return st, [np.uint64(v) for v in b[:k2]]
 
 
@@ -335,7 +343,7 @@ def fri_verify_queries(
         _ptr(a["alpha"]), _ptr(a["betas"]), _ptr(a["final"]), a["final"].size // 2,
         _ptr(a["ccaps"]), int(g), int(w0), _ptr(a["idx"]), _ptr(a["rows"]), _ptr(a["isibs"]),
         _ptr(a["leaves"]), _ptr(a["ssibs"])))
-    counts["fri_verify_queries"] += 1
+    _tally("fri_verify_queries")
     return code
 
 
@@ -351,7 +359,7 @@ def eval_tape(tape, inputs: np.ndarray) -> np.ndarray:
     lib().eval_tape(
         tape.ops.ctypes.data_as(_u8p), tape.ia.ctypes.data_as(_u32p),
         tape.ib.ctypes.data_as(_u32p), n_ops, _ptr(tape.pool), tape.n_inputs, _ptr(values))
-    counts["eval_tape"] += 1
+    _tally("eval_tape")
     return values[tape.out_ids]
 
 
@@ -368,5 +376,59 @@ def witness_tape_run(code: np.ndarray, consts: np.ndarray, vals: np.ndarray,
     consts = _u64(consts)
     rc = int(lib().wt_run(code.ctypes.data_as(_i32p), code.size, _ptr(consts), _ptr(vals),
                           written.ctypes.data_as(_u8p), int(rounds_p)))
-    counts["wt_run"] += 1
+    _tally("wt_run")
     return rc
+
+
+def absorb_batch(states: np.ndarray, bufs: np.ndarray, felts: np.ndarray) -> tuple:
+    """K transcripts' absorbs of one step, in one call: states (K, 12),
+    partial input buffers (K, fill) of one fill, felts (K, n). Returns the
+    new states and buffers (K, fill'); bit-equal to K `absorb_many` calls."""
+    st = _u64(states, 12).reshape(-1, 12).copy()
+    k = st.shape[0]
+    b_in = _u64(bufs).reshape(k, -1)
+    fill = b_in.shape[1]
+    arr = _u64(felts).reshape(k, -1)
+    if fill >= 8:
+        raise ValueError(f"a buffer under 8 felts, got {fill}")
+    b = np.zeros((k, 8), dtype=np.uint64)
+    b[:, :fill] = b_in
+    n = arr.shape[1]
+    fill2 = int(lib().p2_absorb_batch(_ptr(st), _ptr(b), fill, _ptr(arr), n, k))
+    _tally("absorb_batch", k * ((fill + n) // 8))
+    return st, b[:, :fill2].copy()
+
+
+def duplex_batch(states: np.ndarray, bufs: np.ndarray) -> np.ndarray:
+    """K transcripts' duplexes in one call: the first `fill` lanes of state
+    k take buffer k (K, fill), then each state is permuted."""
+    st = _u64(states, 12).reshape(-1, 12).copy()
+    k = st.shape[0]
+    b_in = _u64(bufs).reshape(k, -1)
+    fill = b_in.shape[1]
+    if fill > 8:
+        raise ValueError(f"a buffer of at most 8 felts, got {fill}")
+    b = np.zeros((k, 8), dtype=np.uint64)
+    b[:, :fill] = b_in
+    lib().p2_duplex_batch(_ptr(st), _ptr(b), fill, k)
+    _tally("duplex_batch", k)
+    return st
+
+
+def witness_tape_run_many(code: np.ndarray, consts: np.ndarray, vals: np.ndarray,
+                          written: np.ndarray, rounds_p: int) -> np.ndarray:
+    """Run one witness tape over K value arrays (vals, written: (K, T)), in
+    one call; each is updated in place. Returns the K results of `wt_run`."""
+    for name, arr, dtype in (("code", code, np.int32), ("vals", vals, np.uint64),
+                             ("written", written, np.uint8)):
+        if arr.dtype != dtype or not arr.flags.c_contiguous:
+            raise ValueError(f"{name} must be a contiguous {np.dtype(dtype).name} array")
+    if vals.ndim != 2 or written.shape != vals.shape:
+        raise ValueError("vals and written must be (K, T) arrays of one shape")
+    consts = _u64(consts)
+    rcs = np.zeros(vals.shape[0], dtype=np.int64)
+    lib().wt_run_many(code.ctypes.data_as(_i32p), code.size, _ptr(consts), _ptr(vals),
+                      written.ctypes.data_as(_u8p), vals.shape[1], vals.shape[0],
+                      int(rounds_p), rcs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    _tally("wt_run_many")
+    return rcs

@@ -245,3 +245,37 @@ void p2_two_to_one_many(const uint64_t *left, const uint64_t *right, size_t n,
         for (int i = 0; i < 4; i++) out[4 * k + i] = st[i];
     }
 }
+
+/* ---- the transcripts of a batch of proofs, in lockstep ---- */
+
+int64_t p2_absorb_many(uint64_t *state, uint64_t *buf, int64_t k, const uint64_t *felts,
+                       uint64_t n); /* fri_verify.c */
+
+/* K transcripts' absorbs of one step: state k of `states` (K x 12) with its
+ * partial input buffer `bufs` (K x 8, `fill` felts each: the transcripts of
+ * one circuit advance in lockstep, so every buffer holds as many) absorbs
+ * row k of `felts` (K x n). Returns the buffers' new fill. Each state is
+ * p2_absorb_many's own walk, so the result is bit-equal to K single calls;
+ * the states fan out across cores. */
+int64_t p2_absorb_batch(uint64_t *states, uint64_t *bufs, int64_t fill, const uint64_t *felts,
+                        uint64_t n, int64_t count) {
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static) if (count > 1 && n >= 16)
+#endif
+    for (int64_t k = 0; k < count; k++)
+        p2_absorb_many(states + WIDTH * k, bufs + 8 * k, fill, felts + n * k, n);
+    return (fill + (int64_t)(n % 8)) % 8;
+}
+
+/* K transcripts' duplexes: the first `fill` lanes of state k take buffer k
+ * (K x 8), then the state is permuted (Challenger._duplex, K at once). */
+void p2_duplex_batch(uint64_t *states, const uint64_t *bufs, int64_t fill, int64_t count) {
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static) if (count >= 4)
+#endif
+    for (int64_t k = 0; k < count; k++) {
+        uint64_t *x = states + WIDTH * k;
+        for (int64_t i = 0; i < fill; i++) x[i] = bufs[8 * k + i];
+        permute_one(x);
+    }
+}

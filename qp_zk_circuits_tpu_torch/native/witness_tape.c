@@ -184,3 +184,19 @@ int64_t wt_run(const int32_t *code, int64_t code_len, const uint64_t *consts,
     }
     return 0;
 }
+
+/* One tape over `count` value arrays (a batch of proofs of one circuit):
+ * array k is vals + k * n_vals with its written flags; rcs[k] is wt_run's
+ * result for it. The arrays are independent and fan out across cores; each
+ * is wt_run's own walk, so the values are bit-equal to `count` single
+ * runs. */
+void wt_run_many(const int32_t *code, int64_t code_len, const uint64_t *consts,
+                 uint64_t *vals, uint8_t *written, int64_t n_vals, int64_t count,
+                 int64_t rounds_p, int64_t *rcs) {
+#ifdef _OPENMP
+#pragma omp parallel for schedule(dynamic, 1) if (count > 1)
+#endif
+    for (int64_t k = 0; k < count; k++)
+        rcs[k] = wt_run(code, code_len, consts, vals + k * n_vals, written + k * n_vals,
+                        rounds_p);
+}

@@ -812,18 +812,23 @@ def witness_root_values(data: CircuitData, pw: PartialWitness) -> np.ndarray:
     return arr
 
 
+def _scatter_order(data: CircuitData) -> np.ndarray:
+    ro = data.__dict__.get("_roots_order_arr")
+    if ro is None:
+        roots_order = witness_scatter_tables(data)[0]
+        ro = np.asarray(roots_order, dtype=np.int64)
+        data.__dict__["_roots_order_arr"] = ro
+    return ro
+
+
 def generate_witness(data: CircuitData, pw: PartialWitness, rng=None):
     """Run generators to a fixpoint; returns (trace (num_wires, n), public_inputs)."""
     arr = witness_root_values(data, pw)
 
     cfg = data.config
     trace = np.zeros((cfg.num_wires, data.n), dtype=np.uint64)
-    roots_order, _, cell_flat, cell_slot = witness_scatter_tables(data)
-    ro = data.__dict__.get("_roots_order_arr")
-    if ro is None:
-        ro = np.asarray(roots_order, dtype=np.int64)
-        data.__dict__["_roots_order_arr"] = ro
-    trace.ravel()[cell_flat] = arr[ro[cell_slot]]
+    _, _, cell_flat, cell_slot = witness_scatter_tables(data)
+    trace.ravel()[cell_flat] = arr[_scatter_order(data)[cell_slot]]
     if cfg.zero_knowledge:
         rng = rng or np.random.default_rng()
         blind = F.rand_felts((cfg.num_wires, data.n - data.num_rows_used), rng)
@@ -831,3 +836,28 @@ def generate_witness(data: CircuitData, pw: PartialWitness, rng=None):
     # public_input_targets are stored root-resolved by build()
     pis = arr[np.asarray(data.public_input_targets, dtype=np.int64)]
     return trace, pis
+
+
+def generate_witness_batch(data: CircuitData, pws: list):
+    """`generate_witness` for K PartialWitnesses of one circuit (non-ZK: no
+    blinding rows): (traces (K, num_wires, n), public inputs (K, num_pis)).
+
+    A circuit's first proof records its generator program by the Python
+    replay, so the first witness takes `witness_root_values` when the
+    circuit has no tape yet; then every witness of the tape's seed keyset
+    runs it in one C call (`witness_tape.run_tape_many`), and any other
+    takes `witness_root_values` alone."""
+    if data.config.zero_knowledge:
+        raise NotImplementedError("zero-knowledge batches are not ported yet")
+    rows = witness_tape.run_tape_many(data, pws)
+    if rows[0] is None:
+        rows[0] = witness_root_values(data, pws[0])  # records the program
+        rows[1:] = witness_tape.run_tape_many(data, pws[1:]) if len(pws) > 1 else []
+    arr = np.stack([r if r is not None else witness_root_values(data, pw)
+                    for r, pw in zip(rows, pws)])
+    cfg = data.config
+    traces = np.zeros((len(pws), cfg.num_wires * data.n), dtype=np.uint64)
+    _, _, cell_flat, cell_slot = witness_scatter_tables(data)
+    traces[:, cell_flat] = arr[:, _scatter_order(data)[cell_slot]]
+    pis = arr[:, np.asarray(data.public_input_targets, dtype=np.int64)]
+    return traces.reshape(len(pws), cfg.num_wires, data.n), pis

@@ -23,6 +23,8 @@ so prover and verifier share one constraint evaluation.
 from __future__ import annotations
 
 import functools
+import itertools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -33,12 +35,18 @@ from ..field import extension as ext
 from ..field import gf_np as F
 from ..field import goldilocks as gl
 from ..fri import oracle as fo
-from ..fri.prover import fri_prove
+from ..fri.prover import fri_commit_phase, fri_prove, fri_query_phase
 from ..hash import poseidon2 as ps
 from ..poly import ntt
 from . import constraint_tape
 from . import transcript as ts
-from .builder import CircuitData, PartialWitness, coset_shifts, generate_witness
+from .builder import (
+    CircuitData,
+    PartialWitness,
+    coset_shifts,
+    generate_witness,
+    generate_witness_batch,
+)
 from .gates import (
     GATE_TYPE_IDS,
     PERMUTATION_TYPE_ID,
@@ -54,6 +62,11 @@ from .vanishing import HostExtAlg, eval_constraints, num_partial_products, permu
 #: kernel A keeps one accumulator a challenge in registers; both kernels'
 #: challenges travel as launch arguments
 MAX_CHALLENGES = 4
+#: kernels A and B take at most this many proofs a launch: each proof's
+#: challenges travel by value in the launch's parameters (MAX_PROOFS of
+#: csrc/quotient.cu and csrc/permutation.cu); a larger batch takes more
+#: launches of the same kernel
+PROOFS_PER_LAUNCH = 16
 #: kernel B keeps a row's chunk products in registers
 MAX_CHUNKS = 16
 #: kernel B's rows a block (csrc/permutation.cu TILE): one Fermat inverse a
@@ -253,32 +266,85 @@ def compute_permutation_polys(data: CircuitData, trace: torch.Tensor, betas, gam
 
 
 def _launch_permutation(data: CircuitData, trace: torch.Tensor, betas, gammas):
-    cfg = data.config
-    nr, nc = cfg.num_routed_wires, cfg.num_challenges
-    npp = num_partial_products(nr, cfg.max_quotient_degree_factor)
-    tab = _routing_tables(data, trace.device)
-    wires = trace[:nr].contiguous()
-    out = torch.empty((nc + nc * npp, data.n), dtype=torch.int64, device=trace.device)
-    tiles = -(-data.n // PERMUTATION_TILE)
-    tile_prod = torch.empty((nc, tiles), dtype=torch.int64, device=trace.device)
-    b, g = (_host_felts(v, nc) for v in (betas, gammas))
-    err = _cuda.lib().qzk_permutation(
-        wires.data_ptr(), tab["id_coords"].data_ptr(), tab["sigma_vals"].data_ptr(),
-        b.ctypes.data, g.ctypes.data, out.data_ptr(), tile_prod.data_ptr(),
-        data.n, nr, cfg.max_quotient_degree_factor, nc, _cuda.stream(),
-    )
-    _cuda.check(err, "qzk_permutation")
-    compute_permutation_polys.launches += 1 if tiles == 1 else 2
+    out, launches = _permutation_launches(data, trace.unsqueeze(0), [betas], [gammas])
+    compute_permutation_polys.launches += launches
+    return out[0]
+
+
+def compute_permutation_polys_batch_plain(data: CircuitData, traces: torch.Tensor, betas, gammas):
+    """Plain torch version of `compute_permutation_polys_batch` (same
+    arguments): a loop of `compute_permutation_polys_plain`."""
+    _batch_limits(traces, betas, gammas)
+    return torch.stack([compute_permutation_polys_plain(data, t, b, g)
+                        for t, b, g in zip(traces, betas, gammas)])
+
+
+def compute_permutation_polys_batch(data: CircuitData, traces: torch.Tensor, betas, gammas):
+    """`compute_permutation_polys` for K proofs of the circuit: traces (K,
+    num_wires, n), betas and gammas (K, nc) -> (K, num_cols, n).
+
+    On CUDA traces: kernel B with a proof axis, at most PROOFS_PER_LAUNCH
+    proofs a call (each a launch up to PERMUTATION_TILE rows, two above); the
+    routing tables are the circuit's, read by every proof. On CPU traces:
+    the plain version."""
+    _batch_limits(traces, betas, gammas)
+    _permutation_limits(data, traces[0])
+    if traces.device.type == "cpu":
+        return compute_permutation_polys_batch_plain(data, traces, betas, gammas)
+    _cuda.require_cuda_int64(traces)
+    out, launches = _permutation_launches(data, traces, betas, gammas)
+    compute_permutation_polys_batch.launches += launches
     return out
 
 
+def _batch_limits(stack: torch.Tensor, *per_proof) -> None:
+    if stack.dim() != 3 or stack.shape[0] < 1:
+        raise ValueError(f"a batch takes a (K, rows, n) stack, got {tuple(stack.shape)}")
+    if any(len(v) != stack.shape[0] for v in per_proof):
+        raise ValueError(f"{stack.shape[0]} proofs and challenge sets of other lengths")
+
+
+def _groups(k: int):
+    """The proof ranges of a batch's launches: at most PROOFS_PER_LAUNCH each."""
+    return [(g, min(g + PROOFS_PER_LAUNCH, k)) for g in range(0, k, PROOFS_PER_LAUNCH)]
+
+
+def _permutation_launches(data: CircuitData, traces: torch.Tensor, betas, gammas):
+    """Kernel B over the (K, num_wires, n) traces: (out (K, num_cols, n),
+    launches)."""
+    cfg = data.config
+    nr, nc = cfg.num_routed_wires, cfg.num_challenges
+    npp = num_partial_products(nr, cfg.max_quotient_degree_factor)
+    k, dev = traces.shape[0], traces.device
+    tab = _routing_tables(data, dev)
+    traces = traces.contiguous()
+    out = torch.empty((k, nc + nc * npp, data.n), dtype=torch.int64, device=dev)
+    tiles = -(-data.n // PERMUTATION_TILE)
+    tile_prod = torch.empty((k, nc, tiles), dtype=torch.int64, device=dev)
+    betas, gammas = (_host_felts(v, nc) for v in (betas, gammas))
+    launches = 0
+    for g0, g1 in _groups(k):
+        err = _cuda.lib().qzk_permutation(
+            traces[g0].data_ptr(), traces.stride(0), tab["id_coords"].data_ptr(),
+            tab["sigma_vals"].data_ptr(), betas[g0:g1].ctypes.data, gammas[g0:g1].ctypes.data,
+            out[g0].data_ptr(), tile_prod[g0].data_ptr(), g1 - g0, data.n, nr,
+            cfg.max_quotient_degree_factor, nc, _cuda.stream(),
+        )
+        _cuda.check(err, "qzk_permutation")
+        launches += 1 if tiles == 1 else 2
+    return out, launches
+
+
 def _host_felts(values, count: int) -> np.ndarray:
-    """The first `count` felts of `values` as a contiguous uint64 array, for
-    a kernel entry that takes them by value."""
-    return np.ascontiguousarray(np.asarray(values, dtype=np.uint64)[:count])
+    """The first `count` felts of each row of `values` as a contiguous
+    (rows, count) uint64 array, for a kernel entry that takes them by
+    value."""
+    arr = np.asarray(values, dtype=np.uint64)
+    return np.ascontiguousarray(arr.reshape(-1, arr.shape[-1])[:, :count])
 
 
 compute_permutation_polys.launches = 0
+compute_permutation_polys_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -386,37 +452,81 @@ def quotient_evals(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash):
 
 
 def _launch_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash, consts_lde):
-    cfg = data.config
-    nc = cfg.num_challenges
-    m = data.n << cfg.rate_bits
-    dev = wires_lde.device
-    tab = _quotient_tables(data, dev)
-    alphas, betas, gammas = (_host_felts(v, nc) for v in (alphas, betas, gammas))
-    pi_hash = _host_felts(pi_hash, 4)
-    wires_lde, consts_lde, zs_pp_lde = (t.contiguous() for t in (wires_lde, consts_lde, zs_pp_lde))
-    groups = tab["desc"].shape[0]
-    partial = torch.empty((groups, nc, m), dtype=torch.int64, device=dev)
-    out = torch.empty((nc, m), dtype=torch.int64, device=dev)
-    lib = _kernel_lib(dev.index)
-    # the launch, its stream and the constants it reads are the operands' device's
-    with torch.cuda.device(dev.index):
-        err = lib.qzk_quotient(
-            wires_lde.data_ptr(), consts_lde.data_ptr(), zs_pp_lde.data_ptr(),
-            tab["xs"].data_ptr(), tab["l1"].data_ptr(), tab["inv_zh"].data_ptr(),
-            tab["ks"].data_ptr(), tab["desc"].data_ptr(), partial.data_ptr(), out.data_ptr(),
-            alphas.ctypes.data, betas.ctypes.data, gammas.ctypes.data, pi_hash.ctypes.data,
-            groups, tab["blocks"], m, 1 << cfg.rate_bits, cfg.num_routed_wires,
-            cfg.max_quotient_degree_factor,
-            num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor), nc,
-            data.const_cols.shape[0], data.num_selectors, tab["num_constraints"],
-            tab["max_count"], _cuda.stream(),
-        )
-    _cuda.check(err, "qzk_quotient")
-    quotient_evals.launches += 2
+    out, launches = _quotient_launches(
+        data, wires_lde.unsqueeze(0), zs_pp_lde.unsqueeze(0), [alphas], [betas], [gammas],
+        [pi_hash], consts_lde)
+    quotient_evals.launches += launches
+    return out[0]
+
+
+def quotient_evals_batch_plain(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes):
+    """Plain torch version of `quotient_evals_batch` (same arguments): a loop
+    of `quotient_evals_plain`."""
+    _batch_limits(wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes)
+    return torch.stack([quotient_evals_plain(data, *args) for args in zip(
+        wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes)])
+
+
+def quotient_evals_batch(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes):
+    """`quotient_evals` for K proofs of the circuit: wires_ldes (K,
+    num_wires, m), zs_pp_ldes (K, num_cols, m), alphas, betas, gammas (K,
+    nc), pi_hashes (K, 4) -> (K, nc, m).
+
+    On CUDA operands: kernel A with a proof axis, two launches for at most
+    PROOFS_PER_LAUNCH proofs; the constants, selectors, sigmas and domain
+    tables are the circuit's, read by every proof. On CPU operands: the
+    plain version."""
+    _batch_limits(wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes)
+    consts_lde = _quotient_operands(data, wires_ldes[0], zs_pp_ldes[0])
+    if wires_ldes.device.type == "cpu":
+        return quotient_evals_batch_plain(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas,
+                                          pi_hashes)
+    _cuda.require_cuda_int64(wires_ldes, consts_lde, zs_pp_ldes)
+    out, launches = _quotient_launches(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas,
+                                       pi_hashes, consts_lde)
+    quotient_evals_batch.launches += launches
     return out
 
 
+def _quotient_launches(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes,
+                       consts_lde):
+    """Kernel A over (K, rows, m) stacks: (out (K, nc, m), launches)."""
+    cfg = data.config
+    nc = cfg.num_challenges
+    m = data.n << cfg.rate_bits
+    k, dev = wires_ldes.shape[0], wires_ldes.device
+    tab = _quotient_tables(data, dev)
+    alphas, betas, gammas = (_host_felts(v, nc) for v in (alphas, betas, gammas))
+    pis = _host_felts(pi_hashes, 4)
+    wires_ldes, consts_lde, zs_pp_ldes = (
+        t.contiguous() for t in (wires_ldes, consts_lde, zs_pp_ldes))
+    groups = tab["desc"].shape[0]
+    partial = torch.empty((k, groups, nc, m), dtype=torch.int64, device=dev)
+    out = torch.empty((k, nc, m), dtype=torch.int64, device=dev)
+    lib = _kernel_lib(dev.index)
+    launches = 0
+    # the launch, its stream and the constants it reads are the operands' device's
+    with torch.cuda.device(dev.index):
+        for g0, g1 in _groups(k):
+            err = lib.qzk_quotient(
+                wires_ldes[g0].data_ptr(), wires_ldes.stride(0), consts_lde.data_ptr(),
+                zs_pp_ldes[g0].data_ptr(), zs_pp_ldes.stride(0), tab["xs"].data_ptr(),
+                tab["l1"].data_ptr(), tab["inv_zh"].data_ptr(), tab["ks"].data_ptr(),
+                tab["desc"].data_ptr(), partial[g0].data_ptr(), out[g0].data_ptr(),
+                alphas[g0:g1].ctypes.data, betas[g0:g1].ctypes.data, gammas[g0:g1].ctypes.data,
+                pis[g0:g1].ctypes.data, g1 - g0, groups, tab["blocks"], m, 1 << cfg.rate_bits,
+                cfg.num_routed_wires, cfg.max_quotient_degree_factor,
+                num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor), nc,
+                data.const_cols.shape[0], data.num_selectors, tab["num_constraints"],
+                tab["max_count"], _cuda.stream(),
+            )
+            _cuda.check(err, "qzk_quotient")
+            launches += 2
+    return out, launches
+
+
 quotient_evals.launches = 0
+quotient_evals_batch.launches = 0
 
 
 def compute_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash):
@@ -436,6 +546,39 @@ def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None) -> Pro
     return prove_from_trace(data, trace, pis, seed)
 
 
+def _check_config(cfg) -> None:
+    if cfg.zero_knowledge:
+        raise NotImplementedError("zero-knowledge proving is not ported yet")
+    if cfg.max_quotient_degree_factor != 1 << cfg.rate_bits:
+        raise ValueError(
+            "quotient evaluation reuses the rate-blowup LDE domain; qdf must equal 2^rate_bits"
+        )
+
+
+def _open(data: CircuitData, oracles: list, zeta) -> tuple[OpeningSet, np.ndarray]:
+    """All oracles at zeta (+ the Z columns at g*zeta), one kernel-D call and
+    one transfer: the opening set and zeta_next."""
+    g_n = F.primitive_root_of_unity(data.degree_bits)
+    zeta_next = ext.scalar_mul(np.asarray(zeta, dtype=np.uint64).reshape(1, 2), g_n)[0]
+    nconst = data.const_cols.shape[0]
+    nsel = data.num_selectors
+    nz, _ = zs_pp_layout(data.config)
+    (consts_open, wires_open, zpp_open, quot_open), zs_next_open = fo.eval_openings(
+        oracles, zeta, zeta_next, next_oracle=2, next_count=nz
+    )
+    openings = OpeningSet(
+        constants=consts_open[:nconst],
+        selectors=consts_open[nconst : nconst + nsel],
+        sigmas=consts_open[nconst + nsel :],
+        wires=wires_open,
+        zs=zpp_open[:nz],
+        zs_next=zs_next_open,
+        pps=zpp_open[nz:],
+        quotient=quot_open,
+    )
+    return openings, zeta_next
+
+
 def prove_from_trace(
     data: CircuitData, trace: np.ndarray, pis: np.ndarray, seed: int | None = None
 ) -> Proof:
@@ -445,12 +588,7 @@ def prove_from_trace(
     it (it is accepted for the reference's signature). Zero-knowledge proving
     is not ported yet and raises."""
     cfg = data.config
-    if cfg.zero_knowledge:
-        raise NotImplementedError("zero-knowledge proving is not ported yet")
-    if cfg.max_quotient_degree_factor != 1 << cfg.rate_bits:
-        raise ValueError(
-            "quotient evaluation reuses the rate-blowup LDE domain; qdf must equal 2^rate_bits"
-        )
+    _check_config(cfg)
     dev = data.device
     rate_bits = cfg.rate_bits
     cap_h = cfg.fri_config.cap_height
@@ -479,27 +617,10 @@ def prove_from_trace(
     quotient_o = fo.commit(t_chunks, rate_bits, cap_h)
     ch.observe_cap(quotient_o.cap)
     zeta = ch.challenge_ext()
-    g_n = F.primitive_root_of_unity(data.degree_bits)
-    zeta_next = ext.scalar_mul(zeta.reshape(1, 2), g_n)[0]
 
     # 5. openings — all oracles at zeta (+ Z cols at g*zeta), one transfer
-    nconst = data.const_cols.shape[0]
-    nsel = data.num_selectors
-    nz, _ = zs_pp_layout(cfg)
     oracles = [data.constants_oracle, wires_o, zs_pp_o, quotient_o]
-    (consts_open, wires_open, zpp_open, quot_open), zs_next_open = fo.eval_openings(
-        oracles, zeta, zeta_next, next_oracle=2, next_count=nz
-    )
-    openings = OpeningSet(
-        constants=consts_open[:nconst],
-        selectors=consts_open[nconst : nconst + nsel],
-        sigmas=consts_open[nconst + nsel :],
-        wires=wires_open,
-        zs=zpp_open[:nz],
-        zs_next=zs_next_open,
-        pps=zpp_open[nz:],
-        quotient=quot_open,
-    )
+    openings, zeta_next = _open(data, oracles, zeta)
     openings.observe_into(ch)
 
     # 6. FRI
@@ -514,6 +635,151 @@ def prove_from_trace(
         fri_proof=fri_proof,
         public_inputs=pis,
     )
+
+
+# ---------------------------------------------------------------------------
+# batches and streams of proofs
+
+
+def prove_batch(data: CircuitData, pws: list, seed: int | None = None) -> list[Proof]:
+    """Prove K witnesses of one circuit together (the JAX package's
+    `prove_batch`, whose fused form vmaps the prover over the proofs,
+    plonk/prover_fused.py:973): the witnesses by one tape call
+    (`generate_witness_batch`), then `prove_from_traces`. Each proof's bytes
+    equal the single proof's of the same witness; proofs come back in input
+    order. Non-ZK only (`seed` draws nothing); a ZK circuit raises."""
+    _check_config(data.config)
+    if not pws:
+        return []
+    traces, pis = generate_witness_batch(data, pws)
+    return prove_from_traces(data, traces, pis, seed)
+
+
+def prove_stream(data: CircuitData, pws, batch: int, seed: int | None = None,
+                 total: int | None = None) -> list[Proof]:
+    """Prove an iterable of PartialWitnesses (a list, or a generator that
+    fills them on demand) in chunks of `batch` (the JAX package's
+    `prove_fused_stream`): a worker thread generates chunk i+1's witnesses
+    while this thread proves chunk i, so the host's witness work hides
+    behind the device's and the transcript's. The stream's length must tile
+    `batch`: checked against `total` first when it is given, else when the
+    last chunk comes up short. An exception in the worker reaches the
+    caller. Proofs come back in input order."""
+    _check_config(data.config)
+    if batch < 1:
+        raise ValueError(f"batch {batch}: a chunk holds at least one proof")
+    if total is not None:
+        assert total % batch == 0, "stream length must tile the batch size"
+    it = iter(pws)
+
+    def next_chunk():
+        chunk = list(itertools.islice(it, batch))
+        if not chunk:
+            return None
+        assert len(chunk) == batch, "stream length must tile the batch size"
+        return generate_witness_batch(data, chunk)
+
+    proofs: list[Proof] = []
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="qzk-witness") as pool:
+        pending = pool.submit(next_chunk)
+        while (ready := pending.result()) is not None:
+            pending = pool.submit(next_chunk)
+            proofs += prove_from_traces(data, *ready, seed)
+    return proofs
+
+
+def compute_quotient_batch(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes):
+    """`compute_quotient` for K proofs: (K, nc * qdf, n) chunks in
+    coefficient form, from `quotient_evals_batch` and one kernel-3 coset
+    iNTT of all K nc rows."""
+    cfg = data.config
+    evals = quotient_evals_batch(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes)
+    return ntt.coset_intt(evals).reshape(evals.shape[0], cfg.num_challenges << cfg.rate_bits,
+                                         data.n)
+
+
+def _caps(batches) -> np.ndarray:
+    return np.stack([b.cap.ravel() for b in batches])
+
+
+def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
+                      seed: int | None = None) -> list[Proof]:
+    """Prove K witness traces (K, num_wires, n) of one circuit with their
+    public inputs (K, num_pis), a stage at a time for all K, in the order of
+    `prove_from_trace`:
+
+      * one stacked kernel-3 iNTT and LDE and one kernel-2 forest a commit
+        (`fo.commit_batch`): the wires, the Z and partial products, the
+        quotient chunks;
+      * the K transcripts in lockstep (`ts.ChallengerBatch`, one C call a
+        step);
+      * kernels B and A with a proof axis (`compute_permutation_polys_batch`,
+        `quotient_evals_batch`);
+      * the openings, one kernel-D call a proof;
+      * FRI's commit phase a proof (kernels C, E, the rounds' trees and the
+        final iNTT), one grind for all K (`ts.grind_pow_batch`), then the
+        queries a proof (kernel F).
+
+    Each proof's bytes equal `prove_from_trace`'s. Non-ZK only."""
+    cfg = data.config
+    _check_config(cfg)
+    traces = np.asarray(traces, dtype=np.uint64)
+    k = traces.shape[0]
+    dev = data.device
+    rate_bits, cap_h, nc = cfg.rate_bits, cfg.fri_config.cap_height, cfg.num_challenges
+
+    # 1. witnesses
+    pi_hashes = np.stack([ps.hash_no_pad(p) for p in pis])
+    traces_d = gl.from_u64(traces, dev)
+
+    # 2. wires commitments
+    wires_os = fo.commit_batch(traces_d, rate_bits, cap_h, from_values=True)
+    ch = ts.ChallengerBatch(k)
+    ch.observe_many(np.tile(np.asarray(data.circuit_digest, dtype=np.uint64), (k, 1)))
+    ch.observe_many(pi_hashes)
+    ch.observe_many(_caps(wires_os))
+    betas = ch.challenge_many(nc)
+    gammas = ch.challenge_many(nc)
+
+    # 3. permutation arguments
+    zpp = compute_permutation_polys_batch(data, traces_d, betas, gammas)
+    zs_pp_os = fo.commit_batch(zpp, rate_bits, cap_h, from_values=True)
+    ch.observe_many(_caps(zs_pp_os))
+    alphas = ch.challenge_many(nc)
+
+    # 4. quotients
+    t_chunks = compute_quotient_batch(data, fo.stacked_lde(wires_os), fo.stacked_lde(zs_pp_os),
+                                      alphas, betas, gammas, pi_hashes)
+    quotient_os = fo.commit_batch(t_chunks, rate_bits, cap_h)
+    ch.observe_many(_caps(quotient_os))
+    zetas = ch.challenge_ext()
+
+    # 5. openings, a proof at a time
+    oracles = [[data.constants_oracle, w, z, q] for w, z, q in zip(wires_os, zs_pp_os, quotient_os)]
+    opened = [_open(data, o, zeta) for o, zeta in zip(oracles, zetas)]
+    ch.observe_many(np.stack([o.batch_zeta().ravel() for o, _ in opened]))
+    ch.observe_many(np.stack([o.batch_zeta_next().ravel() for o, _ in opened]))
+
+    # 6. FRI: each phase for all K before the next, so the grind is one
+    chs = ch.unbind()
+    fcfg = cfg.fri_config
+    fri_args = [(o, fri_instance(data, zeta, zeta_next), [op.batch_zeta(), op.batch_zeta_next()])
+                for o, zeta, (op, zeta_next) in zip(oracles, zetas, opened)]
+    commitments = [fri_commit_phase(o, inst, fo_, c, fcfg, data.degree_bits)
+                   for (o, inst, fo_), c in zip(fri_args, chs)]
+    witnesses = ts.grind_pow_batch(chs, fcfg.proof_of_work_bits, dev)
+    return [
+        Proof(
+            wires_cap=w.cap,
+            zs_pp_cap=z.cap,
+            quotient_cap=q.cap,
+            openings=op,
+            fri_proof=fri_query_phase(o, cm, wit, c, fcfg, data.degree_bits),
+            public_inputs=p,
+        )
+        for w, z, q, (op, _), o, cm, wit, c, p in zip(
+            wires_os, zs_pp_os, quotient_os, opened, oracles, commitments, witnesses, chs, pis)
+    ]
 
 
 def _zh_l1(data, zeta) -> tuple:

@@ -9,6 +9,13 @@ permutations run in the C library of native/ (`_duplex` through
 `poseidon2.permute_np`; `observe_many` absorbs 16 felts or more in one call,
 `native.absorb_many`). Only the PoW grind runs on the device.
 
+A batch of proofs of one circuit drives K transcripts through the same
+schedule: `ChallengerBatch` holds their (K, 12) states and advances them in
+lockstep, one C call a step for all K (`native.absorb_batch`,
+`native.duplex_batch`), and `unbind` hands back K `Challenger`s in the
+states they reached. `grind_pow_batch` grinds K transcripts in one
+kernel-2 launch a sweep.
+
 Determinism contract: the prover and verifier drive a Challenger through the
 identical observe/challenge schedule; any reordering breaks verification
 (tested in tests/test_fri.py with a tampered-transcript probe).
@@ -92,46 +99,141 @@ class Challenger:
         return c
 
 
+class ChallengerBatch:
+    """K challengers of one circuit's proofs advanced in lockstep. The
+    schedule is the circuit's, so every transcript's input and output
+    buffers hold as many felts at each step: they are (K, fill) arrays.
+    Each method is `Challenger`'s, K at once, and leaves the K states
+    bit-equal to K `Challenger`s driven alike."""
+
+    def __init__(self, count: int):
+        self.state = np.zeros((count, ps.WIDTH), dtype=np.uint64)
+        self.input_buf = np.zeros((count, 0), dtype=np.uint64)
+        self.output_buf = np.zeros((count, 0), dtype=np.uint64)
+
+    def __len__(self) -> int:
+        return self.state.shape[0]
+
+    def observe_many(self, felts) -> None:
+        """Row k of felts (K, n) into transcript k (`Challenger.observe_many`:
+        the output buffer holds the rate only when the last felt completed
+        a block)."""
+        arr = np.asarray(felts, dtype=np.uint64).reshape(len(self), -1)
+        if not arr.shape[1]:
+            return
+        before = self.input_buf.shape[1]
+        self.state, self.input_buf = nat.absorb_batch(self.state, self.input_buf, arr)
+        full = (before + arr.shape[1]) % ps.RATE == 0
+        self.output_buf = self.state[:, : ps.RATE].copy() if full else self.output_buf[:, :0]
+
+    def _duplex(self) -> None:
+        self.state = nat.duplex_batch(self.state, self.input_buf)
+        self.input_buf = self.input_buf[:, :0]
+        self.output_buf = self.state[:, : ps.RATE].copy()
+
+    def challenge(self) -> np.ndarray:
+        """One challenge of each transcript, (K,)."""
+        if self.input_buf.shape[1] or not self.output_buf.shape[1]:
+            self._duplex()
+        out = self.output_buf[:, 0].copy()
+        self.output_buf = self.output_buf[:, 1:]
+        return out
+
+    def challenge_many(self, n: int) -> np.ndarray:
+        """(K, n) challenges."""
+        out = np.empty((len(self), n), dtype=np.uint64)
+        for j in range(n):
+            out[:, j] = self.challenge()
+        return out
+
+    def challenge_ext(self) -> np.ndarray:
+        return self.challenge_many(2)
+
+    def unbind(self) -> list[Challenger]:
+        """K Challengers in the states the transcripts reached."""
+        out = []
+        for k in range(len(self)):
+            c = Challenger()
+            c.state = self.state[k].copy()
+            c.input_buf = [np.uint64(v) for v in self.input_buf[k]]
+            c.output_buf = [np.uint64(v) for v in self.output_buf[k]]
+            out.append(c)
+        return out
+
+
+def _sweep(pow_bits: int, batch: int) -> int:
+    """A grind sweep's candidates: `batch`, or 2^(pow_bits + 5) if fewer,
+    which all fail with odds of e^-32."""
+    return min(batch, 1 << (pow_bits + 5))
+
+
 def grind_pow(
     challenger: Challenger, pow_bits: int, device, batch: int = 1 << 17
 ) -> np.uint64:
     """Find the lowest witness w such that observing w yields a challenge with
     >= pow_bits leading zero bits (the reference's 16-bit FRI grind,
-    `wormhole/circuit/src/profile.rs:138-144`).
+    `wormhole/circuit/src/profile.rs:138-144`): `grind_pow_batch` of one
+    transcript."""
+    return grind_pow_batch([challenger], pow_bits, device, batch)[0]
 
-    Each sweep permutes `batch` candidate duplex states (w = start + i in the
-    next input slot) in one kernel-2 launch on `device`; a mask and a min over
-    the candidate indices pick the lowest passing one, so the result is the
-    same as a sequential search."""
+
+def grind_pow_batch(
+    challengers: list[Challenger], pow_bits: int, device, batch: int = 1 << 17
+) -> list[np.uint64]:
+    """`grind_pow` for K transcripts in lockstep (one input-buffer fill), each
+    keeping its own lowest passing witness (the JAX package's `_grind_j`
+    under `vmap`, whose while_loop masks the lanes that are done).
+
+    A sweep gives every unfinished transcript `batch` candidate duplex
+    states (w = start + i in the next input slot), as a single grind's sweep
+    does, so a proof's grind work stays a single proof's, and permutes them
+    all in one kernel-2 launch on `device`; a mask and a min over each
+    transcript's candidates pick its lowest passing one, so the result is
+    the same as a sequential search, and the transcript leaves the sweeps.
+    A sweep takes at most 2^(pow_bits + 5) candidates (`_sweep`): the
+    leaf's 16 bits keep 2^17, and a grind of few bits does not permute
+    2^17 states for a witness that one in 2^pow_bits candidates passes."""
     if not 0 <= pow_bits <= 32:
         raise ValueError(f"pow_bits out of range: {pow_bits}")
     if pow_bits == 0:
-        return np.uint64(0)
-    base = challenger.fork()
+        return [np.uint64(0)] * len(challengers)
+    batch = _sweep(pow_bits, batch)
     threshold = 1 << (64 - pow_bits)
-    k = len(base.input_buf)
-    state = base.state.copy()
-    state[:k] = np.asarray(base.input_buf, dtype=np.uint64)[:k]
-    base_state = gl.from_u64(state, device)
+    bases = [c.fork() for c in challengers]
+    k = len(bases[0].input_buf)
+    if any(len(c.input_buf) != k for c in bases):
+        raise ValueError("the transcripts' input buffers differ: they are not in lockstep")
+    states = np.stack([c.state for c in bases])
+    if k:
+        states[:, :k] = np.array([c.input_buf for c in bases], dtype=np.uint64)
+    base_state = gl.from_u64(states, device)
     idx = torch.arange(batch, dtype=torch.int64, device=device)
+    found: dict[int, np.uint64] = {}
+    open_ = list(range(len(challengers)))
     start = 0
-    while True:
-        states = base_state.expand(batch, ps.WIDTH).clone()
-        states[:, k] = idx + start
-        out0 = ps.permute(states)[:, 0]
+    while open_:
+        base = base_state if len(open_) == len(challengers) else base_state[
+            torch.as_tensor(open_, device=device)]
+        u = base.shape[0]
+        cand = base.unsqueeze(1).expand(u, batch, ps.WIDTH).clone()
+        cand[:, :, k] = idx + start
+        out0 = ps.permute(cand.reshape(u * batch, ps.WIDTH))[:, 0].reshape(u, batch)
         # u64 out0 < 2^(64 - pow_bits)  <=>  no bit at or above 64 - pow_bits
         passing = (out0 >> (64 - pow_bits)) == 0
-        first = int(torch.where(passing, idx, batch).min())
-        if first < batch:
-            w = np.uint64(start + first)
-            probe = base.fork()
-            probe.observe(w)
-            if int(probe.challenge()) < threshold:
-                return w
-            # the device and host Poseidon2 are pinned bit-identical, so a
-            # mismatch here is a real bug — fail loudly, never mask it
-            raise AssertionError("PoW grind verification mismatch")
+        first = torch.where(passing, idx, batch).min(dim=1).values.tolist()
+        for i, f in zip(list(open_), first):
+            if f < batch:
+                w = np.uint64(start + f)
+                probe = challengers[i].fork()
+                probe.observe(w)
+                # the device and host Poseidon2 are pinned bit-identical, so a
+                # mismatch here is a real bug: fail loudly, never mask it
+                if int(probe.challenge()) >= threshold:
+                    raise AssertionError("PoW grind verification mismatch")
+                found[i] = w
+                open_.remove(i)
         start += batch
+    return [found[i] for i in range(len(challengers))]
 
 
 def check_pow(challenger: Challenger, witness, pow_bits: int) -> bool:

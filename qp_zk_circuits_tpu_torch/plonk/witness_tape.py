@@ -115,36 +115,23 @@ def compile_tape(data) -> Tape | None:
     )
 
 
-def run_tape(data, pw) -> np.ndarray | None:
-    """Execute the circuit's tape for a PartialWitness. Returns the
-    (num_targets,) uint64 root-value array, or None when there is no tape:
-    no recorded program, a different seed keyset, or a program that does
-    not lower. Raises WitnessError on value conflicts and failed range
-    checks."""
-    from .builder import WitnessError
-
+def _keys(data, pw):
+    """A PartialWitness's seeds by root target: (roots, values, keyset)."""
     root_arr = data.__dict__.get("_root_arr")
     if root_arr is None:
         root_arr = np.asarray(data.target_root, dtype=np.int64)
         data.__dict__["_root_arr"] = root_arr
     ts_all, vs_all = pw.seed_arrays()
     rs = root_arr[ts_all]
-    keyset = frozenset(np.unique(rs).tolist())
-    cached = data.__dict__.get("_witness_tape")
-    if cached is None or cached[0] != keyset:
-        rec = data.__dict__.get("_witness_program")
-        if rec is None or rec[0] != keyset:
-            return None  # not recorded yet: do NOT cache the None
-        tape = compile_tape(data)
-        # cache the None only for a recorded program that does not lower
-        data.__dict__["_witness_tape"] = (keyset, tape)
-        cached = (keyset, tape)
-    tape = cached[1]
-    if tape is None:
-        return None
+    return rs, vs_all, frozenset(np.unique(rs).tolist())
 
-    # vectorized seeding with the dict path's conflict semantics: duplicate
-    # assignments to one root are fine iff the values agree
+
+def _seed(data, rs, vs_all):
+    """The tape's value and written arrays from the seeds, with the dict
+    path's conflict semantics: duplicate assignments to one root are fine
+    iff the values agree."""
+    from .builder import WitnessError
+
     order = np.argsort(rs, kind="stable")
     rs_s, vs_s = rs[order], vs_all[order]
     dup = rs_s[1:] == rs_s[:-1]
@@ -155,10 +142,70 @@ def run_tape(data, pw) -> np.ndarray | None:
     written = np.zeros(data.num_targets, dtype=np.uint8)
     vals[rs] = vs_all
     written[rs] = 1
+    return vals, written
 
+
+def _tape(data, keyset) -> Tape | None:
+    """The circuit's lowered tape for seed keyset `keyset`, or None: no
+    recorded program, a program recorded for another keyset, or one that
+    does not lower."""
+    cached = data.__dict__.get("_witness_tape")
+    if cached is None or cached[0] != keyset:
+        rec = data.__dict__.get("_witness_program")
+        if rec is None or rec[0] != keyset:
+            return None  # not recorded yet: do NOT cache the None
+        tape = compile_tape(data)
+        # cache the None only for a recorded program that does not lower
+        data.__dict__["_witness_tape"] = (keyset, tape)
+        cached = (keyset, tape)
+    return cached[1]
+
+
+def _raise_rc(rc: int) -> None:
+    from .builder import WitnessError
+
+    raise WitnessError(
+        f"witness tape: {_ERRORS.get(rc >> 32, rc >> 32)} at record {rc & 0xFFFFFFFF}"
+    )
+
+
+def run_tape(data, pw) -> np.ndarray | None:
+    """Execute the circuit's tape for a PartialWitness. Returns the
+    (num_targets,) uint64 root-value array, or None when there is no tape:
+    no recorded program, a different seed keyset, or a program that does
+    not lower. Raises WitnessError on value conflicts and failed range
+    checks."""
+    rs, vs_all, keyset = _keys(data, pw)
+    tape = _tape(data, keyset)
+    if tape is None:
+        return None
+    vals, written = _seed(data, rs, vs_all)
     rc = nat.witness_tape_run(tape.code, tape.consts, vals, written, ROUNDS_P)
     if rc:
-        raise WitnessError(
-            f"witness tape: {_ERRORS.get(rc >> 32, rc >> 32)} at record {rc & 0xFFFFFFFF}"
-        )
+        _raise_rc(rc)
     return vals
+
+
+def run_tape_many(data, pws) -> list:
+    """`run_tape` for a batch of PartialWitnesses: the ones with the first
+    one's seed keyset run the circuit's tape for it in one C call over all
+    their value arrays (`native.witness_tape_run_many`, spread over the
+    host's cores). Returns a list of (num_targets,) arrays, None for a
+    witness with no tape run (no tape for the first one's keyset, or
+    another keyset). Raises WitnessError for the first witness that fails."""
+    keys = [_keys(data, pw) for pw in pws]
+    out = [None] * len(pws)
+    tape = _tape(data, keys[0][2])
+    if tape is None:
+        return out
+    live = [i for i, (_, _, keyset) in enumerate(keys) if keyset == tape.keyset]
+    seeded = [_seed(data, *keys[i][:2]) for i in live]
+    vals = np.stack([v for v, _ in seeded])
+    written = np.stack([w for _, w in seeded])
+    rcs = nat.witness_tape_run_many(tape.code, tape.consts, vals, written, ROUNDS_P)
+    for rc in rcs:
+        if rc:
+            _raise_rc(int(rc))
+    for row, i in enumerate(live):
+        out[i] = vals[row]
+    return out

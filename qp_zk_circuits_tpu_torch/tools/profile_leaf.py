@@ -2,6 +2,7 @@
 card and its host.
 
     python qp_zk_circuits_tpu_torch/tools/profile_leaf.py [--root DIR] [--proofs 5] [--verifies 5]
+    python qp_zk_circuits_tpu_torch/tools/profile_leaf.py [--root DIR] --batch K [--stream N --chunk K]
 
 Runs the checkout at `--root` (default: the checkout this file lies in), so
 two checkouts can be timed in turns by separate processes, one after the
@@ -35,6 +36,26 @@ checkout has one), then `WormholeProver(device="cuda")` on `test_inputs_0()`:
   * one proof with each call into the kernel library replayed in a CUDA
     graph (`tools/timing.py::device_split`): the port's own kernels' device
     time by library entry, torch's glue kernels left out.
+
+With `--batch K` and/or `--stream N --chunk K` it profiles the batch and
+stream paths instead (`prove_inputs_batch`, `prove_inputs_stream` on the
+two real spends of `two_real_leaves_same_block()`, alternating), beside
+the warm single proof's median:
+
+  * a batch of K: the cold batch, then `--proofs` timed batches (median ms
+    a batch and a proof); one batch under torch.profiler (device ms a
+    proof, the device's busy share, device launches a batch, torch's glue
+    kernels included); one batch with each stage wrapped in a host timer,
+    split into the witness, the commits, B, the quotient, the openings,
+    FRI's commit phase, the grind, the queries, and the transcript's host
+    calls (the lockstep absorbs and duplexes, and each proof's FRI
+    transcript);
+  * a stream of N in chunks of K (a generator of inputs): `--proofs` timed
+    streams (median ms a proof), then one stream with the witness (on the
+    worker thread, not synchronized) and each chunk's proving timed: the
+    proving thread's wait for witnesses is the stream's time less its
+    proving, and the witness time hidden behind the proving is the witness
+    time less that wait.
 
 Prints a JSON object as its last line. The stage timers and the profiler
 each add host overhead, so the timed proofs run without them.
@@ -72,6 +93,25 @@ PROVE_STAGES = (
 TRANSCRIPT_STAGES = (
     ("plonk.transcript.Challenger", "_duplex", "transcript duplex (host Poseidon2)", False),
     ("native", "absorb_many", "transcript absorb (host Poseidon2)", False),
+)
+BATCH_STAGES = (
+    ("plonk.prover", "generate_witness_batch", "witness (host, tape over K)", True),
+    ("fri.oracle", "commit_batch", "oracle commits (stacked iNTT + LDE + forest)", True),
+    ("plonk.prover", "compute_permutation_polys_batch", "permutation argument (B)", True),
+    ("plonk.prover", "compute_quotient_batch", "quotient (A + coset iNTT)", True),
+    ("fri.oracle", "eval_openings", "openings (D, a proof)", True),
+    ("plonk.prover", "fri_commit_phase", "fri commit phase (C, trees, E, final iNTT; a proof)",
+     True),
+    ("plonk.transcript", "grind_pow_batch", "pow grind (all K)", True),
+    ("plonk.prover", "fri_query_phase", "fri queries (F; a proof)", True),
+)
+BATCH_TRANSCRIPT_STAGES = (
+    ("native", "absorb_batch", "transcript absorb, K in lockstep (host Poseidon2)", False),
+    ("native", "duplex_batch", "transcript duplex, K in lockstep (host Poseidon2)", False),
+) + TRANSCRIPT_STAGES
+STREAM_STAGES = (
+    ("plonk.prover", "generate_witness_batch", "witness (worker thread)", False),
+    ("plonk.prover", "prove_from_traces", "proving (main thread)", True),
 )
 VERIFY_STAGES = (
     ("plonk.verifier", "verify_vanishing_at_zeta", "vanishing check", False),
@@ -170,11 +210,84 @@ def _host_ms(fn) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
+def _batch_sections(prover, args) -> dict:
+    """The batch and stream profiles (the module docstring says what)."""
+    import torch
+
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import two_real_leaves_same_block
+
+    leaves = two_real_leaves_same_block()
+    out = {}
+
+    def single():
+        prover.prove_inputs(leaves[0], seed=0)
+        torch.cuda.synchronize()
+
+    single()
+    out["single_prove_ms"] = statistics.median(_host_ms(single) for _ in range(args.proofs))
+    if args.batch:
+        k = args.batch
+        inputs = [leaves[i % 2] for i in range(k)]
+
+        def batch():
+            prover.prove_inputs_batch(inputs, seed=0)
+            torch.cuda.synchronize()
+
+        cold = _host_ms(batch)
+        times = [_host_ms(batch) for _ in range(args.proofs)]
+        median = statistics.median(times)
+        device = _device_profile(batch)
+        stages = stage_times(BATCH_STAGES + BATCH_TRANSCRIPT_STAGES, batch)
+        out["batch"] = {
+            "k": k, "cold_ms": cold, "median_ms": median, "ms_a_proof": median / k,
+            "min_ms": min(times), "max_ms": max(times), "n": len(times),
+            "device_ms_a_proof": None if device["device_ms"] is None else device["device_ms"] / k,
+            "device_busy_share": None if device["device_ms"] is None else device["device_ms"] / median,
+            "device_launches": device["device_launches"], "stages": stages,
+            "top_kernels": device["top_kernels"],
+        }
+        print(f"[batch] K = {k}: cold {cold:.2f} ms, warm median {median:.2f} ms "
+              f"({median / k:.2f} ms a proof; single proof {out['single_prove_ms']:.2f}); "
+              f"device {out['batch']['device_ms_a_proof']} ms a proof, busy "
+              f"{out['batch']['device_busy_share']}, {device['device_launches']} launches a batch")
+        for name, v in stages.items():
+            print(f"[batch stage] {name}: {v['ms']:.2f} ms over {v['calls']} calls")
+    if args.stream:
+        n, chunk = args.stream, args.chunk
+        inputs = [leaves[i % 2] for i in range(n)]
+
+        def stream():
+            prover.prove_inputs_stream((x for x in inputs), batch=chunk, seed=0)
+            torch.cuda.synchronize()
+
+        stream()
+        times = [_host_ms(stream) for _ in range(args.proofs)]
+        stages = stage_times(STREAM_STAGES, stream)
+        wall = stages["total"]["ms"]
+        proving = stages["proving (main thread)"]["ms"]
+        witness = stages["witness (worker thread)"]["ms"]
+        waited = wall - proving
+        out["stream"] = {
+            "n": n, "chunk": chunk, "median_ms": statistics.median(times),
+            "ms_a_proof": statistics.median(times) / n, "timed_wall_ms": wall,
+            "proving_ms": proving, "witness_ms": witness, "waited_ms": waited,
+            "witness_hidden_ms": witness - waited,
+        }
+        print(f"[stream] {n} in chunks of {chunk}: median {out['stream']['median_ms']:.2f} ms "
+              f"({out['stream']['ms_a_proof']:.2f} ms a proof); one timed stream {wall:.2f} ms: "
+              f"proving {proving:.2f}, witness {witness:.2f} on the worker, the proving thread "
+              f"waited {waited:.2f}, so {witness - waited:.2f} ms of witness hid behind proving")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--proofs", type=int, default=5)
     ap.add_argument("--verifies", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=0, help="profile batches of K proofs")
+    ap.add_argument("--stream", type=int, default=0, help="profile a stream of N proofs")
+    ap.add_argument("--chunk", type=int, default=16, help="the stream's chunk")
     args = ap.parse_args()
     import torch
 
@@ -201,6 +314,11 @@ def main() -> None:
     prover = WormholeProver(device="cuda")
     torch.cuda.synchronize()
     build_ms = 1e3 * (time.perf_counter() - t0)
+    if args.batch or args.stream:
+        result = {"card": card(), "root": args.root, "host_flags": host_flags,
+                  "build_ms": build_ms, **_batch_sections(prover, args)}
+        print(json.dumps(result))
+        return
     inputs = test_inputs_0()
 
     def prove():

@@ -3,7 +3,9 @@
 
 Always rebuilds the circuit from source — prover data is never deserialized
 from disk (poisoned-artifact exfiltration rationale, reference
-`prover/src/lib.rs:12-17`). Batch and stream proving are not ported yet."""
+`prover/src/lib.rs:12-17`). `prove_inputs_batch` proves many leaves
+together and `prove_inputs_stream` pipelines chunks of them
+(plonk/prover.py::prove_batch, prove_stream)."""
 
 from __future__ import annotations
 
@@ -26,13 +28,18 @@ class WormholeProver:
         self.data = circuit.build(device=device)
         self._pw: PartialWitness | None = None
 
-    def commit(self, inputs: CircuitInputs) -> "WormholeProver":
-        """Fill the witness (fail-fast: depth preflight, digest validation)."""
+    def _partial_witness(self, inputs: CircuitInputs) -> PartialWitness:
+        """The leaf's witness seeds (fail-fast: depth preflight, digest
+        validation)."""
         if len(inputs.private.siblings) > MAX_DEPTH:
             raise ValueError("proof depth exceeds MAX_DEPTH")
         pw = PartialWitness()
         fill_witness(pw, inputs, self.targets)
-        self._pw = pw
+        return pw
+
+    def commit(self, inputs: CircuitInputs) -> "WormholeProver":
+        """Fill the witness (fail-fast: depth preflight, digest validation)."""
+        self._pw = self._partial_witness(inputs)
         return self
 
     def prove(self, seed: int | None = None):
@@ -43,3 +50,20 @@ class WormholeProver:
 
     def prove_inputs(self, inputs: CircuitInputs, seed: int | None = None):
         return self.commit(inputs).prove(seed=seed)
+
+    def prove_inputs_batch(self, inputs_list, seed: int | None = None) -> list:
+        """Prove many leaves together (plonk/prover.py::prove_batch): each
+        stage runs once for the batch, with its kernels' proof axis. Each
+        proof equals `prove_inputs` of the same inputs; input order."""
+        pws = [self._partial_witness(inputs) for inputs in inputs_list]
+        return plonk_prover.prove_batch(self.data, pws, seed=seed)
+
+    def prove_inputs_stream(self, inputs_list, batch: int = 16, seed: int | None = None):
+        """Sustained proving (the deployment shape for miner-side leaf
+        proving): `batch`-sized chunks, chunk i+1's witness fills and tapes
+        on a worker thread while chunk i is proven (plonk/prover.py::
+        prove_stream). `inputs_list` is a list or any iterable of inputs;
+        its length must tile `batch`."""
+        total = len(inputs_list) if hasattr(inputs_list, "__len__") else None
+        pws = (self._partial_witness(inputs) for inputs in inputs_list)
+        return plonk_prover.prove_stream(self.data, pws, batch, seed=seed, total=total)

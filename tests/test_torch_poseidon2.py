@@ -184,8 +184,8 @@ def test_merkle_levels_launch_writes_one_buffer(monkeypatch):
     levels = tps._launch_tree(leaves, 4, tps.tree_plan(2048, 4, 132))
     assert tps.merkle_levels.launches == before + 2
     (entry, args), = calls
-    assert entry == "qzk_poseidon2_merkle_tree"
-    assert args[2:] == (2048, 135, 1, 2048, 8, 3, 4)
+    assert entry == "qzk_poseidon2_merkle_forest"  # a forest of one tree
+    assert args[2] == 1 and args[4:] == (2048, 135, 1, 2048, 8, 3, 4)
     assert [lvl.shape[0] for lvl in levels] == [2048 >> i for i in range(8)]
     base = levels[0].data_ptr()
     offsets = [(lvl.data_ptr() - base) // 8 for lvl in levels]

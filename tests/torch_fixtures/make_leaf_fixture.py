@@ -9,9 +9,11 @@ byte-identical to the fused prover in tests/test_plonk.py):
 Outputs, next to this file:
   * leaf_proof_inputs0.bin — proof_to_bytes of
     WormholeProver().prove_inputs(test_inputs_0(), seed=0);
+  * leaf_proof_real0.bin, leaf_proof_real1.bin — the same for each leaf of
+    two_real_leaves_same_block() (the batch and stream tests' leaves);
   * small_circuit_proof.bin — proof_to_bytes of prove_staged on the small
     real circuit below (witness x=11, y=13, seed=0);
-  * fixtures.json — length and SHA-256 of both files, and each circuit's
+  * fixtures.json — length and SHA-256 of every file, and each circuit's
     constants cap and circuit digest.
 """
 
@@ -26,6 +28,8 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 SMALL_WITNESS = (11, 13)
+#: the proofs of two_real_leaves_same_block()'s two leaves, in order
+REAL_LEAF_FIXTURES = ("leaf_proof_real0.bin", "leaf_proof_real1.bin")
 
 
 def small_real_circuit(pkg: str):
@@ -70,7 +74,7 @@ def main() -> None:
     from qp_zk_circuits_tpu.plonk.prover import prove_staged
     from qp_zk_circuits_tpu.plonk.serialization import proof_to_bytes
     from qp_zk_circuits_tpu.wormhole.prover import WormholeProver
-    from qp_zk_circuits_tpu.wormhole.test_helpers import test_inputs_0
+    from qp_zk_circuits_tpu.wormhole.test_helpers import test_inputs_0, two_real_leaves_same_block
 
     b, x, y = small_real_circuit("qp_zk_circuits_tpu")
     small = b.build()
@@ -81,15 +85,18 @@ def main() -> None:
 
     prover = WormholeProver()
     leaf_blob = proof_to_bytes(prover.prove_inputs(test_inputs_0(), seed=0))
+    real_blobs = [proof_to_bytes(prover.prove_inputs(inputs, seed=0))
+                  for inputs in two_real_leaves_same_block()]
 
-    with open(os.path.join(HERE, "small_circuit_proof.bin"), "wb") as f:
-        f.write(small_blob)
-    with open(os.path.join(HERE, "leaf_proof_inputs0.bin"), "wb") as f:
-        f.write(leaf_blob)
-    meta = {
-        "small_circuit_proof.bin": _entry(small_blob, small),
-        "leaf_proof_inputs0.bin": _entry(leaf_blob, prover.data),
-    }
+    blobs = {"small_circuit_proof.bin": (small_blob, small),
+             "leaf_proof_inputs0.bin": (leaf_blob, prover.data)}
+    for i, blob in enumerate(real_blobs):
+        blobs[REAL_LEAF_FIXTURES[i]] = (blob, prover.data)
+    meta = {}
+    for name, (blob, data) in blobs.items():
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(blob)
+        meta[name] = _entry(blob, data)
     with open(os.path.join(HERE, "fixtures.json"), "w") as f:
         json.dump(meta, f, indent=1)
         f.write("\n")
