@@ -48,7 +48,15 @@ package. Phases, each printing one line:
      kernel 2's forest (sixteen 2048 x 135 LDEs read in place, against the
      plain version on the card), A and B (the leaf's shapes, each proof its
      own challenges, against their plain versions on CPU copies), each
-     timed at K = 16 beside K times a proof's bound;
+     timed at K = 16 beside K times a proof's bound; kernel G (Philox
+     felts, csrc/random.cu) at the ZK leaf's draws (the blinding rows
+     135 x 252 written in place through a strided view of the trace, and
+     the three salts' 4 x 4096 rows) and at an odd count (3 x 1001),
+     against its plain version on CPU copies, with torch.randint of the
+     same count timed beside it (another stream: no library computes this
+     function); kernel 2's tree also at the ZK leaf's salted widths (4096 x
+     139 and 4096 x 20) and kernel F at the ZK leaf's salted rows (139, 20
+     and 20 values);
   4. aggregation tree — the Merkle tree at 2^19 x 135: 256 sampled nodes of
      every level against the plain hashes of their inputs, its time beside
      the per-level form's (hash_rows, then one two_to_one launch a level);
@@ -100,7 +108,23 @@ package. Phases, each printing one line:
      permute launch a sweep for all proofs, C-F and the FRI rounds' trees
      once a proof); the batch rows of the JSON line take their launches
      from the warm batch; then per-proof ms of K = 1, 4 and 16 batches and
-     of a single proof.
+     of a single proof;
+ 10. zk — WormholeProver(wormhole_private_batch_circuit_config(),
+     device="cuda") (the private batch's ZK config on the leaf circuit,
+     degree 9): build, then prove_inputs(test_inputs_0(), seed=7) cold and
+     warm in host-rng mode, each equal to the committed JAX fixture, within
+     the single proof's launch limits and with kernel G not launched; a
+     device-rng proof (plonk.prover.prove(..., rng_mode="device")): kernel
+     G at most four launches, the proof accepted, not equal to the host
+     one; a K = 16 ZK batch and a 48-leaf ZK stream in chunks of 16 of the
+     two real spends, alternating: proof 0 equal to the single proof of
+     the same seed, every proof accepted, within the batch's launch limits
+     and no kernel G; a copy with one salt felt of an opened row changed
+     is rejected; the warm ms of both modes and of a batch proof, the
+     device busy share and the launches, beside the card; and kernel G at
+     the private batch's degree-16 draws (the blinding rows 135 x (2^16 -
+     64), the salts 3 x 4 x 2^19) against its plain version run on the
+     card, bit-exact, timed beside its bound.
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -120,6 +144,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "torch_fixtures" / "leaf_proof_inputs0.bin"
 FIXTURE_META = ROOT / "tests" / "torch_fixtures" / "fixtures.json"
+ZK_FIXTURE = ROOT / "tests" / "torch_fixtures" / "leaf_zk_proof_inputs0.bin"
+ZK_SEED = 7
 
 # H100 SXM peaks: HBM 3.35 TB/s; 67 TFLOP/s fp32 outside the tensor
 # cores = 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz. Hopper has 64 INT32
@@ -143,6 +169,25 @@ PERM_ADDS = 8 * 12 + 22 + 22 * 12 + 9 * 24
 # multiplies of one Fermat inverse a^(p-2): 64 squarings and one multiply
 # per set bit of p - 2
 INV_MULS = 64 + bin((1 << 64) - (1 << 32) - 1).count("1")
+# integer instructions of one Philox4x64-10 block (kernel G, two felts), by
+# the pipe that runs them. The counter's upper words are 0, so round 1 has
+# one 64x64->128 product and rounds 2-10 two: 19 products of four 32x32->64
+# partial products each (IMAD.WIDE, which Hopper runs on its FMA pipe) and
+# a carry add (either pipe); 19 three-way 64-bit xors (a LOP3 a 32-bit half)
+# and the two felts' selects (a 64-bit compare of each word, a 64-bit
+# subtract and a select: 8 a felt) on the ALU pipe. The key schedule is the
+# same for every block (the compiler keeps it in uniform registers, out of
+# the loop). `tools/sass_mix.py` shows the compiled loop: 79 IMAD.WIDE(.X),
+# 20 IMAD.X and 42 LOP3 among its 318 instructions.
+PHILOX_BLOCK_IMAD = 19 * 4
+PHILOX_BLOCK_ALU = 19 * 2 + 2 * 8
+PHILOX_BLOCK_EITHER = 19
+# The FMA and ALU pipes each take 64 lanes an SM a clock, at the same time,
+# and 128 lanes an SM are dispatched a clock: a block takes at least the busier
+# pipe's instructions (the carries placed where they balance) or half of
+# all, in INT32_OPS_PER_S slots
+PHILOX_BLOCK_OPS = max(PHILOX_BLOCK_IMAD, PHILOX_BLOCK_ALU,
+                       (PHILOX_BLOCK_IMAD + PHILOX_BLOCK_ALU + PHILOX_BLOCK_EITHER) / 2)
 
 # The bounds count the operations the function needs, not the ones a
 # kernel's chosen algorithm spends (kernel B's inverse per thread, kernel A's
@@ -233,6 +278,13 @@ def gather_work(queries: int, width: int) -> tuple[int, int, int]:
     return queries * width * 8, 0, queries * width * 8
 
 
+def rand_felts_work(count: int) -> tuple[int, int]:
+    """Kernel G's bytes and integer operations for `count` felts: each felt
+    written once (nothing is read), a Philox block a pair at the busier
+    pipe's count (`PHILOX_BLOCK_OPS`)."""
+    return count * 8, -(-count // 2) * PHILOX_BLOCK_OPS
+
+
 def leaf_oracle_rows(data) -> list[int]:
     """Row counts of the leaf's four committed oracles: constants and
     sigmas, wires, Z and partial products, quotient chunks."""
@@ -312,17 +364,51 @@ def _ntt_cases(device, rng, coeffs, quot):
     return cases
 
 
+def _ntt_grouped_cases(device, rng):
+    """Kernel 3's grouped output, as a salted batch's commit writes it: G
+    proofs' C columns each into the first C rows of its (C + 4, N) part of
+    a (G, C + 4, N) buffer, the 4 salt rows between the groups left as they
+    were. At the K = 16 ZK leaf batch's LDE (16 x 135 x 512 -> 4096, the
+    one-pass coset path), and on 3 groups of 5 columns a forward 2^12 (one
+    pass), a forward 2^13 and an LDE 2^11 -> 2^14 (two passes). Each
+    against the plain version run on the card, the salt rows against their
+    values before the call; one launch a pass."""
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.poly import ntt
+
+    g = int(F.MULTIPLICATIVE_GROUP_GENERATOR)
+    got, want = [], []
+    for k, c, log_n, n_in, shift, passes in (
+            (BATCH_K, ZK_LEAF_WIRES, 12, ZK_LEAF_N, g, 1), (3, 5, 12, 1 << 12, None, 1),
+            (3, 5, 13, 1 << 13, None, 2), (3, 5, 14, 1 << 11, g, 2)):
+        x = _felts((k * c, n_in), rng, device)
+        buf = _felts((k, c + 4, 1 << log_n), rng, device)
+        salt = buf[:, c:].clone()
+        before = ntt.batched_ntt.launches
+        if ntt.batched_ntt(x, log_n, shift=shift, out=buf[:, :c]).data_ptr() != buf.data_ptr():
+            raise AssertionError("kernel 3 did not write into the grouped buffer")
+        if ntt.batched_ntt.launches != before + passes:
+            raise AssertionError(f"kernel 3's grouped 2^{log_n} took other than {passes} launches")
+        got += [buf[:, :c], buf[:, c:]]
+        want += [ntt.batched_ntt_plain(x, log_n, shift=shift).view(k, c, -1), salt]
+    return got, want
+
+
 def _tree_cases(device, rng, wires_rows, cap):
     """Trees against the plain version: the four of a leaf proof, wires (135
     columns), Z and partial products (20), quotient (16), each over a strided
-    lde.T, and the FRI layer's contiguous (256, 16) rows; then the plans'
-    edges, rows of 4, 5 and 135 felts (4: unhashed) over 16 and 256 leaves to
+    lde.T, and the FRI layer's contiguous (256, 16) rows; the ZK leaf's
+    salted wires (139) and Z or quotient (20) over 4096 rows; then the
+    plans' edges, rows of 4, 5 and 135 felts (4: unhashed) over 16 and 256 leaves to
     caps of 2^0, 2^2 and the leaves themselves (no level above them)."""
     from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
 
     m = wires_rows.shape[0]
     cases = [(wires_rows, cap), (_felts((20, m), rng, device).T, cap),
              (_felts((16, m), rng, device).T, cap), (_felts((m >> 3, 16), rng, device), cap)]
+    # the ZK leaf's salted oracles: 135 wires and 16 Z, partial-product or
+    # quotient rows, each with its 4 salt rows, over 4096 points
+    cases += [(_felts((rows, 2 * m), rng, device).T, cap) for rows in (139, 20)]
     cases += [(_felts((n, cols), rng, device), c) for cols in (4, 5, 135) for n in (16, 256)
               for c in (0, 2, n.bit_length() - 1)]
     got, want = [], []
@@ -600,6 +686,7 @@ def kernel_table(device) -> list[dict]:
 
     from qp_zk_circuits_tpu_torch.field import gf_np as F
     from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+    from qp_zk_circuits_tpu_torch.field import random as frandom
     from qp_zk_circuits_tpu_torch.fri import oracle as fo
     from qp_zk_circuits_tpu_torch.fri import prover as fri
     from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
@@ -687,14 +774,17 @@ def kernel_table(device) -> list[dict]:
              ops=tree_perms(m, wires, cap) * perm_ops),
         # timed at the leaf LDE (135 x 256 -> 2048); checked at the leaf
         # proof's shapes and in all four modes on both sides of the one-pass
-        # limit (and at 2^19 in phase_aggregation_ntt)
+        # limit, with grouped outputs at the ZK batch's salted LDE buffer
+        # (and at 2^19 in phase_aggregation_ntt)
         dict(name="ntt", wrapper=ntt.batched_ntt, source="qp_zk_circuits_tpu_torch/csrc/ntt.cu",
              replaces="qp_zk_circuits_tpu/poly/ntt.py:132",
              run=lambda: ntt.batched_ntt(coeffs, lde_bits, shift=7),
              plain=lambda: ntt.batched_ntt_plain(coeffs, lde_bits, shift=7),
-             check=lambda: cases(ntt.batched_ntt, ntt.batched_ntt_plain, *(
-                 (x, log_n, kw.get("inverse", False), kw.get("shift"), kw.get("out_shift"))
-                 for x, log_n, kw in _ntt_cases(device, rng, coeffs, quot))),
+             check=lambda: tuple(a + b for a, b in zip(
+                 cases(ntt.batched_ntt, ntt.batched_ntt_plain, *(
+                     (x, log_n, kw.get("inverse", False), kw.get("shift"), kw.get("out_shift"))
+                     for x, log_n, kw in _ntt_cases(device, rng, coeffs, quot))),
+                 _ntt_grouped_cases(device, rng))),
              **dict(zip(("bytes", "ops"), ntt_work(wires, m >> rate, lde_bits, shift=True)))),
         dict(name="quotient", wrapper=tprover.quotient_evals,
              source="qp_zk_circuits_tpu_torch/csrc/quotient.cu",
@@ -734,6 +824,11 @@ def kernel_table(device) -> list[dict]:
              path="batch", source="qp_zk_circuits_tpu_torch/csrc/permutation.cu",
              replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
              setup=lambda: _permutation_batch_case(device)),
+        # the ZK path's device-rng draws (phase_zk reads its launches)
+        dict(name="rand_felts", wrapper=frandom.rand_felts, path="zk",
+             source="qp_zk_circuits_tpu_torch/csrc/random.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:381",
+             setup=lambda: _rand_felts_case(device)),
     ]
 
 
@@ -744,6 +839,16 @@ def _leaf_data(device):
     from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
 
     return WormholeProver(device=device).data
+
+
+@functools.cache
+def _zk_leaf_data(device):
+    """The ZK leaf's circuit (the private batch's config) for the kernel
+    checks, apart from the one phase_zk builds."""
+    from qp_zk_circuits_tpu_torch.utils.config_policy import wormhole_private_batch_circuit_config
+    from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+
+    return WormholeProver(wormhole_private_batch_circuit_config(), device=device).data
 
 
 def _cpu(xs):
@@ -934,12 +1039,16 @@ def _stacked(per_proof, n, device=None):
 def _quotient_batch_case(device) -> dict:
     """Kernel A with a proof axis at the leaf: K = 16 proofs' random LDE
     wires and Z/pp rows and their own challenges and PI hashes; checked at
-    K = 16 (one launch pair) and K = 17 (two) against the plain version run
-    on CPU copies. Its work: each proof's operands and output once, the
+    K = 16 (one launch pair) and K = 17 (two), and at the K = 16 ZK leaf
+    batch's salted stacks, against the plain version run on CPU copies. Its work: each proof's operands and output once, the
     circuit's tables once, K times one proof's operations."""
     import numpy as np
 
     from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+
+    import torch
+
+    from qp_zk_circuits_tpu_torch.fri.config import SALT_SIZE
 
     data = _leaf_data(device)
     cfg = data.config
@@ -950,14 +1059,25 @@ def _quotient_batch_case(device) -> dict:
     per = [_quotient_args(data, rng, device) for _ in range(k + 1)]
     args, args17 = _stacked(per, k), _stacked(per, k + 1)
     cpu, cpu17 = _stacked(per, k, "cpu"), _stacked(per, k + 1, "cpu")
+    # the K = 16 ZK leaf batch: the stacked LDEs of the salted commits, (16,
+    # 139, 4096) wires and (16, 20, 4096) Z/pp, each proof's salt rows after
+    # its polynomials' (the prover passes these stacks whole)
+    zk = _zk_leaf_data(device)
+    zk_m = zk.n << zk.config.rate_bits
+    zk_per = [_quotient_args(zk, rng, device) for _ in range(k)]
+    for a in zk_per:
+        a[:2] = [torch.cat([t, _felts((SALT_SIZE, zk_m), rng, device)]) for t in a[:2]]
+    zk_args, zk_cpu = _stacked(zk_per, k), _stacked(zk_per, k, "cpu")
     _, ops = _quotient_work(data)
     zrows = per[0][1].shape[0]
     shared = data.constants_oracle.lde.shape[0] + 3
     return dict(
         run=lambda: tprover.quotient_evals_batch(data, *args),
         plain=lambda: tprover.quotient_evals_batch_plain(data, *cpu), plain_on_host=True,
-        check=lambda: ([tprover.quotient_evals_batch(data, *a) for a in (args, args17)],
-                       [tprover.quotient_evals_batch_plain(data, *a) for a in (cpu, cpu17)]),
+        check=lambda: ([tprover.quotient_evals_batch(d, *a)
+                        for d, a in ((data, args), (data, args17), (zk, zk_args))],
+                       [tprover.quotient_evals_batch_plain(d, *a)
+                        for d, a in ((data, cpu), (data, cpu17), (zk, zk_cpu))]),
         bytes=(k * (cfg.num_wires + zrows + nc) + shared) * m * 8, ops=k * ops,
     )
 
@@ -1177,8 +1297,9 @@ def _gather_case(device) -> dict:
     the four oracles and the FRI round's leaves and path (10 segments, a
     tree's path one), indices 0 and m - 1 among them. Checked also with a
     segment a level (the leaf's 37), at the plan's largest (128 segments,
-    one of width 1, 128 queries, a packed row of 382 values) and at a row of
-    1,200 values (wider than a block), each into pinned host memory in one
+    one of width 1, 128 queries, a packed row of 382 values), at a row of
+    1,200 values (wider than a block) and at the ZK leaf's salted rows
+    (139, 20 and 20 values at m = 4096), each into pinned host memory in one
     launch; one segment or one query over the plan must raise."""
     import numpy as np
     import torch
@@ -1212,8 +1333,19 @@ def _gather_case(device) -> dict:
     # a packed row wider than a block (1,200 values): its threads stride
     wide_mat = _felts((64, 600), c["rng"], device)
     wide = [fri.GatherSource(wide_mat, 63), fri.GatherSource(wide_mat, 63, flip=1)]
+    # the ZK leaf's four oracles at m = 4096: the constants, then the salted
+    # wires (139 rows), Z and partial products (20) and quotient (20), each
+    # with its tree's path
+    zk_m = 2 * m
+    zk_ldes = [_felts((rows, zk_m), c["rng"], device)
+               for rows in (c["oracles"][0].lde.shape[0], 139, 20, 20)]
+    zk = [fri.GatherSource(lde.T, zk_m - 1) for lde in zk_ldes]
+    for lde in zk_ldes:
+        zk += fri._sibling_sources(merkle.build_merkle_tree(lde.T, cfg.cap_height), zk_m - 1)
+    zk_idx = [0, zk_m - 1] + [int(i) for i in c["rng"].integers(0, zk_m, cfg.num_query_rounds - 2)]
     cases = [(sources, cpu, indices), (levels, _cpu_sources(levels), indices),
-             (big, _cpu_sources(big), big_idx), (wide, _cpu_sources(wide), big_idx[:28])]
+             (big, _cpu_sources(big), big_idx), (wide, _cpu_sources(wide), big_idx[:28]),
+             (zk, _cpu_sources(zk), zk_idx)]
 
     def check():
         if (len(sources), len(levels)) != (10, 37):
@@ -1239,6 +1371,57 @@ def _gather_case(device) -> dict:
         run=lambda: fri.query_gather(sources, indices),
         plain=lambda: fri.query_gather_plain(cpu, indices), plain_on_host=True, check=check,
         **dict(zip(("bytes", "ops", "host_bytes"), gather_work(len(indices), width))),
+    )
+
+
+#: the ZK leaf (the private batch's config on the leaf circuit): 135 wires,
+#: n = 512 rows of which 260 are used, LDE m = 4096
+ZK_LEAF_WIRES, ZK_LEAF_N, ZK_LEAF_USED, ZK_LEAF_M = 135, 512, 260, 4096
+#: a Philox proof key for the kernel checks
+RAND_KEY = 0x5DEECE66D
+
+
+def _rand_felts_case(device) -> dict:
+    """Kernel G at a device-rng ZK leaf proof's draws: the blinding rows
+    (stream 0) written in place into the trace's columns past the used rows
+    (a strided view), the three salts (streams 1-3) into 4 x 4096 rows, and
+    an odd count, 3 x 1001 felts (a block's pair cut short); each against
+    the plain version on a CPU copy. Timed at the blinding draw; one
+    torch.randint of the same count is timed beside it (another stream, so
+    no library computes this function)."""
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import random as frandom
+
+    trace = torch.zeros((ZK_LEAF_WIRES, ZK_LEAF_N), dtype=torch.int64, device=device)
+    blind = trace[:, ZK_LEAF_USED:]
+    salts = torch.empty((3, 4, ZK_LEAF_M), dtype=torch.int64, device=device)
+    odd = torch.empty((3, 1001), dtype=torch.int64, device=device)
+    draws = [(0, blind)] + [(1 + i, salts[i]) for i in range(3)] + [(5, odd)]
+
+    def check():
+        got, want = [], []
+        for stream, out in draws:
+            before = frandom.rand_felts.launches
+            frandom.rand_felts(RAND_KEY, stream, out)
+            if frandom.rand_felts.launches != before + 1:
+                raise AssertionError("kernel G took other than one launch")
+            got.append(out.clone())
+            want.append(frandom.rand_felts_plain(
+                RAND_KEY, stream, torch.empty(tuple(out.shape), dtype=torch.int64)))
+        if trace[:, :ZK_LEAF_USED].any():
+            raise AssertionError("kernel G wrote outside the trace's blinding columns")
+        return got, want
+
+    count = blind.numel()
+    return dict(
+        run=lambda: frandom.rand_felts(RAND_KEY, 0, blind),
+        plain=lambda: frandom.rand_felts_plain(
+            RAND_KEY, 0, torch.empty(tuple(blind.shape), dtype=torch.int64)),
+        plain_on_host=True, check=check,
+        library_note=lambda: torch.randint(0, (1 << 63) - 1, (count,), dtype=torch.int64,
+                                           device=device),
+        **dict(zip(("bytes", "ops"), rand_felts_work(count))),
     )
 
 
@@ -1286,9 +1469,13 @@ def phase_kernels(kernels) -> None:
         k["bound_ms"], k["bound_by"] = _bound((k["bytes"], k["ops"], k.get("host_bytes", 0)))
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         where = "host" if k.get("plain_on_host") else "card"
+        note = ""
+        if "library_note" in k:
+            note = (f"; torch.randint of as many int64s, another stream: "
+                    f"{median_ms(k['library_note'], runs=20):.4f} ms")
         print(f"[kernel] {k['name']}: bit-exact; {k['ms']:.4f} ms, device {dev} "
               f"(plain on the {where} {k['plain_ms']:.3f} ms, "
-              f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
+              f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}){note}", flush=True)
 
 
 def phase_aggregation_tree(device, log_rows: int = 19, cols: int = 135,
@@ -1756,13 +1943,7 @@ def phase_main_path(kernels) -> None:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     rounds = len(cfg.fri_config.reduction_strategy.schedule(prover.data.degree_bits))
-    # one tree a commit (wires, Z and partial products, quotient) and one a
-    # FRI round, at most two launches each; no per-level 2-to-1 launch
-    trees = 3 + rounds
-    limits = {"ntt": (1, 7), "quotient": (1, 2), "permutation_polys": (1, 2),
-              "fri_composition": (1, 2),
-              "eval_openings": (1, 1), "fri_fold": (rounds, rounds), "query_gather": (1, 1),
-              "poseidon2_merkle_tree": (trees, 2 * trees), "poseidon2_two_to_one": (0, 0)}
+    limits = _single_limits(rounds)
     fused = {k["name"]: k["launches"] for k in kernels if k["name"] in limits}
     off = {name: n for name, n in fused.items() if not limits[name][0] <= n <= limits[name][1]}
     if off:
@@ -1777,6 +1958,19 @@ def phase_main_path(kernels) -> None:
           f"warm {1e3 * warm_s:.1f} ms; proof {len(blob)} B == fixture; launches per proof: "
           f"{counts}; kernel-1 launches per proof: {sum(kernel1.values())}", flush=True)
     print(verify_line, flush=True)
+
+
+def _single_limits(rounds: int) -> dict:
+    """The launch limits of one leaf proof: (least, most) a wrapper. One
+    tree a commit (wires, Z and partial products, quotient) and one a FRI
+    round, at most two launches each; no per-level 2-to-1 launch; kernel G
+    none (a host-rng or non-ZK proof draws nothing on the card)."""
+    trees = 3 + rounds
+    return {"ntt": (1, 7), "quotient": (1, 2), "permutation_polys": (1, 2),
+            "fri_composition": (1, 2),
+            "eval_openings": (1, 1), "fri_fold": (rounds, rounds), "query_gather": (1, 1),
+            "poseidon2_merkle_tree": (trees, 2 * trees), "poseidon2_two_to_one": (0, 0),
+            "rand_felts": (0, 0)}
 
 
 def _batch_limits(k: int, rounds: int) -> dict:
@@ -1797,7 +1991,25 @@ def _batch_limits(k: int, rounds: int) -> dict:
             "permutation_polys_batch": (groups, 2 * groups),
             "quotient": (0, 0), "permutation_polys": (0, 0), "poseidon2_two_to_one": (0, 0),
             "fri_composition": (k, k), "eval_openings": (k, k), "fri_fold": (rounds * k, rounds * k),
-            "query_gather": (k, k)}
+            "query_gather": (k, k), "rand_felts": (0, 0)}
+
+
+def _check_batch_launches(label: str, kernels, launches: dict, proofs, rounds: int) -> None:
+    """Every stage of len(proofs) / BATCH_K batches within `_batch_limits`;
+    the grind one permute launch a sweep of 2^17 candidates for all the
+    chunk's proofs, as many as its highest PoW witness needs."""
+    sweep = 1 << 17
+    chunks = len(proofs) // BATCH_K
+    sweeps = sum(1 + max(int(p.fri_proof.pow_witness) for p in proofs[c * BATCH_K:(c + 1) * BATCH_K])
+                 // sweep for c in range(chunks))
+    limits = _batch_limits(BATCH_K, rounds)
+    limits = {n: (chunks * lo, chunks * hi) for n, (lo, hi) in limits.items()}
+    limits["poseidon2_permute"] = (sweeps, sweeps)
+    off = {n: launches[n] for n, (lo, hi) in limits.items() if not lo <= launches[n] <= hi}
+    kernel1 = sum(launches[k["name"]] for k in kernels if k.get("kernel1"))
+    if off or kernel1 > 5 * chunks:
+        raise AssertionError(f"{label}: launches outside their limits {limits}: "
+                             f"{off}, kernel 1 {kernel1}")
 
 
 def phase_batch(kernels) -> None:
@@ -1833,7 +2045,6 @@ def phase_batch(kernels) -> None:
     verifier = WormholeVerifier(prover.data)
     cfg = prover.data.config
     rounds = len(cfg.fri_config.reduction_strategy.schedule(prover.data.degree_bits))
-    sweep = 1 << 17
 
     def run(label, fn, count):
         """fn() with the counts at 0; checks the bytes, the verifier, the
@@ -1851,17 +2062,7 @@ def phase_batch(kernels) -> None:
             if proof_to_bytes(proof) != want[i % 2]:
                 raise AssertionError(f"[batch] {label}: proof {i} differs from its fixture")
             verifier.verify(proof)
-        chunks = count // BATCH_K
-        sweeps = sum(1 + max(int(p.fri_proof.pow_witness) for p in proofs[c * BATCH_K:(c + 1) * BATCH_K])
-                     // sweep for c in range(chunks))
-        limits = _batch_limits(BATCH_K, rounds)
-        limits = {n: (chunks * lo, chunks * hi) for n, (lo, hi) in limits.items()}
-        limits["poseidon2_permute"] = (sweeps, sweeps)
-        off = {n: launches[n] for n, (lo, hi) in limits.items() if not lo <= launches[n] <= hi}
-        kernel1 = sum(launches[k["name"]] for k in kernels if k.get("kernel1"))
-        if off or kernel1 > 5 * chunks:
-            raise AssertionError(f"[batch] {label}: launches outside their limits {limits}: "
-                                 f"{off}, kernel 1 {kernel1}")
+        _check_batch_launches(f"[batch] {label}", kernels, launches, proofs, rounds)
         return took, launches
 
     inputs = [leaves[i % 2] for i in range(STREAM_LEN)]
@@ -1909,6 +2110,212 @@ def phase_batch(kernels) -> None:
           f"{plain:.3f} ms, bound {bound:.4f} ms by {by})", flush=True)
 
 
+def phase_zk(kernels) -> None:
+    """The ZK path: the private batch's config on the leaf circuit
+    (WormholeProver(wormhole_private_batch_circuit_config(), device="cuda"),
+    degree 9). Each run with every wrapper's count set to 0 just before it
+    and read just after: host-rng proofs of test_inputs_0() (cold, warm)
+    equal the committed JAX fixture within the single proof's limits and
+    launch kernel G never; a device-rng proof launches it at most four
+    times (the blinding rows and three salts), is accepted and differs from
+    the host one, and repeats for the same seed; a K = 16 batch and a
+    48-leaf stream in chunks of 16 of the two real spends (host rng): proof
+    0 equals the single proof of the same seed, every proof is accepted,
+    within the batch's limits; a copy with a salt felt of an opened row
+    changed is rejected. Then warm medians and the device's busy share."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.fri.config import SALT_SIZE
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_from_bytes, proof_to_bytes
+    from qp_zk_circuits_tpu_torch.plonk.verifier import VerificationError
+    from qp_zk_circuits_tpu_torch.tools.profile_leaf import _device_profile
+    from qp_zk_circuits_tpu_torch.tools.timing import card
+    from qp_zk_circuits_tpu_torch.utils.config_policy import wormhole_private_batch_circuit_config
+    from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import (
+        test_inputs_0,
+        two_real_leaves_same_block,
+    )
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    meta = json.loads(FIXTURE_META.read_text())[ZK_FIXTURE.name]
+    want = ZK_FIXTURE.read_bytes()
+    if len(want) != meta["len"] or hashlib.sha256(want).hexdigest() != meta["sha256"]:
+        raise AssertionError(f"{ZK_FIXTURE.name} is not the committed fixture")
+    t0 = time.time()
+    prover = WormholeProver(wormhole_private_batch_circuit_config(), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    data = prover.data
+    cfg = data.config
+    verifier = WormholeVerifier(data)
+    rounds = len(cfg.fri_config.reduction_strategy.schedule(data.degree_bits))
+    inputs = test_inputs_0()
+
+    def run(label, fn, limits):
+        """fn() with the counts at 0; checks each stage's launches against
+        `limits` (kernel 1 at most five a proof); returns (out, s, launches)."""
+        for k in kernels:
+            k["wrapper"].launches = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        launches = {k["name"]: k["wrapper"].launches for k in kernels}
+        off = {n: launches[n] for n, (lo, hi) in limits.items() if not lo <= launches[n] <= hi}
+        kernel1 = sum(launches[k["name"]] for k in kernels if k.get("kernel1"))
+        if off or kernel1 > 5:
+            raise AssertionError(f"[zk] {label}: launches outside their limits {limits}: "
+                                 f"{off}, kernel 1 {kernel1}")
+        return out, took, launches
+
+    def host():
+        return proof_to_bytes(prover.prove_inputs(inputs, seed=ZK_SEED))
+
+    def device():
+        return proof_to_bytes(tprover.prove(data, prover._partial_witness(inputs), seed=ZK_SEED,
+                                            rng_mode="device"))
+
+    single = _single_limits(rounds)
+    cold, cold_s, _ = run("cold host-rng proof", host, single)
+    warm, warm_s, host_launches = run("warm host-rng proof", host, single)
+    for name, blob in (("cold", cold), ("warm", warm)):
+        if blob != want:
+            raise AssertionError(f"[zk] the {name} host-rng proof differs from the JAX fixture")
+        verifier.verify(proof_from_bytes(blob))
+    dev_blob, dev_s, dev_launches = run("device-rng proof", device, {**single, "rand_felts": (1, 4)})
+    for k in kernels:
+        if k.get("path") == "zk":
+            k["launches"] = dev_launches[k["name"]]
+    if dev_blob == want:
+        raise AssertionError("[zk] the device-rng proof equals the host-rng one")
+    verifier.verify(proof_from_bytes(dev_blob))
+    if run("second device-rng proof", device, {"rand_felts": (1, 4)})[0] != dev_blob:
+        raise AssertionError("[zk] two device-rng proofs of one seed differ")
+
+    bad = proof_from_bytes(warm)
+    row = np.array(bad.fri_proof.query_rounds[0].initial_rows[1], dtype=np.uint64)
+    row[-SALT_SIZE] = np.uint64((int(row[-SALT_SIZE]) + 1) % ((1 << 64) - (1 << 32) + 1))
+    bad.fri_proof.query_rounds[0].initial_rows[1] = row
+    try:
+        verifier.verify(bad)
+    except VerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("[zk] the verifier accepted a proof with a salt felt changed")
+
+    leaves = two_real_leaves_same_block()
+    batch_inputs = [leaves[i % 2] for i in range(STREAM_LEN)]
+    first = proof_to_bytes(prover.prove_inputs(batch_inputs[0], seed=ZK_SEED))
+
+    def run_batch(label, fn, count):
+        for k in kernels:
+            k["wrapper"].launches = 0
+        t = time.perf_counter()
+        proofs = fn()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        launches = {k["name"]: k["wrapper"].launches for k in kernels}
+        if len(proofs) != count or proof_to_bytes(proofs[0]) != first:
+            raise AssertionError(f"[zk] {label}: {len(proofs)} proofs, proof 0 not the single "
+                                 "proof of the same seed")
+        for proof in proofs:
+            verifier.verify(proof)
+        _check_batch_launches(f"[zk] {label}", kernels, launches, proofs, rounds)
+        return took, sum(launches.values())
+
+    def batch():
+        return prover.prove_inputs_batch(batch_inputs[:BATCH_K], seed=ZK_SEED)
+
+    batch_cold_s, _ = run_batch("cold batch", batch, BATCH_K)
+    batch_s, batch_launches = run_batch(f"batch of {BATCH_K}", batch, BATCH_K)
+    stream_s, stream_launches = run_batch(
+        f"stream of {STREAM_LEN}", lambda: prover.prove_inputs_stream(
+            (x for x in batch_inputs), batch=BATCH_K, seed=ZK_SEED), STREAM_LEN)
+
+    host_ms = _host_median_ms(lambda: (host(), torch.cuda.synchronize()), runs=5)
+    dev_ms = _host_median_ms(lambda: (device(), torch.cuda.synchronize()), runs=5)
+    batch_ms = _host_median_ms(lambda: (batch(), torch.cuda.synchronize()), runs=3) / BATCH_K
+    busy = {mode: _device_profile(fn) for mode, fn in (("host", host), ("device", device))}
+    busy_batch = _device_profile(batch)
+
+    def share(profile, ms):
+        return "not measured" if profile["device_ms"] is None else (
+            f"{profile['device_ms']:.3f} device ms, busy {100 * profile['device_ms'] / ms:.1f} %, "
+            f"{profile['device_launches']} device launches")
+
+    lib = ", ".join(f"{n}={v}" for n, v in host_launches.items() if v)
+    print(f"[zk] leaf under the private batch's config: {cfg.num_wires} wires, "
+          f"{cfg.num_routed_wires} routed, degree_bits {data.degree_bits} ({data.num_rows_used} "
+          f"rows used), {cfg.fri_config.num_query_rounds} queries, "
+          f"{cfg.fri_config.proof_of_work_bits} PoW bits; build {build_s:.2f} s; host-rng proof "
+          f"cold {1e3 * cold_s:.1f} ms, warm {1e3 * warm_s:.1f} ms, {len(warm)} B == fixture; "
+          f"library launches a proof: {lib}", flush=True)
+    print(f"[zk] device-rng proof: {1e3 * dev_s:.1f} ms, kernel G {dev_launches['rand_felts']} "
+          f"launches, accepted, not the host-rng bytes, the same for the same seed; a changed "
+          f"salt felt rejected: {rejected}", flush=True)
+    print(f"[zk] K = {BATCH_K} batch: cold {1e3 * batch_cold_s:.1f} ms, warm "
+          f"{1e3 * batch_s:.1f} ms, {batch_launches} library launches; stream of {STREAM_LEN} "
+          f"in chunks of {BATCH_K}: {1e3 * stream_s:.1f} ms ({1e3 * stream_s / STREAM_LEN:.2f} ms "
+          f"a proof), {stream_launches} library launches; proof 0 equals the single proof and "
+          f"every proof verifies", flush=True)
+    print(f"[zk] warm medians: host-rng {host_ms:.2f} ms ({share(busy['host'], host_ms)}); "
+          f"device-rng {dev_ms:.2f} ms ({share(busy['device'], dev_ms)}); batch "
+          f"{batch_ms:.2f} ms a proof ({share(busy_batch, batch_ms * BATCH_K)} a batch); "
+          f"{card()}", flush=True)
+
+
+def phase_aggregation_rand(device, degree_bits: int = 16, rate: int = 3) -> None:
+    """Kernel G at the private batch's degree-16 draws: the blinding rows,
+    135 x (2^16 - 64) felts written through a strided view of a 135 x 2^16
+    trace, and the three salts' 4 x 2^19 rows; each against the plain
+    version run on the card (too slow on the host at this size), bit-exact,
+    and timed beside its bound."""
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import random as frandom
+    from qp_zk_circuits_tpu_torch.tools.timing import device_ms, median_ms
+
+    n = 1 << degree_bits
+    trace = torch.zeros((ZK_LEAF_WIRES, n), dtype=torch.int64, device=device)
+    blind = trace[:, 64:]
+    salts = torch.empty((3, 4, n << rate), dtype=torch.int64, device=device)
+    draws = [(0, blind)] + [(1 + i, salts[i]) for i in range(3)]
+    for stream, out in draws:
+        frandom.rand_felts(RAND_KEY, stream, out)
+        want = frandom.rand_felts_plain(RAND_KEY, stream,
+                                        torch.empty(tuple(out.shape), dtype=torch.int64,
+                                                    device=device))
+        if not torch.equal(out, want):
+            raise AssertionError(f"[rand 2^{degree_bits}] stream {stream} differs from the plain "
+                                 "version")
+    if trace[:, :64].any():
+        raise AssertionError(f"[rand 2^{degree_bits}] kernel G wrote outside the blinding columns")
+
+    def all_draws():
+        for stream, out in draws:
+            frandom.rand_felts(RAND_KEY, stream, out)
+
+    lines = []
+    for label, fn, count in (
+            (f"blinding {ZK_LEAF_WIRES} x {n - 64}", lambda: frandom.rand_felts(RAND_KEY, 0, blind),
+             blind.numel()),
+            (f"salts 3 x 4 x 2^{degree_bits + rate}", lambda: [
+                frandom.rand_felts(RAND_KEY, 1 + i, salts[i]) for i in range(3)], salts.numel()),
+            ("all four draws", all_draws, blind.numel() + salts.numel())):
+        bound, by = _bound(rand_felts_work(count))
+        lines.append(f"{label}: {median_ms(fn, runs=10):.4f} ms, device {device_ms(fn):.4f} ms, "
+                     f"bound {bound:.4f} ms by {by}")
+    count = blind.numel() + salts.numel()
+    randint = median_ms(lambda: torch.randint(0, (1 << 63) - 1, (count,), dtype=torch.int64,
+                                              device=device), runs=10)
+    print(f"[rand 2^{degree_bits}] kernel G at the private batch's draws, all bit-exact against "
+          f"the plain version on the card: {'; '.join(lines)}; torch.randint of {count} int64s "
+          f"(another stream) {randint:.4f} ms", flush=True)
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     device_info = phase_device()
@@ -1922,11 +2329,15 @@ def main() -> int:
     phase_aggregation_fri_tail("cuda")
     phase_main_path(kernels)
     phase_batch(kernels)
+    phase_zk(kernels)
+    phase_aggregation_rand("cuda")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
         k["route"] = "cuda"
-        k["library_ms"] = None  # no single PyTorch call computes these functions
+        # no single PyTorch call computes these functions (torch.randint,
+        # timed beside kernel G, draws another stream)
+        k["library_ms"] = None
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": device_info}), flush=True)
     return 0

@@ -39,7 +39,7 @@ _ENTRIES = {
     "qzk_poseidon2_hash_rows": [_P, _P, _LL, _I, _LL, _LL, _P],
     "qzk_poseidon2_two_to_one": [_P, _LL, _P, _LL, _P, _LL, _P],
     "qzk_poseidon2_merkle_forest": [_P, _P, _LL, _LL, _LL, _I, _LL, _LL, _I, _I, _I, _P],
-    "qzk_ntt": [_P] * 8 + [_LL, _LL, _I, _I, _I, _ULL, _I, _P],
+    "qzk_ntt": [_P] * 8 + [_LL, _LL, _I, _I, _I, _ULL, _I, _LL, _LL, _P],
     "qzk_quotient_set_constants": [_P, _P, _P],
     "qzk_quotient": [_P, _LL, _P, _P, _LL] + [_P] * 11 + [_I] * 13 + [_P],
     "qzk_permutation": [_P, _LL] + [_P] * 6 + [_I] * 5 + [_P],
@@ -47,6 +47,7 @@ _ENTRIES = {
     "qzk_eval_openings": [_P, _I, _P, _P, _P, _I, _P],
     "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "qzk_query_gather": [_P, _P],
+    "qzk_rand_felts": [_P, _LL, _LL, _LL, _LL, _ULL, _ULL, _P],
 }
 
 _lib = None

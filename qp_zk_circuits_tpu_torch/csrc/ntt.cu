@@ -75,6 +75,9 @@ struct Pass {
   long long in_cs, in_ts, in_s, out_cs, out_ts, out_s;
   long long n_in;  // column-relative input indices >= n_in read as 0
   long long pre_ts;  // pre's stride a transform (the one-pass LDE's rows), else 0
+  // group blockIdx.y's columns start at in + y * in_gs and out + y * out_gs
+  // (a batch's LDEs, each followed by its salt rows); n_tr counts a group's
+  long long in_gs, out_gs;
   uint64_t scale;  // multiplies every output when post is null and do_scale
   int l, t_bits, skip, h, do_scale, pc_bits;
   int radix;  // stages a register group: 1, 2 or 3
@@ -155,6 +158,8 @@ __device__ void radix_group(const Pass& p, uint64_t* x, const uint64_t* tw, long
 
 __global__ void __launch_bounds__(THREADS, 3) ntt_pass(Pass p) {
   extern __shared__ uint64_t smem[];
+  const uint64_t* in = p.in + blockIdx.y * p.in_gs;
+  uint64_t* out = p.out + blockIdx.y * p.out_gs;
   const int l = p.l, L = 1 << l, T = 1 << p.t_bits;
   const int stride = tile_stride(l);
   uint64_t* x = smem;
@@ -182,7 +187,7 @@ __global__ void __launch_bounds__(THREADS, 3) ntt_pass(Pass p) {
     const long long j = (g & pc_mask) * p.in_ts + (long long)i * p.in_s;
     const bool valid = g < p.n_tr && j < p.n_in;
     copy_async8(x + tt * stride + padded((int)(__brev((unsigned)i) >> (32 - l))),
-                valid ? p.in + (g >> p.pc_bits) * p.in_cs + j : p.in, valid);
+                valid ? in + (g >> p.pc_bits) * p.in_cs + j : in, valid);
   }
   copy_async_wait();
   __syncthreads();
@@ -257,7 +262,7 @@ __global__ void __launch_bounds__(THREADS, 3) ntt_pass(Pass p) {
       v = gl::mul(v, p.post[j]);
     else if (p.do_scale)
       v = gl::mul(v, p.scale);
-    p.out[(g >> p.pc_bits) * p.out_cs + j] = v;
+    out[(g >> p.pc_bits) * p.out_cs + j] = v;
   }
 }
 
@@ -267,7 +272,8 @@ int smem_bytes(const Pass& p) {
 
 // Radix-8 groups where a tile has 1024 points or more, else radix 4 or 2,
 // so that at least 128 threads (a warp a scheduler) share the butterflies.
-cudaError_t launch(Pass p, cudaStream_t s) {
+// One row of blocks a group of columns.
+cudaError_t launch(Pass p, long long groups, cudaStream_t s) {
   const int tile_bits = p.l + p.t_bits;
   p.radix = tile_bits >= RADIX8_BITS ? 3 : tile_bits >= RADIX4_BITS ? 2 : 1;
   if (p.skip > p.radix) p.skip = p.radix;
@@ -281,10 +287,11 @@ cudaError_t launch(Pass p, cudaStream_t s) {
     raised[dev] = true;
   }
   const long long blocks = (p.n_tr + (1LL << p.t_bits) - 1) >> p.t_bits;
-  if (blocks < 1 || blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  if (blocks < 1 || blocks > 0x7FFFFFFFLL || groups < 1 || groups > 0xFFFF)
+    return cudaErrorInvalidValue;
   const int threads = (1 << (p.l + p.t_bits - p.radix)) < THREADS ? 1 << (p.l + p.t_bits - p.radix)
                                                                    : THREADS;
-  ntt_pass<<<(unsigned)blocks, threads, smem_bytes(p), s>>>(p);
+  ntt_pass<<<dim3((unsigned)blocks, (unsigned)groups), threads, smem_bytes(p), s>>>(p);
   return cudaGetLastError();
 }
 
@@ -298,7 +305,11 @@ int zero_stages(int l, long long valid) {
 
 }  // namespace
 
-// in: (cols, n_in) contiguous; out: (cols, 2^log_n) contiguous; 1 <= n_in <= 2^log_n.
+// in: (cols, n_in) contiguous; out: (cols, 2^log_n), column c at c * 2^log_n,
+// or, for out_group > 0, at (c / out_group) * out_gs + (c % out_group) *
+// 2^log_n (groups of out_group columns out_gs values apart, out_gs >=
+// out_group 2^log_n, at most 65535 groups: the grid's second axis);
+// 1 <= n_in <= 2^log_n.
 // log_n1: the first pass's points, log_n1 == log_n for one pass, else
 // log_n - log_n1 <= 12 too; scratch: (cols, 2^log_n) for two passes, else
 // null. tw1, tw2: w^e for e < 2^(log_n1 - 1) and e < 2^(log_n - log_n1 - 1),
@@ -314,8 +325,13 @@ int zero_stages(int l, long long valid) {
 extern "C" int qzk_ntt(const void* in, void* out, void* scratch, const void* tw1, const void* tw2,
                        const void* twn, const void* shift_pows, const void* post_pows,
                        long long cols, long long n_in, int log_n, int log_n1, int coset_bits,
-                       unsigned long long scale, int do_scale, void* stream) {
+                       unsigned long long scale, int do_scale, long long out_group,
+                       long long out_gs, void* stream) {
   if (cols <= 0) return 0;
+  if (out_group < 0 || (out_group > 0 && (cols % out_group || out_gs < out_group << log_n)))
+    return (int)cudaErrorInvalidValue;
+  const long long groups = out_group ? cols / out_group : 1;
+  if (out_group) cols = out_group;  // the passes below see one group
   const int l1 = log_n1, l2 = log_n - log_n1;
   if (log_n < 1 || l1 < 1 || l1 > MAX_TILE_BITS || l2 < 0 || l2 > MAX_TILE_BITS ||
       (l2 > 0 && (scratch == nullptr || twn == nullptr || tw2 == nullptr)) || n_in < 1 ||
@@ -341,10 +357,11 @@ extern "C" int qzk_ntt(const void* in, void* out, void* scratch, const void* tw1
     p.pc_bits = coset_bits;
     p.in_cs = n_in, p.in_s = 1, p.pre_ts = n_in;
     p.out_cs = n, p.out_ts = 1, p.out_s = 1LL << coset_bits;
+    p.in_gs = cols * n_in, p.out_gs = out_gs;
     p.n_in = n_in;
     p.l = l;
     p.t_bits = l < 9 ? (9 - l < coset_bits ? 9 - l : coset_bits) : 0;
-    return (int)launch(p, s);
+    return (int)launch(p, groups, s);
   }
   if (l2 == 0) {
     // one pass: a transform a column, 2^8 points or more a block
@@ -356,11 +373,12 @@ extern "C" int qzk_ntt(const void* in, void* out, void* scratch, const void* tw1
     p.n_tr = cols;
     p.pc_bits = 0;
     p.in_cs = n_in, p.in_s = 1, p.out_cs = n, p.out_s = 1;
+    p.in_gs = cols * n_in, p.out_gs = out_gs;
     p.n_in = n_in;
     p.l = log_n;
     p.t_bits = log_n < 8 ? 8 - log_n : 0;
     p.skip = zero_stages(log_n, n_in);
-    return (int)launch(p, s);
+    return (int)launch(p, groups, s);
   }
   // two passes, N = N1 N2, j = N2 j1 + j2, k = k1 + N1 k2. T transforms a
   // block with 4 <= T <= 16 and T L = 4096 where it can (T = 4 above 2^10).
@@ -379,11 +397,12 @@ extern "C" int qzk_ntt(const void* in, void* out, void* scratch, const void* tw1
   p.pc_bits = l2;
   p.in_cs = n_in, p.in_ts = 1, p.in_s = 1LL << l2;
   p.out_cs = n, p.out_ts = 1, p.out_s = 1LL << l2;
+  p.in_gs = cols * n_in, p.out_gs = cols * n;
   p.n_in = n_in;
   p.l = l1;
   p.t_bits = t_bits(l1, l2);
   p.skip = zero_stages(l1, (n_in + (1LL << l2) - 1) >> l2);
-  cudaError_t e = launch(p, s);
+  cudaError_t e = launch(p, groups, s);
   if (e != cudaSuccess) return (int)e;
   // pass 2: for each k1, the N2 points Y[k1][j2] -> X[k1 + N1 k2]
   Pass q{};
@@ -397,9 +416,10 @@ extern "C" int qzk_ntt(const void* in, void* out, void* scratch, const void* tw1
   q.pc_bits = l1;
   q.in_cs = n, q.in_ts = 1LL << l2, q.in_s = 1;
   q.out_cs = n, q.out_ts = 1, q.out_s = 1LL << l1;
+  q.in_gs = cols * n, q.out_gs = out_gs;
   q.n_in = n;
   q.l = l2;
   q.t_bits = t_bits(l2, l1);
   q.skip = 0;
-  return (int)launch(q, s);
+  return (int)launch(q, groups, s);
 }

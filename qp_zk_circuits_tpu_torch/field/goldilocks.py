@@ -68,41 +68,46 @@ def _ge_p(x: torch.Tensor) -> torch.Tensor:
     return (x ^ _SIGN) >= _P_FLIPPED
 
 
+# A conditional correction is `torch.add(x, condition, alpha=k)`: x + k
+# where the condition holds, in one op (wrapping, as int64 arithmetic does).
+
+
 def add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     s = a + b
-    s = torch.where(ult(s, a), s + EPS, s)
-    return torch.where(_ge_p(s), s - P_I64, s)
+    s = torch.add(s, ult(s, a), alpha=EPS)
+    return torch.add(s, _ge_p(s), alpha=-P_I64)
 
 
 def sub_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    d = a - b
-    return torch.where(ult(a, b), d - EPS, d)
+    return torch.add(a - b, ult(a, b), alpha=-EPS)
 
 
 def _reduce128(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """(lo + hi * 2^64) mod p, canonical (gf_np.reduce128)."""
     hi_hi = (hi >> 32) & M32
     hi_lo = hi & M32
-    t0 = lo - hi_hi
-    t0 = torch.where(ult(lo, hi_hi), t0 - EPS, t0)
+    t0 = torch.add(lo - hi_hi, ult(lo, hi_hi), alpha=-EPS)
     t1 = (hi_lo << 32) - hi_lo  # hi_lo * EPS < 2^64
     t2 = t0 + t1
-    t2 = torch.where(ult(t2, t0), t2 + EPS, t2)
-    return torch.where(_ge_p(t2), t2 - P_I64, t2)
+    t2 = torch.add(t2, ult(t2, t0), alpha=EPS)
+    return torch.add(t2, _ge_p(t2), alpha=-P_I64)
+
+
+def mul128_plain(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 128-bit product of two u64 bit patterns, (lo, hi), from 32-bit
+    limbs."""
+    a0, a1 = a & M32, (a >> 32) & M32
+    b0, b1 = b & M32, (b >> 32) & M32
+    lh = a0 * b1
+    hl = a1 * b0
+    # middle 32-bit column: < 3 * 2^32, no overflow
+    t = (((a0 * b0) >> 32) & M32) + (lh & M32) + (hl & M32)
+    hi = a1 * b1 + ((lh >> 32) & M32) + ((hl >> 32) & M32) + (t >> 32)
+    return a * b, hi  # the low word: int64 products wrap
 
 
 def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    a0, a1 = a & M32, (a >> 32) & M32
-    b0, b1 = b & M32, (b >> 32) & M32
-    ll = a0 * b0
-    lh = a0 * b1
-    hl = a1 * b0
-    hh = a1 * b1
-    # middle 32-bit column: < 3 * 2^32, no overflow
-    t = ((ll >> 32) & M32) + (lh & M32) + (hl & M32)
-    lo = (ll & M32) | ((t & M32) << 32)
-    hi = hh + ((lh >> 32) & M32) + ((hl >> 32) & M32) + (t >> 32)
-    return _reduce128(lo, hi)
+    return _reduce128(*mul128_plain(a, b))
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,23 @@
-"""Polynomial batch commitments: coset LDE + Merkle cap ("oracles").
+"""Polynomial batch commitments: coset LDE + salted Merkle cap ("oracles").
 
 The prover's committed objects (wires, Zs/partial products, quotient chunks,
 constants/sigmas) are each a `PolynomialBatch`: C polynomials of degree < N,
 evaluated over the coset g*H' with blowup 2^rate_bits, rows Merkle-committed
 with a cap (the `lde_size = 2^(degree_bits + rate_bits)` object of reference
-`common/src/circuit.rs:451-457`).
+`common/src/circuit.rs:451-457`). Blinding (zero knowledge) appends
+SALT_SIZE random felt columns to every leaf row, as the JAX package's
+`fri/oracle.py::commit` and `prover_fused.py::_commit_j` do: the salt is
+committed and opened with each row but is no polynomial, so the openings
+and the FRI composition read the first `num_polys` rows only.
 
 Device path: the iNTT (from values) and the LDE are kernel-3 launches over all
-columns; the tree hashes the LDE's rows in place (the (C, M) matrix read as
-(M, C) rows, no transpose copy) with kernel 2, and its levels stay on the
-device. The openings are kernel D (csrc/fri.cu). This module commits non-ZK
-oracles only: no salt columns. `verify_row` is the verifier's host check of
-an opened row.
+columns; the LDE buffer holds C + SALT_SIZE rows when salted, kernel 3
+writes the first C and the salt fills the last SALT_SIZE (uploaded from the
+host's draw, or written by kernel G in device-rng mode, field/random.py).
+The tree hashes the buffer's rows in place (the (C_total, M) matrix read as
+(M, C_total) rows, no transpose or concatenation copy) with kernel 2, and
+its levels stay on the device. The openings are kernel D (csrc/fri.cu).
+`verify_row` is the verifier's host check of an opened row.
 """
 
 from __future__ import annotations
@@ -24,19 +30,27 @@ import torch
 from .. import _cuda
 from ..field import extension as ext
 from ..field import goldilocks as gl
+from ..field import random as frandom
 from ..hash import merkle
 from ..poly import ntt
+from .config import SALT_SIZE
 
 
 @dataclass
 class PolynomialBatch:
-    """Committed batch: device coefficients (C, N) + LDE (C, M) + device tree."""
+    """Committed batch: device coefficients (C, N) + LDE (C_total, M) +
+    device tree."""
 
-    coeffs: torch.Tensor  # (C, N) coefficient forms
-    lde: torch.Tensor  # (C, M) evaluations over the LDE coset
+    coeffs: torch.Tensor  # (C, N) coefficient forms (no salt)
+    lde: torch.Tensor  # (C_total, M): the C polynomials' evaluations, then the salt rows
     tree: merkle.MerkleTree
     degree_bits: int
     rate_bits: int
+    blinding: bool = False
+
+    @property
+    def num_polys(self) -> int:
+        return self.coeffs.shape[0]
 
     @property
     def lde_size(self) -> int:
@@ -46,12 +60,36 @@ class PolynomialBatch:
     def cap(self) -> np.ndarray:
         return self.tree.cap
 
+    @property
+    def poly_lde(self) -> torch.Tensor:
+        """The polynomials' rows of the LDE, without the salt: a contiguous
+        view."""
+        return self.lde[: self.num_polys]
+
+
+def _fill_salt(salt, rows: torch.Tensor) -> None:
+    """Write a salt into an LDE buffer's (SALT_SIZE, M) salt rows, or K
+    salts into a stack's (K, SALT_SIZE, M): a `random.Draw`, which kernel G
+    writes straight into the rows, or a host draw in the JAX package's
+    (M, SALT_SIZE) layout, (K, M, SALT_SIZE) for a stack (LDE row C + j is
+    salt column j), uploaded in one copy."""
+    if isinstance(salt, frandom.Draw):
+        frandom.rand_felts(salt.key, salt.stream, rows)
+        return
+    arr = np.asarray(salt, dtype=np.uint64)
+    want = rows.shape[:-2] + (rows.shape[-1], SALT_SIZE)
+    if arr.shape != want:
+        raise ValueError(f"salt {arr.shape}, expected {want}")
+    rows.copy_(torch.from_numpy(np.ascontiguousarray(np.swapaxes(arr, -1, -2)).view(np.int64)))
+
 
 def commit(values, rate_bits: int, cap_height: int, device=None,
-           from_values: bool = False) -> PolynomialBatch:
+           from_values: bool = False, salt=None) -> PolynomialBatch:
     """Commit C polynomials. `values`: host (C, N) uint64 array or a device
     tensor (then `device` may be omitted); with `from_values=True` the rows
-    are evaluations over H and an iNTT brings them to coefficients first."""
+    are evaluations over H and an iNTT brings them to coefficients first.
+    `salt` (blinding): a host (M, SALT_SIZE) array, or a `random.Draw` that
+    kernel G writes on the device; the LDE then has C + SALT_SIZE rows."""
     if isinstance(values, torch.Tensor):
         vals = values
     else:
@@ -61,19 +99,25 @@ def commit(values, rate_bits: int, cap_height: int, device=None,
     if 1 << degree_bits != n:
         raise ValueError(f"polynomial length {n} is not a power of two")
     coeffs = ntt.intt(vals) if from_values else vals
-    lde = ntt.coset_lde(coeffs, rate_bits)
+    salt_rows = 0 if salt is None else SALT_SIZE
+    lde = torch.empty((c + salt_rows, n << rate_bits), dtype=torch.int64, device=vals.device)
+    ntt.coset_lde(coeffs, rate_bits, out=lde[:c])
+    if salt is not None:
+        _fill_salt(salt, lde[c:])
     tree = merkle.build_merkle_tree(lde.T, cap_height)
-    return PolynomialBatch(
-        coeffs=coeffs, lde=lde, tree=tree, degree_bits=degree_bits, rate_bits=rate_bits
-    )
+    return PolynomialBatch(coeffs=coeffs, lde=lde, tree=tree, degree_bits=degree_bits,
+                           rate_bits=rate_bits, blinding=salt is not None)
 
 
 def commit_batch(values: torch.Tensor, rate_bits: int, cap_height: int,
-                 from_values: bool = False) -> list[PolynomialBatch]:
+                 from_values: bool = False, salts=None) -> list[PolynomialBatch]:
     """`commit` for K batches of C polynomials of one shape, values (K, C, N)
     on the device: the K C columns stacked into one kernel-3 iNTT (when
     `from_values`) and one LDE, then one kernel-2 forest over the K LDEs read
-    in place. Returns K `PolynomialBatch` views of the stacked coefficients
+    in place. `salts`: a host (K, M, SALT_SIZE) array (one upload), a list
+    of K `random.Draw`s, or None; salted, the LDE buffer is (K, C +
+    SALT_SIZE, M), kernel 3 writing each batch's first C rows in the same
+    launch. Returns K `PolynomialBatch` views of the stacked coefficients
     and LDE, each with its tree."""
     k, c, n = values.shape
     degree_bits = n.bit_length() - 1
@@ -81,24 +125,34 @@ def commit_batch(values: torch.Tensor, rate_bits: int, cap_height: int,
         raise ValueError(f"polynomial length {n} is not a power of two")
     flat = values.reshape(k * c, n)
     coeffs = ntt.intt(flat) if from_values else flat
-    lde = ntt.coset_lde(coeffs, rate_bits)
-    m = lde.shape[1]
-    trees = merkle.build_merkle_forest(lde.view(k, c, m).transpose(1, 2), cap_height)
-    return [PolynomialBatch(coeffs=coeffs[i * c : (i + 1) * c], lde=lde[i * c : (i + 1) * c],
-                            tree=tree, degree_bits=degree_bits, rate_bits=rate_bits)
+    if salts is not None and len(salts) != k:
+        raise ValueError(f"{len(salts)} salts for {k} batches")
+    salt_rows = 0 if salts is None else SALT_SIZE
+    lde = torch.empty((k, c + salt_rows, n << rate_bits), dtype=torch.int64,
+                      device=values.device)
+    ntt.coset_lde(coeffs, rate_bits, out=lde[:, :c])
+    if isinstance(salts, np.ndarray):
+        _fill_salt(salts, lde[:, c:])
+    elif salts is not None:
+        for i, salt in enumerate(salts):
+            _fill_salt(salt, lde[i, c:])
+    trees = merkle.build_merkle_forest(lde.transpose(1, 2), cap_height)
+    return [PolynomialBatch(coeffs=coeffs[i * c : (i + 1) * c], lde=lde[i], tree=tree,
+                            degree_bits=degree_bits, rate_bits=rate_bits,
+                            blinding=salts is not None)
             for i, tree in enumerate(trees)]
 
 
 def stacked_lde(batches: list[PolynomialBatch]) -> torch.Tensor:
-    """The LDEs of `commit_batch`'s K views as one (K, C, M) view of the
-    buffer they share (raises for batches that do not lie one after
-    another in one buffer)."""
+    """The LDEs of `commit_batch`'s K views as one (K, C_total, M) view of
+    the buffer they share, salt rows included (raises for batches that do
+    not lie one after another in one buffer)."""
     first = batches[0].lde
-    c, m = first.shape
+    rows, m = first.shape
     for i, b in enumerate(batches):
-        if b.lde.shape != first.shape or b.lde.data_ptr() != first.data_ptr() + 8 * i * c * m:
+        if b.lde.shape != first.shape or b.lde.data_ptr() != first.data_ptr() + 8 * i * rows * m:
             raise ValueError("the batches' LDEs are not one stacked buffer")
-    return first.as_strided((len(batches), c, m), (c * m, m, 1))
+    return first.as_strided((len(batches), rows, m), (rows * m, m, 1))
 
 
 #: kernel D takes the oracles and the next-point rows as at most this many

@@ -23,7 +23,11 @@ csrc/fri.cu:
     (plonk/transcript.py).
   * The queries' leaf rows, layer leaves and Merkle siblings of every tree
     are gathered by kernel F, its plan passed by value, into one packed
-    buffer of pinned host memory: one launch, no copy.
+    buffer of pinned host memory: one launch, no copy. A ZK proof's salted
+    oracles open whole rows, salt included (their LDE buffers hold the salt
+    rows after the polynomials'), while the composition reads only the
+    polynomials the instance names; the FRI rounds' own trees have no salt,
+    as in the JAX package.
 
 Host keeps: transcript, the beta powers, query assembly.
 """
@@ -566,8 +570,9 @@ def _sibling_sources(tree: merkle.MerkleTree, mask: int) -> list[GatherSource]:
 
 
 def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
-    """Every query's opening: the oracles' leaf rows and Merkle paths, then
-    per FRI round the leaf and its path. `layers`: (leaves, tree) per round.
+    """Every query's opening: the oracles' leaf rows (a salted oracle's with
+    its salt, the width `lde.shape[0]`) and Merkle paths, then per FRI
+    round the leaf and its path. `layers`: (leaves, tree) per round.
     One kernel-F gather into pinned host memory, then the host cuts the
     (Q, width) rows into views a segment group at a time."""
     m0 = oracles[0].lde.shape[1]

@@ -355,33 +355,39 @@ def _const_tensors(device: torch.device):
     )
 
 
-def _mul_small_plain(a: torch.Tensor, c: int) -> torch.Tensor:
-    """a * c for c in 1..7 by doubling chains (the reference's _mul_small_j)."""
-    if c == 1:
-        return a
-    d = gl.add_plain(a, a)
-    if c in (2, 3):
-        return d if c == 2 else gl.add_plain(d, a)
-    if c == 6:
-        t = gl.add_plain(d, a)
-        return gl.add_plain(t, t)
-    d4 = gl.add_plain(d, d)
-    return {4: d4, 5: gl.add_plain(d4, a), 7: gl.add_plain(gl.add_plain(d4, d), a)}[c]
+def _reduce_sums_plain(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(hi * 2^32 + lo) mod p, canonical, for sums of 32-bit limbs lo, hi <
+    2^40: one reduction for a whole linear combination with small
+    coefficients."""
+    h = hi + (lo >> 32)
+    a = ((h & gl.M32) << 32) | (lo & gl.M32)
+    a = torch.add(a, gl._ge_p(a), alpha=-gl.P_I64)
+    top = h >> 32  # top * 2^64 = top * (2^32 - 1) mod p, below p
+    return gl.add_plain(a, (top << 32) - top)
+
+
+def _limbs(x: torch.Tensor) -> torch.Tensor:
+    """(2, ...) the low and high 32-bit limbs of u64 bit patterns."""
+    return torch.stack([x & gl.M32, (x >> 32) & gl.M32])
 
 
 def _ext_linear_plain(x: torch.Tensor) -> torch.Tensor:
-    g = x.reshape(x.shape[:-1] + (3, 4))
-    cols = [g[..., j] for j in range(4)]
-    ys = []
-    for i in range(4):
-        acc = None
-        for j in range(4):
-            term = _mul_small_plain(cols[j], _M4[i][j])
-            acc = term if acc is None else gl.add_plain(acc, term)
-        ys.append(acc)
-    y = torch.stack(ys, dim=-1)  # (..., 3, 4)
-    s = gl.add_plain(gl.add_plain(y[..., 0, :], y[..., 1, :]), y[..., 2, :])
-    return gl.add_plain(y, s.unsqueeze(-2)).reshape(x.shape)
+    """The external layer: M4 on each group of 4, then each output plus the
+    sum over the three groups of its position, i.e. M4 applied to x_g plus
+    the groups' sum; on 32-bit limbs (a coefficient sum of 64, so below
+    2^38) with one reduction at the end. M4 (`_M4`) by an addition chain:
+    rows t3 + t5, t5, t2 + t4, t4."""
+    lm = _limbs(x.reshape(x.shape[:-1] + (3, 4)))
+    lm = lm + lm.sum(dim=-2, keepdim=True)
+    x0, x1, x2, x3 = lm.unbind(-1)
+    t0 = x0 + x1
+    t1 = x2 + x3
+    t2 = x1 + x1 + t1
+    t3 = x3 + x3 + t0
+    t4 = 4 * t1 + t3
+    t5 = 4 * t0 + t2
+    y = torch.stack([t3 + t5, t5, t2 + t4, t4], dim=-1)
+    return _reduce_sums_plain(y[0], y[1]).reshape(x.shape)
 
 
 def _sbox_plain(x: torch.Tensor) -> torch.Tensor:
@@ -399,10 +405,8 @@ def permute_plain(state: torch.Tensor) -> torch.Tensor:
     for r in range(ROUNDS_P):
         x0 = _sbox_plain(gl.add_plain(x[..., :1], int_rcs[r]))
         x = torch.cat([x0, x[..., 1:]], dim=-1)
-        total = x[..., 0]
-        for i in range(1, WIDTH):
-            total = gl.add_plain(total, x[..., i])
-        x = gl.add_plain(gl.mul_plain(x, diag), total.unsqueeze(-1))
+        total = _reduce_sums_plain(*_limbs(x).sum(dim=-1, keepdim=True))
+        x = gl.add_plain(gl.mul_plain(x, diag), total)
     for r in range(4, 8):
         x = _ext_linear_plain(_sbox_plain(gl.add_plain(x, ext_rcs[r])))
     return x

@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..field import gf_np as F
+from ..fri.config import SALT_SIZE
 from ..hash import poseidon2 as ps
 from . import witness_tape
 from .config import CircuitConfig
@@ -821,34 +822,59 @@ def _scatter_order(data: CircuitData) -> np.ndarray:
     return ro
 
 
-def generate_witness(data: CircuitData, pw: PartialWitness, rng=None):
-    """Run generators to a fixpoint; returns (trace (num_wires, n), public_inputs)."""
-    arr = witness_root_values(data, pw)
-
+def zk_draws(data: CircuitData, rng):
+    """One proof's host-rng zero-knowledge randomness, drawn from `rng` in
+    the JAX package's order (plonk/prover.py::prove_staged, prover_fused.py
+    ::_flat_input): the blinding rows, `F.rand_felts((num_wires, n -
+    rows_used), rng)`, then one salt seed an oracle, `rng.integers(0,
+    2**63)`, for the wires, zs_pp and quotient in turn, each expanded by its
+    own `default_rng(seed)` into (M, SALT_SIZE) felts (fri/oracle.py::
+    commit). Returns (blinding rows, salts (3, M, SALT_SIZE)). The witness,
+    the single proof, the batch and the stream all draw through here, a
+    proof at a time, so one rng gives a batch's proofs in turn."""
     cfg = data.config
-    trace = np.zeros((cfg.num_wires, data.n), dtype=np.uint64)
+    blind = F.rand_felts((cfg.num_wires, data.n - data.num_rows_used), rng)
+    m = data.n << cfg.rate_bits
+    seeds = [int(rng.integers(0, 2**63)) for _ in range(3)]
+    return blind, np.stack([F.rand_felts((m, SALT_SIZE), np.random.default_rng(s))
+                            for s in seeds])
+
+
+def witness_trace(data: CircuitData, pw: PartialWitness) -> tuple[np.ndarray, np.ndarray]:
+    """Run generators to a fixpoint; returns the unblinded trace (num_wires,
+    n), zero past `num_rows_used`, and the public inputs."""
+    arr = witness_root_values(data, pw)
+    trace = np.zeros((data.config.num_wires, data.n), dtype=np.uint64)
     _, _, cell_flat, cell_slot = witness_scatter_tables(data)
     trace.ravel()[cell_flat] = arr[_scatter_order(data)[cell_slot]]
-    if cfg.zero_knowledge:
-        rng = rng or np.random.default_rng()
-        blind = F.rand_felts((cfg.num_wires, data.n - data.num_rows_used), rng)
-        trace[:, data.num_rows_used :] = blind
     # public_input_targets are stored root-resolved by build()
-    pis = arr[np.asarray(data.public_input_targets, dtype=np.int64)]
+    return trace, arr[np.asarray(data.public_input_targets, dtype=np.int64)]
+
+
+def generate_witness(data: CircuitData, pw: PartialWitness, rng=None):
+    """Run generators to a fixpoint; returns (trace (num_wires, n),
+    public_inputs). A ZK circuit's rows past `num_rows_used` are blinding
+    rows, the first of `zk_draws`'s draws from `rng` (its salts are drawn
+    too, and dropped)."""
+    trace, pis = witness_trace(data, pw)
+    if data.config.zero_knowledge:
+        trace[:, data.num_rows_used :] = zk_draws(data, rng or np.random.default_rng())[0]
     return trace, pis
 
 
-def generate_witness_batch(data: CircuitData, pws: list):
-    """`generate_witness` for K PartialWitnesses of one circuit (non-ZK: no
-    blinding rows): (traces (K, num_wires, n), public inputs (K, num_pis)).
+def generate_witness_batch(data: CircuitData, pws: list, rng=None):
+    """`generate_witness` for K PartialWitnesses of one circuit: (traces (K,
+    num_wires, n), public inputs (K, num_pis), salts). For a ZK circuit each
+    proof in turn draws its blinding rows and its three salts from the one
+    `rng` (`zk_draws`), as the JAX package's default batch does
+    (prover_fused.py::_batch_flat_inputs), and salts is (K, 3, M,
+    SALT_SIZE); for a non-ZK circuit it is None and nothing is drawn.
 
     A circuit's first proof records its generator program by the Python
     replay, so the first witness takes `witness_root_values` when the
     circuit has no tape yet; then every witness of the tape's seed keyset
     runs it in one C call (`witness_tape.run_tape_many`), and any other
     takes `witness_root_values` alone."""
-    if data.config.zero_knowledge:
-        raise NotImplementedError("zero-knowledge batches are not ported yet")
     rows = witness_tape.run_tape_many(data, pws)
     if rows[0] is None:
         rows[0] = witness_root_values(data, pws[0])  # records the program
@@ -859,5 +885,14 @@ def generate_witness_batch(data: CircuitData, pws: list):
     traces = np.zeros((len(pws), cfg.num_wires * data.n), dtype=np.uint64)
     _, _, cell_flat, cell_slot = witness_scatter_tables(data)
     traces[:, cell_flat] = arr[:, _scatter_order(data)[cell_slot]]
+    traces = traces.reshape(len(pws), cfg.num_wires, data.n)
     pis = arr[:, np.asarray(data.public_input_targets, dtype=np.int64)]
-    return traces.reshape(len(pws), cfg.num_wires, data.n), pis
+    if not cfg.zero_knowledge:
+        return traces, pis, None
+    rng = rng if rng is not None else np.random.default_rng()
+    salts = []
+    for trace in traces:
+        blind, salt = zk_draws(data, rng)
+        trace[:, data.num_rows_used :] = blind
+        salts.append(salt)
+    return traces, pis, np.stack(salts)

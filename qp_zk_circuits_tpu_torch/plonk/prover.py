@@ -13,7 +13,11 @@ csrc/permutation.cu):
     host tables of domain points and proof assembly stay on the host.
 
 For non-ZK circuits the proof bytes equal the JAX package's `prove` (and its
-staged and fused provers, which are pinned equal to each other).
+staged and fused provers, which are pinned equal to each other). For ZK
+circuits (row blinding and salted oracles) they do too in host-rng mode, for
+the same seed, in the single proof, the batch and the stream; device-rng
+proofs draw the blinding rows and salts with kernel G (field/random.py) and
+are valid, not byte-equal.
 
 `verify_vanishing_at_zeta` is the verifier's host check of the same
 constraint list at zeta (`vanishing.py::eval_constraints` in `HostExtAlg`),
@@ -34,6 +38,7 @@ from .. import native as nat
 from ..field import extension as ext
 from ..field import gf_np as F
 from ..field import goldilocks as gl
+from ..field import random as frandom
 from ..fri import oracle as fo
 from ..fri.prover import fri_commit_phase, fri_prove, fri_query_phase
 from ..hash import poseidon2 as ps
@@ -44,8 +49,9 @@ from .builder import (
     CircuitData,
     PartialWitness,
     coset_shifts,
-    generate_witness,
     generate_witness_batch,
+    witness_trace,
+    zk_draws,
 )
 from .gates import (
     GATE_TYPE_IDS,
@@ -539,16 +545,38 @@ def compute_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash)
     return ntt.coset_intt(evals).reshape(cfg.num_challenges << cfg.rate_bits, data.n)
 
 
-def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None) -> Proof:
+#: where a ZK proof's blinding rows and salts are drawn (`prove`)
+RNG_MODES = ("auto", "host", "device")
+
+
+def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None,
+          rng_mode: str = "auto") -> Proof:
     """Prove on the device of `data` (see `CircuitBuilder.build`). Witness
-    generation runs on the host, then `prove_from_trace`."""
-    trace, pis = generate_witness(data, pw)
-    return prove_from_trace(data, trace, pis, seed)
+    generation runs on the host, then `prove_from_trace`.
+
+    A ZK circuit's randomness comes from `np.random.default_rng(seed)`:
+    with rng_mode "host" the blinding rows and the three salts are drawn on
+    the host (`builder.zk_draws`), and the bytes equal the JAX package's
+    proof of the same seed; with "device" one key is drawn from that rng
+    (`rng.integers(0, 2**63)`, prover_fused.py:1116) and kernel G draws them
+    on the card: a valid proof, not byte-equal to the host mode's. "auto"
+    is "host": the JAX package takes "device" only once `warmup_fused` has
+    built its device-rng graph, and that is not ported yet (ROADMAP module
+    item 4). A non-ZK proof draws nothing, whatever the mode."""
+    if rng_mode not in RNG_MODES:
+        raise ValueError(f"rng_mode {rng_mode!r}, expected one of {RNG_MODES}")
+    trace, pis = witness_trace(data, pw)
+    if not data.config.zero_knowledge:
+        return prove_from_trace(data, trace, pis, seed)
+    rng = np.random.default_rng(seed)
+    if rng_mode == "device":
+        return prove_from_trace(data, trace, pis, seed, device_key=int(rng.integers(0, 2**63)))
+    blind, salts = zk_draws(data, rng)
+    trace[:, data.num_rows_used :] = blind
+    return prove_from_trace(data, trace, pis, seed, salts=salts)
 
 
 def _check_config(cfg) -> None:
-    if cfg.zero_knowledge:
-        raise NotImplementedError("zero-knowledge proving is not ported yet")
     if cfg.max_quotient_degree_factor != 1 << cfg.rate_bits:
         raise ValueError(
             "quotient evaluation reuses the rate-blowup LDE domain; qdf must equal 2^rate_bits"
@@ -579,16 +607,36 @@ def _open(data: CircuitData, oracles: list, zeta) -> tuple[OpeningSet, np.ndarra
     return openings, zeta_next
 
 
+def _salt_args(cfg, salts, device_key) -> list:
+    """The three commits' `salt` arguments: host salts (3, M, SALT_SIZE), or
+    kernel G's streams 1-3 of the device key; None for a non-ZK circuit."""
+    if not cfg.zero_knowledge:
+        if salts is not None or device_key is not None:
+            raise ValueError("a non-ZK circuit takes no salts and no device key")
+        return [None] * 3
+    if (salts is None) == (device_key is None):
+        raise ValueError("a ZK proof takes its host salts or a device key, one of them")
+    if device_key is not None:
+        return [frandom.Draw(device_key, 1 + i) for i in range(3)]
+    return list(salts)
+
+
 def prove_from_trace(
-    data: CircuitData, trace: np.ndarray, pis: np.ndarray, seed: int | None = None
+    data: CircuitData, trace: np.ndarray, pis: np.ndarray, seed: int | None = None,
+    salts=None, device_key: int | None = None,
 ) -> Proof:
     """Prove from a witness trace (num_wires, n) and its public inputs.
 
-    Non-ZK only: a non-ZK proof draws no randomness, so `seed` does not change
-    it (it is accepted for the reference's signature). Zero-knowledge proving
-    is not ported yet and raises."""
+    A non-ZK proof draws no randomness, so `seed` does not change it (it is
+    accepted for the reference's signature). A ZK proof takes either its
+    host draws (`builder.zk_draws`): the trace with its blinding rows and
+    `salts` (3, M, SALT_SIZE) for the wires, zs_pp and quotient oracles; or
+    a `device_key`, and then kernel G writes the blinding rows (stream 0)
+    over the trace's rows past `num_rows_used` and each oracle's salt rows
+    (streams 1-3) on the card: four launches."""
     cfg = data.config
     _check_config(cfg)
+    salt_args = _salt_args(cfg, salts, device_key)
     dev = data.device
     rate_bits = cfg.rate_bits
     cap_h = cfg.fri_config.cap_height
@@ -596,9 +644,11 @@ def prove_from_trace(
     # 1. witness
     pi_hash = ps.hash_no_pad(pis)
     trace_d = gl.from_u64(trace, dev)
+    if device_key is not None:
+        frandom.rand_felts(device_key, 0, trace_d[:, data.num_rows_used :])
 
     # 2. wires commitment
-    wires_o = fo.commit(trace_d, rate_bits, cap_h, from_values=True)
+    wires_o = fo.commit(trace_d, rate_bits, cap_h, from_values=True, salt=salt_args[0])
     ch = ts.Challenger()
     ch.observe_many(data.circuit_digest)
     ch.observe_many(pi_hash)
@@ -608,13 +658,14 @@ def prove_from_trace(
 
     # 3. permutation argument
     zpp = compute_permutation_polys(data, trace_d, betas, gammas)
-    zs_pp_o = fo.commit(zpp, rate_bits, cap_h, from_values=True)
+    zs_pp_o = fo.commit(zpp, rate_bits, cap_h, from_values=True, salt=salt_args[1])
     ch.observe_cap(zs_pp_o.cap)
     alphas = ch.challenge_many(cfg.num_challenges)
 
     # 4. quotient
-    t_chunks = compute_quotient(data, wires_o.lde, zs_pp_o.lde, alphas, betas, gammas, pi_hash)
-    quotient_o = fo.commit(t_chunks, rate_bits, cap_h)
+    t_chunks = compute_quotient(data, wires_o.poly_lde, zs_pp_o.poly_lde, alphas, betas, gammas,
+                                pi_hash)
+    quotient_o = fo.commit(t_chunks, rate_bits, cap_h, salt=salt_args[2])
     ch.observe_cap(quotient_o.cap)
     zeta = ch.challenge_ext()
 
@@ -645,14 +696,18 @@ def prove_batch(data: CircuitData, pws: list, seed: int | None = None) -> list[P
     """Prove K witnesses of one circuit together (the JAX package's
     `prove_batch`, whose fused form vmaps the prover over the proofs,
     plonk/prover_fused.py:973): the witnesses by one tape call
-    (`generate_witness_batch`), then `prove_from_traces`. Each proof's bytes
-    equal the single proof's of the same witness; proofs come back in input
-    order. Non-ZK only (`seed` draws nothing); a ZK circuit raises."""
+    (`generate_witness_batch`), then `prove_from_traces`; proofs come back
+    in input order. A non-ZK proof draws nothing, and each proof's bytes
+    equal the single proof's of the same witness. A ZK batch draws host-rng
+    only, as the JAX package's default (fused) batch does: one
+    `default_rng(seed)` for the batch, each proof in turn drawing its
+    blinding rows and its three salts, so proof 0 equals the single proof
+    of the same seed."""
     _check_config(data.config)
     if not pws:
         return []
-    traces, pis = generate_witness_batch(data, pws)
-    return prove_from_traces(data, traces, pis, seed)
+    traces, pis, salts = generate_witness_batch(data, pws, np.random.default_rng(seed))
+    return prove_from_traces(data, traces, pis, seed, salts)
 
 
 def prove_stream(data: CircuitData, pws, batch: int, seed: int | None = None,
@@ -664,27 +719,31 @@ def prove_stream(data: CircuitData, pws, batch: int, seed: int | None = None,
     behind the device's and the transcript's. The stream's length must tile
     `batch`: checked against `total` first when it is given, else when the
     last chunk comes up short. An exception in the worker reaches the
-    caller. Proofs come back in input order."""
+    caller. Proofs come back in input order. A ZK stream draws as one
+    batch would (`prove_batch`): one `default_rng(seed)` for the stream,
+    each proof in turn, the worker drawing chunk by chunk."""
     _check_config(data.config)
     if batch < 1:
         raise ValueError(f"batch {batch}: a chunk holds at least one proof")
     if total is not None:
         assert total % batch == 0, "stream length must tile the batch size"
     it = iter(pws)
+    rng = np.random.default_rng(seed)
 
     def next_chunk():
         chunk = list(itertools.islice(it, batch))
         if not chunk:
             return None
         assert len(chunk) == batch, "stream length must tile the batch size"
-        return generate_witness_batch(data, chunk)
+        return generate_witness_batch(data, chunk, rng)
 
     proofs: list[Proof] = []
     with ThreadPoolExecutor(max_workers=1, thread_name_prefix="qzk-witness") as pool:
         pending = pool.submit(next_chunk)
         while (ready := pending.result()) is not None:
             pending = pool.submit(next_chunk)
-            proofs += prove_from_traces(data, *ready, seed)
+            traces, pis, salts = ready
+            proofs += prove_from_traces(data, traces, pis, seed, salts)
     return proofs
 
 
@@ -703,7 +762,7 @@ def _caps(batches) -> np.ndarray:
 
 
 def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
-                      seed: int | None = None) -> list[Proof]:
+                      seed: int | None = None, salts=None) -> list[Proof]:
     """Prove K witness traces (K, num_wires, n) of one circuit with their
     public inputs (K, num_pis), a stage at a time for all K, in the order of
     `prove_from_trace`:
@@ -720,9 +779,16 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
         final iNTT), one grind for all K (`ts.grind_pow_batch`), then the
         queries a proof (kernel F).
 
-    Each proof's bytes equal `prove_from_trace`'s. Non-ZK only."""
+    A ZK batch takes its traces with their blinding rows and `salts` (K, 3,
+    M, SALT_SIZE), each commit's salts uploaded in one copy into the salt
+    rows of its (K, C + SALT_SIZE, M) buffer. Each proof's bytes equal
+    `prove_from_trace`'s with the same draws."""
     cfg = data.config
     _check_config(cfg)
+    if cfg.zero_knowledge != (salts is not None):
+        raise ValueError("a ZK batch takes its host salts, a non-ZK batch none")
+    commit_salts = [None] * 3 if salts is None else [
+        np.asarray(salts, dtype=np.uint64)[:, j] for j in range(3)]
     traces = np.asarray(traces, dtype=np.uint64)
     k = traces.shape[0]
     dev = data.device
@@ -733,7 +799,7 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
     traces_d = gl.from_u64(traces, dev)
 
     # 2. wires commitments
-    wires_os = fo.commit_batch(traces_d, rate_bits, cap_h, from_values=True)
+    wires_os = fo.commit_batch(traces_d, rate_bits, cap_h, from_values=True, salts=commit_salts[0])
     ch = ts.ChallengerBatch(k)
     ch.observe_many(np.tile(np.asarray(data.circuit_digest, dtype=np.uint64), (k, 1)))
     ch.observe_many(pi_hashes)
@@ -743,14 +809,14 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
 
     # 3. permutation arguments
     zpp = compute_permutation_polys_batch(data, traces_d, betas, gammas)
-    zs_pp_os = fo.commit_batch(zpp, rate_bits, cap_h, from_values=True)
+    zs_pp_os = fo.commit_batch(zpp, rate_bits, cap_h, from_values=True, salts=commit_salts[1])
     ch.observe_many(_caps(zs_pp_os))
     alphas = ch.challenge_many(nc)
 
     # 4. quotients
     t_chunks = compute_quotient_batch(data, fo.stacked_lde(wires_os), fo.stacked_lde(zs_pp_os),
                                       alphas, betas, gammas, pi_hashes)
-    quotient_os = fo.commit_batch(t_chunks, rate_bits, cap_h)
+    quotient_os = fo.commit_batch(t_chunks, rate_bits, cap_h, salts=commit_salts[2])
     ch.observe_many(_caps(quotient_os))
     zetas = ch.challenge_ext()
 

@@ -161,14 +161,24 @@ class ChallengerBatch:
         return out
 
 
-def _sweep(pow_bits: int, batch: int) -> int:
-    """A grind sweep's candidates: `batch`, or 2^(pow_bits + 5) if fewer,
-    which all fail with odds of e^-32."""
+#: a grind sweep's candidates by device type: one kernel-2 launch of 2^17
+#: states on the card; 2^14 on the CPU, where the plain permutation's cost
+#: a state does not fall with the sweep's size, so a grind stops within
+#: 2^14 states of its witness
+SWEEP = {"cuda": 1 << 17, "cpu": 1 << 14}
+
+
+def _sweep(pow_bits: int, batch: int | None, device) -> int:
+    """A grind sweep's candidates: `batch` (by default the device's
+    `SWEEP`), or 2^(pow_bits + 5) if fewer, which all fail with odds of
+    e^-32."""
+    if batch is None:
+        batch = SWEEP[torch.device(device).type]
     return min(batch, 1 << (pow_bits + 5))
 
 
 def grind_pow(
-    challenger: Challenger, pow_bits: int, device, batch: int = 1 << 17
+    challenger: Challenger, pow_bits: int, device, batch: int | None = None
 ) -> np.uint64:
     """Find the lowest witness w such that observing w yields a challenge with
     >= pow_bits leading zero bits (the reference's 16-bit FRI grind,
@@ -178,7 +188,7 @@ def grind_pow(
 
 
 def grind_pow_batch(
-    challengers: list[Challenger], pow_bits: int, device, batch: int = 1 << 17
+    challengers: list[Challenger], pow_bits: int, device, batch: int | None = None
 ) -> list[np.uint64]:
     """`grind_pow` for K transcripts in lockstep (one input-buffer fill), each
     keeping its own lowest passing witness (the JAX package's `_grind_j`
@@ -191,13 +201,14 @@ def grind_pow_batch(
     transcript's candidates pick its lowest passing one, so the result is
     the same as a sequential search, and the transcript leaves the sweeps.
     A sweep takes at most 2^(pow_bits + 5) candidates (`_sweep`): the
-    leaf's 16 bits keep 2^17, and a grind of few bits does not permute
-    2^17 states for a witness that one in 2^pow_bits candidates passes."""
+    leaf's 16 bits keep the card's 2^17, and a grind of few bits does not
+    permute 2^17 states for a witness that one in 2^pow_bits candidates
+    passes. Every sweep size finds the same, lowest, witness."""
     if not 0 <= pow_bits <= 32:
         raise ValueError(f"pow_bits out of range: {pow_bits}")
     if pow_bits == 0:
         return [np.uint64(0)] * len(challengers)
-    batch = _sweep(pow_bits, batch)
+    batch = _sweep(pow_bits, batch, device)
     threshold = 1 << (64 - pow_bits)
     bases = [c.fork() for c in challengers]
     k = len(bases[0].input_buf)

@@ -134,9 +134,27 @@ def batched_ntt_plain(
     return x
 
 
+def _out_groups(out: torch.Tensor | None, cols: int, n: int) -> tuple[int, int]:
+    """(columns a group, values between groups) of an output buffer: a
+    contiguous (cols, n) matrix (or (G, cols / G, n) stack) is one group
+    (0, 0); a (G, cols / G, n) view with rows n apart is G groups of its
+    stride(0) (a batch's LDEs, each followed by its salt rows)."""
+    if out is None:
+        return 0, 0
+    if out.dtype != torch.int64 or out.device.type not in ("cpu", "cuda"):
+        raise TypeError(f"NTT output {out.dtype} on {out.device}, expected int64")
+    if out.numel() == cols * n and out.shape[-1] == n and out.is_contiguous():
+        return 0, 0
+    if (out.dim() == 3 and out.shape[0] * out.shape[1] == cols and out.shape[2] == n
+            and out.stride()[1:] == (n, 1) and out.stride(0) >= out.shape[1] * n):
+        return out.shape[1], out.stride(0)
+    raise ValueError(f"NTT output {tuple(out.shape)} strides {out.stride()}: kernel 3 writes "
+                     f"a contiguous ({cols}, {n}) matrix or (G, {cols} / G, {n}) rows n apart")
+
+
 def batched_ntt(
     x: torch.Tensor, log_n: int, inverse: bool = False, shift: int | None = None,
-    out_shift: int | None = None,
+    out_shift: int | None = None, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Kernel-3 transform of every row of x (C, n_in), 1 <= n_in <= 2^log_n,
     for 1 <= log_n <= MAX_LOG_N on every device.
@@ -144,18 +162,23 @@ def batched_ntt(
     Element j of each row is first scaled by shift^j (when `shift` is given)
     and the rows are zero-padded to 2^log_n; `inverse` selects inverse twiddles and the 1/N
     scale; output element j is multiplied by out_shift^j (when given). Returns
-    (C, 2^log_n) in natural order. One launch a pass (`pass_bits`)."""
+    (C, 2^log_n) in natural order, or writes it into `out` and returns `out`:
+    a contiguous (C, 2^log_n) matrix, or a (G, C / G, 2^log_n) view whose
+    groups lie stride(0) apart (the first rows of each proof's salted LDE
+    buffer). One launch a pass (`pass_bits`)."""
     if x.dim() != 2 or not 1 <= x.shape[1] <= 1 << log_n:
         raise ValueError(f"batched_ntt takes (C, 1 <= n <= 2^{log_n}), got {tuple(x.shape)}")
     if not 1 <= log_n <= MAX_LOG_N:
         raise ValueError(f"NTT size 2^{log_n} outside kernel 3's range 2^1..2^{MAX_LOG_N}")
+    groups = _out_groups(out, x.shape[0], 1 << log_n)
     if x.device.type == "cpu":
-        return batched_ntt_plain(x, log_n, inverse, shift, out_shift)
-    _cuda.require_cuda_int64(x)
-    return _launch_ntt(x.contiguous(), log_n, inverse, shift, out_shift)
+        res = batched_ntt_plain(x, log_n, inverse, shift, out_shift)
+        return res if out is None else out.copy_(res.view(out.shape))
+    _cuda.require_cuda_int64(x, *(() if out is None else (out,)))
+    return _launch_ntt(x.contiguous(), log_n, inverse, shift, out_shift, out, groups)
 
 
-def _launch_ntt(x, log_n, inverse, shift, out_shift):
+def _launch_ntt(x, log_n, inverse, shift, out_shift, out=None, groups=(0, 0)):
     dev = x.device
     c, n_in = x.shape
     n = 1 << log_n
@@ -164,7 +187,8 @@ def _launch_ntt(x, log_n, inverse, shift, out_shift):
     coset_bits = log_n - (n_in.bit_length() - 1) if (
         shift is not None and not l2 and not inverse and n_in & (n_in - 1) == 0 and 1 < n_in < n
     ) else 0
-    out = torch.empty((c, n), dtype=torch.int64, device=dev)
+    if out is None:
+        out = torch.empty((c, n), dtype=torch.int64, device=dev)
     scratch = torch.empty((c, n), dtype=torch.int64, device=dev) if l2 else None
     tw1 = _device_root_powers(l1 - coset_bits, inverse, dev)
     tw2 = _device_root_powers(l2, inverse, dev) if l2 else None
@@ -181,7 +205,8 @@ def _launch_ntt(x, log_n, inverse, shift, out_shift):
 
     err = _cuda.lib().qzk_ntt(
         x.data_ptr(), out.data_ptr(), ptr(scratch), tw1.data_ptr(), ptr(tw2), ptr(twn),
-        ptr(pre), ptr(post), c, n_in, log_n, l1, coset_bits, scale, int(inverse), _cuda.stream(),
+        ptr(pre), ptr(post), c, n_in, log_n, l1, coset_bits, scale, int(inverse), *groups,
+        _cuda.stream(),
     )
     _cuda.check(err, "qzk_ntt")
     batched_ntt.launches += 2 if l2 else 1
@@ -223,10 +248,12 @@ def coset_intt(values: torch.Tensor) -> torch.Tensor:
     return out.reshape(values.shape)
 
 
-def coset_lde(coeffs: torch.Tensor, rate_bits: int, shift: int | None = None) -> torch.Tensor:
-    """coeffs (..., N) -> evaluations over shift * H', |H'| = N << rate_bits."""
+def coset_lde(coeffs: torch.Tensor, rate_bits: int, shift: int | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """coeffs (..., N) -> evaluations over shift * H', |H'| = N << rate_bits;
+    with `out`, written there (`batched_ntt`'s output forms)."""
     n = coeffs.shape[-1]
     if shift is None:
         shift = int(F.MULTIPLICATIVE_GROUP_GENERATOR)
-    out = batched_ntt(coeffs.reshape(-1, n), _log2(n) + rate_bits, shift=shift)
-    return out.reshape(coeffs.shape[:-1] + (n << rate_bits,))
+    res = batched_ntt(coeffs.reshape(-1, n), _log2(n) + rate_bits, shift=shift, out=out)
+    return res if out is not None else res.reshape(coeffs.shape[:-1] + (n << rate_bits,))

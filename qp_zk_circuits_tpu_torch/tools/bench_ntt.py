@@ -13,7 +13,9 @@ helpers and the bounds (`chip_smoke.py::ntt_work`, `fri_field_ops`,
 `openings_work`, `fold_work`, `gather_work`) are this checkout's. Shapes:
 the leaf proof's NTT calls (iNTT 135 x 256 and 20 x 256; LDE 135, 20 and
 16 x 256 -> 2048; coset iNTT 2 x 2048; the final polynomial's iNTT 2 x 256
-with its unshift), its composition (the leaf's four oracles and opening
+with its unshift), the K = 16 ZK leaf batch's LDE (16 x 135 x 2^9 -> 2^12)
+into a contiguous matrix and into the salted (16, 139, 2^12) buffer's
+groups, its composition (the leaf's four oracles and opening
 instance, m = 2048, first FRI arity 2^3), its openings (the four oracles'
 262 coefficient rows of 256 at zeta, 2 at g * zeta), its one fold round
 (m = 2048, arity 2^3, natural order out) and its query gather (28 queries:
@@ -104,6 +106,17 @@ def main() -> None:
             work = cs.ntt_work(cols, n_in, log_n, shift="shift" in kw,
                                inverse=kw.get("inverse", False), out_shift="out_shift" in kw)
             return (lambda: ntt.batched_ntt(x, log_n, **kw)), work
+        return name, make
+
+    def grouped(name, k, cols, n_in, log_n, seed, **kw):
+        """A salted batch's LDE buffer: k groups of `cols` transforms written
+        into the first rows of (k, cols + 4, 2^log_n), the 4 salt rows a
+        group between them."""
+        def make():
+            x = felts((k * cols, n_in), seed)
+            buf = torch.zeros((k, cols + 4, 1 << log_n), dtype=torch.int64, device="cuda")
+            work = cs.ntt_work(k * cols, n_in, log_n, shift="shift" in kw)
+            return (lambda: ntt.batched_ntt(x, log_n, out=buf[:, :cols], **kw)), work
         return name, make
 
     leaf = WormholeProver(device="cuda").data
@@ -221,6 +234,9 @@ def main() -> None:
         *(fold(lb, bits, a, nxt, 80 + r) for r, (bits, a, nxt) in enumerate(cs.fri_rounds(leaf, lb))),
         gather(lb),
         queries_stage(lb),
+        transform("LDE 2160 x 2^9 -> 2^12", 16 * 135, 1 << 9, 12, 11, shift=7),
+        grouped("LDE 16 x 135 x 2^9 -> 2^12 into (16, 139, 2^12)", 16, 135, 1 << 9, 12, 11,
+                shift=7),
         transform("LDE 135 x 2^16 -> 2^19", 135, 1 << 16, 19, 8, shift=7),
         transform("iNTT 135 x 2^16", 135, 1 << 16, 16, 9, inverse=True),
         transform("coset iNTT 2 x 2^19", 2, 1 << 19, 19, 10, inverse=True, out_shift=unshift),
@@ -239,7 +255,7 @@ def main() -> None:
         bound_ms, by = cs._bound(work)
         try:
             out = fn()
-        except ValueError as e:  # a size this checkout refuses
+        except (ValueError, TypeError) as e:  # a size or an output this checkout refuses
             print(f"[bench] {name}: refused ({e})", flush=True)
             rows.append(dict(case=name, refused=str(e), bound_ms=bound_ms, bound_by=by))
             continue

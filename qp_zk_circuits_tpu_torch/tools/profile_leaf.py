@@ -3,6 +3,7 @@ card and its host.
 
     python qp_zk_circuits_tpu_torch/tools/profile_leaf.py [--root DIR] [--proofs 5] [--verifies 5]
     python qp_zk_circuits_tpu_torch/tools/profile_leaf.py [--root DIR] --batch K [--stream N --chunk K]
+    python qp_zk_circuits_tpu_torch/tools/profile_leaf.py [--root DIR] --zk [--rng device] [...]
 
 Runs the checkout at `--root` (default: the checkout this file lies in), so
 two checkouts can be timed in turns by separate processes, one after the
@@ -57,6 +58,14 @@ the warm single proof's median:
     proving, and the witness time hidden behind the proving is the witness
     time less that wait.
 
+With `--zk` every section runs the ZK leaf instead: the leaf circuit under
+the private batch's config (`wormhole_private_batch_circuit_config()`:
+row blinding and salted oracles, 60 routed wires, degree 9), seed 7, for
+the same split; `--rng device` makes the single proofs device-rng proofs
+(`plonk.prover.prove(..., rng_mode="device")`: kernel G draws the blinding
+rows and salts on the card), where batches and streams stay host-rng, as
+in the JAX package. A checkout without ZK proving raises.
+
 Prints a JSON object as its last line. The stage timers and the profiler
 each add host overhead, so the timed proofs run without them.
 """
@@ -78,7 +87,10 @@ HERE = Path(__file__).resolve().parents[2]
 # (module, attribute, stage name, synchronizes): the prover's stages as the
 # modules that call them see them; module names under qp_zk_circuits_tpu_torch
 PROVE_STAGES = (
-    ("plonk.prover", "generate_witness", "witness (host)", True),
+    ("plonk.prover", "witness_trace", "witness (host)", True),
+    ("plonk.prover", "generate_witness", "witness (host)", True),  # an older checkout's name
+    ("plonk.prover", "zk_draws", "ZK draws (host rng: blinding rows, salts)", False),
+    ("field.random", "rand_felts", "ZK draws (device rng: kernel G)", True),
     ("fri.oracle", "commit", "oracle commit (iNTT + LDE + tree)", True),
     ("hash.merkle", "build_merkle_tree", "merkle tree (hash + levels + cap transfer)", True),
     ("plonk.prover", "compute_permutation_polys", "permutation argument", True),
@@ -96,6 +108,7 @@ TRANSCRIPT_STAGES = (
 )
 BATCH_STAGES = (
     ("plonk.prover", "generate_witness_batch", "witness (host, tape over K)", True),
+    ("plonk.builder", "zk_draws", "ZK draws (host rng, in the witness)", False),
     ("fri.oracle", "commit_batch", "oracle commits (stacked iNTT + LDE + forest)", True),
     ("plonk.prover", "compute_permutation_polys_batch", "permutation argument (B)", True),
     ("plonk.prover", "compute_quotient_batch", "quotient (A + coset iNTT)", True),
@@ -210,7 +223,17 @@ def _host_ms(fn) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
-def _batch_sections(prover, args) -> dict:
+def _prove_fn(prover, args):
+    """prove(inputs, seed): the single proof the arguments ask for."""
+    if args.rng == "device":
+        from qp_zk_circuits_tpu_torch.plonk import prover as plonk_prover
+
+        return lambda inputs, seed: plonk_prover.prove(
+            prover.data, prover._partial_witness(inputs), seed=seed, rng_mode="device")
+    return lambda inputs, seed: prover.prove_inputs(inputs, seed=seed)
+
+
+def _batch_sections(prover, args, seed) -> dict:
     """The batch and stream profiles (the module docstring says what)."""
     import torch
 
@@ -218,9 +241,10 @@ def _batch_sections(prover, args) -> dict:
 
     leaves = two_real_leaves_same_block()
     out = {}
+    prove_one = _prove_fn(prover, args)
 
     def single():
-        prover.prove_inputs(leaves[0], seed=0)
+        prove_one(leaves[0], seed)
         torch.cuda.synchronize()
 
     single()
@@ -230,7 +254,7 @@ def _batch_sections(prover, args) -> dict:
         inputs = [leaves[i % 2] for i in range(k)]
 
         def batch():
-            prover.prove_inputs_batch(inputs, seed=0)
+            prover.prove_inputs_batch(inputs, seed=seed)
             torch.cuda.synchronize()
 
         cold = _host_ms(batch)
@@ -257,7 +281,7 @@ def _batch_sections(prover, args) -> dict:
         inputs = [leaves[i % 2] for i in range(n)]
 
         def stream():
-            prover.prove_inputs_stream((x for x in inputs), batch=chunk, seed=0)
+            prover.prove_inputs_stream((x for x in inputs), batch=chunk, seed=seed)
             torch.cuda.synchronize()
 
         stream()
@@ -288,6 +312,10 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=0, help="profile batches of K proofs")
     ap.add_argument("--stream", type=int, default=0, help="profile a stream of N proofs")
     ap.add_argument("--chunk", type=int, default=16, help="the stream's chunk")
+    ap.add_argument("--zk", action="store_true",
+                    help="the leaf under the private batch's ZK config, seed 7")
+    ap.add_argument("--rng", choices=("host", "device"), default="host",
+                    help="where a ZK single proof draws its blinding rows and salts")
     args = ap.parse_args()
     import torch
 
@@ -310,19 +338,28 @@ def main() -> None:
     host_flags = None
     if native is not None:
         host_flags = native.flags()
+    config, seed = None, 0
+    if args.zk:
+        from qp_zk_circuits_tpu_torch.utils.config_policy import (
+            wormhole_private_batch_circuit_config,
+        )
+
+        config, seed = wormhole_private_batch_circuit_config(), 7
     t0 = time.perf_counter()
-    prover = WormholeProver(device="cuda")
+    prover = WormholeProver(config, device="cuda")
     torch.cuda.synchronize()
     build_ms = 1e3 * (time.perf_counter() - t0)
+    mode = {"zk": args.zk, "rng": args.rng if args.zk else None, "seed": seed}
     if args.batch or args.stream:
         result = {"card": card(), "root": args.root, "host_flags": host_flags,
-                  "build_ms": build_ms, **_batch_sections(prover, args)}
+                  "build_ms": build_ms, **mode, **_batch_sections(prover, args, seed)}
         print(json.dumps(result))
         return
     inputs = test_inputs_0()
+    prove_one = _prove_fn(prover, args)
 
     def prove():
-        out = prover.prove_inputs(inputs, seed=0)
+        out = prove_one(inputs, seed)
         torch.cuda.synchronize()
         return out
 
@@ -358,6 +395,7 @@ def main() -> None:
         "root": args.root,
         "host_flags": host_flags,
         "build_ms": build_ms,
+        **mode,
         "cold_prove_ms": cold_ms,
         "second_prove_ms": times[0],
         "prove_ms": {"median": median, "min": min(times), "max": max(times), "n": len(times)},

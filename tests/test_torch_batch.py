@@ -158,18 +158,23 @@ def test_stream_worker_exception_reaches_the_caller(small):
 
 
 def test_zk_batch_raises(small):
-    """A ZK circuit raises in the batch, the stream and the batch witness,
-    as the single path does."""
+    """A ZK batch raises without its host salts and a non-ZK batch with
+    them, as the single path does; a non-ZK batch witness draws nothing."""
     from qp_zk_circuits_tpu_torch.plonk.config import CircuitConfig
 
     data, pws = small
     zk = dataclasses.replace(data, config=CircuitConfig(zero_knowledge=True))
-    with pytest.raises(NotImplementedError):
-        tprover.prove_batch(zk, pws([0]))
-    with pytest.raises(NotImplementedError):
-        tprover.prove_stream(zk, pws([0]), 1)
-    with pytest.raises(NotImplementedError):
-        tbuilder.generate_witness_batch(zk, pws([0]))
+    traces = np.zeros((1, 135, data.n), dtype=np.uint64)
+    pis = np.zeros((1, 0), dtype=np.uint64)
+    with pytest.raises(ValueError, match="ZK batch"):
+        tprover.prove_from_traces(zk, traces, pis)
+    with pytest.raises(ValueError, match="ZK batch"):
+        tprover.prove_from_traces(data, traces, pis, salts=np.zeros((1, 3, data.n << 3, 4),
+                                                                    dtype=np.uint64))
+    rng = np.random.default_rng(1)
+    state = rng.bit_generator.state
+    assert tbuilder.generate_witness_batch(data, pws([0]), rng)[2] is None
+    assert rng.bit_generator.state == state
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +207,8 @@ def test_witness_batch_equals_single_witnesses(small):
     data = b.build(device="cpu")
     pws = _witnesses(tbuilder, x, y, [0, 1, 2, 3])
     before = dict(nat.counts)
-    traces, pis = tbuilder.generate_witness_batch(data, pws)
+    traces, pis, salts = tbuilder.generate_witness_batch(data, pws)
+    assert salts is None  # a non-ZK circuit draws no salts
     # the first witness took the Python replay, which recorded the program
     assert nat.counts["wt_run_many"] == before.get("wt_run_many", 0) + 1
     for i, pw in enumerate(pws):

@@ -191,7 +191,17 @@ def test_eval_openings_match_horner():
 
 
 def test_zero_knowledge_is_refused(small):
+    """A ZK proof is refused without its draws (the host salts or a device
+    key, exactly one), and a non-ZK proof is refused with them: the
+    blinding rows and salts are never made up behind the caller's back."""
     _, _, tdata, _ = small
     zk = dataclasses.replace(tdata, config=CircuitConfig(zero_knowledge=True))
-    with pytest.raises(NotImplementedError):
-        tprover.prove_from_trace(zk, np.zeros((135, tdata.n), dtype=np.uint64), np.zeros(0, dtype=np.uint64))
+    trace = np.zeros((135, tdata.n), dtype=np.uint64)
+    salts = np.zeros((3, tdata.n << 3, 4), dtype=np.uint64)
+    pis = np.zeros(0, dtype=np.uint64)
+    for kwargs in ({}, {"salts": salts, "device_key": 5}):
+        with pytest.raises(ValueError, match="host salts or a device key"):
+            tprover.prove_from_trace(zk, trace, pis, **kwargs)
+    for kwargs in ({"salts": salts}, {"device_key": 5}):
+        with pytest.raises(ValueError, match="non-ZK"):
+            tprover.prove_from_trace(tdata, trace, pis, **kwargs)
