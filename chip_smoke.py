@@ -124,7 +124,27 @@ package. Phases, each printing one line:
      device busy share and the launches, beside the card; and kernel G at
      the private batch's degree-16 draws (the blinding rows 135 x (2^16 -
      64), the salts 3 x 4 x 2^19) against its plain version run on the
-     card, bit-exact, timed beside its bound.
+     card, bit-exact, timed beside its bound;
+ 11. recursion — tests/test_recursion.py's outer circuit (verifying a proof
+     of z = x * y, degree 11, two FRI rounds) built on the card: its
+     verifier data, the inner proof and the outer proof equal the JAX
+     fixtures (tests/torch_fixtures/make_agg_fixture.py), the second outer
+     witness runs on the compiled tape, the outer proof is accepted;
+ 12. aggregation — at the aggregation test profile (N = 2, reduced FRI): the
+     private and public batch circuits' verifier data and their proofs
+     (host rng) equal the JAX fixtures, and a fake leaf's proof is refused
+     at admission (by its proof's shape); the artifact set (`generate_all_circuit_binaries`, both
+     provers' `new_from_binaries_dir`, a flipped byte refused); then at the
+     canonical configs: the leaves and the dummy leaf, the N = 2 private
+     batch (degree 14) built, its verifier data and its cold and warm
+     host-rng proofs equal the JAX package's, the warm one's witness on the
+     tape; `warm_start` and a device-rng proof (every kernel of the path
+     and kernel G launched, accepted, a tampered copy rejected), kernel A
+     on that proof's own descriptor table and LDEs against its plain
+     version on the card, every point; the public batch (m = 2, degree 15)
+     over [that batch, a dummy private batch], cold and warm on the tape,
+     verified; for each warm proof its seconds, library and device
+     launches, the busy share and verify ms.
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -2316,6 +2336,529 @@ def phase_aggregation_rand(device, degree_bits: int = 16, rate: int = 3) -> None
           f"(another stream) {randint:.4f} ms", flush=True)
 
 
+AGG_DIR = ROOT / "tests" / "torch_fixtures"
+
+
+def _agg_fixtures():
+    """tests/torch_fixtures/make_agg_fixture.py: the recursion and
+    aggregation fixtures' seeds and configs (it imports no JAX until one of
+    its parts runs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("make_agg_fixture",
+                                                  AGG_DIR / "make_agg_fixture.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _committed(name: str) -> bytes:
+    """A committed fixture's bytes, checked against fixtures.json."""
+    meta = json.loads(FIXTURE_META.read_text())[name]
+    blob = (AGG_DIR / name).read_bytes()
+    if len(blob) != meta["len"] or hashlib.sha256(blob).hexdigest() != meta["sha256"]:
+        raise AssertionError(f"{name} is not the committed fixture")
+    return blob
+
+
+def _same_vdata(label: str, data, prefix: str) -> None:
+    """The card-built circuit's verifier data against a fixture's pair."""
+    from qp_zk_circuits_tpu_torch.plonk.serialization import VerifierCircuitData
+
+    vd = VerifierCircuitData.from_circuit_data(data)
+    if (vd.to_common_bytes() != _committed(f"{prefix}_common.bin")
+            or vd.to_verifier_only_bytes() != _committed(f"{prefix}_verifier.bin")):
+        raise AssertionError(f"{label}: the verifier data differs from the JAX package's")
+
+
+def _counted(kernels, fn):
+    """fn() with every wrapper's count at 0: (out, seconds, launches)."""
+    import torch
+
+    for k in kernels:
+        k["wrapper"].launches = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, {k["name"]: k["wrapper"].launches for k in kernels}
+
+
+def _path_launches(label: str, kernels, launches: dict, rounds: int, device_rng: bool) -> None:
+    """A single proof's launches: every kernel of the single path launched,
+    within `_single_limits` with the larger circuits' second launches (a
+    kernel-3 transform above 2^12 points takes two passes, kernel D two
+    launches above one chunk of 1024 coefficients) and kernel G one to four
+    times for a device-rng proof; kernel 1 at most five times."""
+    limits = {**_single_limits(rounds), "ntt": (1, 14), "eval_openings": (1, 2)}
+    if device_rng:
+        limits["rand_felts"] = (1, 4)
+    missing = [k["name"] for k in kernels if k.get("path", True) is True
+               and launches[k["name"]] <= 0]
+    off = {n: launches[n] for n, (lo, hi) in limits.items() if not lo <= launches[n] <= hi}
+    kernel1 = sum(launches[k["name"]] for k in kernels if k.get("kernel1"))
+    if missing or off or kernel1 > 5:
+        raise AssertionError(f"{label}: kernels not launched {missing}, launches outside "
+                             f"{limits}: {off}, kernel 1 {kernel1}")
+
+
+def phase_recursion(kernels) -> None:
+    """tests/test_recursion.py's circuits on the card: the inner circuit
+    z = x * y and the outer circuit that verifies its proof (degree 11).
+    The outer verifier data and both proofs (seeds 1 and 2) equal the JAX
+    fixtures byte for byte; the outer proof is accepted; the outer witness
+    runs on the compiled tape from its second run on."""
+    import qp_zk_circuits_tpu_torch as tpkg
+    from qp_zk_circuits_tpu_torch import native as nat
+    from qp_zk_circuits_tpu_torch.plonk.builder import PartialWitness
+    from qp_zk_circuits_tpu_torch.plonk.prover import prove
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_to_bytes
+    from qp_zk_circuits_tpu_torch.plonk.verifier import verify
+    from qp_zk_circuits_tpu_torch.recursion.verifier_gadget import fill_proof_targets
+    from qp_zk_circuits_tpu_torch.tools.timing import card
+
+    mk = _agg_fixtures()
+    for mod in ("fri.config", "plonk.config", "plonk.serialization", "recursion.verifier_gadget"):
+        __import__(f"qp_zk_circuits_tpu_torch.{mod}")
+    t0 = time.perf_counter()
+    inner, x, y, _, outer, pt = mk.recursion_circuits(tpkg, lambda b: b.build(device="cuda"))
+    build_s = time.perf_counter() - t0
+    _same_vdata("[recursion] outer", outer, "recursion_outer")
+    pw = PartialWitness()
+    pw.set_target(x, mk.INNER_WITNESS[0])
+    pw.set_target(y, mk.INNER_WITNESS[1])
+    inner_proof = prove(inner, pw, seed=mk.INNER_SEED)
+    if proof_to_bytes(inner_proof) != _committed("recursion_inner_proof.bin"):
+        raise AssertionError("[recursion] the inner proof differs from the JAX fixture")
+    times = []
+    for run in range(2):
+        opw = PartialWitness()
+        fill_proof_targets(opw, pt, inner_proof)
+        tapes = nat.counts["wt_run"]
+        outer_proof, took, launches = _counted(kernels, lambda: prove(outer, opw, seed=mk.OUTER_SEED))
+        times.append(took)
+        if run and nat.counts["wt_run"] != tapes + 1:
+            raise AssertionError("[recursion] the second outer witness did not run on the tape")
+        if proof_to_bytes(outer_proof) != _committed("recursion_outer_proof.bin"):
+            raise AssertionError("[recursion] the outer proof differs from the JAX fixture")
+    rounds = len(outer.config.fri_config.reduction_strategy.schedule(outer.degree_bits))
+    _path_launches("[recursion] outer proof", kernels, launches, rounds, False)
+    t = time.perf_counter()
+    verify(outer, outer_proof)
+    verify_ms = 1e3 * (time.perf_counter() - t)
+    print(f"[recursion] outer circuit verifying a proof of z = x * y: degree_bits "
+          f"{outer.degree_bits} ({outer.num_rows_used} rows used), {rounds} FRI rounds; build of "
+          f"both {build_s:.1f} s; outer verifier data, inner and outer proofs == JAX fixtures; "
+          f"outer proof cold {1e3 * times[0]:.1f} ms, warm {1e3 * times[1]:.1f} ms (witness "
+          f"on the tape), verify {verify_ms:.1f} ms; {card()}", flush=True)
+
+
+def _agg_test_profile(kernels, mk) -> None:
+    """The aggregation test profile (tests/test_aggregation.py, N = 2,
+    reduced FRI) on the card: the leaf, private batch and public batch
+    circuits' verifier data equal the JAX package's; the host-rng private
+    batch over the fixture leaves (commit on default_rng(PB_RNG), seed
+    PB_SEED) and the public batch over [it, the fixture's dummy private
+    batch] equal the JAX fixtures byte for byte. A fake leaf
+    (`wormhole/fake_leaf.py`: the leaf's 21 public inputs and none of its
+    constraints) proves the first leaf's public inputs, verifies under its
+    own circuit and is refused at the batch's admission, where the real
+    leaf's verifier data checks it (the reference's VK-substitution case).
+    The fake circuit is smaller than the leaf, so what refuses its proof is
+    its shape (the number of FRI commit caps), before the constants cap or
+    the digest is compared."""
+    import numpy as np
+
+    import qp_zk_circuits_tpu_torch as tpkg
+    from qp_zk_circuits_tpu_torch.plonk.serialization import (
+        VerifierCircuitData,
+        proof_from_bytes,
+        proof_to_bytes,
+    )
+    from qp_zk_circuits_tpu_torch.plonk.verifier import VerificationError, verify
+    from qp_zk_circuits_tpu_torch.wormhole import inputs as wi
+    from qp_zk_circuits_tpu_torch.wormhole.fake_leaf import FakeLeafCircuit
+    from qp_zk_circuits_tpu_torch.wormhole.leaf_circuit import WormholeCircuit
+    from qp_zk_circuits_tpu_torch.wormhole.private_batch import PrivateBatchCircuit, PrivateBatchProver
+    from qp_zk_circuits_tpu_torch.wormhole.public_batch import PublicBatchCircuit, PublicBatchProver
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    leaf_cfg, pb_cfg, pub_cfg = mk.test_configs(tpkg)
+    t0 = time.perf_counter()
+    leaf = WormholeCircuit(leaf_cfg).build(device="cuda")
+    leaf_vd = VerifierCircuitData.from_circuit_data(leaf)
+    pb = PrivateBatchCircuit(leaf_vd, mk.N_LEAF, config=pb_cfg, enforce_security_floor=False,
+                             device="cuda")
+    pb_s = time.perf_counter() - t0
+    _same_vdata("[aggregation] test-profile private batch", pb.data, "agg_private_batch")
+    leaves = [proof_from_bytes(_committed(f"agg_leaf{i}.bin")) for i in range(2)]
+    prover = PrivateBatchProver(pb, WormholeVerifier(leaf, enforce_security_floor=False),
+                                proof_from_bytes(_committed("agg_dummy_leaf.bin")))
+    agg, agg_s, launches = _counted(kernels, lambda: prover.commit(
+        leaves, rng=np.random.default_rng(mk.PB_RNG)).prove(seed=mk.PB_SEED, rng_mode="host"))
+    if proof_to_bytes(agg) != _committed("agg_private_batch.bin"):
+        raise AssertionError("[aggregation] the test-profile private batch differs from the JAX "
+                             "fixture")
+    rounds = len(pb_cfg.fri_config.reduction_strategy.schedule(pb.data.degree_bits))
+    _path_launches("[aggregation] test-profile private batch", kernels, launches, rounds, False)
+    fake = FakeLeafCircuit(leaf_cfg, device="cuda")
+    fake_proof = fake.prove_pis(leaves[0].public_inputs, seed=0)
+    verify(fake.data, fake_proof)
+    try:
+        prover.commit([fake_proof])
+    except VerificationError as e:
+        substituted = str(e)
+    else:
+        raise AssertionError("[aggregation] a fake leaf's proof passed the batch's admission")
+    t0 = time.perf_counter()
+    pub = PublicBatchCircuit(VerifierCircuitData.from_circuit_data(pb.data), 2, mk.N_LEAF,
+                             config=pub_cfg, device="cuda")
+    pub_s = time.perf_counter() - t0
+    _same_vdata("[aggregation] test-profile public batch", pub.data, "agg_public_batch")
+    pub_prover = PublicBatchProver(pub, lambda p: verify(pb.data, p),
+                                   proof_from_bytes(_committed("agg_dummy_private_batch.bin")))
+    out, pub_proof_s, _ = _counted(kernels, lambda: pub_prover.commit(
+        [agg], wi.BytesDigest(mk.PUB_ADDRESS)).prove(seed=mk.PUB_SEED))
+    if proof_to_bytes(out) != _committed("agg_public_batch.bin"):
+        raise AssertionError("[aggregation] the test-profile public batch differs from the JAX "
+                             "fixture")
+    verify(pub.data, out)
+    print(f"[aggregation] test profile (N = {mk.N_LEAF}, {pb_cfg.fri_config.num_query_rounds} "
+          f"queries): private batch degree_bits {pb.data.degree_bits}, {rounds} FRI rounds, leaf "
+          f"and batch built in {pb_s:.1f} s, cold host-rng proof {agg_s:.2f} s == JAX fixture; "
+          f"public batch degree_bits {pub.data.degree_bits}, built in {pub_s:.1f} s, cold proof "
+          f"{pub_proof_s:.2f} s == JAX fixture; both verifier data == JAX; a fake leaf's "
+          f"proof of a real leaf's public inputs verifies under its own circuit and is "
+          f"refused at admission by its shape ({substituted})", flush=True)
+
+
+def _agg_artifacts(mk) -> None:
+    """The artifact set at the aggregation test profile, on the card:
+    `generate_all_circuit_binaries` publishes the full set atomically (the
+    leaf pair and dummy, the private batch pair and its all-dummy proof,
+    the public batch pair, config.json, nothing left beside it); both
+    layers' provers load from it (`new_from_binaries_dir`: rebuilt from
+    source, pinned byte for byte, the dummy templates verified), the loaded
+    private prover aggregates the fixture leaves and the loaded public
+    prover proves over that batch, verified; a flipped byte in either
+    layer's verifier.bin is refused."""
+    import tempfile
+
+    import numpy as np
+
+    import qp_zk_circuits_tpu_torch as tpkg
+    from qp_zk_circuits_tpu_torch.plonk.serialization import VerifierCircuitData, proof_from_bytes
+    from qp_zk_circuits_tpu_torch.plonk.verifier import verify
+    from qp_zk_circuits_tpu_torch.wormhole import artifacts as art
+    from qp_zk_circuits_tpu_torch.wormhole import inputs as wi
+    from qp_zk_circuits_tpu_torch.wormhole.leaf_circuit import WormholeCircuit
+    from qp_zk_circuits_tpu_torch.wormhole.private_batch import PrivateBatchProver
+    from qp_zk_circuits_tpu_torch.wormhole.public_batch import PublicBatchProver
+
+    leaf_cfg, pb_cfg, pub_cfg = mk.test_configs(tpkg)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "bins"
+        t0 = time.perf_counter()
+        art.generate_all_circuit_binaries(
+            out, num_leaf_proofs=mk.N_LEAF, num_private_batch_proofs=2, include_aggregation=True,
+            seed=3, leaf_config=leaf_cfg, private_batch_config=pb_cfg,
+            public_batch_config=pub_cfg, enforce_security_floor=False, device="cuda")
+        gen_s = time.perf_counter() - t0
+        names = sorted(p.name for p in out.iterdir())
+        left = sorted(p.name for p in Path(tmp).iterdir())
+        if names != sorted(art.FULL_ARTIFACT_SET) or left != ["bins"]:
+            raise AssertionError(f"[artifacts] published {names}, beside it {left}")
+        leaf_rebuild = VerifierCircuitData.from_circuit_data(
+            WormholeCircuit(leaf_cfg).build(device="cuda"))
+
+        def load_private():
+            return PrivateBatchProver.new_from_binaries_dir(
+                out, config=pb_cfg, leaf_rebuild=leaf_rebuild, enforce_security_floor=False,
+                device="cuda")
+
+        t0 = time.perf_counter()
+        private = load_private()
+        public = PublicBatchProver.new_from_binaries_dir(
+            out, config=pub_cfg, private_batch_rebuild=VerifierCircuitData.from_circuit_data(
+                private.circuit.data), enforce_security_floor=False, device="cuda")
+        load_s = time.perf_counter() - t0
+        leaves = [proof_from_bytes(_committed(f"agg_leaf{i}.bin")) for i in range(2)]
+        agg = private.aggregate(leaves, seed=41, rng=np.random.default_rng(5))
+        verify(private.circuit.data, agg)
+        pub = public.commit([agg], wi.BytesDigest(mk.PUB_ADDRESS)).prove(seed=42)
+        verify(public.circuit.data, pub)
+
+        def load_public():
+            return art.load_canonical_public_batch_verifier_data(
+                out, rebuild=VerifierCircuitData.from_circuit_data(public.circuit.data))
+
+        refused = []
+        for name, load in ((art.PRIVATE_BATCH_VERIFIER_BIN, load_private),
+                           (art.PUBLIC_BATCH_VERIFIER_BIN, load_public)):
+            good = (out / name).read_bytes()
+            bad = bytearray(good)
+            bad[-3] ^= 1
+            (out / name).write_bytes(bytes(bad))
+            try:
+                load()
+            except art.ArtifactError as e:
+                refused.append(str(e))
+            else:
+                raise AssertionError(f"[artifacts] a flipped byte in {name} was loaded")
+            (out / name).write_bytes(good)
+    print(f"[artifacts] test profile: generate_all_circuit_binaries published the "
+          f"{len(names)}-file set in {gen_s:.1f} s; both provers loaded from it in {load_s:.1f} s "
+          f"(rebuilt, pinned, dummies verified), a private and a public batch proven from them "
+          f"and verified; refused: {'; '.join(refused)}", flush=True)
+
+
+def _quotient_spy(tprover, seen: list):
+    """Wrap kernel A's wrapper so that its operands and output are kept (its
+    launches, which the wrapper adds to the module's name, go on counting on
+    the wrapper)."""
+    real = tprover.quotient_evals
+
+    def spy(data, wires_lde, zs_pp_lde, *args):
+        out = real(data, wires_lde, zs_pp_lde, *args)
+        real.launches += spy.launches
+        spy.launches = 0
+        seen.append((data, wires_lde.clone(), zs_pp_lde.clone(), args, out.clone()))
+        return out
+
+    spy.launches = 0
+    tprover.quotient_evals = spy
+    return lambda: setattr(tprover, "quotient_evals", real)
+
+
+def _clock_calls(module, name: str, took: list):
+    """Wrap `module.name` so that each call's seconds go into `took`;
+    returns the function that puts the real one back."""
+    real = getattr(module, name)
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = real(*args)
+        took.append(time.perf_counter() - t)
+        return out
+
+    setattr(module, name, timed)
+    return lambda: setattr(module, name, real)
+
+
+def _warm_profile(label, kernels, fn, verify_fn) -> str:
+    """A warm proof's numbers: seconds, library launches, device ms and
+    launches and the busy share (torch.profiler), and verify ms."""
+    from qp_zk_circuits_tpu_torch.tools.profile_leaf import _device_profile
+
+    proof, took, launches = _counted(kernels, fn)
+    prof = _device_profile(fn)
+    t = time.perf_counter()
+    verify_fn(proof)
+    verify_ms = 1e3 * (time.perf_counter() - t)
+    lib = sum(launches.values())
+    busy = ("device not measured" if prof["device_ms"] is None else
+            f"{prof['device_ms']:.2f} device ms in {prof['device_launches']} device launches, "
+            f"busy {100 * prof['device_ms'] / (1e3 * took):.1f} %")
+    top = ", ".join(f"{k[:48]} {v['device_ms']:.2f} ms x{v['count']}"
+                    for k, v in list(prof["top_kernels"].items())[:6])
+    return (f"{label}: warm {took:.3f} s, {lib} library launches, {busy}; verify "
+            f"{verify_ms:.1f} ms; top device kernels: {top}")
+
+
+def phase_aggregation(kernels) -> None:
+    """The aggregation layers on the card. First the test profile
+    (`_agg_test_profile`). Then the canonical configs, N = 2 leaves a
+    private batch and m = 2 private batches a public batch:
+
+      * the two real leaves of two_real_leaves_same_block() (seed 0, equal
+        to the leaf fixtures) and the dummy leaf (seed 12, equal to the JAX
+        package's), proved by the port;
+      * PrivateBatchCircuit(N = 2): build seconds, degree_bits, and its
+        verifier data equal to the JAX package's;
+      * the host-rng private batch (commit on default_rng(PB_RNG), seed
+        PB_SEED), cold and second, each equal to the JAX fixture, the
+        second one's witness from the compiled tape (its time holds the
+        witness program's lowering to the tape, timed apart);
+      * PrivateBatchProver(warm_start=True) (`plonk/prover.py::warmup`),
+        then a warm device-rng aggregate ("auto" after the warm-up): every
+        kernel of the path launched (kernel G too), the witness from the
+        tape, accepted by the port's verifier, one tampered copy rejected;
+        kernel A's operands of that proof (the batch's own descriptor table
+        and LDEs) through its plain version on the card, every row;
+      * a public batch over [that batch, a dummy private batch]: build
+        seconds, degree_bits, cold and second proofs (the second on the
+        tape, its lowering timed apart), verified;
+      * for each warm proof: seconds, library and device launches, the busy
+        share and verify ms."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch import native as nat
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+    from qp_zk_circuits_tpu_torch.plonk import witness_tape as wt
+    from qp_zk_circuits_tpu_torch.plonk.serialization import (
+        VerifierCircuitData,
+        proof_from_bytes,
+        proof_to_bytes,
+    )
+    from qp_zk_circuits_tpu_torch.plonk.verifier import VerificationError, verify
+    from qp_zk_circuits_tpu_torch.tools.timing import card
+    from qp_zk_circuits_tpu_torch.wormhole import inputs as wi
+    from qp_zk_circuits_tpu_torch.wormhole.dummy_proof import generate_dummy_proof
+    from qp_zk_circuits_tpu_torch.wormhole.private_batch import (
+        PrivateBatchCircuit,
+        PrivateBatchProver,
+        generate_dummy_private_batch_proof,
+    )
+    from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+    from qp_zk_circuits_tpu_torch.wormhole.public_batch import PublicBatchCircuit, PublicBatchProver
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import two_real_leaves_same_block
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    mk = _agg_fixtures()
+    _agg_test_profile(kernels, mk)
+    _agg_artifacts(mk)
+
+    leaf_prover = WormholeProver(device="cuda")
+    leaves = [leaf_prover.prove_inputs(i, seed=0) for i in two_real_leaves_same_block()]
+    dummy = generate_dummy_proof(leaf_prover, seed=mk.DUMMY_LEAF_SEED)
+    for name, proof in (("leaf_proof_real0.bin", leaves[0]), ("leaf_proof_real1.bin", leaves[1]),
+                        ("canonical_dummy_leaf.bin", dummy)):
+        if proof_to_bytes(proof) != _committed(name):
+            raise AssertionError(f"[aggregation] the port's {name} differs from the JAX fixture")
+    leaf_verifier = WormholeVerifier(leaf_prover.data)
+    t0 = time.perf_counter()
+    circuit = PrivateBatchCircuit(VerifierCircuitData.from_circuit_data(leaf_prover.data),
+                                  mk.N_LEAF, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    data = circuit.data
+    cfg = data.config
+    rounds = len(cfg.fri_config.reduction_strategy.schedule(data.degree_bits))
+    _same_vdata("[aggregation] canonical private batch", data, "canonical_private_batch")
+    prover = PrivateBatchProver(circuit, leaf_verifier, dummy)
+
+    def host_proof():
+        return prover.aggregate(leaves, seed=mk.PB_SEED, rng=np.random.default_rng(mk.PB_RNG),
+                                rng_mode="host")
+
+    want = _committed("canonical_private_batch.bin")
+    host_runs, host_lowered = [], []
+    restore = _clock_calls(wt, "compile_tape", host_lowered)
+    try:
+        for run in range(2):
+            tapes = nat.counts["wt_run"]
+            proof, took, launches = _counted(kernels, host_proof)
+            host_runs.append(took)
+            if proof_to_bytes(proof) != want:
+                raise AssertionError(f"[aggregation] the {('cold', 'second')[run]} host-rng "
+                                     "private batch differs from the JAX fixture")
+            if run and nat.counts["wt_run"] != tapes + 1:
+                raise AssertionError("[aggregation] the second private batch's witness did not "
+                                     "run on the compiled tape")
+            _path_launches("[aggregation] host-rng private batch", kernels, launches, rounds,
+                           False)
+    finally:
+        restore()
+    t0 = time.perf_counter()
+    warm = PrivateBatchProver(circuit, leaf_verifier, dummy, warm_start=True)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    seen = []
+    restore = _quotient_spy(tprover, seen)
+    tapes = nat.counts["wt_run"]
+    try:
+        dev_proof, dev_s, launches = _counted(kernels, lambda: warm.aggregate(
+            leaves, seed=mk.PB_SEED + 1, rng=np.random.default_rng(mk.PB_RNG + 1)))
+    finally:
+        restore()
+    if nat.counts["wt_run"] != tapes + 1:
+        raise AssertionError("[aggregation] the device-rng batch's witness did not run on the tape")
+    _path_launches("[aggregation] device-rng private batch", kernels, launches, rounds, True)
+    dev_launches = launches
+    if proof_to_bytes(dev_proof) == want:
+        raise AssertionError("[aggregation] the device-rng batch equals the host-rng one")
+    verify(data, dev_proof)
+    bad = proof_from_bytes(proof_to_bytes(dev_proof))
+    step = bad.fri_proof.query_rounds[-1].steps[-1]
+    lv = np.array(step.leaf_values, dtype=np.uint64)
+    lv[1, 0] = np.uint64((int(lv[1, 0]) + 1) % ((1 << 64) - (1 << 32) + 1))
+    step.leaf_values = lv
+    try:
+        verify(data, bad)
+    except VerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("[aggregation] the verifier accepted a tampered private batch")
+    # kernel A on this batch's own descriptor table and LDEs, every row,
+    # against its plain version run on the card
+    (qdata, wires_lde, zs_pp_lde, qargs, got), = seen
+    plain = tprover.quotient_evals_plain(qdata, wires_lde, zs_pp_lde, *qargs)
+    if not torch.equal(got, plain):
+        raise AssertionError("[aggregation] kernel A differs from its plain version on the "
+                             "private batch")
+    desc, k_total = tprover.quotient_descriptors(qdata)
+
+    dummy_pb = generate_dummy_private_batch_proof(circuit, dummy, rng=np.random.default_rng(
+        mk.DUMMY_PB_RNG), seed=mk.DUMMY_PB_SEED)
+    t0 = time.perf_counter()
+    pub = PublicBatchCircuit(VerifierCircuitData.from_circuit_data(data), 2, mk.N_LEAF,
+                             device="cuda")
+    torch.cuda.synchronize()
+    pub_build_s = time.perf_counter() - t0
+    pub_prover = PublicBatchProver(pub, lambda p: verify(data, p), dummy_pb)
+    address = wi.BytesDigest(mk.PUB_ADDRESS)
+
+    def pub_proof():
+        return pub_prover.commit([dev_proof], address).prove(seed=mk.PUB_SEED)
+
+    pub_runs, pub_lowered = [], []
+    restore = _clock_calls(wt, "compile_tape", pub_lowered)
+    try:
+        for run in range(2):
+            tapes = nat.counts["wt_run"]
+            out, took, launches = _counted(kernels, pub_proof)
+            pub_runs.append(took)
+            if run and nat.counts["wt_run"] != tapes + 1:
+                raise AssertionError("[aggregation] the public batch's witness did not run on "
+                                     "the tape")
+            verify(pub.data, out)
+    finally:
+        restore()
+    pub_rounds = len(pub.data.config.fri_config.reduction_strategy.schedule(pub.data.degree_bits))
+    _path_launches("[aggregation] public batch", kernels, launches, pub_rounds, False)
+    parsed = wi.PublicBatchPublicInputs.from_felts(out.public_inputs, 2, mk.N_LEAF)
+    if parsed.aggregator_address != address or sum(
+            a.summed_output_amount for a in parsed.account_data) != sum(
+            p.public.output_amount_1 + p.public.output_amount_2
+            for p in two_real_leaves_same_block()):
+        raise AssertionError("[aggregation] the public batch's outputs are not the leaves'")
+
+    print(f"[aggregation] canonical private batch (N = {mk.N_LEAF}): {cfg.num_wires} wires, "
+          f"{cfg.num_routed_wires} routed, degree_bits {data.degree_bits} ({data.num_rows_used} "
+          f"rows used), {cfg.fri_config.num_query_rounds} queries, {rounds} FRI rounds, "
+          f"{desc.shape[0]} kernel-A groups and {k_total} constraints; build {build_s:.1f} s; "
+          f"host-rng proof cold {host_runs[0]:.3f} s, second {host_runs[1]:.3f} s (the witness "
+          f"program lowered to its tape in {sum(host_lowered):.3f} s, then the tape's first "
+          f"run), both == JAX fixture; verifier data == JAX; warm-up {warmup_s:.2f} s; "
+          f"device-rng proof {dev_s:.3f} s, kernel G {dev_launches['rand_felts']} launches, witness on the tape, "
+          f"accepted, a tampered last-round leaf rejected ({rejected}); kernel A == plain on "
+          f"all {got.shape[1]} points; {card()}", flush=True)
+    print(f"[aggregation] canonical public batch (m = 2 over [the device-rng batch, a dummy]): "
+          f"degree_bits {pub.data.degree_bits} ({pub.data.num_rows_used} rows used), "
+          f"{pub_rounds} FRI rounds; build {pub_build_s:.1f} s; proof cold {pub_runs[0]:.3f} s, "
+          f"second {pub_runs[1]:.3f} s (the tape lowered in {sum(pub_lowered):.3f} s, then its "
+          f"first run), verified", flush=True)
+    for line in (
+            _warm_profile("[aggregation] host-rng private batch", kernels, host_proof,
+                          lambda p: verify(data, p)),
+            _warm_profile("[aggregation] device-rng private batch", kernels, lambda: warm.aggregate(
+                leaves, seed=mk.PB_SEED + 1, rng=np.random.default_rng(mk.PB_RNG + 1)),
+                lambda p: verify(data, p)),
+            _warm_profile("[aggregation] public batch", kernels, pub_proof,
+                          lambda p: verify(pub.data, p))):
+        print(line, flush=True)
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     device_info = phase_device()
@@ -2331,6 +2874,8 @@ def main() -> int:
     phase_batch(kernels)
     phase_zk(kernels)
     phase_aggregation_rand("cuda")
+    phase_recursion(kernels)
+    phase_aggregation(kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

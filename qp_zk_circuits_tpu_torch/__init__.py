@@ -11,10 +11,14 @@ qp_zk_circuits_tpu. Layout mirrors the JAX package:
   hash/      Poseidon2 (kernel 2), Merkle trees with caps, keccak256 (host)
   poly/      batched NTT / iNTT / coset LDE (kernel 3)
   fri/       oracles (commit, openings), FRI prover and verifier
-  plonk/     builder, gates, transcript, prover, verifier, serialization
+  plonk/     builder, gates, transcript, prover (and its warm start), verifier,
+             serialization
+  recursion/ the in-circuit verifier: extension gadgets, challenger, verifier
   utils/     byte<->felt codecs, config policy, gadgets
-  wormhole/  the Wormhole leaf circuit, WormholeProver, WormholeVerifier and
-             its keccak-pinned artifacts
+  wormhole/  the Wormhole leaf circuit, WormholeProver, WormholeVerifier, the
+             private and public batch layers, dummy and fake leaves, and the
+             pinned artifact set
+  models/    the provers re-exported under one roof
   native/    the host's work in C (Poseidon2, transcript absorb, witness
              tape, constraint tape, FRI query verifier), built with the
              system C compiler at first use

@@ -50,6 +50,7 @@ from .builder import (
     PartialWitness,
     coset_shifts,
     generate_witness_batch,
+    witness_root_values,
     witness_trace,
     zk_draws,
 )
@@ -560,12 +561,22 @@ def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None,
     proof of the same seed; with "device" one key is drawn from that rng
     (`rng.integers(0, 2**63)`, prover_fused.py:1116) and kernel G draws them
     on the card: a valid proof, not byte-equal to the host mode's. "auto"
-    is "host": the JAX package takes "device" only once `warmup_fused` has
-    built its device-rng graph, and that is not ported yet (ROADMAP module
-    item 4). A non-ZK proof draws nothing, whatever the mode."""
+    is "host" until `warmup(data)` has run, and then the mode it was warmed
+    for ("device" by default), as the JAX package's `prove` takes "device"
+    once `warmup_fused` has built its device-rng graph: pass the mode
+    explicitly when the bytes must be reproducible. A non-ZK proof draws
+    nothing, whatever the mode."""
     if rng_mode not in RNG_MODES:
         raise ValueError(f"rng_mode {rng_mode!r}, expected one of {RNG_MODES}")
+    if rng_mode == "auto":
+        rng_mode = data.__dict__.get("_warm_rng_mode", "host")
     trace, pis = witness_trace(data, pw)
+    return _prove_drawn(data, trace, pis, seed, rng_mode)
+
+
+def _prove_drawn(data: CircuitData, trace: np.ndarray, pis: np.ndarray, seed, rng_mode: str):
+    """`prove_from_trace` after a ZK proof's draws in `rng_mode` ("host" or
+    "device") from `default_rng(seed)`."""
     if not data.config.zero_knowledge:
         return prove_from_trace(data, trace, pis, seed)
     rng = np.random.default_rng(seed)
@@ -574,6 +585,32 @@ def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None,
     blind, salts = zk_draws(data, rng)
     trace[:, data.num_rows_used :] = blind
     return prove_from_trace(data, trace, pis, seed, salts=salts)
+
+
+def warmup(data: CircuitData, pw: PartialWitness, rng_mode: str = "device") -> None:
+    """Make `data`'s next proofs steady-state (the counterpart of the JAX
+    package's `warmup_fused`, plonk/prover.py:212; there is no graph to
+    compile here):
+
+      * build kernels A's and B's per-circuit tables on the circuit's device
+        (`_quotient_tables`, `_routing_tables`);
+      * record the circuit's witness program from `pw` (the Python
+        replay) and lower it to its C tape (plonk/witness_tape.py), so later
+        witnesses of the same seed keyset run the tape;
+      * make one throw-away proof of `pw`, which loads the kernel library
+        and launches every kernel of the path;
+      * mark `data` so that `prove(..., rng_mode="auto")` takes `rng_mode`
+        ("device" or "host") from then on."""
+    if rng_mode not in ("host", "device"):
+        raise ValueError(f"rng_mode {rng_mode!r}: warm up for 'host' or 'device'")
+    _check_config(data.config)
+    dev = data.device
+    _quotient_tables(data, dev)
+    _routing_tables(data, dev)
+    witness_root_values(data, pw)  # records the program if it is new
+    trace, pis = witness_trace(data, pw)  # the tape's first run
+    _prove_drawn(data, trace, pis, 0, rng_mode)
+    data.__dict__["_warm_rng_mode"] = rng_mode
 
 
 def _check_config(cfg) -> None:

@@ -75,16 +75,25 @@ def test_prover_refuses_a_missing_card(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every port module, and chip_smoke.py with the port modules
-    it loads, leaves jax and qp_zk_circuits_tpu out of sys.modules."""
+    """Importing every port module (the recursion gadgets, the aggregation
+    layers and the tools among them), and chip_smoke.py with the port
+    modules it loads and the aggregation fixtures' module it reads its seeds
+    from, leaves jax and qp_zk_circuits_tpu out of sys.modules."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {str(ROOT)!r})
 import qp_zk_circuits_tpu_torch as pkg
-for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(info.name)
+names = [info.name for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+want = {{pkg.__name__ + "." + m for m in (
+    "recursion.ext_gadgets", "recursion.challenger_gadget", "recursion.verifier_gadget",
+    "wormhole.dummy_proof", "wormhole.fake_leaf", "wormhole.private_batch",
+    "wormhole.public_batch", "wormhole.artifacts", "models", "tools.profile_agg")}}
+assert want <= set(names), sorted(want - set(names))
 import chip_smoke
 chip_smoke.kernel_table("cpu")
+chip_smoke._agg_fixtures().test_configs(pkg)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "qp_zk_circuits_tpu"
              or m.startswith("qp_zk_circuits_tpu."))
