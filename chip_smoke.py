@@ -47,8 +47,11 @@ package. Phases, each printing one line:
      and at K = 17 (kernels A and B's cap of 16 proofs a launch, plus one):
      kernel 2's forest (sixteen 2048 x 135 LDEs read in place, against the
      plain version on the card), A and B (the leaf's shapes, each proof its
-     own challenges, against their plain versions on CPU copies), each
-     timed at K = 16 beside K times a proof's bound; kernel G (Philox
+     own challenges, against their plain versions on CPU copies), and the
+     FRI tail's C, D, E and F (the leaf's oracles, the constants shared,
+     each proof its own points, alpha, beta and 28 query indices; F's plan
+     of 16 proofs one launch), each timed at K = 16 beside K times a proof's
+     bound, C-F also beside 16 single calls (wrapper and device ms); kernel G (Philox
      felts, csrc/random.cu) at the ZK leaf's draws (the blinding rows
      135 x 252 written in place through a strided view of the trace, and
      the three salts' 4 x 4096 rows) and at an odd count (3 x 1001),
@@ -99,16 +102,19 @@ package. Phases, each printing one line:
      is printed beside the card;
   9. batch — WormholeProver(device="cuda") on the two real spends of
      two_real_leaves_same_block(), alternating: prove_inputs_batch of 16
-     (cold, then warm) and prove_inputs_stream of 48 in chunks of 16 from a
-     generator, each run with the counts set to 0 just before it and read
-     just after: every proof equals its committed JAX fixture and the
-     port's verifier accepts it, and every stage stays within its launch
-     limits for the batch (`_batch_limits`: one stacked kernel-3 call and
-     one forest call a commit, A and B once a group of 16, the grind one
-     permute launch a sweep for all proofs, C-F and the FRI rounds' trees
-     once a proof); the batch rows of the JSON line take their launches
-     from the warm batch; then per-proof ms of K = 1, 4 and 16 batches and
-     of a single proof;
+     (cold, then warm), of 1, 4, 17 and 33 (kernel F's groups of 16, 16
+     and 1), and prove_inputs_stream of 48 in
+     chunks of 16 from a generator, each run with the counts set to 0 just
+     before it and read just after: every proof equals its committed JAX
+     fixture (the single proof's bytes) and the port's verifier accepts it,
+     and every stage stays within its launch limits for the batch
+     (`_batch_limits`: one stacked kernel-3 call a commit and one for the
+     final polynomials, one forest call a commit and a FRI round, A-F once
+     a group of 16 (E a round), the grind one permute launch a sweep for
+     all proofs); the K = 16 batch's library launches (at most 30) and a
+     single proof's library and device launches (55) printed; the batch
+     rows of the JSON line take their launches from the warm batch; then
+     per-proof ms of K = 1, 4, 16 and 17 batches and of a single proof;
  10. zk — WormholeProver(wormhole_private_batch_circuit_config(),
      device="cuda") (the private batch's ZK config on the leaf circuit,
      degree 9): build, then prove_inputs(test_inputs_0(), seed=7) cold and
@@ -144,7 +150,14 @@ package. Phases, each printing one line:
      version on the card, every point; the public batch (m = 2, degree 15)
      over [that batch, a dummy private batch], cold and warm on the tape,
      verified; for each warm proof its seconds, library and device
-     launches, the busy share and verify ms.
+     launches, the busy share and verify ms;
+ 13. service — the miner's path at the canonical sizes on those circuits:
+     four real spends of one block proven as one batch (K = 4), folded into
+     two private batches, `PublicBatchAggregator.from_binaries_dir` over
+     their artifact set (warm start; an `aot/` subdirectory left inert),
+     both pushed into one bucket (a verify each), a duplicate and a dummy
+     refused, the bucket aggregated into a public batch, verified and bound
+     to the service's address, refused under another; each step's seconds.
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -844,6 +857,23 @@ def kernel_table(device) -> list[dict]:
              path="batch", source="qp_zk_circuits_tpu_torch/csrc/permutation.cu",
              replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
              setup=lambda: _permutation_batch_case(device)),
+        # the batch's FRI tail with a proof axis (the vmapped :655-790)
+        dict(name="fri_composition_batch", wrapper=fri.compute_composition_batch, path="batch",
+             source="qp_zk_circuits_tpu_torch/csrc/fri.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
+             setup=lambda: _composition_batch_case(device)),
+        dict(name="eval_openings_batch", wrapper=fo.eval_openings_batch, path="batch",
+             source="qp_zk_circuits_tpu_torch/csrc/fri.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
+             setup=lambda: _openings_batch_case(device)),
+        dict(name="fri_fold_batch", wrapper=fri.fold_round_batch, path="batch",
+             source="qp_zk_circuits_tpu_torch/csrc/fri.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
+             setup=lambda: _fold_batch_case(device)),
+        dict(name="query_gather_batch", wrapper=fri.query_gather_batch, path="batch",
+             source="qp_zk_circuits_tpu_torch/csrc/fri.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
+             setup=lambda: _gather_batch_case(device)),
         # the ZK path's device-rng draws (phase_zk reads its launches)
         dict(name="rand_felts", wrapper=frandom.rand_felts, path="zk",
              source="qp_zk_circuits_tpu_torch/csrc/random.cu",
@@ -1175,6 +1205,16 @@ def _cpu_oracles(oracles):
     return [SimpleNamespace(**{k: v.cpu() for k, v in vars(o).items()}) for o in oracles]
 
 
+def _composition_work(instance, m: int) -> tuple[int, int]:
+    """Kernel C's bytes and integer operations for one proof: each column
+    the instance names read once, the claimed values, Q written;
+    `fri_field_ops`."""
+    cols = len({t for b in instance.batches for t in b.polys})
+    k = instance.num_terms()
+    muls, adds = fri_field_ops(m, k, len(instance.batches))
+    return (cols * m + 2 * k + 2 * m) * 8, muls * OPS_MUL + adds * OPS_ADD
+
+
 def _composition_case(device) -> dict:
     """Kernel C at the leaf: the circuit's instance (two batches, about 255
     columns at zeta and the Z columns at g * zeta), Q in the first round's
@@ -1182,17 +1222,197 @@ def _composition_case(device) -> dict:
     from qp_zk_circuits_tpu_torch.fri import prover as fri
 
     c = _fri_leaf_case(device, seed=3)
-    m = 1 << c["lde_bits"]
     args = (c["instance"], c["openings"], c["alpha"], c["lde_bits"], c["schedule"][0])
     cpu = _cpu_oracles(c["oracles"])
-    cols = len({t for b in c["instance"].batches for t in b.polys})
-    k = c["instance"].num_terms()
-    muls, adds = fri_field_ops(m, k, len(c["instance"].batches))
     return dict(
         run=lambda: fri.compute_composition(c["oracles"], *args),
         plain=lambda: fri.compute_composition_plain(cpu, *args), plain_on_host=True,
-        bytes=(cols * m + 2 * k + 2 * m) * 8,
-        ops=muls * OPS_MUL + adds * OPS_ADD,
+        **dict(zip(("bytes", "ops"), _composition_work(c["instance"], 1 << c["lde_bits"]))),
+    )
+
+
+def _fri_batch_leaf_case(device, seed):
+    """BATCH_K + 1 proofs' FRI inputs at the leaf's shapes, as a batch holds
+    them: the constants oracle shared, each of the other three oracles'
+    LDEs and coefficient rows one stacked buffer, each proof its own zeta,
+    g * zeta, instance, claimed openings, alpha and beta; with `trees`, each
+    oracle's Merkle tree (a forest a stack)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.hash import merkle
+    from qp_zk_circuits_tpu_torch.plonk.proof import fri_instance
+
+    data = _leaf_data(device)
+    cfg = data.config
+    rng = np.random.default_rng(seed)
+    k = BATCH_K + 1
+    n = data.n
+    m = n << cfg.rate_bits
+    cap = cfg.fri_config.cap_height
+    rows = leaf_oracle_rows(data)
+    consts = SimpleNamespace(lde=_felts((rows[0], m), rng, device),
+                             coeffs=_felts((rows[0], n), rng, device))
+    consts.tree = merkle.build_merkle_tree(consts.lde.T, cap)
+    stacks = []
+    for r in rows[1:]:
+        lde = _felts((k, r, m), rng, device)
+        stacks.append((lde, _felts((k, r, n), rng, device),
+                       merkle.build_merkle_forest(lde.transpose(1, 2), cap)))
+    oracles = [[consts] + [SimpleNamespace(lde=lde[i], coeffs=co[i], tree=trees[i])
+                           for lde, co, trees in stacks] for i in range(k)]
+    cpu = [[SimpleNamespace(lde=o.lde.cpu(), coeffs=o.coeffs.cpu()) for o in proof]
+           for proof in oracles]
+    zetas, zeta_nexts = F.rand_felts((k, 2), rng), F.rand_felts((k, 2), rng)
+    instances = [fri_instance(data, z, zn) for z, zn in zip(zetas, zeta_nexts)]
+    openings = [[F.rand_felts((len(b.polys), 2), rng) for b in inst.batches]
+                for inst in instances]
+    return dict(data=data, oracles=oracles, cpu=cpu,
+                instances=instances, openings=openings, zetas=zetas, zeta_nexts=zeta_nexts,
+                alphas=F.rand_felts((k, 2), rng), betas=F.rand_felts((k, 2), rng),
+                nz=cfg.num_challenges, lde_bits=data.degree_bits + cfg.rate_bits, rng=rng,
+                schedule=cfg.fri_config.reduction_strategy.schedule(data.degree_bits))
+
+
+def _composition_batch_case(device) -> dict:
+    """Kernel C with a proof axis at the K = 16 leaf batch: each proof's own
+    LDEs (the constants shared), points, claimed openings and alpha; checked
+    at K = 16 (one launch) and K = 17 (two) against the plain version on CPU
+    copies; timed beside 16 single calls. Its work: 16 times a proof's."""
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+
+    c = _fri_batch_leaf_case(device, seed=21)
+    k, a = BATCH_K, c["schedule"][0]
+
+    def args(oracles, n):
+        return (oracles[:n], c["instances"][:n], c["openings"][:n], c["alphas"][:n],
+                c["lde_bits"], a)
+
+    work = _composition_work(c["instances"][0], 1 << c["lde_bits"])
+    return dict(
+        run=lambda: fri.compute_composition_batch(*args(c["oracles"], k)),
+        plain=lambda: fri.compute_composition_batch_plain(*args(c["cpu"], k)), plain_on_host=True,
+        check=lambda: ([fri.compute_composition_batch(*args(c["oracles"], n)) for n in (k, k + 1)],
+                       [fri.compute_composition_batch_plain(*args(c["cpu"], n))
+                        for n in (k, k + 1)]),
+        singles=lambda: [fri.compute_composition(*x, c["lde_bits"], a)
+                         for x in zip(*args(c["oracles"], k)[:4])],
+        bytes=k * work[0], ops=k * work[1],
+    )
+
+
+def _openings_batch_case(device) -> dict:
+    """Kernel D with a proof axis at the K = 16 leaf batch: every oracle's
+    coefficient rows of each proof at its own zeta and the Z rows at its
+    g * zeta; checked at K = 16 and 17 against the plain version on CPU
+    copies; timed beside 16 single calls. Its work: 16 times a proof's."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.fri import oracle as fo
+
+    c = _fri_batch_leaf_case(device, seed=22)
+    k, nz = BATCH_K, c["nz"]
+    n = c["oracles"][0][0].coeffs.shape[1]
+    rows = sum(o.coeffs.shape[0] for o in c["oracles"][0])
+
+    def run(oracles, count, fn=fo.eval_openings_batch):
+        return fn(oracles[:count], c["zetas"][:count], c["zeta_nexts"][:count], 2, nz)
+
+    def joined(results):
+        return torch.as_tensor(np.concatenate(
+            [np.concatenate(list(parts) + [nxt]) for parts, nxt in results]).view(np.int64))
+
+    work = openings_work(rows, rows + nz, n)
+    return dict(
+        run=lambda: run(c["oracles"], k),
+        plain=lambda: run(c["cpu"], k, fo.eval_openings_batch_plain), plain_on_host=True,
+        check=lambda: ([joined(run(c["oracles"], j)) for j in (k, k + 1)],
+                       [joined(run(c["cpu"], j, fo.eval_openings_batch_plain)) for j in (k, k + 1)]),
+        singles=lambda: [fo.eval_openings(o, z, zn, 2, nz) for o, z, zn in zip(
+            c["oracles"][:k], c["zetas"], c["zeta_nexts"])],
+        bytes=k * work[0], ops=k * work[1],
+    )
+
+
+def _fold_batch_case(device) -> dict:
+    """Kernel E with a proof axis at the K = 16 leaf batch: each proof's
+    round of arity 2^3 over m = 2048 values held as (256, 16) leaf rows,
+    folded with its own beta into the natural-order last layer; checked at
+    K = 16 and 17 against the plain version on CPU copies; timed beside 16
+    single calls. Its work: 16 times a proof's."""
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+
+    c = _fri_batch_leaf_case(device, seed=23)
+    k, a, log_m = BATCH_K, c["schedule"][0], c["lde_bits"]
+    m = 1 << log_m
+    leaves = _felts((k + 1, m >> a, 2 << a), c["rng"], device)
+    cpu = leaves.cpu()
+    betas = c["betas"]
+    work = fold_work(m, a)
+    return dict(
+        run=lambda: fri.fold_round_batch(leaves[:k], betas[:k], a, log_m, 0, 0),
+        plain=lambda: fri.fold_round_batch_plain(cpu[:k], betas[:k], a, log_m, 0, 0),
+        plain_on_host=True,
+        check=lambda: ([fri.fold_round_batch(leaves[:j], betas[:j], a, log_m, 0, 0)
+                        for j in (k, k + 1)],
+                       [fri.fold_round_batch_plain(cpu[:j], betas[:j], a, log_m, 0, 0)
+                        for j in (k, k + 1)]),
+        singles=lambda: [fri.fold_round(leaves[i], betas[i], a, log_m, 0, 0) for i in range(k)],
+        bytes=k * work[0], ops=k * work[1],
+    )
+
+
+def _gather_batch_case(device) -> dict:
+    """Kernel F with a proof axis at the K = 16 leaf batch: each proof's 28
+    queries' leaf rows and Merkle paths of its four oracles (the constants
+    shared) and of its FRI round's leaves and tree, 10 segments a proof, one
+    plan of 3,256 bytes for 16 proofs, into pinned host memory; checked at
+    K = 16 (one launch) and 17 (two) against the plain version on CPU
+    copies; timed beside 16 single calls. Its work: 16 times a proof's."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.hash import merkle
+
+    c = _fri_batch_leaf_case(device, seed=24)
+    cfg = c["data"].config.fri_config
+    k, a = BATCH_K, c["schedule"][0]
+    m = 1 << c["lde_bits"]
+    leaves = _felts((k + 1, m >> a, 2 << a), c["rng"], device)
+    trees = merkle.build_merkle_forest(leaves, min(cfg.cap_height, c["lde_bits"] - a))
+    sources = [fri._gather_sources(o, [(x, t)]) for o, x, t in zip(c["oracles"], leaves, trees)]
+    cpu = [_cpu_sources(s) for s in sources]
+    indices = [[0, m - 1] + [int(i) for i in c["rng"].integers(0, m, cfg.num_query_rounds - 2)]
+               for _ in sources]
+    width = fri.pack_gather_plan(sources[0], indices[0])[1]
+
+    def plain(j):
+        return torch.stack([fri.query_gather_plain(s, i) for s, i in zip(cpu[:j], indices[:j])])
+
+    def check():
+        per = fri.gather_group(len(sources[0]), len(indices[0]))
+        if len(sources[0]) != 10 or per != 16:
+            raise AssertionError("a leaf batch's gather plan is not 10 segments, 16 proofs")
+        got = []
+        for j in (k, k + 1):
+            before = fri.query_gather_batch.launches
+            got.append(torch.as_tensor(fri.query_gather_batch(sources[:j], indices[:j])
+                                       .view(np.int64)))
+            if fri.query_gather_batch.launches - before != -(-j // per):
+                raise AssertionError(f"kernel F's gather of {j} proofs took other than "
+                                     f"{-(-j // per)} launches")
+        return got, [plain(k), plain(k + 1)]
+
+    work = gather_work(len(indices[0]), width)
+    return dict(
+        run=lambda: fri.query_gather_batch(sources[:k], indices[:k]),
+        plain=lambda: plain(k), plain_on_host=True, check=check,
+        singles=lambda: [fri.query_gather(s, i) for s, i in zip(sources[:k], indices)],
+        bytes=k * work[0], ops=k * work[1], host_bytes=k * work[2],
     )
 
 
@@ -1493,6 +1713,12 @@ def phase_kernels(kernels) -> None:
         if "library_note" in k:
             note = (f"; torch.randint of as many int64s, another stream: "
                     f"{median_ms(k['library_note'], runs=20):.4f} ms")
+        if "singles" in k:
+            # the batch's work as the single wrapper does it, a call a proof
+            k["singles_ms"] = median_ms(k["singles"], runs=10)
+            k["singles_device_ms"] = device_ms(k["singles"])
+            note += (f"; {BATCH_K} single calls {k['singles_ms']:.4f} ms, device "
+                     f"{k['singles_device_ms']:.4f} ms")
         print(f"[kernel] {k['name']}: bit-exact; {k['ms']:.4f} ms, device {dev} "
               f"(plain on the {where} {k['plain_ms']:.3f} ms, "
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}){note}", flush=True)
@@ -1990,39 +2216,54 @@ def _single_limits(rounds: int) -> dict:
             "fri_composition": (1, 2),
             "eval_openings": (1, 1), "fri_fold": (rounds, rounds), "query_gather": (1, 1),
             "poseidon2_merkle_tree": (trees, 2 * trees), "poseidon2_two_to_one": (0, 0),
-            "rand_felts": (0, 0)}
+            "rand_felts": (0, 0), **{name: (0, 0) for name in BATCH_FRI}}
+
+
+#: the batch path's FRI kernels with a proof axis: a single proof runs none
+BATCH_FRI = ("fri_composition_batch", "eval_openings_batch", "fri_fold_batch",
+             "query_gather_batch")
+#: a K = 16 leaf batch's library launches at most (129 when C, D, E, F, the
+#: round's tree and the final iNTT ran once a proof: seven a proof)
+BATCH_LAUNCHES_MAX = 30
 
 
 def _batch_limits(k: int, rounds: int) -> dict:
     """The launch limits of a batch of k leaf proofs: (least, most) a
     wrapper. Kernel 3: one stacked iNTT and LDE a commit (at most six) and
-    the final polynomial's iNTT a proof; the forest: one call of at most two
-    launches a commit; A and B at most two launches a group of
-    PROOFS_PER_LAUNCH proofs; C, D, F once a proof, E a round a proof, the FRI rounds' trees
-    one call a round a proof; the grind one permute launch a sweep for all
-    proofs (set by the caller from the witnesses); the single-proof forms
-    of A and B and the per-level 2-to-1 never."""
-    from qp_zk_circuits_tpu_torch.plonk.prover import PROOFS_PER_LAUNCH
+    one stacked iNTT of the k final polynomials; the forest: one call of at
+    most two launches a commit and a FRI round; A and B at most two
+    launches a group of PROOFS_PER_LAUNCH proofs; C, D, F once a group
+    (D twice above one chunk of coefficients), E a round a group; the grind
+    one permute launch a sweep for all proofs (set by the caller from the
+    witnesses); the single-proof forms of A-F and of the tree, and the
+    per-level 2-to-1, never."""
+    from qp_zk_circuits_tpu_torch import _cuda
 
-    groups = -(-k // PROOFS_PER_LAUNCH)
-    return {"ntt": (k + 1, 6 + k), "poseidon2_merkle_forest": (3, 6),
-            "poseidon2_merkle_tree": (rounds * k, 2 * rounds * k),
+    groups = -(-k // _cuda.PROOFS_PER_LAUNCH)
+    forests = 3 + rounds
+    return {"ntt": (2, 7), "poseidon2_merkle_forest": (forests, 2 * forests),
+            "poseidon2_merkle_tree": (0, 0),
             "quotient_batch": (2 * groups, 2 * groups),
             "permutation_polys_batch": (groups, 2 * groups),
             "quotient": (0, 0), "permutation_polys": (0, 0), "poseidon2_two_to_one": (0, 0),
-            "fri_composition": (k, k), "eval_openings": (k, k), "fri_fold": (rounds * k, rounds * k),
-            "query_gather": (k, k), "rand_felts": (0, 0)}
+            "fri_composition": (0, 0), "eval_openings": (0, 0), "fri_fold": (0, 0),
+            "query_gather": (0, 0), "fri_composition_batch": (groups, groups),
+            "eval_openings_batch": (groups, 2 * groups),
+            "fri_fold_batch": (rounds * groups, rounds * groups),
+            "query_gather_batch": (groups, groups), "rand_felts": (0, 0)}
 
 
-def _check_batch_launches(label: str, kernels, launches: dict, proofs, rounds: int) -> None:
-    """Every stage of len(proofs) / BATCH_K batches within `_batch_limits`;
-    the grind one permute launch a sweep of 2^17 candidates for all the
-    chunk's proofs, as many as its highest PoW witness needs."""
+def _check_batch_launches(label: str, kernels, launches: dict, proofs, rounds: int,
+                          chunk: int = BATCH_K) -> None:
+    """Every stage of the len(proofs) / chunk batches of `chunk` proofs
+    within `_batch_limits`; the grind one permute launch a sweep of 2^17
+    candidates for all the chunk's proofs, as many as its highest PoW
+    witness needs."""
     sweep = 1 << 17
-    chunks = len(proofs) // BATCH_K
-    sweeps = sum(1 + max(int(p.fri_proof.pow_witness) for p in proofs[c * BATCH_K:(c + 1) * BATCH_K])
+    chunks = len(proofs) // chunk
+    sweeps = sum(1 + max(int(p.fri_proof.pow_witness) for p in proofs[c * chunk:(c + 1) * chunk])
                  // sweep for c in range(chunks))
-    limits = _batch_limits(BATCH_K, rounds)
+    limits = _batch_limits(chunk, rounds)
     limits = {n: (chunks * lo, chunks * hi) for n, (lo, hi) in limits.items()}
     limits["poseidon2_permute"] = (sweeps, sweeps)
     off = {n: launches[n] for n, (lo, hi) in limits.items() if not lo <= launches[n] <= hi}
@@ -2034,21 +2275,28 @@ def _check_batch_launches(label: str, kernels, launches: dict, proofs, rounds: i
 
 def phase_batch(kernels) -> None:
     """The batch and stream paths: WormholeProver(device="cuda") on the two
-    real spends of two_real_leaves_same_block(), alternating, as a K = 16
-    batch and as a 48-leaf stream in chunks of 16 (bench.py's shape). Each
-    path runs with every wrapper's count set to 0 just before it and read
-    just after: each proof's bytes equal its JAX fixture, the port's
-    verifier accepts it, and each stage stays within its launch limits
-    (`_batch_limits`); the batch rows of the kernel table take their
-    launches from the K = 16 batch. Then per-proof times of K = 1, 4 and 16
-    batches and of the stream, beside a single proof, on the host clock; and
-    the batched grind's first sweep (2^17 states for each of 16 proofs, one
-    permute launch) against its plain version, timed beside its bound."""
+    real spends of two_real_leaves_same_block(), alternating, as batches of
+    K = 1, 4, 16, 17 and 33 (kernel F's groups of 16, 16 and 1 into one
+    pinned buffer) and as a 48-leaf stream in chunks of 16 (bench.py's
+    shape). Each path runs with every wrapper's count set to 0 just before
+    it and read just after: each proof's bytes equal its JAX fixture (the
+    single proof's bytes), the port's verifier accepts it, and each stage
+    stays within its launch limits (`_batch_limits`: C, D, E and F once a
+    group of 16 proofs, a forest a commit and a FRI round, one stacked
+    final iNTT); the batch rows of the kernel table take their launches from
+    the warm K = 16 batch, whose library launches (at most
+    BATCH_LAUNCHES_MAX) are printed beside a single proof's library and
+    device launches (torch.profiler, glue kernels included: 55).
+    Then per-proof times of K = 1, 4, 16 and 17 batches, beside a single
+    proof, on the host clock; and the batched grind's first sweep (2^17
+    states for each of 16 proofs, one permute launch) against its plain
+    version, timed beside its bound."""
     import numpy as np
     import torch
 
     from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
     from qp_zk_circuits_tpu_torch.plonk.serialization import proof_to_bytes
+    from qp_zk_circuits_tpu_torch.tools.profile_leaf import _device_profile
     from qp_zk_circuits_tpu_torch.tools.timing import card, device_ms, median_ms
     from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
     from qp_zk_circuits_tpu_torch.wormhole.test_helpers import two_real_leaves_same_block
@@ -2066,55 +2314,70 @@ def phase_batch(kernels) -> None:
     cfg = prover.data.config
     rounds = len(cfg.fri_config.reduction_strategy.schedule(prover.data.degree_bits))
 
-    def run(label, fn, count):
+    def run(label, fn, count, chunk):
         """fn() with the counts at 0; checks the bytes, the verifier, the
-        launch limits of count / BATCH_K batches; returns (s, launches)."""
-        for k in kernels:
-            k["wrapper"].launches = 0
-        t = time.perf_counter()
-        proofs = fn()
-        torch.cuda.synchronize()
-        took = time.perf_counter() - t
-        launches = {k["name"]: k["wrapper"].launches for k in kernels}
+        launch limits of count / chunk batches; returns (s, launches)."""
+        proofs, took, launches = _counted(kernels, fn)
         if len(proofs) != count:
             raise AssertionError(f"[batch] {label}: {len(proofs)} proofs for {count} inputs")
         for i, proof in enumerate(proofs):
             if proof_to_bytes(proof) != want[i % 2]:
                 raise AssertionError(f"[batch] {label}: proof {i} differs from its fixture")
             verifier.verify(proof)
-        _check_batch_launches(f"[batch] {label}", kernels, launches, proofs, rounds)
+        _check_batch_launches(f"[batch] {label}", kernels, launches, proofs, rounds, chunk)
         return took, launches
 
     inputs = [leaves[i % 2] for i in range(STREAM_LEN)]
     cold_s, _ = run("cold batch", lambda: prover.prove_inputs_batch(inputs[:BATCH_K], seed=0),
-                    BATCH_K)
+                    BATCH_K, BATCH_K)
     batch_s, launches = run(f"batch of {BATCH_K}",
-                            lambda: prover.prove_inputs_batch(inputs[:BATCH_K], seed=0), BATCH_K)
+                            lambda: prover.prove_inputs_batch(inputs[:BATCH_K], seed=0), BATCH_K,
+                            BATCH_K)
     for k in kernels:
         if k.get("path") == "batch":
             k["launches"] = launches[k["name"]]
+    missing = [k["name"] for k in kernels if k.get("path") == "batch" and k["launches"] <= 0]
     total = sum(launches.values())
+    if missing or total > BATCH_LAUNCHES_MAX:
+        raise AssertionError(f"[batch] K = {BATCH_K}: {total} library launches (at most "
+                             f"{BATCH_LAUNCHES_MAX}); not launched: {missing}")
     print(f"[batch] K = {BATCH_K} leaf batch (the two real spends alternating): cold "
           f"{1e3 * cold_s:.1f} ms, warm {1e3 * batch_s:.1f} ms ({1e3 * batch_s / BATCH_K:.2f} ms "
-          f"a proof); every proof equals its fixture and verifies; {total} kernel launches: "
+          f"a proof); every proof equals its fixture and verifies; {total} library launches "
+          f"(at most {BATCH_LAUNCHES_MAX}; 129 before the FRI tail's proof axis): "
           f"{', '.join(f'{n}={v}' for n, v in launches.items() if v)}", flush=True)
+    for k in (1, 4, BATCH_K + 1, 2 * BATCH_K + 1):
+        took, other = run(f"batch of {k}", lambda k=k: prover.prove_inputs_batch(inputs[:k], seed=0),
+                          k, k)
+        print(f"[batch] K = {k}: {1e3 * took:.1f} ms, every proof equals its fixture and "
+              f"verifies; {sum(other.values())} library launches", flush=True)
     stream_s, stream_launches = run(
         f"stream of {STREAM_LEN}", lambda: prover.prove_inputs_stream(
-            (x for x in inputs), batch=BATCH_K, seed=0), STREAM_LEN)
+            (x for x in inputs), batch=BATCH_K, seed=0), STREAM_LEN, BATCH_K)
     print(f"[batch] stream of {STREAM_LEN} leaves in chunks of {BATCH_K} (a generator of "
           f"inputs): {1e3 * stream_s:.1f} ms, {1e3 * stream_s / STREAM_LEN:.2f} ms a proof; every "
-          f"proof equals its fixture and verifies; {sum(stream_launches.values())} kernel "
+          f"proof equals its fixture and verifies; {sum(stream_launches.values())} library "
           f"launches", flush=True)
+    single, _, single_launches = _counted(kernels, lambda: prover.prove_inputs(inputs[0], seed=0))
+    if proof_to_bytes(single) != want[0]:
+        raise AssertionError("[batch] the single proof differs from its fixture")
+    prof = _device_profile(lambda: prover.prove_inputs(inputs[0], seed=0))
+    if prof["device_launches"] != 55:
+        raise AssertionError(f"[batch] a single leaf proof made {prof['device_launches']} device "
+                             "launches, not 55")
+    print(f"[batch] a single leaf proof: {sum(single_launches.values())} library launches, "
+          f"{prof['device_launches']} device launches (torch.profiler, glue kernels included)",
+          flush=True)
     per_proof = {}
-    for k in (1, 4, BATCH_K):
+    for k in (1, 4, BATCH_K, BATCH_K + 1):
         per_proof[k] = _host_median_ms(
             lambda k=k: (prover.prove_inputs_batch(inputs[:k], seed=0), torch.cuda.synchronize()),
             runs=3) / k
-    single = _host_median_ms(lambda: (prover.prove_inputs(inputs[0], seed=0),
-                                      torch.cuda.synchronize()), runs=5)
+    single_ms = _host_median_ms(lambda: (prover.prove_inputs(inputs[0], seed=0),
+                                         torch.cuda.synchronize()), runs=5)
     print(f"[batch] ms a proof (median of 3 batches): "
           f"{', '.join(f'K = {k}: {v:.2f}' for k, v in per_proof.items())}; single proof "
-          f"{single:.2f}; {card()}", flush=True)
+          f"{single_ms:.2f}; {card()}", flush=True)
     # the batched grind's first sweep: 2^17 candidates for each of 16 proofs
     # in one kernel-2 permute launch
     states = _felts((BATCH_K << 17, ps.WIDTH), np.random.default_rng(14), "cuda")
@@ -2128,6 +2391,64 @@ def phase_batch(kernels) -> None:
           f"permute launch): bit-exact; {median_ms(lambda: ps.permute(states), runs=10):.4f} ms, "
           f"device {device_ms(lambda: ps.permute(states)):.4f} ms (plain on the card "
           f"{plain:.3f} ms, bound {bound:.4f} ms by {by})", flush=True)
+    _batch_tail_timings(prover.data)
+
+
+def _batch_tail_timings(data) -> None:
+    """The batch's other FRI-tail calls at K = 16, each against its plain
+    version on the card and timed beside its bound: the round's forest (16
+    trees of the (m >> a, 2^(a+1)) leaf rows) and the stacked iNTT of the 16
+    final polynomials with the unshift folded in; and the bound of the
+    K = 16 ZK leaf batch's grouped LDE (kernel 3 into the salted (16, 139,
+    4096) buffer, the `_commit_j` salt row), beside its device time."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
+    from qp_zk_circuits_tpu_torch.poly import ntt
+    from qp_zk_circuits_tpu_torch.tools.timing import device_ms, median_ms
+
+    rng = np.random.default_rng(25)
+    cfg = data.config
+    lde_bits = data.degree_bits + cfg.rate_bits
+    (a,) = cfg.fri_config.reduction_strategy.schedule(data.degree_bits)
+    cap = min(cfg.fri_config.cap_height, lde_bits - a)
+    rows, cols = 1 << (lde_bits - a), 2 << a
+    leaves = _felts((BATCH_K, rows, cols), rng, "cuda")
+    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
+    nodes = sum(rows >> lvl for lvl in range(rows.bit_length() - cap))
+    final = _felts((2 * BATCH_K, rows), rng, "cuda")
+    unshift = int(F.inv(F.pow_scalar(F.MULTIPLICATIVE_GROUP_GENERATOR, 1 << a)))
+    log_f = rows.bit_length() - 1
+    zk_x = _felts((BATCH_K * ZK_LEAF_WIRES, ZK_LEAF_N), rng, "cuda")
+    zk_buf = torch.zeros((BATCH_K, ZK_LEAF_WIRES + 4, ZK_LEAF_M), dtype=torch.int64, device="cuda")
+    g = int(F.MULTIPLICATIVE_GROUP_GENERATOR)
+    cases = (
+        ("the round's forest", lambda: ps.merkle_forest(leaves, cap),
+         lambda: ps.merkle_forest_plain(leaves, cap),
+         (BATCH_K * (rows * cols + nodes * ps.DIGEST_LEN) * 8,
+          BATCH_K * tree_perms(rows, cols, cap) * perm_ops)),
+        ("the stacked final iNTT", lambda: ntt.batched_ntt(final, log_f, inverse=True,
+                                                            out_shift=unshift),
+         lambda: ntt.batched_ntt_plain(final, log_f, inverse=True, out_shift=unshift),
+         ntt_work(2 * BATCH_K, rows, log_f, inverse=True, out_shift=True)),
+        ("the ZK batch's grouped LDE", lambda: ntt.batched_ntt(
+            zk_x, ZK_LEAF_M.bit_length() - 1, shift=g, out=zk_buf[:, :ZK_LEAF_WIRES]),
+         lambda: ntt.batched_ntt_plain(zk_x, ZK_LEAF_M.bit_length() - 1, shift=g),
+         ntt_work(BATCH_K * ZK_LEAF_WIRES, ZK_LEAF_N, ZK_LEAF_M.bit_length() - 1, shift=True)),
+    )
+    for label, run, plain, work in cases:
+        got, want = run(), plain()
+        flat = [x for tree in got for x in tree] if isinstance(got, list) else [got.reshape(-1)]
+        ref = [x for tree in want for x in tree] if isinstance(want, list) else [want.reshape(-1)]
+        if not all(torch.equal(x, y) for x, y in zip(flat, ref, strict=True)):
+            raise AssertionError(f"[batch] {label} differs from its plain version")
+        bound, by = _bound(work)
+        print(f"[batch] {label} at K = {BATCH_K}: bit-exact; {median_ms(run, runs=10):.4f} ms, "
+              f"device {device_ms(run):.4f} ms (plain on the card "
+              f"{median_ms(plain, runs=1, warmup=0):.3f} ms, bound {bound:.5f} ms by {by})",
+              flush=True)
 
 
 def phase_zk(kernels) -> None:
@@ -2664,7 +2985,7 @@ def _warm_profile(label, kernels, fn, verify_fn) -> str:
             f"{verify_ms:.1f} ms; top device kernels: {top}")
 
 
-def phase_aggregation(kernels) -> None:
+def phase_aggregation(kernels) -> dict:
     """The aggregation layers on the card. First the test profile
     (`_agg_test_profile`). Then the canonical configs, N = 2 leaves a
     private batch and m = 2 private batches a public batch:
@@ -2688,7 +3009,9 @@ def phase_aggregation(kernels) -> None:
         seconds, degree_bits, cold and second proofs (the second on the
         tape, its lowering timed apart), verified;
       * for each warm proof: seconds, library and device launches, the busy
-        share and verify ms."""
+        share and verify ms.
+
+    Returns the canonical circuits and provers it built, for `phase_service`."""
     import numpy as np
     import torch
 
@@ -2857,6 +3180,143 @@ def phase_aggregation(kernels) -> None:
             _warm_profile("[aggregation] public batch", kernels, pub_proof,
                           lambda p: verify(pub.data, p))):
         print(line, flush=True)
+    return dict(leaf_prover=leaf_prover, private=warm, private_circuit=circuit,
+                dummy_pb=dummy_pb, public_circuit=pub)
+
+
+def _write_bins(root: Path, built: dict) -> None:
+    """The canonical artifact set of the circuits `phase_aggregation` built
+    (config.json, both batch layers' verifier pairs, the dummy private
+    batch), as `generate_all_circuit_binaries` would publish it, and an
+    `aot/` subdirectory of junk beside them that the service must leave
+    inert."""
+    from qp_zk_circuits_tpu_torch.plonk.serialization import VerifierCircuitData, proof_to_bytes
+    from qp_zk_circuits_tpu_torch.wormhole import artifacts as art
+
+    root.mkdir(parents=True)
+    art.CircuitBinsConfig(num_leaf_proofs=built["private_circuit"].n_leaf,
+                          num_private_batch_proofs=built["public_circuit"].m).save(
+        root / art.CONFIG_JSON)
+    for circuit, verifier_bin, common_bin in (
+            (built["private_circuit"], art.PRIVATE_BATCH_VERIFIER_BIN, art.PRIVATE_BATCH_COMMON_BIN),
+            (built["public_circuit"], art.PUBLIC_BATCH_VERIFIER_BIN, art.PUBLIC_BATCH_COMMON_BIN)):
+        vd = VerifierCircuitData.from_circuit_data(circuit.data)
+        (root / verifier_bin).write_bytes(vd.to_verifier_only_bytes())
+        (root / common_bin).write_bytes(vd.to_common_bytes())
+    (root / art.DUMMY_PRIVATE_BATCH_PROOF_BIN).write_bytes(proof_to_bytes(built["dummy_pb"]))
+    (root / "aot").mkdir()
+    (root / "aot" / "entry.bin").write_bytes(b"not an executable")
+
+
+def phase_service(kernels, built: dict) -> None:
+    """The miner's path end to end at the canonical sizes (N = 2 leaves a
+    private batch, m = 2 private batches a public batch), on the circuits
+    `phase_aggregation` built:
+
+      * four real spends of one block (`n_real_leaves_same_block(4)`)
+        proven as one batch (`prove_inputs_batch`, K = 4: the FRI tail's
+        proof axis), within the batch's launch limits, each accepted;
+      * folded into two private batches (the warm private prover);
+      * `PublicBatchAggregator.from_binaries_dir` over the canonical
+        artifact set of those circuits (`_write_bins`; the private batch's
+        rebuild passed in, the public batch circuit rebuilt and pinned,
+        `warm_start=True`);
+      * both private batches pushed (a verify each) into one bucket; a
+        second push of one refused (duplicate nullifier) and a dummy
+        private batch refused;
+      * the bucket aggregated from the pool's snapshot into a public batch,
+        accepted by the service's `verify`, bound to its address, and
+        refused by a service of another address; the `aot/` directory left
+        as it was;
+      * each step's seconds."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.plonk.serialization import VerifierCircuitData
+    from qp_zk_circuits_tpu_torch.tools.timing import card
+    from qp_zk_circuits_tpu_torch.wormhole import inputs as wi
+    from qp_zk_circuits_tpu_torch.wormhole.aggregator_service import PublicBatchAggregator
+    from qp_zk_circuits_tpu_torch.wormhole.pool import PoolError
+    from qp_zk_circuits_tpu_torch.wormhole.private_batch import BatchCompatibilityError
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import n_real_leaves_same_block
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    steps = {}
+    leaf_prover = built["leaf_prover"]
+    spends = n_real_leaves_same_block(4)
+    rounds = len(leaf_prover.data.config.fri_config.reduction_strategy.schedule(
+        leaf_prover.data.degree_bits))
+    leaves, steps["prove 4 leaves (batch)"], launches = _counted(
+        kernels, lambda: leaf_prover.prove_inputs_batch(spends, seed=0))
+    _check_batch_launches("[service] leaf batch", kernels, launches, leaves, rounds, len(spends))
+    leaf_verifier = WormholeVerifier(leaf_prover.data)
+    for proof in leaves:
+        leaf_verifier.verify(proof)
+    t = time.perf_counter()
+    privates = [built["private"].aggregate(leaves[i:i + 2], seed=60 + i,
+                                           rng=np.random.default_rng(70 + i))
+                for i in (0, 2)]
+    torch.cuda.synchronize()
+    steps["fold into 2 private batches"] = time.perf_counter() - t
+    address = wi.BytesDigest(bytes(range(1, 33)))
+    with tempfile.TemporaryDirectory() as tmp:
+        bins = Path(tmp) / "bins"
+        _write_bins(bins, built)
+        t = time.perf_counter()
+        service = PublicBatchAggregator.from_binaries_dir(
+            bins, address, private_batch_rebuild=VerifierCircuitData.from_circuit_data(
+                built["private_circuit"].data), warm_start=True, device="cuda")
+        torch.cuda.synchronize()
+        steps["from_binaries_dir (warm start)"] = time.perf_counter() - t
+        refused = []
+
+        def refuse(label, proof, reason):
+            try:
+                service.push_proof(proof)
+            except PoolError as e:
+                if reason not in str(e):
+                    raise
+                refused.append(f"{label}: {e}")
+            else:
+                raise AssertionError(f"[service] the pool admitted a {label} private batch")
+
+        t = time.perf_counter()
+        keys = [service.push_proof(privates[0])]
+        steps["push (verify)"] = time.perf_counter() - t
+        # a second push of it while its bucket has room: its nullifiers
+        refuse("the same batch again", privates[0], "duplicate nullifier")
+        keys.append(service.push_proof(privates[1]))
+        refuse("a dummy private batch", built["dummy_pb"], "dummy")
+        stats = service.bucket_stats()
+        if len(set(keys)) != 1 or [s.num_proofs for s in stats.values()] != [2]:
+            raise AssertionError(f"[service] the two private batches are not one bucket: {stats}")
+        t = time.perf_counter()
+        public = service.aggregate(keys[0], seed=80)
+        torch.cuda.synchronize()
+        steps["aggregate (snapshot + prove)"] = time.perf_counter() - t
+        t = time.perf_counter()
+        parsed = service.verify(public)
+        steps["verify"] = time.perf_counter() - t
+        if parsed.aggregator_address != address or service.pool.num_proofs() != 2:
+            raise AssertionError("[service] the public batch is not bound to the service's "
+                                 "address, or the pool gave up custody")
+        other = PublicBatchAggregator(service.circuit, service.inner_verify,
+                                      service.outer_verify, service.dummy_template,
+                                      wi.BytesDigest(bytes(32 * [7])))
+        try:
+            other.verify(public)
+        except BatchCompatibilityError as e:
+            refused.append(f"another address: {e}")
+        else:
+            raise AssertionError("[service] a service of another address accepted the proof")
+        if [p.name for p in (bins / "aot").iterdir()] != ["entry.bin"]:
+            raise AssertionError("[service] the bins directory's aot/ was touched")
+    print(f"[service] 4 leaves -> 2 private batches -> pool (one bucket) -> public batch "
+          f"(degree_bits {service.circuit.data.degree_bits}) accepted and bound to the "
+          f"service's address; refused: {'; '.join(refused)}; seconds: "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in steps.items())}; {card()}", flush=True)
 
 
 def main() -> int:
@@ -2875,7 +3335,7 @@ def main() -> int:
     phase_zk(kernels)
     phase_aggregation_rand("cuda")
     phase_recursion(kernels)
-    phase_aggregation(kernels)
+    phase_service(kernels, phase_aggregation(kernels))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

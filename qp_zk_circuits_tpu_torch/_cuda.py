@@ -43,14 +43,25 @@ _ENTRIES = {
     "qzk_quotient_set_constants": [_P, _P, _P],
     "qzk_quotient": [_P, _LL, _P, _P, _LL] + [_P] * 11 + [_I] * 13 + [_P],
     "qzk_permutation": [_P, _LL] + [_P] * 6 + [_I] * 5 + [_P],
-    "qzk_fri_composition": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _P],
-    "qzk_eval_openings": [_P, _I, _P, _P, _P, _I, _P],
-    "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "qzk_fri_composition": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
+    "qzk_eval_openings": [_P, _I, _P, _P, _P, _I, _I, _P],
+    "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "qzk_query_gather": [_P, _P],
     "qzk_rand_felts": [_P, _LL, _LL, _LL, _LL, _ULL, _ULL, _P],
 }
 
+#: the kernels with a proof axis (A, B, C, D, E, F) take at most this many
+#: proofs a launch: each proof's pointers and challenges travel by value in
+#: the launch's parameters (MAX_PROOFS of csrc/quotient.cu, permutation.cu
+#: and fri.cu); a larger batch takes more launches of the same kernel
+PROOFS_PER_LAUNCH = 16
+
 _lib = None
+
+
+def proof_groups(k: int, per_launch: int = PROOFS_PER_LAUNCH) -> list[tuple[int, int]]:
+    """The proof ranges of a batch's launches: at most `per_launch` each."""
+    return [(g, min(g + per_launch, k)) for g in range(0, k, per_launch)]
 
 
 def _nvcc() -> str:

@@ -1,6 +1,17 @@
 // Kernels C-F: the FRI tail of the prover, from the quotient commit to the
 // proof. Each entry launches once on the caller's stream, allocates nothing and returns the launches' cudaError_t.
 //
+// A proof axis: each entry takes 1..MAX_PROOFS proofs of one circuit in one
+// launch (a batch of proofs, fri/prover.py::fri_commit_phase_batch and
+// fri_query_phase_batch; a single proof is a batch of one), replacing the
+// JAX package's jax.vmap of the fused prover (plonk/prover_fused.py:1007,
+// :1049) over its FRI tail (:655-790). The proofs share the circuit's shapes
+// and tables; each proof's pointers and scalars (its oracles, points,
+// alpha, betas, query indices) ride by value in the launch's parameters,
+// a __grid_constant__ struct read in place, inside the classic 4 KB
+// parameter limit; the proof is a grid axis (C and E: y, D: z, F: the
+// block's query row), so no block holds more than one proof's scalars.
+//
 // Kernel C, qzk_fri_composition (fri/prover.py::compute_composition).
 //   Replaces the JAX package's fri/prover.py::compute_composition (its
 //   _get_q_jit run) and plonk/prover_fused.py::fused lines 655-696:
@@ -81,14 +92,19 @@
 //   one buffer), so a leaf proof's plan has 10 segments, degree 16's 14.
 //   Bound: bytes, the values gathered (91 KB at the leaf); the device time
 //   is a launch's. What a proof pays is the call (the host packing the plan
-//   was most of it), so the plan travels by value and stays short: the
-//   segments (24 bytes each) and the 32-bit query indices are one
-//   __grid_constant__ parameter of at most 3,608 bytes, inside the classic
-//   4 KB kernel parameter limit (no upload, no plan tensor). A block takes a
-//   query; its threads stride over the packed row, each finds its segment by
-//   a binary search of the offsets in parameter space, makes one load and
-//   one coalesced store. The output is pinned host memory, mapped: the
-//   kernel writes across the bus, no copy launch.
+//   was most of it), so the plan travels by value and stays short: one
+//   __grid_constant__ parameter of 3,608 bytes, inside the classic 4 KB
+//   kernel parameter limit (no upload, no plan tensor), holding the
+//   segments' shapes (16 bytes each), then for each proof its sources'
+//   addresses (8 bytes a segment) and its 32-bit query indices. The proofs
+//   of a batch share the shapes, so sixteen leaf proofs (10 segments, 28
+//   queries) take 3,256 bytes: one launch, where a plan of whole segments a
+//   proof would need 160 segments and 448 queries, above 4 KB (CUDA 12.1's
+//   larger parameter space is not needed, and no plan is uploaded). A
+//   block takes a query of a proof; its threads stride over the packed row,
+//   each finds its segment by a binary search of the offsets in parameter
+//   space, makes one load and one coalesced store. The output is pinned
+//   host memory, mapped: the kernel writes across the bus, no copy launch.
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -99,6 +115,7 @@ namespace {
 constexpr int MAX_ORACLES = 8;
 constexpr int MAX_BATCHES = 4;
 constexpr int MAX_ARITY_BITS = 4;
+constexpr int MAX_PROOFS = 16;  // proofs a launch (fri/prover.py PROOFS_PER_LAUNCH)
 
 // Value i of a layer held as leaf rows of arity 2^a_bits, rows = m >> a_bits:
 // row i mod rows, column i / rows (a_bits = 0 is natural order).
@@ -124,13 +141,14 @@ constexpr int C_POW = 32 + MAX_TERMS / 32;  // alpha^j, j < 32, then alpha^(32 j
 constexpr int C_MAX_SMEM = (3 * MAX_TERMS + C_PART + C_DINV + 2 * C_POW + 2 * MAX_BATCHES) * 8;
 
 struct Sources {
-  const uint64_t* p[MAX_ORACLES];
+  const uint64_t* p[MAX_PROOFS][MAX_ORACLES];  // each proof's oracles' (C, m) LDEs
 };
 
 struct Batches {
   int n;
   int start[MAX_BATCHES + 1];  // batch b's terms are [start[b], start[b + 1])
-  uint64_t z0[MAX_BATCHES], z1[MAX_BATCHES];  // the batch's point
+  uint64_t z0[MAX_PROOFS][MAX_BATCHES], z1[MAX_PROOFS][MAX_BATCHES];  // each proof's points
+  uint64_t a0[MAX_PROOFS], a1[MAX_PROOFS];  // each proof's alpha
 };
 
 int c_smem_words(int terms) { return 3 * terms + C_PART + C_DINV + 2 * C_POW + 2 * MAX_BATCHES; }
@@ -143,7 +161,7 @@ __device__ __forceinline__ void setup_sync() { asm volatile("bar.sync 1, %0;" ::
 // (Montgomery's trick on the norms by shuffle scans over the row's 16
 // lanes and one Fermat power; a zero norm gives 0).
 __device__ void invert_tile(long long tile, const uint64_t* __restrict__ xs, const Batches& b,
-                            long long m, uint64_t* dinv) {
+                            int proof, long long m, uint64_t* dinv) {
   const int tx = threadIdx.x, g = threadIdx.y;
   const long long i = tile * C_POINTS + tx;
   const bool live = i < m;
@@ -152,7 +170,7 @@ __device__ void invert_tile(long long tile, const uint64_t* __restrict__ xs, con
     const int bi = bp + g;
     const bool mine = bi < b.n && live;
     const int bb = bi < b.n ? bi : 0;
-    const ext::E xz = {gl::sub(xs[live ? i : 0], b.z0[bb]), gl::sub(0, b.z1[bb])};
+    const ext::E xz = {gl::sub(xs[live ? i : 0], b.z0[proof][bb]), gl::sub(0, b.z1[proof][bb])};
     const uint64_t norm =
         mine ? gl::sub(gl::mul(xz.c0, xz.c0), gl::mul(ext::W, gl::mul(xz.c1, xz.c1))) : 1;
     const uint64_t nz = norm == 0 ? 1 : norm;  // inv(0) = 0 stays
@@ -215,12 +233,19 @@ __device__ void accumulate(long long tile, const uint64_t* const* col, const uin
   }
 }
 
+// Block (run, proof): proof blockIdx.y's terms (its ys and out a (terms, 2)
+// and (m, 2) part of the stacks), its alpha and points from the parameters.
 __global__ void __launch_bounds__(C_THREADS)
-    composition_kernel(Sources src, const int* __restrict__ terms, const uint64_t* __restrict__ ys,
-                       ext::E alpha, const uint64_t* __restrict__ xs, Batches b,
-                       uint64_t* __restrict__ out, long long m, int a_bits, long long per_block) {
+    composition_kernel(const __grid_constant__ Sources src, const int* __restrict__ terms,
+                       const uint64_t* __restrict__ ys, const uint64_t* __restrict__ xs,
+                       const __grid_constant__ Batches b, uint64_t* __restrict__ out, long long m,
+                       int a_bits, long long per_block) {
   extern __shared__ uint64_t csm[];
   const int n_terms = b.start[b.n];
+  const int proof = blockIdx.y;
+  ys += 2LL * proof * n_terms;
+  out += 2LL * proof * m;
+  const ext::E alpha = {b.a0[proof], b.a1[proof]};
   const uint64_t** col = (const uint64_t**)csm;  // term k's column
   uint64_t* apow = csm + n_terms;                 // alpha^k as (c0, c1)
   uint64_t* part = apow + 2 * n_terms;            // [batch][c][thread], then [batch][c][row][lane]
@@ -242,8 +267,8 @@ __global__ void __launch_bounds__(C_THREADS)
   if (warp < C_INV_WARPS) {
     // the first two tiles' denominators while the other warps stage the
     // scalars and sum the first tile
-    invert_tile(t0, xs, b, m, dinv);
-    if (t0 + 1 < tiles) invert_tile(t0 + 1, xs, b, m, dinv + C_DINV / 2);
+    invert_tile(t0, xs, b, proof, m, dinv);
+    if (t0 + 1 < tiles) invert_tile(t0 + 1, xs, b, proof, m, dinv + C_DINV / 2);
   } else {
     const int st = tid - 32 * C_INV_WARPS, sw = warp - C_INV_WARPS;
     // the first term's reads, in flight during the scans
@@ -291,7 +316,8 @@ __global__ void __launch_bounds__(C_THREADS)
 #pragma unroll 1
     for (int k = st; k < n_terms; k += C_SETUP) {
       const bool first = k == st;
-      col[k] = src.p[first ? o0 : terms[2 * k]] + (long long)(first ? r0 : terms[2 * k + 1]) * m;
+      col[k] = src.p[proof][first ? o0 : terms[2 * k]] +
+               (long long)(first ? r0 : terms[2 * k + 1]) * m;
     }
     setup_sync();
     // alpha^k and each setup thread's share of every c_b
@@ -373,7 +399,7 @@ __global__ void __launch_bounds__(C_THREADS)
     if (next >= tiles) break;  // uniform across the block
     __syncthreads();  // part and dinv[buf] are free
     if (warp < C_INV_WARPS) {
-      if (next + 1 < tiles) invert_tile(next + 1, xs, b, m, dinv + buf * (C_DINV / 2));
+      if (next + 1 < tiles) invert_tile(next + 1, xs, b, proof, m, dinv + buf * (C_DINV / 2));
     } else {
       accumulate(next, col, apow, b, m, part);
     }
@@ -392,18 +418,20 @@ constexpr int D_LOADS = 8;              // coefficient loads in flight a lane (1
 constexpr int D_MAX_RW = 4;             // rows a warp above one chunk (2 and 8 measured slower)
 constexpr int MAX_SEGS = MAX_ORACLES + 1;
 
-// consecutive output rows: segment s is rows start[s] .. start[s + 1] - 1,
-// coefficient rows from p[s] evaluated at point[s] (0 = zeta, 1 = g * zeta)
+// consecutive output rows of each proof: segment s is rows start[s] ..
+// start[s + 1] - 1, coefficient rows from p[proof][s] evaluated at the
+// proof's point[s] (0 = zeta, 1 = g * zeta)
 struct Rows {
-  const uint64_t* p[MAX_SEGS];
+  const uint64_t* p[MAX_PROOFS][MAX_SEGS];
   long long start[MAX_SEGS + 1];
   int point[MAX_SEGS];
   int n;
-  uint64_t z0[2], z1[2];  // zeta and g * zeta
+  uint64_t z0[MAX_PROOFS][2], z1[MAX_PROOFS][2];  // each proof's zeta and g * zeta
 };
 
 __device__ __forceinline__ ext::E point_of(const Rows& rows, int pt) {
-  return {pt ? rows.z0[1] : rows.z0[0], pt ? rows.z1[1] : rows.z1[0]};
+  const int proof = blockIdx.z;
+  return {pt ? rows.z0[proof][1] : rows.z0[proof][0], pt ? rows.z1[proof][1] : rows.z1[proof][0]};
 }
 
 // Row r's coefficients from c0 on and its point (-1 past the last row):
@@ -415,18 +443,20 @@ __device__ __forceinline__ int find_row(const Rows& rows, long long r, int n, lo
   const unsigned owner = __ballot_sync(0xffffffffu, mine);
   if (owner == 0) return -1;
   const int s = __ffs(owner) - 1;
-  src = rows.p[s] + (r - rows.start[s]) * n + c0;
+  src = rows.p[blockIdx.z][s] + (r - rows.start[s]) * n + c0;
   return rows.point[s];
 }
 
-// Block (tile, chunk): the partial sums over coefficients [c0, c0 + D_CHUNK)
-// of the tile's 8 rw rows (warp w takes rows w rw .. w rw + rw - 1, one at a
-// time, lane l coefficients c0 + l + 32 k), times z^c0, into dst[row][chunk]
-// (dst = out when the rows have one chunk). Lane l sums c_(l + 32 k)
-// z^(32 k) and multiplies the sum by z^l (times z^c0) once a row.
+// Block (tile, chunk, proof): the partial sums over coefficients [c0, c0 +
+// D_CHUNK) of the proof's tile of 8 rw rows (warp w takes rows w rw .. w rw
+// + rw - 1, one at a time, lane l coefficients c0 + l + 32 k), times z^c0,
+// into dst[proof][row][chunk] (dst = out when the rows have one chunk). Lane
+// l sums c_(l + 32 k) z^(32 k) and multiplies the sum by z^l (times z^c0)
+// once a row.
 __global__ void __launch_bounds__(D_THREADS)
     openings_kernel(const __grid_constant__ Rows rows, uint64_t* __restrict__ dst,
                     long long total, int n, int rw, int chunks) {
+  dst += 2LL * blockIdx.z * total * chunks;
   __shared__ ulonglong2 scan[2][2][32];  // [point][z^l, z^(32 l)]
   __shared__ ulonglong2 cpow[2];         // z^c0
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -574,7 +604,7 @@ struct FoldConsts {
   uint64_t wb[32];                        // w^(-2^b)
   uint64_t c[(1 << MAX_ARITY_BITS) - 1];  // c_tj at 2^a - 2^(a - t) + j
   uint64_t scale;                         // 2^-a: the a halvings, applied once
-  uint64_t beta0[MAX_ARITY_BITS], beta1[MAX_ARITY_BITS];  // beta^(2^t)
+  uint64_t beta0[MAX_PROOFS][MAX_ARITY_BITS], beta1[MAX_PROOFS][MAX_ARITY_BITS];  // beta^(2^t)
 };
 constexpr int FOLD_CONST_WORDS = 32 + (1 << MAX_ARITY_BITS) - 1 + 1;
 
@@ -593,7 +623,9 @@ __device__ __forceinline__ ext::E fold2(ext::E e, ext::E o, uint64_t u, const ui
   return {gl::reduce192(lo0, hi0, top0), gl::reduce192(lo1, hi1, top1)};
 }
 
-// Block: E_THREADS / 2^S_BITS leaf rows, 2^S_BITS threads a row, thread h
+// Block (rows, proof): proof blockIdx.y's layer (a (mp, 2 A) part of the
+// stacked leaves) folded with its betas into its part of out.
+// E_THREADS / 2^S_BITS leaf rows, 2^S_BITS threads a row, thread h
 // holding the pairs h + 2^S_BITS i of the first fold; the first A_BITS -
 // S_BITS folds in registers, the last S_BITS by shuffles among the row's
 // threads. One thread a row (S_BITS = 0) stages the block's rows in shared
@@ -610,6 +642,9 @@ __global__ void __launch_bounds__(E_THREADS)
   __shared__ uint64_t st[S_BITS == 0 ? ROWS * STRIDE : 1];
   __shared__ uint64_t cb[A - 1][3];         // c_tj beta^(2^t) as (c0, c1, W c1)
   const int tid = threadIdx.x, lane = tid & 31, h = tid & (T - 1);
+  const int proof = blockIdx.y;
+  leaves += 2LL * A * mp * proof;
+  out += 2LL * mp * proof;
   const long long q0 = (long long)blockIdx.x * ROWS;
   const long long q = q0 + (tid >> S_BITS);
   const ulonglong2* src = (const ulonglong2*)leaves;  // a value a unit
@@ -631,7 +666,8 @@ __global__ void __launch_bounds__(E_THREADS)
   if (tid < A - 1) {
     int t = 0;
     while (tid >= A - (A >> (t + 1))) ++t;  // tid's fold
-    const uint64_t c0 = gl::mul(k.c[tid], k.beta0[t]), c1 = gl::mul(k.c[tid], k.beta1[t]);
+    const uint64_t c0 = gl::mul(k.c[tid], k.beta0[proof][t]);
+    const uint64_t c1 = gl::mul(k.c[tid], k.beta1[proof][t]);
     cb[tid][0] = c0;
     cb[tid][1] = c1;
     cb[tid][2] = gl::mul(ext::W, c1);
@@ -699,36 +735,48 @@ __global__ void __launch_bounds__(E_THREADS)
 // ---------------------------------------------------------------------------
 // kernel F
 
-constexpr int F_MAX_SEGS = 128;
-constexpr int F_MAX_QUERIES = 128;
+constexpr int F_MAX_SEGS = 128;     // a proof's segments
+constexpr int F_MAX_QUERIES = 128;  // a proof's queries
 constexpr int F_MAX_THREADS = 1024;
+constexpr int F_PLAN_BYTES = 24 + 24 * F_MAX_SEGS + 4 * F_MAX_QUERIES;  // one proof at both limits
 
-// a plan segment, 24 bytes, at `offset` in the packed row. levels = 0: the
-// row r of `src` picked by the query index, values src[r * row_stride +
-// j * col_stride] for j < width. levels = L > 0: a Merkle path, L levels of
-// 4-value digests stored one after another from `src` (level l has
-// 2^(mask_bits - l) rows, level 0 2^mask_bits), at level l the row
-// ((q & mask) >> l) ^ flip; width 4 L.
-struct GatherSeg {
-  const uint64_t* src;
+// a plan segment's shape, 16 bytes, at `offset` in the packed row. levels =
+// 0: the row r of the proof's source `src` picked by the query index,
+// values src[r * row_stride + j * col_stride] for j < width. levels = L > 0:
+// a Merkle path, L levels of 4-value digests stored one after another from
+// `src` (level l has 2^(mask_bits - l) rows, level 0 2^mask_bits), at level
+// l the row ((q & mask) >> l) ^ flip; width 4 L.
+struct GatherShape {
   int row_stride, col_stride;
   unsigned short offset, width;
   unsigned char mask_bits, shift, flip, levels;
 };
 
+// The header, then in `body`: the sources' addresses (proofs, segments),
+// the segments' shapes (segments), the query indices (proofs, queries).
 struct GatherPlan {
-  uint64_t* out;  // (queries, row_width)
-  int queries, segments, row_width, pad;
-  GatherSeg seg[F_MAX_SEGS];
-  unsigned q[F_MAX_QUERIES];
+  uint64_t* out;  // (proofs, queries, row_width)
+  int queries, segments, row_width, proofs;
+  unsigned char body[F_PLAN_BYTES - 24];
 };
-static_assert(sizeof(GatherSeg) == 24, "the wrapper packs 24-byte segments");
-static_assert(sizeof(GatherPlan) == 24 + 24 * F_MAX_SEGS + 4 * F_MAX_QUERIES,
-              "the wrapper packs the plan without padding");
+static_assert(sizeof(GatherShape) == 16, "the wrapper packs 16-byte segment shapes");
+static_assert(sizeof(GatherPlan) == F_PLAN_BYTES, "the wrapper packs the plan without padding");
 static_assert(sizeof(GatherPlan) <= 4096 - 64, "the plan fits the classic 4 KB parameter limit");
 
+__device__ __forceinline__ const GatherShape* plan_shapes(const GatherPlan& p) {
+  return (const GatherShape*)(p.body + 8 * p.proofs * p.segments);
+}
+
+__device__ __forceinline__ const unsigned* plan_queries(const GatherPlan& p) {
+  return (const unsigned*)(p.body + (8 * p.proofs + 16) * p.segments);
+}
+
+// Block b: query b % queries of proof b / queries, into out row b.
 __global__ void __launch_bounds__(F_MAX_THREADS) gather_kernel(const __grid_constant__ GatherPlan p) {
-  const unsigned q = p.q[blockIdx.x];
+  const uint64_t* const* srcs =
+      (const uint64_t* const*)p.body + (long long)(blockIdx.x / p.queries) * p.segments;
+  const GatherShape* seg = plan_shapes(p);
+  const unsigned q = plan_queries(p)[blockIdx.x];
   uint64_t* dst = p.out + (long long)blockIdx.x * p.row_width;
   int s = 0;
   for (int c = threadIdx.x; c < p.row_width; c += blockDim.x) {
@@ -736,12 +784,12 @@ __global__ void __launch_bounds__(F_MAX_THREADS) gather_kernel(const __grid_cons
     int hi = p.segments - 1;
     while (s < hi) {
       const int mid = (s + hi + 1) >> 1;
-      if (p.seg[mid].offset <= c)
+      if (seg[mid].offset <= c)
         s = mid;
       else
         hi = mid - 1;
     }
-    const GatherSeg& g = p.seg[s];
+    const GatherShape& g = seg[s];
     const unsigned mask = g.mask_bits >= 32 ? 0xFFFFFFFFu : (1u << g.mask_bits) - 1u;
     int j = c - g.offset, level = 0;
     long long base = 0;  // rows before level `level`: 2 n0 - 2 (n0 >> level)
@@ -751,7 +799,7 @@ __global__ void __launch_bounds__(F_MAX_THREADS) gather_kernel(const __grid_cons
       base = ((2LL << g.mask_bits) - ((2LL << g.mask_bits) >> level)) * g.row_stride;
     }
     const long long r = (long long)(((q & mask) >> (g.shift + level)) ^ g.flip);
-    dst[c] = __ldg(g.src + base + r * g.row_stride + (long long)j * g.col_stride);
+    dst[c] = __ldg(srcs[s] + base + r * g.row_stride + (long long)j * g.col_stride);
   }
 }
 
@@ -759,33 +807,44 @@ bool grid_fits(long long blocks) { return blocks >= 1 && blocks <= 0x7FFFFFFFLL;
 
 }  // namespace
 
-// sources: host array of n_sources device pointers (the oracles' (C, m)
-// LDEs); terms: device int32 (K, 2) (oracle, row); ys: device (K, 2) claimed
-// openings; xs: device (m,) domain points; batches: host uint64
-// (n_batches, 3) rows (end, z0, z1), batch b's terms [end[b - 1], end[b]);
-// alpha: host uint64 (2,); out: m extension values as
+// For `proofs` proofs of one circuit: sources: host array (proofs,
+// n_sources) of device pointers (each proof's oracles' (C, m) LDEs); terms:
+// device int32 (K, 2) (oracle, row), the circuit's; ys: device (proofs, K,
+// 2) claimed openings; xs: device (m,) domain points; batches: host uint64
+// (proofs, n_batches, 3) rows (end, z0, z1), batch b's terms [end[b - 1],
+// end[b]), the ends the same for every proof; alphas: host uint64
+// (proofs, 2); out: (proofs, m) extension values, each proof's as
 // (m >> a_bits, 2^(a_bits + 1)) leaf rows. One launch.
 extern "C" int qzk_fri_composition(const void* sources, int n_sources, const void* terms,
                                    const void* ys, const void* xs, const void* batches,
-                                   int n_batches, const void* alpha, void* out, long long m,
-                                   int a_bits, void* stream) {
+                                   int n_batches, const void* alphas, void* out, long long m,
+                                   int a_bits, int proofs, void* stream) {
   const long long tiles = (m + C_POINTS - 1) / C_POINTS;
   if (n_sources < 1 || n_sources > MAX_ORACLES || n_batches < 1 || n_batches > MAX_BATCHES ||
-      !grid_fits(tiles) || a_bits < 0 || a_bits > MAX_ARITY_BITS || (m & (m - 1)) ||
-      (m >> a_bits) < 1)
+      proofs < 1 || proofs > MAX_PROOFS || !grid_fits(tiles) || a_bits < 0 ||
+      a_bits > MAX_ARITY_BITS || (m & (m - 1)) || (m >> a_bits) < 1)
     return (int)cudaErrorInvalidValue;
   Sources src{};
-  for (int o = 0; o < n_sources; ++o) src.p[o] = ((const uint64_t* const*)sources)[o];
   Batches b{};
   b.n = n_batches;
   const uint64_t* h = (const uint64_t*)batches;
   for (int t = 0; t < n_batches; ++t) {
     b.start[t + 1] = (int)h[3 * t];
-    b.z0[t] = h[3 * t + 1];
-    b.z1[t] = h[3 * t + 2];
     if (b.start[t + 1] <= b.start[t]) return (int)cudaErrorInvalidValue;
   }
   if (b.start[n_batches] > MAX_TERMS) return (int)cudaErrorInvalidValue;
+  for (int p = 0; p < proofs; ++p) {
+    for (int o = 0; o < n_sources; ++o)
+      src.p[p][o] = ((const uint64_t* const*)sources)[p * n_sources + o];
+    for (int t = 0; t < n_batches; ++t) {
+      const uint64_t* row = h + 3 * (p * n_batches + t);
+      if ((int)row[0] != b.start[t + 1]) return (int)cudaErrorInvalidValue;
+      b.z0[p][t] = row[1];
+      b.z1[p][t] = row[2];
+    }
+    b.a0[p] = ((const uint64_t*)alphas)[2 * p];
+    b.a1[p] = ((const uint64_t*)alphas)[2 * p + 1];
+  }
   static bool raised[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -802,40 +861,51 @@ extern "C" int qzk_fri_composition(const void* sources, int n_sources, const voi
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, composition_kernel, C_THREADS, smem);
   if (e != cudaSuccess) return (int)e;
-  long long blocks = (long long)sms * (per_sm < 1 ? 1 : per_sm);
+  // the card's resident blocks shared among the proofs, each a run of tiles
+  long long blocks = ((long long)sms * (per_sm < 1 ? 1 : per_sm) + proofs - 1) / proofs;
   if (blocks > tiles) blocks = tiles;
   const long long per_block = (tiles + blocks - 1) / blocks;
   blocks = (tiles + per_block - 1) / per_block;
-  const ext::E a = {((const uint64_t*)alpha)[0], ((const uint64_t*)alpha)[1]};
-  composition_kernel<<<(unsigned)blocks, dim3(C_POINTS, C_GROUPS), smem, (cudaStream_t)stream>>>(
-      src, (const int*)terms, (const uint64_t*)ys, a, (const uint64_t*)xs, b, (uint64_t*)out, m,
-      a_bits, per_block);
+  composition_kernel<<<dim3((unsigned)blocks, (unsigned)proofs), dim3(C_POINTS, C_GROUPS), smem,
+                       (cudaStream_t)stream>>>(src, (const int*)terms, (const uint64_t*)ys,
+                                               (const uint64_t*)xs, b, (uint64_t*)out, m, a_bits,
+                                               per_block);
   return (int)cudaGetLastError();
 }
 
-// segs: host uint64 (n_segs, 3) rows (device address of the first row,
-// row count, point); points: host uint64 (2, 2), zeta and g * zeta; out:
-// (total rows, 2); part: device scratch of (total rows, chunks, 2) for n
-// above D_CHUNK (chunks = ceil(n / D_CHUNK); unused, may be null, at or
-// below). One launch at or below D_CHUNK, two above.
+// For `proofs` proofs of one circuit: segs: host uint64 (proofs, n_segs, 3)
+// rows (device address of the first row, row count, point), the counts and
+// points the same for every proof; points: host uint64 (proofs, 2, 2), each
+// proof's zeta and g * zeta; out: (proofs, total rows, 2); part: device
+// scratch of (proofs, total rows, chunks, 2) for n above D_CHUNK (chunks =
+// ceil(n / D_CHUNK); unused, may be null, at or below). One launch at or
+// below D_CHUNK, two above.
 extern "C" int qzk_eval_openings(const void* segs, int n_segs, const void* points, void* out,
-                                 void* part, int n, void* stream) {
-  if (n_segs < 1 || n_segs > MAX_SEGS || n < 1) return (int)cudaErrorInvalidValue;
+                                 void* part, int n, int proofs, void* stream) {
+  if (n_segs < 1 || n_segs > MAX_SEGS || n < 1 || proofs < 1 || proofs > MAX_PROOFS)
+    return (int)cudaErrorInvalidValue;
   Rows rows{};
   rows.n = n_segs;
   const uint64_t* h = (const uint64_t*)segs;
   for (int s = 0; s < n_segs; ++s) {
-    rows.p[s] = (const uint64_t*)h[3 * s];
     rows.start[s + 1] = rows.start[s] + (long long)h[3 * s + 1];
     rows.point[s] = (int)h[3 * s + 2];
     if (rows.point[s] < 0 || rows.point[s] > 1) return (int)cudaErrorInvalidValue;
   }
-  const long long total = rows.start[n_segs];
   const uint64_t* z = (const uint64_t*)points;
-  for (int pt = 0; pt < 2; ++pt) {
-    rows.z0[pt] = z[2 * pt];
-    rows.z1[pt] = z[2 * pt + 1];
+  for (int p = 0; p < proofs; ++p) {
+    for (int s = 0; s < n_segs; ++s) {
+      const uint64_t* seg = h + 3 * (p * n_segs + s);
+      if ((long long)seg[1] != rows.start[s + 1] - rows.start[s] || (int)seg[2] != rows.point[s])
+        return (int)cudaErrorInvalidValue;
+      rows.p[p][s] = (const uint64_t*)seg[0];
+    }
+    for (int pt = 0; pt < 2; ++pt) {
+      rows.z0[p][pt] = z[4 * p + 2 * pt];
+      rows.z1[p][pt] = z[4 * p + 2 * pt + 1];
+    }
   }
+  const long long total = rows.start[n_segs];
   const int chunks = (n + D_CHUNK - 1) / D_CHUNK;
   // one chunk: a warp a row, for blocks enough; more: D_MAX_RW rows a warp
   // share the block's scans
@@ -844,78 +914,89 @@ extern "C" int qzk_eval_openings(const void* segs, int n_segs, const void* point
   if (!grid_fits(tiles) || chunks > 65535 || (chunks > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  openings_kernel<<<dim3((unsigned)tiles, (unsigned)chunks), D_THREADS, 0, s>>>(
+  openings_kernel<<<dim3((unsigned)tiles, (unsigned)chunks, (unsigned)proofs), D_THREADS, 0, s>>>(
       rows, (uint64_t*)(chunks > 1 ? part : out), total, n, rw, chunks);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || chunks == 1) return (int)e;
-  openings_sum_kernel<<<(unsigned)((total + D_WARPS - 1) / D_WARPS), D_THREADS, 0, s>>>(
-      (const uint64_t*)part, (uint64_t*)out, total, chunks);
+  // every proof's rows one after another: (proofs x total, chunks) sums
+  const long long all = proofs * total;
+  openings_sum_kernel<<<(unsigned)((all + D_WARPS - 1) / D_WARPS), D_THREADS, 0, s>>>(
+      (const uint64_t*)part, (uint64_t*)out, all, chunks);
   return (int)cudaGetLastError();
 }
 
 template <int A_BITS>
 cudaError_t launch_fold(const uint64_t* leaves, const FoldConsts& k, uint64_t* out, long long mp,
-                        int mp_bits, int next_bits, cudaStream_t s) {
+                        int mp_bits, int next_bits, int proofs, cudaStream_t s) {
   constexpr int SMALL = A_BITS - 1;  // threads a row 2^S: small layers
   constexpr int LARGE = E_LARGE_S < SMALL ? E_LARGE_S : SMALL;
   if (mp <= E_SPREAD_ROWS) {
     const long long blocks = (mp + (E_THREADS >> SMALL) - 1) / (E_THREADS >> SMALL);
-    fold_kernel<A_BITS, SMALL><<<(unsigned)blocks, E_THREADS, 0, s>>>(leaves, k, out, mp,
-                                                                      mp_bits, next_bits);
+    fold_kernel<A_BITS, SMALL><<<dim3((unsigned)blocks, (unsigned)proofs), E_THREADS, 0, s>>>(
+        leaves, k, out, mp, mp_bits, next_bits);
   } else {
     const long long blocks = (mp + (E_THREADS >> LARGE) - 1) / (E_THREADS >> LARGE);
-    fold_kernel<A_BITS, LARGE><<<(unsigned)blocks, E_THREADS, 0, s>>>(leaves, k, out, mp,
-                                                                      mp_bits, next_bits);
+    fold_kernel<A_BITS, LARGE><<<dim3((unsigned)blocks, (unsigned)proofs), E_THREADS, 0, s>>>(
+        leaves, k, out, mp, mp_bits, next_bits);
   }
   return cudaGetLastError();
 }
 
-// leaves: device (mp, 2^(a_bits + 1)), the round's layer; consts: host
-// uint64 (FOLD_CONST_WORDS,): w^(-2^b) for b < 32, the fold constants
+// For `proofs` proofs of one FRI schedule: leaves: device (proofs, mp,
+// 2^(a_bits + 1)), each proof's layer of the round; consts: host uint64
+// (FOLD_CONST_WORDS,): w^(-2^b) for b < 32, the fold constants
 // shift^(-2^t) w_t^(-j m') (2^a - 1 used) and 2^-a (fri/prover.py::
-// _fold_consts); betas: host uint64 (a_bits, 2) beta^(2^t); out: mp
-// extension values as (mp >> next_bits, 2^(next_bits + 1)) leaf rows of the
+// _fold_consts), the same for every proof; betas: host uint64 (proofs,
+// a_bits, 2), each proof's beta^(2^t); out: (proofs, mp) extension values,
+// each proof's as (mp >> next_bits, 2^(next_bits + 1)) leaf rows of the
 // next round.
 extern "C" int qzk_fri_fold(const void* leaves, const void* consts, const void* betas, void* out,
-                            long long mp, int a_bits, int next_bits, void* stream) {
+                            long long mp, int a_bits, int next_bits, int proofs, void* stream) {
   if (a_bits < 1 || a_bits > MAX_ARITY_BITS || next_bits < 0 || next_bits > MAX_ARITY_BITS ||
-      mp < 1 || (mp & (mp - 1)) || mp > (1LL << 31) || (mp >> next_bits) < 1)
+      mp < 1 || (mp & (mp - 1)) || mp > (1LL << 31) || (mp >> next_bits) < 1 || proofs < 1 ||
+      proofs > MAX_PROOFS)
     return (int)cudaErrorInvalidValue;
   FoldConsts k{};
   memcpy(&k, consts, FOLD_CONST_WORDS * sizeof(uint64_t));
   const uint64_t* b = (const uint64_t*)betas;
-  for (int t = 0; t < a_bits; ++t) {
-    k.beta0[t] = b[2 * t];
-    k.beta1[t] = b[2 * t + 1];
-  }
+  for (int p = 0; p < proofs; ++p)
+    for (int t = 0; t < a_bits; ++t) {
+      k.beta0[p][t] = b[2 * (p * a_bits + t)];
+      k.beta1[p][t] = b[2 * (p * a_bits + t) + 1];
+    }
   int mp_bits = 0;
   while ((1LL << mp_bits) < mp) ++mp_bits;
   auto lv = (const uint64_t*)leaves;
   auto o = (uint64_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (a_bits) {
-    case 1: return (int)launch_fold<1>(lv, k, o, mp, mp_bits, next_bits, s);
-    case 2: return (int)launch_fold<2>(lv, k, o, mp, mp_bits, next_bits, s);
-    case 3: return (int)launch_fold<3>(lv, k, o, mp, mp_bits, next_bits, s);
-    default: return (int)launch_fold<4>(lv, k, o, mp, mp_bits, next_bits, s);
+    case 1: return (int)launch_fold<1>(lv, k, o, mp, mp_bits, next_bits, proofs, s);
+    case 2: return (int)launch_fold<2>(lv, k, o, mp, mp_bits, next_bits, proofs, s);
+    case 3: return (int)launch_fold<3>(lv, k, o, mp, mp_bits, next_bits, proofs, s);
+    default: return (int)launch_fold<4>(lv, k, o, mp, mp_bits, next_bits, proofs, s);
   }
 }
 
-// plan: host bytes of a GatherPlan (fri/prover.py::pack_gather_plan):
-// its out pointer (pinned host memory, translated here to its device
-// address), counts, segments in packed-row order and query indices. One
-// launch, a block a query of the packed row's width rounded up to a warp
-// (at most F_MAX_THREADS).
+// plan: host bytes of a GatherPlan (fri/prover.py::pack_gather_plan): its
+// out pointer (pinned host memory, translated here to its device address),
+// counts, each proof's sources in packed-row order, the segments' shapes
+// and each proof's query indices. One launch, a block a query of a proof,
+// of the packed row's width rounded up to a warp (at most F_MAX_THREADS).
 extern "C" int qzk_query_gather(const void* plan, void* stream) {
   GatherPlan p;
   memcpy(&p, plan, sizeof(GatherPlan));
   if (p.queries < 1 || p.queries > F_MAX_QUERIES || p.segments < 1 ||
-      p.segments > F_MAX_SEGS || p.row_width < 1)
+      p.segments > F_MAX_SEGS || p.row_width < 1 || p.proofs < 1 || p.proofs > MAX_PROOFS ||
+      24 + (8LL * p.proofs + 16) * p.segments + 4LL * p.proofs * p.queries > F_PLAN_BYTES)
     return (int)cudaErrorInvalidValue;
+  const uint64_t* const* srcs = (const uint64_t* const*)p.body;
+  for (int i = 0; i < p.proofs * p.segments; ++i)
+    if (srcs[i] == nullptr) return (int)cudaErrorInvalidValue;
+  const GatherShape* seg = (const GatherShape*)(p.body + 8 * p.proofs * p.segments);
   int end = 0;
   for (int s = 0; s < p.segments; ++s) {
-    const GatherSeg& g = p.seg[s];
-    if (g.offset != end || g.width < 1 || g.mask_bits > 32 || g.src == nullptr ||
+    const GatherShape& g = seg[s];
+    if (g.offset != end || g.width < 1 || g.mask_bits > 32 ||
         (g.levels && (g.width != 4 * g.levels || g.shift || g.levels > g.mask_bits)))
       return (int)cudaErrorInvalidValue;
     end += g.width;
@@ -926,6 +1007,6 @@ extern "C" int qzk_query_gather(const void* plan, void* stream) {
   if (e != cudaSuccess) return (int)e;
   p.out = (uint64_t*)dev;
   const int threads = p.row_width >= F_MAX_THREADS ? F_MAX_THREADS : (p.row_width + 31) / 32 * 32;
-  gather_kernel<<<(unsigned)p.queries, threads, 0, (cudaStream_t)stream>>>(p);
+  gather_kernel<<<(unsigned)(p.proofs * p.queries), threads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -219,33 +219,84 @@ def eval_openings(oracles, zeta, zeta_next, next_oracle: int = 2, next_count: in
     if oracles[0].coeffs.device.type == "cpu":
         return eval_openings_plain(oracles, zeta, zeta_next, next_oracle, next_count)
     _cuda.require_cuda_int64(*(o.coeffs for o in oracles))
-    return _split(_launch_openings(oracles, zeta, zeta_next, next_oracle, next_count),
-                  oracles, next_count)
+    host, launches = _openings_launches([oracles], [zeta], [zeta_next], next_oracle, next_count)
+    eval_openings.launches += launches
+    return _split(host[0], oracles, next_count)
 
 
-def _launch_openings(oracles, zeta, zeta_next, next_oracle, next_count) -> np.ndarray:
-    dev = oracles[0].coeffs.device
-    n = oracles[0].coeffs.shape[1]
-    coeffs = [o.coeffs.contiguous() for o in oracles]
-    segs = [(c.data_ptr(), c.shape[0], 0) for c in coeffs]
-    if next_count:
-        segs.append((coeffs[next_oracle].data_ptr(), next_count, 1))
-    segs = np.array(segs, dtype=np.uint64)
-    points = np.array([zeta, zeta_next], dtype=np.uint64).reshape(2, 2)
-    rows = int(segs[:, 1].sum())
+def eval_openings_batch_plain(oracles_k, zetas, zeta_nexts, next_oracle: int = 2,
+                              next_count: int = 0):
+    """Plain torch version of `eval_openings_batch` (same arguments and
+    result): `eval_openings_plain` a proof."""
+    _openings_batch_limits(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
+    return [eval_openings_plain(o, z, zn, next_oracle, next_count)
+            for o, z, zn in zip(oracles_k, zetas, zeta_nexts)]
+
+
+def eval_openings_batch(oracles_k, zetas, zeta_nexts, next_oracle: int = 2,
+                        next_count: int = 0):
+    """`eval_openings` for K proofs of one circuit: oracles_k[i] proof i's
+    oracles (the same shapes for every proof), zetas and zeta_nexts (K, 2)
+    its points. Returns K of `eval_openings`' results.
+
+    On CUDA coefficients: kernel D with a proof axis, each proof its own
+    points and oracles, at most PROOFS_PER_LAUNCH proofs a call (each one
+    launch for rows of at most D_CHUNK coefficients, two above), and one
+    transfer for the batch. On CPU coefficients: the plain version."""
+    _openings_batch_limits(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
+    if oracles_k[0][0].coeffs.device.type == "cpu":
+        return eval_openings_batch_plain(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
+    _cuda.require_cuda_int64(*(o.coeffs for oracles in oracles_k for o in oracles))
+    host, launches = _openings_launches(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
+    eval_openings_batch.launches += launches
+    return [_split(h, oracles, next_count) for h, oracles in zip(host, oracles_k)]
+
+
+def _openings_batch_limits(oracles_k, zetas, zeta_nexts, next_oracle, next_count) -> None:
+    if not oracles_k or len(zetas) != len(oracles_k) or len(zeta_nexts) != len(oracles_k):
+        raise ValueError(f"{len(oracles_k)} proofs' oracles for {len(zetas)} and "
+                         f"{len(zeta_nexts)} points")
+    shapes = [tuple(tuple(o.coeffs.shape) for o in oracles) for oracles in oracles_k]
+    if len(set(shapes)) != 1:
+        raise ValueError("the proofs' oracles differ in shape")
+    _openings_limits(oracles_k[0], next_oracle, next_count)
+
+
+def _openings_launches(oracles_k, zetas, zeta_nexts, next_oracle, next_count):
+    """Kernel D over K proofs' oracles: ((K, rows, 2) host values,
+    launches)."""
+    dev = oracles_k[0][0].coeffs.device
+    n = oracles_k[0][0].coeffs.shape[1]
+    k = len(oracles_k)
+    segs = []
+    for oracles in oracles_k:
+        coeffs = [o.coeffs.contiguous() for o in oracles]
+        segs.append([(c.data_ptr(), c.shape[0], 0) for c in coeffs])
+        if next_count:
+            segs[-1].append((coeffs[next_oracle].data_ptr(), next_count, 1))
+    segs = np.array(segs, dtype=np.uint64)  # (K, segments, 3)
+    points = np.ascontiguousarray(np.stack([np.asarray(zetas, dtype=np.uint64).reshape(k, 2),
+                                            np.asarray(zeta_nexts, dtype=np.uint64).reshape(k, 2)],
+                                           axis=1))  # (K, 2, 2)
+    rows = int(segs[0, :, 1].sum())
     chunks = -(-n // D_CHUNK)
-    out = torch.empty((rows, 2), dtype=torch.int64, device=dev)
-    part = torch.empty((rows, chunks, 2), dtype=torch.int64, device=dev) if chunks > 1 else None
-    err = _cuda.lib().qzk_eval_openings(
-        segs.ctypes.data, len(segs), points.ctypes.data, out.data_ptr(),
-        None if part is None else part.data_ptr(), n, _cuda.stream()
-    )
-    _cuda.check(err, "qzk_eval_openings")
-    eval_openings.launches += 1 if chunks == 1 else 2
-    return gl.to_u64(out)
+    out = torch.empty((k, rows, 2), dtype=torch.int64, device=dev)
+    part = torch.empty((k, rows, chunks, 2), dtype=torch.int64, device=dev) if chunks > 1 else None
+    launches = 0
+    for g0, g1 in _cuda.proof_groups(k):
+        # the group's rows are whole rows of the C-ordered host arrays
+        err = _cuda.lib().qzk_eval_openings(
+            segs[g0:g1].ctypes.data, segs.shape[1], points[g0:g1].ctypes.data,
+            out[g0].data_ptr(), None if part is None else part[g0].data_ptr(), n, g1 - g0,
+            _cuda.stream()
+        )
+        _cuda.check(err, "qzk_eval_openings")
+        launches += 1 if chunks == 1 else 2
+    return gl.to_u64(out), launches
 
 
 eval_openings.launches = 0
+eval_openings_batch.launches = 0
 
 
 def verify_row(

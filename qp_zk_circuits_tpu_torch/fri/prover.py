@@ -270,38 +270,90 @@ def compute_composition(
     if oracles[0].lde.device.type == "cpu":
         return compute_composition_plain(oracles, instance, openings, alpha, lde_bits, arity_bits)
     _cuda.require_cuda_int64(*(o.lde for o in oracles))
-    return _launch_composition(oracles, instance, openings, alpha, lde_bits, arity_bits)
+    out, launches = _composition_launches([oracles], [instance], [openings], [alpha], lde_bits,
+                                          arity_bits)
+    compute_composition.launches += launches
+    return out[0]
 
 
-def _launch_composition(oracles, instance, openings, alpha, lde_bits, arity_bits):
-    dev = oracles[0].lde.device
-    m = 1 << lde_bits
-    ldes = [o.lde.contiguous() for o in oracles]
-    ys = np.concatenate([np.asarray(y, dtype=np.uint64).reshape(-1, 2) for y in openings])
-    k = instance.num_terms()
-    if ys.shape[0] != k:
-        raise ValueError(f"{ys.shape[0]} claimed openings for {k} terms")
-    ends = np.cumsum([len(b.polys) for b in instance.batches])
-    batches = np.array(
-        [[end, int(b.point[0]) % gl.P, int(b.point[1]) % gl.P]
-         for end, b in zip(ends, instance.batches)], dtype=np.uint64)
-    alpha_h = np.ascontiguousarray(np.asarray(alpha, dtype=np.uint64).reshape(2))
-    ys_d = gl.from_u64(ys, dev)
-    terms = _device_term_table(tuple(b.polys for b in instance.batches), dev)
-    xs = _device_domain_points(lde_bits, dev)
-    ptrs = np.array([t.data_ptr() for t in ldes], dtype=np.uint64)
-    out = torch.empty((m >> arity_bits, 2 << arity_bits), dtype=torch.int64, device=dev)
-    err = _cuda.lib().qzk_fri_composition(
-        ptrs.ctypes.data, len(ldes), terms.data_ptr(), ys_d.data_ptr(), xs.data_ptr(),
-        batches.ctypes.data, len(batches), alpha_h.ctypes.data, out.data_ptr(), m, arity_bits,
-        _cuda.stream(),
-    )
-    _cuda.check(err, "qzk_fri_composition")
-    compute_composition.launches += 1
+def _composition_batch_limits(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits):
+    k = len(oracles_k)
+    if not k or len(instances) != k or len(openings_k) != k or len(alphas) != k:
+        raise ValueError(f"{k} proofs' oracles for {len(instances)} instances, "
+                         f"{len(openings_k)} openings and {len(alphas)} alphas")
+    if len({tuple(tuple(o.lde.shape) for o in oracles) for oracles in oracles_k}) != 1:
+        raise ValueError("the proofs' oracles differ in shape")
+    if len({tuple(b.polys for b in inst.batches) for inst in instances}) != 1:
+        raise ValueError("the proofs' instances open other columns")
+    _composition_limits(oracles_k[0], instances[0], lde_bits, arity_bits)
+
+
+def compute_composition_batch_plain(oracles_k, instances, openings_k, alphas, lde_bits: int,
+                                    arity_bits: int = 0) -> torch.Tensor:
+    """Plain torch version of `compute_composition_batch` (same arguments):
+    `compute_composition_plain` a proof, stacked."""
+    _composition_batch_limits(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits)
+    return torch.stack([compute_composition_plain(o, inst, op, al, lde_bits, arity_bits)
+                        for o, inst, op, al in zip(oracles_k, instances, openings_k, alphas)])
+
+
+def compute_composition_batch(oracles_k, instances, openings_k, alphas, lde_bits: int,
+                              arity_bits: int = 0) -> torch.Tensor:
+    """`compute_composition` for K proofs of one circuit: oracles_k[i],
+    instances[i] (the same columns, each proof its own points),
+    openings_k[i] and alphas[i] (K, 2) are proof i's. Returns the (K, m >>
+    a, 2^(a+1)) stack of the proofs' first-round leaf rows.
+
+    On CUDA LDEs: kernel C with a proof axis, one launch for at most
+    PROOFS_PER_LAUNCH proofs, each proof's points and alpha by value, the
+    claimed values uploaded in one copy. On CPU LDEs: the plain version."""
+    _composition_batch_limits(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits)
+    if oracles_k[0][0].lde.device.type == "cpu":
+        return compute_composition_batch_plain(oracles_k, instances, openings_k, alphas,
+                                               lde_bits, arity_bits)
+    _cuda.require_cuda_int64(*(o.lde for oracles in oracles_k for o in oracles))
+    out, launches = _composition_launches(oracles_k, instances, openings_k, alphas, lde_bits,
+                                          arity_bits)
+    compute_composition_batch.launches += launches
     return out
 
 
+def _composition_launches(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits):
+    """Kernel C over K proofs: ((K, m >> a, 2^(a+1)) leaf rows, launches)."""
+    dev = oracles_k[0][0].lde.device
+    m = 1 << lde_bits
+    k = len(oracles_k)
+    ldes = [[o.lde.contiguous() for o in oracles] for oracles in oracles_k]
+    ptrs = np.array([[t.data_ptr() for t in proof] for proof in ldes], dtype=np.uint64)
+    ys = np.stack([np.concatenate([np.asarray(y, dtype=np.uint64).reshape(-1, 2) for y in op])
+                   for op in openings_k])  # (K, terms, 2)
+    terms = instances[0].num_terms()
+    if ys.shape[1] != terms:
+        raise ValueError(f"{ys.shape[1]} claimed openings for {terms} terms")
+    ends = np.cumsum([len(b.polys) for b in instances[0].batches])
+    batches = np.array(
+        [[[end, int(b.point[0]) % gl.P, int(b.point[1]) % gl.P]
+          for end, b in zip(ends, inst.batches)] for inst in instances], dtype=np.uint64)
+    alphas_h = np.ascontiguousarray(np.asarray(alphas, dtype=np.uint64).reshape(k, 2))
+    ys_d = gl.from_u64(ys, dev)
+    terms_d = _device_term_table(tuple(b.polys for b in instances[0].batches), dev)
+    xs = _device_domain_points(lde_bits, dev)
+    out = torch.empty((k, m >> arity_bits, 2 << arity_bits), dtype=torch.int64, device=dev)
+    launches = 0
+    for g0, g1 in _cuda.proof_groups(k):
+        err = _cuda.lib().qzk_fri_composition(
+            ptrs[g0:g1].ctypes.data, ptrs.shape[1], terms_d.data_ptr(), ys_d[g0].data_ptr(),
+            xs.data_ptr(), batches[g0:g1].ctypes.data, batches.shape[1],
+            alphas_h[g0:g1].ctypes.data, out[g0].data_ptr(), m, arity_bits, g1 - g0,
+            _cuda.stream(),
+        )
+        _cuda.check(err, "qzk_fri_composition")
+        launches += 1
+    return out, launches
+
+
 compute_composition.launches = 0
+compute_composition_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -366,41 +418,99 @@ def fold_round(leaves: torch.Tensor, beta, a_bits: int, log_m: int, shift_pow: i
     if leaves.device.type == "cpu":
         return fold_round_plain(leaves, beta, a_bits, log_m, shift_pow, next_bits)
     _cuda.require_cuda_int64(leaves)
-    return _launch_fold(leaves, beta, a_bits, log_m, shift_pow, next_bits)
+    out, launches = _fold_launches(leaves.unsqueeze(0), [beta], a_bits, log_m, shift_pow,
+                                   next_bits)
+    fold_round.launches += launches
+    return out[0]
 
 
-def _launch_fold(leaves, beta, a_bits, log_m, shift_pow, next_bits):
-    dev = leaves.device
-    leaves = leaves.contiguous()
-    mp = leaves.shape[0]
-    consts = _fold_consts(log_m, shift_pow, a_bits)
-    betas = np.ascontiguousarray(_beta_powers(beta, a_bits))
-    out = torch.empty((mp >> next_bits, 2 << next_bits), dtype=torch.int64, device=dev)
-    err = _cuda.lib().qzk_fri_fold(
-        leaves.data_ptr(), consts.ctypes.data, betas.ctypes.data, out.data_ptr(), mp, a_bits,
-        next_bits, _cuda.stream(),
-    )
-    _cuda.check(err, "qzk_fri_fold")
-    fold_round.launches += 1
+def _fold_batch_limits(leaves, betas, a_bits, log_m, next_bits) -> None:
+    if leaves.dim() != 3 or not 1 <= leaves.shape[0] == len(betas):
+        raise ValueError(f"a batch of layers is (K, m', 2^(a+1)) with K betas, got "
+                         f"{tuple(leaves.shape)} and {len(betas)}")
+    _fold_limits(leaves[0], a_bits, log_m, next_bits)
+
+
+def fold_round_batch_plain(leaves, betas, a_bits: int, log_m: int, shift_pow: int,
+                           next_bits: int = 0) -> torch.Tensor:
+    """Plain torch version of `fold_round_batch` (same arguments):
+    `fold_round_plain` a proof, stacked."""
+    _fold_batch_limits(leaves, betas, a_bits, log_m, next_bits)
+    return torch.stack([fold_round_plain(x, b, a_bits, log_m, shift_pow, next_bits)
+                        for x, b in zip(leaves, betas)])
+
+
+def fold_round_batch(leaves: torch.Tensor, betas, a_bits: int, log_m: int, shift_pow: int,
+                     next_bits: int = 0) -> torch.Tensor:
+    """`fold_round` for K proofs of one FRI schedule: leaves (K, m',
+    2^(a+1)), betas (K, 2), each proof its own beta. Returns (K, m' >>
+    next_bits, 2^(next_bits+1)).
+
+    On a CUDA tensor: kernel E with a proof axis, one launch for at most
+    PROOFS_PER_LAUNCH proofs, each proof's beta powers by value. On a CPU
+    tensor: the plain version."""
+    _fold_batch_limits(leaves, betas, a_bits, log_m, next_bits)
+    if leaves.device.type == "cpu":
+        return fold_round_batch_plain(leaves, betas, a_bits, log_m, shift_pow, next_bits)
+    _cuda.require_cuda_int64(leaves)
+    out, launches = _fold_launches(leaves, betas, a_bits, log_m, shift_pow, next_bits)
+    fold_round_batch.launches += launches
     return out
 
 
+def _fold_launches(leaves, betas, a_bits, log_m, shift_pow, next_bits):
+    """Kernel E over K proofs' (K, m', 2^(a+1)) layers: (out, launches)."""
+    dev = leaves.device
+    leaves = leaves.contiguous()
+    k, mp = leaves.shape[:2]
+    consts = _fold_consts(log_m, shift_pow, a_bits)
+    powers = np.ascontiguousarray(np.stack([_beta_powers(b, a_bits) for b in betas]))
+    out = torch.empty((k, mp >> next_bits, 2 << next_bits), dtype=torch.int64, device=dev)
+    launches = 0
+    for g0, g1 in _cuda.proof_groups(k):
+        err = _cuda.lib().qzk_fri_fold(
+            leaves[g0].data_ptr(), consts.ctypes.data, powers[g0:g1].ctypes.data,
+            out[g0].data_ptr(), mp, a_bits, next_bits, g1 - g0, _cuda.stream(),
+        )
+        _cuda.check(err, "qzk_fri_fold")
+        launches += 1
+    return out, launches
+
+
 fold_round.launches = 0
+fold_round_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # kernel F: the query gather
 
 #: kernel F's plan (csrc/fri.cu GatherPlan) travels by value in the kernel's
-#: parameters: at most this many segments and query indices, 16-bit segment
-#: offsets and widths, 32-bit indices and strides
+#: parameters: at most this many segments and query indices a proof, 16-bit
+#: segment offsets and widths, 32-bit indices and strides. Its
+#: GATHER_PLAN_BYTES hold one proof at both limits, or several proofs of a
+#: batch, which share the segments' shapes (`gather_group`)
 MAX_GATHER_SEGMENTS = 128
 MAX_GATHER_QUERIES = 128
 MAX_GATHER_WIDTH = (1 << 16) - 1
-_PLAN_HEAD = struct.Struct("<Q4i")  # out, queries, segments, row width, pad
-_PLAN_SEG = struct.Struct("<QiiHHBBBB")  # src, strides, offset, width, mask bits, shift, flip, levels
-_PLAN_QUERIES_AT = _PLAN_HEAD.size + MAX_GATHER_SEGMENTS * _PLAN_SEG.size
-GATHER_PLAN_BYTES = _PLAN_QUERIES_AT + 4 * MAX_GATHER_QUERIES
+_PLAN_HEAD = struct.Struct("<Q4i")  # out, queries, segments, row width, proofs
+_PLAN_SHAPE = struct.Struct("<iiHHBBBB")  # strides, offset, width, mask bits, shift, flip, levels
+GATHER_PLAN_BYTES = (_PLAN_HEAD.size + (8 + _PLAN_SHAPE.size) * MAX_GATHER_SEGMENTS
+                     + 4 * MAX_GATHER_QUERIES)
+
+
+def _plan_bytes(proofs: int, segments: int, queries: int) -> int:
+    """A plan's bytes: the header, each proof's source addresses, the
+    segments' shapes, each proof's query indices."""
+    return _PLAN_HEAD.size + (8 * proofs + _PLAN_SHAPE.size) * segments + 4 * proofs * queries
+
+
+def gather_group(segments: int, queries: int) -> int:
+    """The most proofs of `segments` segments and `queries` queries one
+    kernel-F plan holds (at most PROOFS_PER_LAUNCH): sixteen leaf proofs (10
+    segments, 28 queries) take 3,256 of its 3,608 bytes."""
+    fits = (GATHER_PLAN_BYTES - _PLAN_HEAD.size - _PLAN_SHAPE.size * segments) // (
+        8 * segments + 4 * queries)
+    return max(1, min(_cuda.PROOFS_PER_LAUNCH, fits))
 
 
 class GatherSource(NamedTuple):
@@ -440,91 +550,135 @@ def query_gather_plain(sources: list[GatherSource], indices) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
+def _gather_segment(s: GatherSource) -> tuple[int, tuple]:
+    """A source's address and its plan segment's shape (strides, width,
+    mask bits, shift, flip, levels); raises on what kernel F cannot read."""
+    mat, mask, shift, flip, levels = s.matrix, s.mask, s.shift, s.flip, s.levels
+    if mat.dim() != 2:
+        raise ValueError("a gather source is not a matrix")
+    rows, w = mat.shape
+    rs, cs = mat.stride()
+    if (mask < 0 or mask & (mask + 1) or mask >> 32 or not 0 <= shift < 32
+            or not 0 <= flip < 256 or (mask >> shift) | flip >= rows or w < 1):
+        raise ValueError(f"gather rule (mask {mask}, shift {shift}, flip {flip}) on "
+                         f"{rows} rows: kernel F takes masks 2^k - 1 (k <= 32), shifts "
+                         "below 32, flips below 256, rows within the matrix")
+    if levels:
+        # level 0 of 2^k digests, the levels above it in the same buffer
+        if (w != 4 or shift or rows != mask + 1 or not 0 < levels < mask.bit_length() + 1
+                or mat.untyped_storage().nbytes() < 8 * (
+                    mat.storage_offset() + rs * (2 * rows - (2 * rows >> levels)))):
+            raise ValueError(f"a Merkle path of {levels} levels over {rows} digests of "
+                             f"{w} values: kernel F takes 2^k digest rows of 4 values, "
+                             "at most k levels, all in the matrix's buffer")
+        w = 4 * levels
+    if rs >> 31 or cs >> 31:
+        raise ValueError(f"gather strides {rs, cs} do not fit 32 bits")
+    return mat.data_ptr(), (rs, cs, w, mask.bit_length(), shift, flip, levels)
+
+
 def pack_gather_plan(sources: list[GatherSource], indices) -> tuple[bytearray, int]:
-    """Kernel F's plan (csrc/fri.cu GatherPlan) as the bytes of its kernel
+    """Kernel F's plan (csrc/fri.cu GatherPlan) for one proof as the bytes of
+    its kernel parameter, and the packed row's width: `pack_gather_plan_batch`
+    of one proof."""
+    return pack_gather_plan_batch([sources], [indices])
+
+
+def pack_gather_plan_batch(sources_k: list, indices_k) -> tuple[bytearray, int]:
+    """Kernel F's plan for K proofs of one shape as the bytes of its kernel
     parameter: the output address (0 until the launch sets it), the counts,
-    a 24-byte segment a source in packed-row order, the 32-bit query
-    indices; and the packed row's width. Raises on what the kernel cannot
-    read and above its capacity: there is no other path. One pass over the
-    sources: this runs on every proof."""
-    n, nq = len(sources), len(indices)
+    each proof's source addresses, a 16-byte shape a segment in packed-row
+    order (the same for every proof), each proof's 32-bit query indices; and
+    the packed row's width. Raises on what the kernel cannot read and above
+    its capacity: there is no other path. One pass over the sources: this
+    runs on every batch."""
+    k = len(sources_k)
+    n = len(sources_k[0]) if k else 0
+    nq = len(indices_k[0]) if len(indices_k) else 0
     if not 1 <= n <= MAX_GATHER_SEGMENTS or not 1 <= nq <= MAX_GATHER_QUERIES:
         raise ValueError(f"{n} gather segments and {nq} queries: kernel F's plan holds 1 to "
                          f"{MAX_GATHER_SEGMENTS} and 1 to {MAX_GATHER_QUERIES}")
+    if (not 1 <= k <= _cuda.PROOFS_PER_LAUNCH or len(indices_k) != k
+            or any(len(s) != n for s in sources_k) or any(len(i) != nq for i in indices_k)):
+        raise ValueError(f"{k} proofs' sources and {len(indices_k)} index lists: kernel F "
+                         f"takes 1 to {_cuda.PROOFS_PER_LAUNCH} proofs of one plan's shape")
+    if _plan_bytes(k, n, nq) > GATHER_PLAN_BYTES:
+        raise ValueError(f"{k} proofs of {n} segments and {nq} queries: kernel F's plan holds "
+                         f"{GATHER_PLAN_BYTES} bytes")
     buf = bytearray(GATHER_PLAN_BYTES)
-    pack, at, width = _PLAN_SEG.pack_into, _PLAN_HEAD.size, 0
-    for s in sources:
-        mat, mask, shift, flip, levels = s.matrix, s.mask, s.shift, s.flip, s.levels
-        if mat.dim() != 2:
-            raise ValueError("a gather source is not a matrix")
-        rows, w = mat.shape
-        rs, cs = mat.stride()
-        if (mask < 0 or mask & (mask + 1) or mask >> 32 or not 0 <= shift < 32
-                or not 0 <= flip < 256 or (mask >> shift) | flip >= rows or w < 1):
-            raise ValueError(f"gather rule (mask {mask}, shift {shift}, flip {flip}) on "
-                             f"{rows} rows: kernel F takes masks 2^k - 1 (k <= 32), shifts "
-                             "below 32, flips below 256, rows within the matrix")
-        if levels:
-            # level 0 of 2^k digests, the levels above it in the same buffer
-            if (w != 4 or shift or rows != mask + 1 or not 0 < levels < mask.bit_length() + 1
-                    or mat.untyped_storage().nbytes() < 8 * (
-                        mat.storage_offset() + rs * (2 * rows - (2 * rows >> levels)))):
-                raise ValueError(f"a Merkle path of {levels} levels over {rows} digests of "
-                                 f"{w} values: kernel F takes 2^k digest rows of 4 values, "
-                                 "at most k levels, all in the matrix's buffer")
-            w = 4 * levels
-        if rs >> 31 or cs >> 31:
-            raise ValueError(f"gather strides {rs, cs} do not fit 32 bits")
+    shapes = None
+    for j, sources in enumerate(sources_k):
+        own = []
+        for i, s in enumerate(sources):
+            ptr, shape = _gather_segment(s)
+            struct.pack_into("<Q", buf, _PLAN_HEAD.size + 8 * (j * n + i), ptr)
+            own.append(shape)
+        if shapes is None:
+            shapes = own
+        elif own != shapes:
+            raise ValueError("the proofs' gather sources differ in shape")
+    at, width = _PLAN_HEAD.size + 8 * k * n, 0
+    for i, (rs, cs, w, bits, shift, flip, levels) in enumerate(shapes):
         if width + w > MAX_GATHER_WIDTH:
             raise ValueError(f"packed row above {MAX_GATHER_WIDTH} values: kernel F's plan "
                              "holds no more")
-        pack(buf, at, mat.data_ptr(), rs, cs, width, w, mask.bit_length(), shift, flip, levels)
-        at += _PLAN_SEG.size
+        _PLAN_SHAPE.pack_into(buf, at + _PLAN_SHAPE.size * i, rs, cs, width, w, bits, shift,
+                              flip, levels)
         width += w
-    _PLAN_HEAD.pack_into(buf, 0, 0, nq, n, width, 0)
+    _PLAN_HEAD.pack_into(buf, 0, 0, nq, n, width, k)
     try:
-        struct.pack_into(f"<{nq}I", buf, _PLAN_QUERIES_AT, *indices)
+        struct.pack_into(f"<{k * nq}I", buf, at + _PLAN_SHAPE.size * n,
+                         *(q for indices in indices_k for q in indices))
     except struct.error as e:
         raise ValueError(f"kernel F takes query indices below 2^32: {e}") from None
     return buf, width
 
 
 def query_gather_packed_plain(plan: bytes, memory: list[torch.Tensor]) -> torch.Tensor:
-    """Plain version of kernel F reading a packed plan (`pack_gather_plan`),
-    for the tests: each value is read from the CPU tensors in `memory` at
-    the plan's addresses, strides and path levels, as the kernel reads it.
-    Checks the plan as the kernel's entry does."""
-    _, queries, segments, width, _ = _PLAN_HEAD.unpack_from(plan, 0)
-    if not (1 <= queries <= MAX_GATHER_QUERIES and 1 <= segments <= MAX_GATHER_SEGMENTS):
+    """Plain version of kernel F reading a packed plan (`pack_gather_plan`,
+    `pack_gather_plan_batch`), for the tests: each value is read from the
+    CPU tensors in `memory` at the plan's addresses, strides and path
+    levels, as the kernel reads it; (proofs x queries, width) rows. Checks
+    the plan as the kernel's entry does."""
+    _, queries, segments, width, proofs = _PLAN_HEAD.unpack_from(plan, 0)
+    if not (1 <= queries <= MAX_GATHER_QUERIES and 1 <= segments <= MAX_GATHER_SEGMENTS
+            and 1 <= proofs <= _cuda.PROOFS_PER_LAUNCH
+            and _plan_bytes(proofs, segments, queries) <= len(plan)):
         raise ValueError("plan counts out of range")
-    q = torch.tensor(struct.unpack_from(f"<{queries}I", plan, _PLAN_QUERIES_AT),
-                     dtype=torch.int64)
+    at = _PLAN_HEAD.size + 8 * proofs * segments
+    q = torch.tensor(struct.unpack_from(f"<{proofs * queries}I", plan,
+                                        at + _PLAN_SHAPE.size * segments),
+                     dtype=torch.int64).view(proofs, queries)
     stores = []
     for t in memory:
         st = t.untyped_storage()
         stores.append((st.data_ptr(), st.nbytes(), torch.empty(0, dtype=torch.int64).set_(st)))
-    out = torch.empty((queries, width), dtype=torch.int64)
+    out = torch.empty((proofs * queries, width), dtype=torch.int64)
     end = 0
     for i in range(segments):
-        src, rs, cs, off, w, bits, shift, flip, levels = _PLAN_SEG.unpack_from(
-            plan, _PLAN_HEAD.size + i * _PLAN_SEG.size)
+        rs, cs, off, w, bits, shift, flip, levels = _PLAN_SHAPE.unpack_from(
+            plan, at + _PLAN_SHAPE.size * i)
         if off != end or w < 1 or bits > 32 or (levels and (w != 4 * levels or shift)):
             raise ValueError(f"plan segment {i} is malformed")
         end += w
-        base, _, flat = next(st for st in stores if st[0] <= src < st[0] + st[1])
         col = torch.arange(w)
         level = col // 4 if levels else torch.zeros_like(col)
         j = col % 4 if levels else col
         n0 = 1 << bits
         before = (2 * n0 - (2 * n0 >> level)) * rs  # rows below the level; 0 at level 0
-        rows = ((q[:, None] & (n0 - 1)) >> (shift + level)[None, :]) ^ flip
-        out[:, off : off + w] = flat[(src - base) // 8 + before + rows * rs + j * cs]
+        for p in range(proofs):
+            (src,) = struct.unpack_from("<Q", plan, _PLAN_HEAD.size + 8 * (p * segments + i))
+            base, _, flat = next(st for st in stores if st[0] <= src < st[0] + st[1])
+            rows = ((q[p, :, None] & (n0 - 1)) >> (shift + level)[None, :]) ^ flip
+            out[p * queries : (p + 1) * queries, off : off + w] = flat[
+                (src - base) // 8 + before + rows * rs + j * cs]
     if end != width:
         raise ValueError("plan segments do not cover the packed row")
     return out
 
 
-#: kernel F's pinned host buffers, one a (queries, width) shape
+#: kernel F's pinned host buffers, one a (proofs, queries, width) shape of
+#: a whole call: each launch writes its group's rows at their offset
 _pinned: dict = {}
 
 
@@ -539,19 +693,52 @@ def query_gather(sources: list[GatherSource], indices) -> np.ndarray:
         pack_gather_plan(sources, indices)  # the kernel's limits hold here too
         return gl.to_u64(query_gather_plain(sources, indices))
     _cuda.require_cuda_int64(*(s.matrix for s in sources))
-    plan, width = pack_gather_plan(sources, indices)
-    key = (len(indices), width)
-    if key not in _pinned:
-        _pinned[key] = torch.empty(key, dtype=torch.int64, pin_memory=True)
-    host = _pinned[key]
-    struct.pack_into("<Q", plan, 0, host.data_ptr())
-    _cuda.check(_cuda.lib().qzk_query_gather(bytes(plan), _cuda.stream()), "qzk_query_gather")
-    query_gather.launches += 1
-    torch.cuda.current_stream(sources[0].matrix.device).synchronize()
-    return host.numpy().view(np.uint64).copy()
+    packed, launches = _gather_launches([sources], [indices])
+    query_gather.launches += launches
+    return packed[0]
+
+
+def query_gather_batch(sources_k: list, indices_k) -> np.ndarray:
+    """`query_gather` for K proofs whose sources have one shape (a batch's
+    oracles and FRI layers), each with its own query indices: a (K, Q, sum
+    of widths) uint64 array. On CUDA sources: kernel F with a proof axis,
+    one launch for as many proofs as a plan holds (`gather_group`: at most
+    PROOFS_PER_LAUNCH, sixteen leaf proofs), all into pinned host memory,
+    then one synchronize and copy. On CPU sources: the plain version, the
+    kernel's limits checked alike."""
+    k = len(sources_k)
+    groups = _cuda.proof_groups(k, gather_group(len(sources_k[0]), len(indices_k[0])))
+    if all(s.matrix.device.type == "cpu" for sources in sources_k for s in sources):
+        for g0, g1 in groups:
+            pack_gather_plan_batch(sources_k[g0:g1], indices_k[g0:g1])
+        return np.stack([gl.to_u64(query_gather_plain(s, i)) for s, i in zip(sources_k, indices_k)])
+    _cuda.require_cuda_int64(*(s.matrix for sources in sources_k for s in sources))
+    packed, launches = _gather_launches(sources_k, indices_k, groups)
+    query_gather_batch.launches += launches
+    return packed
+
+
+def _gather_launches(sources_k, indices_k, groups=((0, 1),)):
+    """Kernel F a group of proofs, all into one pinned (K, Q, width) buffer,
+    each group's launch at its first proof's rows; one synchronize and one
+    copy out of the buffer, which the next call of that shape reuses.
+    Returns ((K, Q, width) host rows, launches)."""
+    host = None
+    for g0, g1 in groups:
+        plan, width = pack_gather_plan_batch(sources_k[g0:g1], indices_k[g0:g1])
+        if host is None:
+            key = (len(sources_k), len(indices_k[0]), width)
+            if key not in _pinned:
+                _pinned[key] = torch.empty(key, dtype=torch.int64, pin_memory=True)
+            host = _pinned[key]
+        struct.pack_into("<Q", plan, 0, host[g0].data_ptr())
+        _cuda.check(_cuda.lib().qzk_query_gather(bytes(plan), _cuda.stream()), "qzk_query_gather")
+    torch.cuda.current_stream(sources_k[0][0].matrix.device).synchronize()
+    return host.numpy().view(np.uint64).copy(), len(groups)
 
 
 query_gather.launches = 0
+query_gather_batch.launches = 0
 
 
 def _sibling_sources(tree: merkle.MerkleTree, mask: int) -> list[GatherSource]:
@@ -569,12 +756,10 @@ def _sibling_sources(tree: merkle.MerkleTree, mask: int) -> list[GatherSource]:
     return [GatherSource(first, mask, flip=1, levels=levels)]
 
 
-def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
-    """Every query's opening: the oracles' leaf rows (a salted oracle's with
-    its salt, the width `lde.shape[0]`) and Merkle paths, then per FRI
-    round the leaf and its path. `layers`: (leaves, tree) per round.
-    One kernel-F gather into pinned host memory, then the host cuts the
-    (Q, width) rows into views a segment group at a time."""
+def _gather_sources(oracles, layers) -> list[GatherSource]:
+    """Kernel F's sources of a proof's queries: the oracles' leaf rows (a
+    salted oracle's with its salt, the width `lde.shape[0]`) and Merkle
+    paths, then per FRI round the leaf and its path."""
     m0 = oracles[0].lde.shape[1]
     sources = [GatherSource(o.lde.T, m0 - 1) for o in oracles]
     for o in oracles:
@@ -583,7 +768,12 @@ def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
         mask = leaves.shape[0] - 1  # q mod m' of the round
         sources.append(GatherSource(leaves, mask))
         sources += _sibling_sources(tree, mask)
-    packed = query_gather(sources, indices)
+    return sources
+
+
+def _query_rounds(packed: np.ndarray, oracles, layers) -> list[FriQueryRound]:
+    """A proof's (Q, width) gathered rows cut into views a segment group at
+    a time."""
     q = packed.shape[0]
     widths = [o.lde.shape[0] for o in oracles]
     widths += [4 * (len(o.tree.digests) - 1) for o in oracles]
@@ -600,6 +790,24 @@ def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
     return [FriQueryRound(initial_rows=list(r), initial_siblings=list(s),
                           steps=[st[i] for st in steps])
             for i, (r, s) in enumerate(zip(rows, sibs))]
+
+
+def gather_query_rounds(oracles, layers, indices) -> list[FriQueryRound]:
+    """Every query's opening: the oracles' leaf rows and Merkle paths, then
+    per FRI round the leaf and its path (`_gather_sources`). `layers`:
+    (leaves, tree) per round. One kernel-F gather into pinned host memory,
+    then the host cuts the (Q, width) rows into views a segment group at a
+    time."""
+    return _query_rounds(query_gather(_gather_sources(oracles, layers), indices), oracles, layers)
+
+
+def gather_query_rounds_batch(oracles_k, layers_k, indices_k) -> list[list[FriQueryRound]]:
+    """`gather_query_rounds` for K proofs of one circuit, each with its own
+    query indices: one kernel-F gather a group of proofs (sixteen leaf
+    proofs a launch) and one transfer, then each proof's rows cut alike."""
+    packed = query_gather_batch([_gather_sources(o, l) for o, l in zip(oracles_k, layers_k)],
+                                indices_k)
+    return [_query_rounds(p, o, l) for p, o, l in zip(packed, oracles_k, layers_k)]
 
 
 # ---------------------------------------------------------------------------
@@ -651,13 +859,7 @@ def fri_commit_phase(
     # final polynomial: coset-iNTT of the remaining values, unshift folded in
     final_shift = F.pow_scalar(F.MULTIPLICATIVE_GROUP_GENERATOR, 1 << shift_pow)
     coeffs = ntt.batched_ntt(layer.T, log_m, inverse=True, out_shift=int(F.inv(final_shift)))
-    coeffs = gl.to_u64(coeffs.T)  # (len, 2)
-    fpb = config.reduction_strategy.final_poly_bits
-    # the honest degree bound after folding (may be below 2^fpb for tiny circuits)
-    final_len = min(1 << fpb, 1 << (degree_bits - sum(schedule)))
-    if np.any(coeffs[final_len:]):
-        raise AssertionError("final poly exceeds degree bound")
-    final_poly = coeffs[:final_len]
+    final_poly = _final_poly(gl.to_u64(coeffs.T), config, degree_bits)  # (len, 2)
     challenger.observe_many(final_poly)
     return FriCommitment(layers=layers, caps=caps, final_poly=final_poly)
 
@@ -685,6 +887,90 @@ def fri_query_phase(
         pow_witness=pow_witness,
         query_rounds=gather_query_rounds(oracles, commitment.layers, indices),
     )
+
+
+def _final_poly(coeffs: np.ndarray, config: FriConfig, degree_bits: int) -> np.ndarray:
+    """The final polynomial's first coefficients, (len, 2), after its degree
+    check: the honest degree bound after folding (below 2^fpb for tiny
+    circuits)."""
+    schedule = config.reduction_strategy.schedule(degree_bits)
+    final_len = min(1 << config.reduction_strategy.final_poly_bits,
+                    1 << (degree_bits - sum(schedule)))
+    if np.any(coeffs[final_len:]):
+        raise AssertionError("final poly exceeds degree bound")
+    return coeffs[:final_len]
+
+
+def fri_commit_phase_batch(
+    oracles_k: list,
+    instances: list[FriInstance],
+    openings_k: list,
+    challengers: ts.ChallengerBatch,
+    config: FriConfig,
+    degree_bits: int,
+) -> list[FriCommitment]:
+    """`fri_commit_phase` for K proofs of one circuit, the K transcripts in
+    lockstep: the composition (kernel C with a proof axis), each round's K
+    trees (one kernel-2 forest call), caps observed and betas drawn for all
+    K, the K folds (kernel E with a proof axis), and the K final
+    polynomials (one stacked kernel-3 iNTT with the unshift folded in);
+    each proof's degree bound checked. Returns each proof's commitment, its
+    layers views of the round's stack."""
+    k = len(oracles_k)
+    alphas = challengers.challenge_ext()
+    lde_bits = degree_bits + config.rate_bits
+    schedule = config.reduction_strategy.schedule(degree_bits)
+    arities = list(schedule) + [0]
+    layer = compute_composition_batch(oracles_k, instances, openings_k, alphas, lde_bits,
+                                      arities[0])
+    layers, caps = [], []
+    log_m, shift_pow = lde_bits, 0
+    for r, a_bits in enumerate(schedule):
+        trees = merkle.build_merkle_forest(layer, min(config.cap_height, log_m - a_bits))
+        layers.append(list(zip(layer, trees)))
+        caps.append([t.cap for t in trees])
+        challengers.observe_cap(np.stack([t.cap for t in trees]))
+        betas = challengers.challenge_ext()
+        layer = fold_round_batch(layer, betas, a_bits, log_m, shift_pow, arities[r + 1])
+        log_m -= a_bits
+        shift_pow += a_bits
+    final_shift = F.pow_scalar(F.MULTIPLICATIVE_GROUP_GENERATOR, 1 << shift_pow)
+    # (K, m_f, 2) natural order -> (2K, m_f) rows: proof i's c0, c1 at 2i, 2i + 1
+    coeffs = ntt.batched_ntt(layer.transpose(1, 2).reshape(2 * k, -1), log_m, inverse=True,
+                             out_shift=int(F.inv(final_shift)))
+    coeffs = gl.to_u64(coeffs.view(k, 2, -1).transpose(1, 2))  # (K, len, 2)
+    finals = [_final_poly(c, config, degree_bits) for c in coeffs]
+    challengers.observe_many(np.stack([f.ravel() for f in finals]))
+    return [FriCommitment(layers=[rnd[i] for rnd in layers], caps=[c[i] for c in caps],
+                          final_poly=finals[i]) for i in range(k)]
+
+
+def fri_query_phase_batch(
+    oracles_k: list,
+    commitments: list[FriCommitment],
+    pow_witnesses,
+    challengers: ts.ChallengerBatch,
+    config: FriConfig,
+    degree_bits: int,
+) -> list[FriProof]:
+    """`fri_query_phase` for K proofs, the K transcripts in lockstep: the PoW
+    witnesses observed and the responses checked, each proof's query
+    indices drawn, and every opening of every query of every proof in one
+    kernel-F gather a group of proofs (`gather_query_rounds_batch`)."""
+    k = len(oracles_k)
+    witnesses = np.asarray(pow_witnesses, dtype=np.uint64).reshape(k, 1)
+    challengers.observe_many(witnesses)
+    threshold = 1 << (64 - config.proof_of_work_bits)
+    if any(int(r) >= threshold for r in challengers.challenge()):
+        raise AssertionError("PoW response above the grind threshold")
+    m0 = 1 << (degree_bits + config.rate_bits)
+    indices = np.stack([challengers.challenge_index(m0)
+                        for _ in range(config.num_query_rounds)], axis=1)  # (K, queries)
+    rounds = gather_query_rounds_batch(oracles_k, [c.layers for c in commitments],
+                                       indices.tolist())
+    return [FriProof(commit_caps=c.caps, final_poly=c.final_poly, pow_witness=w,
+                     query_rounds=r)
+            for c, w, r in zip(commitments, witnesses[:, 0], rounds)]
 
 
 def fri_prove(

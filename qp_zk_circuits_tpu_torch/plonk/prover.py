@@ -40,7 +40,7 @@ from ..field import gf_np as F
 from ..field import goldilocks as gl
 from ..field import random as frandom
 from ..fri import oracle as fo
-from ..fri.prover import fri_commit_phase, fri_prove, fri_query_phase
+from ..fri.prover import fri_commit_phase_batch, fri_prove, fri_query_phase_batch
 from ..hash import poseidon2 as ps
 from ..poly import ntt
 from . import constraint_tape
@@ -69,11 +69,8 @@ from .vanishing import HostExtAlg, eval_constraints, num_partial_products, permu
 #: kernel A keeps one accumulator a challenge in registers; both kernels'
 #: challenges travel as launch arguments
 MAX_CHALLENGES = 4
-#: kernels A and B take at most this many proofs a launch: each proof's
-#: challenges travel by value in the launch's parameters (MAX_PROOFS of
-#: csrc/quotient.cu and csrc/permutation.cu); a larger batch takes more
-#: launches of the same kernel
-PROOFS_PER_LAUNCH = 16
+#: kernels A and B take at most this many proofs a launch (as C-F do)
+PROOFS_PER_LAUNCH = _cuda.PROOFS_PER_LAUNCH
 #: kernel B keeps a row's chunk products in registers
 MAX_CHUNKS = 16
 #: kernel B's rows a block (csrc/permutation.cu TILE): one Fermat inverse a
@@ -311,9 +308,7 @@ def _batch_limits(stack: torch.Tensor, *per_proof) -> None:
         raise ValueError(f"{stack.shape[0]} proofs and challenge sets of other lengths")
 
 
-def _groups(k: int):
-    """The proof ranges of a batch's launches: at most PROOFS_PER_LAUNCH each."""
-    return [(g, min(g + PROOFS_PER_LAUNCH, k)) for g in range(0, k, PROOFS_PER_LAUNCH)]
+_groups = _cuda.proof_groups
 
 
 def _permutation_launches(data: CircuitData, traces: torch.Tensor, betas, gammas):
@@ -620,18 +615,38 @@ def _check_config(cfg) -> None:
         )
 
 
+def _zeta_next(data: CircuitData, zeta) -> np.ndarray:
+    """g * zeta, g the generator of the trace domain."""
+    g_n = F.primitive_root_of_unity(data.degree_bits)
+    return ext.scalar_mul(np.asarray(zeta, dtype=np.uint64).reshape(1, 2), g_n)[0]
+
+
 def _open(data: CircuitData, oracles: list, zeta) -> tuple[OpeningSet, np.ndarray]:
     """All oracles at zeta (+ the Z columns at g*zeta), one kernel-D call and
     one transfer: the opening set and zeta_next."""
-    g_n = F.primitive_root_of_unity(data.degree_bits)
-    zeta_next = ext.scalar_mul(np.asarray(zeta, dtype=np.uint64).reshape(1, 2), g_n)[0]
+    zeta_next = _zeta_next(data, zeta)
+    nz, _ = zs_pp_layout(data.config)
+    opened = fo.eval_openings(oracles, zeta, zeta_next, next_oracle=2, next_count=nz)
+    return _opening_set(data, *opened), zeta_next
+
+
+def _open_batch(data: CircuitData, oracles_k: list, zetas) -> list[tuple[OpeningSet, np.ndarray]]:
+    """`_open` for K proofs: one kernel-D call (a launch a group of
+    PROOFS_PER_LAUNCH proofs) and one transfer for the batch."""
+    zeta_nexts = [_zeta_next(data, zeta) for zeta in zetas]
+    nz, _ = zs_pp_layout(data.config)
+    opened = fo.eval_openings_batch(oracles_k, zetas, zeta_nexts, next_oracle=2, next_count=nz)
+    return [(_opening_set(data, *o), zn) for o, zn in zip(opened, zeta_nexts)]
+
+
+def _opening_set(data: CircuitData, parts, zs_next_open) -> OpeningSet:
+    """The opening set of the four oracles' values at zeta and the Z
+    columns' at g * zeta."""
+    consts_open, wires_open, zpp_open, quot_open = parts
     nconst = data.const_cols.shape[0]
     nsel = data.num_selectors
     nz, _ = zs_pp_layout(data.config)
-    (consts_open, wires_open, zpp_open, quot_open), zs_next_open = fo.eval_openings(
-        oracles, zeta, zeta_next, next_oracle=2, next_count=nz
-    )
-    openings = OpeningSet(
+    return OpeningSet(
         constants=consts_open[:nconst],
         selectors=consts_open[nconst : nconst + nsel],
         sigmas=consts_open[nconst + nsel :],
@@ -641,7 +656,6 @@ def _open(data: CircuitData, oracles: list, zeta) -> tuple[OpeningSet, np.ndarra
         pps=zpp_open[nz:],
         quotient=quot_open,
     )
-    return openings, zeta_next
 
 
 def _salt_args(cfg, salts, device_key) -> list:
@@ -811,10 +825,12 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
         step);
       * kernels B and A with a proof axis (`compute_permutation_polys_batch`,
         `quotient_evals_batch`);
-      * the openings, one kernel-D call a proof;
-      * FRI's commit phase a proof (kernels C, E, the rounds' trees and the
-        final iNTT), one grind for all K (`ts.grind_pow_batch`), then the
-        queries a proof (kernel F).
+      * the openings, one kernel-D call for the batch;
+      * FRI with the transcripts in lockstep: its commit phase (kernels C
+        and E with a proof axis, a forest a round, one stacked final iNTT),
+        one grind for all K (`ts.grind_pow_batch`), then the queries (kernel
+        F with a proof axis), each kernel once a group of PROOFS_PER_LAUNCH
+        proofs (`fri_commit_phase_batch`, `fri_query_phase_batch`).
 
     A ZK batch takes its traces with their blinding rows and `salts` (K, 3,
     M, SALT_SIZE), each commit's salts uploaded in one copy into the salt
@@ -857,31 +873,26 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
     ch.observe_many(_caps(quotient_os))
     zetas = ch.challenge_ext()
 
-    # 5. openings, a proof at a time
+    # 5. openings, one kernel-D call for the batch
     oracles = [[data.constants_oracle, w, z, q] for w, z, q in zip(wires_os, zs_pp_os, quotient_os)]
-    opened = [_open(data, o, zeta) for o, zeta in zip(oracles, zetas)]
+    opened = _open_batch(data, oracles, zetas)
     ch.observe_many(np.stack([o.batch_zeta().ravel() for o, _ in opened]))
     ch.observe_many(np.stack([o.batch_zeta_next().ravel() for o, _ in opened]))
 
-    # 6. FRI: each phase for all K before the next, so the grind is one
-    chs = ch.unbind()
+    # 6. FRI, the transcripts in lockstep: each phase for all K before the next
     fcfg = cfg.fri_config
-    fri_args = [(o, fri_instance(data, zeta, zeta_next), [op.batch_zeta(), op.batch_zeta_next()])
-                for o, zeta, (op, zeta_next) in zip(oracles, zetas, opened)]
-    commitments = [fri_commit_phase(o, inst, fo_, c, fcfg, data.degree_bits)
-                   for (o, inst, fo_), c in zip(fri_args, chs)]
-    witnesses = ts.grind_pow_batch(chs, fcfg.proof_of_work_bits, dev)
+    instances = [fri_instance(data, zeta, zeta_next) for zeta, (_, zeta_next) in zip(zetas, opened)]
+    fri_openings = [[op.batch_zeta(), op.batch_zeta_next()] for op, _ in opened]
+    commitments = fri_commit_phase_batch(oracles, instances, fri_openings, ch, fcfg,
+                                         data.degree_bits)
+    witnesses = ts.grind_pow_batch(ch, fcfg.proof_of_work_bits, dev)
+    fri_proofs = fri_query_phase_batch(oracles, commitments, witnesses, ch, fcfg,
+                                       data.degree_bits)
     return [
-        Proof(
-            wires_cap=w.cap,
-            zs_pp_cap=z.cap,
-            quotient_cap=q.cap,
-            openings=op,
-            fri_proof=fri_query_phase(o, cm, wit, c, fcfg, data.degree_bits),
-            public_inputs=p,
-        )
-        for w, z, q, (op, _), o, cm, wit, c, p in zip(
-            wires_os, zs_pp_os, quotient_os, opened, oracles, commitments, witnesses, chs, pis)
+        Proof(wires_cap=w.cap, zs_pp_cap=z.cap, quotient_cap=q.cap, openings=op,
+              fri_proof=fp, public_inputs=p)
+        for w, z, q, (op, _), fp, p in zip(
+            wires_os, zs_pp_os, quotient_os, opened, fri_proofs, pis)
     ]
 
 

@@ -14,7 +14,8 @@ schedule: `ChallengerBatch` holds their (K, 12) states and advances them in
 lockstep, one C call a step for all K (`native.absorb_batch`,
 `native.duplex_batch`), and `unbind` hands back K `Challenger`s in the
 states they reached. `grind_pow_batch` grinds K transcripts in one
-kernel-2 launch a sweep.
+kernel-2 launch a sweep. A batch's FRI phases draw on the `ChallengerBatch`
+itself (fri/prover.py::fri_commit_phase_batch, fri_query_phase_batch).
 
 Determinism contract: the prover and verifier drive a Challenger through the
 identical observe/challenge schedule; any reordering breaks verification
@@ -149,6 +150,34 @@ class ChallengerBatch:
     def challenge_ext(self) -> np.ndarray:
         return self.challenge_many(2)
 
+    def observe_cap(self, caps) -> None:
+        """Cap k (2^h, 4) into transcript k (`Challenger.observe_cap`)."""
+        self.observe_many(np.asarray(caps, dtype=np.uint64).reshape(len(self), -1))
+
+    def challenge_index(self, domain_size: int) -> np.ndarray:
+        """A query index of each transcript in [0, domain_size) (a power of
+        two: the challenge's low bits), (K,)."""
+        return self.challenge() % np.uint64(domain_size)
+
+    def fork(self) -> "ChallengerBatch":
+        c = ChallengerBatch(len(self))
+        c.state, c.input_buf, c.output_buf = (
+            a.copy() for a in (self.state, self.input_buf, self.output_buf))
+        return c
+
+    @classmethod
+    def of(cls, challengers: list[Challenger]) -> "ChallengerBatch":
+        """K Challengers in lockstep (their buffers equally full) as one
+        batch, each in the state it reached."""
+        if len({(len(c.input_buf), len(c.output_buf)) for c in challengers}) != 1:
+            raise ValueError("the transcripts' buffers differ: they are not in lockstep")
+        c = cls(len(challengers))
+        c.state = np.stack([ch.state for ch in challengers])
+        c.input_buf, c.output_buf = (
+            np.array([getattr(ch, buf) for ch in challengers], dtype=np.uint64).reshape(
+                len(challengers), -1) for buf in ("input_buf", "output_buf"))
+        return c
+
     def unbind(self) -> list[Challenger]:
         """K Challengers in the states the transcripts reached."""
         out = []
@@ -188,9 +217,10 @@ def grind_pow(
 
 
 def grind_pow_batch(
-    challengers: list[Challenger], pow_bits: int, device, batch: int | None = None
+    challengers, pow_bits: int, device, batch: int | None = None
 ) -> list[np.uint64]:
-    """`grind_pow` for K transcripts in lockstep (one input-buffer fill), each
+    """`grind_pow` for K transcripts in lockstep, a `ChallengerBatch` or K
+    `Challenger`s with equally full buffers (neither is changed), each
     keeping its own lowest passing witness (the JAX package's `_grind_j`
     under `vmap`, whose while_loop masks the lanes that are done).
 
@@ -206,24 +236,22 @@ def grind_pow_batch(
     passes. Every sweep size finds the same, lowest, witness."""
     if not 0 <= pow_bits <= 32:
         raise ValueError(f"pow_bits out of range: {pow_bits}")
+    ch = challengers if isinstance(challengers, ChallengerBatch) else ChallengerBatch.of(
+        challengers)
     if pow_bits == 0:
-        return [np.uint64(0)] * len(challengers)
+        return [np.uint64(0)] * len(ch)
     batch = _sweep(pow_bits, batch, device)
     threshold = 1 << (64 - pow_bits)
-    bases = [c.fork() for c in challengers]
-    k = len(bases[0].input_buf)
-    if any(len(c.input_buf) != k for c in bases):
-        raise ValueError("the transcripts' input buffers differ: they are not in lockstep")
-    states = np.stack([c.state for c in bases])
-    if k:
-        states[:, :k] = np.array([c.input_buf for c in bases], dtype=np.uint64)
+    k = ch.input_buf.shape[1]
+    states = ch.state.copy()
+    states[:, :k] = ch.input_buf
     base_state = gl.from_u64(states, device)
     idx = torch.arange(batch, dtype=torch.int64, device=device)
     found: dict[int, np.uint64] = {}
-    open_ = list(range(len(challengers)))
+    open_ = list(range(len(ch)))
     start = 0
     while open_:
-        base = base_state if len(open_) == len(challengers) else base_state[
+        base = base_state if len(open_) == len(ch) else base_state[
             torch.as_tensor(open_, device=device)]
         u = base.shape[0]
         cand = base.unsqueeze(1).expand(u, batch, ps.WIDTH).clone()
@@ -234,17 +262,17 @@ def grind_pow_batch(
         first = torch.where(passing, idx, batch).min(dim=1).values.tolist()
         for i, f in zip(list(open_), first):
             if f < batch:
-                w = np.uint64(start + f)
-                probe = challengers[i].fork()
-                probe.observe(w)
-                # the device and host Poseidon2 are pinned bit-identical, so a
-                # mismatch here is a real bug: fail loudly, never mask it
-                if int(probe.challenge()) >= threshold:
-                    raise AssertionError("PoW grind verification mismatch")
-                found[i] = w
+                found[i] = np.uint64(start + f)
                 open_.remove(i)
         start += batch
-    return [found[i] for i in range(len(challengers))]
+    witnesses = [found[i] for i in range(len(ch))]
+    # the device and host Poseidon2 are pinned bit-identical, so a mismatch
+    # here is a real bug: fail loudly, never mask it
+    probe = ch.fork()
+    probe.observe_many(np.array(witnesses, dtype=np.uint64).reshape(-1, 1))
+    if (probe.challenge() >= np.uint64(threshold)).any():
+        raise AssertionError("PoW grind verification mismatch")
+    return witnesses
 
 
 def check_pow(challenger: Challenger, witness, pow_bits: int) -> bool:

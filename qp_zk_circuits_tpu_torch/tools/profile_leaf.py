@@ -112,11 +112,14 @@ BATCH_STAGES = (
     ("fri.oracle", "commit_batch", "oracle commits (stacked iNTT + LDE + forest)", True),
     ("plonk.prover", "compute_permutation_polys_batch", "permutation argument (B)", True),
     ("plonk.prover", "compute_quotient_batch", "quotient (A + coset iNTT)", True),
-    ("fri.oracle", "eval_openings", "openings (D, a proof)", True),
-    ("plonk.prover", "fri_commit_phase", "fri commit phase (C, trees, E, final iNTT; a proof)",
-     True),
+    ("fri.oracle", "eval_openings", "openings (D, a proof; an older checkout)", True),
+    ("plonk.prover", "fri_commit_phase", "fri commit phase (a proof; an older checkout)", True),
+    ("plonk.prover", "fri_query_phase", "fri queries (a proof; an older checkout)", True),
+    ("fri.oracle", "eval_openings_batch", "openings (D, all K)", True),
+    ("plonk.prover", "fri_commit_phase_batch",
+     "fri commit phase (C, forests, E, stacked final iNTT; all K)", True),
     ("plonk.transcript", "grind_pow_batch", "pow grind (all K)", True),
-    ("plonk.prover", "fri_query_phase", "fri queries (F; a proof)", True),
+    ("plonk.prover", "fri_query_phase_batch", "fri queries (F, all K)", True),
 )
 BATCH_TRANSCRIPT_STAGES = (
     ("native", "absorb_batch", "transcript absorb, K in lockstep (host Poseidon2)", False),
