@@ -157,7 +157,25 @@ package. Phases, each printing one line:
      their artifact set (warm start; an `aot/` subdirectory left inert),
      both pushed into one bucket (a verify each), a duplicate and a dummy
      refused, the bucket aggregated into a public batch, verified and bound
-     to the service's address, refused under another; each step's seconds.
+     to the service's address, refused under another; each step's seconds;
+ 14. mesh — the device mesh on D shards of the one card (parallel/mesh.py,
+     the counterpart of the JAX package's virtual devices), on the circuits
+     of [main], [zk] and [aggregation], each run with the counts at 0: the
+     leaf's three commits tensor-parallel at D = 2, 4, 8 (byte-equal to the
+     fixture, accepted, kernel 3's and the trees' launches at most D times
+     the single proof's, the rest equal); the ZK leaf at D = 4 in host rng
+     (the fixture) and device rng (the single-card device-rng proof of its
+     seed, accepted); the canonical N = 2 private batch at D = 4, host rng
+     (the JAX fixture); `sharded_prove_batch` of 16 leaves over a (4, 1)
+     mesh (each the fixture and prove_batch's); `ntt_sharded` at 2^20 and
+     2^24 over D = 2, 4, 8 both ways (kernel 3's single NTT, the round
+     trip), timed; `sharded_batch_commit` on (16, 135, 256) over (2, 2)
+     (`commit_batch`); `tools/dryrun_multichip.py` on 4 shards, whose run
+     gives kernel H's two rows (csrc/shard.cu, checked in the kernel phase
+     at every shard's block of those NTTs) their launches; with two cards
+     or more, one shard a card (the leaf, the device-rng ZK leaf, a dp
+     batch, the 2^24 NTT, the dryrun), else a line that says that part did
+     not run.
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -879,6 +897,16 @@ def kernel_table(device) -> list[dict]:
              source="qp_zk_circuits_tpu_torch/csrc/random.cu",
              replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:381",
              setup=lambda: _rand_felts_case(device)),
+        # kernel H, the coefficient-sharded NTT's local steps (phase_mesh
+        # reads their launches from the dryrun's run)
+        dict(name="shard_deinterleave", wrapper=ntt.shard_deinterleave, path="mesh",
+             source="qp_zk_circuits_tpu_torch/csrc/shard.cu",
+             replaces="qp_zk_circuits_tpu/poly/ntt.py:197",
+             setup=lambda: _shard_case(device, cross=False)),
+        dict(name="shard_cross_ntt", wrapper=ntt.shard_cross_ntt, path="mesh",
+             source="qp_zk_circuits_tpu_torch/csrc/shard.cu",
+             replaces="qp_zk_circuits_tpu/poly/ntt.py:197",
+             setup=lambda: _shard_case(device, cross=True)),
     ]
 
 
@@ -1665,6 +1693,65 @@ def _rand_felts_case(device) -> dict:
     )
 
 
+#: the sharded NTT's sizes and shard counts in phase_mesh (kernel H's shapes)
+MESH_NTT_LOG_N = (20, 24)
+MESH_NTT_SHARDS = (2, 4, 8)
+#: the shard count of the kernel H rows' timed call, and the sharded leaf's
+MESH_D = 4
+
+
+def shard_work(d: int, l: int, cross: bool) -> tuple[int, int]:
+    """Kernel H's bytes and integer operations on one shard's L felts: each
+    read once and written once; the DFT's least work a radix-2 transform of
+    each of the L / D columns, (D / 2) log2 D multiplies and D log2 D adds
+    (the inverse's 1/D is folded into the roots); the deinterleave none."""
+    bits = d.bit_length() - 1
+    ops = (l // d) * ((d // 2) * bits * OPS_MUL + d * bits * OPS_ADD) if cross else 0
+    return 2 * l * 8, ops
+
+
+def _shard_case(device, cross: bool) -> dict:
+    """Kernel H (one entry) timed on one shard of N = 2^24 over D = 4 (L =
+    2^22 felts); checked against its plain version on the card at every
+    shard's block of the sharded NTT's shapes, N = 2^20 and 2^24 over D =
+    2, 4, 8, and at D = 1 and 64 (both directions for the DFT)."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.poly import ntt
+
+    def inputs(log_n, d, seed):
+        x = _card_felts(((1 << log_n) // d,), seed, device)
+        return x if not cross else x.view(d, -1)
+
+    def call(x, d, inverse=False):
+        return ntt.shard_cross_ntt(x, inverse) if cross else ntt.shard_deinterleave(x, d)
+
+    def plain(x, d, inverse=False):
+        return (ntt.shard_cross_ntt_plain(x, inverse) if cross
+                else ntt.shard_deinterleave_plain(x, d))
+
+    def check():
+        got, want = [], []
+        cases = [(log_n, d) for log_n in MESH_NTT_LOG_N for d in MESH_NTT_SHARDS]
+        for log_n, d in cases + [(20, 1), (20, 64), (24, 64)]:
+            x = inputs(log_n, d, log_n * 100 + d)
+            for inverse in ((False, True) if cross else (False,)):
+                before = ntt.shard_cross_ntt.launches + ntt.shard_deinterleave.launches
+                got.append(call(x, d, inverse))
+                if ntt.shard_cross_ntt.launches + ntt.shard_deinterleave.launches != before + 1:
+                    raise AssertionError("kernel H took other than one launch")
+                want.append(plain(x, d, inverse))
+        return got, want
+
+    x = inputs(24, MESH_D, 7)
+    l = x.numel()
+    # one PyTorch copy computes the deinterleave (its plain version); no
+    # library call computes the DFT over the field
+    library = None if cross else (lambda: x.view(-1, MESH_D).t().contiguous())
+    return dict(run=lambda: call(x, MESH_D), plain=lambda: plain(x, MESH_D), check=check,
+                library=library, **dict(zip(("bytes", "ops"), shard_work(MESH_D, l, cross))))
+
+
 def _host_median_ms(fn, runs: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
@@ -1680,7 +1767,7 @@ def phase_kernels(kernels) -> None:
     import torch
 
     from qp_zk_circuits_tpu_torch.field import goldilocks as gl
-    from qp_zk_circuits_tpu_torch.tools.timing import device_ms, median_ms
+    from qp_zk_circuits_tpu_torch.tools.timing import device_ms, graph_ms, median_ms
 
     elementwise = (gl.add, gl.sub, gl.mul)
     for k in kernels:
@@ -1713,6 +1800,14 @@ def phase_kernels(kernels) -> None:
         if "library_note" in k:
             note = (f"; torch.randint of as many int64s, another stream: "
                     f"{median_ms(k['library_note'], runs=20):.4f} ms")
+        # one PyTorch call computing the same function, where there is one:
+        # checked against the plain version, its device time as device_ms's
+        k["library_ms"] = None
+        if k.get("library") is not None:
+            if not torch.equal(k["library"](), k["plain"]()):
+                raise AssertionError(f"{k['name']}: the library call differs from the plain version")
+            k["library_ms"] = graph_ms(k["library"])
+            note += f"; library call, device {k['library_ms']:.4f} ms"
         if "singles" in k:
             # the batch's work as the single wrapper does it, a call a proof
             k["singles_ms"] = median_ms(k["singles"], runs=10)
@@ -2204,6 +2299,7 @@ def phase_main_path(kernels) -> None:
           f"warm {1e3 * warm_s:.1f} ms; proof {len(blob)} B == fixture; launches per proof: "
           f"{counts}; kernel-1 launches per proof: {sum(kernel1.values())}", flush=True)
     print(verify_line, flush=True)
+    return prover
 
 
 def _single_limits(rounds: int) -> dict:
@@ -2606,6 +2702,7 @@ def phase_zk(kernels) -> None:
           f"device-rng {dev_ms:.2f} ms ({share(busy['device'], dev_ms)}); batch "
           f"{batch_ms:.2f} ms a proof ({share(busy_batch, batch_ms * BATCH_K)} a batch); "
           f"{card()}", flush=True)
+    return prover
 
 
 def phase_aggregation_rand(device, degree_bits: int = 16, rate: int = 3) -> None:
@@ -3180,7 +3277,7 @@ def phase_aggregation(kernels) -> dict:
             _warm_profile("[aggregation] public batch", kernels, pub_proof,
                           lambda p: verify(pub.data, p))):
         print(line, flush=True)
-    return dict(leaf_prover=leaf_prover, private=warm, private_circuit=circuit,
+    return dict(leaf_prover=leaf_prover, leaves=leaves, private=warm, private_circuit=circuit,
                 dummy_pb=dummy_pb, public_circuit=pub)
 
 
@@ -3319,6 +3416,245 @@ def phase_service(kernels, built: dict) -> None:
           f"{', '.join(f'{k} {v:.3f}' for k, v in steps.items())}; {card()}", flush=True)
 
 
+#: the wrappers whose launches a sharded commit multiplies (each shard's
+#: transforms, each device's subtree forest, the top levels' 2-to-1)
+MESH_SPLIT = {"ntt": ("ntt",),
+              "trees": ("poseidon2_merkle_tree", "poseidon2_merkle_forest", "poseidon2_two_to_one")}
+
+
+def _mesh_launches(label: str, launches: dict, single: dict, d: int) -> None:
+    """A sharded proof's launches against the single proof's: kernel 3's and
+    the trees' at most D times as many, every other wrapper's the same."""
+    grouped = {name for names in MESH_SPLIT.values() for name in names}
+    off = {n: (launches[n], single[n]) for n in single if n not in grouped
+           and launches[n] != single[n]}
+    for names in MESH_SPLIT.values():
+        got, one = sum(launches[n] for n in names), sum(single[n] for n in names)
+        if not 0 < got <= d * one:
+            off[names] = (got, one)
+    if off:
+        raise AssertionError(f"{label}: launches (sharded, single) outside their limits: {off}")
+
+
+def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
+    """The device mesh on the one card: D shards of cuda:0 (the JAX package's
+    virtual devices), each run with every count at 0 just before it and
+    read just after:
+
+      * the leaf (the main path's prover), its three commits tensor-parallel
+        at D = 2, 4 and 8: byte-equal to the fixture and accepted by the
+        port's verifier, each wrapper's launches against the single
+        proof's (kernel 3 and the trees at most D times, the rest equal);
+      * the ZK leaf at D = 4 in host rng (the fixture) and device rng (the
+        single-card device-rng proof of the same seed, accepted);
+      * the canonical N = 2 private batch at D = 4, host rng (degree 14,
+        2^17-row LDEs 139, 20 and 20 wide): the JAX package's bytes;
+      * `sharded_prove_batch` of 16 leaf witnesses over a (4, 1) mesh: each
+        proof the fixture and `prove_batch`'s;
+      * `ntt_sharded` at N = 2^20 and 2^24 over D = 2, 4, 8, both ways:
+        bit-equal to kernel 3's single NTT, the round trip the input, timed
+        beside the single NTT (the first call of a shard count and
+        direction builds kernel 3's output-multiplier tables, timed apart);
+      * `sharded_batch_commit` on (16, 135, 256) traces over a (2, 2) mesh:
+        equal to the unsharded `batch_commit_step` (`commit_batch`);
+      * `tools/dryrun_multichip.py` on 4 shards, whose run gives kernel H's
+        rows their launches;
+      * with two cards or more, one shard a card: the leaf (tp), the ZK
+        leaf in device rng, a dp batch of 4 a card, `ntt_sharded` at 2^24
+        and the dryrun over the cards; with one, a line that says that part
+        did not run.
+    Kernel H against its plain versions sits in the kernel phase."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.models import batch_commit_step, sharded_batch_commit
+    from qp_zk_circuits_tpu_torch.parallel import collectives as col
+    from qp_zk_circuits_tpu_torch.parallel.mesh import Mesh, make_prover_mesh, sharded_prove_batch
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_to_bytes
+    from qp_zk_circuits_tpu_torch.poly import ntt
+    from qp_zk_circuits_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+    from qp_zk_circuits_tpu_torch.tools.timing import card, median_ms
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import (
+        test_inputs_0,
+        two_real_leaves_same_block,
+    )
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    print(f"[mesh] layout: D shards on 1 card (cuda:0), the collectives device copies; "
+          f"{cards} card(s) visible; {card()}", flush=True)
+
+    def one_card(d):
+        return Mesh(["cuda:0"] * d, ("cols",))
+
+    def counted(fn):
+        col.all_to_all.copies = col.gather.copies = 0
+        out, took, launches = _counted(kernels, fn)
+        return out, took, launches, col.all_to_all.copies + col.gather.copies
+
+    inputs = test_inputs_0()
+    want = FIXTURE.read_bytes()
+    verifier = WormholeVerifier(leaf.data)
+    blob, single_s, single, _ = counted(lambda: proof_to_bytes(leaf.prove_inputs(inputs, seed=0)))
+    if blob != want:
+        raise AssertionError("[mesh] the single leaf proof differs from the fixture")
+    parts = []
+    for d in (2, 4, 8):
+        proof, took, launches, copies = counted(
+            lambda: leaf.prove_inputs(inputs, seed=0, mesh=one_card(d)))
+        if proof_to_bytes(proof) != want:
+            raise AssertionError(f"[mesh] the leaf at D = {d} differs from the fixture")
+        verifier.verify(proof)
+        _mesh_launches(f"[mesh] leaf D = {d}", launches, single, d)
+        parts.append(f"D = {d} {1e3 * took:.1f} ms, {sum(launches.values())} library launches, "
+                     f"{copies} copies")
+    print(f"[mesh] leaf, three commits tensor-parallel: byte-equal to the fixture and accepted "
+          f"at every D; single {1e3 * single_s:.1f} ms, {sum(single.values())} library launches; "
+          f"{'; '.join(parts)}", flush=True)
+
+    zk_data = zk_leaf.data
+    zk_pw = zk_leaf._partial_witness(inputs)
+    zk_want = ZK_FIXTURE.read_bytes()
+    host, host_s, host_l, host_c = counted(lambda: proof_to_bytes(tprover.prove(
+        zk_data, zk_pw, seed=ZK_SEED, rng_mode="host", mesh=one_card(MESH_D))))
+    if host != zk_want:
+        raise AssertionError("[mesh] the ZK leaf at D = 4 (host rng) differs from the fixture")
+    dev_single = proof_to_bytes(tprover.prove(zk_data, zk_pw, seed=ZK_SEED, rng_mode="device"))
+    dev, dev_s, dev_l, dev_c = counted(lambda: tprover.prove(
+        zk_data, zk_pw, seed=ZK_SEED, rng_mode="device", mesh=one_card(MESH_D)))
+    if proof_to_bytes(dev) != dev_single:
+        raise AssertionError("[mesh] the ZK leaf at D = 4 (device rng) differs from the "
+                             "single-card device-rng proof of its seed")
+    WormholeVerifier(zk_data).verify(dev)
+    print(f"[mesh] ZK leaf D = {MESH_D}: host rng == fixture, {1e3 * host_s:.1f} ms, "
+          f"{sum(host_l.values())} library launches, {host_c} copies; device rng == the "
+          f"single-card device-rng proof, accepted, {1e3 * dev_s:.1f} ms, kernel G "
+          f"{dev_l['rand_felts']} launches, {sum(dev_l.values())} library launches, {dev_c} "
+          f"copies", flush=True)
+
+    mk = _agg_fixtures()
+    pb, pb_s, pb_l, pb_c = counted(lambda: built["private"].aggregate(
+        built["leaves"], seed=mk.PB_SEED, rng=np.random.default_rng(mk.PB_RNG),
+        rng_mode="host", mesh=one_card(MESH_D)))
+    if proof_to_bytes(pb) != _committed("canonical_private_batch.bin"):
+        raise AssertionError("[mesh] the canonical private batch at D = 4 differs from the JAX "
+                             "fixture")
+    pdata = built["private_circuit"].data
+    print(f"[mesh] canonical N = 2 private batch D = {MESH_D} (degree_bits {pdata.degree_bits}, "
+          f"host rng) == fixture: {pb_s:.3f} s, {sum(pb_l.values())} library launches, {pb_c} "
+          f"copies", flush=True)
+
+    spends = two_real_leaves_same_block()
+    batch_inputs = [spends[i % 2] for i in range(BATCH_K)]
+    fixtures = [_committed(f"leaf_proof_real{i}.bin") for i in range(2)]
+    dp_mesh = make_prover_mesh(4, dp=4, devices=["cuda:0"] * 4)
+    proofs, dp_s, dp_l, _ = counted(lambda: sharded_prove_batch(
+        leaf.data, dp_mesh, [leaf._partial_witness(x) for x in batch_inputs], seed=0))
+    batch = leaf.prove_inputs_batch(batch_inputs, seed=0)
+    for i, (p, q) in enumerate(zip(proofs, batch, strict=True)):
+        if proof_to_bytes(p) != fixtures[i % 2] or proof_to_bytes(q) != fixtures[i % 2]:
+            raise AssertionError(f"[mesh] dp proof {i} differs from its fixture or prove_batch's")
+    print(f"[mesh] sharded_prove_batch of {BATCH_K} leaves over a (4, 1) mesh: each proof == "
+          f"its fixture and prove_batch's; {1e3 * dp_s:.1f} ms, {sum(dp_l.values())} library "
+          f"launches", flush=True)
+
+    lines = []
+    for log_n in MESH_NTT_LOG_N:
+        x = _card_felts((1 << log_n,), log_n, "cuda")
+        fwd = ntt.ntt(x)
+        single_ms = median_ms(lambda: ntt.ntt(x), runs=5)
+        for d in MESH_NTT_SHARDS:
+            mesh = one_card(d)
+            for inverse, src, want_out in ((False, x, fwd), (True, fwd, x)):
+                t = time.perf_counter()
+                got = torch.cat(ntt.ntt_sharded(src, mesh, inverse=inverse))
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t
+                if not torch.equal(got, ntt.ntt(src, inverse=inverse)):
+                    raise AssertionError(f"[mesh] ntt_sharded 2^{log_n} D = {d} differs from "
+                                         f"kernel 3's single NTT (inverse {inverse})")
+                if inverse and not torch.equal(got, want_out):
+                    raise AssertionError(f"[mesh] the sharded round trip at 2^{log_n} D = {d} "
+                                         "is not the input")
+                ms = median_ms(lambda: ntt.ntt_sharded(src, mesh, inverse=inverse), runs=5)
+                lines.append(f"2^{log_n} D = {d} {'inverse' if inverse else 'forward'} "
+                             f"{ms:.3f} ms (first {first_s:.2f} s)")
+            del got
+        lines.append(f"2^{log_n} single NTT {single_ms:.3f} ms")
+        del x, fwd
+        torch.cuda.empty_cache()
+    print(f"[mesh] ntt_sharded bit-equal to kernel 3's single NTT, round trips the input; "
+          f"CUDA events: {'; '.join(lines)}", flush=True)
+
+    traces = _card_felts((BATCH_K, 135, 256), 5, "cuda")
+    cmesh = make_prover_mesh(4, dp=2, devices=["cuda:0"] * 4)
+    (caps, ldes), core_s, core_l, core_c = counted(
+        lambda: sharded_batch_commit(cmesh, rate_bits=3, cap_height=1)(traces))
+    want_caps, want_ldes = batch_commit_step(traces, 3, 1)
+    if not (torch.equal(caps, want_caps) and torch.equal(ldes, want_ldes)):
+        raise AssertionError("[mesh] sharded_batch_commit differs from commit_batch")
+    print(f"[mesh] commit core (16, 135, 256) over (2, 2) == commit_batch: {1e3 * core_s:.1f} "
+          f"ms, {sum(core_l.values())} library launches, {core_c} copies", flush=True)
+
+    summary, dry_s, dry_l, _ = counted(lambda: dryrun_multichip(4, ["cuda:0"] * 4))
+    for k in kernels:
+        if k.get("path") == "mesh":
+            k["launches"] = dry_l[k["name"]]
+    missing = [k["name"] for k in kernels if k.get("path") == "mesh" and k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"[mesh] kernels not launched by the dryrun: {missing}")
+    print(f"[mesh] {summary}: {dry_s:.2f} s, kernel H launches "
+          f"{dry_l['shard_deinterleave']} + {dry_l['shard_cross_ntt']}", flush=True)
+
+    if cards >= 2:
+        per_card = Mesh([f"cuda:{i}" for i in range(cards)], ("cols",))
+        proof, took, launches, copies = counted(
+            lambda: leaf.prove_inputs(inputs, seed=0, mesh=per_card))
+        if proof_to_bytes(proof) != want:
+            raise AssertionError("[mesh] the leaf with one shard a card differs from the fixture")
+        _mesh_launches(f"[mesh] leaf, {cards} cards", launches, single, cards)
+        dev_cards = proof_to_bytes(tprover.prove(zk_data, zk_pw, seed=ZK_SEED,
+                                                 rng_mode="device", mesh=per_card))
+        if dev_cards != dev_single:
+            raise AssertionError("[mesh] the device-rng ZK leaf over the cards differs from the "
+                                 "single-card proof of its seed")
+        k = 4 * cards
+        cards_dp = make_prover_mesh(cards, dp=cards)
+        dp_inputs = [spends[i % 2] for i in range(k)]
+        dp_proofs, dp_cards_s, _, _ = counted(lambda: sharded_prove_batch(
+            leaf.data, cards_dp, [leaf._partial_witness(x) for x in dp_inputs], seed=0))
+        if [proof_to_bytes(p) for p in dp_proofs] != [fixtures[i % 2] for i in range(k)]:
+            raise AssertionError("[mesh] the dp batch with one shard a card differs")
+        x = _card_felts((1 << 24,), 24, "cuda")
+        ntt_ms = []
+        for inverse in (False, True):
+            want_out = ntt.ntt(x, inverse=inverse)
+            got = torch.cat([b.to(x.device) for b in ntt.ntt_sharded(x, per_card, inverse=inverse)])
+            if not torch.equal(got, want_out):
+                raise AssertionError(f"[mesh] ntt_sharded 2^24 over {cards} cards differs "
+                                     f"(inverse {inverse})")
+            def call():
+                ntt.ntt_sharded(x, per_card, inverse=inverse)
+                for i in range(cards):
+                    torch.cuda.synchronize(i)
+
+            ntt_ms.append(_host_median_ms(call, runs=5))
+        del x, got, want_out
+        torch.cuda.empty_cache()
+        summary = dryrun_multichip(cards)
+        print(f"[mesh] one shard a card on {cards} cards (peer copies): the leaf tp proof == "
+              f"fixture, {1e3 * took:.1f} ms, {sum(launches.values())} library launches, "
+              f"{copies} copies; the device-rng ZK leaf == the single-card proof; {k} dp proofs "
+              f"== their fixtures, {1e3 * dp_cards_s:.1f} ms; ntt_sharded 2^24 == kernel 3's, "
+              f"forward {ntt_ms[0]:.3f} ms, inverse {ntt_ms[1]:.3f} ms (host clock, every card "
+              f"synchronized); {summary}", flush=True)
+    else:
+        print("[mesh] one shard a card: not run (1 card visible)", flush=True)
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     device_info = phase_device()
@@ -3330,19 +3666,20 @@ def main() -> int:
     phase_aggregation_ntt("cuda")
     phase_aggregation_fused("cuda")
     phase_aggregation_fri_tail("cuda")
-    phase_main_path(kernels)
+    leaf = phase_main_path(kernels)
     phase_batch(kernels)
-    phase_zk(kernels)
+    zk_leaf = phase_zk(kernels)
     phase_aggregation_rand("cuda")
     phase_recursion(kernels)
-    phase_service(kernels, phase_aggregation(kernels))
+    built = phase_aggregation(kernels)
+    phase_service(kernels, built)
+    phase_mesh(kernels, leaf, zk_leaf, built)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
+        # library_ms: null where no single PyTorch call computes the
+        # function (torch.randint, timed beside kernel G, draws another stream)
         k["route"] = "cuda"
-        # no single PyTorch call computes these functions (torch.randint,
-        # timed beside kernel G, draws another stream)
-        k["library_ms"] = None
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": device_info}), flush=True)
     return 0

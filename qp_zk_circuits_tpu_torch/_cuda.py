@@ -48,6 +48,8 @@ _ENTRIES = {
     "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "qzk_query_gather": [_P, _P],
     "qzk_rand_felts": [_P, _LL, _LL, _LL, _LL, _ULL, _ULL, _P],
+    "qzk_shard_deinterleave": [_P, _P, _LL, _I, _P],
+    "qzk_shard_cross_ntt": [_P, _P, _LL, _I, _P, _P],
 }
 
 #: the kernels with a proof axis (A, B, C, D, E, F) take at most this many
@@ -132,7 +134,17 @@ def check(err: int, what: str) -> None:
 
 
 def stream() -> int:
+    """The current device's current stream (see `on_device`)."""
     return torch.cuda.current_stream().cuda_stream
+
+
+def on_device(device: torch.device):
+    """The context every launch runs in: its operands' CUDA device current,
+    so the runtime launches there and `stream()` is that device's current
+    stream (on a mesh of several cards the current device is not the
+    operands' by default). A CPU device leaves the current device as it is
+    (a stand-in library fed CPU tensors)."""
+    return torch.cuda.device(device.index if device.type == "cuda" else -1)
 
 
 def require_cuda_int64(*tensors: torch.Tensor) -> None:

@@ -121,9 +121,10 @@ def _launch_binary(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _cuda.require_cuda_int64(a, b)
     a, b = (t.contiguous() for t in torch.broadcast_tensors(a, b))
     out = torch.empty(a.shape, dtype=torch.int64, device=a.device)
-    err = _cuda.lib().qzk_field_binary(
-        op, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), _cuda.stream()
-    )
+    with _cuda.on_device(a.device):
+        err = _cuda.lib().qzk_field_binary(
+            op, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), _cuda.stream()
+        )
     _cuda.check(err, "qzk_field_binary")
     return out
 

@@ -115,8 +115,9 @@ def rand_felts(key: int, stream: int, out: torch.Tensor) -> torch.Tensor:
     view = out.reshape(1, -1) if out.dim() < 2 else out
     rows, cols = view.shape
     rs, cs = view.stride()
-    err = _cuda.lib().qzk_rand_felts(view.data_ptr(), rows, cols, rs, cs, key, stream,
-                                     _cuda.stream())
+    with _cuda.on_device(out.device):
+        err = _cuda.lib().qzk_rand_felts(view.data_ptr(), rows, cols, rs, cs, key, stream,
+                                         _cuda.stream())
     _cuda.check(err, "qzk_rand_felts")
     rand_felts.launches += 1
     return out

@@ -285,11 +285,12 @@ def _openings_launches(oracles_k, zetas, zeta_nexts, next_oracle, next_count):
     launches = 0
     for g0, g1 in _cuda.proof_groups(k):
         # the group's rows are whole rows of the C-ordered host arrays
-        err = _cuda.lib().qzk_eval_openings(
-            segs[g0:g1].ctypes.data, segs.shape[1], points[g0:g1].ctypes.data,
-            out[g0].data_ptr(), None if part is None else part[g0].data_ptr(), n, g1 - g0,
-            _cuda.stream()
-        )
+        with _cuda.on_device(dev):
+            err = _cuda.lib().qzk_eval_openings(
+                segs[g0:g1].ctypes.data, segs.shape[1], points[g0:g1].ctypes.data,
+                out[g0].data_ptr(), None if part is None else part[g0].data_ptr(), n, g1 - g0,
+                _cuda.stream()
+            )
         _cuda.check(err, "qzk_eval_openings")
         launches += 1 if chunks == 1 else 2
     return gl.to_u64(out), launches

@@ -341,12 +341,13 @@ def _composition_launches(oracles_k, instances, openings_k, alphas, lde_bits, ar
     out = torch.empty((k, m >> arity_bits, 2 << arity_bits), dtype=torch.int64, device=dev)
     launches = 0
     for g0, g1 in _cuda.proof_groups(k):
-        err = _cuda.lib().qzk_fri_composition(
-            ptrs[g0:g1].ctypes.data, ptrs.shape[1], terms_d.data_ptr(), ys_d[g0].data_ptr(),
-            xs.data_ptr(), batches[g0:g1].ctypes.data, batches.shape[1],
-            alphas_h[g0:g1].ctypes.data, out[g0].data_ptr(), m, arity_bits, g1 - g0,
-            _cuda.stream(),
-        )
+        with _cuda.on_device(dev):
+            err = _cuda.lib().qzk_fri_composition(
+                ptrs[g0:g1].ctypes.data, ptrs.shape[1], terms_d.data_ptr(), ys_d[g0].data_ptr(),
+                xs.data_ptr(), batches[g0:g1].ctypes.data, batches.shape[1],
+                alphas_h[g0:g1].ctypes.data, out[g0].data_ptr(), m, arity_bits, g1 - g0,
+                _cuda.stream(),
+            )
         _cuda.check(err, "qzk_fri_composition")
         launches += 1
     return out, launches
@@ -468,10 +469,11 @@ def _fold_launches(leaves, betas, a_bits, log_m, shift_pow, next_bits):
     out = torch.empty((k, mp >> next_bits, 2 << next_bits), dtype=torch.int64, device=dev)
     launches = 0
     for g0, g1 in _cuda.proof_groups(k):
-        err = _cuda.lib().qzk_fri_fold(
-            leaves[g0].data_ptr(), consts.ctypes.data, powers[g0:g1].ctypes.data,
-            out[g0].data_ptr(), mp, a_bits, next_bits, g1 - g0, _cuda.stream(),
-        )
+        with _cuda.on_device(dev):
+            err = _cuda.lib().qzk_fri_fold(
+                leaves[g0].data_ptr(), consts.ctypes.data, powers[g0:g1].ctypes.data,
+                out[g0].data_ptr(), mp, a_bits, next_bits, g1 - g0, _cuda.stream(),
+            )
         _cuda.check(err, "qzk_fri_fold")
         launches += 1
     return out, launches
@@ -724,6 +726,7 @@ def _gather_launches(sources_k, indices_k, groups=((0, 1),)):
     copy out of the buffer, which the next call of that shape reuses.
     Returns ((K, Q, width) host rows, launches)."""
     host = None
+    dev = sources_k[0][0].matrix.device
     for g0, g1 in groups:
         plan, width = pack_gather_plan_batch(sources_k[g0:g1], indices_k[g0:g1])
         if host is None:
@@ -732,8 +735,10 @@ def _gather_launches(sources_k, indices_k, groups=((0, 1),)):
                 _pinned[key] = torch.empty(key, dtype=torch.int64, pin_memory=True)
             host = _pinned[key]
         struct.pack_into("<Q", plan, 0, host[g0].data_ptr())
-        _cuda.check(_cuda.lib().qzk_query_gather(bytes(plan), _cuda.stream()), "qzk_query_gather")
-    torch.cuda.current_stream(sources_k[0][0].matrix.device).synchronize()
+        with _cuda.on_device(dev):
+            err = _cuda.lib().qzk_query_gather(bytes(plan), _cuda.stream())
+        _cuda.check(err, "qzk_query_gather")
+    torch.cuda.current_stream(dev).synchronize()
     return host.numpy().view(np.uint64).copy(), len(groups)
 
 

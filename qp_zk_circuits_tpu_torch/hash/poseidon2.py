@@ -490,7 +490,7 @@ def _kernel_lib(index: int | None):
     of CUDA device `index` (that memory is per device: one upload each)."""
     lib = _cuda.lib()
     ext_rcs, int_rcs, diag = (np.ascontiguousarray(a, dtype=np.uint64) for a in _constants())
-    with torch.cuda.device(index):
+    with _cuda.on_device(torch.device("cuda", index)):
         err = lib.qzk_poseidon2_set_constants(
             ext_rcs.ctypes.data, int_rcs.ctypes.data, diag.ctypes.data
         )
@@ -502,7 +502,7 @@ def _launch(entry: str, device: torch.device, *args) -> None:
     """Call kernel-2 entry `entry` on `device`, its current stream last: the
     launch and the constants it reads are that device's."""
     lib = _kernel_lib(device.index)
-    with torch.cuda.device(device.index):
+    with _cuda.on_device(device):
         _cuda.check(getattr(lib, entry)(*args, _cuda.stream()), entry)
 
 

@@ -41,7 +41,9 @@ from ..field import goldilocks as gl
 from ..field import random as frandom
 from ..fri import oracle as fo
 from ..fri.prover import fri_commit_phase_batch, fri_prove, fri_query_phase_batch
+from ..hash import merkle
 from ..hash import poseidon2 as ps
+from ..parallel import tp
 from ..poly import ntt
 from . import constraint_tape
 from . import transcript as ts
@@ -143,6 +145,27 @@ def _cached(data: CircuitData, dev, key: str, make) -> dict:
     return per_device[dev]
 
 
+def device_constants(data: CircuitData, dev) -> fo.PolynomialBatch:
+    """The circuit's preprocessing oracle on device `dev`: the one committed
+    at build time on its own device, a copy (coefficients, LDE, tree) on any
+    other, made once (a data-parallel shard proves on its own card)."""
+    home = data.constants_oracle
+    dev = torch.device(dev)
+    if dev.type == home.lde.device.type and dev.index in (None, home.lde.device.index):
+        return home
+
+    def copy(d):
+        tree = home.tree
+        digests = torch.cat(tree.digests).to(d).split([lvl.shape[0] for lvl in tree.digests])
+        return fo.PolynomialBatch(
+            coeffs=home.coeffs.to(d), lde=home.lde.to(d),
+            tree=merkle.MerkleTree(digests=list(digests), cap=tree.cap,
+                                   cap_height=tree.cap_height),
+            degree_bits=home.degree_bits, rate_bits=home.rate_bits, blinding=home.blinding)
+
+    return _cached(data, dev, "_torch_constants", copy)
+
+
 def _routing_tables(data: CircuitData, dev) -> dict:
     """Kernel B's per-circuit tables on device `dev`."""
     return _cached(data, dev, "_torch_routing", lambda d: {
@@ -199,7 +222,7 @@ def _kernel_lib(index: int | None):
         np.ascontiguousarray(a, dtype=np.uint64)
         for a in (ps.external_round_constants(), ps.internal_round_constants(), ps.internal_diag())
     )
-    with torch.cuda.device(index):
+    with _cuda.on_device(torch.device("cuda", index)):
         err = lib.qzk_quotient_set_constants(
             ext_rcs.ctypes.data, int_rcs.ctypes.data, diag.ctypes.data
         )
@@ -326,12 +349,13 @@ def _permutation_launches(data: CircuitData, traces: torch.Tensor, betas, gammas
     betas, gammas = (_host_felts(v, nc) for v in (betas, gammas))
     launches = 0
     for g0, g1 in _groups(k):
-        err = _cuda.lib().qzk_permutation(
-            traces[g0].data_ptr(), traces.stride(0), tab["id_coords"].data_ptr(),
-            tab["sigma_vals"].data_ptr(), betas[g0:g1].ctypes.data, gammas[g0:g1].ctypes.data,
-            out[g0].data_ptr(), tile_prod[g0].data_ptr(), g1 - g0, data.n, nr,
-            cfg.max_quotient_degree_factor, nc, _cuda.stream(),
-        )
+        with _cuda.on_device(dev):
+            err = _cuda.lib().qzk_permutation(
+                traces[g0].data_ptr(), traces.stride(0), tab["id_coords"].data_ptr(),
+                tab["sigma_vals"].data_ptr(), betas[g0:g1].ctypes.data, gammas[g0:g1].ctypes.data,
+                out[g0].data_ptr(), tile_prod[g0].data_ptr(), g1 - g0, data.n, nr,
+                cfg.max_quotient_degree_factor, nc, _cuda.stream(),
+            )
         _cuda.check(err, "qzk_permutation")
         launches += 1 if tiles == 1 else 2
     return out, launches
@@ -360,7 +384,7 @@ def _quotient_operands(data: CircuitData, wires_lde, zs_pp_lde):
     m = data.n << cfg.rate_bits
     nc = cfg.num_challenges
     npp = num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor)
-    consts_lde = data.constants_oracle.lde.to(wires_lde.device)
+    consts_lde = device_constants(data, wires_lde.device).lde
     nconst = data.const_cols.shape[0]
     want = (
         (wires_lde, cfg.num_wires),
@@ -508,7 +532,7 @@ def _quotient_launches(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_h
     lib = _kernel_lib(dev.index)
     launches = 0
     # the launch, its stream and the constants it reads are the operands' device's
-    with torch.cuda.device(dev.index):
+    with _cuda.on_device(dev):
         for g0, g1 in _groups(k):
             err = lib.qzk_quotient(
                 wires_ldes[g0].data_ptr(), wires_ldes.stride(0), consts_lde.data_ptr(),
@@ -546,7 +570,7 @@ RNG_MODES = ("auto", "host", "device")
 
 
 def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None,
-          rng_mode: str = "auto") -> Proof:
+          rng_mode: str = "auto", mesh=None) -> Proof:
     """Prove on the device of `data` (see `CircuitBuilder.build`). Witness
     generation runs on the host, then `prove_from_trace`.
 
@@ -560,29 +584,35 @@ def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None,
     for ("device" by default), as the JAX package's `prove` takes "device"
     once `warmup_fused` has built its device-rng graph: pass the mode
     explicitly when the bytes must be reproducible. A non-ZK proof draws
-    nothing, whatever the mode."""
+    nothing, whatever the mode.
+
+    With a `mesh` (parallel/mesh.py), the three oracle commits run
+    tensor-parallel over its "cols" axis (`prove_from_trace`): the same
+    bytes as without."""
     if rng_mode not in RNG_MODES:
         raise ValueError(f"rng_mode {rng_mode!r}, expected one of {RNG_MODES}")
     if rng_mode == "auto":
         rng_mode = data.__dict__.get("_warm_rng_mode", "host")
     trace, pis = witness_trace(data, pw)
-    return _prove_drawn(data, trace, pis, seed, rng_mode)
+    return _prove_drawn(data, trace, pis, seed, rng_mode, mesh)
 
 
-def _prove_drawn(data: CircuitData, trace: np.ndarray, pis: np.ndarray, seed, rng_mode: str):
+def _prove_drawn(data: CircuitData, trace: np.ndarray, pis: np.ndarray, seed, rng_mode: str,
+                 mesh=None):
     """`prove_from_trace` after a ZK proof's draws in `rng_mode` ("host" or
     "device") from `default_rng(seed)`."""
     if not data.config.zero_knowledge:
-        return prove_from_trace(data, trace, pis, seed)
+        return prove_from_trace(data, trace, pis, seed, mesh=mesh)
     rng = np.random.default_rng(seed)
     if rng_mode == "device":
-        return prove_from_trace(data, trace, pis, seed, device_key=int(rng.integers(0, 2**63)))
+        return prove_from_trace(data, trace, pis, seed, device_key=int(rng.integers(0, 2**63)),
+                                mesh=mesh)
     blind, salts = zk_draws(data, rng)
     trace[:, data.num_rows_used :] = blind
-    return prove_from_trace(data, trace, pis, seed, salts=salts)
+    return prove_from_trace(data, trace, pis, seed, salts=salts, mesh=mesh)
 
 
-def warmup(data: CircuitData, pw: PartialWitness, rng_mode: str = "device") -> None:
+def warmup(data: CircuitData, pw: PartialWitness, rng_mode: str = "device", mesh=None) -> None:
     """Make `data`'s next proofs steady-state (the counterpart of the JAX
     package's `warmup_fused`, plonk/prover.py:212; there is no graph to
     compile here):
@@ -595,16 +625,22 @@ def warmup(data: CircuitData, pw: PartialWitness, rng_mode: str = "device") -> N
       * make one throw-away proof of `pw`, which loads the kernel library
         and launches every kernel of the path;
       * mark `data` so that `prove(..., rng_mode="auto")` takes `rng_mode`
-        ("device" or "host") from then on."""
+        ("device" or "host") from then on.
+
+    With a `mesh`, the tables and the preprocessing oracle are made on every
+    device of the mesh (`device_constants`; a data-parallel shard proves on
+    its own) and the throw-away proof runs through the mesh
+    (`prove(..., mesh=mesh)`)."""
     if rng_mode not in ("host", "device"):
         raise ValueError(f"rng_mode {rng_mode!r}: warm up for 'host' or 'device'")
     _check_config(data.config)
-    dev = data.device
-    _quotient_tables(data, dev)
-    _routing_tables(data, dev)
+    for dev in [data.device] + ([] if mesh is None else mesh.unique_devices()):
+        device_constants(data, dev)
+        _quotient_tables(data, dev)
+        _routing_tables(data, dev)
     witness_root_values(data, pw)  # records the program if it is new
     trace, pis = witness_trace(data, pw)  # the tape's first run
-    _prove_drawn(data, trace, pis, 0, rng_mode)
+    _prove_drawn(data, trace, pis, 0, rng_mode, mesh)
     data.__dict__["_warm_rng_mode"] = rng_mode
 
 
@@ -674,7 +710,7 @@ def _salt_args(cfg, salts, device_key) -> list:
 
 def prove_from_trace(
     data: CircuitData, trace: np.ndarray, pis: np.ndarray, seed: int | None = None,
-    salts=None, device_key: int | None = None,
+    salts=None, device_key: int | None = None, mesh=None,
 ) -> Proof:
     """Prove from a witness trace (num_wires, n) and its public inputs.
 
@@ -684,13 +720,26 @@ def prove_from_trace(
     `salts` (3, M, SALT_SIZE) for the wires, zs_pp and quotient oracles; or
     a `device_key`, and then kernel G writes the blinding rows (stream 0)
     over the trace's rows past `num_rows_used` and each oracle's salt rows
-    (streams 1-3) on the card: four launches."""
+    (streams 1-3) on the card: four launches.
+
+    With a `mesh`, the wires, zs_pp and quotient commits run tensor-parallel
+    over its "cols" axis (`parallel/tp.py::commit_sharded`: the JAX
+    package's `prove_staged(mesh=)` and `_build_fused(mesh=)`, one program
+    here) and return their oracles on the circuit's device, where every
+    other stage runs; the salts are drawn as without a mesh, so the bytes
+    are the same."""
     cfg = data.config
     _check_config(cfg)
     salt_args = _salt_args(cfg, salts, device_key)
     dev = data.device
     rate_bits = cfg.rate_bits
     cap_h = cfg.fri_config.cap_height
+    if mesh is None:
+        commit = fo.commit
+    else:
+        def commit(values, rate_bits, cap_height, from_values=False, salt=None):
+            return tp.commit_sharded(values, mesh, rate_bits, cap_height,
+                                     from_values=from_values, salt=salt)
 
     # 1. witness
     pi_hash = ps.hash_no_pad(pis)
@@ -699,7 +748,7 @@ def prove_from_trace(
         frandom.rand_felts(device_key, 0, trace_d[:, data.num_rows_used :])
 
     # 2. wires commitment
-    wires_o = fo.commit(trace_d, rate_bits, cap_h, from_values=True, salt=salt_args[0])
+    wires_o = commit(trace_d, rate_bits, cap_h, from_values=True, salt=salt_args[0])
     ch = ts.Challenger()
     ch.observe_many(data.circuit_digest)
     ch.observe_many(pi_hash)
@@ -709,19 +758,19 @@ def prove_from_trace(
 
     # 3. permutation argument
     zpp = compute_permutation_polys(data, trace_d, betas, gammas)
-    zs_pp_o = fo.commit(zpp, rate_bits, cap_h, from_values=True, salt=salt_args[1])
+    zs_pp_o = commit(zpp, rate_bits, cap_h, from_values=True, salt=salt_args[1])
     ch.observe_cap(zs_pp_o.cap)
     alphas = ch.challenge_many(cfg.num_challenges)
 
     # 4. quotient
     t_chunks = compute_quotient(data, wires_o.poly_lde, zs_pp_o.poly_lde, alphas, betas, gammas,
                                 pi_hash)
-    quotient_o = fo.commit(t_chunks, rate_bits, cap_h, salt=salt_args[2])
+    quotient_o = commit(t_chunks, rate_bits, cap_h, salt=salt_args[2])
     ch.observe_cap(quotient_o.cap)
     zeta = ch.challenge_ext()
 
     # 5. openings — all oracles at zeta (+ Z cols at g*zeta), one transfer
-    oracles = [data.constants_oracle, wires_o, zs_pp_o, quotient_o]
+    oracles = [device_constants(data, dev), wires_o, zs_pp_o, quotient_o]
     openings, zeta_next = _open(data, oracles, zeta)
     openings.observe_into(ch)
 
@@ -813,7 +862,7 @@ def _caps(batches) -> np.ndarray:
 
 
 def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
-                      seed: int | None = None, salts=None) -> list[Proof]:
+                      seed: int | None = None, salts=None, device=None) -> list[Proof]:
     """Prove K witness traces (K, num_wires, n) of one circuit with their
     public inputs (K, num_pis), a stage at a time for all K, in the order of
     `prove_from_trace`:
@@ -835,7 +884,11 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
     A ZK batch takes its traces with their blinding rows and `salts` (K, 3,
     M, SALT_SIZE), each commit's salts uploaded in one copy into the salt
     rows of its (K, C + SALT_SIZE, M) buffer. Each proof's bytes equal
-    `prove_from_trace`'s with the same draws."""
+    `prove_from_trace`'s with the same draws.
+
+    `device`: where the batch runs, the circuit's device by default (a
+    data-parallel shard's card, `parallel/mesh.py::sharded_prove_batch`;
+    the preprocessing oracle and the kernels' tables are made there once)."""
     cfg = data.config
     _check_config(cfg)
     if cfg.zero_knowledge != (salts is not None):
@@ -844,7 +897,7 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
         np.asarray(salts, dtype=np.uint64)[:, j] for j in range(3)]
     traces = np.asarray(traces, dtype=np.uint64)
     k = traces.shape[0]
-    dev = data.device
+    dev = data.device if device is None else device
     rate_bits, cap_h, nc = cfg.rate_bits, cfg.fri_config.cap_height, cfg.num_challenges
 
     # 1. witnesses
@@ -874,7 +927,8 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
     zetas = ch.challenge_ext()
 
     # 5. openings, one kernel-D call for the batch
-    oracles = [[data.constants_oracle, w, z, q] for w, z, q in zip(wires_os, zs_pp_os, quotient_os)]
+    consts = device_constants(data, dev)
+    oracles = [[consts, w, z, q] for w, z, q in zip(wires_os, zs_pp_os, quotient_os)]
     opened = _open_batch(data, oracles, zetas)
     ch.observe_many(np.stack([o.batch_zeta().ravel() for o, _ in opened]))
     ch.observe_many(np.stack([o.batch_zeta_next().ravel() for o, _ in opened]))

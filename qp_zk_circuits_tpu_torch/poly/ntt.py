@@ -8,7 +8,10 @@ through a scratch buffer) above, up to 2^24; a one-pass coset LDE of
 N >> r coefficients runs as 2^r transforms of that size. CPU tensors take its
 plain torch version, the iterative radix-2 Cooley-Tukey of the JAX package
 (a bit-reversed gather, then log N decimation-in-time stages). `ntt`,
-`intt`, `coset_intt` and `coset_lde` are modes of it.
+`intt`, `coset_intt` and `coset_lde` are modes of it. `ntt_sharded`
+transforms one polynomial whose coefficients are spread over a mesh's
+shards, on kernel 3 and kernel H (csrc/shard.cu: `shard_deinterleave`,
+`shard_cross_ntt`).
 """
 
 from __future__ import annotations
@@ -203,11 +206,12 @@ def _launch_ntt(x, log_n, inverse, shift, out_shift, out=None, groups=(0, 0)):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _cuda.lib().qzk_ntt(
-        x.data_ptr(), out.data_ptr(), ptr(scratch), tw1.data_ptr(), ptr(tw2), ptr(twn),
-        ptr(pre), ptr(post), c, n_in, log_n, l1, coset_bits, scale, int(inverse), *groups,
-        _cuda.stream(),
-    )
+    with _cuda.on_device(dev):
+        err = _cuda.lib().qzk_ntt(
+            x.data_ptr(), out.data_ptr(), ptr(scratch), tw1.data_ptr(), ptr(tw2), ptr(twn),
+            ptr(pre), ptr(post), c, n_in, log_n, l1, coset_bits, scale, int(inverse), *groups,
+            _cuda.stream(),
+        )
     _cuda.check(err, "qzk_ntt")
     batched_ntt.launches += 2 if l2 else 1
     return out
@@ -257,3 +261,142 @@ def coset_lde(coeffs: torch.Tensor, rate_bits: int, shift: int | None = None,
         shift = int(F.MULTIPLICATIVE_GROUP_GENERATOR)
     res = batched_ntt(coeffs.reshape(-1, n), _log2(n) + rate_bits, shift=shift, out=out)
     return res if out is not None else res.reshape(coeffs.shape[:-1] + (n << rate_bits,))
+
+
+# ---------------------------------------------------------------------------
+# the coefficient-sharded NTT (kernel H and kernel 3 over a mesh axis)
+#
+# The JAX package's four-step decomposition N = D * L over D shards, the
+# coefficients in contiguous blocks of L (poly/ntt.py:186-258 there):
+#
+#   X[L k1 + k2] = sum_{n1 < D} w_D^(n1 k1) w_N^(n1 k2)
+#                    [sum_{n2 < L} w_L^(n2 k2) x[D n2 + n1]]
+#
+# Shard p: deinterleave its block (kernel H), exchange (block -> cyclic),
+# a length-L kernel-3 NTT whose output multiplier w_N^p puts the shard's
+# twiddle row w_N^(p k2) on output k2 (the inverse's 1/L folded in), exchange
+# the k2 slabs, the length-D DFT across the received slab (kernel H, 1/D for
+# the inverse), and a last exchange back to contiguous blocks.
+
+#: kernel H's cross-shard DFT takes at most this many shards
+MAX_SHARDS = 64
+
+
+def _shard_bits(d: int) -> int:
+    bits = d.bit_length() - 1
+    if d < 1 or 1 << bits != d or d > MAX_SHARDS:
+        raise ValueError(f"{d} shards: kernel H takes a power of two up to {MAX_SHARDS}")
+    return bits
+
+
+def shard_deinterleave_plain(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Plain torch version of `shard_deinterleave`."""
+    _shard_bits(d)
+    return x.reshape(-1, d).T.contiguous()
+
+
+def shard_deinterleave(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Kernel H's first entry: a shard's block x (L,) read as (L/D, D) ->
+    (D, L/D), row r the coefficients x[q D + r] (the slab for shard r).
+    L / D must be a power of two. On a CUDA tensor: one launch; on a CPU
+    tensor: the plain version."""
+    bits = _shard_bits(d)
+    rows = x.shape[-1] >> bits if x.dim() == 1 else 0
+    if rows < 1 or rows << bits != x.shape[0] or rows & (rows - 1):
+        raise ValueError(f"kernel H deinterleaves an (L,) block, L / {d} a power of two; "
+                         f"got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return shard_deinterleave_plain(x, d)
+    _cuda.require_cuda_int64(x)
+    x = x.contiguous()
+    out = torch.empty((d, rows), dtype=torch.int64, device=x.device)
+    with _cuda.on_device(x.device):
+        err = _cuda.lib().qzk_shard_deinterleave(x.data_ptr(), out.data_ptr(), rows, bits,
+                                                 _cuda.stream())
+    _cuda.check(err, "qzk_shard_deinterleave")
+    shard_deinterleave.launches += 1
+    return out
+
+
+@functools.cache
+def _cross_roots(d: int, inverse: bool) -> np.ndarray:
+    """w_D^(+-j) for j < D, times 1/D for the inverse: kernel H's roots."""
+    bits = d.bit_length() - 1
+    roots = F.powers(_root(bits, inverse) if bits else np.uint64(1), d)
+    return F.mul(roots, F.inv(np.uint64(d))) if inverse else roots
+
+
+def shard_cross_ntt_plain(z: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Plain torch version of `shard_cross_ntt`: the direct sum, one
+    multiply-add of the (D, L/D) slab's row n1 a step."""
+    d = z.shape[0]
+    _shard_bits(d)
+    roots = _cross_roots(d, inverse)
+    k1 = np.arange(d)
+    out = torch.zeros_like(z)
+    for n1 in range(d):
+        w = gl.from_u64(roots[(n1 * k1) % d], z.device).unsqueeze(1)  # (D, 1) over k1
+        out = gl.add_plain(out, gl.mul_plain(z[n1].unsqueeze(0), w))
+    return out
+
+
+def shard_cross_ntt(z: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Kernel H's second entry: the length-D DFT across a received (D, L/D)
+    slab, W[k1, t] = sum_n1 z[n1, t] w_D^(+-n1 k1), times 1/D for the
+    inverse, written as (D, L/D) rows (row k1 the slab for shard k1). D a
+    power of two up to MAX_SHARDS. On a CUDA tensor: one launch; on a CPU
+    tensor: the plain version."""
+    if z.dim() != 2 or z.shape[1] < 1:
+        raise ValueError(f"kernel H's DFT takes a (D, L/D) slab, got {tuple(z.shape)}")
+    bits = _shard_bits(z.shape[0])
+    if z.device.type == "cpu":
+        return shard_cross_ntt_plain(z, inverse)
+    _cuda.require_cuda_int64(z)
+    z = z.contiguous()
+    out = torch.empty_like(z)
+    roots = np.ascontiguousarray(_cross_roots(z.shape[0], inverse))
+    with _cuda.on_device(z.device):
+        err = _cuda.lib().qzk_shard_cross_ntt(z.data_ptr(), out.data_ptr(), z.shape[1], bits,
+                                              roots.ctypes.data, _cuda.stream())
+    _cuda.check(err, "qzk_shard_cross_ntt")
+    shard_cross_ntt.launches += 1
+    return out
+
+
+shard_deinterleave.launches = 0
+shard_cross_ntt.launches = 0
+
+
+def ntt_sharded(values, mesh, inverse: bool = False) -> list[torch.Tensor]:
+    """Radix-2 NTT of ONE polynomial sharded by coefficient over `mesh`'s
+    `axis` (the JAX package's `ntt_sharded`).
+
+    values: the (N,) coefficients, a tensor (cut into D contiguous blocks,
+    block p copied to shard p) or the D blocks (L,) already on their
+    shards. Returns the natural-order evaluations in the same block layout,
+    block p on shard p; torch.cat of them equals `ntt(values, inverse)` bit
+    for bit. Requires D | N/D."""
+    from ..parallel import collectives as col
+
+    devs = mesh.shards("cols")
+    d = len(devs)
+    n = sum(v.shape[-1] for v in values) if isinstance(values, (list, tuple)) else values.shape[-1]
+    if (n // d) % d != 0:
+        raise AssertionError("need D | N/D for the transpose algorithm")
+    log_n = _log2(n)
+    l = n // d
+    blocks = list(values) if isinstance(values, (list, tuple)) else col.scatter(values, devs)
+    if len(blocks) != d or any(b.shape != (l,) or b.device != dev for b, dev in zip(blocks, devs)):
+        raise ValueError(f"ntt_sharded takes {d} blocks ({l},), block p on shard p")
+    w = _root(log_n, inverse)
+    # block -> cyclic: shard p then holds x[D n2 + p] over n2
+    xc = col.all_to_all([shard_deinterleave(b, d) for b in blocks], 0, 0)
+    # the local length-L NTT, output k2 times w_N^(p k2)
+    ys = [batched_ntt(x.view(1, l), log_n - (d.bit_length() - 1), inverse,
+                      out_shift=int(F.pow_scalar(w, p)) if p else None).view(d, l // d)
+          for p, x in enumerate(xc)]
+    # the k2 slabs out, the n1 rows in: shard p holds [n1, t] of k2 = p L/D + t
+    zs = col.all_to_all(ys, 0, 0)
+    # the length-D DFT over n1; row k1 goes to shard k1
+    out = col.all_to_all([shard_cross_ntt(z, inverse) for z in zs], 0, 0)
+    return [o.view(l) for o in out]

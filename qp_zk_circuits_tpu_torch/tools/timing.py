@@ -111,3 +111,27 @@ def device_ms(fn, reps: int = 20, cuda=None):
     torch.cuda.synchronize()
     _, split = device_split(fn, reps, cuda)
     return sum(ms for ms, _ in split.values()) if split else None
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
+    """Device ms of one call of `fn`, a function of PyTorch's own kernels (a
+    library call timed beside a port kernel): the call `reps` times over in
+    one CUDA graph, median over `replays` timed replays, as `_graph_ms`
+    times a kernel-library entry."""
+    fn()  # warm: the caching allocator, lazy inits
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()  # the first replay uploads the graph
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)

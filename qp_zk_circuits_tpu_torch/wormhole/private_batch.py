@@ -333,19 +333,19 @@ class PrivateBatchProver:
         self._rng = rng
         return self
 
-    def prove(self, seed: int | None = None, rng_mode: str = "auto"):
+    def prove(self, seed: int | None = None, rng_mode: str = "auto", mesh=None):
         """Prove the committed slots; the dummy preimages are drawn from the
-        commit's rng after its shuffle. `rng_mode` as in
+        commit's rng after its shuffle. `rng_mode` and `mesh` as in
         `plonk/prover.py::prove`."""
         assert self._slots is not None, "commit() before prove()"
         pw = _batch_witness(self.circuit, self._slots, self._rng)
-        proof = plonk_prove(self.circuit.data, pw, seed=seed, rng_mode=rng_mode)
+        proof = plonk_prove(self.circuit.data, pw, seed=seed, rng_mode=rng_mode, mesh=mesh)
         self._slots = None
         return proof
 
     def aggregate(self, proofs: list, seed: int | None = None, rng=None,
-                  rng_mode: str = "auto"):
-        return self.commit(proofs, rng=rng).prove(seed=seed, rng_mode=rng_mode)
+                  rng_mode: str = "auto", mesh=None):
+        return self.commit(proofs, rng=rng).prove(seed=seed, rng_mode=rng_mode, mesh=mesh)
 
 
 def _batch_witness(circuit: PrivateBatchCircuit, slots: list, rng) -> PartialWitness:

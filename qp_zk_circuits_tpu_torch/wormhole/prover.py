@@ -42,14 +42,16 @@ class WormholeProver:
         self._pw = self._partial_witness(inputs)
         return self
 
-    def prove(self, seed: int | None = None):
+    def prove(self, seed: int | None = None, mesh=None):
+        """Prove the committed witness; with a `mesh` (parallel/mesh.py) the
+        oracle commits run tensor-parallel over it, the same bytes."""
         assert self._pw is not None, "commit() must be called before prove()"
-        proof = plonk_prover.prove(self.data, self._pw, seed=seed)
+        proof = plonk_prover.prove(self.data, self._pw, seed=seed, mesh=mesh)
         self._pw = None
         return proof
 
-    def prove_inputs(self, inputs: CircuitInputs, seed: int | None = None):
-        return self.commit(inputs).prove(seed=seed)
+    def prove_inputs(self, inputs: CircuitInputs, seed: int | None = None, mesh=None):
+        return self.commit(inputs).prove(seed=seed, mesh=mesh)
 
     def prove_inputs_batch(self, inputs_list, seed: int | None = None) -> list:
         """Prove many leaves together (plonk/prover.py::prove_batch): each

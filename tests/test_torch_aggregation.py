@@ -481,7 +481,7 @@ def test_warmup_builds_the_tables_and_tape_and_flips_auto(monkeypatch):
     data, pw = _small_zk_circuit()
     modes = []
     monkeypatch.setattr(tprover, "_prove_drawn",
-                        lambda d, trace, pis, seed, mode: modes.append(mode))
+                        lambda d, trace, pis, seed, mode, *mesh: modes.append(mode))
     tprover.prove(data, pw, seed=1)
     assert modes == ["host"] and "_torch_tables" not in data.__dict__
     tprover.warmup(data, pw)

@@ -76,7 +76,8 @@ def test_prover_refuses_a_missing_card(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every port module (the recursion gadgets, the aggregation
-    layers, the pool and the aggregation service and the tools among them),
+    layers, the pool and the aggregation service, the mesh and the tools
+    among them),
     and chip_smoke.py with the port
     modules it loads and the aggregation fixtures' module it reads its seeds
     from, leaves jax and qp_zk_circuits_tpu out of sys.modules."""
@@ -91,7 +92,8 @@ want = {{pkg.__name__ + "." + m for m in (
     "recursion.ext_gadgets", "recursion.challenger_gadget", "recursion.verifier_gadget",
     "wormhole.dummy_proof", "wormhole.fake_leaf", "wormhole.private_batch",
     "wormhole.public_batch", "wormhole.artifacts", "wormhole.pool",
-    "wormhole.aggregator_service", "models", "tools.profile_agg")}}
+    "wormhole.aggregator_service", "models", "tools.profile_agg", "parallel.mesh",
+    "parallel.collectives", "parallel.tp", "tools.dryrun_multichip")}}
 assert want <= set(names), sorted(want - set(names))
 import chip_smoke
 chip_smoke.kernel_table("cpu")
