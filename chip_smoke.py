@@ -221,18 +221,22 @@ PERM_ADDS = 8 * 12 + 22 + 22 * 12 + 9 * 24
 # per set bit of p - 2
 INV_MULS = 64 + bin((1 << 64) - (1 << 32) - 1).count("1")
 # integer instructions of one Philox4x64-10 block (kernel G, two felts), by
-# the pipe that runs them. The counter's upper words are 0, so round 1 has
-# one 64x64->128 product and rounds 2-10 two: 19 products of four 32x32->64
-# partial products each (IMAD.WIDE, which Hopper runs on its FMA pipe) and
-# a carry add (either pipe); 19 three-way 64-bit xors (a LOP3 a 32-bit half)
-# and the two felts' selects (a 64-bit compare of each word, a 64-bit
-# subtract and a select: 8 a felt) on the ALU pipe. The key schedule is the
-# same for every block (the compiler keeps it in uniform registers, out of
-# the loop). `tools/sass_mix.py` shows the compiled loop: 79 IMAD.WIDE(.X),
-# 20 IMAD.X and 42 LOP3 among its 318 instructions.
-PHILOX_BLOCK_IMAD = 19 * 4
-PHILOX_BLOCK_ALU = 19 * 2 + 2 * 8
-PHILOX_BLOCK_EITHER = 19
+# the pipe that runs them. Round 1 multiplies the counter (b, 0, 0, 0), b
+# below 2^32 (the kernel's indices are 32-bit): one half-width product of
+# two 32x32->64 partials; round 2's M0 * key is the same for every block of
+# a launch; the other 17 64x64->128 products take four partials each
+# (IMAD.WIDE, which Hopper runs on its FMA pipe) and a carry add (either
+# pipe). On the ALU pipe: the xors (a LOP3 a 32-bit half: one in round 1,
+# four in round 2, eight in each of rounds 3-10) and the two felts' selects
+# (a 64-bit compare of each word, a 64-bit subtract and a select: 8 a
+# felt). The key schedule is the same for every block. `[rand 2^16]` prints
+# the compiled count from `tools/sass_mix.py` (the first form, one thread
+# a block and a division a felt: 79 IMAD.WIDE(.X), 20 IMAD.X and 42 LOP3
+# among the 318 instructions of its loop). The bound takes IMAD.WIDE at the pipe's full rate; the H100 issues
+# it at about half of that (`tools/int_rate.py`; PERF.md has the reading).
+PHILOX_BLOCK_IMAD = 2 + 17 * 4
+PHILOX_BLOCK_ALU = 1 + 4 + 8 * 4 + 2 * 8
+PHILOX_BLOCK_EITHER = 17
 # The FMA and ALU pipes each take 64 lanes an SM a clock, at the same time,
 # and 128 lanes an SM are dispatched a clock: a block takes at least the busier
 # pipe's instructions (the carries placed where they balance) or half of
@@ -379,6 +383,81 @@ def ntt_work(cols: int, n_in: int, log_n: int, shift: bool = False,
     muls = (n // 2) * stages + (n_in if shift else 0) + (n if inverse or out_shift else 0)
     adds = (n // 2) * stages * 2
     return cols * (n_in + n) * 8, cols * (muls * OPS_MUL + adds * OPS_ADD)
+
+
+def _sum_work(parts) -> tuple[int, int, int]:
+    """(bytes, operations, host-link bytes) summed over works of two or
+    three entries."""
+    return tuple(sum((*w, 0)[i] for w in parts) for i in range(3))
+
+
+def tree_work(rows: int, cols: int, cap: int) -> tuple[int, int]:
+    """Kernel 2's tree of `rows` leaf rows of `cols` felts to a cap of
+    2^cap: the rows read once, every digest from the leaves' to the cap's
+    written once, `tree_perms` permutations."""
+    nodes = sum(rows >> lvl for lvl in range(rows.bit_length() - cap))
+    return ((rows * cols + nodes * 4) * 8,
+            tree_perms(rows, cols, cap) * (PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD))
+
+
+def commit_work(cols: int, n: int, rate_bits: int, cap: int,
+                from_values: bool) -> tuple[int, int, int]:
+    """An oracle commit of C polynomials of n values (or coefficients): the
+    iNTT from values, the coset LDE to n << rate_bits, the tree
+    (`ntt_work`, `tree_work`)."""
+    log_n = n.bit_length() - 1
+    parts = [ntt_work(cols, n, log_n + rate_bits, shift=True),
+             tree_work(n << rate_bits, cols, cap)]
+    if from_values:
+        parts.append(ntt_work(cols, n, log_n, inverse=True))
+    return _sum_work(parts)
+
+
+def leaf_commits_work(data) -> tuple[int, int, int]:
+    """A leaf proof's three commits: wires and Z with the partial products
+    from values, the quotient chunks from coefficients (the
+    preprocessed oracle is the circuit's)."""
+    cfg = data.config
+    _, wires, zpp, quot = leaf_oracle_rows(data)
+    cap = cfg.fri_config.cap_height
+    return _sum_work([commit_work(wires, data.n, cfg.rate_bits, cap, True),
+                      commit_work(zpp, data.n, cfg.rate_bits, cap, True),
+                      commit_work(quot, data.n, cfg.rate_bits, cap, False)])
+
+
+def leaf_proof_work(data, pow_witness) -> tuple[int, int, int]:
+    """The device work of one leaf proof, kernel by kernel at its shapes:
+    the commits, kernel B, kernel A, the quotient's coset iNTT, kernel D's
+    openings, kernel C's composition, each FRI round's tree and fold, the
+    final polynomial's iNTT, the grind's pow_witness + 1 permutations (the
+    lowest passing witness: the candidates this proof needed) and kernel
+    F's rows to the host."""
+    import numpy as np
+
+    from qp_zk_circuits_tpu_torch.plonk.proof import fri_instance
+
+    cfg = data.config
+    nc, cap = cfg.num_challenges, cfg.fri_config.cap_height
+    m = data.n << cfg.rate_bits
+    lde_bits = data.degree_bits + cfg.rate_bits
+    rows = sum(leaf_oracle_rows(data))
+    point = np.array([3, 5], dtype=np.uint64)  # the shapes only
+    parts = [leaf_commits_work(data), _permutation_work(data), _quotient_work(data),
+             ntt_work(nc, m, lde_bits, inverse=True, out_shift=True),
+             openings_work(rows, rows + nc, data.n),
+             _composition_work(fri_instance(data, point, point), m)]
+    width = rows + 4 * (lde_bits - cap) * 4
+    final_bits = lde_bits
+    for log_m, a, _ in fri_rounds(data, data.degree_bits):
+        cap_r = min(cap, log_m - a)
+        parts += [tree_work(1 << (log_m - a), 2 << a, cap_r), fold_work(1 << log_m, a)]
+        width += (2 << a) + (log_m - a - cap_r) * 4
+        final_bits -= a
+    grind = int(pow_witness) + 1
+    parts += [ntt_work(2, 1 << final_bits, final_bits, inverse=True, out_shift=True),
+              (2 * grind * 12 * 8, grind * (PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD)),
+              gather_work(cfg.fri_config.num_query_rounds, width)]
+    return _sum_work(parts)
 
 
 def _bound(work) -> tuple[float, str]:
@@ -769,7 +848,6 @@ def kernel_table(device) -> list[dict]:
     quot = _felts((2, m), rng, device)  # the quotient's nc rows
     perms_per_row = -(-wires // ps.RATE)
     perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
-    tree_nodes = sum(m >> lvl for lvl in range(lde_bits - cap + 1))
     ew_bytes = 3 * 8 * n_el
 
     def cases(fn, plain, *args):
@@ -821,8 +899,7 @@ def kernel_table(device) -> list[dict]:
              replaces="qp_zk_circuits_tpu/hash/merkle.py:37",
              run=lambda: ps.merkle_levels(rows, cap), plain=lambda: ps.merkle_levels_plain(rows, cap),
              check=lambda: _tree_cases(device, rng, rows, cap),
-             bytes=(rows.numel() + tree_nodes * ps.DIGEST_LEN) * 8,
-             ops=tree_perms(m, wires, cap) * perm_ops),
+             **dict(zip(("bytes", "ops"), tree_work(m, wires, cap)))),
         # timed at the leaf LDE (135 x 256 -> 2048); checked at the leaf
         # proof's shapes and in all four modes on both sides of the one-pass
         # limit, with grouped outputs at the ZK batch's salted LDE buffer
@@ -1085,16 +1162,13 @@ def _forest_case(device) -> dict:
     def flat(forest):
         return [lvl for tree in forest for lvl in tree]
 
-    tree_nodes = sum(m >> lvl for lvl in range(m.bit_length() - 1 - cap + 1))
-    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
     return dict(
         run=lambda: ps.merkle_forest(leaves(k), cap),
         plain=lambda: ps.merkle_forest_plain(leaves(k), cap),
         check=lambda: (flat(ps.merkle_forest(leaves(k), cap)) + flat(ps.merkle_forest(leaves(k + 1), cap)),
                        flat(ps.merkle_forest_plain(leaves(k), cap))
                        + flat(ps.merkle_forest_plain(leaves(k + 1), cap))),
-        bytes=k * (wires * m + tree_nodes * ps.DIGEST_LEN) * 8,
-        ops=k * tree_perms(m, wires, cap) * perm_ops,
+        **dict(zip(("bytes", "ops"), (k * x for x in tree_work(m, wires, cap)))),
     )
 
 
@@ -1652,11 +1726,15 @@ RAND_KEY = 0x5DEECE66D
 def _rand_felts_case(device) -> dict:
     """Kernel G at a device-rng ZK leaf proof's draws: the blinding rows
     (stream 0) written in place into the trace's columns past the used rows
-    (a strided view), the three salts (streams 1-3) into 4 x 4096 rows, and
-    an odd count, 3 x 1001 felts (a block's pair cut short); each against
-    the plain version on a CPU copy. Timed at the blinding draw; one
-    torch.randint of the same count is timed beside it (another stream, so
-    no library computes this function)."""
+    (a strided view, 16-byte stores), the three salts (streams 1-3) into 4 x
+    4096 rows, and the scalar-store paths: an odd count, 3 x 1001 felts (a
+    block's pair cut short), the trace's columns from an odd start with an
+    odd row length (no pair aligned, rows that split Philox blocks), a
+    transposed view (column stride 512), one column, and a vector of 2^20 +
+    1 felts (more blocks than one grid's threads); each against the plain
+    version on a CPU copy, nothing written outside its view. Timed at the
+    blinding draw; one torch.randint of the same count is timed beside it
+    (another stream, so no library computes this function)."""
     import torch
 
     from qp_zk_circuits_tpu_torch.field import random as frandom
@@ -1666,10 +1744,13 @@ def _rand_felts_case(device) -> dict:
     salts = torch.empty((3, 4, ZK_LEAF_M), dtype=torch.int64, device=device)
     odd = torch.empty((3, 1001), dtype=torch.int64, device=device)
     draws = [(0, blind)] + [(1 + i, salts[i]) for i in range(3)] + [(5, odd)]
+    edges = [torch.zeros(shape, dtype=torch.int64, device=device) for shape in (
+        (ZK_LEAF_WIRES, ZK_LEAF_N), (ZK_LEAF_N, ZK_LEAF_WIRES), (ZK_LEAF_N, 9), ((1 << 20) + 1,))]
+    edge_views = [edges[0][:, ZK_LEAF_USED - 1:], edges[1].T, edges[2][:, 5:6], edges[3]]
 
     def check():
         got, want = [], []
-        for stream, out in draws:
+        for stream, out in draws + [(6 + i, v) for i, v in enumerate(edge_views)]:
             before = frandom.rand_felts.launches
             frandom.rand_felts(RAND_KEY, stream, out)
             if frandom.rand_felts.launches != before + 1:
@@ -1679,6 +1760,10 @@ def _rand_felts_case(device) -> dict:
                 RAND_KEY, stream, torch.empty(tuple(out.shape), dtype=torch.int64)))
         if trace[:, :ZK_LEAF_USED].any():
             raise AssertionError("kernel G wrote outside the trace's blinding columns")
+        for base, view in zip(edges, edge_views):
+            view.zero_()
+            if base.any():
+                raise AssertionError("kernel G wrote outside a view")
         return got, want
 
     count = blind.numel()
@@ -1714,7 +1799,9 @@ def _shard_case(device, cross: bool) -> dict:
     """Kernel H (one entry) timed on one shard of N = 2^24 over D = 4 (L =
     2^22 felts); checked against its plain version on the card at every
     shard's block of the sharded NTT's shapes, N = 2^20 and 2^24 over D =
-    2, 4, 8, and at D = 1 and 64 (both directions for the DFT)."""
+    2, 4, 8, and at D = 1 and 64, and on slabs of L/D = 1 and 2 columns at
+    every D from 1 to 64 (the DFT's thread with one column and with a pair;
+    both directions for the DFT)."""
     import numpy as np
 
     from qp_zk_circuits_tpu_torch.poly import ntt
@@ -1722,6 +1809,10 @@ def _shard_case(device, cross: bool) -> dict:
     def inputs(log_n, d, seed):
         x = _card_felts(((1 << log_n) // d,), seed, device)
         return x if not cross else x.view(d, -1)
+
+    def slab(d, cols, seed):
+        x = _card_felts((d * cols,), seed, device)
+        return x if not cross else x.view(d, cols)
 
     def call(x, d, inverse=False):
         return ntt.shard_cross_ntt(x, inverse) if cross else ntt.shard_deinterleave(x, d)
@@ -1733,8 +1824,10 @@ def _shard_case(device, cross: bool) -> dict:
     def check():
         got, want = [], []
         cases = [(log_n, d) for log_n in MESH_NTT_LOG_N for d in MESH_NTT_SHARDS]
-        for log_n, d in cases + [(20, 1), (20, 64), (24, 64)]:
-            x = inputs(log_n, d, log_n * 100 + d)
+        xs = [(inputs(log_n, d, log_n * 100 + d), d)
+              for log_n, d in cases + [(20, 1), (20, 64), (24, 64)]]
+        xs += [(slab(1 << b, cols, 10 * b + cols), 1 << b) for b in range(7) for cols in (1, 2)]
+        for x, d in xs:
             for inverse in ((False, True) if cross else (False,)):
                 before = ntt.shard_cross_ntt.launches + ntt.shard_deinterleave.launches
                 got.append(call(x, d, inverse))
@@ -1866,10 +1959,7 @@ def phase_aggregation_tree(device, log_rows: int = 19, cols: int = 135,
     # seen to miss some of them
     tree_ms = median_ms(lambda: ps.merkle_levels(rows, cap), runs=5)
     per_level_ms = median_ms(per_level, runs=5)
-    nodes = sum((1 << log_rows) >> lvl for lvl in range(log_rows - cap + 1))
-    work_bytes = (lde.numel() + nodes * ps.DIGEST_LEN) * 8
-    ops = tree_perms(1 << log_rows, cols, cap) * (PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD)
-    bound_ms, bound_by = _bound((work_bytes, ops))
+    bound_ms, bound_by = _bound(tree_work(1 << log_rows, cols, cap))
     plan = ps.tree_plan(1 << log_rows, cap, ps._sm_count(torch.device(device).index))
     print(f"[tree 2^{log_rows}] {cols} columns, cap 2^{cap}, plan {plan}: {checked} sampled "
           f"nodes over {len(levels)} levels equal their plain hashes, cap equal to the "
@@ -2512,8 +2602,6 @@ def _batch_tail_timings(data) -> None:
     cap = min(cfg.fri_config.cap_height, lde_bits - a)
     rows, cols = 1 << (lde_bits - a), 2 << a
     leaves = _felts((BATCH_K, rows, cols), rng, "cuda")
-    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
-    nodes = sum(rows >> lvl for lvl in range(rows.bit_length() - cap))
     final = _felts((2 * BATCH_K, rows), rng, "cuda")
     unshift = int(F.inv(F.pow_scalar(F.MULTIPLICATIVE_GROUP_GENERATOR, 1 << a)))
     log_f = rows.bit_length() - 1
@@ -2523,8 +2611,7 @@ def _batch_tail_timings(data) -> None:
     cases = (
         ("the round's forest", lambda: ps.merkle_forest(leaves, cap),
          lambda: ps.merkle_forest_plain(leaves, cap),
-         (BATCH_K * (rows * cols + nodes * ps.DIGEST_LEN) * 8,
-          BATCH_K * tree_perms(rows, cols, cap) * perm_ops)),
+         tuple(BATCH_K * x for x in tree_work(rows, cols, cap))),
         ("the stacked final iNTT", lambda: ntt.batched_ntt(final, log_f, inverse=True,
                                                             out_shift=unshift),
          lambda: ntt.batched_ntt_plain(final, log_f, inverse=True, out_shift=unshift),
@@ -2705,12 +2792,39 @@ def phase_zk(kernels) -> None:
     return prover
 
 
+def philox_sass_mix() -> dict:
+    """Kernel G's compiled instructions a Philox block: `tools/sass_mix.py`'s
+    count of the 16-byte-store instance's main loop (its largest innermost
+    loop, ILP blocks an iteration; ILP read from csrc/random.cu), by class,
+    divided by ILP."""
+    import re
+
+    from qp_zk_circuits_tpu_torch import _cuda
+    from qp_zk_circuits_tpu_torch.tools import sass_mix
+
+    src = _cuda.CSRC / "random.cu"
+    ilp = int(re.search(r"constexpr int ILP = (\d+);", src.read_text()).group(1))
+    (insns,) = [v for k, v in sass_mix.parse(sass_mix.disassemble(src)).items()
+                if "rand_felts_kernel" in k and "ILb1" in k]
+    first, last = max(sass_mix.loops(insns), key=lambda span: span[1] - span[0])
+    ops, classes = sass_mix.mix(insns, first, last)
+    per_block = {k: v / ilp for k, v in classes.items()}
+    per_block["all"] = sum(classes.values()) / ilp
+    per_block["IMAD.WIDE"] = sum(v for k, v in ops.items() if k.startswith("IMAD.WIDE")) / ilp
+    return per_block
+
+
 def phase_aggregation_rand(device, degree_bits: int = 16, rate: int = 3) -> None:
     """Kernel G at the private batch's degree-16 draws: the blinding rows,
     135 x (2^16 - 64) felts written through a strided view of a 135 x 2^16
-    trace, and the three salts' 4 x 2^19 rows; each against the plain
-    version run on the card (too slow on the host at this size), bit-exact,
-    and timed beside its bound."""
+    trace, and the three salts' 4 x 2^19 rows; and at that size the
+    scalar-store paths: the trace's columns from an odd start, `[:, 63:]`
+    (an odd row length, no pair aligned, rows that split Philox blocks), a
+    transposed 2^16 x 135 trace's view and one column of it; each (every
+    draw more blocks than one grid's threads) against the plain version run
+    on the card (too slow on the host at this size), bit-exact, nothing
+    written outside its view, and timed beside its bound; then the
+    kernel's compiled instructions a block (`philox_sass_mix`)."""
     import torch
 
     from qp_zk_circuits_tpu_torch.field import random as frandom
@@ -2721,7 +2835,11 @@ def phase_aggregation_rand(device, degree_bits: int = 16, rate: int = 3) -> None
     blind = trace[:, 64:]
     salts = torch.empty((3, 4, n << rate), dtype=torch.int64, device=device)
     draws = [(0, blind)] + [(1 + i, salts[i]) for i in range(3)]
-    for stream, out in draws:
+    odd_trace = torch.zeros((ZK_LEAF_WIRES, n), dtype=torch.int64, device=device)
+    cols_trace = torch.zeros((n, ZK_LEAF_WIRES), dtype=torch.int64, device=device)
+    edges = [(odd_trace, odd_trace[:, 63:]), (cols_trace, cols_trace.T),
+             (cols_trace, cols_trace[:, 5:6])]
+    for stream, out in draws + [(4 + i, view) for i, (_, view) in enumerate(edges)]:
         frandom.rand_felts(RAND_KEY, stream, out)
         want = frandom.rand_felts_plain(RAND_KEY, stream,
                                         torch.empty(tuple(out.shape), dtype=torch.int64,
@@ -2731,6 +2849,11 @@ def phase_aggregation_rand(device, degree_bits: int = 16, rate: int = 3) -> None
                                  "version")
     if trace[:, :64].any():
         raise AssertionError(f"[rand 2^{degree_bits}] kernel G wrote outside the blinding columns")
+    for base, view in edges:
+        view.zero_()
+        if base.any():
+            raise AssertionError(f"[rand 2^{degree_bits}] kernel G wrote outside a view")
+    del odd_trace, cols_trace, edges
 
     def all_draws():
         for stream, out in draws:
@@ -2749,9 +2872,14 @@ def phase_aggregation_rand(device, degree_bits: int = 16, rate: int = 3) -> None
     count = blind.numel() + salts.numel()
     randint = median_ms(lambda: torch.randint(0, (1 << 63) - 1, (count,), dtype=torch.int64,
                                               device=device), runs=10)
+    mix = philox_sass_mix()
     print(f"[rand 2^{degree_bits}] kernel G at the private batch's draws, all bit-exact against "
-          f"the plain version on the card: {'; '.join(lines)}; torch.randint of {count} int64s "
-          f"(another stream) {randint:.4f} ms", flush=True)
+          f"the plain version on the card (and the odd-start, transposed and one-column views "
+          f"of 2^{degree_bits} rows): {'; '.join(lines)}; torch.randint of {count} int64s "
+          f"(another stream) {randint:.4f} ms; SASS a block (tools/sass_mix.py, the 16-byte "
+          f"store instance's main loop): {mix['all']:g} instructions, {mix['IMAD.WIDE']:g} "
+          f"IMAD.WIDE, " + ", ".join(f"{k} {v:g}" for k, v in sorted(mix.items())
+                                    if k not in ("all", "IMAD.WIDE")), flush=True)
 
 
 AGG_DIR = ROOT / "tests" / "torch_fixtures"
@@ -3474,7 +3602,7 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
     from qp_zk_circuits_tpu_torch.plonk.serialization import proof_to_bytes
     from qp_zk_circuits_tpu_torch.poly import ntt
     from qp_zk_circuits_tpu_torch.tools.dryrun_multichip import dryrun_multichip
-    from qp_zk_circuits_tpu_torch.tools.timing import card, median_ms
+    from qp_zk_circuits_tpu_torch.tools.timing import card, device_ms, median_ms
     from qp_zk_circuits_tpu_torch.wormhole.test_helpers import (
         test_inputs_0,
         two_real_leaves_same_block,
@@ -3510,9 +3638,13 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
         _mesh_launches(f"[mesh] leaf D = {d}", launches, single, d)
         parts.append(f"D = {d} {1e3 * took:.1f} ms, {sum(launches.values())} library launches, "
                      f"{copies} copies")
+    commits_bound, commits_by = _bound(leaf_commits_work(leaf.data))
+    tp_device = device_ms(lambda: leaf.prove_inputs(inputs, seed=0, mesh=one_card(MESH_D)))
     print(f"[mesh] leaf, three commits tensor-parallel: byte-equal to the fixture and accepted "
           f"at every D; single {1e3 * single_s:.1f} ms, {sum(single.values())} library launches; "
-          f"{'; '.join(parts)}", flush=True)
+          f"{'; '.join(parts)}; the three commits' bound {commits_bound:.5f} ms by {commits_by} "
+          f"(the single commits' work: the shards add none); the proof's launches at D = "
+          f"{MESH_D} by graph replay {tp_device:.4f} device ms", flush=True)
 
     zk_data = zk_leaf.data
     zk_pw = zk_leaf._partial_witness(inputs)
@@ -3556,9 +3688,14 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
     for i, (p, q) in enumerate(zip(proofs, batch, strict=True)):
         if proof_to_bytes(p) != fixtures[i % 2] or proof_to_bytes(q) != fixtures[i % 2]:
             raise AssertionError(f"[mesh] dp proof {i} differs from its fixture or prove_batch's")
+    dp_bound, dp_by = _bound(_sum_work([leaf_proof_work(leaf.data, p.fri_proof.pow_witness)
+                                        for p in proofs]))
+    dp_device = device_ms(lambda: sharded_prove_batch(
+        leaf.data, dp_mesh, [leaf._partial_witness(x) for x in batch_inputs], seed=0))
     print(f"[mesh] sharded_prove_batch of {BATCH_K} leaves over a (4, 1) mesh: each proof == "
           f"its fixture and prove_batch's; {1e3 * dp_s:.1f} ms, {sum(dp_l.values())} library "
-          f"launches", flush=True)
+          f"launches, {dp_device:.4f} device ms by graph replay; bound {dp_bound:.4f} ms by "
+          f"{dp_by} ({BATCH_K} leaf proofs' work, `leaf_proof_work`)", flush=True)
 
     lines = []
     for log_n in MESH_NTT_LOG_N:
@@ -3595,8 +3732,12 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
     want_caps, want_ldes = batch_commit_step(traces, 3, 1)
     if not (torch.equal(caps, want_caps) and torch.equal(ldes, want_ldes)):
         raise AssertionError("[mesh] sharded_batch_commit differs from commit_batch")
+    core_bound, core_by = _bound(_sum_work([commit_work(135, 256, 3, 1, True)] * BATCH_K))
+    core_device = device_ms(lambda: sharded_batch_commit(cmesh, rate_bits=3, cap_height=1)(traces))
     print(f"[mesh] commit core (16, 135, 256) over (2, 2) == commit_batch: {1e3 * core_s:.1f} "
-          f"ms, {sum(core_l.values())} library launches, {core_c} copies", flush=True)
+          f"ms, {sum(core_l.values())} library launches, {core_c} copies, {core_device:.4f} "
+          f"device ms by graph replay; bound {core_bound:.5f} ms by {core_by} (16 commits' "
+          f"`commit_work`)", flush=True)
 
     summary, dry_s, dry_l, _ = counted(lambda: dryrun_multichip(4, ["cuda:0"] * 4))
     for k in kernels:

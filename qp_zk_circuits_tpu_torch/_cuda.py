@@ -47,9 +47,9 @@ _ENTRIES = {
     "qzk_eval_openings": [_P, _I, _P, _P, _P, _I, _I, _P],
     "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "qzk_query_gather": [_P, _P],
-    "qzk_rand_felts": [_P, _LL, _LL, _LL, _LL, _ULL, _ULL, _P],
+    "qzk_rand_felts": [_P, _LL, _LL, _LL, _LL, _ULL, _ULL, _I, _P],
     "qzk_shard_deinterleave": [_P, _P, _LL, _I, _P],
-    "qzk_shard_cross_ntt": [_P, _P, _LL, _I, _P, _P],
+    "qzk_shard_cross_ntt": [_P, _P, _LL, _I, _P, _ULL, _P],
 }
 
 #: the kernels with a proof axis (A, B, C, D, E, F) take at most this many

@@ -98,26 +98,59 @@ def rand_felts_plain(key: int, stream: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: kernel G indexes felts in 32 bits: a draw holds fewer than 2^31
+MAX_FELTS = (1 << 31) - 1
+
+
+class RandPlan(NamedTuple):
+    """Kernel G's launch arguments for one draw: the (rows, cols) view with
+    its element strides, and whether a Philox block's two felts go out as
+    one 16-byte store (`vec`)."""
+
+    rows: int
+    cols: int
+    rs: int
+    cs: int
+    vec: bool
+
+
+def rand_felts_plan(out: torch.Tensor) -> RandPlan:
+    """Kernel G's plan for filling `out` (a vector or a matrix, any strides;
+    nothing is launched). A vector is one row. `vec` holds when no block
+    straddles a row and every block's pair is 16-byte aligned: unit column
+    stride, an even row length, an even row stride (or one row) and a
+    16-byte aligned start. Raises ValueError for a draw of 2^31 felts or
+    more, which the kernel's 32-bit indices do not cover."""
+    count = out.numel()
+    if count > MAX_FELTS:
+        raise ValueError(f"kernel G draws fewer than 2^31 felts a call (32-bit indices), "
+                         f"got {count}")
+    view = out.reshape(1, -1) if out.dim() < 2 else out
+    rows, cols = view.shape
+    rs, cs = view.stride()
+    vec = (cs == 1 and cols % 2 == 0 and (rows == 1 or rs % 2 == 0)
+           and view.data_ptr() % 16 == 0)
+    return RandPlan(rows, cols, rs, cs, vec)
+
+
 def rand_felts(key: int, stream: int, out: torch.Tensor) -> torch.Tensor:
     """Fill the int64 vector or matrix `out` (any strides: the trace's
     blinding columns `[:, rows_used:]` are filled in place) with the
     canonical felts of (key, stream), felt i at the i-th element in
     row-major order (the module docstring's mapping). Returns `out`.
 
-    On a CUDA tensor: kernel G, one launch. On a CPU tensor: the plain
-    version."""
+    On a CUDA tensor: kernel G, one launch (`rand_felts_plan`; fewer than
+    2^31 felts). On a CPU tensor: the plain version."""
     _check(key, stream, out)
     if out.device.type == "cpu":
         return rand_felts_plain(key, stream, out)
     _cuda.require_cuda_int64(out)
     if out.numel() == 0:
         return out
-    view = out.reshape(1, -1) if out.dim() < 2 else out
-    rows, cols = view.shape
-    rs, cs = view.stride()
+    plan = rand_felts_plan(out)
     with _cuda.on_device(out.device):
-        err = _cuda.lib().qzk_rand_felts(view.data_ptr(), rows, cols, rs, cs, key, stream,
-                                         _cuda.stream())
+        err = _cuda.lib().qzk_rand_felts(out.data_ptr(), plan.rows, plan.cols, plan.rs, plan.cs,
+                                         key, stream, int(plan.vec), _cuda.stream())
     _cuda.check(err, "qzk_rand_felts")
     rand_felts.launches += 1
     return out

@@ -326,6 +326,16 @@ def _cross_roots(d: int, inverse: bool) -> np.ndarray:
     return F.mul(roots, F.inv(np.uint64(d))) if inverse else roots
 
 
+@functools.cache
+def _cross_twiddles(d: int, inverse: bool) -> tuple[np.ndarray, int]:
+    """Kernel H's radix-2 constants: w_D^(+-j) for j < D/2 (one, unused,
+    for D = 1) and the scale of every output, 1/D for the inverse, else 1."""
+    bits = d.bit_length() - 1
+    roots = F.powers(_root(bits, inverse) if bits else np.uint64(1), max(d // 2, 1))
+    scale = int(F.inv(np.uint64(d))) if inverse else 1
+    return np.ascontiguousarray(roots, dtype=np.uint64), scale
+
+
 def shard_cross_ntt_plain(z: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """Plain torch version of `shard_cross_ntt`: the direct sum, one
     multiply-add of the (D, L/D) slab's row n1 a step."""
@@ -344,8 +354,9 @@ def shard_cross_ntt(z: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """Kernel H's second entry: the length-D DFT across a received (D, L/D)
     slab, W[k1, t] = sum_n1 z[n1, t] w_D^(+-n1 k1), times 1/D for the
     inverse, written as (D, L/D) rows (row k1 the slab for shard k1). D a
-    power of two up to MAX_SHARDS. On a CUDA tensor: one launch; on a CPU
-    tensor: the plain version."""
+    power of two up to MAX_SHARDS. On a CUDA tensor: one launch of the
+    radix-2 kernel (`_cross_twiddles`); on a CPU tensor: the plain version,
+    the direct sum."""
     if z.dim() != 2 or z.shape[1] < 1:
         raise ValueError(f"kernel H's DFT takes a (D, L/D) slab, got {tuple(z.shape)}")
     bits = _shard_bits(z.shape[0])
@@ -354,10 +365,10 @@ def shard_cross_ntt(z: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     _cuda.require_cuda_int64(z)
     z = z.contiguous()
     out = torch.empty_like(z)
-    roots = np.ascontiguousarray(_cross_roots(z.shape[0], inverse))
+    roots, scale = _cross_twiddles(z.shape[0], inverse)
     with _cuda.on_device(z.device):
         err = _cuda.lib().qzk_shard_cross_ntt(z.data_ptr(), out.data_ptr(), z.shape[1], bits,
-                                              roots.ctypes.data, _cuda.stream())
+                                              roots.ctypes.data, scale, _cuda.stream())
     _cuda.check(err, "qzk_shard_cross_ntt")
     shard_cross_ntt.launches += 1
     return out

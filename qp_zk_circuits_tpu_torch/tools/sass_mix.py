@@ -99,18 +99,24 @@ def mix(insns, first: int, last: int) -> tuple[dict, dict]:
     return dict(sorted(ops.items())), dict(sorted(classes.items()))
 
 
+def disassemble(source: Path) -> str:
+    """`cuobjdump -sass` of the CUDA source compiled into a cubin with the
+    kernel library's nvcc flags (a temporary directory; no card needed)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = Path(tmp) / "k.cubin"
+        subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-cubin", str(source), "-o",
+                        str(cubin)], check=True, capture_output=True, text=True)
+        return subprocess.run([tool, "-sass", str(cubin)], check=True, capture_output=True,
+                              text=True).stdout
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", default="random.cu")
     ap.add_argument("--function", default="rand_felts")
     args = ap.parse_args()
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    with tempfile.TemporaryDirectory() as tmp:
-        cubin = Path(tmp) / "k.cubin"
-        subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-cubin", str(_cuda.CSRC / args.source),
-                        "-o", str(cubin)], check=True, capture_output=True, text=True)
-        sass = subprocess.run([tool, "-sass", str(cubin)], check=True, capture_output=True,
-                              text=True).stdout
+    sass = disassemble(_cuda.CSRC / args.source)
     result = []
     for name, insns in parse(sass).items():
         if args.function not in name:

@@ -229,6 +229,56 @@ def test_shard_cross_ntt_plain(d, inverse):
     assert np.array_equal(got, jntt.ntt_np(z.T, inverse=inverse).T)
 
 
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_shard_cross_ntt_plain_equals_jax_shard_body_dft(d, inverse):
+    """Kernel H's plain DFT against the step it replaces: `_ntt_shard_body`'s
+    length-D `ntt_j` over n1 of the transposed (L/D, D) slab, jitted on the
+    CPU, for every shard count up to MAX_SHARDS."""
+    import jax
+
+    from qp_zk_circuits_tpu.field import goldilocks as jgl
+
+    z = TF.rand_felts((d, 4), np.random.default_rng(200 + d))
+    want = jgl.to_u64(jax.jit(lambda v: jntt.ntt_j(v, inverse=inverse))(jgl.from_u64(z.T))).T
+    got = gl.to_u64(ntt.shard_cross_ntt(gl.from_u64(z, "cpu"), inverse))
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cross_twiddles_drive_the_radix2_dft(d, inverse):
+    """The card's DFT takes `_cross_twiddles` (w_D^j for j < D/2 and the
+    output scale) into a decimation-in-frequency transform with its outputs
+    in bit-reversed registers: that schedule, replayed on the host with the
+    same constants, is the direct sum of the plain version."""
+    roots, scale = ntt._cross_twiddles(d, inverse)
+    bits = d.bit_length() - 1
+    assert roots.dtype == np.uint64 and roots.size == max(d // 2, 1)
+    assert int(TF.mul(np.uint64(scale), np.uint64(d if inverse else 1))) == 1
+    assert roots[0] == 1
+    if d >= 4:  # the powers of a primitive D-th root
+        assert int(TF.pow_scalar(roots[1], d // 2)) == int(TF.P) - 1
+        assert np.array_equal(roots, TF.powers(roots[1], d // 2))
+    z = TF.rand_felts((d, 5), np.random.default_rng(300 + d))
+    x = [z[n].copy() for n in range(d)]
+    h = d // 2
+    while h >= 1:
+        for s in range(0, d, 2 * h):
+            for j in range(h):
+                a, b = x[s + j], x[s + j + h]
+                x[s + j] = TF.add(a, b)
+                diff = TF.sub(a, b)
+                x[s + j + h] = TF.mul(diff, roots[j * (d // (2 * h))]) if j else diff
+        h //= 2
+    out = np.empty_like(z)
+    for k in range(d):
+        r = int(format(k, f"0{bits}b")[::-1], 2) if bits else 0
+        out[r] = TF.mul(x[k], np.uint64(scale)) if scale != 1 else x[k]
+    want = gl.to_u64(ntt.shard_cross_ntt_plain(gl.from_u64(z, "cpu"), inverse))
+    assert np.array_equal(out, want)
+
+
 def test_kernel_h_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="power of two up to 64"):
         ntt.shard_cross_ntt(torch.zeros((128, 4), dtype=torch.int64))
@@ -516,6 +566,26 @@ def test_batch_commit_step_equals_jax(jax_side):
 
 # ---------------------------------------------------------------------------
 # the card
+
+
+@pytest.mark.gpu
+def test_shard_cross_ntt_edges_on_card():
+    """Kernel H's DFT at every shard count, both ways, on slabs of 1, 2, 3
+    and 2^12 columns (one column a thread, a pair, one odd, many) and on
+    a slab that starts one felt past 16-byte alignment, against the plain
+    version; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(1)
+    for d in (1, 2, 4, 8, 16, 32, 64):
+        for cols in (1, 2, 3, 1 << 12):
+            buf = gl.from_u64(TF.rand_felts((d * cols + 1,), rng), "cuda")
+            for z in (buf[: d * cols].view(d, cols), buf[1:].view(d, cols)):
+                for inverse in (False, True):
+                    before = ntt.shard_cross_ntt.launches
+                    got = ntt.shard_cross_ntt(z, inverse)
+                    assert ntt.shard_cross_ntt.launches == before + 1
+                    assert torch.equal(got.cpu(), ntt.shard_cross_ntt_plain(z.cpu(), inverse))
 
 
 @pytest.mark.gpu

@@ -151,6 +151,57 @@ def test_rand_felts_fill_a_strided_view_in_row_major_order():
         frandom.rand_felts(1 << 64, 0, torch.empty(4, dtype=torch.int64))
 
 
+@pytest.mark.parametrize("view,plan", [
+    # the blinding columns [:, 64:]: even start, even row length and stride
+    (lambda t: t[:, 64:], (7, 136, 200, 1, True)),
+    # an odd row length: blocks straddle rows, scalar stores
+    (lambda t: t[:, 63:], (7, 137, 200, 1, False)),
+    # an even row length that starts one felt past 16-byte alignment
+    (lambda t: t[:, 1:3], (7, 2, 200, 1, False)),
+    # a transposed view: column stride 200
+    (lambda t: t.T, (200, 7, 1, 200, False)),
+    # one column
+    (lambda t: t[:, 5:6], (7, 1, 200, 1, False)),
+    # a vector is one row, whatever its stride
+    (lambda t: t.reshape(-1)[:1000], (1, 1000, 1000, 1, True)),
+    (lambda t: t.reshape(-1)[:1001], (1, 1001, 1001, 1, False)),
+    (lambda t: t.reshape(-1)[::2], (1, 700, 1400, 2, False)),
+    # an odd row stride: only a single row keeps every pair aligned
+    (lambda t: t.reshape(-1)[:21].view(3, 7)[:, :6], (3, 6, 7, 1, False)),
+    (lambda t: t.reshape(-1)[:7].view(1, 7)[:, :6], (1, 6, 7, 1, True)),
+])
+def test_rand_felts_plan(view, plan):
+    """Kernel G's launch plan: the (rows, cols) view and its strides, and
+    16-byte stores only where no Philox block straddles a row and every
+    block's pair is 16-byte aligned."""
+    trace = torch.zeros((7, 200), dtype=torch.int64)
+    assert trace.data_ptr() % 16 == 0
+    assert tuple(frandom.rand_felts_plan(view(trace))) == plan
+
+
+def test_rand_felts_plan_refuses_2_31_felts(monkeypatch):
+    """The kernel's indices are 32-bit: a draw of 2^31 felts or more is
+    refused before any launch, never sent down another path; the largest
+    draw of the repo (the degree-16 blinding, 135 x 65,472) is far below.
+    Meta tensors (no memory, address 0) take the wrapper's CUDA branch."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+
+    assert frandom.rand_felts_plan(meta(frandom.MAX_FELTS)).cols == (1 << 31) - 1
+    assert tuple(frandom.rand_felts_plan(meta(135, 65472))) == (135, 65472, 65472, 1, True)
+    for shape in ((1 << 31,), (2, 1 << 30), (1 << 16, 1 << 15)):
+        with pytest.raises(ValueError, match="fewer than 2\\^31 felts"):
+            frandom.rand_felts_plan(meta(*shape))
+
+    def no_launch():
+        raise AssertionError("kernel G launched a draw it does not cover")
+
+    monkeypatch.setattr(frandom._cuda, "require_cuda_int64", lambda *tensors: None)
+    monkeypatch.setattr(frandom._cuda, "lib", no_launch)
+    with pytest.raises(ValueError, match="fewer than 2\\^31 felts"):
+        frandom.rand_felts(1, 0, meta(1 << 31))
+
+
 @pytest.mark.gpu
 def test_rand_felts_on_card():
     if not torch.cuda.is_available():
@@ -162,6 +213,30 @@ def test_rand_felts_on_card():
         assert frandom.rand_felts.launches == before + 1
         want = frandom.rand_felts_plain(7, 2, torch.empty(shape, dtype=torch.int64))
         assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_rand_felts_views_on_card():
+    """Kernel G's other paths against the plain version on the card: rows
+    that split Philox blocks (an odd start and length), a transposed view,
+    one column, a strided vector, and the degree-16 blinding view, larger
+    than one grid's worth of blocks; nothing outside the view is written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = [((135, 1 << 12), lambda t: t[:, 63:]), ((1 << 12, 135), lambda t: t.T),
+             ((4097, 9), lambda t: t[:, 5:6]), ((20001,), lambda t: t[1::2]),
+             ((135, 1 << 16), lambda t: t[:, 64:])]
+    for shape, view in cases:
+        base = torch.zeros(shape, dtype=torch.int64, device="cuda")
+        out = view(base)
+        before = frandom.rand_felts.launches
+        frandom.rand_felts(7, 3, out)
+        assert frandom.rand_felts.launches == before + 1
+        want = frandom.rand_felts_plain(
+            7, 3, torch.empty(tuple(out.shape), dtype=torch.int64, device="cuda"))
+        assert torch.equal(out, want), shape
+        out.zero_()
+        assert not base.any(), shape
 
 
 # ---------------------------------------------------------------------------
