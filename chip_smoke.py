@@ -175,7 +175,15 @@ package. Phases, each printing one line:
      at every shard's block of those NTTs) their launches; with two cards
      or more, one shard a card (the leaf, the device-rng ZK leaf, a dp
      batch, the 2^24 NTT, the dryrun), else a line that says that part did
-     not run.
+     not run;
+ 15. tools — the port's host tools as a user runs them, each in a process of
+     its own: `tools/memprof.py --canonical --num-leaf-proofs 2 --json`
+     (each phase's seconds, RSS peak and the card's allocation peak),
+     `tools/circuit_builder_cli.py` into a temporary directory (the leaf's
+     artifacts, loaded back with their pins, the dummy proof accepted), and
+     in this process the sweep report's anchors section
+     (`tools/sweep_shapes.py`) from that memprof output (the card named, the
+     device peak beside the estimate, no TPU figure).
 
 Then one JSON line with every kernel's numbers, and last the result line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is non-zero
@@ -3577,8 +3585,9 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
         single-card device-rng proof of the same seed, accepted);
       * the canonical N = 2 private batch at D = 4, host rng (degree 14,
         2^17-row LDEs 139, 20 and 20 wide): the JAX package's bytes;
-      * `sharded_prove_batch` of 16 leaf witnesses over a (4, 1) mesh: each
-        proof the fixture and `prove_batch`'s;
+      * `sharded_prove_batch` of 16 leaf witnesses over a (4, 1) mesh, cold
+        and warm: each proof the fixture and `prove_batch`'s, the launches
+        four K = 4 batches';
       * `ntt_sharded` at N = 2^20 and 2^24 over D = 2, 4, 8, both ways:
         bit-equal to kernel 3's single NTT, the round trip the input, timed
         beside the single NTT (the first call of a shard count and
@@ -3588,9 +3597,9 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
       * `tools/dryrun_multichip.py` on 4 shards, whose run gives kernel H's
         rows their launches;
       * with two cards or more, one shard a card: the leaf (tp), the ZK
-        leaf in device rng, a dp batch of 4 a card, `ntt_sharded` at 2^24
-        and the dryrun over the cards; with one, a line that says that part
-        did not run.
+        leaf in device rng, a dp batch of 4 a card (cold and warm),
+        `ntt_sharded` at 2^24 and the dryrun over the cards; with one, a
+        line that says that part did not run.
     Kernel H against its plain versions sits in the kernel phase."""
     import numpy as np
     import torch
@@ -3682,20 +3691,34 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
     batch_inputs = [spends[i % 2] for i in range(BATCH_K)]
     fixtures = [_committed(f"leaf_proof_real{i}.bin") for i in range(2)]
     dp_mesh = make_prover_mesh(4, dp=4, devices=["cuda:0"] * 4)
-    proofs, dp_s, dp_l, _ = counted(lambda: sharded_prove_batch(
-        leaf.data, dp_mesh, [leaf._partial_witness(x) for x in batch_inputs], seed=0))
+
+    def dp_batch():
+        return sharded_prove_batch(leaf.data, dp_mesh,
+                                   [leaf._partial_witness(x) for x in batch_inputs], seed=0)
+
+    # a group is a K = 4 batch of the same witnesses and seed: its launches
+    _, _, group_l, _ = counted(lambda: leaf.prove_inputs_batch(batch_inputs[:4], seed=0))
     batch = leaf.prove_inputs_batch(batch_inputs, seed=0)
-    for i, (p, q) in enumerate(zip(proofs, batch, strict=True)):
-        if proof_to_bytes(p) != fixtures[i % 2] or proof_to_bytes(q) != fixtures[i % 2]:
-            raise AssertionError(f"[mesh] dp proof {i} differs from its fixture or prove_batch's")
+    dp_runs = []
+    for run in ("cold", "warm"):
+        proofs, dp_s, dp_l, _ = counted(dp_batch)
+        for i, (p, q) in enumerate(zip(proofs, batch, strict=True)):
+            if proof_to_bytes(p) != fixtures[i % 2] or proof_to_bytes(q) != fixtures[i % 2]:
+                raise AssertionError(f"[mesh] dp proof {i} ({run}) differs from its fixture or "
+                                     "prove_batch's")
+        if dp_l != {n: 4 * c for n, c in group_l.items()}:
+            raise AssertionError(f"[mesh] dp launches ({run}) {dp_l}, not four groups' "
+                                 f"{group_l}")
+        dp_runs.append(f"{run} {1e3 * dp_s:.1f} ms")
     dp_bound, dp_by = _bound(_sum_work([leaf_proof_work(leaf.data, p.fri_proof.pow_witness)
                                         for p in proofs]))
-    dp_device = device_ms(lambda: sharded_prove_batch(
-        leaf.data, dp_mesh, [leaf._partial_witness(x) for x in batch_inputs], seed=0))
-    print(f"[mesh] sharded_prove_batch of {BATCH_K} leaves over a (4, 1) mesh: each proof == "
-          f"its fixture and prove_batch's; {1e3 * dp_s:.1f} ms, {sum(dp_l.values())} library "
-          f"launches, {dp_device:.4f} device ms by graph replay; bound {dp_bound:.4f} ms by "
-          f"{dp_by} ({BATCH_K} leaf proofs' work, `leaf_proof_work`)", flush=True)
+    dp_device = device_ms(dp_batch)
+    print(f"[mesh] sharded_prove_batch of {BATCH_K} leaves over a (4, 1) mesh, the groups in "
+          f"turn: each proof == its fixture and prove_batch's; "
+          f"{', '.join(dp_runs)}, {sum(dp_l.values())} library launches (four K = 4 groups' "
+          f"{sum(group_l.values())} each), {dp_device:.4f} device ms "
+          f"by graph replay; bound {dp_bound:.4f} ms by {dp_by} ({BATCH_K} leaf proofs' work, "
+          f"`leaf_proof_work`)", flush=True)
 
     lines = []
     for log_n in MESH_NTT_LOG_N:
@@ -3764,10 +3787,17 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
         k = 4 * cards
         cards_dp = make_prover_mesh(cards, dp=cards)
         dp_inputs = [spends[i % 2] for i in range(k)]
-        dp_proofs, dp_cards_s, _, _ = counted(lambda: sharded_prove_batch(
-            leaf.data, cards_dp, [leaf._partial_witness(x) for x in dp_inputs], seed=0))
-        if [proof_to_bytes(p) for p in dp_proofs] != [fixtures[i % 2] for i in range(k)]:
-            raise AssertionError("[mesh] the dp batch with one shard a card differs")
+        dp_cards = []
+        for run in ("cold", "warm"):
+            dp_proofs, dp_cards_s, dp_cards_l, _ = counted(lambda: sharded_prove_batch(
+                leaf.data, cards_dp, [leaf._partial_witness(x) for x in dp_inputs], seed=0))
+            for i in range(cards):
+                torch.cuda.synchronize(i)
+            if [proof_to_bytes(p) for p in dp_proofs] != [fixtures[i % 2] for i in range(k)]:
+                raise AssertionError(f"[mesh] the dp batch with one shard a card differs ({run})")
+            if dp_cards_l != {n: cards * c for n, c in group_l.items()}:
+                raise AssertionError(f"[mesh] dp launches over the cards ({run}) {dp_cards_l}")
+            dp_cards.append(f"{run} {1e3 * dp_cards_s:.1f} ms")
         x = _card_felts((1 << 24,), 24, "cuda")
         ntt_ms = []
         for inverse in (False, True):
@@ -3788,12 +3818,120 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
         print(f"[mesh] one shard a card on {cards} cards (peer copies): the leaf tp proof == "
               f"fixture, {1e3 * took:.1f} ms, {sum(launches.values())} library launches, "
               f"{copies} copies; the device-rng ZK leaf == the single-card proof; {k} dp proofs "
-              f"== their fixtures, {1e3 * dp_cards_s:.1f} ms; ntt_sharded 2^24 == kernel 3's, "
+              f"(a group a card) == their fixtures, {', '.join(dp_cards)}; "
+              f"ntt_sharded 2^24 == kernel 3's, "
               f"forward {ntt_ms[0]:.3f} ms, inverse {ntt_ms[1]:.3f} ms (host clock, every card "
               f"synchronized); {summary}", flush=True)
     else:
         print("[mesh] one shard a card: not run (1 card visible)", flush=True)
     print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+TOOLS_TIMEOUT_S = 420
+
+
+def _tool(args: list[str]):
+    """Start `python -m qp_zk_circuits_tpu_torch.tools.<args>` from the
+    checkout's root; returns the process (stdout and stderr piped)."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    return subprocess.Popen([sys.executable, "-m", f"qp_zk_circuits_tpu_torch.tools.{args[0]}",
+                             *args[1:]], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc, label: str) -> str:
+    """Wait for a `_tool` process (killed after TOOLS_TIMEOUT_S); its stdout,
+    or an error with its stderr's end if it failed."""
+    import subprocess
+
+    try:
+        out, err = proc.communicate(timeout=TOOLS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"[tools] {label} did not end within {TOOLS_TIMEOUT_S} s") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"[tools] {label} exited {proc.returncode}:\n{err[-3000:]}")
+    return out
+
+
+def phase_tools(leaf) -> None:
+    """The port's host tools:
+
+      * `tools/memprof.py --canonical --num-leaf-proofs 2 --json` on the card,
+        in a process of its own as a user runs it:
+        each phase's wall seconds, RSS peak and the card's allocation peak
+        (`torch.cuda.max_memory_allocated` over the phase), every device
+        peak a number, the card named;
+      * `tools/circuit_builder_cli.py` in a process of its own, into a
+        temporary directory, without
+        `--include-aggregation` (the leaf's artifacts): `config.json` loads,
+        the leaf verifier data loads with its pins against the main path's
+        card-built leaf, and the dummy proof it wrote is accepted and is a
+        dummy;
+      * the sweep report's measured anchors (`tools/sweep_shapes.py`'s
+        `load_anchor` and `anchors_section`, what `--anchor` adds to the
+        report) from that memprof output: the section names the card, puts
+        the canonical N = 2 batch's device peak beside `estimate_device_mb`
+        and shows no TPU figure. The sweep's shape builds take minutes on
+        the host and reach no kernel; the CPU tests hold their rows to the
+        JAX package's."""
+    import tempfile
+
+    from qp_zk_circuits_tpu_torch.plonk.serialization import VerifierCircuitData, proof_from_bytes
+    from qp_zk_circuits_tpu_torch.tools import sweep_shapes
+    from qp_zk_circuits_tpu_torch.wormhole import artifacts as art
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="qzk_tools_") as tmp:
+        tmp = Path(tmp)
+        t = time.perf_counter()
+        out = _finish(_tool(["memprof", "--canonical", "--num-leaf-proofs", "2", "--json"]),
+                      "memprof")
+        memprof_s = time.perf_counter() - t
+        record = json.loads(out.strip().splitlines()[-1])
+        phases = record["phases"]
+        if not record["card"] or any(p[2] is None or p[2] <= 0 for p in phases.values()):
+            raise AssertionError(f"[tools] memprof on the card without a card or a device "
+                                 f"peak: {record}")
+        (tmp / "memprof.json").write_text(out)
+        print(f"[tools] memprof --canonical N = 2 on {record['card']} ({memprof_s:.1f} s "
+              f"process): " + "; ".join(
+                  f"{name} {w:.3f} s, RSS peak {rss:.1f} MiB, device peak {dev:.1f} MiB"
+                  for name, (w, rss, dev) in phases.items()), flush=True)
+
+        t = time.perf_counter()
+        bins = tmp / "bins"
+        _finish(_tool(["circuit_builder_cli", "--output", str(bins), "--num-leaf-proofs", "2"]),
+                "circuit_builder_cli")
+        cli_s = time.perf_counter() - t
+        cfg = art.CircuitBinsConfig.load(bins / art.CONFIG_JSON)
+        if (cfg.num_leaf_proofs, cfg.num_private_batch_proofs) != (2, 2):
+            raise AssertionError(f"[tools] config.json says {cfg}")
+        vdata = art.load_canonical_leaf_verifier_data(
+            bins, rebuild=VerifierCircuitData.from_circuit_data(leaf.data))
+        dummy = proof_from_bytes(art.read_artifact_file(bins / art.DUMMY_PROOF_BIN,
+                                                        art.MAX_AGG_ARTIFACT_BYTES))
+        if not WormholeVerifier(vdata).verify(dummy).is_dummy:
+            raise AssertionError("[tools] the CLI's dummy proof is not a dummy")
+        print(f"[tools] circuit_builder_cli --num-leaf-proofs 2 ({cli_s:.1f} s process): "
+              f"{sorted(p.name for p in bins.iterdir())} published; the leaf verifier data "
+              f"loads with its pins, the dummy proof accepted", flush=True)
+
+        text = "\n".join(sweep_shapes.anchors_section(
+            {"memprof": sweep_shapes.load_anchor(str(tmp / "memprof.json"))}))
+    against = [line for line in text.splitlines() if "device peak of the prove phase" in line]
+    if "TPU" in text or record["card"] not in text or len(against) != 1:
+        raise AssertionError("[tools] the sweep's anchors section shows a TPU figure, misses the "
+                             "card or the device peak against the estimate")
+    print(f"[tools] sweep_shapes anchors section from that memprof output: the card named, no "
+          f"TPU figure; {against[0]}", flush=True)
+    print(f"[tools] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -3815,6 +3953,7 @@ def main() -> int:
     built = phase_aggregation(kernels)
     phase_service(kernels, built)
     phase_mesh(kernels, leaf, zk_leaf, built)
+    phase_tools(leaf)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

@@ -144,10 +144,14 @@ def sharded_prove_batch(data, mesh: Mesh, pws: list, seed: int | None = None) ->
     by `prove_from_traces` on the device of proof shard g ("cols" index 0).
     Proofs come back in input order, each equal to `prove_batch`'s.
 
-    The groups run in turn, not at once as under the JAX package's
-    shard_map: each `prove_from_traces` waits on the host (the caps read
-    back for the transcript, the proof bytes built) before the next group
-    starts, so dp over several cards does not yet shorten a batch."""
+    The groups run in turn on the calling thread, not at once as under the
+    JAX package's shard_map: each `prove_from_traces` waits on the host (the
+    caps read back for the transcript, the proof bytes built) before the
+    next group starts. Most of a group's time is Python between launches,
+    which holds the GIL, so the groups on host threads of their own took
+    longer than in turn, on four shards of one card and on four cards
+    alike (`tools/bench_dp.py`, PERF.md); dp over several cards does not
+    yet shorten a batch."""
     from ..plonk.builder import generate_witness_batch
     from ..plonk.prover import _check_config, prove_from_traces
 

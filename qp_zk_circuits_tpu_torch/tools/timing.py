@@ -22,10 +22,10 @@ import subprocess
 import torch
 
 
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
+def card(index: int = 0) -> str:
+    """Card `index`'s name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 

@@ -504,6 +504,49 @@ def test_sharded_prove_batch_equals_zk_batch_fixtures(small_zk):
         sharded_prove_batch(data, mesh, pws(MK.ZK_BATCH_WITNESSES + MK.ZK_BATCH_WITNESSES[:1]))
 
 
+def test_sharded_prove_batch_k4_over_dp2_equals_prove_batch(small_zk, monkeypatch):
+    """K = 4 over dp = 2: one `prove_from_traces` a group, in input order,
+    each on its proof shard's device; the proofs equal `prove_batch`'s of
+    the same seed, the first three the JAX package's K = 3 batch fixtures
+    (one rng for the batch, each proof drawing in turn)."""
+    data, pws = small_zk
+    witnesses = MK.ZK_BATCH_WITNESSES + MK.ZK_BATCH_WITNESSES[1:2]
+    calls = []
+    real = tprover.prove_from_traces
+
+    def spy(*args, **kwargs):
+        calls.append((len(args[1]), kwargs.get("device")))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tprover, "prove_from_traces", spy)
+    mesh = make_prover_mesh(2, dp=2, devices=["cpu"] * 2)
+    proofs = [proof_to_bytes(p) for p in sharded_prove_batch(data, mesh, pws(witnesses),
+                                                             seed=MK.ZK_SEED)]
+    assert calls == [(2, d) for d in mesh.shards("proofs")]
+    assert proofs[:3] == [_fixture(f) for f in MK.ZK_BATCH_FIXTURES]
+    assert proofs == [proof_to_bytes(p) for p in tprover.prove_batch(data, pws(witnesses),
+                                                                     seed=MK.ZK_SEED)]
+
+
+def test_sharded_prove_batch_raises_a_groups_exception(small_zk, monkeypatch):
+    """A group that fails raises in the caller: no group is dropped or
+    retried, and none after it runs."""
+    data, pws = small_zk
+    calls = []
+
+    def fail_second(data, traces, pis, seed=None, salts=None, device=None):
+        calls.append(device)
+        if len(calls) == 2:
+            raise RuntimeError("group failed")
+        return [None] * len(traces)
+
+    monkeypatch.setattr(tprover, "prove_from_traces", fail_second)
+    mesh = make_prover_mesh(3, dp=3, devices=["cpu"] * 3)
+    with pytest.raises(RuntimeError, match="group failed"):
+        sharded_prove_batch(data, mesh, pws(MK.ZK_BATCH_WITNESSES), seed=MK.ZK_SEED)
+    assert len(calls) == 2
+
+
 def test_warmup_fills_every_shard_device(small_zk, monkeypatch):
     data, pws = small_zk
     mesh = _cpu_mesh(2)
@@ -615,3 +658,33 @@ def test_mesh_kernels_on_card():
     want = fo.commit(vals, 3, 4, "cuda", from_values=True, salt=salt)
     assert torch.equal(got.lde, want.lde) and np.array_equal(got.cap, want.cap)
     assert all(torch.equal(g, w) for g, w in zip(got.tree.digests, want.tree.digests))
+
+
+@pytest.mark.gpu
+def test_dp_groups_of_one_shape_on_card():
+    """Two groups of one shape on D = 2 shards of one card (kernel F's
+    pinned buffer of that shape reused by the second group): the proofs
+    `prove_batch`'s bytes and accepted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from qp_zk_circuits_tpu_torch.plonk.verifier import verify
+
+    b, x, y = MK.small_real_circuit("qp_zk_circuits_tpu_torch", zk=True)
+    data = b.build(device="cuda")
+
+    def pws():
+        out = []
+        for xv, yv in MK.ZK_BATCH_WITNESSES + MK.ZK_BATCH_WITNESSES[1:2]:
+            pw = tbuilder.PartialWitness()
+            pw.set_target(x, xv)
+            pw.set_target(y, yv)
+            out.append(pw)
+        return out
+
+    mesh = make_prover_mesh(2, dp=2, devices=["cuda:0"] * 2)
+    want = [proof_to_bytes(p) for p in tprover.prove_batch(data, pws(), seed=MK.ZK_SEED)]
+    for _ in range(3):
+        proofs = sharded_prove_batch(data, mesh, pws(), seed=MK.ZK_SEED)
+        assert [proof_to_bytes(p) for p in proofs] == want
+        for p in proofs:
+            verify(data, p)
