@@ -79,7 +79,8 @@ package. Phases, each printing one line:
      full, and F's 28-query gather at m = 2^19 with the three rounds (14
      segments, a Merkle path a tree; 89 with a segment a level) into pinned
      host memory, each beside its bound;
-  8. main path — WormholeProver(device="cuda") on test_inputs_0(): build, then
+  8. main path — WormholeProver(device="cuda") on test_inputs_0(), through the
+     staged prover (`plonk/prover.py::prove_staged`): build, then
      prove_inputs(seed=0) cold and warm; the proof bytes must equal the
      committed fixture (length and SHA-256), every kernel of the path must
      have been launched during the cold proof, within its launch limits
@@ -112,7 +113,8 @@ package. Phases, each printing one line:
      final polynomials, one forest call a commit and a FRI round, A-F once
      a group of 16 (E a round), the grind one permute launch a sweep for
      all proofs); the K = 16 batch's library launches (at most 30) and a
-     single proof's library and device launches (55) printed; the batch
+     single proof's library and device launches (61: the 55 before the
+     challenge records, and their 6 uploads) printed; the batch
      rows of the JSON line take their launches from the warm batch; then
      per-proof ms of K = 1, 4, 16 and 17 batches and of a single proof;
  10. zk — WormholeProver(wormhole_private_batch_circuit_config(),
@@ -120,7 +122,7 @@ package. Phases, each printing one line:
      degree 9): build, then prove_inputs(test_inputs_0(), seed=7) cold and
      warm in host-rng mode, each equal to the committed JAX fixture, within
      the single proof's launch limits and with kernel G not launched; a
-     device-rng proof (plonk.prover.prove(..., rng_mode="device")): kernel
+     device-rng proof (plonk.prover.prove_staged(..., rng_mode="device")): kernel
      G at most four launches, the proof accepted, not equal to the host
      one; a K = 16 ZK batch and a 48-leaf ZK stream in chunks of 16 of the
      two real spends, alternating: proof 0 equal to the single proof of
@@ -151,14 +153,32 @@ package. Phases, each printing one line:
      over [that batch, a dummy private batch], cold and warm on the tape,
      verified; for each warm proof its seconds, library and device
      launches, the busy share and verify ms;
- 13. service — the miner's path at the canonical sizes on those circuits:
+ 13. fused — the JAX package's default path, the fused prover
+     (plonk/prover_fused.py), through `prove`'s own dispatch (every other
+     phase runs with QZKT_STAGED_PROVER=1, set in `main`: their checks are
+     the staged prover's internals): a fresh WormholeProver(device="cuda")
+     proves test_inputs_0() cold and warm, byte-equal to the fixture, with
+     one upload and one download a proof (the transfer helpers' calls, and
+     torch.profiler's host<->device copies of a warm proof: one each way),
+     every kernel of the path launched (kernels I and J among them, the
+     staged grind's permute not), the library launches printed; the ZK leaf
+     of [zk] in host rng (its fixture) and device rng (accepted, equal to
+     the staged device-rng proof of the seed); warm fused and staged leaf
+     proofs in turns, their ms, the fused proof's busy share and host split
+     (`_last_prove_timings`) beside the card; then the canonical N = 2
+     private batch of [aggregation] after warmup_fused(..., rng_mode="host")
+     in host rng, byte-equal to canonical_private_batch.bin, beside the
+     staged proof's seconds. Kernels I (csrc/transcript.cu, the leaf's
+     whole transcript schedule) and J (a 16-bit grind, and one stopped at
+     its limit) are held to their plain versions in the kernel phase;
+ 14. service — the miner's path at the canonical sizes on those circuits:
      four real spends of one block proven as one batch (K = 4), folded into
      two private batches, `PublicBatchAggregator.from_binaries_dir` over
      their artifact set (warm start; an `aot/` subdirectory left inert),
      both pushed into one bucket (a verify each), a duplicate and a dummy
      refused, the bucket aggregated into a public batch, verified and bound
      to the service's address, refused under another; each step's seconds;
- 14. mesh — the device mesh on D shards of the one card (parallel/mesh.py,
+ 15. mesh — the device mesh on D shards of the one card (parallel/mesh.py,
      the counterpart of the JAX package's virtual devices), on the circuits
      of [main], [zk] and [aggregation], each run with the counts at 0: the
      leaf's three commits tensor-parallel at D = 2, 4, 8 (byte-equal to the
@@ -176,7 +196,7 @@ package. Phases, each printing one line:
      or more, one shard a card (the leaf, the device-rng ZK leaf, a dp
      batch, the 2^24 NTT, the dryrun), else a line that says that part did
      not run;
- 15. tools — the port's host tools as a user runs them, each in a process of
+ 16. tools — the port's host tools as a user runs them, each in a process of
      its own: `tools/memprof.py --canonical --num-leaf-proofs 2 --json`
      (each phase's seconds, RSS peak and the card's allocation peak),
      `tools/circuit_builder_cli.py` into a temporary directory (the leaf's
@@ -225,6 +245,16 @@ OPS_ADD = 4
 # of 48 small 64x64 products (half a mul each) and 12 reductions.
 PERM_MULS = 118 * 4 + 22 * 12 + 9 * (48 // 2 + 12)
 PERM_ADDS = 8 * 12 + 22 + 22 * 12 + 9 * 24
+# the dependent field multiplies of one permutation, the least the function
+# needs: an S-box is 3 deep (x^2; x^3 and x^4 from it; x^7), the 8 external
+# rounds' 12 S-boxes side by side, and each of the 22 internal rounds adds
+# its multiply-and-reduce after its one S-box. A dependent multiply takes 71
+# SM cycles on an NVIDIA H100 80GB HBM3, 700.00 W (tools/field_latency.py,
+# PERF.md), at the 1.98 GHz of INT32_OPS_PER_S. Kernel I's bound: its
+# permutations in series, each this chain
+PERM_CHAIN = 8 * 3 + 22 * 4
+MUL_LATENCY_CYCLES = 71
+SM_CLOCK_HZ = 1.98e9
 # multiplies of one Fermat inverse a^(p-2): 64 squarings and one multiply
 # per set bit of p - 2
 INV_MULS = 64 + bin((1 << 64) - (1 << 32) - 1).count("1")
@@ -829,6 +859,7 @@ def kernel_table(device) -> list[dict]:
     from qp_zk_circuits_tpu_torch.fri import prover as fri
     from qp_zk_circuits_tpu_torch.hash import poseidon2 as ps
     from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
     from qp_zk_circuits_tpu_torch.poly import ntt
 
     rng = np.random.default_rng(0)
@@ -982,6 +1013,16 @@ def kernel_table(device) -> list[dict]:
              source="qp_zk_circuits_tpu_torch/csrc/random.cu",
              replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:381",
              setup=lambda: _rand_felts_case(device)),
+        # kernels I and J, the fused prover's transcript and grind on the
+        # card (phase_fused reads their launches)
+        dict(name="transcript", wrapper=ts.transcript_segment, path="fused",
+             source="qp_zk_circuits_tpu_torch/csrc/transcript.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:67",
+             setup=lambda: _transcript_case(device)),
+        dict(name="grind", wrapper=ts.grind_device, path="fused",
+             source="qp_zk_circuits_tpu_torch/csrc/transcript.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:296",
+             setup=lambda: _grind_case(device)),
         # kernel H, the coefficient-sharded NTT's local steps (phase_mesh
         # reads their launches from the dryrun's run)
         dict(name="shard_deinterleave", wrapper=ntt.shard_deinterleave, path="mesh",
@@ -1048,6 +1089,17 @@ def _quotient_args(data, rng, device):
             *(F.rand_felts(nc, rng) for _ in range(3)), F.rand_felts(4, rng)]
 
 
+def _quotient_rec(data, args, device) -> list:
+    """Kernel A's single-wrapper arguments from `_quotient_args`: the LDEs,
+    then the challenges and PI hash in one record on `device`."""
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+
+    wires, zpp, alphas, betas, gammas, pi = args
+    return [wires, zpp, tprover.host_records(device, 1, data.config.num_challenges,
+                                             alphas=alphas, betas=betas, gammas=gammas,
+                                             pis=pi)[0]]
+
+
 def _quotient_work(data) -> tuple[int, int]:
     """Kernel A's bytes and integer operations: each input read once, the
     (nc, m) output written once; the field ops of `quotient_field_ops`."""
@@ -1089,6 +1141,16 @@ def _permutation_args(data, rng, device, zeros=()):
     return [gl.from_u64(trace, device), betas, gammas]
 
 
+def _permutation_rec(data, args, device) -> list:
+    """Kernel B's single-wrapper arguments from `_permutation_args`: the
+    trace, then the betas and gammas in one record on `device`."""
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+
+    trace, betas, gammas = args
+    return [trace, tprover.host_records(device, 1, data.config.num_challenges, betas=betas,
+                                        gammas=gammas)[0]]
+
+
 def _quotient_case(device) -> dict:
     """Kernel A at the leaf: random LDE wires and Z/pp rows, the circuit's
     own constants, selectors and sigmas, random challenges; checked with 1, 2
@@ -1099,7 +1161,8 @@ def _quotient_case(device) -> dict:
 
     data = _leaf_data(device)
     rng = np.random.default_rng(1)
-    cases = [(d, _quotient_args(d, rng, device)) for d in _fused_variants(data)]
+    cases = [(d, _quotient_rec(d, _quotient_args(d, rng, device), device))
+             for d in _fused_variants(data)]
     args = cases[0][1]
     cpu_args = _cpu(args)
     work_bytes, ops = _quotient_work(data)
@@ -1129,9 +1192,11 @@ def _permutation_case(device) -> dict:
     four_tiles = dataclasses.replace(data, degree_bits=rows.bit_length() - 1,
                                      id_coords=np.tile(data.id_coords, 4),
                                      sigma_vals=np.tile(data.sigma_vals, 4))
-    cases = [(d, _permutation_args(d, rng, device)) for d in _fused_variants(data)]
-    cases.append((four_tiles, _permutation_args(
-        four_tiles, rng, device, zeros=[(0, 255, 3), (0, 256, 70), (1, 256, 0), (1, rows - 1, 9)])))
+    cases = [(d, _permutation_rec(d, _permutation_args(d, rng, device), device))
+             for d in _fused_variants(data)]
+    cases.append((four_tiles, _permutation_rec(four_tiles, _permutation_args(
+        four_tiles, rng, device, zeros=[(0, 255, 3), (0, 256, 70), (1, 256, 0), (1, rows - 1, 9)]),
+        device)))
     args = cases[0][1]
     cpu_args = _cpu(args)
     work_bytes, ops = _permutation_work(data)
@@ -1325,6 +1390,38 @@ def _composition_work(instance, m: int) -> tuple[int, int]:
     return (cols * m + 2 * k + 2 * m) * 8, muls * OPS_MUL + adds * OPS_ADD
 
 
+def _staged_composition(oracles, instance, openings, alpha, lde_bits: int, arity_bits: int):
+    """Kernel C as the staged single proof calls it: the host openings and
+    alpha uploaded into their record, then `compute_composition`."""
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+
+    ys, rec = fri.composition_inputs([instance], [openings], [alpha], oracles[0].lde.device)
+    return fri.compute_composition(oracles, tuple(b.polys for b in instance.batches), ys[0],
+                                   rec[0], lde_bits, arity_bits)
+
+
+def _staged_openings(oracles, zeta, zeta_next, next_oracle: int, next_count: int):
+    """Kernel D as the staged single proof calls it: the host points
+    uploaded into their record, `eval_openings`, the values brought back
+    and cut."""
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+    from qp_zk_circuits_tpu_torch.fri import oracle as fo
+
+    rec = fo.point_records(oracles[0].coeffs.device, [zeta], [zeta_next])[0]
+    return fo.split_openings(gl.to_u64(fo.eval_openings(oracles, rec, next_oracle, next_count)),
+                             oracles, next_count)
+
+
+def _staged_fold(leaves, beta, a_bits: int, log_m: int, shift_pow: int, next_bits: int):
+    """Kernel E as the staged single proof calls it: the host beta uploaded
+    into its record, then `fold_round`."""
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
+
+    return fri.fold_round(leaves, fri.beta_records(leaves.device, [beta])[0], ts.REC_FRI_BETA,
+                          a_bits, log_m, shift_pow, next_bits)
+
+
 def _composition_case(device) -> dict:
     """Kernel C at the leaf: the circuit's instance (two batches, about 255
     columns at zeta and the Z columns at g * zeta), Q in the first round's
@@ -1332,11 +1429,14 @@ def _composition_case(device) -> dict:
     from qp_zk_circuits_tpu_torch.fri import prover as fri
 
     c = _fri_leaf_case(device, seed=3)
-    args = (c["instance"], c["openings"], c["alpha"], c["lde_bits"], c["schedule"][0])
+    ys, rec = fri.composition_inputs([c["instance"]], [c["openings"]], [c["alpha"]], device)
+    polys = tuple(b.polys for b in c["instance"].batches)
+    args = (polys, ys[0], rec[0], c["lde_bits"], c["schedule"][0])
+    cpu_args = (polys, ys[0].cpu(), rec[0].cpu(), *args[3:])
     cpu = _cpu_oracles(c["oracles"])
     return dict(
         run=lambda: fri.compute_composition(c["oracles"], *args),
-        plain=lambda: fri.compute_composition_plain(cpu, *args), plain_on_host=True,
+        plain=lambda: fri.compute_composition_plain(cpu, *cpu_args), plain_on_host=True,
         **dict(zip(("bytes", "ops"), _composition_work(c["instance"], 1 << c["lde_bits"]))),
     )
 
@@ -1407,7 +1507,7 @@ def _composition_batch_case(device) -> dict:
         check=lambda: ([fri.compute_composition_batch(*args(c["oracles"], n)) for n in (k, k + 1)],
                        [fri.compute_composition_batch_plain(*args(c["cpu"], n))
                         for n in (k, k + 1)]),
-        singles=lambda: [fri.compute_composition(*x, c["lde_bits"], a)
+        singles=lambda: [_staged_composition(*x, c["lde_bits"], a)
                          for x in zip(*args(c["oracles"], k)[:4])],
         bytes=k * work[0], ops=k * work[1],
     )
@@ -1441,7 +1541,7 @@ def _openings_batch_case(device) -> dict:
         plain=lambda: run(c["cpu"], k, fo.eval_openings_batch_plain), plain_on_host=True,
         check=lambda: ([joined(run(c["oracles"], j)) for j in (k, k + 1)],
                        [joined(run(c["cpu"], j, fo.eval_openings_batch_plain)) for j in (k, k + 1)]),
-        singles=lambda: [fo.eval_openings(o, z, zn, 2, nz) for o, z, zn in zip(
+        singles=lambda: [_staged_openings(o, z, zn, 2, nz) for o, z, zn in zip(
             c["oracles"][:k], c["zetas"], c["zeta_nexts"])],
         bytes=k * work[0], ops=k * work[1],
     )
@@ -1470,7 +1570,7 @@ def _fold_batch_case(device) -> dict:
                         for j in (k, k + 1)],
                        [fri.fold_round_batch_plain(cpu[:j], betas[:j], a, log_m, 0, 0)
                         for j in (k, k + 1)]),
-        singles=lambda: [fri.fold_round(leaves[i], betas[i], a, log_m, 0, 0) for i in range(k)],
+        singles=lambda: [_staged_fold(leaves[i], betas[i], a, log_m, 0, 0) for i in range(k)],
         bytes=k * work[0], ops=k * work[1],
     )
 
@@ -1479,7 +1579,8 @@ def _gather_batch_case(device) -> dict:
     """Kernel F with a proof axis at the K = 16 leaf batch: each proof's 28
     queries' leaf rows and Merkle paths of its four oracles (the constants
     shared) and of its FRI round's leaves and tree, 10 segments a proof, one
-    plan of 3,256 bytes for 16 proofs, into pinned host memory; checked at
+    plan of 1,592 bytes for 16 proofs (the indices uploaded in one copy, a
+    pointer a proof), into pinned host memory; checked at
     K = 16 (one launch) and 17 (two) against the plain version on CPU
     copies; timed beside 16 single calls. Its work: 16 times a proof's."""
     import numpy as np
@@ -1504,7 +1605,7 @@ def _gather_batch_case(device) -> dict:
         return torch.stack([fri.query_gather_plain(s, i) for s, i in zip(cpu[:j], indices[:j])])
 
     def check():
-        per = fri.gather_group(len(sources[0]), len(indices[0]))
+        per = fri.gather_group(len(sources[0]))
         if len(sources[0]) != 10 or per != 16:
             raise AssertionError("a leaf batch's gather plan is not 10 segments, 16 proofs")
         got = []
@@ -1534,38 +1635,34 @@ def _openings_case(device) -> dict:
     block's tile (8 rows a block at one chunk, 32 above)."""
     from types import SimpleNamespace
 
-    import numpy as np
-    import torch
-
     from qp_zk_circuits_tpu_torch.fri import oracle as fo
 
     c = _fri_leaf_case(device, seed=4)
     cpu = _cpu_oracles(c["oracles"])
     n = c["oracles"][0].coeffs.shape[1]
     rows = sum(o.coeffs.shape[0] for o in c["oracles"])
-    args = (c["zeta"], c["zeta_next"], 2, c["nz"])
+    args = (fo.point_records(device, [c["zeta"]], [c["zeta_next"]])[0], 2, c["nz"])
+    cpu_args = _cpu(args)
     counts = [o.coeffs.shape[0] for o in c["oracles"]]
     edges = [(counts, 256, 2, 0), (counts, 1, 2, 2), (counts, 32, 2, 2), (counts, 1 << 12, 2, 2),
              ([1, 33, 1], 300, 2, 1), ([3, 5], 3000, 2, 0), ([7], 1025, 1, 0)]
     cases = []
     for shape, n_e, nz, nxt in edges:
         oracles = [SimpleNamespace(coeffs=_felts((r, n_e), c["rng"], device)) for r in shape]
-        cases.append((oracles, (c["zeta"], c["zeta_next"], nxt, nz)))
-
-    def joined(parts):
-        return torch.as_tensor(np.concatenate(list(parts[0]) + [parts[1]]).view(np.int64))
+        cases.append((oracles, (fo.point_records(device, [c["zeta"]], [c["zeta_next"]])[0],
+                                nxt, nz)))
 
     def check():
-        got = [joined(fo.eval_openings(c["oracles"], *args))]
-        want = [joined(fo.eval_openings_plain(cpu, *args))]
+        got = [fo.eval_openings(c["oracles"], *args)]
+        want = [fo.eval_openings_plain(cpu, *cpu_args)]
         for oracles, a in cases:
-            got.append(joined(fo.eval_openings(oracles, *a)))
-            want.append(joined(fo.eval_openings_plain(_cpu_oracles(oracles), *a)))
+            got.append(fo.eval_openings(oracles, *a))
+            want.append(fo.eval_openings_plain(_cpu_oracles(oracles), *_cpu(a)))
         return got, want
 
     return dict(
         run=lambda: fo.eval_openings(c["oracles"], *args),
-        plain=lambda: fo.eval_openings_plain(cpu, *args), plain_on_host=True, check=check,
+        plain=lambda: fo.eval_openings_plain(cpu, *cpu_args), plain_on_host=True, check=check,
         **dict(zip(("bytes", "ops"), openings_work(rows, rows + c["nz"], n))),
     )
 
@@ -1578,13 +1675,14 @@ def _fold_case(device) -> dict:
     spread limit (one or two threads a row), each with another coset shift."""
     from qp_zk_circuits_tpu_torch.field import gf_np as F
     from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
 
     c = _fri_leaf_case(device, seed=5)
     a, log_m = c["schedule"][0], c["lde_bits"]
     m = 1 << log_m
     leaves = c["oracles"][1].lde.reshape(-1)[: 2 * m].reshape(m >> a, 2 << a).clone()
-    beta = F.rand_felts(2, c["rng"])
-    args = (beta, a, log_m, 0, 0)
+    slot = ts.REC_FRI_BETA
+    args = (fri.beta_records(device, [F.rand_felts(2, c["rng"])])[0], slot, a, log_m, 0, 0)
     leaves_cpu = leaves.cpu()
     cases = []
     for a_e in range(1, fri.MAX_ARITY_BITS + 1):
@@ -1593,17 +1691,19 @@ def _fold_case(device) -> dict:
             for nxt in (0, 4):
                 if nxt <= log_m_e - a_e:
                     cases.append((_felts((1 << (log_m_e - a_e), 2 << a_e), c["rng"], device),
-                                  (F.rand_felts(2, c["rng"]), a_e, log_m_e, a_e + nxt, nxt)))
+                                  (fri.beta_records(device, [F.rand_felts(2, c["rng"])])[0],
+                                   slot, a_e, log_m_e, a_e + nxt, nxt)))
 
     def check():
         got = [fri.fold_round(leaves, *args)] + [fri.fold_round(x, *ar) for x, ar in cases]
-        want = [fri.fold_round_plain(leaves_cpu, *args)]
-        want += [fri.fold_round_plain(x.cpu(), *ar) for x, ar in cases]
+        want = [fri.fold_round_plain(leaves_cpu, *_cpu(args))]
+        want += [fri.fold_round_plain(x.cpu(), *_cpu(ar)) for x, ar in cases]
         return got, want
 
     return dict(
         run=lambda: fri.fold_round(leaves, *args),
-        plain=lambda: fri.fold_round_plain(leaves_cpu, *args), plain_on_host=True, check=check,
+        plain=lambda: fri.fold_round_plain(leaves_cpu, *_cpu(args)), plain_on_host=True,
+        check=check,
         **dict(zip(("bytes", "ops"), fold_work(m, a))),
     )
 
@@ -1722,6 +1822,177 @@ def _gather_case(device) -> dict:
         plain=lambda: fri.query_gather_plain(cpu, indices), plain_on_host=True, check=check,
         **dict(zip(("bytes", "ops", "host_bytes"), gather_work(len(indices), width))),
     )
+
+
+def _leaf_schedule(ts, state, src: dict, out: dict, g: int):
+    """The fused leaf proof's transcript segments (plonk/prover_fused.py's
+    order) over `src`'s tensors, writing `out`'s: the digest, PI hash and
+    wires cap, then the betas and gammas; each later cap and its challenges;
+    zeta and g * zeta; the openings and FRI's alpha; each round's cap and
+    beta; the final polynomial (its (2, m_f) rows read transposed); the
+    witness, its response and the query indices. Returns the challenger."""
+    ch = ts.DeviceChallenger(state)
+    nc = out["betas"].numel()
+    ch.segment(observe=[(src["digest"], None), (src["pi"], None),
+                        (src["caps"][0], out["caps"][0])],
+               squeeze=[(out["betas"], 0), (out["gammas"], 0)])
+    ch.segment(observe=[(src["caps"][1], out["caps"][1])], squeeze=[(out["alphas"], 0)])
+    ch.segment(observe=[(src["caps"][2], out["caps"][2])], squeeze=[(out["zeta"], 0)],
+               scale=(out["zeta_next"], g))
+    ch.segment(observe=[(src["openings"], None)], squeeze=[(out["fri_alpha"], 0)])
+    for r, cap in enumerate(src["fri_caps"]):
+        ch.segment(observe=[(cap, None)], squeeze=[(out["fri_betas"][2 * r : 2 * r + 2], 0)])
+    ch.segment(observe=[(src["final"][:, : src["final_len"]].T, None)])
+    ch.segment(observe=[(src["witness"], out["pow"][:1])],
+               squeeze=[(out["pow"][1:], 0), (out["indices"], src["lde_bits"])])
+    assert nc == out["gammas"].numel() == out["alphas"].numel()
+    return ch
+
+
+def _transcript_case(device) -> dict:
+    """Kernel I at the leaf proof's whole schedule (`_leaf_schedule`: the
+    leaf's packed shapes, seeded random values, a fresh state), against the
+    plain version on CPU copies: every challenge, index, copied cap, the
+    final state. Bound: the dependent chain, its permutations in series
+    (PERM_CHAIN multiplies of MUL_LATENCY_CYCLES), far above its bytes and
+    operations."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.plonk import prover_fused as tfused
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
+
+    data = _leaf_data(device)
+    views = tfused.fused_bundle(data).packer.views(np.zeros(tfused.fused_bundle(data).packer.size))
+    rng = np.random.default_rng(31)
+    rounds = len([k for k in views if k.startswith("fri_cap_")])
+    nc = data.config.num_challenges
+    host = dict(digest=F.rand_felts((4,), rng), pi=F.rand_felts((4,), rng),
+                caps=[F.rand_felts(views[k].shape, rng)
+                      for k in ("wires_cap", "zs_pp_cap", "quotient_cap")],
+                openings=F.rand_felts(views["openings"].shape, rng),
+                fri_caps=[F.rand_felts(views[f"fri_cap_{r}"].shape, rng) for r in range(rounds)],
+                final=F.rand_felts(views["final_poly"].shape, rng),
+                witness=F.rand_felts((1,), rng))
+    final_len = fri._final_len(data.config.fri_config, data.degree_bits)
+    lde_bits = data.degree_bits + data.config.rate_bits
+    g = int(F.primitive_root_of_unity(data.degree_bits))
+    sizes = dict(betas=nc, gammas=nc, alphas=nc, zeta=2, zeta_next=2, fri_alpha=2,
+                 fri_betas=2 * rounds, pow=2, indices=views["query_indices"].shape[0])
+
+    def inputs(dev):
+        def t(a):
+            return gl.from_u64(a, dev)
+        return dict(digest=t(host["digest"]), pi=t(host["pi"]), caps=[t(c) for c in host["caps"]],
+                    openings=t(host["openings"]), fri_caps=[t(c) for c in host["fri_caps"]],
+                    final=t(host["final"]), witness=t(host["witness"]), final_len=final_len,
+                    lde_bits=lde_bits)
+
+    def outputs(dev):
+        flat = torch.zeros(sum(sizes.values()) + sum(c.size for c in host["caps"]),
+                           dtype=torch.int64, device=dev)
+        out, at = {}, 0
+        for name, n in sizes.items():
+            out[name], at = flat[at : at + n], at + n
+        out["caps"] = []
+        for c in host["caps"]:
+            out["caps"].append(flat[at : at + c.size])
+            at += c.size
+        return flat, out
+
+    card_in, cpu_in = inputs(device), inputs("cpu")
+    card_state = torch.zeros(ts.TS_WORDS, dtype=torch.int64, device=device)
+    card_flat, card_out = outputs(device)
+    perms = []
+
+    def run():
+        card_state.zero_()
+        ch = _leaf_schedule(ts, card_state, card_in, card_out, g)
+        perms[:] = [ch.permutations]
+        return card_flat
+
+    def plain():
+        state = torch.zeros(ts.TS_WORDS, dtype=torch.int64)
+        flat, out = outputs("cpu")
+        _leaf_schedule(ts, state, cpu_in, out, g)
+        return torch.cat([flat, state])
+
+    def check():
+        before = ts.transcript_segment.launches
+        got = torch.cat([run(), card_state])
+        if ts.transcript_segment.launches - before != 6 + rounds:
+            raise AssertionError("kernel I took other than a launch a segment")
+        return [got], [plain()]
+
+    run()
+    src_felts = 8 + sum(c.size for c in host["caps"]) + host["openings"].size + sum(
+        c.size for c in host["fri_caps"]) + 2 * final_len + 1
+    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
+    return dict(run=run, plain=plain, plain_on_host=True, check=check,
+                bytes=8 * (src_felts + ts.TS_WORDS * 2 + card_flat.numel()),
+                ops=perms[0] * perm_ops, permutations=perms[0],
+                chain_ms=1e3 * perms[0] * PERM_CHAIN * MUL_LATENCY_CYCLES / SM_CLOCK_HZ)
+
+
+def _grind_case(device) -> dict:
+    """Kernel J at 16 bits from a transcript state with 5 felts in its input
+    buffer: the lowest witness against the plain version run on the card
+    (sweeps of 2^17 in order); with its limit at the chunk below the
+    witness's it finds none (best stays 2^64 - 1). Timed from reset words,
+    by CUDA events (a graph replay of one call would start found). Bound:
+    operations, a permutation for each candidate up to the witness."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
+
+    bits = 16
+    state = torch.zeros(ts.TS_WORDS, dtype=torch.int64, device=device)
+    ch = ts.DeviceChallenger(state)
+    ch.segment(observe=[(gl.from_u64(F.rand_felts((13,), np.random.default_rng(32)), device),
+                         None)])
+    init = torch.tensor([0, -1], dtype=torch.int64, device=device)
+    words = init.clone()
+
+    def run():
+        words.copy_(init)
+        ts.grind_device(state, ch.in_len, bits, words)
+        return words[1:]
+
+    def plain():
+        w = init.clone()
+        ts.grind_plain(state, ch.in_len, bits, w)
+        return w[1:]
+
+    def check():
+        got = run().clone()
+        want = plain()
+        limited = init.clone()
+        ts.grind_device(state, ch.in_len, bits, limited, limit=int(want) // 128 * 128)
+        if int(limited[1]) != -1:
+            raise AssertionError("kernel J found a witness at or above its limit")
+        return [got], [want]
+
+    def events_ms(runs=20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        times = []
+        for _ in range(runs):
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    witness = int(plain())
+    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
+    return dict(run=run, plain=plain, check=check, device=events_ms, witness=witness,
+                bytes=8 * (ts.TS_WORDS + 4), ops=(witness + 1) * perm_ops)
 
 
 #: the ZK leaf (the private batch's config on the leaf circuit): 135 wires,
@@ -1886,15 +2157,20 @@ def phase_kernels(kernels) -> None:
             raise AssertionError(f"{k['name']}: shapes differ from the plain version")
         err = max(int((g.cpu() != w.cpu()).sum()) for g, w in zip(got, want))
         if err:
-            raise AssertionError(f"{k['name']}: {err} elements differ from the plain version")
+            at = [(i, (g.cpu() != w.cpu()).nonzero()[:4].tolist()) for i, (g, w) in
+                  enumerate(zip(got, want)) if not torch.equal(g.cpu(), w.cpu())]
+            raise AssertionError(f"{k['name']}: {err} elements differ from the plain version "
+                                 f"(output, first indices: {at})")
         k["max_abs_err"] = 0
         k["ms"] = median_ms(k["run"], runs=20)
-        k["device_ms"] = device_ms(k["run"])
+        k["device_ms"] = k["device"]() if "device" in k else device_ms(k["run"])
         if k.get("plain_on_host"):
             k["plain_ms"] = _host_median_ms(k["plain"], runs=3)
         else:
             k["plain_ms"] = median_ms(k["plain"], runs=3, warmup=1)
         k["bound_ms"], k["bound_by"] = _bound((k["bytes"], k["ops"], k.get("host_bytes", 0)))
+        if k.get("chain_ms", 0) > k["bound_ms"]:
+            k["bound_ms"], k["bound_by"] = k["chain_ms"], "chain"
         dev = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.4f} ms"
         where = "host" if k.get("plain_on_host") else "card"
         note = ""
@@ -1909,6 +2185,9 @@ def phase_kernels(kernels) -> None:
                 raise AssertionError(f"{k['name']}: the library call differs from the plain version")
             k["library_ms"] = graph_ms(k["library"])
             note += f"; library call, device {k['library_ms']:.4f} ms"
+        if "chain_ms" in k:
+            note += (f"; the chain: {k['permutations']} permutations x {PERM_CHAIN} dependent "
+                     f"multiplies x {MUL_LATENCY_CYCLES} cycles")
         if "singles" in k:
             # the batch's work as the single wrapper does it, a call a proof
             k["singles_ms"] = median_ms(k["singles"], runs=10)
@@ -2070,7 +2349,8 @@ def _composition_2_19(leaf, device, lde_bits: int) -> None:
     instance = fri_instance(leaf, F.rand_felts(2, rng), F.rand_felts(2, rng))
     openings = [F.rand_felts((len(b.polys), 2), rng) for b in instance.batches]
     arity = cfg.fri_config.reduction_strategy.schedule(lde_bits - cfg.rate_bits)[0]
-    args = (instance, openings, F.rand_felts(2, rng), lde_bits, arity)
+    ys, rec = fri.composition_inputs([instance], [openings], [F.rand_felts(2, rng)], device)
+    args = (tuple(b.polys for b in instance.batches), ys[0], rec[0], lde_bits, arity)
     before = fri.compute_composition.launches
     got = fri.compute_composition(oracles, *args)
     launches = fri.compute_composition.launches - before
@@ -2125,7 +2405,8 @@ def phase_aggregation_fused(device, degree_bits: int = 16) -> None:
             raise AssertionError(f"{name}: differs from the plain version")
         return _timed(fn, work)
 
-    args = _permutation_args(data, rng, device, zeros=[(0, 255, 3), (0, 256, 70), (1, 256, 0)])
+    args = _permutation_rec(data, _permutation_args(
+        data, rng, device, zeros=[(0, 255, 3), (0, 256, 70), (1, 256, 0)]), device)
     before = tprover.compute_permutation_polys.launches
     got = tprover.compute_permutation_polys(data, *args)
     launches = tprover.compute_permutation_polys.launches - before
@@ -2139,7 +2420,7 @@ def phase_aggregation_fused(device, degree_bits: int = 16) -> None:
           f"zero denominators at rows 255 and 256; {line}", flush=True)
     del args, got, want
 
-    args = _quotient_args(data, rng, device)
+    args = _quotient_rec(data, _quotient_args(data, rng, device), device)
     got = tprover.quotient_evals(data, *args)
     want = tprover.quotient_evals_plain(data, *args)
     line = report("quotient 2^19", lambda: tprover.quotient_evals(data, *args), got, want,
@@ -2174,6 +2455,7 @@ def phase_aggregation_fri_tail(device, degree_bits: int = 16) -> None:
     from qp_zk_circuits_tpu_torch.fri import oracle as fo
     from qp_zk_circuits_tpu_torch.fri import prover as fri
     from qp_zk_circuits_tpu_torch.hash import merkle
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
 
     leaf = _leaf_data(device)
     cfg = leaf.config
@@ -2187,12 +2469,12 @@ def phase_aggregation_fri_tail(device, degree_bits: int = 16) -> None:
 
     oracles = [SimpleNamespace(coeffs=_card_felts((r, n), 40 + i, device))
                for i, r in enumerate(rows)]
-    args = (F.rand_felts(2, rng), F.rand_felts(2, rng), 2, nc)
+    args = (fo.point_records(device, [F.rand_felts(2, rng)], [F.rand_felts(2, rng)])[0], 2, nc)
     before = fo.eval_openings.launches
     got = fo.eval_openings(oracles, *args)
     launches = fo.eval_openings.launches - before
     want = fo.eval_openings_plain(oracles, *args)
-    if not all(np.array_equal(g, w) for g, w in zip(got[0] + [got[1]], want[0] + [want[1]])):
+    if not torch.equal(got, want):
         raise AssertionError(f"openings at n = 2^{degree_bits} differ from the plain version")
     line = _timed(lambda: fo.eval_openings(oracles, *args),
                   openings_work(sum(rows), sum(rows) + nc, n))
@@ -2205,8 +2487,8 @@ def phase_aggregation_fri_tail(device, degree_bits: int = 16) -> None:
     layer = _card_felts((m >> rounds[0][1], 2 << rounds[0][1]), 45, device)
     layers, shift_pow = [], 0
     for r, (bits, a, nxt) in enumerate(rounds):
-        beta = F.rand_felts(2, rng)
-        call = (beta, a, bits, shift_pow, nxt)
+        call = (fri.beta_records(device, [F.rand_felts(2, rng)])[0], ts.REC_FRI_BETA, a, bits,
+                shift_pow, nxt)
         layers.append(layer)
         folded = fri.fold_round(layer, *call)
         if not torch.equal(folded, fri.fold_round_plain(layer, *call)):
@@ -2400,6 +2682,325 @@ def phase_main_path(kernels) -> None:
     return prover
 
 
+STAGED_ENV = "QZKT_STAGED_PROVER"
+
+
+class _prover_env:
+    """QZKT_STAGED_PROVER=1 for the span (staged=True), or unset (`prove`'s
+    own dispatch: the fused prover at the leaf's degree). The phases run
+    with it set (`main`), their checks the staged prover's internals; the
+    [fused] phases lift it."""
+
+    def __init__(self, staged: bool):
+        self.staged = staged
+
+    def __enter__(self):
+        import os
+
+        self.saved = os.environ.pop(STAGED_ENV, None)
+        if self.staged:
+            os.environ[STAGED_ENV] = "1"
+
+    def __exit__(self, *exc):
+        import os
+
+        os.environ.pop(STAGED_ENV, None)
+        if self.saved is not None:
+            os.environ[STAGED_ENV] = self.saved
+
+
+def _copies(fn, runs: int = 3) -> dict:
+    """fn() `runs` times under torch.profiler, a run: the memcpy calls of the
+    CUDA runtime ("calls", host side) and the device's copies by direction.
+    Both are read because a device-side copy record was seen missing (a
+    whole smoke's run, one in three proofs' host->device copies) where the
+    runtime calls were there."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    out = {way: sum(1 for n in device if f"Memcpy {way}" in n) / runs
+           for way in ("HtoD", "DtoH", "DtoD")}
+    out["calls"] = sum(1 for n in host if n.startswith("cudaMemcpy")) / runs
+    return out
+
+
+def phase_fused(kernels, zk_leaf) -> dict:
+    """The JAX package's default path, the fused prover (plonk/
+    prover_fused.py), through `prove`'s own dispatch:
+
+      * WormholeProver(device="cuda").prove_inputs(test_inputs_0(), seed=0),
+        a fresh prover, cold then warm, with every count at 0 just before
+        the cold proof: both byte-equal to the fixture, every kernel of the
+        path launched (kernels I and J among them), the staged grind's
+        permute not; one upload and one download a proof (the transfer
+        helpers' calls, and torch.profiler's host<->device copies of a warm
+        proof: one each way) and the library launches;
+      * the ZK leaf of [zk] in host rng (seed 7, the fixture) and device rng
+        (accepted, and equal to the staged device-rng proof of the seed);
+      * warm fused and staged leaf proofs in alternation, ms, the fused
+        proof's device busy share and its `_last_prove_timings`, beside the
+        card.
+    Returns the fused leaf prover."""
+    import statistics
+
+    import torch
+
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+    from qp_zk_circuits_tpu_torch.plonk import prover_fused as tfused
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_from_bytes, proof_to_bytes
+    from qp_zk_circuits_tpu_torch.tools.profile_leaf import _device_profile
+    from qp_zk_circuits_tpu_torch.tools.timing import card
+    from qp_zk_circuits_tpu_torch.wormhole.prover import WormholeProver
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import test_inputs_0
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    meta = json.loads(FIXTURE_META.read_text())[FIXTURE.name]
+    transfers = []
+    saved = tfused._upload, tfused._download
+
+    def upload(*args):
+        transfers.append("up")
+        return saved[0](*args)
+
+    def download(*args):
+        transfers.append("down")
+        return saved[1](*args)
+
+    with _prover_env(staged=False):
+        prover = WormholeProver(device="cuda")
+        if not tprover.uses_fused(prover.data):
+            raise AssertionError("[fused] the leaf does not take the fused prover")
+        inputs = test_inputs_0()
+        tfused._upload, tfused._download = upload, download
+        try:
+            blobs, runs, launches = [], [], []
+            for _ in range(2):
+                del transfers[:]
+                proof, took, counts = _counted(kernels, lambda: prover.prove_inputs(inputs,
+                                                                                   seed=0))
+                blobs.append(proof_to_bytes(proof))
+                runs.append(took)
+                launches.append(counts)
+                if transfers != ["up", "down"]:
+                    raise AssertionError(f"[fused] a proof's transfers were {transfers}")
+        finally:
+            tfused._upload, tfused._download = saved
+        for k in kernels:
+            if k["name"] in ("transcript", "grind"):
+                k["launches"] = launches[0][k["name"]]
+        for name, b in zip(("cold", "warm"), blobs):
+            digest = hashlib.sha256(b).hexdigest()
+            if len(b) != meta["len"] or digest != meta["sha256"]:
+                raise AssertionError(f"[fused] {name} proof differs from the fixture")
+        # the staged grind's permute is kernel J on this path
+        missing = [k["name"] for k in kernels if k.get("path", True) in (True, "fused")
+                   and k["name"] != "poseidon2_permute" and launches[0][k["name"]] <= 0]
+        if missing or launches[0]["poseidon2_permute"]:
+            raise AssertionError(f"[fused] kernels not launched {missing}, staged grind "
+                                 f"{launches[0]['poseidon2_permute']}")
+        copies = _copies(lambda: prover.prove_inputs(inputs, seed=0))
+        # two copies a proof, one of them device->host and none device to
+        # device: the other is the upload
+        if (copies["calls"], copies["DtoH"], copies["DtoD"]) != (2.0, 1.0, 0.0):
+            raise AssertionError(f"[fused] a warm proof's copies: {copies}")
+        verifier = WormholeVerifier(prover.data)
+        for b in blobs:
+            verifier.verify(proof_from_bytes(b))
+        lib = sum(launches[1].values())
+        counts = ", ".join(f"{n}={c}" for n, c in launches[1].items() if c)
+        print(f"[fused] leaf: fresh prover, proof cold {1e3 * runs[0]:.1f} ms, warm "
+              f"{1e3 * runs[1]:.1f} ms, both == fixture and accepted; one upload and one "
+              f"download a proof, a warm proof's copies {copies}; {lib} library launches a "
+              f"proof ({counts})", flush=True)
+
+        # the ZK leaf, both rng modes
+        zk_inputs = test_inputs_0()
+        zk_blob = proof_to_bytes(zk_leaf.prove_inputs(zk_inputs, seed=ZK_SEED))
+        if zk_blob != ZK_FIXTURE.read_bytes():
+            raise AssertionError("[fused] the host-rng ZK leaf differs from its fixture")
+        zk_pw = zk_leaf._partial_witness(zk_inputs)
+        dev = proof_to_bytes(tprover.prove(zk_leaf.data, zk_pw, seed=ZK_SEED, rng_mode="device"))
+        if zk_leaf.data.__dict__["_last_prove_timings"]["rng_mode"] != "device":
+            raise AssertionError("[fused] the device-rng ZK leaf did not take the fused prover")
+        WormholeVerifier(zk_leaf.data).verify(proof_from_bytes(dev))
+        staged_dev = proof_to_bytes(tprover.prove_staged(zk_leaf.data, zk_pw, seed=ZK_SEED,
+                                                         rng_mode="device"))
+        if dev != staged_dev or dev == zk_blob:
+            raise AssertionError("[fused] the device-rng ZK leaf differs from the staged one "
+                                 "of its seed, or equals the host-rng one")
+        print(f"[fused] ZK leaf (degree {zk_leaf.data.degree_bits}): host rng == fixture; "
+              f"device rng accepted, == the staged device-rng proof", flush=True)
+
+        # warm fused and staged leaf proofs in turns
+        pw = prover._partial_witness(inputs)
+        fused_ms, staged_ms, splits = [], [], []
+        for r in range(12):
+            for which in ((0, 1) if r % 2 == 0 else (1, 0)):
+                t = time.perf_counter()
+                if which == 0:
+                    tprover.prove(prover.data, pw, seed=0)
+                    torch.cuda.synchronize()
+                    fused_ms.append(1e3 * (time.perf_counter() - t))
+                    splits.append(dict(prover.data.__dict__["_last_prove_timings"]))
+                else:
+                    tprover.prove_staged(prover.data, pw, seed=0)
+                    torch.cuda.synchronize()
+                    staged_ms.append(1e3 * (time.perf_counter() - t))
+        prof = _device_profile(lambda: tprover.prove(prover.data, pw, seed=0))
+        fused_med = statistics.median(fused_ms)
+        busy = ("device not measured" if prof["device_ms"] is None else
+                f"device {prof['device_ms']:.3f} ms in {prof['device_launches']} device "
+                f"launches, busy {100 * prof['device_ms'] / prof['profiled_wall_ms']:.1f} % of a "
+                f"profiled {prof['profiled_wall_ms']:.2f} ms")
+        split = {key: statistics.median(sp[key] for sp in splits)
+                 for key in ("witness_pack_s", "upload_s", "dispatch_s", "execute_fetch_s",
+                             "unpack_s")}
+        print(f"[fused] warm leaf in turns, 12 each: fused median {fused_med:.2f} ms "
+              f"(min {min(fused_ms):.2f}, max {max(fused_ms):.2f}), staged median "
+              f"{statistics.median(staged_ms):.2f} ms (min {min(staged_ms):.2f}, max "
+              f"{max(staged_ms):.2f}); fused {busy}; fused split (medians, s) {split}, "
+              f"flat in/out MB {splits[-1]['flat_in_mb']}/{splits[-1]['flat_out_mb']}; "
+              f"{card()}", flush=True)
+    return prover
+
+
+def _fused_launches(label: str, kernels, launches: dict, data, device_rng: bool) -> None:
+    """A fused proof's launches: every kernel of the single path and of the
+    fused path launched, within `_path_launches`' limits; kernel I once a
+    segment (a commit each, the openings, each FRI round, the final
+    polynomial, the witness and indices), kernel J once where the circuit
+    grinds, the staged grind's permute never, kernel G one to four times in
+    device rng and never else."""
+    fcfg = data.config.fri_config
+    rounds = len(fcfg.reduction_strategy.schedule(data.degree_bits))
+    grinds = int(fcfg.proof_of_work_bits > 0)
+    limits = {**_single_limits(rounds), "ntt": (1, 14), "eval_openings": (1, 2),
+              "poseidon2_permute": (0, 0), "transcript": (6 + rounds, 6 + rounds),
+              "grind": (grinds, grinds), "rand_felts": (1, 4) if device_rng else (0, 0)}
+    missing = [k["name"] for k in kernels if k.get("path", True) in (True, "fused")
+               and k["name"] not in limits and launches[k["name"]] <= 0]
+    off = {n: launches[n] for n, (lo, hi) in limits.items() if not lo <= launches[n] <= hi}
+    kernel1 = sum(launches[k["name"]] for k in kernels if k.get("kernel1"))
+    if missing or off or kernel1 > 5:
+        raise AssertionError(f"{label}: kernels not launched {missing}, launches outside "
+                             f"{limits}: {off}, kernel 1 {kernel1}")
+
+
+def phase_fused_aggregation(kernels, built) -> None:
+    """The aggregation circuits on the fused prover, as the miner's service
+    proves them:
+
+      * the canonical N = 2 private batch of [aggregation] after
+        `warmup_fused(..., rng_mode="host")` (the JAX package's default
+        warms device rng, whose bytes differ by design): the batch of the
+        fixture's leaves in host rng (rng PB_RNG, seed PB_SEED) equal to
+        canonical_private_batch.bin, accepted; warm fused and staged in
+        turns;
+      * the warm prover's device-rng batch ("auto" after its device-rng
+        warm-up, the circuit's warmed mode restored) of [aggregation]'s
+        seed: equal to the staged device-rng batch of that seed, accepted;
+      * the public batch over that device-rng batch, its circuit warmed as
+        `PublicBatchProver(warm_start=True)` warms it: cold and warm equal
+        to the staged public batch of [aggregation], accepted.
+    Every proof's launches those of the fused path (`_fused_launches`)."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_to_bytes
+    from qp_zk_circuits_tpu_torch.plonk.verifier import verify
+    from qp_zk_circuits_tpu_torch.tools.timing import card
+    from qp_zk_circuits_tpu_torch.wormhole import inputs as wi
+    from qp_zk_circuits_tpu_torch.wormhole import private_batch as tpb
+    from qp_zk_circuits_tpu_torch.wormhole.public_batch import PublicBatchProver
+
+    mk = _agg_fixtures()
+    prover, circuit, leaves = built["private"], built["private_circuit"], built["leaves"]
+    data = circuit.data
+    warm_mode = data.__dict__.get("_warm_rng_mode")
+    want = _committed("canonical_private_batch.bin")
+
+    def host_proof():
+        return prover.aggregate(leaves, seed=mk.PB_SEED, rng=np.random.default_rng(mk.PB_RNG),
+                                rng_mode="host")
+
+    with _prover_env(staged=False):
+        try:
+            t0 = time.perf_counter()
+            tprover.warmup_fused(data, tpb._dummy_witness(circuit, prover.dummy_template,
+                                                           np.random.default_rng(0)),
+                                 rng_mode="host")
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            if not tprover.uses_fused(data) or data.degree_bits <= tprover.FUSED_DEGREE_BITS_MAX:
+                raise AssertionError("[fused] the private batch is not a warmed large circuit")
+            runs = []
+            for _ in range(2):
+                proof, took, launches = _counted(kernels, host_proof)
+                runs.append(took)
+                if proof_to_bytes(proof) != want:
+                    raise AssertionError("[fused] the fused host-rng private batch differs from "
+                                         "the JAX fixture")
+                _fused_launches("[fused] host-rng private batch", kernels, launches, data, False)
+            verify(data, proof)
+            staged = []
+            for _ in range(2):
+                with _prover_env(staged=True):
+                    staged.append(_counted(kernels, host_proof)[1])
+        finally:
+            if warm_mode is not None:
+                data.__dict__["_warm_rng_mode"] = warm_mode
+        print(f"[fused] canonical private batch (N = {mk.N_LEAF}, degree {data.degree_bits}): "
+              f"warmup_fused(host) {warm_s:.2f} s; fused host-rng proof cold {runs[0]:.3f} s, "
+              f"warm {runs[1]:.3f} s, == JAX fixture, accepted; staged {staged[0]:.3f}, "
+              f"{staged[1]:.3f} s; {card()}", flush=True)
+
+        dev_runs = []
+        for _ in range(2):
+            dev_proof, took, launches = _counted(kernels, lambda: prover.aggregate(
+                leaves, seed=mk.PB_SEED + 1, rng=np.random.default_rng(mk.PB_RNG + 1)))
+            dev_runs.append(took)
+            if data.__dict__["_last_prove_timings"]["rng_mode"] != "device":
+                raise AssertionError("[fused] the warm private batch did not draw on the card")
+            _fused_launches("[fused] device-rng private batch", kernels, launches, data, True)
+            if proof_to_bytes(dev_proof) != proof_to_bytes(built["dev_proof"]):
+                raise AssertionError("[fused] the device-rng private batch differs from the "
+                                     "staged one of its seed")
+        verify(data, dev_proof)
+        print(f"[fused] warm private batch, device rng (auto): {dev_runs[0]:.3f}, "
+              f"{dev_runs[1]:.3f} s, == the staged device-rng batch of its seed, accepted, "
+              f"kernel G {launches['rand_felts']} launches", flush=True)
+
+        pub = built["public_circuit"]
+        t0 = time.perf_counter()
+        pub_prover = PublicBatchProver(pub, lambda p: verify(data, p), built["dummy_pb"],
+                                       warm_start=True)
+        torch.cuda.synchronize()
+        pub_warm_s = time.perf_counter() - t0
+        if not tprover.uses_fused(pub.data):
+            raise AssertionError("[fused] the warmed public batch does not take the fused prover")
+        address = wi.BytesDigest(mk.PUB_ADDRESS)
+        pub_runs = []
+        for _ in range(2):
+            out, took, launches = _counted(kernels, lambda: pub_prover.commit(
+                [built["dev_proof"]], address).prove(seed=mk.PUB_SEED))
+            pub_runs.append(took)
+            _fused_launches("[fused] public batch", kernels, launches, pub.data, False)
+            if proof_to_bytes(out) != built["public_proof"]:
+                raise AssertionError("[fused] the fused public batch differs from the staged one")
+        verify(pub.data, out)
+    print(f"[fused] public batch (degree {pub.data.degree_bits}), warmed as warm_start warms "
+          f"it ({pub_warm_s:.2f} s): proof cold {pub_runs[0]:.3f} s, warm {pub_runs[1]:.3f} s, "
+          f"== the staged public batch, accepted; {sum(launches.values())} library launches "
+          f"a proof; {card()}", flush=True)
+
+
 def _single_limits(rounds: int) -> dict:
     """The launch limits of one leaf proof: (least, most) a wrapper. One
     tree a commit (wires, Z and partial products, quotient) and one a FRI
@@ -2480,7 +3081,8 @@ def phase_batch(kernels) -> None:
     final iNTT); the batch rows of the kernel table take their launches from
     the warm K = 16 batch, whose library launches (at most
     BATCH_LAUNCHES_MAX) are printed beside a single proof's library and
-    device launches (torch.profiler, glue kernels included: 55).
+    device launches (torch.profiler, glue kernels and copies included: 61,
+    six of them the staged prover's challenge-record uploads).
     Then per-proof times of K = 1, 4, 16 and 17 batches, beside a single
     proof, on the host clock; and the batched grind's first sweep (2^17
     states for each of 16 proofs, one permute launch) against its plain
@@ -2556,9 +3158,12 @@ def phase_batch(kernels) -> None:
     if proof_to_bytes(single) != want[0]:
         raise AssertionError("[batch] the single proof differs from its fixture")
     prof = _device_profile(lambda: prover.prove_inputs(inputs[0], seed=0))
-    if prof["device_launches"] != 55:
+    # 55 until the challenge records: since then kernels A, B, C, D, E (one
+    # FRI round) and F take the staged prover's host challenges (F: its
+    # indices) in one upload each, six more copies
+    if prof["device_launches"] != 61:
         raise AssertionError(f"[batch] a single leaf proof made {prof['device_launches']} device "
-                             "launches, not 55")
+                             "launches, not 61")
     print(f"[batch] a single leaf proof: {sum(single_launches.values())} library launches, "
           f"{prof['device_launches']} device launches (torch.profiler, glue kernels included)",
           flush=True)
@@ -2707,8 +3312,8 @@ def phase_zk(kernels) -> None:
         return proof_to_bytes(prover.prove_inputs(inputs, seed=ZK_SEED))
 
     def device():
-        return proof_to_bytes(tprover.prove(data, prover._partial_witness(inputs), seed=ZK_SEED,
-                                            rng_mode="device"))
+        return proof_to_bytes(tprover.prove_staged(data, prover._partial_witness(inputs),
+                                                   seed=ZK_SEED, rng_mode="device"))
 
     single = _single_limits(rounds)
     cold, cold_s, _ = run("cold host-rng proof", host, single)
@@ -3175,7 +3780,8 @@ def _quotient_spy(tprover, seen: list):
         out = real(data, wires_lde, zs_pp_lde, *args)
         real.launches += spy.launches
         spy.launches = 0
-        seen.append((data, wires_lde.clone(), zs_pp_lde.clone(), args, out.clone()))
+        seen.append((data, wires_lde.clone(), zs_pp_lde.clone(),
+                     tuple(a.clone() for a in args), out.clone()))
         return out
 
     spy.launches = 0
@@ -3244,7 +3850,9 @@ def phase_aggregation(kernels) -> dict:
       * for each warm proof: seconds, library and device launches, the busy
         share and verify ms.
 
-    Returns the canonical circuits and provers it built, for `phase_service`."""
+    Returns the canonical circuits and provers it built, the staged
+    device-rng private batch and the staged public batch's bytes, for
+    `phase_fused_aggregation` and `phase_service`."""
     import numpy as np
     import torch
 
@@ -3414,7 +4022,8 @@ def phase_aggregation(kernels) -> dict:
                           lambda p: verify(pub.data, p))):
         print(line, flush=True)
     return dict(leaf_prover=leaf_prover, leaves=leaves, private=warm, private_circuit=circuit,
-                dummy_pb=dummy_pb, public_circuit=pub)
+                dummy_pb=dummy_pb, public_circuit=pub, dev_proof=dev_proof,
+                public_proof=proof_to_bytes(out), leaf_data=data)
 
 
 def _write_bins(root: Path, built: dict) -> None:
@@ -3441,10 +4050,20 @@ def _write_bins(root: Path, built: dict) -> None:
     (root / "aot" / "entry.bin").write_bytes(b"not an executable")
 
 
+def _fused_proof(label: str, data, rng_mode: str) -> None:
+    """Raises unless the last proof of `data` came from the fused prover, in
+    `rng_mode` (a non-ZK circuit's "host"); pops its record."""
+    timings = data.__dict__.pop("_last_prove_timings", None)
+    if timings is None or timings["rng_mode"] != rng_mode:
+        raise AssertionError(f"{label}: not a fused proof in {rng_mode} rng ({timings})")
+
+
 def phase_service(kernels, built: dict) -> None:
     """The miner's path end to end at the canonical sizes (N = 2 leaves a
     private batch, m = 2 private batches a public batch), on the circuits
-    `phase_aggregation` built:
+    `phase_aggregation` built, through `prove`'s own dispatch (`main` runs
+    it without QZKT_STAGED_PROVER): the warmed batch circuits on the fused
+    prover, as the service runs them:
 
       * four real spends of one block (`n_real_leaves_same_block(4)`)
         proven as one batch (`prove_inputs_batch`, K = 4: the FRI tail's
@@ -3453,7 +4072,7 @@ def phase_service(kernels, built: dict) -> None:
       * `PublicBatchAggregator.from_binaries_dir` over the canonical
         artifact set of those circuits (`_write_bins`; the private batch's
         rebuild passed in, the public batch circuit rebuilt and pinned,
-        `warm_start=True`);
+        `warm_start=True`, which flips it onto the fused prover);
       * both private batches pushed (a verify each) into one bucket; a
         second push of one refused (duplicate nullifier) and a dummy
         private batch refused;
@@ -3488,9 +4107,11 @@ def phase_service(kernels, built: dict) -> None:
     for proof in leaves:
         leaf_verifier.verify(proof)
     t = time.perf_counter()
-    privates = [built["private"].aggregate(leaves[i:i + 2], seed=60 + i,
-                                           rng=np.random.default_rng(70 + i))
-                for i in (0, 2)]
+    privates = []
+    for i in (0, 2):
+        privates.append(built["private"].aggregate(leaves[i:i + 2], seed=60 + i,
+                                                   rng=np.random.default_rng(70 + i)))
+        _fused_proof("[service] private batch", built["private_circuit"].data, "device")
     torch.cuda.synchronize()
     steps["fold into 2 private batches"] = time.perf_counter() - t
     address = wi.BytesDigest(bytes(range(1, 33)))
@@ -3528,6 +4149,7 @@ def phase_service(kernels, built: dict) -> None:
         t = time.perf_counter()
         public = service.aggregate(keys[0], seed=80)
         torch.cuda.synchronize()
+        _fused_proof("[service] public batch", service.circuit.data, "host")
         steps["aggregate (snapshot + prove)"] = time.perf_counter() - t
         t = time.perf_counter()
         parsed = service.verify(public)
@@ -3662,7 +4284,8 @@ def phase_mesh(kernels, leaf, zk_leaf, built) -> None:
         zk_data, zk_pw, seed=ZK_SEED, rng_mode="host", mesh=one_card(MESH_D))))
     if host != zk_want:
         raise AssertionError("[mesh] the ZK leaf at D = 4 (host rng) differs from the fixture")
-    dev_single = proof_to_bytes(tprover.prove(zk_data, zk_pw, seed=ZK_SEED, rng_mode="device"))
+    dev_single = proof_to_bytes(tprover.prove_staged(zk_data, zk_pw, seed=ZK_SEED,
+                                                     rng_mode="device"))
     dev, dev_s, dev_l, dev_c = counted(lambda: tprover.prove(
         zk_data, zk_pw, seed=ZK_SEED, rng_mode="device", mesh=one_card(MESH_D)))
     if proof_to_bytes(dev) != dev_single:
@@ -3935,7 +4558,12 @@ def phase_tools(leaf) -> None:
 
 
 def main() -> int:
+    import os
+
     sys.path.insert(0, str(ROOT))
+    # the phases check the staged prover's internals; the [fused] phases
+    # and [service] lift this for `prove`'s own dispatch
+    os.environ[STAGED_ENV] = "1"
     device_info = phase_device()
     phase_build()
     phase_host()
@@ -3951,7 +4579,10 @@ def main() -> int:
     phase_aggregation_rand("cuda")
     phase_recursion(kernels)
     built = phase_aggregation(kernels)
-    phase_service(kernels, built)
+    phase_fused(kernels, zk_leaf)
+    phase_fused_aggregation(kernels, built)
+    with _prover_env(staged=False):
+        phase_service(kernels, built)
     phase_mesh(kernels, leaf, zk_leaf, built)
     phase_tools(leaf)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -3960,7 +4591,8 @@ def main() -> int:
         # library_ms: null where no single PyTorch call computes the
         # function (torch.randint, timed beside kernel G, draws another stream)
         k["route"] = "cuda"
-    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}), flush=True)
+    print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": device_info}), flush=True)
     return 0
 

@@ -41,21 +41,25 @@ _ENTRIES = {
     "qzk_poseidon2_merkle_forest": [_P, _P, _LL, _LL, _LL, _I, _LL, _LL, _I, _I, _I, _P],
     "qzk_ntt": [_P] * 8 + [_LL, _LL, _I, _I, _I, _ULL, _I, _LL, _LL, _P],
     "qzk_quotient_set_constants": [_P, _P, _P],
-    "qzk_quotient": [_P, _LL, _P, _P, _LL] + [_P] * 11 + [_I] * 13 + [_P],
-    "qzk_permutation": [_P, _LL] + [_P] * 6 + [_I] * 5 + [_P],
-    "qzk_fri_composition": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _P],
-    "qzk_eval_openings": [_P, _I, _P, _P, _P, _I, _I, _P],
-    "qzk_fri_fold": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "qzk_quotient": [_P, _LL, _P, _P, _LL] + [_P] * 8 + [_LL] + [_I] * 13 + [_P],
+    "qzk_permutation": [_P, _LL, _P, _P, _P, _LL, _P, _P] + [_I] * 5 + [_P],
+    "qzk_fri_composition": [_P, _I, _P, _P, _P, _P, _I, _P, _LL, _P, _LL, _I, _I, _P],
+    "qzk_eval_openings": [_P, _I, _P, _LL, _P, _P, _I, _I, _P],
+    "qzk_fri_fold": [_P, _P, _P, _LL, _I, _P, _LL, _I, _I, _I, _P],
     "qzk_query_gather": [_P, _P],
+    "qzk_transcript_set_constants": [_P, _P, _P],
+    "qzk_transcript": [_P, _P],
+    "qzk_grind": [_P, _I, _I, _P, _LL, _P],
     "qzk_rand_felts": [_P, _LL, _LL, _LL, _LL, _ULL, _ULL, _I, _P],
     "qzk_shard_deinterleave": [_P, _P, _LL, _I, _P],
     "qzk_shard_cross_ntt": [_P, _P, _LL, _I, _P, _ULL, _P],
 }
 
 #: the kernels with a proof axis (A, B, C, D, E, F) take at most this many
-#: proofs a launch: each proof's pointers and challenges travel by value in
-#: the launch's parameters (MAX_PROOFS of csrc/quotient.cu, permutation.cu
-#: and fri.cu); a larger batch takes more launches of the same kernel
+#: proofs a launch: each proof's pointers travel by value in the launch's
+#: parameters, its challenges in a record on the card (MAX_PROOFS of
+#: csrc/quotient.cu, permutation.cu and fri.cu); a larger batch takes more
+#: launches of the same kernel
 PROOFS_PER_LAUNCH = 16
 
 _lib = None

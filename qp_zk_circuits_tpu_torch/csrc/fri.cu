@@ -6,11 +6,14 @@
 // fri_query_phase_batch; a single proof is a batch of one), replacing the
 // JAX package's jax.vmap of the fused prover (plonk/prover_fused.py:1007,
 // :1049) over its FRI tail (:655-790). The proofs share the circuit's shapes
-// and tables; each proof's pointers and scalars (its oracles, points,
-// alpha, betas, query indices) ride by value in the launch's parameters,
-// a __grid_constant__ struct read in place, inside the classic 4 KB
-// parameter limit; the proof is a grid axis (C and E: y, D: z, F: the
-// block's query row), so no block holds more than one proof's scalars.
+// and tables; each proof's pointers ride by value in the launch's
+// parameters, a __grid_constant__ struct read in place, inside the classic
+// 4 KB parameter limit, and its Fiat-Shamir values (points, alpha, betas,
+// query indices) are read from device memory: C, D and E from the proof's
+// challenge record (challenges.cuh), F from its index vector. The fused
+// prover's transcript (kernel I) writes those on the card; the staged
+// prover uploads its host draws, one copy, so both run the same kernels.
+// The proof is a grid axis (C and E: y, D: z, F: the block's query row).
 //
 // Kernel C, qzk_fri_composition (fri/prover.py::compute_composition).
 //   Replaces the JAX package's fri/prover.py::compute_composition (its
@@ -100,14 +103,19 @@
 //   of a batch share the shapes, so sixteen leaf proofs (10 segments, 28
 //   queries) take 3,256 bytes: one launch, where a plan of whole segments a
 //   proof would need 160 segments and 448 queries, above 4 KB (CUDA 12.1's
-//   larger parameter space is not needed, and no plan is uploaded). A
+//   larger parameter space is not needed, and no plan is uploaded). The
+//   query indices are not in the plan: each proof's is a pointer to its
+//   int64 index vector on the card (kernel I draws them there on the fused
+//   path), so the plan carries 8 bytes a proof. A
 //   block takes a query of a proof; its threads stride over the packed row,
 //   each finds its segment by a binary search of the offsets in parameter
 //   space, makes one load and one coalesced store. The output is pinned
-//   host memory, mapped: the kernel writes across the bus, no copy launch.
+//   host memory, mapped: the kernel writes across the bus, no copy launch;
+//   or, on the fused path, device memory, the proof's packed output.
 #include <cuda_runtime.h>
 #include <string.h>
 
+#include "challenges.cuh"
 #include "extension.cuh"
 
 namespace {
@@ -147,8 +155,7 @@ struct Sources {
 struct Batches {
   int n;
   int start[MAX_BATCHES + 1];  // batch b's terms are [start[b], start[b + 1])
-  uint64_t z0[MAX_PROOFS][MAX_BATCHES], z1[MAX_PROOFS][MAX_BATCHES];  // each proof's points
-  uint64_t a0[MAX_PROOFS], a1[MAX_PROOFS];  // each proof's alpha
+  int slot[MAX_BATCHES];       // batch b's point: a record's words slot[b], slot[b] + 1
 };
 
 int c_smem_words(int terms) { return 3 * terms + C_PART + C_DINV + 2 * C_POW + 2 * MAX_BATCHES; }
@@ -161,7 +168,7 @@ __device__ __forceinline__ void setup_sync() { asm volatile("bar.sync 1, %0;" ::
 // (Montgomery's trick on the norms by shuffle scans over the row's 16
 // lanes and one Fermat power; a zero norm gives 0).
 __device__ void invert_tile(long long tile, const uint64_t* __restrict__ xs, const Batches& b,
-                            int proof, long long m, uint64_t* dinv) {
+                            const uint64_t* __restrict__ rc, long long m, uint64_t* dinv) {
   const int tx = threadIdx.x, g = threadIdx.y;
   const long long i = tile * C_POINTS + tx;
   const bool live = i < m;
@@ -170,7 +177,8 @@ __device__ void invert_tile(long long tile, const uint64_t* __restrict__ xs, con
     const int bi = bp + g;
     const bool mine = bi < b.n && live;
     const int bb = bi < b.n ? bi : 0;
-    const ext::E xz = {gl::sub(xs[live ? i : 0], b.z0[proof][bb]), gl::sub(0, b.z1[proof][bb])};
+    const ext::E xz = {gl::sub(xs[live ? i : 0], __ldg(rc + b.slot[bb])),
+                       gl::sub(0, __ldg(rc + b.slot[bb] + 1))};
     const uint64_t norm =
         mine ? gl::sub(gl::mul(xz.c0, xz.c0), gl::mul(ext::W, gl::mul(xz.c1, xz.c1))) : 1;
     const uint64_t nz = norm == 0 ? 1 : norm;  // inv(0) = 0 stays
@@ -234,18 +242,20 @@ __device__ void accumulate(long long tile, const uint64_t* const* col, const uin
 }
 
 // Block (run, proof): proof blockIdx.y's terms (its ys and out a (terms, 2)
-// and (m, 2) part of the stacks), its alpha and points from the parameters.
+// and (m, 2) part of the stacks), its alpha and points from its record.
 __global__ void __launch_bounds__(C_THREADS)
     composition_kernel(const __grid_constant__ Sources src, const int* __restrict__ terms,
                        const uint64_t* __restrict__ ys, const uint64_t* __restrict__ xs,
-                       const __grid_constant__ Batches b, uint64_t* __restrict__ out, long long m,
-                       int a_bits, long long per_block) {
+                       const __grid_constant__ Batches b, const uint64_t* __restrict__ ch,
+                       long long ch_stride, uint64_t* __restrict__ out, long long m, int a_bits,
+                       long long per_block) {
   extern __shared__ uint64_t csm[];
   const int n_terms = b.start[b.n];
   const int proof = blockIdx.y;
   ys += 2LL * proof * n_terms;
   out += 2LL * proof * m;
-  const ext::E alpha = {b.a0[proof], b.a1[proof]};
+  const uint64_t* rc = ch + proof * ch_stride;
+  const ext::E alpha = {__ldg(rc + rec::FRI_ALPHA), __ldg(rc + rec::FRI_ALPHA + 1)};
   const uint64_t** col = (const uint64_t**)csm;  // term k's column
   uint64_t* apow = csm + n_terms;                 // alpha^k as (c0, c1)
   uint64_t* part = apow + 2 * n_terms;            // [batch][c][thread], then [batch][c][row][lane]
@@ -267,8 +277,8 @@ __global__ void __launch_bounds__(C_THREADS)
   if (warp < C_INV_WARPS) {
     // the first two tiles' denominators while the other warps stage the
     // scalars and sum the first tile
-    invert_tile(t0, xs, b, proof, m, dinv);
-    if (t0 + 1 < tiles) invert_tile(t0 + 1, xs, b, proof, m, dinv + C_DINV / 2);
+    invert_tile(t0, xs, b, rc, m, dinv);
+    if (t0 + 1 < tiles) invert_tile(t0 + 1, xs, b, rc, m, dinv + C_DINV / 2);
   } else {
     const int st = tid - 32 * C_INV_WARPS, sw = warp - C_INV_WARPS;
     // the first term's reads, in flight during the scans
@@ -399,7 +409,7 @@ __global__ void __launch_bounds__(C_THREADS)
     if (next >= tiles) break;  // uniform across the block
     __syncthreads();  // part and dinv[buf] are free
     if (warp < C_INV_WARPS) {
-      if (next + 1 < tiles) invert_tile(next + 1, xs, b, proof, m, dinv + buf * (C_DINV / 2));
+      if (next + 1 < tiles) invert_tile(next + 1, xs, b, rc, m, dinv + buf * (C_DINV / 2));
     } else {
       accumulate(next, col, apow, b, m, part);
     }
@@ -420,18 +430,20 @@ constexpr int MAX_SEGS = MAX_ORACLES + 1;
 
 // consecutive output rows of each proof: segment s is rows start[s] ..
 // start[s + 1] - 1, coefficient rows from p[proof][s] evaluated at the
-// proof's point[s] (0 = zeta, 1 = g * zeta)
+// proof's point[s] (0 = zeta, 1 = g * zeta), both read from its record
 struct Rows {
   const uint64_t* p[MAX_PROOFS][MAX_SEGS];
   long long start[MAX_SEGS + 1];
   int point[MAX_SEGS];
   int n;
-  uint64_t z0[MAX_PROOFS][2], z1[MAX_PROOFS][2];  // each proof's zeta and g * zeta
+  const uint64_t* ch;  // proof p's challenge record at p * ch_stride
+  long long ch_stride;
 };
+static_assert(rec::ZETA_NEXT == rec::ZETA + 2, "point pt sits at ZETA + 2 pt");
 
 __device__ __forceinline__ ext::E point_of(const Rows& rows, int pt) {
-  const int proof = blockIdx.z;
-  return {pt ? rows.z0[proof][1] : rows.z0[proof][0], pt ? rows.z1[proof][1] : rows.z1[proof][0]};
+  const uint64_t* z = rows.ch + blockIdx.z * rows.ch_stride + rec::ZETA + 2 * pt;
+  return {__ldg(z), __ldg(z + 1)};
 }
 
 // Row r's coefficients from c0 on and its point (-1 past the last row):
@@ -604,7 +616,6 @@ struct FoldConsts {
   uint64_t wb[32];                        // w^(-2^b)
   uint64_t c[(1 << MAX_ARITY_BITS) - 1];  // c_tj at 2^a - 2^(a - t) + j
   uint64_t scale;                         // 2^-a: the a halvings, applied once
-  uint64_t beta0[MAX_PROOFS][MAX_ARITY_BITS], beta1[MAX_PROOFS][MAX_ARITY_BITS];  // beta^(2^t)
 };
 constexpr int FOLD_CONST_WORDS = 32 + (1 << MAX_ARITY_BITS) - 1 + 1;
 
@@ -624,7 +635,8 @@ __device__ __forceinline__ ext::E fold2(ext::E e, ext::E o, uint64_t u, const ui
 }
 
 // Block (rows, proof): proof blockIdx.y's layer (a (mp, 2 A) part of the
-// stacked leaves) folded with its betas into its part of out.
+// stacked leaves) folded with its beta (words beta_slot, beta_slot + 1 of
+// its record; beta^(2^t) by squaring) into its part of out.
 // E_THREADS / 2^S_BITS leaf rows, 2^S_BITS threads a row, thread h
 // holding the pairs h + 2^S_BITS i of the first fold; the first A_BITS -
 // S_BITS folds in registers, the last S_BITS by shuffles among the row's
@@ -634,6 +646,7 @@ __device__ __forceinline__ ext::E fold2(ext::E e, ext::E o, uint64_t u, const ui
 template <int A_BITS, int S_BITS>
 __global__ void __launch_bounds__(E_THREADS)
     fold_kernel(const uint64_t* __restrict__ leaves, const __grid_constant__ FoldConsts k,
+                const uint64_t* __restrict__ ch, long long ch_stride, int beta_slot,
                 uint64_t* __restrict__ out, long long mp, int mp_bits, int next_bits) {
   constexpr int A = 1 << A_BITS, T = 1 << S_BITS, ROWS = E_THREADS / T;
   constexpr int PAIRS = A / (2 * T);        // first-fold pairs a thread
@@ -666,8 +679,11 @@ __global__ void __launch_bounds__(E_THREADS)
   if (tid < A - 1) {
     int t = 0;
     while (tid >= A - (A >> (t + 1))) ++t;  // tid's fold
-    const uint64_t c0 = gl::mul(k.c[tid], k.beta0[proof][t]);
-    const uint64_t c1 = gl::mul(k.c[tid], k.beta1[proof][t]);
+    const uint64_t* bp = ch + proof * ch_stride + beta_slot;
+    ext::E bt = {__ldg(bp), __ldg(bp + 1)};
+    for (int u = 0; u < t; ++u) bt = ext::mul(bt, bt);  // beta^(2^t)
+    const uint64_t c0 = gl::mul(k.c[tid], bt.c0);
+    const uint64_t c1 = gl::mul(k.c[tid], bt.c1);
     cb[tid][0] = c0;
     cb[tid][1] = c1;
     cb[tid][2] = gl::mul(ext::W, c1);
@@ -738,7 +754,9 @@ __global__ void __launch_bounds__(E_THREADS)
 constexpr int F_MAX_SEGS = 128;     // a proof's segments
 constexpr int F_MAX_QUERIES = 128;  // a proof's queries
 constexpr int F_MAX_THREADS = 1024;
-constexpr int F_PLAN_BYTES = 24 + 24 * F_MAX_SEGS + 4 * F_MAX_QUERIES;  // one proof at both limits
+// one proof at both limits once held its 32-bit indices in the plan: the
+// size stays, the indices now an 8-byte pointer a proof
+constexpr int F_PLAN_BYTES = 24 + 24 * F_MAX_SEGS + 4 * F_MAX_QUERIES;
 
 // a plan segment's shape, 16 bytes, at `offset` in the packed row. levels =
 // 0: the row r of the proof's source `src` picked by the query index,
@@ -753,9 +771,10 @@ struct GatherShape {
 };
 
 // The header, then in `body`: the sources' addresses (proofs, segments),
-// the segments' shapes (segments), the query indices (proofs, queries).
+// the segments' shapes (segments), each proof's query-index vector (proofs):
+// a device address of `queries` int64 indices below 2^32.
 struct GatherPlan {
-  uint64_t* out;  // (proofs, queries, row_width)
+  uint64_t* out;  // (proofs, queries, row_width), pinned host or device memory
   int queries, segments, row_width, proofs;
   unsigned char body[F_PLAN_BYTES - 24];
 };
@@ -767,8 +786,8 @@ __device__ __forceinline__ const GatherShape* plan_shapes(const GatherPlan& p) {
   return (const GatherShape*)(p.body + 8 * p.proofs * p.segments);
 }
 
-__device__ __forceinline__ const unsigned* plan_queries(const GatherPlan& p) {
-  return (const unsigned*)(p.body + (8 * p.proofs + 16) * p.segments);
+__device__ __forceinline__ const uint64_t* const* plan_queries(const GatherPlan& p) {
+  return (const uint64_t* const*)(p.body + (8 * p.proofs + 16) * p.segments);
 }
 
 // Block b: query b % queries of proof b / queries, into out row b.
@@ -776,7 +795,8 @@ __global__ void __launch_bounds__(F_MAX_THREADS) gather_kernel(const __grid_cons
   const uint64_t* const* srcs =
       (const uint64_t* const*)p.body + (long long)(blockIdx.x / p.queries) * p.segments;
   const GatherShape* seg = plan_shapes(p);
-  const unsigned q = plan_queries(p)[blockIdx.x];
+  const unsigned q =
+      (unsigned)__ldg(plan_queries(p)[blockIdx.x / p.queries] + blockIdx.x % p.queries);
   uint64_t* dst = p.out + (long long)blockIdx.x * p.row_width;
   int s = 0;
   for (int c = threadIdx.x; c < p.row_width; c += blockDim.x) {
@@ -810,41 +830,36 @@ bool grid_fits(long long blocks) { return blocks >= 1 && blocks <= 0x7FFFFFFFLL;
 // For `proofs` proofs of one circuit: sources: host array (proofs,
 // n_sources) of device pointers (each proof's oracles' (C, m) LDEs); terms:
 // device int32 (K, 2) (oracle, row), the circuit's; ys: device (proofs, K,
-// 2) claimed openings; xs: device (m,) domain points; batches: host uint64
-// (proofs, n_batches, 3) rows (end, z0, z1), batch b's terms [end[b - 1],
-// end[b]), the ends the same for every proof; alphas: host uint64
-// (proofs, 2); out: (proofs, m) extension values, each proof's as
-// (m >> a_bits, 2^(a_bits + 1)) leaf rows. One launch.
+// 2) claimed openings; xs: device (m,) domain points; batches: host int64
+// (n_batches, 2) rows (end, slot), batch b's terms [end[b - 1], end[b]),
+// its point at words slot, slot + 1 of each proof's record; ch: device
+// challenge records (challenges.cuh), proof p's at p * ch_stride words,
+// alpha at rec::FRI_ALPHA; out: (proofs, m) extension values, each proof's
+// as (m >> a_bits, 2^(a_bits + 1)) leaf rows. One launch.
 extern "C" int qzk_fri_composition(const void* sources, int n_sources, const void* terms,
                                    const void* ys, const void* xs, const void* batches,
-                                   int n_batches, const void* alphas, void* out, long long m,
-                                   int a_bits, int proofs, void* stream) {
+                                   int n_batches, const void* ch, long long ch_stride, void* out,
+                                   long long m, int a_bits, int proofs, void* stream) {
   const long long tiles = (m + C_POINTS - 1) / C_POINTS;
   if (n_sources < 1 || n_sources > MAX_ORACLES || n_batches < 1 || n_batches > MAX_BATCHES ||
       proofs < 1 || proofs > MAX_PROOFS || !grid_fits(tiles) || a_bits < 0 ||
-      a_bits > MAX_ARITY_BITS || (m & (m - 1)) || (m >> a_bits) < 1)
+      a_bits > MAX_ARITY_BITS || (m & (m - 1)) || (m >> a_bits) < 1 || ch == nullptr ||
+      (proofs > 1 && ch_stride < rec::WORDS))
     return (int)cudaErrorInvalidValue;
   Sources src{};
   Batches b{};
   b.n = n_batches;
-  const uint64_t* h = (const uint64_t*)batches;
+  const long long* h = (const long long*)batches;
   for (int t = 0; t < n_batches; ++t) {
-    b.start[t + 1] = (int)h[3 * t];
-    if (b.start[t + 1] <= b.start[t]) return (int)cudaErrorInvalidValue;
+    b.start[t + 1] = (int)h[2 * t];
+    b.slot[t] = (int)h[2 * t + 1];
+    if (b.start[t + 1] <= b.start[t] || b.slot[t] < 0 || b.slot[t] + 2 > rec::WORDS)
+      return (int)cudaErrorInvalidValue;
   }
   if (b.start[n_batches] > MAX_TERMS) return (int)cudaErrorInvalidValue;
-  for (int p = 0; p < proofs; ++p) {
+  for (int p = 0; p < proofs; ++p)
     for (int o = 0; o < n_sources; ++o)
       src.p[p][o] = ((const uint64_t* const*)sources)[p * n_sources + o];
-    for (int t = 0; t < n_batches; ++t) {
-      const uint64_t* row = h + 3 * (p * n_batches + t);
-      if ((int)row[0] != b.start[t + 1]) return (int)cudaErrorInvalidValue;
-      b.z0[p][t] = row[1];
-      b.z1[p][t] = row[2];
-    }
-    b.a0[p] = ((const uint64_t*)alphas)[2 * p];
-    b.a1[p] = ((const uint64_t*)alphas)[2 * p + 1];
-  }
   static bool raised[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -868,41 +883,41 @@ extern "C" int qzk_fri_composition(const void* sources, int n_sources, const voi
   blocks = (tiles + per_block - 1) / per_block;
   composition_kernel<<<dim3((unsigned)blocks, (unsigned)proofs), dim3(C_POINTS, C_GROUPS), smem,
                        (cudaStream_t)stream>>>(src, (const int*)terms, (const uint64_t*)ys,
-                                               (const uint64_t*)xs, b, (uint64_t*)out, m, a_bits,
-                                               per_block);
+                                               (const uint64_t*)xs, b, (const uint64_t*)ch,
+                                               ch_stride, (uint64_t*)out, m, a_bits, per_block);
   return (int)cudaGetLastError();
 }
 
 // For `proofs` proofs of one circuit: segs: host uint64 (proofs, n_segs, 3)
 // rows (device address of the first row, row count, point), the counts and
-// points the same for every proof; points: host uint64 (proofs, 2, 2), each
-// proof's zeta and g * zeta; out: (proofs, total rows, 2); part: device
+// points the same for every proof; ch: device challenge records
+// (challenges.cuh), proof p's at p * ch_stride words, its zeta and g * zeta
+// at rec::ZETA and rec::ZETA_NEXT; out: (proofs, total rows, 2); part: device
 // scratch of (proofs, total rows, chunks, 2) for n above D_CHUNK (chunks =
 // ceil(n / D_CHUNK); unused, may be null, at or below). One launch at or
 // below D_CHUNK, two above.
-extern "C" int qzk_eval_openings(const void* segs, int n_segs, const void* points, void* out,
-                                 void* part, int n, int proofs, void* stream) {
-  if (n_segs < 1 || n_segs > MAX_SEGS || n < 1 || proofs < 1 || proofs > MAX_PROOFS)
+extern "C" int qzk_eval_openings(const void* segs, int n_segs, const void* ch,
+                                 long long ch_stride, void* out, void* part, int n, int proofs,
+                                 void* stream) {
+  if (n_segs < 1 || n_segs > MAX_SEGS || n < 1 || proofs < 1 || proofs > MAX_PROOFS ||
+      ch == nullptr || (proofs > 1 && ch_stride < rec::WORDS))
     return (int)cudaErrorInvalidValue;
   Rows rows{};
   rows.n = n_segs;
+  rows.ch = (const uint64_t*)ch;
+  rows.ch_stride = ch_stride;
   const uint64_t* h = (const uint64_t*)segs;
   for (int s = 0; s < n_segs; ++s) {
     rows.start[s + 1] = rows.start[s] + (long long)h[3 * s + 1];
     rows.point[s] = (int)h[3 * s + 2];
     if (rows.point[s] < 0 || rows.point[s] > 1) return (int)cudaErrorInvalidValue;
   }
-  const uint64_t* z = (const uint64_t*)points;
   for (int p = 0; p < proofs; ++p) {
     for (int s = 0; s < n_segs; ++s) {
       const uint64_t* seg = h + 3 * (p * n_segs + s);
       if ((long long)seg[1] != rows.start[s + 1] - rows.start[s] || (int)seg[2] != rows.point[s])
         return (int)cudaErrorInvalidValue;
       rows.p[p][s] = (const uint64_t*)seg[0];
-    }
-    for (int pt = 0; pt < 2; ++pt) {
-      rows.z0[p][pt] = z[4 * p + 2 * pt];
-      rows.z1[p][pt] = z[4 * p + 2 * pt + 1];
     }
   }
   const long long total = rows.start[n_segs];
@@ -926,18 +941,19 @@ extern "C" int qzk_eval_openings(const void* segs, int n_segs, const void* point
 }
 
 template <int A_BITS>
-cudaError_t launch_fold(const uint64_t* leaves, const FoldConsts& k, uint64_t* out, long long mp,
+cudaError_t launch_fold(const uint64_t* leaves, const FoldConsts& k, const uint64_t* ch,
+                        long long ch_stride, int beta_slot, uint64_t* out, long long mp,
                         int mp_bits, int next_bits, int proofs, cudaStream_t s) {
   constexpr int SMALL = A_BITS - 1;  // threads a row 2^S: small layers
   constexpr int LARGE = E_LARGE_S < SMALL ? E_LARGE_S : SMALL;
   if (mp <= E_SPREAD_ROWS) {
     const long long blocks = (mp + (E_THREADS >> SMALL) - 1) / (E_THREADS >> SMALL);
     fold_kernel<A_BITS, SMALL><<<dim3((unsigned)blocks, (unsigned)proofs), E_THREADS, 0, s>>>(
-        leaves, k, out, mp, mp_bits, next_bits);
+        leaves, k, ch, ch_stride, beta_slot, out, mp, mp_bits, next_bits);
   } else {
     const long long blocks = (mp + (E_THREADS >> LARGE) - 1) / (E_THREADS >> LARGE);
     fold_kernel<A_BITS, LARGE><<<dim3((unsigned)blocks, (unsigned)proofs), E_THREADS, 0, s>>>(
-        leaves, k, out, mp, mp_bits, next_bits);
+        leaves, k, ch, ch_stride, beta_slot, out, mp, mp_bits, next_bits);
   }
   return cudaGetLastError();
 }
@@ -946,52 +962,58 @@ cudaError_t launch_fold(const uint64_t* leaves, const FoldConsts& k, uint64_t* o
 // 2^(a_bits + 1)), each proof's layer of the round; consts: host uint64
 // (FOLD_CONST_WORDS,): w^(-2^b) for b < 32, the fold constants
 // shift^(-2^t) w_t^(-j m') (2^a - 1 used) and 2^-a (fri/prover.py::
-// _fold_consts), the same for every proof; betas: host uint64 (proofs,
-// a_bits, 2), each proof's beta^(2^t); out: (proofs, mp) extension values,
-// each proof's as (mp >> next_bits, 2^(next_bits + 1)) leaf rows of the
-// next round.
-extern "C" int qzk_fri_fold(const void* leaves, const void* consts, const void* betas, void* out,
-                            long long mp, int a_bits, int next_bits, int proofs, void* stream) {
+// _fold_consts), the same for every proof; ch: device challenge records
+// (challenges.cuh), proof p's at p * ch_stride words, its round beta at
+// words beta_slot, beta_slot + 1; out: (proofs, mp) extension values, each
+// proof's as (mp >> next_bits, 2^(next_bits + 1)) leaf rows of the next
+// round.
+extern "C" int qzk_fri_fold(const void* leaves, const void* consts, const void* ch,
+                            long long ch_stride, int beta_slot, void* out, long long mp,
+                            int a_bits, int next_bits, int proofs, void* stream) {
   if (a_bits < 1 || a_bits > MAX_ARITY_BITS || next_bits < 0 || next_bits > MAX_ARITY_BITS ||
       mp < 1 || (mp & (mp - 1)) || mp > (1LL << 31) || (mp >> next_bits) < 1 || proofs < 1 ||
-      proofs > MAX_PROOFS)
+      proofs > MAX_PROOFS || ch == nullptr || beta_slot < 0 || beta_slot + 2 > rec::WORDS ||
+      (proofs > 1 && ch_stride < rec::WORDS))
     return (int)cudaErrorInvalidValue;
   FoldConsts k{};
   memcpy(&k, consts, FOLD_CONST_WORDS * sizeof(uint64_t));
-  const uint64_t* b = (const uint64_t*)betas;
-  for (int p = 0; p < proofs; ++p)
-    for (int t = 0; t < a_bits; ++t) {
-      k.beta0[p][t] = b[2 * (p * a_bits + t)];
-      k.beta1[p][t] = b[2 * (p * a_bits + t) + 1];
-    }
   int mp_bits = 0;
   while ((1LL << mp_bits) < mp) ++mp_bits;
   auto lv = (const uint64_t*)leaves;
+  auto c = (const uint64_t*)ch;
   auto o = (uint64_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (a_bits) {
-    case 1: return (int)launch_fold<1>(lv, k, o, mp, mp_bits, next_bits, proofs, s);
-    case 2: return (int)launch_fold<2>(lv, k, o, mp, mp_bits, next_bits, proofs, s);
-    case 3: return (int)launch_fold<3>(lv, k, o, mp, mp_bits, next_bits, proofs, s);
-    default: return (int)launch_fold<4>(lv, k, o, mp, mp_bits, next_bits, proofs, s);
+    case 1: return (int)launch_fold<1>(lv, k, c, ch_stride, beta_slot, o, mp, mp_bits, next_bits,
+                                       proofs, s);
+    case 2: return (int)launch_fold<2>(lv, k, c, ch_stride, beta_slot, o, mp, mp_bits, next_bits,
+                                       proofs, s);
+    case 3: return (int)launch_fold<3>(lv, k, c, ch_stride, beta_slot, o, mp, mp_bits, next_bits,
+                                       proofs, s);
+    default: return (int)launch_fold<4>(lv, k, c, ch_stride, beta_slot, o, mp, mp_bits,
+                                        next_bits, proofs, s);
   }
 }
 
 // plan: host bytes of a GatherPlan (fri/prover.py::pack_gather_plan): its
-// out pointer (pinned host memory, translated here to its device address),
-// counts, each proof's sources in packed-row order, the segments' shapes
-// and each proof's query indices. One launch, a block a query of a proof,
-// of the packed row's width rounded up to a warp (at most F_MAX_THREADS).
+// out pointer (pinned host memory, translated here to its device address,
+// or device memory), counts, each proof's sources in packed-row order, the
+// segments' shapes and each proof's query-index vector on the card. One
+// launch, a block a query of a proof, of the packed row's width rounded up
+// to a warp (at most F_MAX_THREADS).
 extern "C" int qzk_query_gather(const void* plan, void* stream) {
   GatherPlan p;
   memcpy(&p, plan, sizeof(GatherPlan));
   if (p.queries < 1 || p.queries > F_MAX_QUERIES || p.segments < 1 ||
       p.segments > F_MAX_SEGS || p.row_width < 1 || p.proofs < 1 || p.proofs > MAX_PROOFS ||
-      24 + (8LL * p.proofs + 16) * p.segments + 4LL * p.proofs * p.queries > F_PLAN_BYTES)
+      24 + (8LL * p.proofs + 16) * p.segments + 8LL * p.proofs > F_PLAN_BYTES)
     return (int)cudaErrorInvalidValue;
   const uint64_t* const* srcs = (const uint64_t* const*)p.body;
   for (int i = 0; i < p.proofs * p.segments; ++i)
     if (srcs[i] == nullptr) return (int)cudaErrorInvalidValue;
+  const uint64_t* const* idx = (const uint64_t* const*)(p.body + (8 * p.proofs + 16) * p.segments);
+  for (int i = 0; i < p.proofs; ++i)
+    if (idx[i] == nullptr) return (int)cudaErrorInvalidValue;
   const GatherShape* seg = (const GatherShape*)(p.body + 8 * p.proofs * p.segments);
   int end = 0;
   for (int s = 0; s < p.segments; ++s) {
@@ -1002,10 +1024,17 @@ extern "C" int qzk_query_gather(const void* plan, void* stream) {
     end += g.width;
   }
   if (end != p.row_width) return (int)cudaErrorInvalidValue;
-  void* dev = nullptr;
-  const cudaError_t e = cudaHostGetDevicePointer(&dev, p.out, 0);
+  cudaPointerAttributes at{};
+  cudaError_t e = cudaPointerGetAttributes(&at, p.out);
   if (e != cudaSuccess) return (int)e;
-  p.out = (uint64_t*)dev;
+  if (at.type == cudaMemoryTypeHost) {  // pinned host memory: its mapped device address
+    void* dev = nullptr;
+    e = cudaHostGetDevicePointer(&dev, p.out, 0);
+    if (e != cudaSuccess) return (int)e;
+    p.out = (uint64_t*)dev;
+  } else if (at.type != cudaMemoryTypeDevice) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int threads = p.row_width >= F_MAX_THREADS ? F_MAX_THREADS : (p.row_width + 31) / 32 * 32;
   gather_kernel<<<(unsigned)(p.proofs * p.queries), threads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();

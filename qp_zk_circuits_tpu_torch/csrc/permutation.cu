@@ -39,13 +39,15 @@
 // A batch of proofs (the JAX package's vmap of the fused prover,
 // plonk/prover_fused.py:1007) is the grid's third axis: proof p reads its
 // wires at p * wire_stride, writes its columns and tile products after the
-// proofs before it, and takes its own betas and gammas, which travel by
-// value for up to MAX_PROOFS proofs (1 KB of the kernel's parameters): the
-// wrapper splits a larger batch into launches of at most MAX_PROOFS. At the
+// proofs before it, and reads its own betas and gammas from its challenge
+// record in device memory (challenges.cuh), for up to MAX_PROOFS proofs a
+// launch: the wrapper splits a larger batch into launches of at most
+// MAX_PROOFS. At the
 // leaf a proof is one tile on one SM, so sixteen proofs run sixteen tiles a
 // challenge side by side in the time of one.
 #include <cuda_runtime.h>
 
+#include "challenges.cuh"
 #include "goldilocks.cuh"
 
 namespace {
@@ -57,11 +59,6 @@ constexpr int WARPS = TILE / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BATCH = 8;  // reads in flight a thread
 constexpr int MAX_PROOFS = 16;  // plonk/prover.py::PROOFS_PER_LAUNCH
-
-struct Challenges {
-  uint64_t beta[MAX_PROOFS][MAX_NC];
-  uint64_t gamma[MAX_PROOFS][MAX_NC];
-};
 
 // Exclusive product scans of v over the block's threads in order: `before`
 // is the product over the lower threads, `after` (when AFTER) over the
@@ -125,15 +122,16 @@ __device__ __forceinline__ uint64_t block_scan(uint64_t v, uint64_t& before, uin
 __global__ void __launch_bounds__(TILE) perm_tile_kernel(
     const uint64_t* __restrict__ wires, long long wire_stride, const uint64_t* __restrict__ ids,
     const uint64_t* __restrict__ sigmas, uint64_t* __restrict__ out,
-    uint64_t* __restrict__ tile_prod, const __grid_constant__ Challenges ch, int n, int nr,
-    int qdf, int nchunks, int nc) {
+    uint64_t* __restrict__ tile_prod, const uint64_t* __restrict__ ch, long long ch_stride, int n,
+    int nr, int qdf, int nchunks, int nc) {
   __shared__ uint64_t sh[2 * WARPS + 1];
   __shared__ uint64_t tile_inv;
   const int r = blockIdx.x * TILE + threadIdx.x;
   const int c = blockIdx.y;
   const int proof = blockIdx.z;
   const bool live = r < n;  // a row past n takes part in the scans as 1
-  const uint64_t beta = ch.beta[proof][c], gamma = ch.gamma[proof][c];
+  const uint64_t beta = __ldg(ch + proof * ch_stride + rec::BETA + c);
+  const uint64_t gamma = __ldg(ch + proof * ch_stride + rec::GAMMA + c);
   const int npp = nchunks - 1;
   wires += proof * wire_stride;
   out += (long long)proof * (nc + nc * npp) * n;
@@ -231,28 +229,24 @@ __global__ void __launch_bounds__(TILE) perm_carry_kernel(uint64_t* __restrict__
 
 // `proofs` proofs (at most MAX_PROOFS): proof p's wires (nr, n) with row
 // stride n at wires + p * wire_stride; ids, sigmas: (nr, n), the circuit's;
-// betas, gammas: (proofs, nc) host felts; out: (proofs, nc + nc * npp, n);
+// ch: device challenge records (challenges.cuh), proof p's at p *
+// ch_stride words, its betas and gammas read on the card; out: (proofs, nc
+// + nc * npp, n);
 // tile_prod: (proofs, nc, ceil(n / TILE)) scratch.
 extern "C" int qzk_permutation(const void* wires, long long wire_stride, const void* ids,
-                               const void* sigmas, const void* betas, const void* gammas,
+                               const void* sigmas, const void* ch, long long ch_stride,
                                void* out, void* tile_prod, int proofs, int n, int nr, int qdf,
                                int nc, void* stream) {
   const int nchunks = qdf < 1 ? 0 : (nr + qdf - 1) / qdf;
   if (nc < 1 || nc > MAX_NC || qdf < 1 || nr < 1 || nchunks > MAX_CHUNKS || n < 1 ||
-      proofs < 1 || proofs > MAX_PROOFS)
+      proofs < 1 || proofs > MAX_PROOFS || ch == nullptr || (proofs > 1 && ch_stride < rec::WORDS))
     return (int)cudaErrorInvalidValue;
-  Challenges ch{};
-  for (int p = 0; p < proofs; ++p) {
-    for (int c = 0; c < nc; ++c) {
-      ch.beta[p][c] = ((const uint64_t*)betas)[p * nc + c];
-      ch.gamma[p][c] = ((const uint64_t*)gammas)[p * nc + c];
-    }
-  }
   cudaStream_t s = (cudaStream_t)stream;
   const int tiles = (n + TILE - 1) / TILE;
   perm_tile_kernel<<<dim3((unsigned)tiles, (unsigned)nc, (unsigned)proofs), TILE, 0, s>>>(
       (const uint64_t*)wires, wire_stride, (const uint64_t*)ids, (const uint64_t*)sigmas,
-      (uint64_t*)out, (uint64_t*)tile_prod, ch, n, nr, qdf, nchunks, nc);
+      (uint64_t*)out, (uint64_t*)tile_prod, (const uint64_t*)ch, ch_stride, n, nr, qdf, nchunks,
+      nc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || tiles == 1) return (int)e;
   perm_carry_kernel<<<dim3((unsigned)(tiles - 1), (unsigned)nc, (unsigned)proofs), TILE, 0, s>>>(

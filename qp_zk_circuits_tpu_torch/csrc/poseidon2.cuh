@@ -41,10 +41,10 @@ __device__ __forceinline__ U128 add128(U128 a, U128 b) {
   return r;
 }
 
+// x^7 in four multiplies three deep: x^3 and x^4 both wait only on x^2.
 __device__ __forceinline__ uint64_t sbox(uint64_t x) {
-  uint64_t x2 = gl::mul(x, x);
-  uint64_t x4 = gl::mul(x2, x2);
-  return gl::mul(gl::mul(x4, x2), x);
+  const uint64_t x2 = gl::mul(x, x);
+  return gl::mul(gl::mul(x2, x), gl::mul(x2, x2));
 }
 
 // M_E = circ(2*M4, M4, M4): per-group M4, then add the sum over groups.

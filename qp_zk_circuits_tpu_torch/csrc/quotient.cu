@@ -21,9 +21,11 @@
 // first block, so one launch covers every group with blocks of 128 threads;
 // a group has at most QUOTIENT_GROUP_BLOCKS blocks, which loop over tiles of
 // points past that. Each block first forms the alpha_c^k of its group's
-// constraints in shared memory from the challenges, which travel by value
-// in the launch arguments with the betas, gammas and the PI hash: nothing is
-// uploaded per call. Its threads then evaluate their points in registers,
+// constraints in shared memory from the challenges, read with the betas,
+// gammas and the PI hash from the proof's challenge record in device memory
+// (challenges.cuh: the fused prover's transcript writes it on the card, the
+// staged prover uploads its host draws into one). Its threads then evaluate
+// their points in registers,
 // reading the wire, constant and Z rows of the (C, m) LDE matrices in place
 // (k_i * x is formed in registers), add the lanes' alpha-weighted sums with
 // warp shuffles and write (G, nc, m) partial sums. A second launch adds the
@@ -54,13 +56,14 @@
 // wire and Z rows at p times their proof strides and writes its partials
 // and output after the proofs before it; the constants, selectors, sigmas,
 // domain tables and descriptors are the circuit's, read by every proof.
-// Each proof's alphas, betas, gammas and PI hash travel by value, 128 bytes
-// a proof, for at most MAX_PROOFS proofs a launch (2 KB, inside the classic
-// 4 KB of parameters): the wrapper splits a larger batch into launches of
-// at most MAX_PROOFS. At the leaf one proof's 2048 points fill a fraction of
+// Each proof's alphas, betas, gammas and PI hash are its record's first 16
+// words, records `ch_stride` words apart, for at most MAX_PROOFS proofs a
+// launch: the wrapper splits a larger batch into launches of at most
+// MAX_PROOFS. At the leaf one proof's 2048 points fill a fraction of
 // the card; sixteen fill sixteen times the blocks in one launch.
 #include <cuda_runtime.h>
 
+#include "challenges.cuh"
 #include "poseidon2.cuh"
 
 namespace {
@@ -98,10 +101,13 @@ __constant__ uint64_t c_ext_rc[p2::ROUNDS_F][p2::WIDTH];
 __constant__ uint64_t c_int_rc[p2::ROUNDS_P];
 __constant__ uint64_t c_diag[p2::WIDTH];
 
-// one proof's challenges and PI hash
+// one proof's challenges and PI hash: the first 16 words of its record
 struct Challenges {
   uint64_t alpha[MAX_NC], beta[MAX_NC], gamma[MAX_NC], pi[4];
 };
+static_assert(rec::ALPHA == 0 && rec::BETA == MAX_NC && rec::GAMMA == 2 * MAX_NC &&
+                  rec::PI == 3 * MAX_NC && sizeof(Challenges) == 16 * sizeof(uint64_t),
+              "Challenges mirrors the record's first 16 words");
 
 struct Args {
   const uint64_t* wires;   // proof p's (num_wires, m) at p * wire_stride
@@ -114,7 +120,8 @@ struct Args {
   uint64_t* partial;       // (proofs, G, nc, m)
   long long wire_stride, zpp_stride;
   int m, rate, nr, qdf, npp, nc, nconst, nsel, K, groups, blocks;
-  Challenges ch[MAX_PROOFS];
+  const uint64_t* ch;      // proof p's challenge record at p * ch_stride
+  long long ch_stride;
 };
 
 // One point of one group on one thread: operand reads, and the
@@ -325,9 +332,13 @@ __global__ void __launch_bounds__(THREADS, 4) quotient_partial_kernel(const __gr
   extern __shared__ uint64_t apow[];
   // the Poseidon2 gate's internal S-box inputs, a row a point of the tile
   __shared__ uint64_t held[THREADS / p2::SPLIT][p2::ROUNDS_P];
+  __shared__ Challenges sch;
   const int b = blockIdx.x;
   const int proof = blockIdx.y;
-  const Challenges& ch = a.ch[proof];
+  if (threadIdx.x < 16)
+    ((uint64_t*)&sch)[threadIdx.x] = a.ch[proof * a.ch_stride + threadIdx.x];
+  __syncthreads();
+  const Challenges& ch = sch;
   const uint64_t* wires = a.wires + proof * a.wire_stride;
   const uint64_t* zpp_rows = a.zpp + proof * a.zpp_stride;
   uint64_t* partial = a.partial + (long long)proof * a.groups * NC * a.m;
@@ -417,33 +428,28 @@ extern "C" int qzk_quotient_set_constants(const void* ext_rc, const void* int_rc
 // Two launches: the partial sums of the `groups` descriptor rows over
 // `blocks` blocks for each of `proofs` proofs (at most MAX_PROOFS), then
 // their sum times 1/Z_H into out (proofs, nc, m). Proof p's wires and Z rows
-// at p * wire_stride and p * zpp_stride; alphas, betas, gammas: (proofs, nc)
-// host felts; pi: (proofs, 4) host felts; partial: (proofs, groups, nc, m);
+// at p * wire_stride and p * zpp_stride; ch: device challenge records
+// (challenges.cuh), proof p's at p * ch_stride words, its alphas, betas,
+// gammas and PI hash read on the card; partial: (proofs, groups, nc, m);
 // max_count: the most constraints of one group (its alpha table).
 extern "C" int qzk_quotient(const void* wires, long long wire_stride, const void* consts,
                             const void* zpp, long long zpp_stride, const void* xs,
                             const void* l1, const void* inv_zh, const void* ks,
-                            const void* desc, void* partial, void* out, const void* alphas,
-                            const void* betas, const void* gammas, const void* pi, int proofs,
+                            const void* desc, void* partial, void* out, const void* ch,
+                            long long ch_stride, int proofs,
                             int groups, int blocks, int m, int rate, int nr, int qdf, int npp,
                             int nc, int nconst, int nsel, int num_constraints, int max_count,
                             void* stream) {
   const size_t smem = sizeof(uint64_t) * (size_t)nc * (size_t)max_count;
   if (nc < 1 || nc > MAX_NC || m < 1 || groups < 1 || blocks < groups || qdf < 1 ||
-      max_count < 0 || smem > MAX_SHARED || proofs < 1 || proofs > MAX_PROOFS)
+      max_count < 0 || smem > MAX_SHARED || proofs < 1 || proofs > MAX_PROOFS || ch == nullptr ||
+      (proofs > 1 && ch_stride < rec::WORDS))
     return (int)cudaErrorInvalidValue;
   Args a{(const uint64_t*)wires, (const uint64_t*)consts, (const uint64_t*)zpp,
          (const uint64_t*)xs, (const uint64_t*)l1, (const uint64_t*)ks, (const int*)desc,
          (uint64_t*)partial, wire_stride, zpp_stride,
-         m, rate, nr, qdf, npp, nc, nconst, nsel, num_constraints, groups, blocks, {}};
-  for (int p = 0; p < proofs; ++p) {
-    for (int c = 0; c < nc; ++c) {
-      a.ch[p].alpha[c] = ((const uint64_t*)alphas)[p * nc + c];
-      a.ch[p].beta[c] = ((const uint64_t*)betas)[p * nc + c];
-      a.ch[p].gamma[c] = ((const uint64_t*)gammas)[p * nc + c];
-    }
-    for (int i = 0; i < 4; ++i) a.ch[p].pi[i] = ((const uint64_t*)pi)[p * 4 + i];
-  }
+         m, rate, nr, qdf, npp, nc, nconst, nsel, num_constraints, groups, blocks,
+         (const uint64_t*)ch, ch_stride};
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((unsigned)blocks, (unsigned)proofs);
   // one kernel a challenge count

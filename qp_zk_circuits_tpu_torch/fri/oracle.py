@@ -32,6 +32,7 @@ from ..field import extension as ext
 from ..field import goldilocks as gl
 from ..field import random as frandom
 from ..hash import merkle
+from ..plonk import transcript as ts
 from ..poly import ntt
 from .config import SALT_SIZE
 
@@ -58,6 +59,8 @@ class PolynomialBatch:
 
     @property
     def cap(self) -> np.ndarray:
+        """The cap on the host (the staged prover's transcript observes it);
+        the fused prover reads `tree.digests[-1]` on the device instead."""
         return self.tree.cap
 
     @property
@@ -70,11 +73,15 @@ class PolynomialBatch:
 def _fill_salt(salt, rows: torch.Tensor) -> None:
     """Write a salt into an LDE buffer's (SALT_SIZE, M) salt rows, or K
     salts into a stack's (K, SALT_SIZE, M): a `random.Draw`, which kernel G
-    writes straight into the rows, or a host draw in the JAX package's
-    (M, SALT_SIZE) layout, (K, M, SALT_SIZE) for a stack (LDE row C + j is
-    salt column j), uploaded in one copy."""
+    writes straight into the rows, a device tensor of the rows' shape
+    (the fused prover's upload), copied on the device, or a host draw in the
+    JAX package's (M, SALT_SIZE) layout, (K, M, SALT_SIZE) for a stack (LDE
+    row C + j is salt column j), uploaded in one copy."""
     if isinstance(salt, frandom.Draw):
         frandom.rand_felts(salt.key, salt.stream, rows)
+        return
+    if isinstance(salt, torch.Tensor):
+        rows.copy_(salt)
         return
     arr = np.asarray(salt, dtype=np.uint64)
     want = rows.shape[:-2] + (rows.shape[-1], SALT_SIZE)
@@ -84,12 +91,14 @@ def _fill_salt(salt, rows: torch.Tensor) -> None:
 
 
 def commit(values, rate_bits: int, cap_height: int, device=None,
-           from_values: bool = False, salt=None) -> PolynomialBatch:
+           from_values: bool = False, salt=None, host_cap: bool = True) -> PolynomialBatch:
     """Commit C polynomials. `values`: host (C, N) uint64 array or a device
     tensor (then `device` may be omitted); with `from_values=True` the rows
     are evaluations over H and an iNTT brings them to coefficients first.
-    `salt` (blinding): a host (M, SALT_SIZE) array, or a `random.Draw` that
-    kernel G writes on the device; the LDE then has C + SALT_SIZE rows."""
+    `salt` (blinding): a host (M, SALT_SIZE) array, a (SALT_SIZE, M) device
+    tensor, or a `random.Draw` that kernel G writes on the device; the LDE
+    then has C + SALT_SIZE rows. `host_cap=False` (the fused prover) leaves
+    the cap on the device only: no transfer."""
     if isinstance(values, torch.Tensor):
         vals = values
     else:
@@ -104,7 +113,7 @@ def commit(values, rate_bits: int, cap_height: int, device=None,
     ntt.coset_lde(coeffs, rate_bits, out=lde[:c])
     if salt is not None:
         _fill_salt(salt, lde[c:])
-    tree = merkle.build_merkle_tree(lde.T, cap_height)
+    tree = merkle.build_merkle_tree(lde.T, cap_height, host_cap=host_cap)
     return PolynomialBatch(coeffs=coeffs, lde=lde, tree=tree, degree_bits=degree_bits,
                            rate_bits=rate_bits, blinding=salt is not None)
 
@@ -170,15 +179,29 @@ def _eval_at(coeffs: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def _zeta_powers(zeta, zeta_next, n: int) -> np.ndarray:
-    """(2, n, 2) host powers of zeta and zeta_next."""
-    return np.stack([
-        ext.powers_table(np.asarray(zeta, dtype=np.uint64), n),
-        ext.powers_table(np.asarray(zeta_next, dtype=np.uint64), n),
-    ])
+def ext_powers(z: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, 2) powers z^0 .. z^(n-1) of an extension element z (2,) on its
+    device, by doubling (the JAX package's _ext_powers_j)."""
+    out = torch.tensor([[1, 0]], dtype=torch.int64, device=z.device)
+    step = z
+    while out.shape[0] < n:
+        out = torch.cat([out, ext.j_mul(out, step)])
+        step = ext.j_sqr(step)
+    return out[:n]
 
 
-def _split(host: np.ndarray, oracles, next_count: int):
+def point_records(dev, zetas, zeta_nexts) -> torch.Tensor:
+    """K challenge records (K, REC_WORDS) on `dev` holding each proof's host
+    zeta and g * zeta (K, 2), one copy."""
+    k = len(zetas)
+    return ts.challenge_records(dev, k, {
+        ts.REC_ZETA: np.asarray(zetas, dtype=np.uint64).reshape(k, 2),
+        ts.REC_ZETA_NEXT: np.asarray(zeta_nexts, dtype=np.uint64).reshape(k, 2)})
+
+
+def split_openings(host: np.ndarray, oracles, next_count: int):
+    """(rows, 2) opened values as (per-oracle (C, 2) arrays, the next_count
+    rows at zeta_next)."""
     parts, off = [], 0
     for o in oracles:
         c = o.coeffs.shape[0]
@@ -197,31 +220,42 @@ def _openings_limits(oracles, next_oracle: int, next_count: int) -> None:
         raise ValueError(f"{next_count} rows at zeta_next, oracle {next_oracle} has fewer")
 
 
-def eval_openings_plain(oracles, zeta, zeta_next, next_oracle: int = 2, next_count: int = 0):
+def eval_openings_plain(oracles, rec, next_oracle: int = 2, next_count: int = 0, out=None):
     """Plain torch version of `eval_openings` (same arguments and result)."""
     _openings_limits(oracles, next_oracle, next_count)
-    dev = oracles[0].coeffs.device
-    zp = gl.from_u64(_zeta_powers(zeta, zeta_next, oracles[0].coeffs.shape[1]), dev)
-    at_zeta = _eval_at(torch.cat([o.coeffs for o in oracles], dim=0), zp[0])
-    at_next = _eval_at(oracles[next_oracle].coeffs[:next_count], zp[1])
-    return _split(gl.to_u64(torch.cat([at_zeta, at_next], dim=0)), oracles, next_count)
+    n = oracles[0].coeffs.shape[1]
+    at_zeta = _eval_at(torch.cat([o.coeffs for o in oracles], dim=0),
+                       ext_powers(rec[ts.REC_ZETA : ts.REC_ZETA + 2], n))
+    at_next = _eval_at(oracles[next_oracle].coeffs[:next_count],
+                       ext_powers(rec[ts.REC_ZETA_NEXT : ts.REC_ZETA_NEXT + 2], n))
+    values = torch.cat([at_zeta, at_next], dim=0)
+    if out is None:
+        return values
+    out.copy_(values)
+    return out
 
 
-def eval_openings(oracles, zeta, zeta_next, next_oracle: int = 2, next_count: int = 0):
+def eval_openings(oracles, rec, next_oracle: int = 2, next_count: int = 0, out=None):
     """Evaluate ALL oracles at zeta (+ `next_count` rows of one oracle at
-    zeta_next) with ONE transfer. Returns (per-oracle (C,2) arrays, next
-    (next_count,2)).
+    zeta_next), zeta and g * zeta read from the challenge record `rec`
+    (REC_WORDS,) on the oracles' device (the fused prover's transcript
+    writes them there; the staged prover uploads its host points,
+    `point_records`). Returns the values on the device: a (rows, 2) tensor,
+    every oracle's rows then the `next_count` (`split_openings` cuts them on
+    the host), written into `out` when given (the fused proof's packed
+    output).
 
     On CUDA coefficients: kernel D (csrc/fri.cu), which forms the points'
     powers on the card: one launch for rows of at most D_CHUNK coefficients,
     two above. On CPU coefficients: the plain version."""
     _openings_limits(oracles, next_oracle, next_count)
     if oracles[0].coeffs.device.type == "cpu":
-        return eval_openings_plain(oracles, zeta, zeta_next, next_oracle, next_count)
-    _cuda.require_cuda_int64(*(o.coeffs for o in oracles))
-    host, launches = _openings_launches([oracles], [zeta], [zeta_next], next_oracle, next_count)
+        return eval_openings_plain(oracles, rec, next_oracle, next_count, out)
+    _cuda.require_cuda_int64(rec, *(o.coeffs for o in oracles))
+    values, launches = _openings_rec_launches([oracles], rec.unsqueeze(0), next_oracle,
+                                              next_count, None if out is None else out.unsqueeze(0))
     eval_openings.launches += launches
-    return _split(host[0], oracles, next_count)
+    return values[0]
 
 
 def eval_openings_batch_plain(oracles_k, zetas, zeta_nexts, next_oracle: int = 2,
@@ -229,8 +263,9 @@ def eval_openings_batch_plain(oracles_k, zetas, zeta_nexts, next_oracle: int = 2
     """Plain torch version of `eval_openings_batch` (same arguments and
     result): `eval_openings_plain` a proof."""
     _openings_batch_limits(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
-    return [eval_openings_plain(o, z, zn, next_oracle, next_count)
-            for o, z, zn in zip(oracles_k, zetas, zeta_nexts)]
+    rec = point_records(oracles_k[0][0].coeffs.device, zetas, zeta_nexts)
+    return [split_openings(gl.to_u64(eval_openings_plain(o, r, next_oracle, next_count)), o,
+                           next_count) for o, r in zip(oracles_k, rec)]
 
 
 def eval_openings_batch(oracles_k, zetas, zeta_nexts, next_oracle: int = 2,
@@ -249,7 +284,7 @@ def eval_openings_batch(oracles_k, zetas, zeta_nexts, next_oracle: int = 2,
     _cuda.require_cuda_int64(*(o.coeffs for oracles in oracles_k for o in oracles))
     host, launches = _openings_launches(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
     eval_openings_batch.launches += launches
-    return [_split(h, oracles, next_count) for h, oracles in zip(host, oracles_k)]
+    return [split_openings(h, oracles, next_count) for h, oracles in zip(host, oracles_k)]
 
 
 def _openings_batch_limits(oracles_k, zetas, zeta_nexts, next_oracle, next_count) -> None:
@@ -263,7 +298,16 @@ def _openings_batch_limits(oracles_k, zetas, zeta_nexts, next_oracle, next_count
 
 
 def _openings_launches(oracles_k, zetas, zeta_nexts, next_oracle, next_count):
-    """Kernel D over K proofs' oracles: ((K, rows, 2) host values,
+    """Kernel D over K proofs' oracles with host points, written into K
+    records in one copy: ((K, rows, 2) host values, launches)."""
+    rec = point_records(oracles_k[0][0].coeffs.device, zetas, zeta_nexts)
+    out, launches = _openings_rec_launches(oracles_k, rec, next_oracle, next_count)
+    return gl.to_u64(out), launches
+
+
+def _openings_rec_launches(oracles_k, rec, next_oracle, next_count, out=None):
+    """Kernel D over K proofs' oracles, proof i's points in record rec[i] on
+    the device: ((K, rows, 2) values on the device, in `out` when given,
     launches)."""
     dev = oracles_k[0][0].coeffs.device
     n = oracles_k[0][0].coeffs.shape[1]
@@ -275,25 +319,25 @@ def _openings_launches(oracles_k, zetas, zeta_nexts, next_oracle, next_count):
         if next_count:
             segs[-1].append((coeffs[next_oracle].data_ptr(), next_count, 1))
     segs = np.array(segs, dtype=np.uint64)  # (K, segments, 3)
-    points = np.ascontiguousarray(np.stack([np.asarray(zetas, dtype=np.uint64).reshape(k, 2),
-                                            np.asarray(zeta_nexts, dtype=np.uint64).reshape(k, 2)],
-                                           axis=1))  # (K, 2, 2)
     rows = int(segs[0, :, 1].sum())
     chunks = -(-n // D_CHUNK)
-    out = torch.empty((k, rows, 2), dtype=torch.int64, device=dev)
+    if out is None:
+        out = torch.empty((k, rows, 2), dtype=torch.int64, device=dev)
+    elif out.shape != (k, rows, 2) or not out.is_contiguous():
+        raise ValueError(f"openings output {tuple(out.shape)}, expected a contiguous {(k, rows, 2)}")
     part = torch.empty((k, rows, chunks, 2), dtype=torch.int64, device=dev) if chunks > 1 else None
     launches = 0
     for g0, g1 in _cuda.proof_groups(k):
         # the group's rows are whole rows of the C-ordered host arrays
         with _cuda.on_device(dev):
             err = _cuda.lib().qzk_eval_openings(
-                segs[g0:g1].ctypes.data, segs.shape[1], points[g0:g1].ctypes.data,
+                segs[g0:g1].ctypes.data, segs.shape[1], rec[g0].data_ptr(), rec.stride(0),
                 out[g0].data_ptr(), None if part is None else part[g0].data_ptr(), n, g1 - g0,
                 _cuda.stream()
             )
         _cuda.check(err, "qzk_eval_openings")
         launches += 1 if chunks == 1 else 2
-    return gl.to_u64(out), launches
+    return out, launches
 
 
 eval_openings.launches = 0

@@ -29,7 +29,12 @@ csrc/fri.cu:
     polynomials the instance names; the FRI rounds' own trees have no salt,
     as in the JAX package.
 
-Host keeps: transcript, the beta powers, query assembly.
+Host keeps (the staged prover): transcript, query assembly. Every kernel
+reads its Fiat-Shamir values from device memory (C and E: the proof's
+challenge record, plonk/transcript.py REC_*; F: its index vector), where
+the fused prover's transcript writes them (plonk/prover_fused.py); the
+staged prover and the batch forms upload their host values in one copy
+(`composition_inputs`, `beta_records`).
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ from ..hash import merkle
 from ..plonk import transcript as ts
 from ..poly import ntt
 from .config import FriConfig
-from .oracle import PolynomialBatch
+from .oracle import PolynomialBatch, ext_powers
 
 #: kernel C reads at most this many oracles and batches (opening points),
 #: and stages at most this many terms in a block's shared memory
@@ -59,6 +64,11 @@ MAX_BATCHES = 4
 MAX_TERMS = 4096
 #: kernel E folds at most 2^4 values a leaf row in a round
 MAX_ARITY_BITS = 4
+#: where kernel C reads batch b's point in a challenge record: zeta and g *
+#: zeta for a PLONK instance's two batches; a third and fourth batch (no
+#: PLONK instance has them) in the first two round-beta slots, which kernel
+#: C does not read
+POINT_SLOTS = (ts.REC_ZETA, ts.REC_ZETA_NEXT, ts.REC_FRI_BETA, ts.REC_FRI_BETA + 2)
 
 
 # ---------------------------------------------------------------------------
@@ -194,18 +204,18 @@ def _ungroup_leaves(leaves: torch.Tensor, arity_bits: int) -> torch.Tensor:
 # kernel C: the composition
 
 
-def _composition_limits(oracles, instance: FriInstance, lde_bits: int, arity_bits: int) -> None:
+def _composition_limits(oracles, polys_per_batch, lde_bits: int, arity_bits: int) -> None:
     m = 1 << lde_bits
-    if not 1 <= len(oracles) <= MAX_ORACLES or not 1 <= len(instance.batches) <= MAX_BATCHES:
+    if not 1 <= len(oracles) <= MAX_ORACLES or not 1 <= len(polys_per_batch) <= MAX_BATCHES:
         raise ValueError(
-            f"{len(oracles)} oracles and {len(instance.batches)} batches: kernel C takes "
+            f"{len(oracles)} oracles and {len(polys_per_batch)} batches: kernel C takes "
             f"1..{MAX_ORACLES} and 1..{MAX_BATCHES}"
         )
     if any(o.lde.dim() != 2 or o.lde.shape[1] != m for o in oracles):
         raise ValueError(f"an oracle's LDE is not (C, {m})")
-    if any(not b.polys for b in instance.batches):
+    if any(not polys for polys in polys_per_batch):
         raise ValueError("a batch opens no polynomial")
-    terms = _term_table(tuple(b.polys for b in instance.batches))
+    terms = _term_table(tuple(polys_per_batch))
     if len(terms) > MAX_TERMS:
         raise ValueError(f"{len(terms)} terms: kernel C takes at most {MAX_TERMS}")
     rows = np.array([o.lde.shape[0] for o in oracles])
@@ -216,62 +226,72 @@ def _composition_limits(oracles, instance: FriInstance, lde_bits: int, arity_bit
         raise ValueError(f"arity bits {arity_bits} outside 0..{MAX_ARITY_BITS}")
 
 
-def compute_composition_plain(
-    oracles: list[PolynomialBatch],
-    instance: FriInstance,
-    openings: list[np.ndarray],
-    alpha: np.ndarray,
-    lde_bits: int,
-    arity_bits: int = 0,
-) -> torch.Tensor:
+def composition_inputs(instances, openings_k, alphas, dev):
+    """K proofs' host claimed openings and alphas as `compute_composition`
+    reads them: the openings (K, terms, 2) and records (alpha, each batch's
+    point at POINT_SLOTS) on `dev`, one copy each."""
+    k = len(instances)
+    ys = np.stack([np.concatenate([np.asarray(y, dtype=np.uint64).reshape(-1, 2) for y in op])
+                   for op in openings_k])  # (K, terms, 2)
+    terms = instances[0].num_terms()
+    if ys.shape[1] != terms:
+        raise ValueError(f"{ys.shape[1]} claimed openings for {terms} terms")
+    fields = {ts.REC_FRI_ALPHA: np.asarray(alphas, dtype=np.uint64).reshape(k, 2)}
+    for b in range(len(instances[0].batches)):
+        fields[POINT_SLOTS[b]] = np.array(
+            [[int(inst.batches[b].point[0]) % gl.P, int(inst.batches[b].point[1]) % gl.P]
+             for inst in instances], dtype=np.uint64)
+    return gl.from_u64(ys, dev), ts.challenge_records(dev, k, fields)
+
+
+def compute_composition_plain(oracles, polys_per_batch, ys, rec, lde_bits: int,
+                              arity_bits: int = 0) -> torch.Tensor:
     """Plain torch version of `compute_composition` (same arguments)."""
-    _composition_limits(oracles, instance, lde_bits, arity_bits)
+    _composition_limits(oracles, polys_per_batch, lde_bits, arity_bits)
     dev = oracles[0].lde.device
     xs = gl.from_u64(_domain_points(lde_bits), dev)
+    apows = ext_powers(rec[ts.REC_FRI_ALPHA : ts.REC_FRI_ALPHA + 2],
+                       sum(len(p) for p in polys_per_batch))  # (terms, 2)
     term = 0
     q = None
-    for b_idx, batch in enumerate(instance.batches):
-        k = len(batch.polys)
-        apows = ext.powers_table(np.asarray(alpha, dtype=np.uint64), term + k)[term:]
+    for b_idx, polys in enumerate(polys_per_batch):
+        k = len(polys)
+        ja = apows[term : term + k]
+        # c_b = sum_k alpha^k y_k
+        c_b = gl.sum_tree(ext.j_mul(ja, ys[term : term + k]), 0)
         term += k
-        y = np.asarray(openings[b_idx], dtype=np.uint64).reshape(k, 2)
-        c_b = gl.from_u64(ext.sum_axis0(ext.mul(apows, y)), dev)
-        cols = torch.stack([oracles[oi].lde[pj] for oi, pj in batch.polys])  # (k, m)
-        ja = gl.from_u64(apows, dev)  # (k, 2)
+        cols = torch.stack([oracles[oi].lde[pj] for oi, pj in polys])  # (k, m)
         # S_b(x) = sum_k alpha^k p_k(x): weighted column sum
         s_b = torch.stack([
             gl.sum_tree(gl.mul(cols, ja[:, 0:1]), 0),
             gl.sum_tree(gl.mul(cols, ja[:, 1:2]), 0),
         ], dim=-1)  # (m, 2)
-        z0 = gl.felt(batch.point[0], dev)
-        z1 = gl.felt(batch.point[1], dev)
-        xz = torch.stack([gl.sub(xs, z0), gl.neg(z1).expand_as(xs)], dim=-1)
+        z = rec[POINT_SLOTS[b_idx] : POINT_SLOTS[b_idx] + 2]
+        xz = torch.stack([gl.sub(xs, z[0]), gl.neg(z[1]).expand_as(xs)], dim=-1)
         contrib = ext.j_mul(gl.sub(s_b, c_b), ext.j_inv(xz))
         q = contrib if q is None else gl.add(q, contrib)
     return _regroup_leaves(q, arity_bits)
 
 
-def compute_composition(
-    oracles: list[PolynomialBatch],
-    instance: FriInstance,
-    openings: list[np.ndarray],
-    alpha: np.ndarray,
-    lde_bits: int,
-    arity_bits: int = 0,
-) -> torch.Tensor:
+def compute_composition(oracles, polys_per_batch, ys: torch.Tensor, rec: torch.Tensor,
+                        lde_bits: int, arity_bits: int = 0) -> torch.Tensor:
     """Q over the full LDE domain, as the (m >> a, 2^(a+1)) leaf rows of a
     first FRI round of arity 2^a (a = 0: natural order, (m, 2)).
 
-    openings: per batch, (K_b, 2) claimed values for the batch's polys. On
-    CUDA LDEs: kernel C (csrc/fri.cu), one launch that also forms the alpha
-    powers and the batches' c_b, the claimed values uploaded once. On CPU
+    polys_per_batch: each batch's (oracle, poly) columns; ys (terms, 2) the
+    claimed openings on the device (kernel D's output on the fused path);
+    alpha and the batches' points in the challenge record `rec`
+    (REC_WORDS,) on the device (REC_FRI_ALPHA; batch b's point at
+    POINT_SLOTS[b]). The staged prover uploads its host values
+    (`composition_inputs`). On CUDA LDEs: kernel C (csrc/fri.cu), one
+    launch that also forms the alpha powers and the batches' c_b. On CPU
     LDEs: the plain version."""
-    _composition_limits(oracles, instance, lde_bits, arity_bits)
+    _composition_limits(oracles, polys_per_batch, lde_bits, arity_bits)
     if oracles[0].lde.device.type == "cpu":
-        return compute_composition_plain(oracles, instance, openings, alpha, lde_bits, arity_bits)
-    _cuda.require_cuda_int64(*(o.lde for o in oracles))
-    out, launches = _composition_launches([oracles], [instance], [openings], [alpha], lde_bits,
-                                          arity_bits)
+        return compute_composition_plain(oracles, polys_per_batch, ys, rec, lde_bits, arity_bits)
+    _cuda.require_cuda_int64(ys, rec, *(o.lde for o in oracles))
+    out, launches = _composition_rec_launches([oracles], polys_per_batch, ys.unsqueeze(0),
+                                              rec.unsqueeze(0), lde_bits, arity_bits)
     compute_composition.launches += launches
     return out[0]
 
@@ -285,7 +305,8 @@ def _composition_batch_limits(oracles_k, instances, openings_k, alphas, lde_bits
         raise ValueError("the proofs' oracles differ in shape")
     if len({tuple(b.polys for b in inst.batches) for inst in instances}) != 1:
         raise ValueError("the proofs' instances open other columns")
-    _composition_limits(oracles_k[0], instances[0], lde_bits, arity_bits)
+    _composition_limits(oracles_k[0], tuple(b.polys for b in instances[0].batches), lde_bits,
+                        arity_bits)
 
 
 def compute_composition_batch_plain(oracles_k, instances, openings_k, alphas, lde_bits: int,
@@ -293,8 +314,10 @@ def compute_composition_batch_plain(oracles_k, instances, openings_k, alphas, ld
     """Plain torch version of `compute_composition_batch` (same arguments):
     `compute_composition_plain` a proof, stacked."""
     _composition_batch_limits(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits)
-    return torch.stack([compute_composition_plain(o, inst, op, al, lde_bits, arity_bits)
-                        for o, inst, op, al in zip(oracles_k, instances, openings_k, alphas)])
+    ys, rec = composition_inputs(instances, openings_k, alphas, oracles_k[0][0].lde.device)
+    polys = tuple(b.polys for b in instances[0].batches)
+    return torch.stack([compute_composition_plain(o, polys, y, r, lde_bits, arity_bits)
+                        for o, y, r in zip(oracles_k, ys, rec)])
 
 
 def compute_composition_batch(oracles_k, instances, openings_k, alphas, lde_bits: int,
@@ -319,34 +342,38 @@ def compute_composition_batch(oracles_k, instances, openings_k, alphas, lde_bits
 
 
 def _composition_launches(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits):
-    """Kernel C over K proofs: ((K, m >> a, 2^(a+1)) leaf rows, launches)."""
+    """Kernel C over K proofs with host openings, alphas and points, written
+    to the device in one copy each: ((K, m >> a, 2^(a+1)) leaf rows,
+    launches)."""
+    ys, rec = composition_inputs(instances, openings_k, alphas, oracles_k[0][0].lde.device)
+    return _composition_rec_launches(oracles_k, tuple(b.polys for b in instances[0].batches),
+                                     ys, rec, lde_bits, arity_bits)
+
+
+def _composition_rec_launches(oracles_k, polys_per_batch, ys, rec, lde_bits, arity_bits):
+    """Kernel C over K proofs, proof i's claimed openings ys[i] and its
+    alpha and points in record rec[i] on the device: ((K, m >> a, 2^(a+1))
+    leaf rows, launches)."""
     dev = oracles_k[0][0].lde.device
     m = 1 << lde_bits
     k = len(oracles_k)
     ldes = [[o.lde.contiguous() for o in oracles] for oracles in oracles_k]
     ptrs = np.array([[t.data_ptr() for t in proof] for proof in ldes], dtype=np.uint64)
-    ys = np.stack([np.concatenate([np.asarray(y, dtype=np.uint64).reshape(-1, 2) for y in op])
-                   for op in openings_k])  # (K, terms, 2)
-    terms = instances[0].num_terms()
-    if ys.shape[1] != terms:
-        raise ValueError(f"{ys.shape[1]} claimed openings for {terms} terms")
-    ends = np.cumsum([len(b.polys) for b in instances[0].batches])
-    batches = np.array(
-        [[[end, int(b.point[0]) % gl.P, int(b.point[1]) % gl.P]
-          for end, b in zip(ends, inst.batches)] for inst in instances], dtype=np.uint64)
-    alphas_h = np.ascontiguousarray(np.asarray(alphas, dtype=np.uint64).reshape(k, 2))
-    ys_d = gl.from_u64(ys, dev)
-    terms_d = _device_term_table(tuple(b.polys for b in instances[0].batches), dev)
+    terms = sum(len(p) for p in polys_per_batch)
+    if ys.shape != (k, terms, 2) or not ys.is_contiguous():
+        raise ValueError(f"claimed openings {tuple(ys.shape)}, expected a contiguous {(k, terms, 2)}")
+    ends = np.cumsum([len(p) for p in polys_per_batch])
+    batches = np.array([[end, POINT_SLOTS[b]] for b, end in enumerate(ends)], dtype=np.int64)
+    terms_d = _device_term_table(polys_per_batch, dev)
     xs = _device_domain_points(lde_bits, dev)
     out = torch.empty((k, m >> arity_bits, 2 << arity_bits), dtype=torch.int64, device=dev)
     launches = 0
     for g0, g1 in _cuda.proof_groups(k):
         with _cuda.on_device(dev):
             err = _cuda.lib().qzk_fri_composition(
-                ptrs[g0:g1].ctypes.data, ptrs.shape[1], terms_d.data_ptr(), ys_d[g0].data_ptr(),
-                xs.data_ptr(), batches[g0:g1].ctypes.data, batches.shape[1],
-                alphas_h[g0:g1].ctypes.data, out[g0].data_ptr(), m, arity_bits, g1 - g0,
-                _cuda.stream(),
+                ptrs[g0:g1].ctypes.data, ptrs.shape[1], terms_d.data_ptr(), ys[g0].data_ptr(),
+                xs.data_ptr(), batches.ctypes.data, batches.shape[0], rec[g0].data_ptr(),
+                rec.stride(0), out[g0].data_ptr(), m, arity_bits, g1 - g0, _cuda.stream(),
             )
         _cuda.check(err, "qzk_fri_composition")
         launches += 1
@@ -371,16 +398,6 @@ def _fold_step(values: torch.Tensor, beta: torch.Tensor, inv_x: torch.Tensor) ->
     return gl.mul_const(gl.add(s, d), _INV2)
 
 
-def _beta_powers(beta, a_bits: int) -> np.ndarray:
-    """beta^(2^t) for t < a_bits, (a_bits, 2)."""
-    out = []
-    bt = np.asarray(beta, dtype=np.uint64).reshape(2).copy()
-    for _ in range(a_bits):
-        out.append(bt)
-        bt = ext.mul(bt, bt)
-    return np.array(out, dtype=np.uint64).reshape(a_bits, 2)
-
-
 def _fold_limits(leaves: torch.Tensor, a_bits: int, log_m: int, next_bits: int) -> None:
     if not 1 <= a_bits <= MAX_ARITY_BITS or not 0 <= next_bits <= MAX_ARITY_BITS:
         raise ValueError(
@@ -394,22 +411,36 @@ def _fold_limits(leaves: torch.Tensor, a_bits: int, log_m: int, next_bits: int) 
         raise ValueError(f"next arity bits {next_bits} above the folded layer's {log_m - a_bits}")
 
 
-def fold_round_plain(leaves, beta, a_bits: int, log_m: int, shift_pow: int, next_bits: int = 0):
+def beta_records(dev, betas) -> torch.Tensor:
+    """K challenge records (K, REC_WORDS) on `dev` holding each proof's host
+    round beta (K, 2) at REC_FRI_BETA, one copy."""
+    k = len(betas)
+    return ts.challenge_records(dev, k, {
+        ts.REC_FRI_BETA: np.asarray(betas, dtype=np.uint64).reshape(k, 2)})
+
+
+def fold_round_plain(leaves, rec, beta_slot: int, a_bits: int, log_m: int, shift_pow: int,
+                     next_bits: int = 0):
     """Plain torch version of `fold_round` (same arguments)."""
     _fold_limits(leaves, a_bits, log_m, next_bits)
     dev = leaves.device
     values = _ungroup_leaves(leaves, a_bits)
-    for t, bt in enumerate(_beta_powers(beta, a_bits)):
+    bt = rec[beta_slot : beta_slot + 2]
+    for t in range(a_bits):
         inv_x = gl.from_u64(_inv_x_table(log_m - t, shift_pow + t), dev)
-        values = _fold_step(values, gl.from_u64(bt, dev), inv_x)
+        values = _fold_step(values, bt, inv_x)
+        bt = ext.j_sqr(bt)
     return _regroup_leaves(values, next_bits)
 
 
-def fold_round(leaves: torch.Tensor, beta, a_bits: int, log_m: int, shift_pow: int,
-               next_bits: int = 0) -> torch.Tensor:
+def fold_round(leaves: torch.Tensor, rec: torch.Tensor, beta_slot: int, a_bits: int, log_m: int,
+               shift_pow: int, next_bits: int = 0) -> torch.Tensor:
     """One FRI round's a binary folds of a layer of 2^log_m values over the
     coset g^(2^shift_pow) H, given as its (m', 2^(a+1)) leaf rows, with
-    betas beta^(2^t). Returns the folded layer as the leaf rows of the next
+    betas beta^(2^t), beta read from words beta_slot, beta_slot + 1 of the
+    challenge record `rec` (REC_WORDS,) on the device (the fused prover's
+    transcript writes it there; the staged prover uploads its host beta,
+    `beta_records`). Returns the folded layer as the leaf rows of the next
     round, of arity 2^next_bits (0: natural order, (m', 2)).
 
     On a CUDA tensor: kernel E (csrc/fri.cu), one launch that forms the
@@ -417,10 +448,10 @@ def fold_round(leaves: torch.Tensor, beta, a_bits: int, log_m: int, shift_pow: i
     (`_fold_consts`). On a CPU tensor: the plain version."""
     _fold_limits(leaves, a_bits, log_m, next_bits)
     if leaves.device.type == "cpu":
-        return fold_round_plain(leaves, beta, a_bits, log_m, shift_pow, next_bits)
-    _cuda.require_cuda_int64(leaves)
-    out, launches = _fold_launches(leaves.unsqueeze(0), [beta], a_bits, log_m, shift_pow,
-                                   next_bits)
+        return fold_round_plain(leaves, rec, beta_slot, a_bits, log_m, shift_pow, next_bits)
+    _cuda.require_cuda_int64(leaves, rec)
+    out, launches = _fold_rec_launches(leaves.unsqueeze(0), rec.unsqueeze(0), beta_slot, a_bits,
+                                       log_m, shift_pow, next_bits)
     fold_round.launches += launches
     return out[0]
 
@@ -437,8 +468,9 @@ def fold_round_batch_plain(leaves, betas, a_bits: int, log_m: int, shift_pow: in
     """Plain torch version of `fold_round_batch` (same arguments):
     `fold_round_plain` a proof, stacked."""
     _fold_batch_limits(leaves, betas, a_bits, log_m, next_bits)
-    return torch.stack([fold_round_plain(x, b, a_bits, log_m, shift_pow, next_bits)
-                        for x, b in zip(leaves, betas)])
+    rec = beta_records(leaves.device, betas)
+    return torch.stack([fold_round_plain(x, r, ts.REC_FRI_BETA, a_bits, log_m, shift_pow,
+                                         next_bits) for x, r in zip(leaves, rec)])
 
 
 def fold_round_batch(leaves: torch.Tensor, betas, a_bits: int, log_m: int, shift_pow: int,
@@ -448,8 +480,8 @@ def fold_round_batch(leaves: torch.Tensor, betas, a_bits: int, log_m: int, shift
     next_bits, 2^(next_bits+1)).
 
     On a CUDA tensor: kernel E with a proof axis, one launch for at most
-    PROOFS_PER_LAUNCH proofs, each proof's beta powers by value. On a CPU
-    tensor: the plain version."""
+    PROOFS_PER_LAUNCH proofs, each proof's beta in its record on the card.
+    On a CPU tensor: the plain version."""
     _fold_batch_limits(leaves, betas, a_bits, log_m, next_bits)
     if leaves.device.type == "cpu":
         return fold_round_batch_plain(leaves, betas, a_bits, log_m, shift_pow, next_bits)
@@ -460,19 +492,27 @@ def fold_round_batch(leaves: torch.Tensor, betas, a_bits: int, log_m: int, shift
 
 
 def _fold_launches(leaves, betas, a_bits, log_m, shift_pow, next_bits):
-    """Kernel E over K proofs' (K, m', 2^(a+1)) layers: (out, launches)."""
+    """Kernel E over K proofs' (K, m', 2^(a+1)) layers with host betas,
+    written into K records in one copy: (out, launches)."""
+    rec = beta_records(leaves.device, betas)
+    return _fold_rec_launches(leaves, rec, ts.REC_FRI_BETA, a_bits, log_m, shift_pow, next_bits)
+
+
+def _fold_rec_launches(leaves, rec, beta_slot, a_bits, log_m, shift_pow, next_bits):
+    """Kernel E over K proofs' (K, m', 2^(a+1)) layers, proof i's beta at
+    words beta_slot, beta_slot + 1 of record rec[i] on the device: (out,
+    launches)."""
     dev = leaves.device
     leaves = leaves.contiguous()
     k, mp = leaves.shape[:2]
     consts = _fold_consts(log_m, shift_pow, a_bits)
-    powers = np.ascontiguousarray(np.stack([_beta_powers(b, a_bits) for b in betas]))
     out = torch.empty((k, mp >> next_bits, 2 << next_bits), dtype=torch.int64, device=dev)
     launches = 0
     for g0, g1 in _cuda.proof_groups(k):
         with _cuda.on_device(dev):
             err = _cuda.lib().qzk_fri_fold(
-                leaves[g0].data_ptr(), consts.ctypes.data, powers[g0:g1].ctypes.data,
-                out[g0].data_ptr(), mp, a_bits, next_bits, g1 - g0, _cuda.stream(),
+                leaves[g0].data_ptr(), consts.ctypes.data, rec[g0].data_ptr(), rec.stride(0),
+                beta_slot, out[g0].data_ptr(), mp, a_bits, next_bits, g1 - g0, _cuda.stream(),
             )
         _cuda.check(err, "qzk_fri_fold")
         launches += 1
@@ -488,9 +528,10 @@ fold_round_batch.launches = 0
 
 #: kernel F's plan (csrc/fri.cu GatherPlan) travels by value in the kernel's
 #: parameters: at most this many segments and query indices a proof, 16-bit
-#: segment offsets and widths, 32-bit indices and strides. Its
-#: GATHER_PLAN_BYTES hold one proof at both limits, or several proofs of a
-#: batch, which share the segments' shapes (`gather_group`)
+#: segment offsets and widths, 32-bit strides; the indices, below 2^32, lie
+#: on the card, a pointer a proof. Its GATHER_PLAN_BYTES hold one proof at
+#: both limits, or several proofs of a batch, which share the segments'
+#: shapes (`gather_group`)
 MAX_GATHER_SEGMENTS = 128
 MAX_GATHER_QUERIES = 128
 MAX_GATHER_WIDTH = (1 << 16) - 1
@@ -500,18 +541,18 @@ GATHER_PLAN_BYTES = (_PLAN_HEAD.size + (8 + _PLAN_SHAPE.size) * MAX_GATHER_SEGME
                      + 4 * MAX_GATHER_QUERIES)
 
 
-def _plan_bytes(proofs: int, segments: int, queries: int) -> int:
+def _plan_bytes(proofs: int, segments: int) -> int:
     """A plan's bytes: the header, each proof's source addresses, the
-    segments' shapes, each proof's query indices."""
-    return _PLAN_HEAD.size + (8 * proofs + _PLAN_SHAPE.size) * segments + 4 * proofs * queries
+    segments' shapes, each proof's index-vector address."""
+    return _PLAN_HEAD.size + (8 * proofs + _PLAN_SHAPE.size) * segments + 8 * proofs
 
 
-def gather_group(segments: int, queries: int) -> int:
-    """The most proofs of `segments` segments and `queries` queries one
-    kernel-F plan holds (at most PROOFS_PER_LAUNCH): sixteen leaf proofs (10
-    segments, 28 queries) take 3,256 of its 3,608 bytes."""
+def gather_group(segments: int) -> int:
+    """The most proofs of `segments` segments one kernel-F plan holds (at
+    most PROOFS_PER_LAUNCH): sixteen leaf proofs (10 segments) take 1,592 of
+    its 3,608 bytes, sixteen of the degree-16 tail's (14) 2,168."""
     fits = (GATHER_PLAN_BYTES - _PLAN_HEAD.size - _PLAN_SHAPE.size * segments) // (
-        8 * segments + 4 * queries)
+        8 * segments + 8)
     return max(1, min(_cuda.PROOFS_PER_LAUNCH, fits))
 
 
@@ -540,9 +581,11 @@ def _path_level(s: GatherSource, level: int) -> torch.Tensor:
 
 
 def query_gather_plain(sources: list[GatherSource], indices) -> torch.Tensor:
-    """Plain torch version of `query_gather` (same arguments): the rows as an
-    int64 tensor on the sources' device."""
-    q = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=sources[0].matrix.device)
+    """Plain torch version of `query_gather` (same arguments; the indices
+    host values or an int64 tensor): the rows as an int64 tensor on the
+    sources' device."""
+    q = torch.as_tensor(np.asarray(indices, dtype=np.int64) if not isinstance(
+        indices, torch.Tensor) else indices, device=sources[0].matrix.device)
     parts = []
     for s in sources:
         if s.levels:
@@ -579,10 +622,18 @@ def _gather_segment(s: GatherSource) -> tuple[int, tuple]:
     return mat.data_ptr(), (rs, cs, w, mask.bit_length(), shift, flip, levels)
 
 
+class GatherPlanBytes(bytearray):
+    """Kernel F's plan bytes, holding on to the index tensor they point at."""
+
+    indices: torch.Tensor
+
+
 def pack_gather_plan(sources: list[GatherSource], indices) -> tuple[bytearray, int]:
     """Kernel F's plan (csrc/fri.cu GatherPlan) for one proof as the bytes of
     its kernel parameter, and the packed row's width: `pack_gather_plan_batch`
     of one proof."""
+    if isinstance(indices, torch.Tensor):
+        return pack_gather_plan_batch([sources], indices.reshape(1, -1))
     return pack_gather_plan_batch([sources], [indices])
 
 
@@ -590,10 +641,13 @@ def pack_gather_plan_batch(sources_k: list, indices_k) -> tuple[bytearray, int]:
     """Kernel F's plan for K proofs of one shape as the bytes of its kernel
     parameter: the output address (0 until the launch sets it), the counts,
     each proof's source addresses, a 16-byte shape a segment in packed-row
-    order (the same for every proof), each proof's 32-bit query indices; and
-    the packed row's width. Raises on what the kernel cannot read and above
-    its capacity: there is no other path. One pass over the sources: this
-    runs on every batch."""
+    order (the same for every proof), each proof's index-vector address;
+    and the packed row's width. `indices_k`: a (K, Q) int64 tensor of
+    indices below 2^32 (on the card for a launch: the fused prover's, drawn
+    there), or host lists, put into one such tensor on the sources' device;
+    the plan (a `GatherPlanBytes`) holds it. Raises on what the kernel
+    cannot read and above its capacity: there is no other path. One pass
+    over the sources: this runs on every batch."""
     k = len(sources_k)
     n = len(sources_k[0]) if k else 0
     nq = len(indices_k[0]) if len(indices_k) else 0
@@ -604,10 +658,19 @@ def pack_gather_plan_batch(sources_k: list, indices_k) -> tuple[bytearray, int]:
             or any(len(s) != n for s in sources_k) or any(len(i) != nq for i in indices_k)):
         raise ValueError(f"{k} proofs' sources and {len(indices_k)} index lists: kernel F "
                          f"takes 1 to {_cuda.PROOFS_PER_LAUNCH} proofs of one plan's shape")
-    if _plan_bytes(k, n, nq) > GATHER_PLAN_BYTES:
-        raise ValueError(f"{k} proofs of {n} segments and {nq} queries: kernel F's plan holds "
+    if _plan_bytes(k, n) > GATHER_PLAN_BYTES:
+        raise ValueError(f"{k} proofs of {n} segments: kernel F's plan holds "
                          f"{GATHER_PLAN_BYTES} bytes")
-    buf = bytearray(GATHER_PLAN_BYTES)
+    if not isinstance(indices_k, torch.Tensor):
+        host = np.asarray(indices_k, dtype=np.int64)
+        if host.size and (host.min() < 0 or host.max() >> 32):
+            raise ValueError("kernel F takes query indices below 2^32")
+        indices_k = torch.as_tensor(host, device=sources_k[0][0].matrix.device)
+    if indices_k.shape != (k, nq) or indices_k.dtype != torch.int64 or not indices_k.is_contiguous():
+        raise ValueError(f"query indices {tuple(indices_k.shape)}, expected a contiguous int64 "
+                         f"{(k, nq)}")
+    buf = GatherPlanBytes(GATHER_PLAN_BYTES)
+    buf.indices = indices_k
     shapes = None
     for j, sources in enumerate(sources_k):
         own = []
@@ -628,33 +691,37 @@ def pack_gather_plan_batch(sources_k: list, indices_k) -> tuple[bytearray, int]:
                               flip, levels)
         width += w
     _PLAN_HEAD.pack_into(buf, 0, 0, nq, n, width, k)
-    try:
-        struct.pack_into(f"<{k * nq}I", buf, at + _PLAN_SHAPE.size * n,
-                         *(q for indices in indices_k for q in indices))
-    except struct.error as e:
-        raise ValueError(f"kernel F takes query indices below 2^32: {e}") from None
+    struct.pack_into(f"<{k}Q", buf, at + _PLAN_SHAPE.size * n,
+                     *(indices_k[j].data_ptr() for j in range(k)))
     return buf, width
 
 
 def query_gather_packed_plain(plan: bytes, memory: list[torch.Tensor]) -> torch.Tensor:
     """Plain version of kernel F reading a packed plan (`pack_gather_plan`,
-    `pack_gather_plan_batch`), for the tests: each value is read from the
-    CPU tensors in `memory` at the plan's addresses, strides and path
-    levels, as the kernel reads it; (proofs x queries, width) rows. Checks
-    the plan as the kernel's entry does."""
+    `pack_gather_plan_batch`), for the tests: each value and each query
+    index is read from the CPU tensors in `memory` (and the plan's own index
+    tensor, when it is a `GatherPlanBytes`) at the plan's addresses, strides
+    and path levels, as the kernel reads it; (proofs x queries, width) rows.
+    Checks the plan as the kernel's entry does."""
     _, queries, segments, width, proofs = _PLAN_HEAD.unpack_from(plan, 0)
     if not (1 <= queries <= MAX_GATHER_QUERIES and 1 <= segments <= MAX_GATHER_SEGMENTS
             and 1 <= proofs <= _cuda.PROOFS_PER_LAUNCH
-            and _plan_bytes(proofs, segments, queries) <= len(plan)):
+            and _plan_bytes(proofs, segments) <= len(plan)):
         raise ValueError("plan counts out of range")
     at = _PLAN_HEAD.size + 8 * proofs * segments
-    q = torch.tensor(struct.unpack_from(f"<{proofs * queries}I", plan,
-                                        at + _PLAN_SHAPE.size * segments),
-                     dtype=torch.int64).view(proofs, queries)
     stores = []
-    for t in memory:
+    for t in list(memory) + ([plan.indices] if isinstance(plan, GatherPlanBytes) else []):
         st = t.untyped_storage()
         stores.append((st.data_ptr(), st.nbytes(), torch.empty(0, dtype=torch.int64).set_(st)))
+
+    def find(ptr):
+        return next(st for st in stores if st[0] <= ptr < st[0] + st[1])
+
+    q = torch.empty((proofs, queries), dtype=torch.int64)
+    for p, ptr in enumerate(struct.unpack_from(f"<{proofs}Q", plan,
+                                               at + _PLAN_SHAPE.size * segments)):
+        base, _, flat = find(ptr)
+        q[p] = flat[(ptr - base) // 8 : (ptr - base) // 8 + queries] & 0xFFFFFFFF
     out = torch.empty((proofs * queries, width), dtype=torch.int64)
     end = 0
     for i in range(segments):
@@ -670,7 +737,7 @@ def query_gather_packed_plain(plan: bytes, memory: list[torch.Tensor]) -> torch.
         before = (2 * n0 - (2 * n0 >> level)) * rs  # rows below the level; 0 at level 0
         for p in range(proofs):
             (src,) = struct.unpack_from("<Q", plan, _PLAN_HEAD.size + 8 * (p * segments + i))
-            base, _, flat = next(st for st in stores if st[0] <= src < st[0] + st[1])
+            base, _, flat = find(src)
             rows = ((q[p, :, None] & (n0 - 1)) >> (shift + level)[None, :]) ^ flip
             out[p * queries : (p + 1) * queries, off : off + w] = flat[
                 (src - base) // 8 + before + rows * rs + j * cs]
@@ -684,18 +751,38 @@ def query_gather_packed_plain(plan: bytes, memory: list[torch.Tensor]) -> torch.
 _pinned: dict = {}
 
 
-def query_gather(sources: list[GatherSource], indices) -> np.ndarray:
-    """For each query index, the picked rows of every source side by side,
-    on the host: a (Q, sum of widths) uint64 array. On CUDA sources: kernel
-    F (csrc/fri.cu), one launch, its plan passed by value, writing the rows
-    into a pinned host buffer (one a shape); the stream is synchronized and
-    the rows copied out. On CPU sources: the plain version. Raises above the
-    plan's capacity on either."""
+def _upload_indices(sources_k, indices_k) -> torch.Tensor:
+    """K proofs' host query indices as one (K, Q) int64 tensor on the
+    sources' device, one copy."""
+    host = np.asarray(indices_k, dtype=np.int64)
+    if host.size and (host.min() < 0 or host.max() >> 32):
+        raise ValueError("kernel F takes query indices below 2^32")
+    return torch.as_tensor(host, device=sources_k[0][0].matrix.device)
+
+
+def query_gather(sources: list[GatherSource], indices, out: torch.Tensor | None = None):
+    """For each query index, the picked rows of every source side by side:
+    (Q, sum of widths). The indices: an int64 vector below 2^32 on the
+    sources' device (the fused prover's transcript draws them there), or
+    host values, uploaded in one copy (the staged prover's). The rows go
+    into `out` on the device when it is given (the fused proof's packed
+    output), else into a pinned host buffer (one a shape), returned as a
+    uint64 array after a synchronize of the stream. On CUDA sources: kernel
+    F (csrc/fri.cu), one launch, its plan passed by value. On CPU sources:
+    the plain version. Raises above the plan's capacity on either."""
     if not sources or all(s.matrix.device.type == "cpu" for s in sources):
-        pack_gather_plan(sources, indices)  # the kernel's limits hold here too
-        return gl.to_u64(query_gather_plain(sources, indices))
-    _cuda.require_cuda_int64(*(s.matrix for s in sources))
-    packed, launches = _gather_launches([sources], [indices])
+        _, width = pack_gather_plan(sources, indices)  # the kernel's limits hold here too
+        rows = query_gather_plain(sources, indices)
+        if out is None:
+            return gl.to_u64(rows)
+        _gather_out(out, (1, len(indices), width))
+        return out.copy_(rows)
+    if not isinstance(indices, torch.Tensor):
+        indices = _upload_indices([sources], [indices])[0]
+    _cuda.require_cuda_int64(indices, *(s.matrix for s in sources),
+                             *(() if out is None else (out,)))
+    packed, launches = _gather_launches([sources], indices.reshape(1, -1),
+                                        out=None if out is None else out.unsqueeze(0))
     query_gather.launches += launches
     return packed[0]
 
@@ -705,32 +792,43 @@ def query_gather_batch(sources_k: list, indices_k) -> np.ndarray:
     oracles and FRI layers), each with its own query indices: a (K, Q, sum
     of widths) uint64 array. On CUDA sources: kernel F with a proof axis,
     one launch for as many proofs as a plan holds (`gather_group`: at most
-    PROOFS_PER_LAUNCH, sixteen leaf proofs), all into pinned host memory,
-    then one synchronize and copy. On CPU sources: the plain version, the
-    kernel's limits checked alike."""
+    PROOFS_PER_LAUNCH, sixteen leaf proofs), the indices uploaded in one
+    copy, all into pinned host memory, then one synchronize and copy. On
+    CPU sources: the plain version, the kernel's limits checked alike."""
     k = len(sources_k)
-    groups = _cuda.proof_groups(k, gather_group(len(sources_k[0]), len(indices_k[0])))
+    groups = _cuda.proof_groups(k, gather_group(len(sources_k[0])))
     if all(s.matrix.device.type == "cpu" for sources in sources_k for s in sources):
         for g0, g1 in groups:
             pack_gather_plan_batch(sources_k[g0:g1], indices_k[g0:g1])
         return np.stack([gl.to_u64(query_gather_plain(s, i)) for s, i in zip(sources_k, indices_k)])
     _cuda.require_cuda_int64(*(s.matrix for sources in sources_k for s in sources))
-    packed, launches = _gather_launches(sources_k, indices_k, groups)
+    packed, launches = _gather_launches(sources_k, _upload_indices(sources_k, indices_k), groups)
     query_gather_batch.launches += launches
     return packed
 
 
-def _gather_launches(sources_k, indices_k, groups=((0, 1),)):
-    """Kernel F a group of proofs, all into one pinned (K, Q, width) buffer,
-    each group's launch at its first proof's rows; one synchronize and one
-    copy out of the buffer, which the next call of that shape reuses.
-    Returns ((K, Q, width) host rows, launches)."""
-    host = None
+def _gather_out(out: torch.Tensor, shape: tuple) -> None:
+    if tuple(out.shape)[-2:] != shape[-2:] or out.numel() != np.prod(shape) or \
+            not out.is_contiguous():
+        raise ValueError(f"gather output {tuple(out.shape)}, expected a contiguous {shape[-2:]} "
+                         f"a proof")
+
+
+def _gather_launches(sources_k, indices: torch.Tensor, groups=((0, 1),), out=None):
+    """Kernel F a group of proofs, the (K, Q) int64 indices on the sources'
+    device, all into `out` (K, Q, width) on the device, or else into one
+    pinned (K, Q, width) buffer, each group's launch at its first proof's
+    rows; into pinned memory, one synchronize and one copy out of the
+    buffer, which the next call of that shape reuses. Returns ((K, Q, width)
+    host rows, or `out`; launches)."""
+    host = out
     dev = sources_k[0][0].matrix.device
     for g0, g1 in groups:
-        plan, width = pack_gather_plan_batch(sources_k[g0:g1], indices_k[g0:g1])
-        if host is None:
-            key = (len(sources_k), len(indices_k[0]), width)
+        plan, width = pack_gather_plan_batch(sources_k[g0:g1], indices[g0:g1])
+        if out is not None:
+            _gather_out(out, (len(sources_k), indices.shape[1], width))
+        elif host is None:
+            key = (len(sources_k), indices.shape[1], width)
             if key not in _pinned:
                 _pinned[key] = torch.empty(key, dtype=torch.int64, pin_memory=True)
             host = _pinned[key]
@@ -738,6 +836,8 @@ def _gather_launches(sources_k, indices_k, groups=((0, 1),)):
         with _cuda.on_device(dev):
             err = _cuda.lib().qzk_query_gather(bytes(plan), _cuda.stream())
         _cuda.check(err, "qzk_query_gather")
+    if out is not None:
+        return out, len(groups)
     torch.cuda.current_stream(dev).synchronize()
     return host.numpy().view(np.uint64).copy(), len(groups)
 
@@ -844,7 +944,10 @@ def fri_commit_phase(
     lde_bits = degree_bits + config.rate_bits
     schedule = config.reduction_strategy.schedule(degree_bits)
     arities = list(schedule) + [0]  # each layer's leaf arity; the last is natural order
-    layer = compute_composition(oracles, instance, openings, alpha, lde_bits, arities[0])
+    dev = oracles[0].lde.device
+    ys, rec = composition_inputs([instance], [openings], [alpha], dev)
+    layer = compute_composition(oracles, tuple(b.polys for b in instance.batches), ys[0], rec[0],
+                                lde_bits, arities[0])
 
     caps = []
     layers = []
@@ -857,7 +960,8 @@ def fri_commit_phase(
         caps.append(tree.cap)
         challenger.observe_cap(tree.cap)
         beta = challenger.challenge_ext()
-        layer = fold_round(layer, beta, a_bits, log_m, shift_pow, arities[r + 1])
+        layer = fold_round(layer, beta_records(dev, [beta])[0], ts.REC_FRI_BETA, a_bits, log_m,
+                           shift_pow, arities[r + 1])
         log_m -= a_bits
         shift_pow += a_bits
 
@@ -896,14 +1000,70 @@ def fri_query_phase(
 
 def _final_poly(coeffs: np.ndarray, config: FriConfig, degree_bits: int) -> np.ndarray:
     """The final polynomial's first coefficients, (len, 2), after its degree
-    check: the honest degree bound after folding (below 2^fpb for tiny
-    circuits)."""
-    schedule = config.reduction_strategy.schedule(degree_bits)
-    final_len = min(1 << config.reduction_strategy.final_poly_bits,
-                    1 << (degree_bits - sum(schedule)))
+    check: `_final_len`."""
+    final_len = _final_len(config, degree_bits)
     if np.any(coeffs[final_len:]):
         raise AssertionError("final poly exceeds degree bound")
     return coeffs[:final_len]
+
+
+def _final_len(config: FriConfig, degree_bits: int) -> int:
+    """The final polynomial's length: the honest degree bound after folding
+    (below 2^final_poly_bits for tiny circuits)."""
+    schedule = config.reduction_strategy.schedule(degree_bits)
+    return min(1 << config.reduction_strategy.final_poly_bits,
+               1 << (degree_bits - sum(schedule)))
+
+
+def fri_commit_phase_fused(oracles, polys_per_batch, ys, rec, challenger: ts.DeviceChallenger,
+                           config: FriConfig, degree_bits: int, caps_out: list,
+                           final_out: torch.Tensor) -> list:
+    """`fri_commit_phase` on the fused prover's path, nothing read back:
+    kernel C from the claimed openings `ys` and the record `rec` (alpha
+    drawn there already), then a round at a time the tree, its cap observed
+    straight from the tree's level (and copied into `caps_out[r]`) with the
+    round's beta drawn into the record by kernel I, kernel E's fold reading
+    it; the final iNTT into `final_out` (2, m_f), its first coefficients
+    observed there. The degree check waits for the download (`_final_poly`
+    on the unpacked output). Returns the rounds' (leaves, tree)."""
+    lde_bits = degree_bits + config.rate_bits
+    schedule = config.reduction_strategy.schedule(degree_bits)
+    arities = list(schedule) + [0]
+    layer = compute_composition(oracles, polys_per_batch, ys, rec, lde_bits, arities[0])
+    layers = []
+    log_m, shift_pow = lde_bits, 0
+    for r, a_bits in enumerate(schedule):
+        tree = merkle.build_merkle_tree(layer, min(config.cap_height, log_m - a_bits),
+                                        host_cap=False)
+        layers.append((layer, tree))
+        slot = ts.REC_FRI_BETA + 2 * r
+        challenger.segment(observe=[(tree.digests[-1], caps_out[r].view(-1))],
+                           squeeze=[(rec[slot : slot + 2], 0)])
+        layer = fold_round(layer, rec, slot, a_bits, log_m, shift_pow, arities[r + 1])
+        log_m -= a_bits
+        shift_pow += a_bits
+    final_shift = F.pow_scalar(F.MULTIPLICATIVE_GROUP_GENERATOR, 1 << shift_pow)
+    ntt.batched_ntt(layer.T, log_m, inverse=True, out_shift=int(F.inv(final_shift)), out=final_out)
+    challenger.segment(observe=[(final_out[:, : _final_len(config, degree_bits)].T, None)])
+    return layers
+
+
+def fri_query_phase_fused(oracles, layers, challenger: ts.DeviceChallenger, config: FriConfig,
+                          degree_bits: int, grind_words: torch.Tensor, pow_out: torch.Tensor,
+                          indices_out: torch.Tensor, rows_out: torch.Tensor) -> None:
+    """`fri_query_phase` (and the grind before it) on the fused prover's
+    path, nothing read back: kernel J from the transcript's state into
+    `grind_words` ((0, -1) before; a witness of 0 at 0 PoW bits), kernel I
+    observing the witness into pow_out[0] and drawing its response into
+    pow_out[1] and the query indices into `indices_out`, and kernel F
+    gathering every query's rows and paths by those indices into `rows_out`
+    (queries, width). The response is checked on the unpacked output."""
+    if config.proof_of_work_bits:
+        challenger.grind(config.proof_of_work_bits, grind_words)
+    challenger.segment(observe=[(grind_words[1:], pow_out[:1])],
+                       squeeze=[(pow_out[1:], 0),
+                                (indices_out, degree_bits + config.rate_bits)])
+    query_gather(_gather_sources(oracles, layers), indices_out, rows_out)
 
 
 def fri_commit_phase_batch(

@@ -46,7 +46,7 @@ class MerkleTree:
     kept on the host."""
 
     digests: list  # [torch.Tensor (n_i, 4)] — digests[0] = leaf digests
-    cap: np.ndarray  # host copy of the last level, (2^cap_height, 4) u64
+    cap: np.ndarray | None  # host copy of the last level, (2^cap_height, 4) u64
     cap_height: int
     _host: list | None = field(default=None, repr=False)
 
@@ -72,10 +72,13 @@ class MerkleTree:
         return np.array(siblings, dtype=np.uint64).reshape(-1, 4)
 
 
-def build_merkle_tree(leaves: torch.Tensor, cap_height: int) -> MerkleTree:
-    """Build on the leaves' device; only the cap goes to the host."""
+def build_merkle_tree(leaves: torch.Tensor, cap_height: int, host_cap: bool = True) -> MerkleTree:
+    """Build on the leaves' device; only the cap goes to the host, and not
+    even that with `host_cap=False` (the fused prover, whose transcript reads
+    the cap level on the device): `cap` is then None."""
     levels = build_levels(leaves, cap_height)
-    return MerkleTree(digests=levels, cap=gl.to_u64(levels[-1]), cap_height=cap_height)
+    return MerkleTree(digests=levels, cap=gl.to_u64(levels[-1]) if host_cap else None,
+                      cap_height=cap_height)
 
 
 def build_merkle_forest(leaves: torch.Tensor, cap_height: int) -> list[MerkleTree]:

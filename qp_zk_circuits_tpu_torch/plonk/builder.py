@@ -851,6 +851,27 @@ def witness_trace(data: CircuitData, pw: PartialWitness) -> tuple[np.ndarray, np
     return trace, arr[np.asarray(data.public_input_targets, dtype=np.int64)]
 
 
+def flat_values(data: CircuitData, pw: PartialWitness) -> tuple[np.ndarray, np.ndarray]:
+    """The fused prover's witness payload (the JAX package's
+    prover_fused.py::_flat_values): the distinct witness values in
+    `witness_scatter_tables`' roots order, which the card scatters into the
+    trace, and the public inputs."""
+    arr = witness_root_values(data, pw)
+    return arr[_scatter_order(data)], arr[np.asarray(data.public_input_targets, dtype=np.int64)]
+
+
+def flat_input(data: CircuitData, pw: PartialWitness, rng) -> tuple[np.ndarray, np.ndarray,
+                                                                     np.ndarray]:
+    """A host-rng ZK proof's dense payload (the JAX package's
+    prover_fused.py::_flat_input): the trace with its blinding rows and the
+    three salts as (3, SALT_SIZE, M) LDE salt rows, `zk_draws`' draws from
+    `rng` (the staged prover's, so the same bytes), and the public inputs."""
+    trace, pis = witness_trace(data, pw)
+    blind, salts = zk_draws(data, rng)
+    trace[:, data.num_rows_used :] = blind
+    return trace, np.ascontiguousarray(np.swapaxes(salts, 1, 2)), pis
+
+
 def generate_witness(data: CircuitData, pw: PartialWitness, rng=None):
     """Run generators to a fixpoint; returns (trace (num_wires, n),
     public_inputs). A ZK circuit's rows past `num_rows_used` are blinding

@@ -1,6 +1,10 @@
 """PLONK prover: trace -> commitments -> permutation argument -> quotient -> FRI.
 
-The staged order of the JAX package's `plonk/prover.py::prove_staged`, step
+`prove` dispatches as the JAX package's does: the fused prover
+(plonk/prover_fused.py: one upload, the transcript and the grind on the
+card, one download) at degree_bits <= FUSED_DEGREE_BITS_MAX or once
+`warmup_fused` has run, else `prove_staged`. Below: the staged order of the
+JAX package's `plonk/prover.py::prove_staged`, step
 for step, with the device work on the port's kernels: field elementwise,
 Poseidon2, NTT, and the fused kernels A (the quotient's vanishing
 evaluation, csrc/quotient.cu) and B (the permutation argument,
@@ -10,7 +14,10 @@ csrc/permutation.cu):
     constraint/quotient evaluation, openings and the FRI folds run on the
     device of the circuit's preprocessing oracle;
   * witness generation, the Fiat-Shamir transcript (between launches),
-    host tables of domain points and proof assembly stay on the host.
+    host tables of domain points and proof assembly stay on the host; the
+    kernels read the challenges from a record on the device (`host_records`,
+    one upload a kernel), the one form of each wrapper, which the fused
+    prover's transcript fills on the card.
 
 For non-ZK circuits the proof bytes equal the JAX package's `prove` (and its
 staged and fused provers, which are pinned equal to each other). For ZK
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import functools
 import itertools
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -68,8 +76,8 @@ from .proof import OpeningSet, Proof, fri_instance, zs_pp_layout
 from .vanishing import HostExtAlg, eval_constraints, num_partial_products, permutation_chunks
 
 
-#: kernel A keeps one accumulator a challenge in registers; both kernels'
-#: challenges travel as launch arguments
+#: kernel A keeps one accumulator a challenge in registers; both kernels
+#: read their challenges from a record on the card (transcript.REC_*)
 MAX_CHALLENGES = 4
 #: kernels A and B take at most this many proofs a launch (as C-F do)
 PROOFS_PER_LAUNCH = _cuda.PROOFS_PER_LAUNCH
@@ -248,7 +256,18 @@ def _permutation_limits(data: CircuitData, trace: torch.Tensor) -> None:
         )
 
 
-def compute_permutation_polys_plain(data: CircuitData, trace: torch.Tensor, betas, gammas):
+def host_records(dev, count: int, nc: int, **named) -> torch.Tensor:
+    """`count` challenge records (count, REC_WORDS) on `dev` in one copy
+    (transcript.challenge_records) from host values by kind: alphas, betas,
+    gammas (count, nc) and pis (count, 4). The staged prover's records, and
+    the batch wrappers'."""
+    slots = {"alphas": (ts.REC_ALPHA, nc), "betas": (ts.REC_BETA, nc),
+             "gammas": (ts.REC_GAMMA, nc), "pis": (ts.REC_PI, 4)}
+    return ts.challenge_records(dev, count, {
+        slots[k][0]: _host_felts(v, slots[k][1]).reshape(count, -1) for k, v in named.items()})
+
+
+def compute_permutation_polys_plain(data: CircuitData, trace: torch.Tensor, rec: torch.Tensor):
     """Plain torch version of `compute_permutation_polys` (same arguments)."""
     _permutation_limits(data, trace)
     cfg = data.config
@@ -261,7 +280,7 @@ def compute_permutation_polys_plain(data: CircuitData, trace: torch.Tensor, beta
     wires = trace[:nr]  # (nr, n)
     zs, pps = [], []
     for c in range(cfg.num_challenges):
-        beta, gamma = gl.felt(betas[c], dev), gl.felt(gammas[c], dev)
+        beta, gamma = rec[ts.REC_BETA + c], rec[ts.REC_GAMMA + c]
         num = gl.add(gl.add(wires, gl.mul(beta, tab["id_coords"])), gamma)
         den = gl.add(gl.add(wires, gl.mul(beta, tab["sigma_vals"])), gamma)
         cn = torch.stack([gl.prod_tree(num[ch[0] : ch[-1] + 1], 0) for ch in chunks])
@@ -278,22 +297,25 @@ def compute_permutation_polys_plain(data: CircuitData, trace: torch.Tensor, beta
     return torch.stack(zs + pps)
 
 
-def compute_permutation_polys(data: CircuitData, trace: torch.Tensor, betas, gammas):
+def compute_permutation_polys(data: CircuitData, trace: torch.Tensor, rec: torch.Tensor):
     """Z and partial-product columns per challenge -> (num_cols, n) on the
-    trace's device: [Z_0, Z_1, ..., pp_0_*, pp_1_*, ...].
+    trace's device: [Z_0, Z_1, ..., pp_0_*, pp_1_*, ...], the betas and
+    gammas read from the challenge record `rec` (REC_WORDS,) on the trace's
+    device (the fused prover's transcript writes them there, the staged
+    prover uploads its host values: `host_records`).
 
     On a CUDA trace: kernel B (csrc/permutation.cu), one launch up to
     PERMUTATION_TILE rows and two above. On a CPU trace: the plain version.
     n is at most MAX_PERMUTATION_ROWS on every device."""
     _permutation_limits(data, trace)
     if trace.device.type == "cpu":
-        return compute_permutation_polys_plain(data, trace, betas, gammas)
-    _cuda.require_cuda_int64(trace)
-    return _launch_permutation(data, trace, betas, gammas)
+        return compute_permutation_polys_plain(data, trace, rec)
+    _cuda.require_cuda_int64(trace, rec)
+    return _launch_permutation(data, trace, rec)
 
 
-def _launch_permutation(data: CircuitData, trace: torch.Tensor, betas, gammas):
-    out, launches = _permutation_launches(data, trace.unsqueeze(0), [betas], [gammas])
+def _launch_permutation(data: CircuitData, trace: torch.Tensor, rec: torch.Tensor):
+    out, launches = _permutation_rec_launches(data, trace.unsqueeze(0), rec.unsqueeze(0))
     compute_permutation_polys.launches += launches
     return out[0]
 
@@ -302,8 +324,9 @@ def compute_permutation_polys_batch_plain(data: CircuitData, traces: torch.Tenso
     """Plain torch version of `compute_permutation_polys_batch` (same
     arguments): a loop of `compute_permutation_polys_plain`."""
     _batch_limits(traces, betas, gammas)
-    return torch.stack([compute_permutation_polys_plain(data, t, b, g)
-                        for t, b, g in zip(traces, betas, gammas)])
+    rec = host_records(traces.device, traces.shape[0], data.config.num_challenges, betas=betas,
+                       gammas=gammas)
+    return torch.stack([compute_permutation_polys_plain(data, t, r) for t, r in zip(traces, rec)])
 
 
 def compute_permutation_polys_batch(data: CircuitData, traces: torch.Tensor, betas, gammas):
@@ -335,8 +358,17 @@ _groups = _cuda.proof_groups
 
 
 def _permutation_launches(data: CircuitData, traces: torch.Tensor, betas, gammas):
-    """Kernel B over the (K, num_wires, n) traces: (out (K, num_cols, n),
+    """Kernel B over the (K, num_wires, n) traces with host challenges (K,
+    nc), written into K records in one copy: (out (K, num_cols, n),
     launches)."""
+    rec = host_records(traces.device, traces.shape[0], data.config.num_challenges, betas=betas,
+                       gammas=gammas)
+    return _permutation_rec_launches(data, traces, rec)
+
+
+def _permutation_rec_launches(data: CircuitData, traces: torch.Tensor, rec: torch.Tensor):
+    """Kernel B over the (K, num_wires, n) traces, proof i's challenges in
+    record rec[i] on the device: (out (K, num_cols, n), launches)."""
     cfg = data.config
     nr, nc = cfg.num_routed_wires, cfg.num_challenges
     npp = num_partial_products(nr, cfg.max_quotient_degree_factor)
@@ -346,13 +378,12 @@ def _permutation_launches(data: CircuitData, traces: torch.Tensor, betas, gammas
     out = torch.empty((k, nc + nc * npp, data.n), dtype=torch.int64, device=dev)
     tiles = -(-data.n // PERMUTATION_TILE)
     tile_prod = torch.empty((k, nc, tiles), dtype=torch.int64, device=dev)
-    betas, gammas = (_host_felts(v, nc) for v in (betas, gammas))
     launches = 0
     for g0, g1 in _groups(k):
         with _cuda.on_device(dev):
             err = _cuda.lib().qzk_permutation(
                 traces[g0].data_ptr(), traces.stride(0), tab["id_coords"].data_ptr(),
-                tab["sigma_vals"].data_ptr(), betas[g0:g1].ctypes.data, gammas[g0:g1].ctypes.data,
+                tab["sigma_vals"].data_ptr(), rec[g0].data_ptr(), rec.stride(0),
                 out[g0].data_ptr(), tile_prod[g0].data_ptr(), g1 - g0, data.n, nr,
                 cfg.max_quotient_degree_factor, nc, _cuda.stream(),
             )
@@ -363,8 +394,7 @@ def _permutation_launches(data: CircuitData, traces: torch.Tensor, betas, gammas
 
 def _host_felts(values, count: int) -> np.ndarray:
     """The first `count` felts of each row of `values` as a contiguous
-    (rows, count) uint64 array, for a kernel entry that takes them by
-    value."""
+    (rows, count) uint64 array."""
     arr = np.asarray(values, dtype=np.uint64)
     return np.ascontiguousarray(arr.reshape(-1, arr.shape[-1])[:, :count])
 
@@ -399,7 +429,7 @@ def _quotient_operands(data: CircuitData, wires_lde, zs_pp_lde):
     return consts_lde
 
 
-def quotient_evals_plain(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash):
+def quotient_evals_plain(data, wires_lde, zs_pp_lde, rec):
     """Plain torch version of `quotient_evals` (same arguments)."""
     consts_lde = _quotient_operands(data, wires_lde, zs_pp_lde)
     cfg = data.config
@@ -417,7 +447,7 @@ def quotient_evals_plain(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_h
     ctx = DeviceBatchCtx(
         wires_lde[: cfg.num_wires],
         [consts_lde[k] for k in range(nconst)],
-        gl.from_u64(pi_hash, dev),
+        rec[ts.REC_PI : ts.REC_PI + 4],
     )
     # gate constraints, selector-masked, stacked (K_gates, m)
     parts = []
@@ -436,7 +466,7 @@ def quotient_evals_plain(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_h
     ones_pad = torch.ones((pad, m), dtype=torch.int64, device=dev)
     one = gl.felt(1, dev)
     for c in range(nc):
-        beta, gamma = gl.felt(betas[c], dev), gl.felt(gammas[c], dev)
+        beta, gamma = rec[ts.REC_BETA + c], rec[ts.REC_GAMMA + c]
         z = zs_pp_lde[c]
         z_next = torch.roll(z, -rate, dims=0)
         num = gl.add(gl.add(routed, gl.mul(beta, ids_lde)), gamma)
@@ -454,33 +484,32 @@ def quotient_evals_plain(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_h
     k_total = all_cons.shape[0]
     out = []
     for c in range(nc):
-        apows = gl.from_u64(F.powers_table(np.uint64(alphas[c]), k_total), dev).unsqueeze(1)
+        apows = gl.powers(rec[ts.REC_ALPHA + c], k_total).unsqueeze(1)
         out.append(gl.mul(gl.sum_tree(gl.mul(all_cons, apows), 0), tab["inv_zh"]))
     return torch.stack(out)
 
 
-def quotient_evals(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash):
+def quotient_evals(data, wires_lde, zs_pp_lde, rec):
     """The quotient's values over the LDE coset, (nc, m), before the iNTT:
     out_c(x) = (1/Z_H(x)) sum_k alpha_c^k C_k(x) over the canonical
     constraint list (gate constraints masked by selectors, then per
-    challenge L1 * (Z - 1) and the permutation transitions).
+    challenge L1 * (Z - 1) and the permutation transitions). The alphas,
+    betas, gammas and PI hash are read from the challenge record `rec`
+    (REC_WORDS,) on the operands' device (`compute_permutation_polys`).
 
     The constants, selectors and sigmas come from the circuit's preprocessing
     oracle. On CUDA operands: kernel A (csrc/quotient.cu), two launches. On
     CPU operands: the plain version."""
     consts_lde = _quotient_operands(data, wires_lde, zs_pp_lde)
     if wires_lde.device.type == "cpu":
-        return quotient_evals_plain(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash)
-    _cuda.require_cuda_int64(wires_lde, consts_lde, zs_pp_lde)
-    return _launch_quotient(
-        data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash, consts_lde
-    )
+        return quotient_evals_plain(data, wires_lde, zs_pp_lde, rec)
+    _cuda.require_cuda_int64(wires_lde, consts_lde, zs_pp_lde, rec)
+    return _launch_quotient(data, wires_lde, zs_pp_lde, rec, consts_lde)
 
 
-def _launch_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash, consts_lde):
-    out, launches = _quotient_launches(
-        data, wires_lde.unsqueeze(0), zs_pp_lde.unsqueeze(0), [alphas], [betas], [gammas],
-        [pi_hash], consts_lde)
+def _launch_quotient(data, wires_lde, zs_pp_lde, rec, consts_lde):
+    out, launches = _quotient_rec_launches(
+        data, wires_lde.unsqueeze(0), zs_pp_lde.unsqueeze(0), rec.unsqueeze(0), consts_lde)
     quotient_evals.launches += launches
     return out[0]
 
@@ -489,8 +518,10 @@ def quotient_evals_batch_plain(data, wires_ldes, zs_pp_ldes, alphas, betas, gamm
     """Plain torch version of `quotient_evals_batch` (same arguments): a loop
     of `quotient_evals_plain`."""
     _batch_limits(wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes)
+    rec = host_records(wires_ldes.device, wires_ldes.shape[0], data.config.num_challenges,
+                       alphas=alphas, betas=betas, gammas=gammas, pis=pi_hashes)
     return torch.stack([quotient_evals_plain(data, *args) for args in zip(
-        wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes)])
+        wires_ldes, zs_pp_ldes, rec)])
 
 
 def quotient_evals_batch(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes):
@@ -516,14 +547,21 @@ def quotient_evals_batch(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi
 
 def _quotient_launches(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes,
                        consts_lde):
-    """Kernel A over (K, rows, m) stacks: (out (K, nc, m), launches)."""
+    """Kernel A over (K, rows, m) stacks with host challenges, written into
+    K records in one copy: (out (K, nc, m), launches)."""
+    rec = host_records(wires_ldes.device, wires_ldes.shape[0], data.config.num_challenges,
+                       alphas=alphas, betas=betas, gammas=gammas, pis=pi_hashes)
+    return _quotient_rec_launches(data, wires_ldes, zs_pp_ldes, rec, consts_lde)
+
+
+def _quotient_rec_launches(data, wires_ldes, zs_pp_ldes, rec, consts_lde):
+    """Kernel A over (K, rows, m) stacks, proof i's challenges in record
+    rec[i] on the device: (out (K, nc, m), launches)."""
     cfg = data.config
     nc = cfg.num_challenges
     m = data.n << cfg.rate_bits
     k, dev = wires_ldes.shape[0], wires_ldes.device
     tab = _quotient_tables(data, dev)
-    alphas, betas, gammas = (_host_felts(v, nc) for v in (alphas, betas, gammas))
-    pis = _host_felts(pi_hashes, 4)
     wires_ldes, consts_lde, zs_pp_ldes = (
         t.contiguous() for t in (wires_ldes, consts_lde, zs_pp_ldes))
     groups = tab["desc"].shape[0]
@@ -539,8 +577,7 @@ def _quotient_launches(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_h
                 zs_pp_ldes[g0].data_ptr(), zs_pp_ldes.stride(0), tab["xs"].data_ptr(),
                 tab["l1"].data_ptr(), tab["inv_zh"].data_ptr(), tab["ks"].data_ptr(),
                 tab["desc"].data_ptr(), partial[g0].data_ptr(), out[g0].data_ptr(),
-                alphas[g0:g1].ctypes.data, betas[g0:g1].ctypes.data, gammas[g0:g1].ctypes.data,
-                pis[g0:g1].ctypes.data, g1 - g0, groups, tab["blocks"], m, 1 << cfg.rate_bits,
+                rec[g0].data_ptr(), rec.stride(0), g1 - g0, groups, tab["blocks"], m, 1 << cfg.rate_bits,
                 cfg.num_routed_wires, cfg.max_quotient_degree_factor,
                 num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor), nc,
                 data.const_cols.shape[0], data.num_selectors, tab["num_constraints"],
@@ -555,12 +592,13 @@ quotient_evals.launches = 0
 quotient_evals_batch.launches = 0
 
 
-def compute_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash):
+def compute_quotient(data, wires_lde, zs_pp_lde, rec):
     """Quotient chunks (nc * qdf, n) in coefficient form (the JAX package's
-    `quotient_run`): `quotient_evals` over the LDE coset, then one kernel-3
-    coset iNTT of all nc rows with the g^-i unshift folded in."""
+    `quotient_run`): `quotient_evals` over the LDE coset (its challenges in
+    the record `rec` on the device), then one kernel-3 coset iNTT of all nc
+    rows with the g^-i unshift folded in."""
     cfg = data.config
-    evals = quotient_evals(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash)
+    evals = quotient_evals(data, wires_lde, zs_pp_lde, rec)
     # (nc, m) -> (nc * qdf, n): qdf == rate
     return ntt.coset_intt(evals).reshape(cfg.num_challenges << cfg.rate_bits, data.n)
 
@@ -568,11 +606,52 @@ def compute_quotient(data, wires_lde, zs_pp_lde, alphas, betas, gammas, pi_hash)
 #: where a ZK proof's blinding rows and salts are drawn (`prove`)
 RNG_MODES = ("auto", "host", "device")
 
+#: circuits up to this degree take the fused prover by default, larger ones
+#: the staged one until `warmup` (the JAX package's FUSED_DEGREE_BITS_MAX)
+FUSED_DEGREE_BITS_MAX = 11
+
+
+def uses_fused(data: CircuitData) -> bool:
+    """Whether `prove` takes the fused prover for `data` (without a mesh):
+    the JAX package's rule (plonk/prover.py:310-319). QZKT_STAGED_PROVER=1
+    forces the staged prover, QZKT_FORCE_FUSED=1 the fused one; else a
+    circuit of degree_bits at most FUSED_DEGREE_BITS_MAX, or one whose
+    fused bundle exists (`warmup`, or an earlier fused proof)."""
+    if os.environ.get("QZKT_STAGED_PROVER"):
+        return False
+    return (data.degree_bits <= FUSED_DEGREE_BITS_MAX or bool(os.environ.get("QZKT_FORCE_FUSED"))
+            or "_torch_fused" in data.__dict__)
+
 
 def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None,
           rng_mode: str = "auto", mesh=None) -> Proof:
-    """Prove on the device of `data` (see `CircuitBuilder.build`). Witness
-    generation runs on the host, then `prove_from_trace`.
+    """Prove on the device of `data` (see `CircuitBuilder.build`), as the
+    JAX package's `prove` does: the fused prover (plonk/prover_fused.py, one
+    upload and one download a proof) when `uses_fused(data)`, else
+    `prove_staged`. With a `mesh`, `prove_staged` (its tensor-parallel
+    commits; the fused graph on a mesh is not ported). rng_mode "device" on
+    the staged path without a mesh raises, as in the JAX package: the
+    caller asked for what that path does not draw there. The bytes of the
+    two paths are equal (ZK: in either rng mode, for the same seed)."""
+    if rng_mode not in RNG_MODES:
+        raise ValueError(f"rng_mode {rng_mode!r}, expected one of {RNG_MODES}")
+    if mesh is None and uses_fused(data):
+        from .prover_fused import prove_fused
+
+        return prove_fused(data, pw, seed, warm_rng_mode(data, rng_mode))
+    if rng_mode == "device" and mesh is None:
+        raise ValueError(
+            "rng_mode='device' requires the fused prover, but the staged prover was selected "
+            "(large circuit or QZKT_STAGED_PROVER=1); pass rng_mode='host'/'auto' or force "
+            "fused (QZKT_FORCE_FUSED=1)")
+    return prove_staged(data, pw, seed, rng_mode, mesh)
+
+
+def prove_staged(data: CircuitData, pw: PartialWitness, seed: int | None = None,
+                 rng_mode: str = "auto", mesh=None) -> Proof:
+    """The staged prover (the JAX package's `prove_staged`): witness
+    generation on the host, then `prove_from_trace`, the transcript on the
+    host between launches.
 
     A ZK circuit's randomness comes from `np.random.default_rng(seed)`:
     with rng_mode "host" the blinding rows and the three salts are drawn on
@@ -591,10 +670,14 @@ def prove(data: CircuitData, pw: PartialWitness, seed: int | None = None,
     bytes as without."""
     if rng_mode not in RNG_MODES:
         raise ValueError(f"rng_mode {rng_mode!r}, expected one of {RNG_MODES}")
-    if rng_mode == "auto":
-        rng_mode = data.__dict__.get("_warm_rng_mode", "host")
     trace, pis = witness_trace(data, pw)
-    return _prove_drawn(data, trace, pis, seed, rng_mode, mesh)
+    return _prove_drawn(data, trace, pis, seed, warm_rng_mode(data, rng_mode), mesh)
+
+
+def warm_rng_mode(data: CircuitData, rng_mode: str) -> str:
+    """`rng_mode` with "auto" resolved: the mode `warmup` warmed `data` for,
+    else "host"."""
+    return data.__dict__.get("_warm_rng_mode", "host") if rng_mode == "auto" else rng_mode
 
 
 def _prove_drawn(data: CircuitData, trace: np.ndarray, pis: np.ndarray, seed, rng_mode: str,
@@ -613,35 +696,48 @@ def _prove_drawn(data: CircuitData, trace: np.ndarray, pis: np.ndarray, seed, rn
 
 
 def warmup(data: CircuitData, pw: PartialWitness, rng_mode: str = "device", mesh=None) -> None:
-    """Make `data`'s next proofs steady-state (the counterpart of the JAX
-    package's `warmup_fused`, plonk/prover.py:212; there is no graph to
-    compile here):
+    """Make `data`'s next proofs steady-state and flip `prove` onto the fused
+    prover for it (the JAX package's `warmup_fused`, plonk/prover.py:212;
+    there is no graph to compile here):
 
-      * build kernels A's and B's per-circuit tables on the circuit's device
-        (`_quotient_tables`, `_routing_tables`);
+      * build the circuit's fused bundle (`prover_fused.fused_bundle`: the
+        preprocessing oracle, kernels A's and B's per-circuit tables, the
+        scatter tables, the packed output's layout) on its device, after
+        which `prove` takes the fused prover whatever the degree;
       * record the circuit's witness program from `pw` (the Python
         replay) and lower it to its C tape (plonk/witness_tape.py), so later
         witnesses of the same seed keyset run the tape;
-      * make one throw-away proof of `pw`, which loads the kernel library
-        and launches every kernel of the path;
+      * make one throw-away fused proof of `pw` in `rng_mode`, which loads
+        the kernel library and launches every kernel of the path;
       * mark `data` so that `prove(..., rng_mode="auto")` takes `rng_mode`
         ("device" or "host") from then on.
 
-    With a `mesh`, the tables and the preprocessing oracle are made on every
-    device of the mesh (`device_constants`; a data-parallel shard proves on
-    its own) and the throw-away proof runs through the mesh
-    (`prove(..., mesh=mesh)`)."""
+    With a `mesh`, the tables and the preprocessing oracle are also made on
+    every device of the mesh (`device_constants`; a data-parallel shard
+    proves on its own) and the throw-away proof runs through the mesh
+    (`prove_staged(..., mesh=mesh)`)."""
+    from .prover_fused import fused_bundle, prove_fused
+
     if rng_mode not in ("host", "device"):
         raise ValueError(f"rng_mode {rng_mode!r}: warm up for 'host' or 'device'")
     _check_config(data.config)
-    for dev in [data.device] + ([] if mesh is None else mesh.unique_devices()):
+    fused_bundle(data)
+    for dev in [] if mesh is None else mesh.unique_devices():
         device_constants(data, dev)
         _quotient_tables(data, dev)
         _routing_tables(data, dev)
     witness_root_values(data, pw)  # records the program if it is new
-    trace, pis = witness_trace(data, pw)  # the tape's first run
-    _prove_drawn(data, trace, pis, 0, rng_mode, mesh)
+    witness_root_values(data, pw)  # the tape's first run, which lowers it
+    if mesh is None:
+        prove_fused(data, pw, 0, rng_mode)
+    else:
+        trace, pis = witness_trace(data, pw)
+        _prove_drawn(data, trace, pis, 0, rng_mode, mesh)
     data.__dict__["_warm_rng_mode"] = rng_mode
+
+
+#: the JAX package's name for `warmup`
+warmup_fused = warmup
 
 
 def _check_config(cfg) -> None:
@@ -662,7 +758,9 @@ def _open(data: CircuitData, oracles: list, zeta) -> tuple[OpeningSet, np.ndarra
     one transfer: the opening set and zeta_next."""
     zeta_next = _zeta_next(data, zeta)
     nz, _ = zs_pp_layout(data.config)
-    opened = fo.eval_openings(oracles, zeta, zeta_next, next_oracle=2, next_count=nz)
+    values = fo.eval_openings(oracles, fo.point_records(data.device, [zeta], [zeta_next])[0],
+                              next_oracle=2, next_count=nz)
+    opened = fo.split_openings(gl.to_u64(values), oracles, nz)
     return _opening_set(data, *opened), zeta_next
 
 
@@ -757,14 +855,16 @@ def prove_from_trace(
     gammas = ch.challenge_many(cfg.num_challenges)
 
     # 3. permutation argument
-    zpp = compute_permutation_polys(data, trace_d, betas, gammas)
+    nc = cfg.num_challenges
+    zpp = compute_permutation_polys(data, trace_d, host_records(dev, 1, nc, betas=betas,
+                                                                gammas=gammas)[0])
     zs_pp_o = commit(zpp, rate_bits, cap_h, from_values=True, salt=salt_args[1])
     ch.observe_cap(zs_pp_o.cap)
     alphas = ch.challenge_many(cfg.num_challenges)
 
     # 4. quotient
-    t_chunks = compute_quotient(data, wires_o.poly_lde, zs_pp_o.poly_lde, alphas, betas, gammas,
-                                pi_hash)
+    t_chunks = compute_quotient(data, wires_o.poly_lde, zs_pp_o.poly_lde, host_records(
+        dev, 1, nc, alphas=alphas, betas=betas, gammas=gammas, pis=pi_hash)[0])
     quotient_o = commit(t_chunks, rate_bits, cap_h, salt=salt_args[2])
     ch.observe_cap(quotient_o.cap)
     zeta = ch.challenge_ext()

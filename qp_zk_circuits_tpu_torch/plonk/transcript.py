@@ -9,6 +9,16 @@ permutations run in the C library of native/ (`_duplex` through
 `poseidon2.permute_np`; `observe_many` absorbs 16 felts or more in one call,
 `native.absorb_many`). Only the PoW grind runs on the device.
 
+The fused prover (plonk/prover_fused.py) runs the same transcript on the
+card: `DeviceChallenger` holds the sponge state in device memory and runs
+each segment of the schedule as one kernel-I launch (csrc/transcript.cu),
+writing its challenges into a challenge record (`REC_*`, the layout of
+csrc/challenges.cuh) that kernels A-E read, and `grind_device` is its grind
+(kernel J). Only how full the buffers are lives on the host: the schedule
+fixes it, never a value. The staged prover writes its host challenges into
+a record of the same layout (`challenge_records`), one copy, so both paths
+launch the same kernels.
+
 A batch of proofs of one circuit drives K transcripts through the same
 schedule: `ChallengerBatch` holds their (K, 12) states and advances them in
 lockstep, one C call a step for all K (`native.absorb_batch`,
@@ -24,10 +34,13 @@ identical observe/challenge schedule; any reordering breaks verification
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 import torch
 
+from .. import _cuda
 from .. import native as nat
 from ..field import goldilocks as gl
 from ..hash import poseidon2 as ps
@@ -278,3 +291,293 @@ def grind_pow_batch(
 def check_pow(challenger: Challenger, witness, pow_bits: int) -> bool:
     challenger.observe(witness)
     return int(challenger.challenge()) < (1 << (64 - pow_bits))
+
+
+# ---------------------------------------------------------------------------
+# the challenge record: where kernels A-E read a proof's challenges
+
+#: word offsets of a record (csrc/challenges.cuh, the one other table of
+#: them): the alphas, betas and gammas (nc <= 4 each), the public-input
+#: hash, zeta, g * zeta, FRI's alpha, then round r's beta at REC_FRI_BETA + 2 r
+REC_ALPHA, REC_BETA, REC_GAMMA, REC_PI = 0, 4, 8, 12
+REC_ZETA, REC_ZETA_NEXT, REC_FRI_ALPHA, REC_FRI_BETA = 16, 18, 20, 22
+MAX_FRI_ROUNDS = 16
+REC_WORDS = 56
+
+
+def challenge_records(device, count: int, fields: dict) -> torch.Tensor:
+    """`count` records (count, REC_WORDS) on `device` in one copy: `fields`
+    maps a word offset to the host felts that start there, (count, w) (or w
+    for one record). The staged prover's form of the fused transcript's
+    record."""
+    host = np.zeros((count, REC_WORDS), dtype=np.uint64)
+    for slot, values in fields.items():
+        v = np.asarray(values, dtype=np.uint64).reshape(count, -1)
+        host[:, slot : slot + v.shape[1]] = v
+    return gl.from_u64(host, device)
+
+
+# ---------------------------------------------------------------------------
+# kernel I: the transcript on the card
+
+#: the transcript's device state: the sponge state, then the input buffer
+TS_WORDS = ps.WIDTH + ps.RATE
+#: a segment observes at most this many ranges and squeezes at most this
+#: many runs of challenges (csrc/transcript.cu MAX_SRC, MAX_SQ)
+MAX_SOURCES = 4
+MAX_SQUEEZES = 4
+_SEGMENT_WORDS = 5 + 6 * MAX_SOURCES + 3 * MAX_SQUEEZES + 2
+
+
+def _as_rows(t: torch.Tensor) -> torch.Tensor:
+    """A source as the (rows, cols) view its felts are absorbed from, row by
+    row (a vector is one column)."""
+    if t.dim() == 1:
+        return t.unsqueeze(1)
+    if t.dim() != 2:
+        raise ValueError(f"a transcript source is a vector or a matrix, got {tuple(t.shape)}")
+    return t
+
+
+def _segment_limits(state, in_len, out_len, observe, squeeze, scale) -> None:
+    if state.dim() != 1 or state.shape[0] != TS_WORDS:
+        raise ValueError(f"a transcript state is ({TS_WORDS},), got {tuple(state.shape)}")
+    if not 0 <= in_len < ps.RATE or not 0 <= out_len <= ps.RATE:
+        raise ValueError(f"buffer fills {in_len}, {out_len} outside the sponge's rate")
+    if len(observe) > MAX_SOURCES or len(squeeze) > MAX_SQUEEZES:
+        raise ValueError(f"{len(observe)} sources and {len(squeeze)} squeezes: a segment takes "
+                         f"at most {MAX_SOURCES} and {MAX_SQUEEZES}")
+    for src, record in observe:
+        rows = _as_rows(src)
+        if record is not None and (record.dim() != 1 or record.numel() != rows.numel()
+                                   or record.stride(0) != 1):
+            raise ValueError("a source's record is a contiguous vector of its size")
+    for dst, bits in squeeze:
+        if dst.dim() != 1 or dst.stride(0) != 1 or not 0 <= bits <= 32:
+            raise ValueError("a squeeze writes a contiguous vector, as indices of at most 32 bits")
+    if scale is not None and (scale[0].dim() != 1 or scale[0].numel() != 2
+                              or sum(d.numel() for d, _ in squeeze) < 2):
+        raise ValueError("the scale takes the segment's last extension pair")
+
+
+def transcript_segment_plain(state, in_len: int, out_len: int, observe=(), squeeze=(),
+                             scale=None) -> None:
+    """Plain torch version of `transcript_segment` (same arguments): the
+    host Challenger's duplex rules on the state's tensor, the permutation
+    `poseidon2.permute_plain`."""
+    _segment_limits(state, in_len, out_len, observe, squeeze, scale)
+    st = state[: ps.WIDTH].clone()
+    inb = list(state[ps.WIDTH : ps.WIDTH + in_len])
+    out = out_len
+
+    def duplex():
+        nonlocal st, inb, out
+        if inb:
+            st = torch.cat([torch.stack(inb), st[len(inb) :]])
+        st = ps.permute_plain(st)
+        inb, out = [], ps.RATE
+
+    for src, record in observe:
+        vals = _as_rows(src).reshape(-1)
+        if record is not None:
+            record.copy_(vals)
+        i = 0
+        while i < vals.numel():
+            if not inb and vals.numel() - i >= ps.RATE:  # a whole block
+                inb = list(vals[i : i + ps.RATE])
+                i += ps.RATE
+            else:
+                inb.append(vals[i])
+                i += 1
+            out = 0
+            if len(inb) == ps.RATE:
+                duplex()
+    last = []
+    for dst, bits in squeeze:
+        for k in range(dst.numel()):
+            if inb or out == 0:
+                duplex()
+            v = st[ps.RATE - out]
+            out -= 1
+            last = (last + [v])[-2:]
+            dst[k] = v & ((1 << bits) - 1) if bits else v
+    if scale is not None:
+        factor = gl.felt(scale[1], state.device)
+        scale[0].copy_(gl.mul_plain(torch.stack(last), factor))
+    state[: ps.WIDTH] = st
+    tail = torch.zeros(ps.RATE, dtype=torch.int64, device=state.device)  # zero past the fill
+    if inb:
+        tail[: len(inb)] = torch.stack(inb)
+    state[ps.WIDTH :] = tail
+
+
+@functools.cache
+def _transcript_lib(index: int | None):
+    """The kernel library with kernels I's and J's Poseidon2 constants in
+    CUDA device `index`'s __constant__ memory."""
+    lib = _cuda.lib()
+    ext_rcs, int_rcs, diag = (
+        np.ascontiguousarray(a, dtype=np.uint64)
+        for a in (ps.external_round_constants(), ps.internal_round_constants(), ps.internal_diag())
+    )
+    with _cuda.on_device(torch.device("cuda", index)):
+        err = lib.qzk_transcript_set_constants(
+            ext_rcs.ctypes.data, int_rcs.ctypes.data, diag.ctypes.data)
+    _cuda.check(err, "qzk_transcript_set_constants")
+    return lib
+
+
+def transcript_segment(state: torch.Tensor, in_len: int, out_len: int, observe=(), squeeze=(),
+                       scale=None) -> None:
+    """One segment of a transcript whose state (TS_WORDS,) lies on the
+    device and whose buffers hold `in_len` and `out_len` felts: observe each
+    (source, record) in turn, a source a vector or a (rows, cols) matrix of
+    any strides absorbed row by row and copied into `record` (a contiguous
+    vector) unless that is None; then squeeze each (dst, bits) in turn,
+    dst.numel() challenges into the contiguous vector dst, as query indices
+    lo & (2^bits - 1) when bits > 0; then, with scale = (dst2, factor), the
+    last two challenges times factor into dst2 (zeta_next = g * zeta). The
+    state is updated in place; the caller advances the fills
+    (`DeviceChallenger`).
+
+    On a CUDA state: kernel I (csrc/transcript.cu), one launch of one warp.
+    On a CPU state: the plain version."""
+    _segment_limits(state, in_len, out_len, observe, squeeze, scale)
+    if state.device.type == "cpu":
+        transcript_segment_plain(state, in_len, out_len, observe, squeeze, scale)
+        return
+    _cuda.require_cuda_int64(state, *(s for s, _ in observe),
+                             *(r for _, r in observe if r is not None), *(d for d, _ in squeeze),
+                             *(() if scale is None else (scale[0],)))
+    words = np.zeros(_SEGMENT_WORDS, dtype=np.uint64)
+    words[:5] = [state.data_ptr(), in_len, out_len, len(observe), len(squeeze)]
+    for i, (src, record) in enumerate(observe):
+        rows = _as_rows(src)
+        words[5 + 6 * i : 11 + 6 * i] = [
+            rows.data_ptr(), rows.shape[0], rows.shape[1], rows.stride(0), rows.stride(1),
+            0 if record is None else record.data_ptr()]
+    at = 5 + 6 * MAX_SOURCES
+    for i, (dst, bits) in enumerate(squeeze):
+        words[at + 3 * i : at + 3 * i + 3] = [dst.data_ptr(), dst.numel(), bits]
+    if scale is not None:
+        words[-2:] = [scale[0].data_ptr(), int(scale[1]) % gl.P]
+    lib = _transcript_lib(state.device.index)
+    with _cuda.on_device(state.device):
+        err = lib.qzk_transcript(words.ctypes.data, _cuda.stream())
+    _cuda.check(err, "qzk_transcript")
+    transcript_segment.launches += 1
+
+
+transcript_segment.launches = 0
+
+
+def _advance(in_len: int, out_len: int, observed: int, squeezed: int) -> tuple[int, int, int]:
+    """The buffers' fills after observing `observed` felts and drawing
+    `squeezed` challenges, and the permutations that took: the host
+    Challenger's rules on counts alone."""
+    perms = 0
+    for _ in range(observed):
+        in_len, out_len = in_len + 1, 0
+        if in_len == ps.RATE:
+            in_len, out_len, perms = 0, ps.RATE, perms + 1
+    for _ in range(squeezed):
+        if in_len or not out_len:
+            in_len, out_len, perms = 0, ps.RATE, perms + 1
+        out_len -= 1
+    return in_len, out_len, perms
+
+
+class DeviceChallenger:
+    """The host `Challenger`'s schedule on a transcript state held on the
+    device (the JAX package's plonk/prover_fused.py::DeviceChallenger): the
+    sponge state and input buffer in `state` (TS_WORDS,), zeros for a fresh
+    transcript, the buffer zero past its fill after each segment; the buffers' fills, which the schedule alone sets, here.
+    Each `segment` is one `transcript_segment` call; `permutations` counts
+    the duplexes so far."""
+
+    def __init__(self, state: torch.Tensor):
+        self.state = state
+        self.in_len = 0
+        self.out_len = 0
+        self.permutations = 0
+
+    def segment(self, observe=(), squeeze=(), scale=None) -> None:
+        transcript_segment(self.state, self.in_len, self.out_len, observe, squeeze, scale)
+        self.in_len, self.out_len, perms = _advance(
+            self.in_len, self.out_len, sum(_as_rows(s).numel() for s, _ in observe),
+            sum(d.numel() for d, _ in squeeze))
+        self.permutations += perms
+
+    def grind(self, pow_bits: int, words: torch.Tensor, limit: int | None = None) -> None:
+        """Kernel J from this transcript's state (`grind_device`)."""
+        grind_device(self.state, self.in_len, pow_bits, words, limit)
+
+
+# ---------------------------------------------------------------------------
+# kernel J: the grind on the card
+
+
+def grind_limit(pow_bits: int) -> int:
+    """The candidates a device grind tries at most: 2^(pow_bits + 12), so a
+    grind stops short of its witness with odds of e^-4096."""
+    return 1 << min(pow_bits + 12, 44)
+
+
+def _grind_limits(state, in_len, pow_bits, words) -> None:
+    if state.dim() != 1 or state.shape[0] != TS_WORDS or not 0 <= in_len < ps.RATE:
+        raise ValueError("a grind starts from a transcript state with a part-full input buffer")
+    if not 1 <= pow_bits <= 32:
+        raise ValueError(f"pow_bits {pow_bits}: a device grind takes 1..32")
+    if words.shape != (2,) or words.dtype != torch.int64:
+        raise ValueError("a grind's words are (next candidate, best witness), int64")
+
+
+def grind_plain(state, in_len: int, pow_bits: int, words, limit: int | None = None,
+                batch: int | None = None) -> None:
+    """Plain torch version of `grind_device` (same arguments): sweeps of
+    `batch` candidates (`_sweep`) in order, the first sweep with a passing
+    candidate giving the lowest one."""
+    _grind_limits(state, in_len, pow_bits, words)
+    limit = grind_limit(pow_bits) if limit is None else limit
+    dev = state.device
+    base = torch.cat([state[ps.WIDTH : ps.WIDTH + in_len], state[in_len : ps.WIDTH]])
+    batch = _sweep(pow_bits, batch, dev)
+    idx = torch.arange(batch, dtype=torch.int64, device=dev)
+    start = 0
+    while start < limit:
+        cand = base.expand(batch, ps.WIDTH).clone()
+        cand[:, in_len] = idx + start
+        passing = ((ps.permute_plain(cand)[:, 0] >> (64 - pow_bits)) == 0) & (idx < limit - start)
+        start += batch
+        if passing.any():  # the loop's one data-dependent step, on the card in kernel J
+            words[1] = torch.where(passing, idx, batch).min() + (start - batch)
+            break
+    words[0] = start
+
+
+def grind_device(state: torch.Tensor, in_len: int, pow_bits: int, words: torch.Tensor,
+                 limit: int | None = None) -> None:
+    """The PoW grind from a device transcript (its state and input fill):
+    the lowest w below `limit` (`grind_limit`) such that observing w and
+    drawing a challenge gives one below 2^(64 - pow_bits), written to
+    words[1]; `words` (2,) int64 on the state's device holds (0, -1) before
+    the call (the next candidate, the best so far as u64 2^64 - 1), and
+    words[1] stays -1 if no candidate below the limit passes.
+
+    On CUDA tensors: kernel J (csrc/transcript.cu), one launch that loops on
+    the card until it has the witness. On CPU tensors: the plain version."""
+    _grind_limits(state, in_len, pow_bits, words)
+    limit = grind_limit(pow_bits) if limit is None else limit
+    if state.device.type == "cpu":
+        grind_plain(state, in_len, pow_bits, words, limit)
+        return
+    _cuda.require_cuda_int64(state, words)
+    lib = _transcript_lib(state.device.index)
+    with _cuda.on_device(state.device):
+        err = lib.qzk_grind(state.data_ptr(), in_len, pow_bits, words.data_ptr(), limit,
+                            _cuda.stream())
+    _cuda.check(err, "qzk_grind")
+    grind_device.launches += 1
+
+
+grind_device.launches = 0

@@ -98,16 +98,23 @@ def main() -> None:
         wires = gl.from_u64(F.rand_felts((cfg.num_wires, m), rng), "cuda")
         zpp = gl.from_u64(F.rand_felts((nc + nc * npp, m), rng), "cuda")
         ch = [F.rand_felts(nc, rng) for _ in range(3)] + [F.rand_felts(4, rng)]
-        return f"quotient m = 2^{degree_bits + cfg.rate_bits}", lambda: tp.quotient_evals(
-            data, wires, zpp, *ch)
+        name = f"quotient m = 2^{degree_bits + cfg.rate_bits}"
+        if not hasattr(tp, "host_records"):  # a checkout of host-value wrappers
+            return name, lambda: tp.quotient_evals(data, wires, zpp, *ch)
+        # the challenges uploaded into their record in the call, as staged
+        return name, lambda: tp.quotient_evals(data, wires, zpp, tp.host_records(
+            "cuda", 1, nc, alphas=ch[0], betas=ch[1], gammas=ch[2], pis=ch[3])[0])
 
     def permutation(degree_bits):
         rng = np.random.default_rng(100 + degree_bits)
         data = circuit(degree_bits, rng)
         trace = gl.from_u64(F.rand_felts((cfg.num_wires, data.n), rng), "cuda")
         betas, gammas = F.rand_felts(nc, rng), F.rand_felts(nc, rng)
-        return f"permutation n = 2^{degree_bits}", lambda: tp.compute_permutation_polys(
-            data, trace, betas, gammas)
+        name = f"permutation n = 2^{degree_bits}"
+        if not hasattr(tp, "host_records"):  # a checkout of host-value wrappers
+            return name, lambda: tp.compute_permutation_polys(data, trace, betas, gammas)
+        return name, lambda: tp.compute_permutation_polys(data, trace, tp.host_records(
+            "cuda", 1, nc, betas=betas, gammas=gammas)[0])
 
     cases = []
     for make, degree_bits in ((quotient, leaf.degree_bits), (quotient, 16),

@@ -131,12 +131,21 @@ def main() -> None:
             inst = fri_instance(leaf, F.rand_felts(2, rng), F.rand_felts(2, rng))
             openings = [F.rand_felts((len(b.polys), 2), rng) for b in inst.batches]
             arity = cfg.fri_config.reduction_strategy.schedule(lde_bits - cfg.rate_bits)[0]
-            call_args = (inst, openings, F.rand_felts(2, rng), lde_bits, arity)
+            alpha = F.rand_felts(2, rng)
             k = inst.num_terms()
             cols = len({t for b in inst.batches for t in b.polys})
             muls, adds = cs.fri_field_ops(m, k, len(inst.batches))
             work = ((cols * m + 2 * k + 2 * m) * 8, muls * cs.OPS_MUL + adds * cs.OPS_ADD)
-            return (lambda: fri.compute_composition(oracles, *call_args)), work
+            if not hasattr(fri, "composition_inputs"):  # a checkout of host-value wrappers
+                return (lambda: fri.compute_composition(oracles, inst, openings, alpha,
+                                                        lde_bits, arity)), work
+
+            def call():  # the host values uploaded in the call, as the staged prover does
+                ys, rec = fri.composition_inputs([inst], [openings], [alpha], "cuda")
+                return fri.compute_composition(oracles, tuple(b.polys for b in inst.batches),
+                                               ys[0], rec[0], lde_bits, arity)
+
+            return call, work
         return f"composition m = 2^{lde_bits}", make
 
     nc = cfg.num_challenges
@@ -149,18 +158,31 @@ def main() -> None:
             oracles = [SimpleNamespace(coeffs=felts((c, n), 50 + i))
                        for i, c in enumerate(oracle_rows)]
             rng = np.random.default_rng(degree_bits)
-            call_args = (F.rand_felts(2, rng), F.rand_felts(2, rng), 2, nc)
+            zeta, zeta_next = F.rand_felts(2, rng), F.rand_felts(2, rng)
             rows = sum(oracle_rows)
-            return ((lambda: fo.eval_openings(oracles, *call_args)),
-                    cs.openings_work(rows, rows + nc, n))
+            work = cs.openings_work(rows, rows + nc, n)
+            if not hasattr(fo, "point_records"):  # a checkout of host-value wrappers
+                return (lambda: fo.eval_openings(oracles, zeta, zeta_next, 2, nc)), work
+
+            def call():  # the points uploaded and the values brought back, as staged
+                rec = fo.point_records("cuda", [zeta], [zeta_next])[0]
+                return fo.split_openings(gl.to_u64(fo.eval_openings(oracles, rec, 2, nc)),
+                                         oracles, nc)
+
+            return call, work
         return f"openings {sum(oracle_rows) + nc} x 2^{degree_bits}", make
 
     def fold(degree_bits, log_m, a, next_bits, seed):
         def make():
             leaves = felts((1 << (log_m - a), 2 << a), seed)
             beta = F.rand_felts(2, np.random.default_rng(seed))
-            return ((lambda: fri.fold_round(leaves, beta, a, log_m, 0, next_bits)),
-                    cs.fold_work(1 << log_m, a))
+            work = cs.fold_work(1 << log_m, a)
+            if not hasattr(fri, "beta_records"):  # a checkout of host-value wrappers
+                return (lambda: fri.fold_round(leaves, beta, a, log_m, 0, next_bits)), work
+            from qp_zk_circuits_tpu_torch.plonk.transcript import REC_FRI_BETA
+
+            return (lambda: fri.fold_round(leaves, fri.beta_records("cuda", [beta])[0],
+                                           REC_FRI_BETA, a, log_m, 0, next_bits)), work
         return f"fold m = 2^{log_m}, arity 2^{a}, next 2^{next_bits} (degree {degree_bits})", make
 
     def gather_layout(degree_bits):

@@ -8,7 +8,9 @@ card and its host.
 Runs the checkout at `--root` (default: the checkout this file lies in), so
 two checkouts can be timed in turns by separate processes, one after the
 other (parent, change, change, parent); a stage a checkout does not have is
-left out. Builds the kernel library (and the host library, where the
+left out. A single proof takes `prove`'s own dispatch (the fused prover at
+the leaf's degree, where the checkout has one); QZKT_STAGED_PROVER=1 in the
+environment profiles the staged prover instead. Builds the kernel library (and the host library, where the
 checkout has one), then `WormholeProver(device="cuda")` on `test_inputs_0()`:
 
   * the cold proof, the first of the prover (it also records the witness

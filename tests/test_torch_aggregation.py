@@ -474,14 +474,15 @@ def test_warmup_builds_the_tables_and_tape_and_flips_auto(monkeypatch):
     """`warmup` builds kernels A's and B's tables, records the witness
     program and lowers its tape, makes one throw-away proof in the mode it
     warms for, and from then on `prove(..., rng_mode="auto")` takes that
-    mode; before it, "auto" is "host". The proofs themselves are replaced
-    by a recorder (the proving path is the ZK tests')."""
+    mode; before it, "auto" is "host". The proofs themselves (the fused
+    prover's, which `prove` takes for this small circuit) are replaced by a
+    recorder (the proving path is the ZK tests')."""
     from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+    from qp_zk_circuits_tpu_torch.plonk import prover_fused as tfused
 
     data, pw = _small_zk_circuit()
     modes = []
-    monkeypatch.setattr(tprover, "_prove_drawn",
-                        lambda d, trace, pis, seed, mode, *mesh: modes.append(mode))
+    monkeypatch.setattr(tfused, "prove_fused", lambda d, pw, seed, mode: modes.append(mode))
     tprover.prove(data, pw, seed=1)
     assert modes == ["host"] and "_torch_tables" not in data.__dict__
     tprover.warmup(data, pw)

@@ -307,12 +307,14 @@ def test_batched_plain_forms_equal_single_plain_calls(small):
     zpp = tprover.compute_permutation_polys_batch(data, x["traces"], x["betas"], x["gammas"])
     evals = tprover.quotient_evals_batch(data, x["wires"], x["zpp"], x["alphas"], x["betas"],
                                          x["gammas"], x["pis"])
+    nc = data.config.num_challenges
     for i in range(2):
+        rec = tprover.host_records("cpu", 1, nc, alphas=x["alphas"][i], betas=x["betas"][i],
+                                   gammas=x["gammas"][i], pis=x["pis"][i])[0]
         assert torch.equal(zpp[i], tprover.compute_permutation_polys_plain(
-            data, x["traces"][i], x["betas"][i], x["gammas"][i]))
+            data, x["traces"][i], rec))
         assert torch.equal(evals[i], tprover.quotient_evals_plain(
-            data, x["wires"][i], x["zpp"][i], x["alphas"][i], x["betas"][i], x["gammas"][i],
-            x["pis"][i]))
+            data, x["wires"][i], x["zpp"][i], rec))
     assert not torch.equal(zpp[0], zpp[1]) and not torch.equal(evals[0], evals[1])
 
 
@@ -342,9 +344,10 @@ def test_batched_launches_split_at_the_cap(small, monkeypatch, k):
     data, _ = small
     nc = data.config.num_challenges
     x = _plain_inputs(data, k, seed=7)
+    words = tts.REC_WORDS
     rec = _Recorder({
-        "qzk_permutation": {"proofs": 8, "felts": {4: nc, 5: nc}},
-        "qzk_quotient": {"proofs": 16, "felts": {12: nc, 13: nc, 14: nc, 15: 4}},
+        "qzk_permutation": {"proofs": 8, "felts": {4: words}},
+        "qzk_quotient": {"proofs": 14, "felts": {12: words}},
     })
     monkeypatch.setattr(tprover._cuda, "lib", lambda: rec)
     monkeypatch.setattr(tprover._cuda, "stream", lambda: 0)
@@ -354,21 +357,24 @@ def test_batched_launches_split_at_the_cap(small, monkeypatch, k):
     groups = tprover._groups(k)
     assert launches == len(groups) == -(-k // tprover.PROOFS_PER_LAUNCH)
     for (entry, args, host), (g0, g1) in zip(rec.calls, groups, strict=True):
-        assert entry == "qzk_permutation" and args[8] == g1 - g0
+        assert entry == "qzk_permutation" and args[8] == g1 - g0 and args[5] == words
         assert args[0] == x["traces"][g0].data_ptr() and args[6] == zpp[g0].data_ptr()
-        assert np.array_equal(host[4], x["betas"][g0:g1].ravel())
-        assert np.array_equal(host[5], x["gammas"][g0:g1].ravel())
+        records = host[4].reshape(g1 - g0, words)
+        assert np.array_equal(records[:, tts.REC_BETA : tts.REC_BETA + nc], x["betas"][g0:g1])
+        assert np.array_equal(records[:, tts.REC_GAMMA : tts.REC_GAMMA + nc], x["gammas"][g0:g1])
     consts = data.constants_oracle.lde
     rec.calls.clear()
     out, launches = tprover._quotient_launches(data, x["wires"], x["zpp"], x["alphas"],
                                                x["betas"], x["gammas"], x["pis"], consts)
     assert launches == 2 * len(groups)
     for (entry, args, host), (g0, g1) in zip(rec.calls, groups, strict=True):
-        assert entry == "qzk_quotient" and args[16] == g1 - g0
+        assert entry == "qzk_quotient" and args[14] == g1 - g0 and args[13] == words
         assert args[0] == x["wires"][g0].data_ptr() and args[3] == x["zpp"][g0].data_ptr()
         assert args[11] == out[g0].data_ptr()
-        for i, name in ((12, "alphas"), (13, "betas"), (14, "gammas"), (15, "pis")):
-            assert np.array_equal(host[i], x[name][g0:g1].ravel()), name
+        records = host[12].reshape(g1 - g0, words)
+        for slot, name, width in ((tts.REC_ALPHA, "alphas", nc), (tts.REC_BETA, "betas", nc),
+                                  (tts.REC_GAMMA, "gammas", nc), (tts.REC_PI, "pis", 4)):
+            assert np.array_equal(records[:, slot : slot + width], x[name][g0:g1]), name
 
     calls = []
     monkeypatch.setattr(tps, "_launch", lambda entry, device, *args: calls.append((entry, args)))

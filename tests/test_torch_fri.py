@@ -46,6 +46,7 @@ from qp_zk_circuits_tpu_torch.field import goldilocks as gl
 from qp_zk_circuits_tpu_torch.fri import oracle as toracle
 from qp_zk_circuits_tpu_torch.fri import prover as tfri
 from qp_zk_circuits_tpu_torch.hash import merkle as tmerkle
+from qp_zk_circuits_tpu_torch.plonk import transcript as ts
 
 P = 0xFFFFFFFF00000001
 EDGES = np.array([P - 1, 0, 1 << 32], dtype=np.uint64)
@@ -95,6 +96,31 @@ def _port_oracles(case, device="cpu"):
     return [SimpleNamespace(lde=gl.from_u64(l, device)) for l in case["ldes"]]
 
 
+def _composition(oracles, instance, openings, alpha, lde_bits, arity_bits=0, plain=False):
+    """`compute_composition` (or its plain version) of host openings and
+    alpha, uploaded as the staged prover uploads them."""
+    ys, rec = tfri.composition_inputs([instance], [openings], [alpha], oracles[0].lde.device)
+    fn = tfri.compute_composition_plain if plain else tfri.compute_composition
+    return fn(oracles, tuple(b.polys for b in instance.batches), ys[0], rec[0], lde_bits,
+              arity_bits)
+
+
+def _fold(leaves, beta, a_bits, log_m, shift_pow, next_bits=0, plain=False):
+    """`fold_round` (or its plain version) of a host beta in its record."""
+    fn = tfri.fold_round_plain if plain else tfri.fold_round
+    return fn(leaves, tfri.beta_records(leaves.device, [beta])[0], ts.REC_FRI_BETA, a_bits,
+              log_m, shift_pow, next_bits)
+
+
+def _openings(oracles, zeta, zeta_next, next_oracle=2, next_count=0, plain=False):
+    """`eval_openings` (or its plain version) at host points, cut on the
+    host: (per-oracle (C, 2) arrays, the rows at zeta_next)."""
+    fn = toracle.eval_openings_plain if plain else toracle.eval_openings
+    rec = toracle.point_records(oracles[0].coeffs.device, [zeta], [zeta_next])[0]
+    values = fn(oracles, rec, next_oracle, next_count)
+    return toracle.split_openings(gl.to_u64(values), oracles, next_count)
+
+
 def _reference_composition(case) -> np.ndarray:
     oracles = [SimpleNamespace(lde=jgl.from_u64(l)) for l in case["ldes"]]
     q = jfri.compute_composition(oracles, _instance(jfri, case), case["openings"],
@@ -109,9 +135,9 @@ def test_composition_matches_reference(lde_bits, zero_point):
     if zero_point:
         assert jext.eq(jext.inv(np.zeros(2, np.uint64)), np.zeros(2, np.uint64))
     args = (_port_oracles(case), _instance(tfri, case), case["openings"], case["alpha"], lde_bits)
-    assert np.array_equal(gl.to_u64(tfri.compute_composition(*args)), want)
+    assert np.array_equal(gl.to_u64(_composition(*args)), want)
     # in the leaf layout of a first round of arity 2^3: row q holds v[q + j m']
-    leaves = gl.to_u64(tfri.compute_composition(*args, arity_bits=3))
+    leaves = gl.to_u64(_composition(*args, arity_bits=3))
     mp = want.shape[0] >> 3
     assert np.array_equal(leaves.reshape(mp, 8, 2), want.reshape(8, mp, 2).transpose(1, 0, 2))
 
@@ -121,7 +147,7 @@ def test_composition_at_arity_4_with_zero_denominator_matches_reference():
     case = _case(7, seed=17, zero_point=True)
     want = _reference_composition(case)
     args = (_port_oracles(case), _instance(tfri, case), case["openings"], case["alpha"], 7)
-    leaves = gl.to_u64(tfri.compute_composition(*args, arity_bits=4))
+    leaves = gl.to_u64(_composition(*args, arity_bits=4))
     mp = want.shape[0] >> 4
     assert np.array_equal(leaves.reshape(mp, 16, 2), want.reshape(16, mp, 2).transpose(1, 0, 2))
 
@@ -130,18 +156,18 @@ def test_composition_limits_hold_on_every_device():
     case = _case(6, seed=1)
     args = (_port_oracles(case), _instance(tfri, case), case["openings"], case["alpha"], 6)
     with pytest.raises(ValueError):
-        tfri.compute_composition(*args, arity_bits=tfri.MAX_ARITY_BITS + 1)
+        _composition(*args, arity_bits=tfri.MAX_ARITY_BITS + 1)
     many = dict(case, polys=(((0, 0),) * (tfri.MAX_TERMS + 1),),
                 openings=[np.zeros((tfri.MAX_TERMS + 1, 2), np.uint64)])
     with pytest.raises(ValueError):
-        tfri.compute_composition(_port_oracles(many), _instance(tfri, many), many["openings"],
+        _composition(_port_oracles(many), _instance(tfri, many), many["openings"],
                                  many["alpha"], 6)
     bad = dict(case, polys=(case["polys"][0], ((2, 4),)))  # oracle 2 has 4 columns
     with pytest.raises(ValueError):
-        tfri.compute_composition(_port_oracles(bad), _instance(tfri, bad), bad["openings"],
+        _composition(_port_oracles(bad), _instance(tfri, bad), bad["openings"],
                                  bad["alpha"], 6)
     with pytest.raises(ValueError):
-        tfri.compute_composition(*args[:4], 7)  # LDEs of 2^6 points, not 2^7
+        _composition(*args[:4], 7)  # LDEs of 2^6 points, not 2^7
 
 
 def test_eval_openings_match_reference():
@@ -153,7 +179,7 @@ def test_eval_openings_match_reference():
         [SimpleNamespace(coeffs_dev=jgl.from_u64(c)) for c in coeffs], zeta, zeta_next,
         next_oracle=2, next_count=3,
     )
-    tparts, tnext = toracle.eval_openings(
+    tparts, tnext = _openings(
         [SimpleNamespace(coeffs=gl.from_u64(c, "cpu")) for c in coeffs], zeta, zeta_next,
         next_oracle=2, next_count=3,
     )
@@ -181,7 +207,7 @@ def test_eval_openings_at_leaf_layout_match_reference(leaf_layout_openings, next
     """The rows at zeta do not depend on next_count, so one JAX call holds
     both cases."""
     coeffs, zeta, zeta_next, (jparts, jnext) = leaf_layout_openings
-    tparts, tnext = toracle.eval_openings(
+    tparts, tnext = _openings(
         [SimpleNamespace(coeffs=gl.from_u64(c, "cpu")) for c in coeffs], zeta, zeta_next,
         next_oracle=2, next_count=next_count,
     )
@@ -215,7 +241,7 @@ def test_fold_round_matches_reference(a_bits):
     want_leaves, want_next = _reference_round(values, beta, a_bits, log_m, shift_pow, next_bits)
     leaves = tfri._regroup_leaves(gl.from_u64(values, "cpu"), a_bits)
     assert np.array_equal(gl.to_u64(leaves), want_leaves)
-    got = tfri.fold_round(leaves, beta, a_bits, log_m, shift_pow, next_bits)
+    got = _fold(leaves, beta, a_bits, log_m, shift_pow, next_bits)
     assert np.array_equal(gl.to_u64(got), want_next)
 
 
@@ -229,11 +255,11 @@ def test_fold_rounds_in_a_chain_match_reference():
     want_leaves, want_next = _reference_round(values, betas[0], 4, log_m, shift_pow, 4)
     leaves = tfri._regroup_leaves(gl.from_u64(values, "cpu"), 4)
     assert np.array_equal(gl.to_u64(leaves), want_leaves)
-    got = tfri.fold_round(leaves, betas[0], 4, log_m, shift_pow, 4)
+    got = _fold(leaves, betas[0], 4, log_m, shift_pow, 4)
     assert np.array_equal(gl.to_u64(got), want_next)
     folded = gl.to_u64(tfri._ungroup_leaves(got, 4))
     _, want_last = _reference_round(folded, betas[1], 4, log_m - 4, shift_pow + 4, 0)
-    last = tfri.fold_round(got, betas[1], 4, log_m - 4, shift_pow + 4, 0)
+    last = _fold(got, betas[1], 4, log_m - 4, shift_pow + 4, 0)
     assert np.array_equal(gl.to_u64(last), want_last)
 
 
@@ -262,7 +288,7 @@ def test_fold_consts_give_the_inverse_twiddles(log_m, shift_pow, a_bits):
 def test_fold_round_refuses_arity_above_its_limit():
     leaves = torch.zeros((4, 2 << 5), dtype=torch.int64)
     with pytest.raises(ValueError):
-        tfri.fold_round(leaves, np.zeros(2, np.uint64), 5, 7, 0)
+        _fold(leaves, np.zeros(2, np.uint64), 5, 7, 0)
 
 
 def test_query_gather_matches_reference():
@@ -304,12 +330,12 @@ def test_wrappers_refuse_non_cuda_accelerator_tensors():
     meta = [SimpleNamespace(lde=torch.zeros((c, 64), dtype=torch.int64, device="meta"))
             for c in ROWS]
     with pytest.raises(ValueError):
-        tfri.compute_composition(meta, _instance(tfri, case), case["openings"], case["alpha"], 6)
+        _composition(meta, _instance(tfri, case), case["openings"], case["alpha"], 6)
     with pytest.raises(ValueError):
-        tfri.fold_round(torch.zeros((16, 8), dtype=torch.int64, device="meta"),
+        _fold(torch.zeros((16, 8), dtype=torch.int64, device="meta"),
                         np.zeros(2, np.uint64), 2, 6, 0)
     with pytest.raises(ValueError):
-        toracle.eval_openings([SimpleNamespace(coeffs=o.lde) for o in meta], (1, 2), (3, 4))
+        _openings([SimpleNamespace(coeffs=o.lde) for o in meta], (1, 2), (3, 4))
     with pytest.raises(ValueError):
         tfri.query_gather([tfri.GatherSource(meta[0].lde, 63)], [1])
 
@@ -454,22 +480,22 @@ def test_fri_kernels_match_plain_on_card(cuda):
     args = (_instance(tfri, case), case["openings"], case["alpha"], lde_bits)
     before = [f.launches for f in (gl.add, gl.sub, gl.mul)]
     for arity in (3, 0, 4):  # the leaf's first round, natural order, the largest
-        got = tfri.compute_composition(_port_oracles(case, cuda), *args, arity)
-        assert torch.equal(got.cpu(), tfri.compute_composition(_port_oracles(case), *args, arity))
+        got = _composition(_port_oracles(case, cuda), *args, arity)
+        assert torch.equal(got.cpu(), _composition(_port_oracles(case), *args, arity))
 
     beta = JF.rand_felts(2, rng)
     for a in (3, 1, 2, 4):
         for next_bits in (0, 2):
             leaves = gl.from_u64(_felts((m >> a, 2 << a), rng, edges=True), cuda)
-            got_f = tfri.fold_round(leaves, beta, a, lde_bits, 1, next_bits)
-            want_f = tfri.fold_round(leaves.cpu(), beta, a, lde_bits, 1, next_bits)
+            got_f = _fold(leaves, beta, a, lde_bits, 1, next_bits)
+            want_f = _fold(leaves.cpu(), beta, a, lde_bits, 1, next_bits)
             assert torch.equal(got_f.cpu(), want_f), (a, next_bits)
 
     coeffs = [SimpleNamespace(coeffs=gl.from_u64(_felts((c, m >> 3), rng, edges=True), cuda))
               for c in rows]
     zeta, zn = JF.rand_felts(2, rng), JF.rand_felts(2, rng)
-    got_o = toracle.eval_openings(coeffs, zeta, zn, next_oracle=2, next_count=2)
-    want_o = toracle.eval_openings([SimpleNamespace(coeffs=c.coeffs.cpu()) for c in coeffs],
+    got_o = _openings(coeffs, zeta, zn, next_oracle=2, next_count=2)
+    want_o = _openings([SimpleNamespace(coeffs=c.coeffs.cpu()) for c in coeffs],
                                    zeta, zn, next_oracle=2, next_count=2)
     for g, w in zip(got_o[0] + [got_o[1]], want_o[0] + [want_o[1]]):
         assert np.array_equal(g, w)
@@ -503,8 +529,8 @@ def test_composition_matches_plain_over_many_tiles_on_card(cuda):
     case["openings"] = [JF.rand_felts((len(p), 2), rng) for p in case["polys"]]
     args = (_instance(tfri, case), case["openings"], case["alpha"], lde_bits)
     for arity in range(tfri.MAX_ARITY_BITS + 1):
-        got = tfri.compute_composition(_port_oracles(case, cuda), *args, arity)
-        assert torch.equal(got.cpu(), tfri.compute_composition(_port_oracles(case), *args, arity))
+        got = _composition(_port_oracles(case, cuda), *args, arity)
+        assert torch.equal(got.cpu(), _composition(_port_oracles(case), *args, arity))
 
 
 @pytest.mark.gpu
@@ -520,9 +546,9 @@ def test_openings_sum_across_blocks_on_card(cuda):
                    for c in rows]
         zeta, zn = JF.rand_felts(2, rng), JF.rand_felts(2, rng)
         before = toracle.eval_openings.launches
-        got = toracle.eval_openings(oracles, zeta, zn, next_oracle=2, next_count=2)
+        got = _openings(oracles, zeta, zn, next_oracle=2, next_count=2)
         assert toracle.eval_openings.launches - before == 2
-        want = toracle.eval_openings_plain(oracles, zeta, zn, next_oracle=2, next_count=2)
+        want = _openings(oracles, zeta, zn, next_oracle=2, next_count=2, plain=True)
         for g, w in zip(got[0] + [got[1]], want[0] + [want[1]]):
             assert np.array_equal(g, w), n
 
@@ -540,8 +566,8 @@ def test_fold_twiddles_on_card_match_plain(cuda):
             for shift_pow in range(4):
                 beta = JF.rand_felts(2, rng)
                 nxt = min(4, log_m - a) if shift_pow % 2 else 0
-                got = tfri.fold_round(leaves, beta, a, log_m, shift_pow, nxt)
-                want = tfri.fold_round_plain(leaves, beta, a, log_m, shift_pow, nxt)
+                got = _fold(leaves, beta, a, log_m, shift_pow, nxt)
+                want = _fold(leaves, beta, a, log_m, shift_pow, nxt, plain=True)
                 assert torch.equal(got, want), (a, log_m, shift_pow)
 
 

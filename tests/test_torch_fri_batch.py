@@ -80,7 +80,8 @@ def _proofs(k: int, seed: int, device="cpu") -> list[dict]:
         oracles = [consts] + [s[i] for s in stacks]
         zeta = F.rand_felts(2, rng)
         zeta_next = ext.scalar_mul(zeta.reshape(1, 2), g_n)[0]
-        parts, nxt = fo.eval_openings_plain(oracles, zeta, zeta_next, 2, NZ)
+        parts, nxt = fo.split_openings(gl.to_u64(fo.eval_openings_plain(
+            oracles, fo.point_records(device, [zeta], [zeta_next])[0], 2, NZ)), oracles, NZ)
         out.append(dict(oracles=oracles, zeta=zeta, zeta_next=zeta_next,
                         instance=_instance(zeta, zeta_next),
                         openings=[np.concatenate(parts), nxt],
@@ -113,7 +114,9 @@ def test_openings_batch_equals_single_calls(proofs):
     got = fo.eval_openings_batch([p["oracles"] for p in proofs], [p["zeta"] for p in proofs],
                                  [p["zeta_next"] for p in proofs], 2, NZ)
     for (parts, nxt), p in zip(got, proofs, strict=True):
-        want_parts, want_next = fo.eval_openings(p["oracles"], p["zeta"], p["zeta_next"], 2, NZ)
+        rec = fo.point_records("cpu", [p["zeta"]], [p["zeta_next"]])[0]
+        want_parts, want_next = fo.split_openings(
+            gl.to_u64(fo.eval_openings(p["oracles"], rec, 2, NZ)), p["oracles"], NZ)
         assert all(np.array_equal(a, b) for a, b in zip(parts, want_parts, strict=True))
         assert np.array_equal(nxt, want_next)
     assert not np.array_equal(got[0][1], got[1][1])
@@ -125,8 +128,10 @@ def test_composition_batch_equals_single_calls(proofs, arity_bits):
     got = fri.compute_composition_batch(*args, _lde_bits(), arity_bits)
     assert got.shape == (K, (1 << _lde_bits()) >> arity_bits, 2 << arity_bits)
     for g, p in zip(got, proofs, strict=True):
+        ys, rec = fri.composition_inputs([p["instance"]], [p["openings"]], [p["alpha"]], "cpu")
+        polys = tuple(b.polys for b in p["instance"].batches)
         assert torch.equal(g, fri.compute_composition(
-            p["oracles"], p["instance"], p["openings"], p["alpha"], _lde_bits(), arity_bits))
+            p["oracles"], polys, ys[0], rec[0], _lde_bits(), arity_bits))
 
 
 @pytest.mark.parametrize("a_bits, next_bits", [(2, 2), (1, 0), (4, 0)])
@@ -137,7 +142,9 @@ def test_fold_batch_equals_single_calls(proofs, a_bits, next_bits):
     betas = np.stack([p["beta"] for p in proofs])
     got = fri.fold_round_batch(leaves, betas, a_bits, log_m, 1, next_bits)
     for g, x, b in zip(got, leaves, betas, strict=True):
-        assert torch.equal(g, fri.fold_round(x, b, a_bits, log_m, 1, next_bits))
+        rec = fri.beta_records("cpu", [b])[0]
+        assert torch.equal(g, fri.fold_round(x, rec, ts.REC_FRI_BETA, a_bits, log_m, 1,
+                                             next_bits))
 
 
 def _layers(proofs):
@@ -289,21 +296,21 @@ def test_batch_gather_plan_reads_back_the_proofs_gathers(proofs):
 
 
 def test_batch_gather_plan_capacity():
-    """Sixteen leaf proofs (10 segments, 28 queries) fit one plan, fifteen
-    of the degree-16 tail's (14 segments); a plan over PROOFS_PER_LAUNCH
-    proofs, over its bytes, or of proofs whose sources differ in shape
-    raises."""
-    assert fri.gather_group(10, 28) == _cuda.PROOFS_PER_LAUNCH == 16
-    assert fri.gather_group(14, 28) == 15
-    assert fri._plan_bytes(16, 10, 28) == 3256 <= fri.GATHER_PLAN_BYTES
-    assert fri.gather_group(10, 128) == 5 and fri.gather_group(128, 128) == 1
+    """Sixteen leaf proofs (10 segments) fit one plan, and sixteen of the
+    degree-16 tail's (14 segments): the query indices lie on the card, a
+    pointer a proof; a plan over PROOFS_PER_LAUNCH proofs, over its bytes,
+    or of proofs whose sources differ in shape raises."""
+    assert fri.gather_group(10) == _cuda.PROOFS_PER_LAUNCH == 16
+    assert fri.gather_group(14) == 16
+    assert fri._plan_bytes(16, 10) == 1592 <= fri.GATHER_PLAN_BYTES
+    assert fri.gather_group(40) == 8 and fri.gather_group(128) == 1
     buf = torch.arange(1 << 12, dtype=torch.int64)
     src = [fri.GatherSource(buf.as_strided((256, 3), (3, 1)), 255)] * 10
     fri.pack_gather_plan_batch([src] * 16, [[1] * 28] * 16)
     with pytest.raises(ValueError, match="proofs"):
         fri.pack_gather_plan_batch([src] * 17, [[1] * 28] * 17)
     with pytest.raises(ValueError, match="bytes"):
-        fri.pack_gather_plan_batch([src] * 6, [[1] * 128] * 6)
+        fri.pack_gather_plan_batch([src * 4] * 9, [[1] * 128] * 9)
     other = src[:9] + [fri.GatherSource(buf.as_strided((256, 4), (4, 1)), 255)]
     with pytest.raises(ValueError, match="differ in shape"):
         fri.pack_gather_plan_batch([src, other], [[1] * 28] * 2)
@@ -324,21 +331,26 @@ class _Library:
     def __init__(self):
         self.calls = []
 
-    def qzk_fri_composition(self, ptrs, n_src, terms, ys, xs, batches, n_b, alphas, out, m,
+    @staticmethod
+    def _records(ch, stride, proofs):
+        return _host(ch, stride * proofs).reshape(proofs, stride)
+
+    def qzk_fri_composition(self, ptrs, n_src, terms, ys, xs, batches, n_b, ch, stride, out, m,
                             a_bits, proofs, stream):
         self.calls.append(dict(ptrs=_host(ptrs, proofs * n_src), batches=_host(
-            batches, proofs * n_b * 3).reshape(proofs, n_b, 3), alphas=_host(alphas, 2 * proofs),
+            batches, n_b * 2).reshape(n_b, 2), records=self._records(ch, stride, proofs),
             ys=ys, out=out, proofs=proofs))
         return 0
 
-    def qzk_eval_openings(self, segs, n_segs, points, out, part, n, proofs, stream):
+    def qzk_eval_openings(self, segs, n_segs, ch, stride, out, part, n, proofs, stream):
         self.calls.append(dict(segs=_host(segs, proofs * n_segs * 3).reshape(proofs, n_segs, 3),
-                               points=_host(points, 4 * proofs), out=out, proofs=proofs))
+                               records=self._records(ch, stride, proofs), out=out, proofs=proofs))
         return 0
 
-    def qzk_fri_fold(self, leaves, consts, betas, out, mp, a_bits, next_bits, proofs, stream):
-        self.calls.append(dict(leaves=leaves, betas=_host(betas, 2 * a_bits * proofs), out=out,
-                               proofs=proofs))
+    def qzk_fri_fold(self, leaves, consts, ch, stride, beta_slot, out, mp, a_bits, next_bits,
+                     proofs, stream):
+        self.calls.append(dict(leaves=leaves, records=self._records(ch, stride, proofs),
+                               beta_slot=beta_slot, out=out, proofs=proofs))
         return 0
 
     def qzk_query_gather(self, plan, stream):
@@ -361,8 +373,9 @@ def proofs17():
 
 def test_batched_fri_launches_split_at_the_cap(proofs17, recorder, monkeypatch):
     """C, D, E and F over 17 proofs take two launches each (16 proofs, then
-    1), each launch with its proofs' LDE and coefficient pointers, points,
-    alphas, beta powers, outputs and gather plan."""
+    1), each launch with its proofs' LDE and coefficient pointers, outputs
+    and gather plan, and their points, alphas and betas in their challenge
+    records (one copy for the batch), the query indices on the device."""
     ps_ = proofs17
     groups = _cuda.proof_groups(17)
     assert groups == [(0, 16), (16, 17)]
@@ -374,8 +387,12 @@ def test_batched_fri_launches_split_at_the_cap(proofs17, recorder, monkeypatch):
     for call, (g0, g1) in zip(recorder.calls, groups, strict=True):
         assert call["proofs"] == g1 - g0 and call["out"] == out[g0].data_ptr()
         assert call["ptrs"].tolist() == [o.lde.data_ptr() for os_ in oracles[g0:g1] for o in os_]
-        assert call["alphas"].tolist() == [int(v) for p in ps_[g0:g1] for v in p["alpha"]]
-        assert call["batches"][:, :, 1:].tolist() == [
+        rec = call["records"]
+        assert rec[:, ts.REC_FRI_ALPHA : ts.REC_FRI_ALPHA + 2].tolist() == [
+            [int(v) for v in p["alpha"]] for p in ps_[g0:g1]]
+        assert call["batches"][:, 1].tolist() == list(fri.POINT_SLOTS[: call["batches"].shape[0]])
+        assert [[rec[i, slot : slot + 2].tolist() for slot in call["batches"][:, 1]]
+                for i in range(g1 - g0)] == [
             [list(b.point) for b in p["instance"].batches] for p in ps_[g0:g1]]
     recorder.calls.clear()
     host, launches = fo._openings_launches(oracles, [p["zeta"] for p in ps_],
@@ -386,8 +403,8 @@ def test_batched_fri_launches_split_at_the_cap(proofs17, recorder, monkeypatch):
         assert call["segs"][:, :, 0].tolist() == [
             [o.coeffs.data_ptr() for o in os_] + [os_[2].coeffs.data_ptr()] for os_ in oracles[g0:g1]]
         assert call["segs"][0, :, 1:].tolist() == [[c, 0] for c in COLUMNS] + [[NZ, 1]]
-        assert call["points"].tolist() == [int(v) for p in ps_[g0:g1]
-                                           for v in (*p["zeta"], *p["zeta_next"])]
+        assert call["records"][:, ts.REC_ZETA : ts.REC_ZETA + 4].ravel().tolist() == [
+            int(v) for p in ps_[g0:g1] for v in (*p["zeta"], *p["zeta_next"])]
     recorder.calls.clear()
     leaves = gl.from_u64(F.rand_felts((17, 64, 8), np.random.default_rng(7)), "cpu")
     betas = np.stack([p["beta"] for p in ps_])
@@ -395,19 +412,20 @@ def test_batched_fri_launches_split_at_the_cap(proofs17, recorder, monkeypatch):
     assert launches == 2 and out.shape == (17, 64, 2)
     for call, (g0, g1) in zip(recorder.calls, groups, strict=True):
         assert call["proofs"] == g1 - g0 and call["leaves"] == leaves[g0].data_ptr()
-        assert call["out"] == out[g0].data_ptr()
-        assert call["betas"].tolist() == np.concatenate(
-            [fri._beta_powers(b, 2).ravel() for b in betas[g0:g1]]).tolist()
+        assert call["out"] == out[g0].data_ptr() and call["beta_slot"] == ts.REC_FRI_BETA
+        assert call["records"][:, ts.REC_FRI_BETA : ts.REC_FRI_BETA + 2].tolist() == \
+            betas[g0:g1].tolist()
     recorder.calls.clear()
     layers, forest = _layers(ps_)
     sources = [fri._gather_sources(o, [(x, t)]) for o, x, t in zip(oracles, layers, forest)]
     rng = np.random.default_rng(8)
     indices = [[int(i) for i in rng.integers(0, 1 << _lde_bits(), 4)] for _ in ps_]
     host = _stand_in_pinned(monkeypatch, sources, indices)
-    _, launches = fri._gather_launches(sources, indices, _cuda.proof_groups(
-        17, fri.gather_group(len(sources[0]), 4)))
+    idx = torch.tensor(indices, dtype=torch.int64)
+    _, launches = fri._gather_launches(sources, idx, _cuda.proof_groups(
+        17, fri.gather_group(len(sources[0]))))
     assert launches == 2
-    memory = [s.matrix for srcs in sources for s in srcs]
+    memory = [s.matrix for srcs in sources for s in srcs] + [idx]
     for call, (g0, g1) in zip(recorder.calls, groups, strict=True):
         want = torch.cat([fri.query_gather_plain(s, i)
                           for s, i in zip(sources[g0:g1], indices[g0:g1])])
@@ -438,7 +456,8 @@ def test_batched_gather_groups_of_one_size_keep_their_own_rows(proofs17, monkeyp
     sources = [sources17[i % 17] for i in range(k)]
     rng = np.random.default_rng(10 + k)
     indices = [[int(i) for i in rng.integers(0, 1 << _lde_bits(), 4)] for _ in range(k)]
-    memory = [s.matrix for srcs in sources17 for s in srcs]
+    idx = torch.tensor(indices, dtype=torch.int64)
+    memory = [s.matrix for srcs in sources17 for s in srcs] + [idx]
     launched = []
 
     def gather(plan, stream):
@@ -451,8 +470,8 @@ def test_batched_gather_groups_of_one_size_keep_their_own_rows(proofs17, monkeyp
     monkeypatch.setattr(_cuda, "lib", lambda: types.SimpleNamespace(qzk_query_gather=gather))
     monkeypatch.setattr(_cuda, "stream", lambda: 0)
     _stand_in_pinned(monkeypatch, sources, indices)
-    groups = _cuda.proof_groups(k, fri.gather_group(len(sources[0]), 4))
-    got, launches = fri._gather_launches(sources, indices, groups)
+    groups = _cuda.proof_groups(k, fri.gather_group(len(sources[0])))
+    got, launches = fri._gather_launches(sources, idx, groups)
     assert launches == len(groups) == 3 - (k == 32) and launched == [4 * (g1 - g0)
                                                                      for g0, g1 in groups]
     want = [fri.query_gather_plain(s, i) for s, i in zip(sources, indices)]

@@ -137,7 +137,8 @@ def test_permutation_polys_match_reference(small):
     rng = np.random.default_rng(1)
     betas, gammas = JF.rand_felts(2, rng), JF.rand_felts(2, rng)
     want = jprover.compute_permutation_polys(jdata, trace, betas, gammas)
-    got = tprover.compute_permutation_polys(tdata, gl.from_u64(trace, "cpu"), betas, gammas)
+    rec = tprover.host_records("cpu", 1, 2, betas=betas, gammas=gammas)[0]
+    got = tprover.compute_permutation_polys(tdata, gl.from_u64(trace, "cpu"), rec)
     assert np.array_equal(gl.to_u64(got), want)
 
 
@@ -181,7 +182,9 @@ def test_eval_openings_match_horner():
     coeffs = JF.rand_felts((3, 16), rng)
     z, zn = jext.rand((), rng), jext.rand((), rng)
     o = toracle.commit(coeffs, 1, 0, "cpu")
-    (at_z,), at_next = toracle.eval_openings([o], z, zn, next_oracle=0, next_count=2)
+    values = toracle.eval_openings([o], toracle.point_records("cpu", [z], [zn])[0],
+                                   next_oracle=0, next_count=2)
+    (at_z,), at_next = toracle.split_openings(gl.to_u64(values), [o], 2)
     for point, got, cols in ((z, at_z, 3), (zn, at_next, 2)):
         for c in range(cols):
             acc = (0, 0)

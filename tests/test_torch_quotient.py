@@ -108,10 +108,15 @@ def _inputs(tdata, seed):
 
 
 def _port_evals(tdata, x, device="cpu"):
+    rec = tprover.host_records(device, 1, tdata.config.num_challenges, alphas=x["alphas"],
+                               betas=x["betas"], gammas=x["gammas"], pis=x["pi"])[0]
     return tprover.quotient_evals(
-        tdata, gl.from_u64(x["wires"], device), gl.from_u64(x["zpp"], device),
-        x["alphas"], x["betas"], x["gammas"], x["pi"],
-    )
+        tdata, gl.from_u64(x["wires"], device), gl.from_u64(x["zpp"], device), rec)
+
+
+def _perm_rec(device, betas, gammas):
+    """The challenge record of kernel B's betas and gammas on `device`."""
+    return tprover.host_records(device, 1, len(betas), betas=betas, gammas=gammas)[0]
 
 
 def _reference_evals(jref, nconst, nsel, n, rate_bits, x, points):
@@ -248,7 +253,8 @@ def test_permutation_polys_match_reference(small, zero_den):
         row = 3
         gammas[0] = (-(int(trace[0, row]) + int(betas[0]) * int(jdata.sigma_vals[0, row]))) % P
     want = jprover.compute_permutation_polys(jdata, trace, betas, gammas)
-    got = gl.to_u64(tprover.compute_permutation_polys(tdata, gl.from_u64(trace, "cpu"), betas, gammas))
+    got = gl.to_u64(tprover.compute_permutation_polys(tdata, gl.from_u64(trace, "cpu"),
+                                                      _perm_rec("cpu", betas, gammas)))
     assert np.array_equal(got, want)
     assert (got[0, 4:] == 0).all() == zero_den
 
@@ -263,9 +269,9 @@ def test_permutation_size_limit_holds_on_every_device(small):
     big = dataclasses.replace(tdata, degree_bits=bits)
     trace = torch.zeros((tdata.config.num_wires, 1), dtype=torch.int64).expand(-1, 1 << bits)
     with pytest.raises(ValueError):
-        tprover.compute_permutation_polys(big, trace, [1, 1], [1, 1])
+        tprover.compute_permutation_polys(big, trace, _perm_rec("cpu", [1, 1], [1, 1]))
     with pytest.raises(ValueError):
-        tprover.compute_permutation_polys_plain(big, trace, [1, 1], [1, 1])
+        tprover.compute_permutation_polys_plain(big, trace, _perm_rec("cpu", [1, 1], [1, 1]))
 
 
 def test_permutation_polys_plain_above_old_cap_match_reference(small):
@@ -286,7 +292,8 @@ def test_permutation_polys_plain_above_old_cap_match_reference(small):
     tstub = dataclasses.replace(tdata, degree_bits=15, id_coords=ids, sigma_vals=sigmas,
                                 config=dataclasses.replace(tdata.config, **config))
     want = jprover.compute_permutation_polys(jstub, trace, betas, gammas)
-    got = tprover.compute_permutation_polys(tstub, gl.from_u64(trace, "cpu"), betas, gammas)
+    got = tprover.compute_permutation_polys(tstub, gl.from_u64(trace, "cpu"),
+                                            _perm_rec("cpu", betas, gammas))
     assert np.array_equal(gl.to_u64(got), want)
     assert (want[0, n - 1:] == 0).all() and want[0, n - 2] != 0
 
@@ -295,7 +302,7 @@ def test_wrappers_refuse_non_cuda_accelerator_tensors(small):
     jdata, tdata = small
     meta = torch.zeros((tdata.config.num_wires, tdata.n), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
-        tprover.compute_permutation_polys(tdata, meta, [1, 1], [1, 1])
+        tprover.compute_permutation_polys(tdata, meta, _perm_rec("cpu", [1, 1], [1, 1]))
     x = _inputs(tdata, seed=5)
     with pytest.raises(ValueError):
         _port_evals(tdata, x, device="meta")
@@ -314,15 +321,16 @@ def test_failed_build_raises_and_never_falls_back(small, monkeypatch, tmp_path):
     tprover._kernel_lib.cache_clear()
     _, tdata = small
     x = _inputs(tdata, seed=9)
+    nc = tdata.config.num_challenges
+    rec = tprover.host_records("cpu", 1, nc, alphas=x["alphas"], betas=x["betas"],
+                           gammas=x["gammas"], pis=x["pi"])[0]
     with pytest.raises(RuntimeError):
         tprover._launch_quotient(
-            tdata, gl.from_u64(x["wires"], "cpu"), gl.from_u64(x["zpp"], "cpu"), x["alphas"],
-            x["betas"], x["gammas"], x["pi"], tdata.constants_oracle.lde,
+            tdata, gl.from_u64(x["wires"], "cpu"), gl.from_u64(x["zpp"], "cpu"), rec,
+            tdata.constants_oracle.lde,
         )
     with pytest.raises(RuntimeError):
-        tprover._launch_permutation(
-            tdata, gl.from_u64(_trace(tdata, 9), "cpu"), x["betas"], x["gammas"]
-        )
+        tprover._launch_permutation(tdata, gl.from_u64(_trace(tdata, 9), "cpu"), rec)
     tprover._kernel_lib.cache_clear()
 
 
@@ -425,9 +433,11 @@ def test_fused_kernels_match_plain_on_card(small, cuda, circuit):
     betas, gammas = JF.rand_felts(nc, rng), JF.rand_felts(nc, rng)
     gammas[-1] = (-(int(trace[5, 7]) + int(betas[-1]) * int(data.sigma_vals[5, 7]))) % P
     before = _field_launches()
-    got = tprover.compute_permutation_polys(data, gl.from_u64(trace, cuda), betas, gammas)
+    got = tprover.compute_permutation_polys(data, gl.from_u64(trace, cuda),
+                                            _perm_rec(cuda, betas, gammas))
     assert _field_launches() == before
-    want = tprover.compute_permutation_polys_plain(data, gl.from_u64(trace, "cpu"), betas, gammas)
+    want = tprover.compute_permutation_polys_plain(data, gl.from_u64(trace, "cpu"),
+                                                   _perm_rec("cpu", betas, gammas))
     assert torch.equal(got.cpu(), want)
     vals = gl.from_u64(JF.rand_felts((2, data.n << 3), rng), cuda)
     assert torch.equal(tntt.coset_intt(vals).cpu(), tntt.coset_intt(vals.cpu()))
@@ -449,7 +459,9 @@ def test_permutation_kernel_across_tiles_on_card(cuda):
     for c, row, wire in ((0, 255, 3), (0, 256, 70), (1, 256, 0), (1, data.n - 1, 9)):
         trace[wire, row] = (-(int(betas[c]) * int(data.sigma_vals[wire, row]) + int(gammas[c]))) % P
     before = tprover.compute_permutation_polys.launches
-    got = tprover.compute_permutation_polys(data, gl.from_u64(trace, cuda), betas, gammas)
+    got = tprover.compute_permutation_polys(data, gl.from_u64(trace, cuda),
+                                            _perm_rec(cuda, betas, gammas))
     assert tprover.compute_permutation_polys.launches - before == 2
-    want = tprover.compute_permutation_polys_plain(data, gl.from_u64(trace, "cpu"), betas, gammas)
+    want = tprover.compute_permutation_polys_plain(data, gl.from_u64(trace, "cpu"),
+                                                   _perm_rec("cpu", betas, gammas))
     assert torch.equal(got.cpu(), want)

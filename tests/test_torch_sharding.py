@@ -49,6 +49,7 @@ from qp_zk_circuits_tpu_torch.parallel import tp
 from qp_zk_circuits_tpu_torch.parallel.mesh import Mesh, sharded_prove_batch
 from qp_zk_circuits_tpu_torch.plonk import builder as tbuilder
 from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+from qp_zk_circuits_tpu_torch.plonk import transcript as tts
 from qp_zk_circuits_tpu_torch.plonk.serialization import proof_to_bytes
 from qp_zk_circuits_tpu_torch.poly import ntt
 from qp_zk_circuits_tpu_torch.tools.dryrun_multichip import dryrun_multichip
@@ -376,11 +377,16 @@ def _guard_launch(kernel, data):
         ntt.shard_deinterleave(_meta(16), 4)
     elif kernel == "H-cross":
         ntt.shard_cross_ntt(_meta(4, 4))
+    elif kernel == "I":
+        tts.transcript_segment(_meta(tts.TS_WORDS), 0, 0, [(_meta(4), _meta(4))],
+                               [(_meta(2), 0)])
+    elif kernel == "J":
+        tts.grind_device(_meta(tts.TS_WORDS), 3, 8, _meta(2))
     return META_DEVICE
 
 
 @pytest.mark.parametrize("kernel", ["1", "2", "3", "A", "B", "C", "D", "E", "F", "G",
-                                    "H-deinterleave", "H-cross"])
+                                    "H-deinterleave", "H-cross", "I", "J"])
 def test_wrappers_launch_on_their_operands_device(small_zk, monkeypatch, kernel):
     """On a mesh across cards the current device is not the operands' by
     default: each wrapper's launches and stream requests happen under
@@ -393,6 +399,7 @@ def test_wrappers_launch_on_their_operands_device(small_zk, monkeypatch, kernel)
     monkeypatch.setattr(_cuda, "require_cuda_int64", lambda *tensors: None)
     for mod in (tps, tprover):
         monkeypatch.setattr(mod, "_kernel_lib", lambda index: rec)
+    monkeypatch.setattr(tts, "_transcript_lib", lambda index: rec)
     # kernel F's pinned host buffer and its stream's synchronize
     monkeypatch.setitem(tfri._pinned, (1, 2, 3), torch.zeros((1, 2, 3), dtype=torch.int64))
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -400,7 +407,7 @@ def test_wrappers_launch_on_their_operands_device(small_zk, monkeypatch, kernel)
     for fn in (gl.mul, tps.hash_rows, ntt.batched_ntt, tprover.quotient_evals_batch,
                tprover.compute_permutation_polys_batch, tfri.fold_round_batch,
                tfri.query_gather, frandom.rand_felts, ntt.shard_deinterleave,
-               ntt.shard_cross_ntt):
+               ntt.shard_cross_ntt, tts.transcript_segment, tts.grind_device):
         if hasattr(fn, "launches"):
             monkeypatch.setattr(fn, "launches", fn.launches)
     try:
