@@ -165,14 +165,26 @@ package. Phases, each printing one line:
      of [zk] in host rng (its fixture) and device rng (accepted, equal to
      the staged device-rng proof of the seed); warm fused and staged leaf
      proofs in turns, their ms, the fused proof's busy share and host split
-     (`_last_prove_timings`) beside the card; then the canonical N = 2
+     (`_last_prove_timings`) beside the card; `[fused batch]`, the JAX
+     package's default batch and stream (plonk/prover_fused.py::
+     prove_fused_batch, prove_fused_stream) through `prove_batch`'s and
+     `prove_stream`'s dispatch: the two real spends at K = 1, 4, 16, 17, 33
+     and a 48-stream in chunks of 16, each proof its fixture and accepted,
+     one upload and one download a batch (a chunk), the fused batch's
+     launch limits (kernel I once a segment and kernel J once a batch for
+     all K), a K = 4 host-rng ZK leaf batch equal to the staged batch of
+     its seed, ms a proof of the fused batch, the stream, the staged batch
+     and the single fused proof in turns; then the canonical N = 2
      private batch of [aggregation] after warmup_fused(..., rng_mode="host")
      in host rng, byte-equal to canonical_private_batch.bin, beside the
      staged proof's seconds. Kernels I (csrc/transcript.cu, the leaf's
      whole transcript schedule) and J (a 16-bit grind, and one stopped at
-     its limit) are held to their plain versions in the kernel phase;
+     its limit) and their batch forms (the leaf's schedule over 16 and 17
+     transcripts, 16 and 17 grinds at 16 bits, one witness past 2^17, and
+     a limit between the witnesses) are held to their plain versions in
+     the kernel phase;
  14. service — the miner's path at the canonical sizes on those circuits:
-     four real spends of one block proven as one batch (K = 4), folded into
+     four real spends of one block proven as one fused batch (K = 4), folded into
      two private batches, `PublicBatchAggregator.from_binaries_dir` over
      their artifact set (warm start; an `aot/` subdirectory left inert),
      both pushed into one bucket (a verify each), a duplicate and a dummy
@@ -213,6 +225,7 @@ and the result line is not printed.
 from __future__ import annotations
 
 import functools
+import gc
 import hashlib
 import json
 import statistics
@@ -1023,6 +1036,16 @@ def kernel_table(device) -> list[dict]:
              source="qp_zk_circuits_tpu_torch/csrc/transcript.cu",
              replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:296",
              setup=lambda: _grind_case(device)),
+        # kernels I and J with a proof axis, the fused batch's transcripts
+        # and grinds (phase_fused_batch reads their launches)
+        dict(name="transcript_batch", wrapper=ts.transcript_segment_batch, path="fused_batch",
+             source="qp_zk_circuits_tpu_torch/csrc/transcript.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
+             setup=lambda: _transcript_batch_case(device)),
+        dict(name="grind_batch", wrapper=ts.grind_device_batch, path="fused_batch",
+             source="qp_zk_circuits_tpu_torch/csrc/transcript.cu",
+             replaces="qp_zk_circuits_tpu/plonk/prover_fused.py:1007",
+             setup=lambda: _grind_batch_case(device)),
         # kernel H, the coefficient-sharded NTT's local steps (phase_mesh
         # reads their launches from the dryrun's run)
         dict(name="shard_deinterleave", wrapper=ntt.shard_deinterleave, path="mesh",
@@ -1281,7 +1304,7 @@ def _quotient_batch_case(device) -> dict:
     nc = cfg.num_challenges
     rng = np.random.default_rng(12)
     k = BATCH_K
-    per = [_quotient_args(data, rng, device) for _ in range(k + 1)]
+    per = [_quotient_rec(data, _quotient_args(data, rng, device), device) for _ in range(k + 1)]
     args, args17 = _stacked(per, k), _stacked(per, k + 1)
     cpu, cpu17 = _stacked(per, k, "cpu"), _stacked(per, k + 1, "cpu")
     # the K = 16 ZK leaf batch: the stacked LDEs of the salted commits, (16,
@@ -1292,6 +1315,7 @@ def _quotient_batch_case(device) -> dict:
     zk_per = [_quotient_args(zk, rng, device) for _ in range(k)]
     for a in zk_per:
         a[:2] = [torch.cat([t, _felts((SALT_SIZE, zk_m), rng, device)]) for t in a[:2]]
+    zk_per = [_quotient_rec(zk, a, device) for a in zk_per]
     zk_args, zk_cpu = _stacked(zk_per, k), _stacked(zk_per, k, "cpu")
     _, ops = _quotient_work(data)
     zrows = per[0][1].shape[0]
@@ -1321,8 +1345,8 @@ def _permutation_batch_case(device) -> dict:
     cfg = data.config
     rng = np.random.default_rng(13)
     k = BATCH_K
-    per = [_permutation_args(data, rng, device,
-                             zeros=[(0, 17, 3), (1, 255, 79)] if i in (2, k) else ())
+    per = [_permutation_rec(data, _permutation_args(
+        data, rng, device, zeros=[(0, 17, 3), (1, 255, 79)] if i in (2, k) else ()), device)
            for i in range(k + 1)]
     args, args17 = _stacked(per, k), _stacked(per, k + 1)
     cpu, cpu17 = _stacked(per, k, "cpu"), _stacked(per, k + 1, "cpu")
@@ -1495,20 +1519,24 @@ def _composition_batch_case(device) -> dict:
 
     c = _fri_batch_leaf_case(device, seed=21)
     k, a = BATCH_K, c["schedule"][0]
+    polys = tuple(b.polys for b in c["instances"][0].batches)
+    inputs = {dev: fri.composition_inputs(c["instances"], c["openings"], c["alphas"], dev)
+              for dev in (device, "cpu")}
 
-    def args(oracles, n):
-        return (oracles[:n], c["instances"][:n], c["openings"][:n], c["alphas"][:n],
-                c["lde_bits"], a)
+    def args(oracles, n, dev=device):
+        ys, rec = inputs[dev]
+        return (oracles[:n], polys, ys[:n], rec[:n], c["lde_bits"], a)
 
     work = _composition_work(c["instances"][0], 1 << c["lde_bits"])
     return dict(
         run=lambda: fri.compute_composition_batch(*args(c["oracles"], k)),
-        plain=lambda: fri.compute_composition_batch_plain(*args(c["cpu"], k)), plain_on_host=True,
+        plain=lambda: fri.compute_composition_batch_plain(*args(c["cpu"], k, "cpu")),
+        plain_on_host=True,
         check=lambda: ([fri.compute_composition_batch(*args(c["oracles"], n)) for n in (k, k + 1)],
-                       [fri.compute_composition_batch_plain(*args(c["cpu"], n))
+                       [fri.compute_composition_batch_plain(*args(c["cpu"], n, "cpu"))
                         for n in (k, k + 1)]),
-        singles=lambda: [_staged_composition(*x, c["lde_bits"], a)
-                         for x in zip(*args(c["oracles"], k)[:4])],
+        singles=lambda: [_staged_composition(*x, c["lde_bits"], a) for x in zip(
+            c["oracles"][:k], c["instances"], c["openings"], c["alphas"])],
         bytes=k * work[0], ops=k * work[1],
     )
 
@@ -1518,29 +1546,23 @@ def _openings_batch_case(device) -> dict:
     coefficient rows of each proof at its own zeta and the Z rows at its
     g * zeta; checked at K = 16 and 17 against the plain version on CPU
     copies; timed beside 16 single calls. Its work: 16 times a proof's."""
-    import numpy as np
-    import torch
-
     from qp_zk_circuits_tpu_torch.fri import oracle as fo
 
     c = _fri_batch_leaf_case(device, seed=22)
     k, nz = BATCH_K, c["nz"]
     n = c["oracles"][0][0].coeffs.shape[1]
     rows = sum(o.coeffs.shape[0] for o in c["oracles"][0])
+    rec = {dev: fo.point_records(dev, c["zetas"], c["zeta_nexts"]) for dev in (device, "cpu")}
 
-    def run(oracles, count, fn=fo.eval_openings_batch):
-        return fn(oracles[:count], c["zetas"][:count], c["zeta_nexts"][:count], 2, nz)
-
-    def joined(results):
-        return torch.as_tensor(np.concatenate(
-            [np.concatenate(list(parts) + [nxt]) for parts, nxt in results]).view(np.int64))
+    def run(oracles, count, fn=fo.eval_openings_batch, dev=device):
+        return fn(oracles[:count], rec[dev][:count], 2, nz)
 
     work = openings_work(rows, rows + nz, n)
     return dict(
         run=lambda: run(c["oracles"], k),
-        plain=lambda: run(c["cpu"], k, fo.eval_openings_batch_plain), plain_on_host=True,
-        check=lambda: ([joined(run(c["oracles"], j)) for j in (k, k + 1)],
-                       [joined(run(c["cpu"], j, fo.eval_openings_batch_plain)) for j in (k, k + 1)]),
+        plain=lambda: run(c["cpu"], k, fo.eval_openings_batch_plain, "cpu"), plain_on_host=True,
+        check=lambda: ([run(c["oracles"], j) for j in (k, k + 1)],
+                       [run(c["cpu"], j, fo.eval_openings_batch_plain, "cpu") for j in (k, k + 1)]),
         singles=lambda: [_staged_openings(o, z, zn, 2, nz) for o, z, zn in zip(
             c["oracles"][:k], c["zetas"], c["zeta_nexts"])],
         bytes=k * work[0], ops=k * work[1],
@@ -1554,6 +1576,7 @@ def _fold_batch_case(device) -> dict:
     K = 16 and 17 against the plain version on CPU copies; timed beside 16
     single calls. Its work: 16 times a proof's."""
     from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
 
     c = _fri_batch_leaf_case(device, seed=23)
     k, a, log_m = BATCH_K, c["schedule"][0], c["lde_bits"]
@@ -1561,14 +1584,16 @@ def _fold_batch_case(device) -> dict:
     leaves = _felts((k + 1, m >> a, 2 << a), c["rng"], device)
     cpu = leaves.cpu()
     betas = c["betas"]
+    rec, cpu_rec = fri.beta_records(device, betas), fri.beta_records("cpu", betas)
+    slot = ts.REC_FRI_BETA
     work = fold_work(m, a)
     return dict(
-        run=lambda: fri.fold_round_batch(leaves[:k], betas[:k], a, log_m, 0, 0),
-        plain=lambda: fri.fold_round_batch_plain(cpu[:k], betas[:k], a, log_m, 0, 0),
+        run=lambda: fri.fold_round_batch(leaves[:k], rec[:k], slot, a, log_m, 0, 0),
+        plain=lambda: fri.fold_round_batch_plain(cpu[:k], cpu_rec[:k], slot, a, log_m, 0, 0),
         plain_on_host=True,
-        check=lambda: ([fri.fold_round_batch(leaves[:j], betas[:j], a, log_m, 0, 0)
+        check=lambda: ([fri.fold_round_batch(leaves[:j], rec[:j], slot, a, log_m, 0, 0)
                         for j in (k, k + 1)],
-                       [fri.fold_round_batch_plain(cpu[:j], betas[:j], a, log_m, 0, 0)
+                       [fri.fold_round_batch_plain(cpu[:j], cpu_rec[:j], slot, a, log_m, 0, 0)
                         for j in (k, k + 1)]),
         singles=lambda: [_staged_fold(leaves[i], betas[i], a, log_m, 0, 0) for i in range(k)],
         bytes=k * work[0], ops=k * work[1],
@@ -1993,6 +2018,199 @@ def _grind_case(device) -> dict:
     perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
     return dict(run=run, plain=plain, check=check, device=events_ms, witness=witness,
                 bytes=8 * (ts.TS_WORDS + 4), ops=(witness + 1) * perm_ops)
+
+
+def _leaf_schedule_batch(ts, states, src: dict, out: dict, g: int):
+    """`_leaf_schedule` for K transcripts at once (DeviceChallengerBatch):
+    `src`'s tensors with a leading proof axis (the digest one (4,) vector
+    read by all), `out`'s (K, n) rows. Returns the challenger."""
+    ch = ts.DeviceChallengerBatch(states)
+    k = len(ch)
+    ch.segment(observe=[(src["digest"].expand(k, -1), None), (src["pi"], None),
+                        (src["caps"][0], out["caps"][0])],
+               squeeze=[(out["betas"], 0), (out["gammas"], 0)])
+    ch.segment(observe=[(src["caps"][1], out["caps"][1])], squeeze=[(out["alphas"], 0)])
+    ch.segment(observe=[(src["caps"][2], out["caps"][2])], squeeze=[(out["zeta"], 0)],
+               scale=(out["zeta_next"], g))
+    ch.segment(observe=[(src["openings"], None)], squeeze=[(out["fri_alpha"], 0)])
+    for r, cap in enumerate(src["fri_caps"]):
+        ch.segment(observe=[(cap, None)], squeeze=[(out["fri_betas"][:, 2 * r : 2 * r + 2], 0)])
+    ch.segment(observe=[(src["final"][:, :, : src["final_len"]].transpose(1, 2), None)])
+    ch.segment(observe=[(src["witness"], out["pow"][:, :1])],
+               squeeze=[(out["pow"][:, 1:], 0), (out["indices"], src["lde_bits"])])
+    return ch
+
+
+def _transcript_batch_case(device) -> dict:
+    """Kernel I with a proof axis at the leaf proof's whole schedule for K =
+    16 transcripts (timed) and 17 (checked), each proof its own seeded
+    random values of the leaf's packed shapes, the states rows of a wider
+    buffer and every output a (K, n) row a proof apart (strided, as the
+    fused batch's record and part-major output are), against the plain
+    version on CPU copies: every challenge, index, copied cap, the final
+    states; one launch a segment for all K. Bound: the dependent chain, one
+    transcript's permutations in series (the K run side by side while K is
+    at most the SM count), far above K proofs' bytes and operations."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+    from qp_zk_circuits_tpu_torch.fri import prover as fri
+    from qp_zk_circuits_tpu_torch.plonk import prover_fused as tfused
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
+
+    data = _leaf_data(device)
+    views = tfused.fused_bundle(data).packer.views(np.zeros(tfused.fused_bundle(data).packer.size))
+    rng = np.random.default_rng(34)
+    rounds = len([k for k in views if k.startswith("fri_cap_")])
+    nc = data.config.num_challenges
+    kk = BATCH_K + 1
+
+    def felts(shape):
+        return F.rand_felts((kk,) + tuple(shape), rng)
+
+    host = dict(digest=F.rand_felts((4,), rng), pi=felts((4,)),
+                caps=[felts(views[k].shape) for k in ("wires_cap", "zs_pp_cap", "quotient_cap")],
+                openings=felts(views["openings"].shape),
+                fri_caps=[felts(views[f"fri_cap_{r}"].shape) for r in range(rounds)],
+                final=felts(views["final_poly"].shape), witness=felts((1,)))
+    final_len = fri._final_len(data.config.fri_config, data.degree_bits)
+    lde_bits = data.degree_bits + data.config.rate_bits
+    g = int(F.primitive_root_of_unity(data.degree_bits))
+    sizes = dict(betas=nc, gammas=nc, alphas=nc, zeta=2, zeta_next=2, fri_alpha=2,
+                 fri_betas=2 * rounds, pow=2, indices=views["query_indices"].shape[0])
+    cap_sizes = [c[0].size for c in host["caps"]]
+    width = sum(sizes.values()) + sum(cap_sizes) + 3  # rows a little wider than their parts
+
+    def inputs(dev, k):
+        def t(a):
+            return gl.from_u64(np.ascontiguousarray(a[:k]), dev)
+        return dict(digest=gl.from_u64(host["digest"], dev), pi=t(host["pi"]),
+                    caps=[t(c) for c in host["caps"]], openings=t(host["openings"]),
+                    fri_caps=[t(c) for c in host["fri_caps"]], final=t(host["final"]),
+                    witness=t(host["witness"]), final_len=final_len, lde_bits=lde_bits)
+
+    def outputs(dev, k):
+        flat = torch.zeros((k, width), dtype=torch.int64, device=dev)
+        out, at = {}, 0
+        for name, n in sizes.items():
+            out[name], at = flat[:, at : at + n], at + n
+        out["caps"] = []
+        for n in cap_sizes:
+            out["caps"].append(flat[:, at : at + n])
+            at += n
+        return flat, out
+
+    def states(dev, k):
+        return torch.zeros((k, ts.TS_WORDS + 5), dtype=torch.int64, device=dev)[:, : ts.TS_WORDS]
+
+    card_in = {k: inputs(device, k) for k in (BATCH_K, kk)}
+    card_states = {k: states(device, k) for k in (BATCH_K, kk)}
+    card_out = {k: outputs(device, k) for k in (BATCH_K, kk)}
+    perms = []
+
+    def run(k=BATCH_K):
+        card_states[k].zero_()
+        ch = _leaf_schedule_batch(ts, card_states[k], card_in[k], card_out[k][1], g)
+        perms[:] = [ch.permutations]
+        return card_out[k][0]
+
+    def plain(k=BATCH_K):
+        st = states("cpu", k)
+        flat, out = outputs("cpu", k)
+        _leaf_schedule_batch(ts, st, inputs("cpu", k), out, g)
+        return torch.cat([flat, st], 1)
+
+    def check():
+        got, want = [], []
+        for k in (BATCH_K, kk):
+            before = ts.transcript_segment_batch.launches
+            got.append(torch.cat([run(k), card_states[k]], 1))
+            if ts.transcript_segment_batch.launches - before != 6 + rounds:
+                raise AssertionError("kernel I's batch form took other than a launch a segment")
+            want.append(plain(k))
+        return got, want
+
+    run()
+    src_felts = 8 + sum(cap_sizes) + host["openings"][0].size + sum(
+        c[0].size for c in host["fri_caps"]) + 2 * final_len + 1
+    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
+    return dict(run=run, plain=plain, plain_on_host=True, check=check,
+                bytes=8 * BATCH_K * (src_felts + ts.TS_WORDS * 2 + width),
+                ops=BATCH_K * perms[0] * perm_ops, permutations=perms[0],
+                chain_ms=1e3 * perms[0] * PERM_CHAIN * MUL_LATENCY_CYCLES / SM_CLOCK_HZ)
+
+
+#: the seed of the batch grind's transcripts: of its first 16, one's 16-bit
+#: witness lies past 2^17 (216,308) and each past the first chunk of 128
+GRIND_BATCH_SEED = 33
+
+
+def _grind_batch_case(device) -> dict:
+    """Kernel J over K = 16 leaf transcripts (timed) and 17 (checked) at 16
+    bits, each transcript 13 seeded felts observed (5 in its input buffer):
+    each proof's lowest witness against the plain version run on the card
+    (sweeps of 2^17 for the proofs still open), one witness past the first
+    2^17 candidates and each past the first chunk; with the limit between
+    the witnesses, the proofs below it keep theirs and the rest find none.
+    Timed from reset words, by CUDA events. Bound: operations, a
+    permutation for each candidate up to each proof's witness, summed over
+    the K proofs."""
+    import numpy as np
+    import torch
+
+    from qp_zk_circuits_tpu_torch.field import gf_np as F
+    from qp_zk_circuits_tpu_torch.field import goldilocks as gl
+    from qp_zk_circuits_tpu_torch.plonk import transcript as ts
+
+    bits, k = 16, BATCH_K
+    states = torch.zeros((k + 1, ts.TS_WORDS), dtype=torch.int64, device=device)
+    ch = ts.DeviceChallengerBatch(states)
+    ch.segment(observe=[(gl.from_u64(F.rand_felts((k + 1, 13), np.random.default_rng(
+        GRIND_BATCH_SEED)), device), None)])
+    init = torch.tensor([[0, -1]] * (k + 1), dtype=torch.int64, device=device)
+    words = init.clone()
+
+    def run():
+        words.copy_(init)
+        ts.grind_device_batch(states[:k], ch.in_len, bits, words[:k])
+        return words[:k, 1]
+
+    def grind(fn, n, limit=None):
+        w = init[:n].clone()
+        fn(states[:n], ch.in_len, bits, w, limit)
+        return w[:, 1]
+
+    def plain():
+        return grind(ts.grind_batch_plain, k)
+
+    def check():
+        got = run().clone()
+        want = plain()
+        found = sorted(int(x) for x in want)
+        if found[-1] < 1 << 17 or found[0] < 128:
+            raise AssertionError(f"the batch grind's witnesses {found} do not reach past 2^17 "
+                                 "and the first chunk")
+        limit = found[k // 2] // 128 * 128
+        return ([got, grind(ts.grind_device_batch, k + 1), grind(ts.grind_device_batch, k, limit)],
+                [want, grind(ts.grind_batch_plain, k + 1), grind(ts.grind_batch_plain, k, limit)])
+
+    def events_ms(runs=20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        times = []
+        for _ in range(runs):
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    witnesses = [int(x) for x in plain()]
+    perm_ops = PERM_MULS * OPS_MUL + PERM_ADDS * OPS_ADD
+    return dict(run=run, plain=plain, check=check, device=events_ms, witnesses=witnesses,
+                bytes=8 * k * (ts.TS_WORDS + 4), ops=sum(w + 1 for w in witnesses) * perm_ops)
 
 
 #: the ZK leaf (the private batch's config on the leaf circuit): 135 wires,
@@ -2892,6 +3110,254 @@ def _fused_launches(label: str, kernels, launches: dict, data, device_rng: bool)
                              f"{limits}: {off}, kernel 1 {kernel1}")
 
 
+def _fused_batch_limits(k: int, rounds: int) -> dict:
+    """The launch limits of a fused batch of k leaf proofs: the staged
+    batch's stages (`_batch_limits`: a stacked kernel-3 call a commit and
+    the final polynomials, a forest a commit and a FRI round, A-F a launch
+    a group of 16), kernel I's batch form once a segment for all k (the
+    three commits, the openings, each FRI round, the final polynomial, the
+    witness and indices), kernel J's once; no single-proof transcript or
+    grind, no staged grind's permute."""
+    return {**_batch_limits(k, rounds), "poseidon2_permute": (0, 0),
+            "transcript_batch": (6 + rounds, 6 + rounds), "grind_batch": (1, 1)}
+
+
+def _check_fused_batch_launches(label: str, kernels, launches: dict, k: int, rounds: int,
+                                chunks: int = 1) -> None:
+    """Every stage of `chunks` fused batches of k proofs within
+    `_fused_batch_limits`, kernel 1 at most five times a batch."""
+    limits = {n: (chunks * lo, chunks * hi) for n, (lo, hi) in _fused_batch_limits(
+        k, rounds).items()}
+    off = {n: launches[n] for n, (lo, hi) in limits.items() if not lo <= launches[n] <= hi}
+    kernel1 = sum(launches[x["name"]] for x in kernels if x.get("kernel1"))
+    if off or kernel1 > 5 * chunks:
+        raise AssertionError(f"{label}: launches outside their limits {limits}: {off}, "
+                             f"kernel 1 {kernel1}")
+
+
+def phase_fused_batch(kernels, prover, zk_leaf) -> None:
+    """The JAX package's default batch and stream (plonk/prover_fused.py::
+    prove_fused_batch, prove_fused_stream) through `prove_batch`'s and
+    `prove_stream`'s own dispatch (QZKT_STAGED_PROVER lifted), on the
+    [fused] phase's leaf prover:
+
+      * fused leaf batches of the two real spends of
+        two_real_leaves_same_block(), alternating, at K = 1, 4, 16 (cold and
+        warm), 17 and 33, and a 48-leaf fused stream in chunks of 16 from a
+        generator, each with the counts at 0 just before it and read just
+        after: every proof equals its fixture (leaf_proof_real0/1.bin) and
+        the port's verifier accepts it; one upload and one download a batch
+        (a chunk: the stream's three uploads alternate two pinned slots);
+        every stage within `_fused_batch_limits`; the warm K = 16 batch's
+        library launches printed (at most BATCH_LAUNCHES_MAX) and its
+        host<->device copies (torch.profiler: one each way); the kernel
+        table's batch rows of kernels I and J take their launches from it;
+      * a host-rng ZK batch of the ZK leaf of [zk], K = 4 (seed 7), equal to
+        the staged batch (`prove_from_traces`) of the same seed, accepted;
+      * per-proof ms of the warm fused K = 16 batch, the fused 48-stream,
+        the staged K = 16 batch and the single fused proof, each from its
+        inputs (the witness fill included), in alternating turns on the
+        host clock (medians, min, max), the fused batch's and the stream's
+        host split (`_last_prove_timings`; the stream's fill runs in its
+        witness and pack, the batch's before it) and the fused batch's
+        device busy share, beside the card."""
+    import torch
+
+    from qp_zk_circuits_tpu_torch.plonk import prover as tprover
+    from qp_zk_circuits_tpu_torch.plonk import prover_fused as tfused
+    from qp_zk_circuits_tpu_torch.plonk.serialization import proof_from_bytes, proof_to_bytes
+    from qp_zk_circuits_tpu_torch.tools.profile_leaf import _device_profile
+    from qp_zk_circuits_tpu_torch.tools.timing import card
+    from qp_zk_circuits_tpu_torch.wormhole.test_helpers import (
+        test_inputs_0,
+        two_real_leaves_same_block,
+    )
+    from qp_zk_circuits_tpu_torch.wormhole.verifier import WormholeVerifier
+
+    t_phase = time.perf_counter()
+    meta = json.loads(FIXTURE_META.read_text())
+    names = ("leaf_proof_real0.bin", "leaf_proof_real1.bin")
+    want = [FIXTURE.parent.joinpath(n).read_bytes() for n in names]
+    for name, blob in zip(names, want):
+        if len(blob) != meta[name]["len"] or hashlib.sha256(blob).hexdigest() != meta[name]["sha256"]:
+            raise AssertionError(f"{name} is not the committed fixture")
+    leaves = two_real_leaves_same_block()
+    inputs = [leaves[i % 2] for i in range(STREAM_LEN)]
+    verifier = WormholeVerifier(prover.data)
+    rounds = len(prover.data.config.fri_config.reduction_strategy.schedule(
+        prover.data.degree_bits))
+    transfers = []
+    saved = tfused._upload, tfused._download
+
+    def upload(flat, b, slot=0):
+        transfers.append(("up", slot))
+        return saved[0](flat, b, slot)
+
+    def download(*args):
+        transfers.append(("down",))
+        return saved[1](*args)
+
+    def run(label, fn, count, chunk):
+        """fn() with the counts at 0 and the transfers recorded: the bytes,
+        the verifier, one upload and one download a chunk, the launch
+        limits; returns (s, launches)."""
+        del transfers[:]
+        proofs, took, launches = _counted(kernels, fn)
+        if len(proofs) != count:
+            raise AssertionError(f"[fused batch] {label}: {len(proofs)} proofs for {count}")
+        for i, proof in enumerate(proofs):
+            if proof_to_bytes(proof) != want[i % 2]:
+                raise AssertionError(f"[fused batch] {label}: proof {i} differs from its fixture")
+            verifier.verify(proof)
+        chunks = count // chunk
+        ups = [t[1] for t in transfers if t[0] == "up"]
+        if len(ups) != chunks or len(transfers) != 2 * chunks or ups != [i % 2 for i in range(
+                chunks)]:
+            raise AssertionError(f"[fused batch] {label}: transfers {transfers}")
+        if prover.data.__dict__["_last_prove_timings"]["proofs"] != count:
+            raise AssertionError(f"[fused batch] {label} did not take the fused batch")
+        _check_fused_batch_launches(f"[fused batch] {label}", kernels, launches, chunk, rounds,
+                                    chunks)
+        return took, launches
+
+    with _prover_env(staged=False):
+        tfused._upload, tfused._download = upload, download
+        try:
+            cold_s, _ = run("cold K = 16", lambda: prover.prove_inputs_batch(
+                inputs[:BATCH_K], seed=0), BATCH_K, BATCH_K)
+            warm_s, launches = run(f"K = {BATCH_K}", lambda: prover.prove_inputs_batch(
+                inputs[:BATCH_K], seed=0), BATCH_K, BATCH_K)
+            others = []
+            for k in (1, 4, BATCH_K + 1, 2 * BATCH_K + 1):
+                took, other = run(f"K = {k}", lambda k=k: prover.prove_inputs_batch(
+                    inputs[:k], seed=0), k, k)
+                others.append(f"K = {k} {1e3 * took:.1f} ms, {sum(other.values())} launches")
+            stream_s, stream_launches = run(
+                f"stream of {STREAM_LEN}", lambda: prover.prove_inputs_stream(
+                    (x for x in inputs), batch=BATCH_K, seed=0), STREAM_LEN, BATCH_K)
+        finally:
+            tfused._upload, tfused._download = saved
+        for k in kernels:
+            if k.get("path") == "fused_batch":
+                k["launches"] = launches[k["name"]]
+        total = sum(launches.values())
+        missing = [k["name"] for k in kernels if k.get("path") in ("batch", "fused_batch")
+                   and launches[k["name"]] <= 0]
+        if missing or total > BATCH_LAUNCHES_MAX:
+            raise AssertionError(f"[fused batch] K = {BATCH_K}: {total} library launches (at "
+                                 f"most {BATCH_LAUNCHES_MAX}); not launched: {missing}")
+        copies = _copies(lambda: prover.prove_inputs_batch(inputs[:BATCH_K], seed=0))
+        if (copies["calls"], copies["DtoH"], copies["DtoD"]) != (2.0, 1.0, 0.0):
+            raise AssertionError(f"[fused batch] a warm K = {BATCH_K} batch's copies: {copies}")
+        print(f"[fused batch] leaf batches of the two real spends: K = {BATCH_K} cold "
+              f"{1e3 * cold_s:.1f} ms, warm {1e3 * warm_s:.1f} ms; {'; '.join(others)}; stream "
+              f"of {STREAM_LEN} in chunks of {BATCH_K} {1e3 * stream_s:.1f} ms, "
+              f"{sum(stream_launches.values())} launches; every proof == its fixture and "
+              f"accepted, one upload and one download a batch (a chunk; the stream's uploads "
+              f"alternate two slots); warm K = {BATCH_K}: {total} library launches (at most "
+              f"{BATCH_LAUNCHES_MAX}): {', '.join(f'{n}={v}' for n, v in launches.items() if v)}; "
+              f"copies {copies}", flush=True)
+
+        # the host-rng ZK batch against the staged batch of its seed
+        zk_pws = [zk_leaf._partial_witness(leaves[i % 2]) for i in range(4)]
+        zk_fused = [proof_to_bytes(p) for p in tprover.prove_batch(zk_leaf.data, zk_pws,
+                                                                     seed=ZK_SEED)]
+        if zk_leaf.data.__dict__["_last_prove_timings"].get("proofs") != 4:
+            raise AssertionError("[fused batch] the ZK batch did not take the fused batch")
+        with _prover_env(staged=True):
+            zk_staged = [proof_to_bytes(p) for p in tprover.prove_batch(zk_leaf.data, zk_pws,
+                                                                          seed=ZK_SEED)]
+        if zk_fused != zk_staged or len(set(zk_fused)) != 4:
+            raise AssertionError("[fused batch] the host-rng ZK batch differs from the staged "
+                                 "batch of its seed")
+        zk_verifier = WormholeVerifier(zk_leaf.data)
+        for blob in zk_fused:
+            zk_verifier.verify(proof_from_bytes(blob))
+        print(f"[fused batch] ZK leaf batch, K = 4, host rng (seed {ZK_SEED}): == the staged "
+              f"batch of its seed, accepted", flush=True)
+
+        # per-proof times in turns, each from the inputs (the witness fill included)
+        single_inputs = test_inputs_0()
+
+        def staged_batch():
+            with _prover_env(staged=True):
+                return prover.prove_inputs_batch(inputs[:BATCH_K], seed=0)
+
+        batch_name, stream_name = f"fused K = {BATCH_K}", f"fused stream {STREAM_LEN}"
+        cases = {
+            batch_name: (BATCH_K, lambda: prover.prove_inputs_batch(inputs[:BATCH_K], seed=0)),
+            stream_name: (STREAM_LEN, lambda: prover.prove_inputs_stream(
+                (x for x in inputs), batch=BATCH_K, seed=0)),
+            f"staged K = {BATCH_K}": (BATCH_K, staged_batch),
+            "fused single": (1, lambda: prover.prove_inputs(single_inputs, seed=0)),
+        }
+        ms = {name: [] for name in cases}
+        splits = {batch_name: [], stream_name: []}
+        # what each turn spent outside the prover: the interpreter's cyclic
+        # collections (gc.callbacks) and the CUDA caching allocator's
+        # cudaMalloc calls and retries (torch.cuda.memory_stats)
+        turns = {name: [] for name in cases}
+        collecting = {"start": 0.0, "s": 0.0, "full": 0}
+
+        def on_gc(phase, info):
+            if phase == "start":
+                collecting["start"] = time.perf_counter()
+                return
+            collecting["s"] += time.perf_counter() - collecting["start"]
+            collecting["full"] += info["generation"] == 2
+
+        def allocator():
+            stats = torch.cuda.memory_stats()
+            return stats.get("num_device_alloc", -1), stats.get("num_alloc_retries", -1)
+
+        order = list(cases)
+        gc.callbacks.append(on_gc)
+        try:
+            for r in range(6):
+                for name in (order if r % 2 == 0 else order[::-1]):
+                    count, fn = cases[name]
+                    gc_before, full_before = collecting["s"], collecting["full"]
+                    alloc_before = allocator()
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ms[name].append(1e3 * (time.perf_counter() - t) / count)
+                    alloc = allocator()
+                    turns[name].append(dict(
+                        turn=r, ms=round(ms[name][-1], 3),
+                        gc_ms=round(1e3 * (collecting["s"] - gc_before), 3),
+                        full_collections=collecting["full"] - full_before,
+                        cuda_mallocs=alloc[0] - alloc_before[0],
+                        alloc_retries=alloc[1] - alloc_before[1]))
+                    if name in splits:
+                        splits[name].append(dict(prover.data.__dict__["_last_prove_timings"]))
+                        turns[name][-1]["split"] = {
+                            key: splits[name][-1][key] for key in (
+                                "witness_pack_s", "upload_s", "dispatch_s", "execute_fetch_s",
+                                "unpack_s", "chunk_s") if key in splits[name][-1]}
+        finally:
+            gc.callbacks.remove(on_gc)
+        for name, v in turns.items():
+            slow = max(v, key=lambda x: x["ms"])
+            print(f"[fused batch] {name}: ms a proof by turn {[x['ms'] for x in v]}; the "
+                  f"slowest turn {slow}; collections over the 6 turns "
+                  f"{sum(x['gc_ms'] for x in v):.1f} ms, "
+                  f"{sum(x['full_collections'] for x in v)} of them full", flush=True)
+        prof = _device_profile(cases[batch_name][1])
+        busy = ("device not measured" if prof["device_ms"] is None else
+                f"device {prof['device_ms']:.3f} ms in {prof['device_launches']} device launches, "
+                f"busy {100 * prof['device_ms'] / prof['profiled_wall_ms']:.1f} % of a profiled "
+                f"{prof['profiled_wall_ms']:.2f} ms")
+        keys = ("witness_pack_s", "upload_s", "dispatch_s", "execute_fetch_s", "unpack_s")
+        split = {name: {key: statistics.median(x[key] for x in v) for key in keys}
+                 for name, v in splits.items()}
+        print(f"[fused batch] ms a proof in turns, 6 each (median, min, max): " + "; ".join(
+            f"{name} {statistics.median(v):.3f} ({min(v):.3f}, {max(v):.3f})"
+            for name, v in ms.items()) + f"; fused K = {BATCH_K} {busy}; host split (medians, "
+              f"s, a batch and a stream) {split}; {card()}", flush=True)
+    print(f"[fused batch] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def phase_fused_aggregation(kernels, built) -> None:
     """The aggregation circuits on the fused prover, as the miner's service
     proves them:
@@ -3011,12 +3477,14 @@ def _single_limits(rounds: int) -> dict:
             "fri_composition": (1, 2),
             "eval_openings": (1, 1), "fri_fold": (rounds, rounds), "query_gather": (1, 1),
             "poseidon2_merkle_tree": (trees, 2 * trees), "poseidon2_two_to_one": (0, 0),
-            "rand_felts": (0, 0), **{name: (0, 0) for name in BATCH_FRI}}
+            "rand_felts": (0, 0), **{name: (0, 0) for name in BATCH_FRI + FUSED_BATCH}}
 
 
 #: the batch path's FRI kernels with a proof axis: a single proof runs none
 BATCH_FRI = ("fri_composition_batch", "eval_openings_batch", "fri_fold_batch",
              "query_gather_batch")
+#: kernels I and J with a proof axis: only the fused batch runs them
+FUSED_BATCH = ("transcript_batch", "grind_batch")
 #: a K = 16 leaf batch's library launches at most (129 when C, D, E, F, the
 #: round's tree and the final iNTT ran once a proof: seven a proof)
 BATCH_LAUNCHES_MAX = 30
@@ -3045,7 +3513,8 @@ def _batch_limits(k: int, rounds: int) -> dict:
             "query_gather": (0, 0), "fri_composition_batch": (groups, groups),
             "eval_openings_batch": (groups, 2 * groups),
             "fri_fold_batch": (rounds * groups, rounds * groups),
-            "query_gather_batch": (groups, groups), "rand_felts": (0, 0)}
+            "query_gather_batch": (groups, groups), "rand_felts": (0, 0),
+            "transcript": (0, 0), "grind": (0, 0), **{name: (0, 0) for name in FUSED_BATCH}}
 
 
 def _check_batch_launches(label: str, kernels, launches: dict, proofs, rounds: int,
@@ -4066,8 +4535,9 @@ def phase_service(kernels, built: dict) -> None:
     prover, as the service runs them:
 
       * four real spends of one block (`n_real_leaves_same_block(4)`)
-        proven as one batch (`prove_inputs_batch`, K = 4: the FRI tail's
-        proof axis), within the batch's launch limits, each accepted;
+        proven as one fused batch (`prove_inputs_batch`, K = 4: one upload
+        and one download, kernels I and J with a proof axis), within the
+        fused batch's launch limits, each accepted;
       * folded into two private batches (the warm private prover);
       * `PublicBatchAggregator.from_binaries_dir` over the canonical
         artifact set of those circuits (`_write_bins`; the private batch's
@@ -4102,7 +4572,7 @@ def phase_service(kernels, built: dict) -> None:
         leaf_prover.data.degree_bits))
     leaves, steps["prove 4 leaves (batch)"], launches = _counted(
         kernels, lambda: leaf_prover.prove_inputs_batch(spends, seed=0))
-    _check_batch_launches("[service] leaf batch", kernels, launches, leaves, rounds, len(spends))
+    _check_fused_batch_launches("[service] leaf batch", kernels, launches, len(spends), rounds)
     leaf_verifier = WormholeVerifier(leaf_prover.data)
     for proof in leaves:
         leaf_verifier.verify(proof)
@@ -4579,7 +5049,8 @@ def main() -> int:
     phase_aggregation_rand("cuda")
     phase_recursion(kernels)
     built = phase_aggregation(kernels)
-    phase_fused(kernels, zk_leaf)
+    fused_leaf = phase_fused(kernels, zk_leaf)
+    phase_fused_batch(kernels, fused_leaf, zk_leaf)
     phase_fused_aggregation(kernels, built)
     with _prover_env(staged=False):
         phase_service(kernels, built)

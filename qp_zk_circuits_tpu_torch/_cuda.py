@@ -48,8 +48,8 @@ _ENTRIES = {
     "qzk_fri_fold": [_P, _P, _P, _LL, _I, _P, _LL, _I, _I, _I, _P],
     "qzk_query_gather": [_P, _P],
     "qzk_transcript_set_constants": [_P, _P, _P],
-    "qzk_transcript": [_P, _P],
-    "qzk_grind": [_P, _I, _I, _P, _LL, _P],
+    "qzk_transcript_batch": [_P, _I, _P],
+    "qzk_grind_batch": [_P, _LL, _I, _I, _P, _LL, _I, _LL, _P],
     "qzk_rand_felts": [_P, _LL, _LL, _LL, _LL, _ULL, _ULL, _I, _P],
     "qzk_shard_deinterleave": [_P, _P, _LL, _I, _P],
     "qzk_shard_cross_ntt": [_P, _P, _LL, _I, _P, _ULL, _P],

@@ -119,15 +119,18 @@ def commit(values, rate_bits: int, cap_height: int, device=None,
 
 
 def commit_batch(values: torch.Tensor, rate_bits: int, cap_height: int,
-                 from_values: bool = False, salts=None) -> list[PolynomialBatch]:
+                 from_values: bool = False, salts=None,
+                 host_cap: bool = True) -> list[PolynomialBatch]:
     """`commit` for K batches of C polynomials of one shape, values (K, C, N)
     on the device: the K C columns stacked into one kernel-3 iNTT (when
     `from_values`) and one LDE, then one kernel-2 forest over the K LDEs read
-    in place. `salts`: a host (K, M, SALT_SIZE) array (one upload), a list
-    of K `random.Draw`s, or None; salted, the LDE buffer is (K, C +
-    SALT_SIZE, M), kernel 3 writing each batch's first C rows in the same
-    launch. Returns K `PolynomialBatch` views of the stacked coefficients
-    and LDE, each with its tree."""
+    in place. `salts`: a host (K, M, SALT_SIZE) array (one upload), a (K,
+    SALT_SIZE, M) device tensor (the fused batch's upload, one copy on the
+    device), a list of K `random.Draw`s, or None; salted, the LDE buffer is
+    (K, C + SALT_SIZE, M), kernel 3 writing each batch's first C rows in the
+    same launch. `host_cap=False` (the fused batch) leaves the caps on the
+    device (`merkle.forest_caps`). Returns K `PolynomialBatch` views of the
+    stacked coefficients and LDE, each with its tree."""
     k, c, n = values.shape
     degree_bits = n.bit_length() - 1
     if 1 << degree_bits != n:
@@ -140,12 +143,12 @@ def commit_batch(values: torch.Tensor, rate_bits: int, cap_height: int,
     lde = torch.empty((k, c + salt_rows, n << rate_bits), dtype=torch.int64,
                       device=values.device)
     ntt.coset_lde(coeffs, rate_bits, out=lde[:, :c])
-    if isinstance(salts, np.ndarray):
+    if isinstance(salts, (np.ndarray, torch.Tensor)):
         _fill_salt(salts, lde[:, c:])
     elif salts is not None:
         for i, salt in enumerate(salts):
             _fill_salt(salt, lde[i, c:])
-    trees = merkle.build_merkle_forest(lde.transpose(1, 2), cap_height)
+    trees = merkle.build_merkle_forest(lde.transpose(1, 2), cap_height, host_cap=host_cap)
     return [PolynomialBatch(coeffs=coeffs[i * c : (i + 1) * c], lde=lde[i], tree=tree,
                             degree_bits=degree_bits, rate_bits=rate_bits,
                             blinding=salts is not None)
@@ -258,51 +261,49 @@ def eval_openings(oracles, rec, next_oracle: int = 2, next_count: int = 0, out=N
     return values[0]
 
 
-def eval_openings_batch_plain(oracles_k, zetas, zeta_nexts, next_oracle: int = 2,
-                              next_count: int = 0):
+def eval_openings_batch_plain(oracles_k, rec, next_oracle: int = 2, next_count: int = 0,
+                              out=None):
     """Plain torch version of `eval_openings_batch` (same arguments and
-    result): `eval_openings_plain` a proof."""
-    _openings_batch_limits(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
-    rec = point_records(oracles_k[0][0].coeffs.device, zetas, zeta_nexts)
-    return [split_openings(gl.to_u64(eval_openings_plain(o, r, next_oracle, next_count)), o,
-                           next_count) for o, r in zip(oracles_k, rec)]
+    result): `eval_openings_plain` a proof, stacked."""
+    _openings_batch_limits(oracles_k, rec, next_oracle, next_count)
+    values = torch.stack([eval_openings_plain(o, r, next_oracle, next_count)
+                          for o, r in zip(oracles_k, rec)])
+    if out is None:
+        return values
+    if out.shape != values.shape:
+        raise ValueError(f"openings output {tuple(out.shape)}, expected {tuple(values.shape)}")
+    return out.copy_(values)
 
 
-def eval_openings_batch(oracles_k, zetas, zeta_nexts, next_oracle: int = 2,
-                        next_count: int = 0):
+def eval_openings_batch(oracles_k, rec, next_oracle: int = 2, next_count: int = 0,
+                        out=None) -> torch.Tensor:
     """`eval_openings` for K proofs of one circuit: oracles_k[i] proof i's
-    oracles (the same shapes for every proof), zetas and zeta_nexts (K, 2)
-    its points. Returns K of `eval_openings`' results.
+    oracles (the same shapes for every proof), its zeta and g * zeta in
+    record rec[i] of rec (K, REC_WORDS) on the device (the fused batch's
+    transcripts write them there; the staged batch uploads its host points,
+    `point_records`). Returns the (K, rows, 2) values on the device, in
+    `out` when given (the fused batch's packed output).
 
     On CUDA coefficients: kernel D with a proof axis, each proof its own
     points and oracles, at most PROOFS_PER_LAUNCH proofs a call (each one
-    launch for rows of at most D_CHUNK coefficients, two above), and one
-    transfer for the batch. On CPU coefficients: the plain version."""
-    _openings_batch_limits(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
+    launch for rows of at most D_CHUNK coefficients, two above). On CPU
+    coefficients: the plain version."""
+    _openings_batch_limits(oracles_k, rec, next_oracle, next_count)
     if oracles_k[0][0].coeffs.device.type == "cpu":
-        return eval_openings_batch_plain(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
-    _cuda.require_cuda_int64(*(o.coeffs for oracles in oracles_k for o in oracles))
-    host, launches = _openings_launches(oracles_k, zetas, zeta_nexts, next_oracle, next_count)
+        return eval_openings_batch_plain(oracles_k, rec, next_oracle, next_count, out)
+    _cuda.require_cuda_int64(rec, *(o.coeffs for oracles in oracles_k for o in oracles))
+    values, launches = _openings_rec_launches(oracles_k, rec, next_oracle, next_count, out)
     eval_openings_batch.launches += launches
-    return [split_openings(h, oracles, next_count) for h, oracles in zip(host, oracles_k)]
+    return values
 
 
-def _openings_batch_limits(oracles_k, zetas, zeta_nexts, next_oracle, next_count) -> None:
-    if not oracles_k or len(zetas) != len(oracles_k) or len(zeta_nexts) != len(oracles_k):
-        raise ValueError(f"{len(oracles_k)} proofs' oracles for {len(zetas)} and "
-                         f"{len(zeta_nexts)} points")
+def _openings_batch_limits(oracles_k, rec, next_oracle, next_count) -> None:
+    if not oracles_k or len(rec) != len(oracles_k):
+        raise ValueError(f"{len(oracles_k)} proofs' oracles for {len(rec)} records")
     shapes = [tuple(tuple(o.coeffs.shape) for o in oracles) for oracles in oracles_k]
     if len(set(shapes)) != 1:
         raise ValueError("the proofs' oracles differ in shape")
     _openings_limits(oracles_k[0], next_oracle, next_count)
-
-
-def _openings_launches(oracles_k, zetas, zeta_nexts, next_oracle, next_count):
-    """Kernel D over K proofs' oracles with host points, written into K
-    records in one copy: ((K, rows, 2) host values, launches)."""
-    rec = point_records(oracles_k[0][0].coeffs.device, zetas, zeta_nexts)
-    out, launches = _openings_rec_launches(oracles_k, rec, next_oracle, next_count)
-    return gl.to_u64(out), launches
 
 
 def _openings_rec_launches(oracles_k, rec, next_oracle, next_count, out=None):

@@ -296,58 +296,45 @@ def compute_composition(oracles, polys_per_batch, ys: torch.Tensor, rec: torch.T
     return out[0]
 
 
-def _composition_batch_limits(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits):
+def _composition_batch_limits(oracles_k, polys_per_batch, ys, rec, lde_bits, arity_bits):
     k = len(oracles_k)
-    if not k or len(instances) != k or len(openings_k) != k or len(alphas) != k:
-        raise ValueError(f"{k} proofs' oracles for {len(instances)} instances, "
-                         f"{len(openings_k)} openings and {len(alphas)} alphas")
+    if not k or len(ys) != k or len(rec) != k:
+        raise ValueError(f"{k} proofs' oracles for {len(ys)} openings and {len(rec)} records")
     if len({tuple(tuple(o.lde.shape) for o in oracles) for oracles in oracles_k}) != 1:
         raise ValueError("the proofs' oracles differ in shape")
-    if len({tuple(b.polys for b in inst.batches) for inst in instances}) != 1:
-        raise ValueError("the proofs' instances open other columns")
-    _composition_limits(oracles_k[0], tuple(b.polys for b in instances[0].batches), lde_bits,
-                        arity_bits)
+    _composition_limits(oracles_k[0], polys_per_batch, lde_bits, arity_bits)
 
 
-def compute_composition_batch_plain(oracles_k, instances, openings_k, alphas, lde_bits: int,
+def compute_composition_batch_plain(oracles_k, polys_per_batch, ys, rec, lde_bits: int,
                                     arity_bits: int = 0) -> torch.Tensor:
     """Plain torch version of `compute_composition_batch` (same arguments):
     `compute_composition_plain` a proof, stacked."""
-    _composition_batch_limits(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits)
-    ys, rec = composition_inputs(instances, openings_k, alphas, oracles_k[0][0].lde.device)
-    polys = tuple(b.polys for b in instances[0].batches)
-    return torch.stack([compute_composition_plain(o, polys, y, r, lde_bits, arity_bits)
+    _composition_batch_limits(oracles_k, polys_per_batch, ys, rec, lde_bits, arity_bits)
+    return torch.stack([compute_composition_plain(o, polys_per_batch, y, r, lde_bits, arity_bits)
                         for o, y, r in zip(oracles_k, ys, rec)])
 
 
-def compute_composition_batch(oracles_k, instances, openings_k, alphas, lde_bits: int,
-                              arity_bits: int = 0) -> torch.Tensor:
-    """`compute_composition` for K proofs of one circuit: oracles_k[i],
-    instances[i] (the same columns, each proof its own points),
-    openings_k[i] and alphas[i] (K, 2) are proof i's. Returns the (K, m >>
-    a, 2^(a+1)) stack of the proofs' first-round leaf rows.
+def compute_composition_batch(oracles_k, polys_per_batch, ys: torch.Tensor, rec: torch.Tensor,
+                              lde_bits: int, arity_bits: int = 0) -> torch.Tensor:
+    """`compute_composition` for K proofs of one circuit, the same columns
+    (polys_per_batch) of each proof's oracles oracles_k[i]: proof i's
+    claimed openings ys[i] of ys (K, terms, 2) and its alpha and points in
+    record rec[i] of rec (K, REC_WORDS) on the device (the fused batch's
+    transcripts write them there; the staged batch uploads its host values,
+    `composition_inputs`). Returns the (K, m >> a, 2^(a+1)) stack of the
+    proofs' first-round leaf rows.
 
     On CUDA LDEs: kernel C with a proof axis, one launch for at most
-    PROOFS_PER_LAUNCH proofs, each proof's points and alpha by value, the
-    claimed values uploaded in one copy. On CPU LDEs: the plain version."""
-    _composition_batch_limits(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits)
+    PROOFS_PER_LAUNCH proofs. On CPU LDEs: the plain version."""
+    _composition_batch_limits(oracles_k, polys_per_batch, ys, rec, lde_bits, arity_bits)
     if oracles_k[0][0].lde.device.type == "cpu":
-        return compute_composition_batch_plain(oracles_k, instances, openings_k, alphas,
-                                               lde_bits, arity_bits)
-    _cuda.require_cuda_int64(*(o.lde for oracles in oracles_k for o in oracles))
-    out, launches = _composition_launches(oracles_k, instances, openings_k, alphas, lde_bits,
-                                          arity_bits)
+        return compute_composition_batch_plain(oracles_k, polys_per_batch, ys, rec, lde_bits,
+                                               arity_bits)
+    _cuda.require_cuda_int64(ys, rec, *(o.lde for oracles in oracles_k for o in oracles))
+    out, launches = _composition_rec_launches(oracles_k, polys_per_batch, ys, rec, lde_bits,
+                                              arity_bits)
     compute_composition_batch.launches += launches
     return out
-
-
-def _composition_launches(oracles_k, instances, openings_k, alphas, lde_bits, arity_bits):
-    """Kernel C over K proofs with host openings, alphas and points, written
-    to the device in one copy each: ((K, m >> a, 2^(a+1)) leaf rows,
-    launches)."""
-    ys, rec = composition_inputs(instances, openings_k, alphas, oracles_k[0][0].lde.device)
-    return _composition_rec_launches(oracles_k, tuple(b.polys for b in instances[0].batches),
-                                     ys, rec, lde_bits, arity_bits)
 
 
 def _composition_rec_launches(oracles_k, polys_per_batch, ys, rec, lde_bits, arity_bits):
@@ -456,46 +443,39 @@ def fold_round(leaves: torch.Tensor, rec: torch.Tensor, beta_slot: int, a_bits: 
     return out[0]
 
 
-def _fold_batch_limits(leaves, betas, a_bits, log_m, next_bits) -> None:
-    if leaves.dim() != 3 or not 1 <= leaves.shape[0] == len(betas):
-        raise ValueError(f"a batch of layers is (K, m', 2^(a+1)) with K betas, got "
-                         f"{tuple(leaves.shape)} and {len(betas)}")
+def _fold_batch_limits(leaves, rec, a_bits, log_m, next_bits) -> None:
+    if leaves.dim() != 3 or not 1 <= leaves.shape[0] == len(rec):
+        raise ValueError(f"a batch of layers is (K, m', 2^(a+1)) with K records, got "
+                         f"{tuple(leaves.shape)} and {len(rec)}")
     _fold_limits(leaves[0], a_bits, log_m, next_bits)
 
 
-def fold_round_batch_plain(leaves, betas, a_bits: int, log_m: int, shift_pow: int,
+def fold_round_batch_plain(leaves, rec, beta_slot: int, a_bits: int, log_m: int, shift_pow: int,
                            next_bits: int = 0) -> torch.Tensor:
     """Plain torch version of `fold_round_batch` (same arguments):
     `fold_round_plain` a proof, stacked."""
-    _fold_batch_limits(leaves, betas, a_bits, log_m, next_bits)
-    rec = beta_records(leaves.device, betas)
-    return torch.stack([fold_round_plain(x, r, ts.REC_FRI_BETA, a_bits, log_m, shift_pow,
-                                         next_bits) for x, r in zip(leaves, rec)])
+    _fold_batch_limits(leaves, rec, a_bits, log_m, next_bits)
+    return torch.stack([fold_round_plain(x, r, beta_slot, a_bits, log_m, shift_pow, next_bits)
+                        for x, r in zip(leaves, rec)])
 
 
-def fold_round_batch(leaves: torch.Tensor, betas, a_bits: int, log_m: int, shift_pow: int,
-                     next_bits: int = 0) -> torch.Tensor:
+def fold_round_batch(leaves: torch.Tensor, rec: torch.Tensor, beta_slot: int, a_bits: int,
+                     log_m: int, shift_pow: int, next_bits: int = 0) -> torch.Tensor:
     """`fold_round` for K proofs of one FRI schedule: leaves (K, m',
-    2^(a+1)), betas (K, 2), each proof its own beta. Returns (K, m' >>
-    next_bits, 2^(next_bits+1)).
+    2^(a+1)), proof i's beta at words beta_slot, beta_slot + 1 of record
+    rec[i] of rec (K, REC_WORDS) on the device (the fused batch's
+    transcripts draw it there; the staged batch uploads its host betas,
+    `beta_records`). Returns (K, m' >> next_bits, 2^(next_bits+1)).
 
     On a CUDA tensor: kernel E with a proof axis, one launch for at most
-    PROOFS_PER_LAUNCH proofs, each proof's beta in its record on the card.
-    On a CPU tensor: the plain version."""
-    _fold_batch_limits(leaves, betas, a_bits, log_m, next_bits)
+    PROOFS_PER_LAUNCH proofs. On a CPU tensor: the plain version."""
+    _fold_batch_limits(leaves, rec, a_bits, log_m, next_bits)
     if leaves.device.type == "cpu":
-        return fold_round_batch_plain(leaves, betas, a_bits, log_m, shift_pow, next_bits)
-    _cuda.require_cuda_int64(leaves)
-    out, launches = _fold_launches(leaves, betas, a_bits, log_m, shift_pow, next_bits)
+        return fold_round_batch_plain(leaves, rec, beta_slot, a_bits, log_m, shift_pow, next_bits)
+    _cuda.require_cuda_int64(leaves, rec)
+    out, launches = _fold_rec_launches(leaves, rec, beta_slot, a_bits, log_m, shift_pow, next_bits)
     fold_round_batch.launches += launches
     return out
-
-
-def _fold_launches(leaves, betas, a_bits, log_m, shift_pow, next_bits):
-    """Kernel E over K proofs' (K, m', 2^(a+1)) layers with host betas,
-    written into K records in one copy: (out, launches)."""
-    rec = beta_records(leaves.device, betas)
-    return _fold_rec_launches(leaves, rec, ts.REC_FRI_BETA, a_bits, log_m, shift_pow, next_bits)
 
 
 def _fold_rec_launches(leaves, rec, beta_slot, a_bits, log_m, shift_pow, next_bits):
@@ -787,22 +767,33 @@ def query_gather(sources: list[GatherSource], indices, out: torch.Tensor | None 
     return packed[0]
 
 
-def query_gather_batch(sources_k: list, indices_k) -> np.ndarray:
+def query_gather_batch(sources_k: list, indices, out: torch.Tensor | None = None):
     """`query_gather` for K proofs whose sources have one shape (a batch's
-    oracles and FRI layers), each with its own query indices: a (K, Q, sum
-    of widths) uint64 array. On CUDA sources: kernel F with a proof axis,
-    one launch for as many proofs as a plan holds (`gather_group`: at most
-    PROOFS_PER_LAUNCH, sixteen leaf proofs), the indices uploaded in one
-    copy, all into pinned host memory, then one synchronize and copy. On
-    CPU sources: the plain version, the kernel's limits checked alike."""
+    oracles and FRI layers), each with its own query indices: (K, Q) int64
+    on the sources' device (the fused batch's transcripts draw them there),
+    or host values, uploaded in one copy (the staged batch's). The rows go
+    into `out` (K, Q, sum of widths) on the device when it is given (the
+    fused batch's packed output), else into one pinned host buffer,
+    returned as a uint64 array after a synchronize of the stream. On CUDA
+    sources: kernel F with a proof axis, one launch for as many proofs as a
+    plan holds (`gather_group`: at most PROOFS_PER_LAUNCH, sixteen leaf
+    proofs). On CPU sources: the plain version, the kernel's limits checked
+    alike."""
     k = len(sources_k)
     groups = _cuda.proof_groups(k, gather_group(len(sources_k[0])))
     if all(s.matrix.device.type == "cpu" for sources in sources_k for s in sources):
         for g0, g1 in groups:
-            pack_gather_plan_batch(sources_k[g0:g1], indices_k[g0:g1])
-        return np.stack([gl.to_u64(query_gather_plain(s, i)) for s, i in zip(sources_k, indices_k)])
-    _cuda.require_cuda_int64(*(s.matrix for sources in sources_k for s in sources))
-    packed, launches = _gather_launches(sources_k, _upload_indices(sources_k, indices_k), groups)
+            _, width = pack_gather_plan_batch(sources_k[g0:g1], indices[g0:g1])
+        rows = torch.stack([query_gather_plain(s, i) for s, i in zip(sources_k, indices)])
+        if out is None:
+            return gl.to_u64(rows)
+        _gather_out(out, (k, len(indices[0]), width))
+        return out.copy_(rows)
+    if not isinstance(indices, torch.Tensor):
+        indices = _upload_indices(sources_k, indices)
+    _cuda.require_cuda_int64(indices, *(s.matrix for sources in sources_k for s in sources),
+                             *(() if out is None else (out,)))
+    packed, launches = _gather_launches(sources_k, indices, groups, out=out)
     query_gather_batch.launches += launches
     return packed
 
@@ -1066,6 +1057,68 @@ def fri_query_phase_fused(oracles, layers, challenger: ts.DeviceChallenger, conf
     query_gather(_gather_sources(oracles, layers), indices_out, rows_out)
 
 
+def fri_commit_phase_fused_batch(oracles_k, polys_per_batch, ys, rec,
+                                 challengers: ts.DeviceChallengerBatch, config: FriConfig,
+                                 degree_bits: int, caps_out: list, final_out: torch.Tensor) -> list:
+    """`fri_commit_phase_fused` for K proofs of one circuit (the fused
+    batch's), nothing read back: kernel C from the claimed openings ys (K,
+    terms, 2) and the records rec (K, REC_WORDS), a launch a group of
+    PROOFS_PER_LAUNCH proofs; then a round at a time one forest for the K
+    layers, whose K caps kernel I observes in one launch straight from the
+    forest's buffer (copying them into caps_out[r], (K, cap * 4)) while
+    drawing the K betas into the records, and kernel E's folds reading
+    them; one stacked final iNTT of the K layers into final_out (K, 2, m_f),
+    whose first coefficients kernel I absorbs there. Returns each round's
+    (leaves (K, m', 2^(a+1)), K trees)."""
+    k = len(oracles_k)
+    lde_bits = degree_bits + config.rate_bits
+    schedule = config.reduction_strategy.schedule(degree_bits)
+    arities = list(schedule) + [0]
+    layer = compute_composition_batch(oracles_k, polys_per_batch, ys, rec, lde_bits, arities[0])
+    rounds = []
+    log_m, shift_pow = lde_bits, 0
+    for r, a_bits in enumerate(schedule):
+        trees = merkle.build_merkle_forest(layer, min(config.cap_height, log_m - a_bits),
+                                           host_cap=False)
+        rounds.append((layer, trees))
+        slot = ts.REC_FRI_BETA + 2 * r
+        challengers.segment(observe=[(merkle.forest_caps(trees), caps_out[r])],
+                            squeeze=[(rec[:, slot : slot + 2], 0)])
+        layer = fold_round_batch(layer, rec, slot, a_bits, log_m, shift_pow, arities[r + 1])
+        log_m -= a_bits
+        shift_pow += a_bits
+    final_shift = F.pow_scalar(F.MULTIPLICATIVE_GROUP_GENERATOR, 1 << shift_pow)
+    # (K, m_f, 2) natural order -> (2K, m_f) rows: proof i's c0, c1 at 2i, 2i + 1
+    ntt.batched_ntt(layer.transpose(1, 2).reshape(2 * k, -1), log_m, inverse=True,
+                    out_shift=int(F.inv(final_shift)), out=final_out.view(2 * k, -1))
+    challengers.segment(observe=[(final_out[:, :, : _final_len(config, degree_bits)].transpose(1, 2),
+                                  None)])
+    return rounds
+
+
+def fri_query_phase_fused_batch(oracles_k, rounds, challengers: ts.DeviceChallengerBatch,
+                                config: FriConfig, degree_bits: int, grind_words: torch.Tensor,
+                                pow_out: torch.Tensor, indices_out: torch.Tensor,
+                                rows_out: torch.Tensor) -> list:
+    """`fri_query_phase_fused` for K proofs (the fused batch's), nothing
+    read back: kernel J's batch form grinds all K from their transcripts
+    into grind_words (K, 2), each row (0, -1) before; kernel I observes the
+    K witnesses into pow_out[:, 0] and draws the K responses into
+    pow_out[:, 1] and the K x Q query indices into indices_out (K, Q) in
+    one launch; kernel F gathers each proof's rows and paths by its indices
+    into rows_out (K, Q, width), a launch a group of proofs. Returns each
+    proof's FRI layers, (leaves, tree) a round."""
+    if config.proof_of_work_bits:
+        challengers.grind(config.proof_of_work_bits, grind_words)
+    challengers.segment(observe=[(grind_words[:, 1:], pow_out[:, :1])],
+                        squeeze=[(pow_out[:, 1:], 0),
+                                 (indices_out, degree_bits + config.rate_bits)])
+    layers_k = [[(leaves[i], trees[i]) for leaves, trees in rounds] for i in range(len(oracles_k))]
+    query_gather_batch([_gather_sources(o, l) for o, l in zip(oracles_k, layers_k)],
+                       indices_out, rows_out)
+    return layers_k
+
+
 def fri_commit_phase_batch(
     oracles_k: list,
     instances: list[FriInstance],
@@ -1086,8 +1139,11 @@ def fri_commit_phase_batch(
     lde_bits = degree_bits + config.rate_bits
     schedule = config.reduction_strategy.schedule(degree_bits)
     arities = list(schedule) + [0]
-    layer = compute_composition_batch(oracles_k, instances, openings_k, alphas, lde_bits,
-                                      arities[0])
+    ys, rec = composition_inputs(instances, openings_k, alphas, oracles_k[0][0].lde.device)
+    if len({tuple(b.polys for b in inst.batches) for inst in instances}) != 1:
+        raise ValueError("the proofs' instances open other columns")
+    layer = compute_composition_batch(oracles_k, tuple(b.polys for b in instances[0].batches), ys,
+                                      rec, lde_bits, arities[0])
     layers, caps = [], []
     log_m, shift_pow = lde_bits, 0
     for r, a_bits in enumerate(schedule):
@@ -1096,7 +1152,8 @@ def fri_commit_phase_batch(
         caps.append([t.cap for t in trees])
         challengers.observe_cap(np.stack([t.cap for t in trees]))
         betas = challengers.challenge_ext()
-        layer = fold_round_batch(layer, betas, a_bits, log_m, shift_pow, arities[r + 1])
+        layer = fold_round_batch(layer, beta_records(layer.device, betas), ts.REC_FRI_BETA, a_bits,
+                                 log_m, shift_pow, arities[r + 1])
         log_m -= a_bits
         shift_pow += a_bits
     final_shift = F.pow_scalar(F.MULTIPLICATIVE_GROUP_GENERATOR, 1 << shift_pow)

@@ -16,8 +16,10 @@ commitment, because the transcript observes it. The prover's query paths are
 gathered on the device by kernel F (fri/prover.py::query_rounds);
 `MerkleTree.prove` copies the levels to the host once, for callers outside
 the prover path. A batch of proofs commits K trees of one shape in one
-call (`build_merkle_forest`, kernel 2's forest), each a `MerkleTree` view. `verify_merkle_proof` and `merkle_root_from_proof` are the
-verifier's host walk: one call into the C library of native/ a path
+call (`build_merkle_forest`, kernel 2's forest), each a `MerkleTree` view,
+whose caps stay on the device for the fused batch (`forest_caps`).
+`verify_merkle_proof` and `merkle_root_from_proof` are the verifier's host
+walk: one call into the C library of native/ a path
 (`_merkle_root_from_proof_pure` is the tests' oracle).
 """
 
@@ -81,14 +83,34 @@ def build_merkle_tree(leaves: torch.Tensor, cap_height: int, host_cap: bool = Tr
                       cap_height=cap_height)
 
 
-def build_merkle_forest(leaves: torch.Tensor, cap_height: int) -> list[MerkleTree]:
+def build_merkle_forest(leaves: torch.Tensor, cap_height: int,
+                        host_cap: bool = True) -> list[MerkleTree]:
     """Trees of one shape in one `merkle_forest` call: leaves (T, L, K), tree
     t over the rows of leaves[t]. Every cap goes to the host in one
-    transfer."""
+    transfer, or none with `host_cap=False` (the fused batch, whose
+    transcripts read the caps on the device, `forest_caps`): `cap` is then
+    None."""
     forest = ps.merkle_forest(leaves, cap_height)
-    caps = gl.to_u64(torch.stack([levels[-1] for levels in forest]))
+    caps = ([None] * len(forest) if not host_cap
+            else gl.to_u64(torch.stack([levels[-1] for levels in forest])))
     return [MerkleTree(digests=levels, cap=cap, cap_height=cap_height)
             for levels, cap in zip(forest, caps)]
+
+
+def forest_caps(trees: list[MerkleTree]) -> torch.Tensor:
+    """The caps of a forest's T trees (`build_merkle_forest`) as one (T,
+    2^h, 4) view of the forest's one device buffer, tree t's cap at a
+    constant proof stride (what kernel I's batch form reads); raises for
+    trees that do not lie so."""
+    first = trees[0].digests[-1]
+    step = first.numel() if len(trees) == 1 else (
+        trees[1].digests[-1].data_ptr() - first.data_ptr()) // 8
+    for t, tree in enumerate(trees):
+        cap = tree.digests[-1]
+        if cap.shape != first.shape or cap.data_ptr() != first.data_ptr() + 8 * t * step:
+            raise ValueError("the trees' caps are not one forest buffer")
+    return first.as_strided((len(trees),) + tuple(first.shape), (step,) + first.stride(),
+                            first.storage_offset())
 
 
 def merkle_root_from_proof(leaf_digest: np.ndarray, index: int, siblings: np.ndarray) -> np.ndarray:

@@ -883,25 +883,50 @@ def generate_witness(data: CircuitData, pw: PartialWitness, rng=None):
     return trace, pis
 
 
-def generate_witness_batch(data: CircuitData, pws: list, rng=None):
-    """`generate_witness` for K PartialWitnesses of one circuit: (traces (K,
-    num_wires, n), public inputs (K, num_pis), salts). For a ZK circuit each
-    proof in turn draws its blinding rows and its three salts from the one
-    `rng` (`zk_draws`), as the JAX package's default batch does
-    (prover_fused.py::_batch_flat_inputs), and salts is (K, 3, M,
-    SALT_SIZE); for a non-ZK circuit it is None and nothing is drawn.
-
-    A circuit's first proof records its generator program by the Python
-    replay, so the first witness takes `witness_root_values` when the
-    circuit has no tape yet; then every witness of the tape's seed keyset
-    runs it in one C call (`witness_tape.run_tape_many`), and any other
-    takes `witness_root_values` alone."""
+def _root_values_batch(data: CircuitData, pws: list) -> np.ndarray:
+    """`witness_root_values` for K PartialWitnesses of one circuit, (K,
+    num_targets). A circuit's first proof records its generator program by
+    the Python replay, so the first witness takes `witness_root_values`
+    when the circuit has no tape yet; then every witness of the tape's seed
+    keyset runs it in one C call (`witness_tape.run_tape_many`), and any
+    other takes `witness_root_values` alone."""
     rows = witness_tape.run_tape_many(data, pws)
     if rows[0] is None:
         rows[0] = witness_root_values(data, pws[0])  # records the program
         rows[1:] = witness_tape.run_tape_many(data, pws[1:]) if len(pws) > 1 else []
-    arr = np.stack([r if r is not None else witness_root_values(data, pw)
-                    for r, pw in zip(rows, pws)])
+    return np.stack([r if r is not None else witness_root_values(data, pw)
+                     for r, pw in zip(rows, pws)])
+
+
+def flat_values_batch(data: CircuitData, pws: list) -> tuple[np.ndarray, np.ndarray]:
+    """`flat_values` for K PartialWitnesses (the fused batch's non-ZK
+    payload): the (K, distinct values) rows, from one tape call
+    (`_root_values_batch`), and the public inputs (K, num_pis)."""
+    arr = _root_values_batch(data, pws)
+    return arr[:, _scatter_order(data)], arr[:, np.asarray(data.public_input_targets,
+                                                          dtype=np.int64)]
+
+
+def flat_input_batch(data: CircuitData, pws: list, rng) -> tuple[np.ndarray, np.ndarray,
+                                                                  np.ndarray]:
+    """`flat_input` for K PartialWitnesses of a ZK circuit (the fused
+    batch's host-rng payload): the traces with their blinding rows (K,
+    num_wires, n), the salts as (K, 3, SALT_SIZE, M) LDE salt rows, and the
+    public inputs, each proof in turn drawing from the one `rng`
+    (`generate_witness_batch`)."""
+    traces, pis, salts = generate_witness_batch(data, pws, rng)
+    return traces, np.ascontiguousarray(np.swapaxes(salts, -1, -2)), pis
+
+
+def generate_witness_batch(data: CircuitData, pws: list, rng=None):
+    """`generate_witness` for K PartialWitnesses of one circuit: (traces (K,
+    num_wires, n), public inputs (K, num_pis), salts). The witnesses come
+    from one tape call (`_root_values_batch`). For a ZK circuit each proof
+    in turn draws its blinding rows and its three salts from the one `rng`
+    (`zk_draws`), as the JAX package's default batch does
+    (prover_fused.py::_batch_flat_inputs), and salts is (K, 3, M,
+    SALT_SIZE); for a non-ZK circuit it is None and nothing is drawn."""
+    arr = _root_values_batch(data, pws)
     cfg = data.config
     traces = np.zeros((len(pws), cfg.num_wires * data.n), dtype=np.uint64)
     _, _, cell_flat, cell_slot = witness_scatter_tables(data)

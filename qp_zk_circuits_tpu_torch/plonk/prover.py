@@ -320,29 +320,31 @@ def _launch_permutation(data: CircuitData, trace: torch.Tensor, rec: torch.Tenso
     return out[0]
 
 
-def compute_permutation_polys_batch_plain(data: CircuitData, traces: torch.Tensor, betas, gammas):
+def compute_permutation_polys_batch_plain(data: CircuitData, traces: torch.Tensor,
+                                          rec: torch.Tensor):
     """Plain torch version of `compute_permutation_polys_batch` (same
-    arguments): a loop of `compute_permutation_polys_plain`."""
-    _batch_limits(traces, betas, gammas)
-    rec = host_records(traces.device, traces.shape[0], data.config.num_challenges, betas=betas,
-                       gammas=gammas)
+    arguments): `compute_permutation_polys_plain` a proof, stacked."""
+    _batch_limits(traces, rec)
     return torch.stack([compute_permutation_polys_plain(data, t, r) for t, r in zip(traces, rec)])
 
 
-def compute_permutation_polys_batch(data: CircuitData, traces: torch.Tensor, betas, gammas):
+def compute_permutation_polys_batch(data: CircuitData, traces: torch.Tensor, rec: torch.Tensor):
     """`compute_permutation_polys` for K proofs of the circuit: traces (K,
-    num_wires, n), betas and gammas (K, nc) -> (K, num_cols, n).
+    num_wires, n), proof i's betas and gammas in record rec[i] of rec (K,
+    REC_WORDS) on the traces' device, the rows any stride apart (the fused
+    batch's transcripts write them there; the staged batch uploads its host
+    values, `host_records`) -> (K, num_cols, n).
 
     On CUDA traces: kernel B with a proof axis, at most PROOFS_PER_LAUNCH
     proofs a call (each a launch up to PERMUTATION_TILE rows, two above); the
     routing tables are the circuit's, read by every proof. On CPU traces:
     the plain version."""
-    _batch_limits(traces, betas, gammas)
+    _batch_limits(traces, rec)
     _permutation_limits(data, traces[0])
     if traces.device.type == "cpu":
-        return compute_permutation_polys_batch_plain(data, traces, betas, gammas)
-    _cuda.require_cuda_int64(traces)
-    out, launches = _permutation_launches(data, traces, betas, gammas)
+        return compute_permutation_polys_batch_plain(data, traces, rec)
+    _cuda.require_cuda_int64(traces, rec)
+    out, launches = _permutation_rec_launches(data, traces, rec)
     compute_permutation_polys_batch.launches += launches
     return out
 
@@ -355,15 +357,6 @@ def _batch_limits(stack: torch.Tensor, *per_proof) -> None:
 
 
 _groups = _cuda.proof_groups
-
-
-def _permutation_launches(data: CircuitData, traces: torch.Tensor, betas, gammas):
-    """Kernel B over the (K, num_wires, n) traces with host challenges (K,
-    nc), written into K records in one copy: (out (K, num_cols, n),
-    launches)."""
-    rec = host_records(traces.device, traces.shape[0], data.config.num_challenges, betas=betas,
-                       gammas=gammas)
-    return _permutation_rec_launches(data, traces, rec)
 
 
 def _permutation_rec_launches(data: CircuitData, traces: torch.Tensor, rec: torch.Tensor):
@@ -514,44 +507,33 @@ def _launch_quotient(data, wires_lde, zs_pp_lde, rec, consts_lde):
     return out[0]
 
 
-def quotient_evals_batch_plain(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes):
-    """Plain torch version of `quotient_evals_batch` (same arguments): a loop
-    of `quotient_evals_plain`."""
-    _batch_limits(wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes)
-    rec = host_records(wires_ldes.device, wires_ldes.shape[0], data.config.num_challenges,
-                       alphas=alphas, betas=betas, gammas=gammas, pis=pi_hashes)
+def quotient_evals_batch_plain(data, wires_ldes, zs_pp_ldes, rec):
+    """Plain torch version of `quotient_evals_batch` (same arguments):
+    `quotient_evals_plain` a proof, stacked."""
+    _batch_limits(wires_ldes, zs_pp_ldes, rec)
     return torch.stack([quotient_evals_plain(data, *args) for args in zip(
         wires_ldes, zs_pp_ldes, rec)])
 
 
-def quotient_evals_batch(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes):
+def quotient_evals_batch(data, wires_ldes, zs_pp_ldes, rec):
     """`quotient_evals` for K proofs of the circuit: wires_ldes (K,
-    num_wires, m), zs_pp_ldes (K, num_cols, m), alphas, betas, gammas (K,
-    nc), pi_hashes (K, 4) -> (K, nc, m).
+    num_wires, m), zs_pp_ldes (K, num_cols, m), proof i's alphas, betas,
+    gammas and PI hash in record rec[i] of rec (K, REC_WORDS) on the
+    operands' device (the fused batch's transcripts write them there; the
+    staged batch uploads its host values, `host_records`) -> (K, nc, m).
 
     On CUDA operands: kernel A with a proof axis, two launches for at most
     PROOFS_PER_LAUNCH proofs; the constants, selectors, sigmas and domain
     tables are the circuit's, read by every proof. On CPU operands: the
     plain version."""
-    _batch_limits(wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes)
+    _batch_limits(wires_ldes, zs_pp_ldes, rec)
     consts_lde = _quotient_operands(data, wires_ldes[0], zs_pp_ldes[0])
     if wires_ldes.device.type == "cpu":
-        return quotient_evals_batch_plain(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas,
-                                          pi_hashes)
-    _cuda.require_cuda_int64(wires_ldes, consts_lde, zs_pp_ldes)
-    out, launches = _quotient_launches(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas,
-                                       pi_hashes, consts_lde)
+        return quotient_evals_batch_plain(data, wires_ldes, zs_pp_ldes, rec)
+    _cuda.require_cuda_int64(wires_ldes, consts_lde, zs_pp_ldes, rec)
+    out, launches = _quotient_rec_launches(data, wires_ldes, zs_pp_ldes, rec, consts_lde)
     quotient_evals_batch.launches += launches
     return out
-
-
-def _quotient_launches(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes,
-                       consts_lde):
-    """Kernel A over (K, rows, m) stacks with host challenges, written into
-    K records in one copy: (out (K, nc, m), launches)."""
-    rec = host_records(wires_ldes.device, wires_ldes.shape[0], data.config.num_challenges,
-                       alphas=alphas, betas=betas, gammas=gammas, pis=pi_hashes)
-    return _quotient_rec_launches(data, wires_ldes, zs_pp_ldes, rec, consts_lde)
 
 
 def _quotient_rec_launches(data, wires_ldes, zs_pp_ldes, rec, consts_lde):
@@ -769,8 +751,10 @@ def _open_batch(data: CircuitData, oracles_k: list, zetas) -> list[tuple[Opening
     PROOFS_PER_LAUNCH proofs) and one transfer for the batch."""
     zeta_nexts = [_zeta_next(data, zeta) for zeta in zetas]
     nz, _ = zs_pp_layout(data.config)
-    opened = fo.eval_openings_batch(oracles_k, zetas, zeta_nexts, next_oracle=2, next_count=nz)
-    return [(_opening_set(data, *o), zn) for o, zn in zip(opened, zeta_nexts)]
+    rec = fo.point_records(oracles_k[0][0].coeffs.device, zetas, zeta_nexts)
+    values = fo.eval_openings_batch(oracles_k, rec, next_oracle=2, next_count=nz)
+    return [(_opening_set(data, *fo.split_openings(v, o, nz)), zn)
+            for v, o, zn in zip(gl.to_u64(values), oracles_k, zeta_nexts)]
 
 
 def _opening_set(data: CircuitData, parts, zs_next_open) -> OpeningSet:
@@ -893,19 +877,26 @@ def prove_from_trace(
 
 
 def prove_batch(data: CircuitData, pws: list, seed: int | None = None) -> list[Proof]:
-    """Prove K witnesses of one circuit together (the JAX package's
-    `prove_batch`, whose fused form vmaps the prover over the proofs,
-    plonk/prover_fused.py:973): the witnesses by one tape call
-    (`generate_witness_batch`), then `prove_from_traces`; proofs come back
-    in input order. A non-ZK proof draws nothing, and each proof's bytes
-    equal the single proof's of the same witness. A ZK batch draws host-rng
-    only, as the JAX package's default (fused) batch does: one
-    `default_rng(seed)` for the batch, each proof in turn drawing its
-    blinding rows and its three salts, so proof 0 equals the single proof
-    of the same seed."""
+    """Prove K witnesses of one circuit together, as the JAX package's
+    `prove_batch` does (plonk/prover.py:332): the fused batch
+    (prover_fused.py::prove_fused_batch, one upload and one download for
+    all K) unless QZKT_STAGED_PROVER is set, then the staged batch
+    (`generate_witness_batch` by one tape call, then `prove_from_traces`).
+    Proofs come back in input order. A non-ZK proof draws nothing, and each
+    proof's bytes equal the single proof's of the same witness, on either
+    path. A ZK batch draws host-rng on either path, as the JAX package's
+    default (fused) batch does: one `default_rng(seed)` for the batch, each
+    proof in turn drawing its blinding rows and its three salts, so proof 0
+    equals the single proof of the same seed. (The JAX package's staged
+    fallback seeds each ZK proof anew from that rng, so its ZK bytes differ
+    there; its non-ZK bytes are the same.)"""
     _check_config(data.config)
     if not pws:
         return []
+    if not os.environ.get("QZKT_STAGED_PROVER"):
+        from .prover_fused import prove_fused_batch
+
+        return prove_fused_batch(data, pws, seed)
     traces, pis, salts = generate_witness_batch(data, pws, np.random.default_rng(seed))
     return prove_from_traces(data, traces, pis, seed, salts)
 
@@ -913,20 +904,26 @@ def prove_batch(data: CircuitData, pws: list, seed: int | None = None) -> list[P
 def prove_stream(data: CircuitData, pws, batch: int, seed: int | None = None,
                  total: int | None = None) -> list[Proof]:
     """Prove an iterable of PartialWitnesses (a list, or a generator that
-    fills them on demand) in chunks of `batch` (the JAX package's
-    `prove_fused_stream`): a worker thread generates chunk i+1's witnesses
-    while this thread proves chunk i, so the host's witness work hides
-    behind the device's and the transcript's. The stream's length must tile
+    fills them on demand) in chunks of `batch`: the fused stream
+    (prover_fused.py::prove_fused_stream, the JAX package's, which
+    overlaps chunk i+1's witnesses and upload with chunk i's device work)
+    unless QZKT_STAGED_PROVER is set, then the staged stream, where a
+    worker thread generates chunk i+1's witnesses while this thread proves
+    chunk i with `prove_from_traces`. The stream's length must tile
     `batch`: checked against `total` first when it is given, else when the
-    last chunk comes up short. An exception in the worker reaches the
-    caller. Proofs come back in input order. A ZK stream draws as one
+    last chunk comes up short. An exception in the witness source reaches
+    the caller. Proofs come back in input order. A ZK stream draws as one
     batch would (`prove_batch`): one `default_rng(seed)` for the stream,
-    each proof in turn, the worker drawing chunk by chunk."""
+    each proof in turn."""
     _check_config(data.config)
     if batch < 1:
         raise ValueError(f"batch {batch}: a chunk holds at least one proof")
     if total is not None:
         assert total % batch == 0, "stream length must tile the batch size"
+    if not os.environ.get("QZKT_STAGED_PROVER"):
+        from .prover_fused import prove_fused_stream
+
+        return prove_fused_stream(data, pws, batch, seed, total)
     it = iter(pws)
     rng = np.random.default_rng(seed)
 
@@ -947,12 +944,13 @@ def prove_stream(data: CircuitData, pws, batch: int, seed: int | None = None,
     return proofs
 
 
-def compute_quotient_batch(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes):
-    """`compute_quotient` for K proofs: (K, nc * qdf, n) chunks in
+def compute_quotient_batch(data, wires_ldes, zs_pp_ldes, rec):
+    """`compute_quotient` for K proofs, proof i's challenges in record
+    rec[i] of rec (K, REC_WORDS) on the device: (K, nc * qdf, n) chunks in
     coefficient form, from `quotient_evals_batch` and one kernel-3 coset
     iNTT of all K nc rows."""
     cfg = data.config
-    evals = quotient_evals_batch(data, wires_ldes, zs_pp_ldes, alphas, betas, gammas, pi_hashes)
+    evals = quotient_evals_batch(data, wires_ldes, zs_pp_ldes, rec)
     return ntt.coset_intt(evals).reshape(evals.shape[0], cfg.num_challenges << cfg.rate_bits,
                                          data.n)
 
@@ -973,7 +971,8 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
       * the K transcripts in lockstep (`ts.ChallengerBatch`, one C call a
         step);
       * kernels B and A with a proof axis (`compute_permutation_polys_batch`,
-        `quotient_evals_batch`);
+        `quotient_evals_batch`), the host challenges uploaded into K records
+        (`host_records`, one copy a kernel);
       * the openings, one kernel-D call for the batch;
       * FRI with the transcripts in lockstep: its commit phase (kernels C
         and E with a proof axis, a forest a round, one stacked final iNTT),
@@ -1014,14 +1013,16 @@ def prove_from_traces(data: CircuitData, traces: np.ndarray, pis: np.ndarray,
     gammas = ch.challenge_many(nc)
 
     # 3. permutation arguments
-    zpp = compute_permutation_polys_batch(data, traces_d, betas, gammas)
+    zpp = compute_permutation_polys_batch(data, traces_d, host_records(
+        dev, k, nc, betas=betas, gammas=gammas))
     zs_pp_os = fo.commit_batch(zpp, rate_bits, cap_h, from_values=True, salts=commit_salts[1])
     ch.observe_many(_caps(zs_pp_os))
     alphas = ch.challenge_many(nc)
 
     # 4. quotients
     t_chunks = compute_quotient_batch(data, fo.stacked_lde(wires_os), fo.stacked_lde(zs_pp_os),
-                                      alphas, betas, gammas, pi_hashes)
+                                      host_records(dev, k, nc, alphas=alphas, betas=betas,
+                                                   gammas=gammas, pis=pi_hashes))
     quotient_os = fo.commit_batch(t_chunks, rate_bits, cap_h, salts=commit_salts[2])
     ch.observe_many(_caps(quotient_os))
     zetas = ch.challenge_ext()

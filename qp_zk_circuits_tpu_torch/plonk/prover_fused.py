@@ -38,13 +38,33 @@ host-rng mode); a device-rng proof draws kernel G's streams as the staged
 device-rng proof does, so the two are equal too. On a CPU circuit every
 kernel's plain version runs instead, the same schedule.
 
-Not here (ROADMAP.md): the batch and stream forms (`prove_batch` and
-`prove_stream` stay staged), the fused graph on a mesh (`prove(mesh=)`
-stays staged), CUDA-graph capture of the launch sequence.
+`prove_fused_batch` is the JAX package's vmapped form (prover_fused.py:973,
+`jax.vmap(fused_jit)` at :1007): K proofs of one circuit in one upload and
+one download. The K uploads are the rows of one (K, HEAD_WORDS + payload)
+block, so each proof's state, grind words and challenge record are views a
+row apart; the packed output is part-major, all K wires caps, then all K
+zs_pp caps, and so on, so each part is one contiguous (K, ...) block. The
+same stages run a stage for all K: a forest a commit and a FRI round with
+its caps left on the device, kernels A-F a launch a group of
+PROOFS_PER_LAUNCH proofs, kernel I one launch a segment for all K
+transcripts (`transcript.DeviceChallengerBatch`) and kernel J one launch
+for all K grinds, each stopping at its own witness. The non-ZK batch
+uploads only the distinct witness values and the card scatters them into
+the (K, num_wires, n) traces; a ZK batch is host-rng (its dense traces and
+salts), as the JAX package's batch is. `prove_fused_stream` (:1018)
+pipelines chunks of a batch: chunk i's device work is enqueued, chunk i+1
+is built and uploaded (the witness work on the host while the card
+proves), then chunk i is downloaded and unpacked; two pinned upload slots
+alternate, so an upload never overwrites one a copy may still read.
+
+Not here (ROADMAP.md): the fused graph on a mesh (`prove(mesh=)` and
+`sharded_prove_batch` stay staged), CUDA-graph capture of the launch
+sequence.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, field
 
@@ -58,10 +78,19 @@ from ..fri import oracle as fo
 from ..fri import prover as fri
 from ..fri.config import SALT_SIZE
 from ..fri.prover import FriProof
+from ..hash import merkle
 from ..hash import poseidon2 as ps
 from . import prover as sp
 from . import transcript as ts
-from .builder import CircuitData, PartialWitness, flat_input, flat_values, witness_scatter_tables
+from .builder import (
+    CircuitData,
+    PartialWitness,
+    flat_input,
+    flat_input_batch,
+    flat_values,
+    flat_values_batch,
+    witness_scatter_tables,
+)
 from .proof import Proof, fri_instance, zs_pp_layout
 
 #: the upload's head: the transcript state, kernel J's two words, and the
@@ -83,18 +112,15 @@ class _Packer:
         self.layout.append((name, tuple(shape), self.size))
         self.size += int(np.prod(shape))
 
-    def views(self, flat) -> dict:
-        """Each part as a view of `flat` (a device tensor or a host array)."""
-        return {name: flat[at : at + int(np.prod(shape))].reshape(shape)
-                for name, shape, at in self.layout}
-
-
-class _Unpacker:
-    def __init__(self, flat_u64: np.ndarray, packer: _Packer):
-        self.by_name = packer.views(flat_u64)
-
-    def __getitem__(self, name: str) -> np.ndarray:
-        return self.by_name[name]
+    def views(self, flat, count: int | None = None) -> dict:
+        """Each part as a view of `flat` (a device tensor or a host array);
+        with `count`, of a batch's part-major output: part p of all `count`
+        proofs, one (count, *shape) block after another."""
+        if count is None:
+            return {name: flat[at : at + int(np.prod(shape))].reshape(shape)
+                    for name, shape, at in self.layout}
+        return {name: flat[count * at : count * (at + int(np.prod(shape)))].reshape(
+            (count,) + shape) for name, shape, at in self.layout}
 
 
 @dataclass
@@ -113,15 +139,17 @@ class FusedBundle:
     polys: tuple
     schedule: tuple
     packer: _Packer
-    staging: dict = field(default_factory=dict)  # pinned host buffers by (way, words)
+    staging: dict = field(default_factory=dict)  # pinned host buffers by (way, words, slot)
 
-    def pinned(self, way: str, words: int) -> torch.Tensor:
+    def pinned(self, way: str, words: int, slot: int = 0) -> torch.Tensor:
         """The circuit's pinned host buffer of `words` int64 for one
         direction of its transfers, made at first use. One at a time: a
         proof's upload is done by its download, which ends in a
         synchronize, before the next proof writes the buffer (two proofs of
-        one circuit at once on host threads would need one each)."""
-        key = (way, words)
+        one circuit at once on host threads would need one each). A stream
+        alternates two upload `slot`s: chunk i+1 uploads while chunk i's
+        copy may still read its own."""
+        key = (way, words, slot)
         if key not in self.staging:
             self.staging[key] = torch.empty(words, dtype=torch.int64, pin_memory=True)
         return self.staging[key]
@@ -183,15 +211,16 @@ def fused_bundle(data: CircuitData) -> FusedBundle:
     return bundle
 
 
-def _upload(flat: np.ndarray, b: FusedBundle) -> torch.Tensor:
-    """The proof's one host->device copy: `flat` as int64 on the bundle's
-    device, through its pinned buffer (a CPU bundle takes `flat` itself)."""
+def _upload(flat: np.ndarray, b: FusedBundle, slot: int = 0) -> torch.Tensor:
+    """The proof's (or batch's) one host->device copy: `flat` as int64 of
+    its shape on the bundle's device, through its pinned buffer of `slot`
+    (a CPU bundle takes `flat` itself)."""
     src = torch.from_numpy(flat.view(np.int64))
     if b.device.type == "cpu":
         return src
-    staging = b.pinned("in", src.numel())
-    staging.copy_(src)
-    return staging.to(b.device, non_blocking=True)
+    staging = b.pinned("in", src.numel(), slot)
+    staging.copy_(src.reshape(-1))
+    return staging.to(b.device, non_blocking=True).view(src.shape)
 
 
 def _download(out: torch.Tensor, b: FusedBundle) -> np.ndarray:
@@ -203,6 +232,16 @@ def _download(out: torch.Tensor, b: FusedBundle) -> np.ndarray:
     host.copy_(out, non_blocking=True)
     torch.cuda.current_stream(out.device).synchronize()
     return host.numpy().view(np.uint64).copy()
+
+
+def _head(data, flat: np.ndarray, pi_hash: np.ndarray) -> None:
+    """Write the upload's head into `flat` (HEAD_WORDS + payload,), or each
+    row of a batch's (K, HEAD_WORDS + payload): a fresh transcript, kernel
+    J's (next, best) = (0, 2^64 - 1) where the circuit grinds, the PI hash
+    (4,) or hashes (K, 4) in the challenge record."""
+    if data.config.fri_config.proof_of_work_bits:
+        flat[..., HEAD_GRIND + 1] = np.uint64(2**64 - 1)  # no witness yet
+    flat[..., HEAD_REC + ts.REC_PI : HEAD_REC + ts.REC_PI + 4] = pi_hash
 
 
 def _pack_input(data, pw, rng, device_rng: bool) -> tuple[np.ndarray, np.ndarray, int | None]:
@@ -219,11 +258,28 @@ def _pack_input(data, pw, rng, device_rng: bool) -> tuple[np.ndarray, np.ndarray
         if cfg.zero_knowledge:
             key = int(rng.integers(0, 2**63))
     flat = np.zeros(HEAD_WORDS + sum(p.size for p in payload), dtype=np.uint64)
-    if cfg.fri_config.proof_of_work_bits:
-        flat[HEAD_GRIND + 1] = np.uint64(2**64 - 1)  # no witness yet
-    flat[HEAD_REC + ts.REC_PI : HEAD_REC + ts.REC_PI + 4] = ps.hash_no_pad(pis)
+    _head(data, flat, ps.hash_no_pad(pis))
     np.concatenate(payload, out=flat[HEAD_WORDS:])
     return flat, pis, key
+
+
+def _pack_batch(data, pws: list, rng) -> tuple[np.ndarray, np.ndarray]:
+    """A batch's upload (K, HEAD_WORDS + payload), a proof a row, and the
+    public inputs (K, num_pis): the distinct witness values of a non-ZK
+    circuit (`flat_values_batch`, one tape call), or a ZK circuit's dense
+    traces and salts drawn in turn from `rng` (`flat_input_batch`, host
+    rng: the JAX package's batch draws so)."""
+    k = len(pws)
+    if data.config.zero_knowledge:
+        traces, salts, pis = flat_input_batch(data, pws, rng)
+        payload = [traces.reshape(k, -1), salts.reshape(k, -1)]
+    else:
+        vals, pis = flat_values_batch(data, pws)
+        payload = [vals]
+    flat = np.zeros((k, HEAD_WORDS + sum(p.shape[1] for p in payload)), dtype=np.uint64)
+    _head(data, flat, np.stack([ps.hash_no_pad(p) for p in pis]))
+    np.concatenate(payload, axis=1, out=flat[:, HEAD_WORDS:])
+    return flat, pis
 
 
 def _prove_on_device(data, b: FusedBundle, up: torch.Tensor, key: int | None):
@@ -293,13 +349,83 @@ def _prove_on_device(data, b: FusedBundle, up: torch.Tensor, key: int | None):
     return out, oracles, layers
 
 
-def _unpack_proof(data, flat_out: np.ndarray, b: FusedBundle, pis, oracles, layers) -> Proof:
-    """Rebuild the Proof from the packed output, checking what the device
-    could not refuse: the final polynomial's degree bound and the grind's
-    witness and response."""
+def _prove_on_device_batch(data, b: FusedBundle, up: torch.Tensor):
+    """`_prove_on_device` for K proofs from their upload rows `up` (K,
+    HEAD_WORDS + payload), in the single proof's stage order, each stage for
+    all K: returns the part-major packed output (on the device), each
+    proof's oracles and its FRI layers."""
     cfg = data.config
     fcfg = cfg.fri_config
-    u = _Unpacker(flat_out, b.packer)
+    dev = b.device
+    k = up.shape[0]
+    nw, n, nc = cfg.num_wires, data.n, cfg.num_challenges
+    rate_bits, cap_h = cfg.rate_bits, fcfg.cap_height
+    m = n << rate_bits
+    rec = up[:, HEAD_REC : HEAD_REC + ts.REC_WORDS]
+    out = torch.empty(k * b.packer.size, dtype=torch.int64, device=dev)
+    o = b.packer.views(out, k)
+    payload = up[:, HEAD_WORDS:]
+
+    # the traces, scattered on the card (or uploaded dense, host-rng ZK)
+    if cfg.zero_knowledge:
+        traces = payload[:, : nw * n].reshape(k, nw, n)
+        salts = [payload[:, nw * n + i * SALT_SIZE * m : nw * n + (i + 1) * SALT_SIZE * m].reshape(
+            k, SALT_SIZE, m) for i in range(3)]
+    else:
+        flat = torch.zeros((k, nw * n), dtype=torch.int64, device=dev)
+        flat[:, b.cell_flat] = payload[:, : b.n_slots].index_select(1, b.cell_slot)
+        traces = flat.view(k, nw, n)
+        salts = [None] * 3
+
+    ch = ts.DeviceChallengerBatch(up[:, HEAD_TS : HEAD_TS + ts.TS_WORDS])
+
+    def commit(values, salt, from_values):
+        return fo.commit_batch(values, rate_bits, cap_h, from_values=from_values, salts=salt,
+                               host_cap=False)
+
+    def caps(batches):
+        return merkle.forest_caps([x.tree for x in batches])
+
+    wires = commit(traces, salts[0], True)
+    ch.segment(observe=[(b.digest.expand(k, -1), None), (rec[:, ts.REC_PI : ts.REC_PI + 4], None),
+                        (caps(wires), o["wires_cap"].view(k, -1))],
+               squeeze=[(rec[:, ts.REC_BETA : ts.REC_BETA + nc], 0),
+                        (rec[:, ts.REC_GAMMA : ts.REC_GAMMA + nc], 0)])
+    zpp = sp.compute_permutation_polys_batch(data, traces, rec)
+    zs_pp = commit(zpp, salts[1], True)
+    ch.segment(observe=[(caps(zs_pp), o["zs_pp_cap"].view(k, -1))],
+               squeeze=[(rec[:, ts.REC_ALPHA : ts.REC_ALPHA + nc], 0)])
+    t_chunks = sp.compute_quotient_batch(data, fo.stacked_lde(wires), fo.stacked_lde(zs_pp), rec)
+    quotient = commit(t_chunks, salts[2], False)
+    ch.segment(observe=[(caps(quotient), o["quotient_cap"].view(k, -1))],
+               squeeze=[(rec[:, ts.REC_ZETA : ts.REC_ZETA + 2], 0)],
+               scale=(rec[:, ts.REC_ZETA_NEXT : ts.REC_ZETA_NEXT + 2],
+                      int(F.primitive_root_of_unity(data.degree_bits))))
+
+    # openings, into the packed output, absorbed from there
+    consts = sp.device_constants(data, dev)
+    oracles_k = [[consts, w, z, q] for w, z, q in zip(wires, zs_pp, quotient)]
+    nz, _ = zs_pp_layout(cfg)
+    fo.eval_openings_batch(oracles_k, rec, next_oracle=2, next_count=nz, out=o["openings"])
+    ch.segment(observe=[(o["openings"], None)],
+               squeeze=[(rec[:, ts.REC_FRI_ALPHA : ts.REC_FRI_ALPHA + 2], 0)])
+
+    # FRI: the commit phase, the grinds, the queries
+    rounds = fri.fri_commit_phase_fused_batch(
+        oracles_k, b.polys, o["openings"], rec, ch, fcfg, data.degree_bits,
+        [o[f"fri_cap_{r}"].view(k, -1) for r in range(len(b.schedule))], o["final_poly"])
+    layers_k = fri.fri_query_phase_fused_batch(
+        oracles_k, rounds, ch, fcfg, data.degree_bits, up[:, HEAD_GRIND : HEAD_GRIND + 2],
+        o["pow"], o["query_indices"], o["query_rows"])
+    return out, oracles_k, layers_k
+
+
+def _unpack_proof(data, u: dict, b: FusedBundle, pis, oracles, layers) -> Proof:
+    """Rebuild the Proof from its parts of the packed output (`_Packer.
+    views`, host arrays), checking what the device could not refuse: the
+    final polynomial's degree bound and the grind's witness and response."""
+    cfg = data.config
+    fcfg = cfg.fri_config
     pow_bits = fcfg.proof_of_work_bits
     witness, response = u["pow"]
     if pow_bits and witness == np.uint64(2**64 - 1):
@@ -343,7 +469,7 @@ def prove_fused(data: CircuitData, pw: PartialWitness, seed: int | None = None,
     t3 = time.perf_counter()
     flat_out = _download(out, b)
     t4 = time.perf_counter()
-    proof = _unpack_proof(data, flat_out, b, pis, oracles, layers)
+    proof = _unpack_proof(data, b.packer.views(flat_out), b, pis, oracles, layers)
     data.__dict__["_last_prove_timings"] = {
         "witness_pack_s": round(t1 - t0, 4),
         "device_roundtrip_s": round(t4 - t1, 4),
@@ -356,3 +482,113 @@ def prove_fused(data: CircuitData, pw: PartialWitness, seed: int | None = None,
         "rng_mode": "device" if device_rng else "host",
     }
     return proof
+
+
+def _unpack_batch(data, flat_out: np.ndarray, b: FusedBundle, pis, oracles_k, layers_k) -> list:
+    """Each proof of a batch's part-major packed output: row i of every part."""
+    parts = b.packer.views(flat_out, len(oracles_k))
+    return [_unpack_proof(data, {name: v[i] for name, v in parts.items()}, b, pis[i], oracles_k[i],
+                          layers_k[i]) for i in range(len(oracles_k))]
+
+
+def _batch_timings(splits: list, flat_in, flat_out, proofs: int, **extra) -> dict:
+    """The JAX package's split keys from each chunk's seconds (witness and
+    pack, upload, dispatch, execute and fetch, unpack), summed over a
+    stream's chunks."""
+    pack, up, dispatch, fetch, unpack = (sum(s[i] for s in splits) for i in range(5))
+    return {"witness_pack_s": round(pack, 4), "device_roundtrip_s": round(up + dispatch + fetch, 4),
+            "upload_s": round(up, 4), "dispatch_s": round(dispatch, 4),
+            "execute_fetch_s": round(fetch, 4), "unpack_s": round(unpack, 4),
+            "flat_in_mb": round(flat_in.nbytes / 1e6, 1),
+            "flat_out_mb": round(flat_out.nbytes / 1e6, 1), "rng_mode": "host",
+            "proofs": proofs, **extra}
+
+
+def prove_fused_batch(data: CircuitData, pws: list, seed: int | None = None) -> list[Proof]:
+    """Prove K witnesses of one circuit in one upload and one download (the
+    JAX package's `prove_fused_batch`, its fused graph vmapped over the
+    proofs): each stage once for all K (`_prove_on_device_batch`). A ZK
+    circuit draws host-rng, as the JAX package's batch does, whatever mode
+    `warmup` warmed for: one `default_rng(seed)` for the batch, each proof
+    in turn drawing its blinding rows and salts, so proof 0 equals the
+    single host-rng proof of the seed; a non-ZK proof draws nothing and
+    equals the single proof of its witness. `data.__dict__
+    ["_last_prove_timings"]` holds the batch's host split under the JAX
+    package's keys."""
+    sp._check_config(data.config)
+    if not pws:
+        return []
+    b = fused_bundle(data)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    flat, pis = _pack_batch(data, pws, rng)
+    t1 = time.perf_counter()
+    up = _upload(flat, b)
+    t2 = time.perf_counter()
+    out, oracles_k, layers_k = _prove_on_device_batch(data, b, up)
+    t3 = time.perf_counter()
+    flat_out = _download(out, b)
+    t4 = time.perf_counter()
+    proofs = _unpack_batch(data, flat_out, b, pis, oracles_k, layers_k)
+    data.__dict__["_last_prove_timings"] = _batch_timings(
+        [(t1 - t0, t2 - t1, t3 - t2, t4 - t3, time.perf_counter() - t4)], flat, flat_out, len(pws))
+    return proofs
+
+
+def prove_fused_stream(data: CircuitData, pws, batch: int, seed: int | None = None,
+                       total: int | None = None) -> list[Proof]:
+    """Prove an iterable of PartialWitnesses (a list, or a generator that
+    fills them on demand) in chunks of `batch` (the JAX package's
+    `prove_fused_stream`): chunk i's device work is enqueued, then chunk
+    i+1's witnesses are built and uploaded while the card proves chunk i,
+    then chunk i is downloaded and unpacked; the uploads alternate two
+    pinned slots. The stream's length must tile `batch`: checked against
+    `total` (or a list's length) first, else when the last chunk comes up
+    short. An exception in the witness source reaches the caller. Proofs
+    come back in input order; a ZK stream draws as one batch would
+    (`prove_fused_batch`): one `default_rng(seed)`, each proof in turn."""
+    sp._check_config(data.config)
+    if batch < 1:
+        raise ValueError(f"batch {batch}: a chunk holds at least one proof")
+    if total is None and hasattr(pws, "__len__"):
+        total = len(pws)
+    if total is not None:
+        assert total % batch == 0, "stream length must tile the batch size"
+    b = fused_bundle(data)
+    rng = np.random.default_rng(seed)
+    it = iter(pws)
+
+    def next_chunk(slot: int):
+        """The next chunk packed and uploaded into `slot`, with its pack and
+        upload seconds."""
+        t0 = time.perf_counter()
+        chunk = list(itertools.islice(it, batch))
+        if not chunk:
+            return None
+        assert len(chunk) == batch, "stream length must tile the batch size"
+        flat, pis = _pack_batch(data, chunk, rng)
+        t1 = time.perf_counter()
+        return flat, pis, _upload(flat, b, slot), [t1 - t0, time.perf_counter() - t1]
+
+    proofs: list[Proof] = []
+    stages = []
+    ready, slot = next_chunk(0), 0
+    while ready is not None:
+        flat, pis, up, split = ready
+        t = time.perf_counter()
+        out, oracles_k, layers_k = _prove_on_device_batch(data, b, up)
+        split.append(time.perf_counter() - t)
+        slot ^= 1
+        ready = next_chunk(slot)  # the host's work while the card proves this chunk
+        t = time.perf_counter()
+        flat_out = _download(out, b)
+        split.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        proofs += _unpack_batch(data, flat_out, b, pis, oracles_k, layers_k)
+        split.append(time.perf_counter() - t)
+        stages.append(split)
+    if stages:
+        data.__dict__["_last_prove_timings"] = _batch_timings(
+            stages, flat, flat_out, len(proofs), chunks=len(stages),
+            chunk_s=[[round(x, 4) for x in split] for split in stages])
+    return proofs

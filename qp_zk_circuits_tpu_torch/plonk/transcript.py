@@ -15,7 +15,11 @@ each segment of the schedule as one kernel-I launch (csrc/transcript.cu),
 writing its challenges into a challenge record (`REC_*`, the layout of
 csrc/challenges.cuh) that kernels A-E read, and `grind_device` is its grind
 (kernel J). Only how full the buffers are lives on the host: the schedule
-fixes it, never a value. The staged prover writes its host challenges into
+fixes it, never a value. The fused batch (plonk/prover_fused.py::
+prove_fused_batch) drives K such transcripts with one set of fills:
+`DeviceChallengerBatch`, one kernel-I launch a segment for all K
+(`transcript_segment_batch`) and one kernel-J launch for all K grinds
+(`grind_device_batch`). The staged prover writes its host challenges into
 a record of the same layout (`challenge_records`), one copy, so both paths
 launch the same kernels.
 
@@ -327,6 +331,11 @@ TS_WORDS = ps.WIDTH + ps.RATE
 MAX_SOURCES = 4
 MAX_SQUEEZES = 4
 _SEGMENT_WORDS = 5 + 6 * MAX_SOURCES + 3 * MAX_SQUEEZES + 2
+#: the batch entry's proof strides after a segment's words (csrc/transcript.cu
+#: STRIDE_WORDS): the states', each source's, each record's, each squeeze's,
+#: the scale's
+_STRIDE_WORDS = 2 + 2 * MAX_SOURCES + MAX_SQUEEZES
+_U64 = (1 << 64) - 1
 
 
 def _as_rows(t: torch.Tensor) -> torch.Tensor:
@@ -360,55 +369,24 @@ def _segment_limits(state, in_len, out_len, observe, squeeze, scale) -> None:
         raise ValueError("the scale takes the segment's last extension pair")
 
 
+def _one_proof(observe, squeeze, scale) -> tuple:
+    """A segment's operands of one transcript as the batch of one's: each
+    source, record, squeeze and the scale with a proof axis of 1."""
+    return ([(_as_rows(s).unsqueeze(0), None if r is None else r.unsqueeze(0))
+             for s, r in observe],
+            [(d.unsqueeze(0), bits) for d, bits in squeeze],
+            None if scale is None else (scale[0].unsqueeze(0), scale[1]))
+
+
 def transcript_segment_plain(state, in_len: int, out_len: int, observe=(), squeeze=(),
                              scale=None) -> None:
-    """Plain torch version of `transcript_segment` (same arguments): the
-    host Challenger's duplex rules on the state's tensor, the permutation
-    `poseidon2.permute_plain`."""
+    """Plain torch version of `transcript_segment` (same arguments):
+    `transcript_segment_batch_plain` of one transcript (the host
+    Challenger's duplex rules on the state's tensor, the permutation
+    `poseidon2.permute_plain`)."""
     _segment_limits(state, in_len, out_len, observe, squeeze, scale)
-    st = state[: ps.WIDTH].clone()
-    inb = list(state[ps.WIDTH : ps.WIDTH + in_len])
-    out = out_len
-
-    def duplex():
-        nonlocal st, inb, out
-        if inb:
-            st = torch.cat([torch.stack(inb), st[len(inb) :]])
-        st = ps.permute_plain(st)
-        inb, out = [], ps.RATE
-
-    for src, record in observe:
-        vals = _as_rows(src).reshape(-1)
-        if record is not None:
-            record.copy_(vals)
-        i = 0
-        while i < vals.numel():
-            if not inb and vals.numel() - i >= ps.RATE:  # a whole block
-                inb = list(vals[i : i + ps.RATE])
-                i += ps.RATE
-            else:
-                inb.append(vals[i])
-                i += 1
-            out = 0
-            if len(inb) == ps.RATE:
-                duplex()
-    last = []
-    for dst, bits in squeeze:
-        for k in range(dst.numel()):
-            if inb or out == 0:
-                duplex()
-            v = st[ps.RATE - out]
-            out -= 1
-            last = (last + [v])[-2:]
-            dst[k] = v & ((1 << bits) - 1) if bits else v
-    if scale is not None:
-        factor = gl.felt(scale[1], state.device)
-        scale[0].copy_(gl.mul_plain(torch.stack(last), factor))
-    state[: ps.WIDTH] = st
-    tail = torch.zeros(ps.RATE, dtype=torch.int64, device=state.device)  # zero past the fill
-    if inb:
-        tail[: len(inb)] = torch.stack(inb)
-    state[ps.WIDTH :] = tail
+    transcript_segment_batch_plain(state.unsqueeze(0), in_len, out_len,
+                                   *_one_proof(observe, squeeze, scale))
 
 
 @functools.cache
@@ -440,31 +418,13 @@ def transcript_segment(state: torch.Tensor, in_len: int, out_len: int, observe=(
     state is updated in place; the caller advances the fills
     (`DeviceChallenger`).
 
-    On a CUDA state: kernel I (csrc/transcript.cu), one launch of one warp.
-    On a CPU state: the plain version."""
+    On a CUDA state: kernel I (csrc/transcript.cu), the batch entry's launch
+    for one transcript, one warp. On a CPU state: the plain version."""
     _segment_limits(state, in_len, out_len, observe, squeeze, scale)
     if state.device.type == "cpu":
         transcript_segment_plain(state, in_len, out_len, observe, squeeze, scale)
         return
-    _cuda.require_cuda_int64(state, *(s for s, _ in observe),
-                             *(r for _, r in observe if r is not None), *(d for d, _ in squeeze),
-                             *(() if scale is None else (scale[0],)))
-    words = np.zeros(_SEGMENT_WORDS, dtype=np.uint64)
-    words[:5] = [state.data_ptr(), in_len, out_len, len(observe), len(squeeze)]
-    for i, (src, record) in enumerate(observe):
-        rows = _as_rows(src)
-        words[5 + 6 * i : 11 + 6 * i] = [
-            rows.data_ptr(), rows.shape[0], rows.shape[1], rows.stride(0), rows.stride(1),
-            0 if record is None else record.data_ptr()]
-    at = 5 + 6 * MAX_SOURCES
-    for i, (dst, bits) in enumerate(squeeze):
-        words[at + 3 * i : at + 3 * i + 3] = [dst.data_ptr(), dst.numel(), bits]
-    if scale is not None:
-        words[-2:] = [scale[0].data_ptr(), int(scale[1]) % gl.P]
-    lib = _transcript_lib(state.device.index)
-    with _cuda.on_device(state.device):
-        err = lib.qzk_transcript(words.ctypes.data, _cuda.stream())
-    _cuda.check(err, "qzk_transcript")
+    _launch_segment(state.unsqueeze(0), in_len, out_len, *_one_proof(observe, squeeze, scale))
     transcript_segment.launches += 1
 
 
@@ -487,29 +447,227 @@ def _advance(in_len: int, out_len: int, observed: int, squeezed: int) -> tuple[i
     return in_len, out_len, perms
 
 
-class DeviceChallenger:
-    """The host `Challenger`'s schedule on a transcript state held on the
-    device (the JAX package's plonk/prover_fused.py::DeviceChallenger): the
-    sponge state and input buffer in `state` (TS_WORDS,), zeros for a fresh
-    transcript, the buffer zero past its fill after each segment; the buffers' fills, which the schedule alone sets, here.
-    Each `segment` is one `transcript_segment` call; `permutations` counts
-    the duplexes so far."""
+# ---------------------------------------------------------------------------
+# kernel I over K transcripts: the fused batch's
 
-    def __init__(self, state: torch.Tensor):
-        self.state = state
+
+def _as_rows_batch(t: torch.Tensor) -> torch.Tensor:
+    """A batch source as the (K, rows, cols) view each proof's felts are
+    absorbed from, row by row (a (K, n) matrix is one column a proof)."""
+    if t.dim() == 2:
+        return t.unsqueeze(2)
+    if t.dim() != 3:
+        raise ValueError(f"a batch transcript source is (K, n) or (K, rows, cols), got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _proof_rows(name: str, t: torch.Tensor, k: int, width: int | None = None) -> None:
+    """A (K, width) operand that the segment writes: int64, contiguous within
+    a proof's row, rows that do not overlap."""
+    if t.dim() != 2 or t.shape[0] != k or (width is not None and t.shape[1] != width):
+        raise ValueError(f"{name} {tuple(t.shape)}, expected ({k}, {width or 'n'})")
+    if t.shape[1] and t.stride(1) != 1:
+        raise ValueError(f"{name}: each proof's row is contiguous")
+    if k > 1 and abs(t.stride(0)) < t.shape[1]:
+        raise ValueError(f"{name}: proof stride {t.stride(0)} below its row of {t.shape[1]}: "
+                         "the proofs' rows overlap")
+
+
+def _segment_batch_limits(states, in_len, out_len, observe, squeeze, scale) -> int:
+    """Raises on what kernel I's batch form does not take; returns K."""
+    if states.dim() != 2 or states.shape[0] < 1:
+        raise ValueError(f"a batch of transcript states is (K >= 1, {TS_WORDS}), got "
+                         f"{tuple(states.shape)}")
+    k = states.shape[0]
+    _proof_rows("the states", states, k, TS_WORDS)
+    if not 0 <= in_len < ps.RATE or not 0 <= out_len <= ps.RATE:
+        raise ValueError(f"buffer fills {in_len}, {out_len} outside the sponge's rate")
+    if len(observe) > MAX_SOURCES or len(squeeze) > MAX_SQUEEZES:
+        raise ValueError(f"{len(observe)} sources and {len(squeeze)} squeezes: a segment takes "
+                         f"at most {MAX_SOURCES} and {MAX_SQUEEZES}")
+    operands = [states]
+    for src, record in observe:
+        rows = _as_rows_batch(src)
+        if rows.shape[0] != k:
+            raise ValueError(f"a source of {rows.shape[0]} proofs for {k} transcripts")
+        operands.append(rows)
+        if record is not None:
+            _proof_rows("a source's record", record, k, rows[0].numel())
+            operands.append(record)
+    for dst, bits in squeeze:
+        _proof_rows("a squeeze", dst, k)
+        if not 0 <= bits <= 32:
+            raise ValueError("a squeeze writes indices of at most 32 bits")
+        operands.append(dst)
+    if scale is not None:
+        _proof_rows("the scale", scale[0], k, 2)
+        if sum(d.shape[1] for d, _ in squeeze) < 2:
+            raise ValueError("the scale takes the segment's last extension pair")
+        operands.append(scale[0])
+    # the kernel steps a proof by whole int64 elements
+    if any(t.dtype != torch.int64 for t in operands):
+        raise TypeError("a batch transcript operand is int64: its proof stride counts whole "
+                        "8-byte felts")
+    return k
+
+
+def transcript_segment_batch_plain(states, in_len: int, out_len: int, observe=(), squeeze=(),
+                                   scale=None) -> None:
+    """Plain torch version of `transcript_segment_batch` (same arguments):
+    the host Challenger's duplex rules on the K states at once, one
+    `poseidon2.permute_plain` of (K, WIDTH) a duplex."""
+    k = _segment_batch_limits(states, in_len, out_len, observe, squeeze, scale)
+    st = states[:, : ps.WIDTH].clone()
+    inb = [states[:, ps.WIDTH + t] for t in range(in_len)]
+    out = out_len
+
+    def duplex():
+        nonlocal st, inb, out
+        if inb:
+            st = torch.cat([torch.stack(inb, 1), st[:, len(inb) :]], 1)
+        st = ps.permute_plain(st)
+        inb, out = [], ps.RATE
+
+    for src, record in observe:
+        vals = _as_rows_batch(src).reshape(k, -1)
+        if record is not None:
+            record.copy_(vals)
+        n, i = vals.shape[1], 0
+        while i < n:
+            if not inb and n - i >= ps.RATE:  # a whole block
+                inb = list(vals[:, i : i + ps.RATE].unbind(1))
+                i += ps.RATE
+            else:
+                inb.append(vals[:, i])
+                i += 1
+            out = 0
+            if len(inb) == ps.RATE:
+                duplex()
+    last = []
+    for dst, bits in squeeze:
+        for j in range(dst.shape[1]):
+            if inb or out == 0:
+                duplex()
+            v = st[:, ps.RATE - out]
+            out -= 1
+            last = (last + [v])[-2:]
+            dst[:, j] = v & ((1 << bits) - 1) if bits else v
+    if scale is not None:
+        factor = gl.felt(scale[1], states.device)
+        scale[0].copy_(gl.mul_plain(torch.stack(last, 1), factor))
+    states[:, : ps.WIDTH] = st
+    tail = torch.zeros((k, ps.RATE), dtype=torch.int64, device=states.device)
+    if inb:
+        tail[:, : len(inb)] = torch.stack(inb, 1)
+    states[:, ps.WIDTH :] = tail
+
+
+def transcript_segment_batch(states: torch.Tensor, in_len: int, out_len: int, observe=(),
+                             squeeze=(), scale=None) -> None:
+    """`transcript_segment` for K transcripts of one schedule (a batch of
+    proofs of one circuit): states (K, TS_WORDS) on the device, whose
+    buffers all hold `in_len` and `out_len` felts; each source (K, n) or
+    (K, rows, cols) of any strides (proof i's felts at row i, a stride of 0
+    to observe one tensor into every transcript), each record (K, n), each
+    squeeze's dst (K, count) and the scale's dst2 (K, 2) with rows
+    contiguous a proof and not overlapping. Each proof's operands may lie
+    anywhere a constant stride apart (the fused batch's stacked upload and
+    part-major output).
+
+    On CUDA tensors: kernel I's batch form (csrc/transcript.cu), one launch
+    of K one-warp blocks. On CPU tensors: the plain version."""
+    k = _segment_batch_limits(states, in_len, out_len, observe, squeeze, scale)
+    if states.device.type == "cpu":
+        transcript_segment_batch_plain(states, in_len, out_len, observe, squeeze, scale)
+        return
+    _launch_segment(states, in_len, out_len, observe, squeeze, scale)
+    transcript_segment_batch.launches += 1
+
+
+def _launch_segment(states, in_len, out_len, observe, squeeze, scale) -> None:
+    """Kernel I's launch (csrc/transcript.cu qzk_transcript_batch) for the
+    (K, TS_WORDS) states and their operands with a proof axis: a segment's
+    words for proof 0, then each operand's proof stride."""
+    _cuda.require_cuda_int64(states, *(s for s, _ in observe),
+                             *(r for _, r in observe if r is not None), *(d for d, _ in squeeze),
+                             *(() if scale is None else (scale[0],)))
+    sources = [_as_rows_batch(s) for s, _ in observe]
+    words = np.zeros(_SEGMENT_WORDS + _STRIDE_WORDS, dtype=np.uint64)
+    words[:5] = [states.data_ptr(), in_len, out_len, len(observe), len(squeeze)]
+    strides = [states.stride(0)] + [0] * (_STRIDE_WORDS - 1)
+    for i, (rows, (_, record)) in enumerate(zip(sources, observe)):
+        words[5 + 6 * i : 11 + 6 * i] = [
+            rows.data_ptr(), rows.shape[1], rows.shape[2], rows.stride(1) & _U64,
+            rows.stride(2) & _U64, 0 if record is None else record.data_ptr()]
+        strides[1 + i] = rows.stride(0)
+        strides[1 + MAX_SOURCES + i] = 0 if record is None else record.stride(0)
+    at = 5 + 6 * MAX_SOURCES
+    for i, (dst, bits) in enumerate(squeeze):
+        words[at + 3 * i : at + 3 * i + 3] = [dst.data_ptr(), dst.shape[1], bits]
+        strides[1 + 2 * MAX_SOURCES + i] = dst.stride(0)
+    if scale is not None:
+        words[_SEGMENT_WORDS - 2 : _SEGMENT_WORDS] = [scale[0].data_ptr(), int(scale[1]) % gl.P]
+        strides[-1] = scale[0].stride(0)
+    words[_SEGMENT_WORDS:] = [s & _U64 for s in strides]
+    lib = _transcript_lib(states.device.index)
+    with _cuda.on_device(states.device):
+        err = lib.qzk_transcript_batch(words.ctypes.data, states.shape[0], _cuda.stream())
+    _cuda.check(err, "qzk_transcript_batch")
+
+
+transcript_segment_batch.launches = 0
+
+
+class DeviceChallengerBatch:
+    """The host `Challenger`'s schedule on K transcript states held on the
+    device, K proofs of one circuit (the JAX package's
+    plonk/prover_fused.py::DeviceChallenger, under jax.vmap for a batch,
+    :1007): the sponge states and input buffers in `states` (K, TS_WORDS),
+    zeros for fresh transcripts, each buffer zero past its fill after each
+    segment; the buffers' fills, which the circuit's schedule alone sets,
+    here, one set for all K (`ChallengerBatch`). Each `segment` is one
+    `transcript_segment_batch` call for all K; `permutations` counts one
+    transcript's duplexes so far."""
+
+    def __init__(self, states: torch.Tensor):
+        self.states = states
         self.in_len = 0
         self.out_len = 0
         self.permutations = 0
 
+    def __len__(self) -> int:
+        return self.states.shape[0]
+
     def segment(self, observe=(), squeeze=(), scale=None) -> None:
-        transcript_segment(self.state, self.in_len, self.out_len, observe, squeeze, scale)
-        self.in_len, self.out_len, perms = _advance(
-            self.in_len, self.out_len, sum(_as_rows(s).numel() for s, _ in observe),
-            sum(d.numel() for d, _ in squeeze))
+        transcript_segment_batch(self.states, self.in_len, self.out_len, observe, squeeze, scale)
+        self._advance(sum(_as_rows_batch(s)[0].numel() for s, _ in observe),
+                      sum(d.shape[1] for d, _ in squeeze))
+
+    def _advance(self, observed: int, squeezed: int) -> None:
+        self.in_len, self.out_len, perms = _advance(self.in_len, self.out_len, observed, squeezed)
         self.permutations += perms
 
     def grind(self, pow_bits: int, words: torch.Tensor, limit: int | None = None) -> None:
-        """Kernel J from this transcript's state (`grind_device`)."""
+        """Kernel J from these transcripts' states (`grind_device_batch`)."""
+        grind_device_batch(self.states, self.in_len, pow_bits, words, limit)
+
+
+class DeviceChallenger(DeviceChallengerBatch):
+    """`DeviceChallengerBatch` of one proof (the fused single proof's): its
+    state (TS_WORDS,), each segment's operands one proof's, without a proof
+    axis (`transcript_segment`), the grind `grind_device`."""
+
+    def __init__(self, state: torch.Tensor):
+        super().__init__(state.unsqueeze(0))
+        self.state = state
+
+    def segment(self, observe=(), squeeze=(), scale=None) -> None:
+        transcript_segment(self.state, self.in_len, self.out_len, observe, squeeze, scale)
+        self._advance(sum(_as_rows(s).numel() for s, _ in observe),
+                      sum(d.numel() for d, _ in squeeze))
+
+    def grind(self, pow_bits: int, words: torch.Tensor, limit: int | None = None) -> None:
         grind_device(self.state, self.in_len, pow_bits, words, limit)
 
 
@@ -534,25 +692,12 @@ def _grind_limits(state, in_len, pow_bits, words) -> None:
 
 def grind_plain(state, in_len: int, pow_bits: int, words, limit: int | None = None,
                 batch: int | None = None) -> None:
-    """Plain torch version of `grind_device` (same arguments): sweeps of
-    `batch` candidates (`_sweep`) in order, the first sweep with a passing
-    candidate giving the lowest one."""
+    """Plain torch version of `grind_device` (same arguments):
+    `grind_batch_plain` of one transcript, sweeps of `batch` candidates
+    (`_sweep`) in order, the first sweep with a passing candidate giving
+    the lowest one."""
     _grind_limits(state, in_len, pow_bits, words)
-    limit = grind_limit(pow_bits) if limit is None else limit
-    dev = state.device
-    base = torch.cat([state[ps.WIDTH : ps.WIDTH + in_len], state[in_len : ps.WIDTH]])
-    batch = _sweep(pow_bits, batch, dev)
-    idx = torch.arange(batch, dtype=torch.int64, device=dev)
-    start = 0
-    while start < limit:
-        cand = base.expand(batch, ps.WIDTH).clone()
-        cand[:, in_len] = idx + start
-        passing = ((ps.permute_plain(cand)[:, 0] >> (64 - pow_bits)) == 0) & (idx < limit - start)
-        start += batch
-        if passing.any():  # the loop's one data-dependent step, on the card in kernel J
-            words[1] = torch.where(passing, idx, batch).min() + (start - batch)
-            break
-    words[0] = start
+    grind_batch_plain(state.unsqueeze(0), in_len, pow_bits, words.unsqueeze(0), limit, batch)
 
 
 def grind_device(state: torch.Tensor, in_len: int, pow_bits: int, words: torch.Tensor,
@@ -564,20 +709,102 @@ def grind_device(state: torch.Tensor, in_len: int, pow_bits: int, words: torch.T
     the call (the next candidate, the best so far as u64 2^64 - 1), and
     words[1] stays -1 if no candidate below the limit passes.
 
-    On CUDA tensors: kernel J (csrc/transcript.cu), one launch that loops on
-    the card until it has the witness. On CPU tensors: the plain version."""
+    On CUDA tensors: kernel J (csrc/transcript.cu), the batch entry's launch
+    for one grind, which loops on the card until it has the witness. On CPU
+    tensors: the plain version."""
     _grind_limits(state, in_len, pow_bits, words)
     limit = grind_limit(pow_bits) if limit is None else limit
     if state.device.type == "cpu":
         grind_plain(state, in_len, pow_bits, words, limit)
         return
-    _cuda.require_cuda_int64(state, words)
-    lib = _transcript_lib(state.device.index)
-    with _cuda.on_device(state.device):
-        err = lib.qzk_grind(state.data_ptr(), in_len, pow_bits, words.data_ptr(), limit,
-                            _cuda.stream())
-    _cuda.check(err, "qzk_grind")
+    _launch_grind(state.unsqueeze(0), in_len, pow_bits, words.unsqueeze(0), limit)
     grind_device.launches += 1
 
 
 grind_device.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel J over K grinds: the fused batch's
+
+
+def _grind_batch_limits(states, in_len, pow_bits, words) -> int:
+    if states.dim() != 2 or states.shape[0] < 1 or not 0 <= in_len < ps.RATE:
+        raise ValueError("a batch grind starts from (K >= 1, TS_WORDS) transcript states with "
+                         "part-full input buffers")
+    k = states.shape[0]
+    _proof_rows("the states", states, k, TS_WORDS)
+    if not 1 <= pow_bits <= 32:
+        raise ValueError(f"pow_bits {pow_bits}: a device grind takes 1..32")
+    _proof_rows("the grind's words", words, k, 2)
+    if states.dtype != torch.int64 or words.dtype != torch.int64:
+        raise TypeError("a batch grind's states and words are int64 (next candidate, best "
+                        "witness) rows")
+    return k
+
+
+def grind_batch_plain(states, in_len: int, pow_bits: int, words, limit: int | None = None,
+                      batch: int | None = None) -> None:
+    """Plain torch version of `grind_device_batch` (same arguments): sweeps
+    of `batch` candidates (`_sweep`) in order for every proof still open,
+    each proof left with its lowest passing witness from the first sweep
+    with one (the loop's one data-dependent step, on the card in kernel J)
+    and the end of that sweep as its next candidate."""
+    k = _grind_batch_limits(states, in_len, pow_bits, words)
+    limit = grind_limit(pow_bits) if limit is None else limit
+    dev = states.device
+    base = torch.cat([states[:, ps.WIDTH : ps.WIDTH + in_len], states[:, in_len : ps.WIDTH]], 1)
+    batch = _sweep(pow_bits, batch, dev)
+    idx = torch.arange(batch, dtype=torch.int64, device=dev)
+    open_ = torch.ones(k, dtype=torch.bool, device=dev)
+    words[:, 0] = 0
+    start = 0
+    while start < limit:
+        rows = open_.nonzero().flatten()
+        if not rows.numel():
+            break
+        cand = base[rows].unsqueeze(1).expand(rows.numel(), batch, ps.WIDTH).clone()
+        cand[:, :, in_len] = idx + start
+        out0 = ps.permute_plain(cand.reshape(-1, ps.WIDTH))[:, 0].reshape(rows.numel(), batch)
+        passing = ((out0 >> (64 - pow_bits)) == 0) & (idx < limit - start)
+        start += batch
+        found = passing.any(1)
+        first = torch.where(passing, idx, batch).min(1).values + (start - batch)
+        words[rows, 0] = start
+        words[rows[found], 1] = first[found]
+        open_[rows[found]] = False
+
+
+def grind_device_batch(states: torch.Tensor, in_len: int, pow_bits: int, words: torch.Tensor,
+                       limit: int | None = None) -> None:
+    """`grind_device` for K transcripts of one schedule (the JAX package's
+    `_grind_j` under vmap): states (K, TS_WORDS) whose input buffers all
+    hold `in_len` felts, words (K, 2) int64, each row (0, -1) before the
+    call; proof i's lowest witness below `limit` goes to words[i, 1], which
+    stays -1 if it has none.
+
+    On CUDA tensors: kernel J's batch form (csrc/transcript.cu), one launch
+    for all K, each proof stopping at its own witness. On CPU tensors: the
+    plain version."""
+    k = _grind_batch_limits(states, in_len, pow_bits, words)
+    limit = grind_limit(pow_bits) if limit is None else limit
+    if states.device.type == "cpu":
+        grind_batch_plain(states, in_len, pow_bits, words, limit)
+        return
+    _launch_grind(states, in_len, pow_bits, words, limit)
+    grind_device_batch.launches += 1
+
+
+def _launch_grind(states, in_len, pow_bits, words, limit) -> None:
+    """Kernel J's launch (csrc/transcript.cu qzk_grind_batch) for the (K,
+    TS_WORDS) states and their (K, 2) words."""
+    _cuda.require_cuda_int64(states, words)
+    lib = _transcript_lib(states.device.index)
+    with _cuda.on_device(states.device):
+        err = lib.qzk_grind_batch(states.data_ptr(), states.stride(0), in_len, pow_bits,
+                                  words.data_ptr(), words.stride(0), states.shape[0], limit,
+                                  _cuda.stream())
+    _cuda.check(err, "qzk_grind_batch")
+
+
+grind_device_batch.launches = 0

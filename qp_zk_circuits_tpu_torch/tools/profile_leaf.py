@@ -43,22 +43,32 @@ checkout has one), then `WormholeProver(device="cuda")` on `test_inputs_0()`:
 With `--batch K` and/or `--stream N --chunk K` it profiles the batch and
 stream paths instead (`prove_inputs_batch`, `prove_inputs_stream` on the
 two real spends of `two_real_leaves_same_block()`, alternating), beside
-the warm single proof's median:
+the warm single proof's median. They take `prove_batch`'s and
+`prove_stream`'s own dispatch: the fused batch and stream
+(plonk/prover_fused.py, where the checkout has them), or the staged ones
+with QZKT_STAGED_PROVER=1 in the environment:
 
   * a batch of K: the cold batch, then `--proofs` timed batches (median ms
     a batch and a proof); one batch under torch.profiler (device ms a
     proof, the device's busy share, device launches a batch, torch's glue
-    kernels included); one batch with each stage wrapped in a host timer,
-    split into the witness, the commits, B, the quotient, the openings,
-    FRI's commit phase, the grind, the queries, and the transcript's host
-    calls (the lockstep absorbs and duplexes, and each proof's FRI
-    transcript);
+    kernels included); the split of a batch: for the fused batch the
+    medians of its host split over the timed batches (`_last_prove_timings`:
+    witness and pack, upload, dispatch, the wait for the card and the
+    download, unpack), no stage timer (a synchronize between stages would
+    undo the one round trip); for the staged batch one batch with each
+    stage wrapped in a host timer, split into the witness, the commits, B,
+    the quotient, the openings, FRI's commit phase, the grind, the
+    queries, and the transcript's host calls (the lockstep absorbs and
+    duplexes, and each proof's FRI transcript);
   * a stream of N in chunks of K (a generator of inputs): `--proofs` timed
-    streams (median ms a proof), then one stream with the witness (on the
-    worker thread, not synchronized) and each chunk's proving timed: the
-    proving thread's wait for witnesses is the stream's time less its
-    proving, and the witness time hidden behind the proving is the witness
-    time less that wait.
+    streams (median ms a proof), then its split: for the fused stream the
+    medians of its host split summed over the chunks (the witness and pack
+    of chunk i+1 run while the card proves chunk i; the wait is what the
+    card took past them); for the staged stream one stream with the
+    witness (on the worker thread, not synchronized) and each chunk's
+    proving timed: the proving thread's wait for witnesses is the stream's
+    time less its proving, and the witness time hidden behind the proving
+    is the witness time less that wait.
 
 With `--zk` every section runs the ZK leaf instead: the leaf circuit under
 the private batch's config (`wormhole_private_batch_circuit_config()`:
@@ -79,6 +89,7 @@ import collections
 import functools
 import importlib
 import json
+import os
 import statistics
 import sys
 import time
@@ -238,6 +249,23 @@ def _prove_fn(prover, args):
     return lambda inputs, seed: prover.prove_inputs(inputs, seed=seed)
 
 
+#: the fused batch's and stream's host split (`_last_prove_timings`)
+FUSED_SPLIT = (("witness_pack_s", "witness and pack (host)"), ("upload_s", "upload"),
+               ("dispatch_s", "dispatch (enqueue every stage)"),
+               ("execute_fetch_s", "wait for the card and download"), ("unpack_s", "unpack"))
+
+
+def _fused_split(prover) -> dict:
+    return dict(prover.data.__dict__.get("_last_prove_timings") or {})
+
+
+def _split_stages(splits: list) -> dict:
+    """The medians of the fused path's host split over timed runs, as
+    {stage: {"ms", "calls"}}."""
+    return {name: {"ms": 1e3 * statistics.median(s[key] for s in splits), "calls": len(splits)}
+            for key, name in FUSED_SPLIT if all(key in s for s in splits)}
+
+
 def _batch_sections(prover, args, seed) -> dict:
     """The batch and stream profiles (the module docstring says what)."""
     import torch
@@ -247,6 +275,8 @@ def _batch_sections(prover, args, seed) -> dict:
     leaves = two_real_leaves_same_block()
     out = {}
     prove_one = _prove_fn(prover, args)
+    fused = not os.environ.get("QZKT_STAGED_PROVER") and _resolve(
+        "plonk.prover_fused.prove_fused_batch") is not None
 
     def single():
         prove_one(leaves[0], seed)
@@ -263,12 +293,16 @@ def _batch_sections(prover, args, seed) -> dict:
             torch.cuda.synchronize()
 
         cold = _host_ms(batch)
-        times = [_host_ms(batch) for _ in range(args.proofs)]
+        times, splits = [], []
+        for _ in range(args.proofs):
+            times.append(_host_ms(batch))
+            splits.append(_fused_split(prover))
         median = statistics.median(times)
         device = _device_profile(batch)
-        stages = stage_times(BATCH_STAGES + BATCH_TRANSCRIPT_STAGES, batch)
+        stages = _split_stages(splits) if fused else stage_times(
+            BATCH_STAGES + BATCH_TRANSCRIPT_STAGES, batch)
         out["batch"] = {
-            "k": k, "cold_ms": cold, "median_ms": median, "ms_a_proof": median / k,
+            "k": k, "fused": fused, "cold_ms": cold, "median_ms": median, "ms_a_proof": median / k,
             "min_ms": min(times), "max_ms": max(times), "n": len(times),
             "device_ms_a_proof": None if device["device_ms"] is None else device["device_ms"] / k,
             "device_busy_share": None if device["device_ms"] is None else device["device_ms"] / median,
@@ -290,14 +324,27 @@ def _batch_sections(prover, args, seed) -> dict:
             torch.cuda.synchronize()
 
         stream()
-        times = [_host_ms(stream) for _ in range(args.proofs)]
+        times, splits = [], []
+        for _ in range(args.proofs):
+            times.append(_host_ms(stream))
+            splits.append(_fused_split(prover))
+        if fused:
+            stages = _split_stages(splits)
+            out["stream"] = {"n": n, "chunk": chunk, "fused": True,
+                             "median_ms": statistics.median(times),
+                             "ms_a_proof": statistics.median(times) / n, "stages": stages}
+            print(f"[stream] {n} in chunks of {chunk}, fused: median "
+                  f"{out['stream']['median_ms']:.2f} ms ({out['stream']['ms_a_proof']:.2f} ms a "
+                  f"proof); split summed over the chunks (medians): "
+                  + ", ".join(f"{name} {v['ms']:.2f} ms" for name, v in stages.items()))
+            return out
         stages = stage_times(STREAM_STAGES, stream)
         wall = stages["total"]["ms"]
         proving = stages["proving (main thread)"]["ms"]
         witness = stages["witness (worker thread)"]["ms"]
         waited = wall - proving
         out["stream"] = {
-            "n": n, "chunk": chunk, "median_ms": statistics.median(times),
+            "n": n, "chunk": chunk, "fused": False, "median_ms": statistics.median(times),
             "ms_a_proof": statistics.median(times) / n, "timed_wall_ms": wall,
             "proving_ms": proving, "witness_ms": witness, "waited_ms": waited,
             "witness_hidden_ms": witness - waited,

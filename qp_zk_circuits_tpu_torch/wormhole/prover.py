@@ -54,18 +54,21 @@ class WormholeProver:
         return self.commit(inputs).prove(seed=seed, mesh=mesh)
 
     def prove_inputs_batch(self, inputs_list, seed: int | None = None) -> list:
-        """Prove many leaves together (plonk/prover.py::prove_batch): each
-        stage runs once for the batch, with its kernels' proof axis. Each
-        proof equals `prove_inputs` of the same inputs; input order."""
+        """Prove many leaves together (plonk/prover.py::prove_batch: the
+        fused batch, one upload and one download, unless
+        QZKT_STAGED_PROVER is set): each stage runs once for the batch,
+        with its kernels' proof axis. Each proof equals `prove_inputs` of
+        the same inputs; input order."""
         pws = [self._partial_witness(inputs) for inputs in inputs_list]
         return plonk_prover.prove_batch(self.data, pws, seed=seed)
 
     def prove_inputs_stream(self, inputs_list, batch: int = 16, seed: int | None = None):
         """Sustained proving (the deployment shape for miner-side leaf
         proving): `batch`-sized chunks, chunk i+1's witness fills and tapes
-        on a worker thread while chunk i is proven (plonk/prover.py::
-        prove_stream). `inputs_list` is a list or any iterable of inputs;
-        its length must tile `batch`."""
+        running on the host while chunk i is proven (plonk/prover.py::
+        prove_stream: the fused stream, as the JAX package's always is,
+        unless QZKT_STAGED_PROVER is set). `inputs_list` is a list or any
+        iterable of inputs; its length must tile `batch`."""
         total = len(inputs_list) if hasattr(inputs_list, "__len__") else None
         pws = (self._partial_witness(inputs) for inputs in inputs_list)
         return plonk_prover.prove_stream(self.data, pws, batch, seed=seed, total=total)

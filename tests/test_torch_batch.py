@@ -304,10 +304,9 @@ def test_batched_plain_forms_equal_single_plain_calls(small):
     for i in range(2):
         for got, want in zip(forest[i], tps.merkle_levels_plain(leaves[i], 2), strict=True):
             assert torch.equal(got, want)
-    zpp = tprover.compute_permutation_polys_batch(data, x["traces"], x["betas"], x["gammas"])
-    evals = tprover.quotient_evals_batch(data, x["wires"], x["zpp"], x["alphas"], x["betas"],
-                                         x["gammas"], x["pis"])
     nc = data.config.num_challenges
+    zpp = tprover.compute_permutation_polys_batch(data, x["traces"], _records(x, nc, "cpu"))
+    evals = tprover.quotient_evals_batch(data, x["wires"], x["zpp"], _records(x, nc, "cpu"))
     for i in range(2):
         rec = tprover.host_records("cpu", 1, nc, alphas=x["alphas"][i], betas=x["betas"][i],
                                    gammas=x["gammas"][i], pis=x["pis"][i])[0]
@@ -316,6 +315,13 @@ def test_batched_plain_forms_equal_single_plain_calls(small):
         assert torch.equal(evals[i], tprover.quotient_evals_plain(
             data, x["wires"][i], x["zpp"][i], rec))
     assert not torch.equal(zpp[0], zpp[1]) and not torch.equal(evals[0], evals[1])
+
+
+def _records(x, nc, device):
+    """The K proofs' host challenges of `_plain_inputs` as K records on
+    `device`, one copy (what the staged batch uploads)."""
+    return tprover.host_records(device, len(x["pis"]), nc, alphas=x["alphas"], betas=x["betas"],
+                                gammas=x["gammas"], pis=x["pis"])
 
 
 class _Recorder:
@@ -353,7 +359,7 @@ def test_batched_launches_split_at_the_cap(small, monkeypatch, k):
     monkeypatch.setattr(tprover._cuda, "stream", lambda: 0)
     monkeypatch.setattr(tprover, "_kernel_lib", lambda index: rec)
     monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
-    zpp, launches = tprover._permutation_launches(data, x["traces"], x["betas"], x["gammas"])
+    zpp, launches = tprover._permutation_rec_launches(data, x["traces"], _records(x, nc, "cpu"))
     groups = tprover._groups(k)
     assert launches == len(groups) == -(-k // tprover.PROOFS_PER_LAUNCH)
     for (entry, args, host), (g0, g1) in zip(rec.calls, groups, strict=True):
@@ -364,8 +370,8 @@ def test_batched_launches_split_at_the_cap(small, monkeypatch, k):
         assert np.array_equal(records[:, tts.REC_GAMMA : tts.REC_GAMMA + nc], x["gammas"][g0:g1])
     consts = data.constants_oracle.lde
     rec.calls.clear()
-    out, launches = tprover._quotient_launches(data, x["wires"], x["zpp"], x["alphas"],
-                                               x["betas"], x["gammas"], x["pis"], consts)
+    out, launches = tprover._quotient_rec_launches(data, x["wires"], x["zpp"],
+                                                   _records(x, nc, "cpu"), consts)
     assert launches == 2 * len(groups)
     for (entry, args, host), (g0, g1) in zip(rec.calls, groups, strict=True):
         assert entry == "qzk_quotient" and args[14] == g1 - g0 and args[13] == words
@@ -421,10 +427,10 @@ def test_batched_kernels_match_plain_on_card(small, cuda, k):
     for g, w in zip(got, want, strict=True):
         assert all(torch.equal(a.cpu(), b) for a, b in zip(g, w, strict=True))
     dev = {name: x[name].to(cuda) for name in ("traces", "wires", "zpp")}
-    zpp = tprover.compute_permutation_polys_batch(data, dev["traces"], x["betas"], x["gammas"])
+    nc = data.config.num_challenges
+    zpp = tprover.compute_permutation_polys_batch(data, dev["traces"], _records(x, nc, cuda))
     assert torch.equal(zpp.cpu(), tprover.compute_permutation_polys_batch_plain(
-        data, x["traces"], x["betas"], x["gammas"]))
-    evals = tprover.quotient_evals_batch(data, dev["wires"], dev["zpp"], x["alphas"],
-                                         x["betas"], x["gammas"], x["pis"])
+        data, x["traces"], _records(x, nc, "cpu")))
+    evals = tprover.quotient_evals_batch(data, dev["wires"], dev["zpp"], _records(x, nc, cuda))
     assert torch.equal(evals.cpu(), tprover.quotient_evals_batch_plain(
-        data, x["wires"], x["zpp"], x["alphas"], x["betas"], x["gammas"], x["pis"]))
+        data, x["wires"], x["zpp"], _records(x, nc, "cpu")))

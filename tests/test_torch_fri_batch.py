@@ -106,13 +106,26 @@ def _lde_bits():
     return DEGREE_BITS + CONFIG.rate_bits
 
 
+def _composition_args(ps_, device="cpu"):
+    """The proofs' columns, claimed openings and records of their alphas and
+    points as kernel C's batch form reads them (what the staged batch
+    uploads: `composition_inputs`)."""
+    ys, rec = fri.composition_inputs([p["instance"] for p in ps_], [p["openings"] for p in ps_],
+                                     [p["alpha"] for p in ps_], device)
+    return tuple(b.polys for b in ps_[0]["instance"].batches), ys, rec
+
+
+def _point_records(ps_, device="cpu"):
+    return fo.point_records(device, [p["zeta"] for p in ps_], [p["zeta_next"] for p in ps_])
+
+
 # ---------------------------------------------------------------------------
 # each batched function against K single calls
 
 
 def test_openings_batch_equals_single_calls(proofs):
-    got = fo.eval_openings_batch([p["oracles"] for p in proofs], [p["zeta"] for p in proofs],
-                                 [p["zeta_next"] for p in proofs], 2, NZ)
+    values = fo.eval_openings_batch([p["oracles"] for p in proofs], _point_records(proofs), 2, NZ)
+    got = [fo.split_openings(v, p["oracles"], NZ) for v, p in zip(gl.to_u64(values), proofs)]
     for (parts, nxt), p in zip(got, proofs, strict=True):
         rec = fo.point_records("cpu", [p["zeta"]], [p["zeta_next"]])[0]
         want_parts, want_next = fo.split_openings(
@@ -124,8 +137,8 @@ def test_openings_batch_equals_single_calls(proofs):
 
 @pytest.mark.parametrize("arity_bits", [0, 2])
 def test_composition_batch_equals_single_calls(proofs, arity_bits):
-    args = [[p[name] for p in proofs] for name in ("oracles", "instance", "openings", "alpha")]
-    got = fri.compute_composition_batch(*args, _lde_bits(), arity_bits)
+    got = fri.compute_composition_batch([p["oracles"] for p in proofs], *_composition_args(proofs),
+                                        _lde_bits(), arity_bits)
     assert got.shape == (K, (1 << _lde_bits()) >> arity_bits, 2 << arity_bits)
     for g, p in zip(got, proofs, strict=True):
         ys, rec = fri.composition_inputs([p["instance"]], [p["openings"]], [p["alpha"]], "cpu")
@@ -140,7 +153,8 @@ def test_fold_batch_equals_single_calls(proofs, a_bits, next_bits):
     rng = np.random.default_rng(a_bits)
     leaves = gl.from_u64(F.rand_felts((K, 1 << (log_m - a_bits), 2 << a_bits), rng), "cpu")
     betas = np.stack([p["beta"] for p in proofs])
-    got = fri.fold_round_batch(leaves, betas, a_bits, log_m, 1, next_bits)
+    got = fri.fold_round_batch(leaves, fri.beta_records("cpu", betas), ts.REC_FRI_BETA, a_bits,
+                               log_m, 1, next_bits)
     for g, x, b in zip(got, leaves, betas, strict=True):
         rec = fri.beta_records("cpu", [b])[0]
         assert torch.equal(g, fri.fold_round(x, rec, ts.REC_FRI_BETA, a_bits, log_m, 1,
@@ -150,9 +164,8 @@ def test_fold_batch_equals_single_calls(proofs, a_bits, next_bits):
 def _layers(proofs):
     """Each proof's first round: its composition's leaf rows (arity 2^2) and
     their tree."""
-    leaves = fri.compute_composition_batch(
-        *[[p[name] for p in proofs] for name in ("oracles", "instance", "openings", "alpha")],
-        _lde_bits(), 2)
+    leaves = fri.compute_composition_batch([p["oracles"] for p in proofs],
+                                           *_composition_args(proofs), _lde_bits(), 2)
     return leaves, merkle.build_merkle_forest(leaves, CONFIG.cap_height)
 
 
@@ -380,9 +393,7 @@ def test_batched_fri_launches_split_at_the_cap(proofs17, recorder, monkeypatch):
     groups = _cuda.proof_groups(17)
     assert groups == [(0, 16), (16, 17)]
     oracles = [p["oracles"] for p in ps_]
-    args = [oracles, [p["instance"] for p in ps_], [p["openings"] for p in ps_],
-            [p["alpha"] for p in ps_]]
-    out, launches = fri._composition_launches(*args, _lde_bits(), 2)
+    out, launches = fri._composition_rec_launches(oracles, *_composition_args(ps_), _lde_bits(), 2)
     assert launches == 2 and out.shape[0] == 17
     for call, (g0, g1) in zip(recorder.calls, groups, strict=True):
         assert call["proofs"] == g1 - g0 and call["out"] == out[g0].data_ptr()
@@ -395,9 +406,8 @@ def test_batched_fri_launches_split_at_the_cap(proofs17, recorder, monkeypatch):
                 for i in range(g1 - g0)] == [
             [list(b.point) for b in p["instance"].batches] for p in ps_[g0:g1]]
     recorder.calls.clear()
-    host, launches = fo._openings_launches(oracles, [p["zeta"] for p in ps_],
-                                           [p["zeta_next"] for p in ps_], 2, NZ)
-    assert launches == 2 and host.shape == (17, sum(COLUMNS) + NZ, 2)
+    values, launches = fo._openings_rec_launches(oracles, _point_records(ps_), 2, NZ)
+    assert launches == 2 and values.shape == (17, sum(COLUMNS) + NZ, 2)
     for call, (g0, g1) in zip(recorder.calls, groups, strict=True):
         assert call["proofs"] == g1 - g0
         assert call["segs"][:, :, 0].tolist() == [
@@ -408,7 +418,8 @@ def test_batched_fri_launches_split_at_the_cap(proofs17, recorder, monkeypatch):
     recorder.calls.clear()
     leaves = gl.from_u64(F.rand_felts((17, 64, 8), np.random.default_rng(7)), "cpu")
     betas = np.stack([p["beta"] for p in ps_])
-    out, launches = fri._fold_launches(leaves, betas, 2, 8, 0, 0)
+    out, launches = fri._fold_rec_launches(leaves, fri.beta_records("cpu", betas),
+                                           ts.REC_FRI_BETA, 2, 8, 0, 0)
     assert launches == 2 and out.shape == (17, 64, 2)
     for call, (g0, g1) in zip(recorder.calls, groups, strict=True):
         assert call["proofs"] == g1 - g0 and call["leaves"] == leaves[g0].data_ptr()
@@ -492,17 +503,16 @@ def test_batched_fri_kernels_match_plain_on_card(cuda, k):
     oracles = [p["oracles"] for p in ps_]
     cpu = [[types.SimpleNamespace(lde=o.lde.cpu(), coeffs=o.coeffs.cpu()) for o in os_]
            for os_ in oracles]
-    args = [[p[name] for p in ps_] for name in ("instance", "openings", "alpha")]
-    got = fri.compute_composition_batch(oracles, *args, _lde_bits(), 2)
-    assert torch.equal(got.cpu(), fri.compute_composition_batch_plain(cpu, *args, _lde_bits(), 2))
-    pts = ([p["zeta"] for p in ps_], [p["zeta_next"] for p in ps_])
-    for (a, an), (b, bn) in zip(fo.eval_openings_batch(oracles, *pts, 2, NZ),
-                                fo.eval_openings_batch_plain(cpu, *pts, 2, NZ), strict=True):
-        assert all(np.array_equal(x, y) for x, y in zip(a, b)) and np.array_equal(an, bn)
+    got = fri.compute_composition_batch(oracles, *_composition_args(ps_, cuda), _lde_bits(), 2)
+    assert torch.equal(got.cpu(), fri.compute_composition_batch_plain(
+        cpu, *_composition_args(ps_), _lde_bits(), 2))
+    assert torch.equal(fo.eval_openings_batch(oracles, _point_records(ps_, cuda), 2, NZ).cpu(),
+                       fo.eval_openings_batch_plain(cpu, _point_records(ps_), 2, NZ))
     betas = np.stack([p["beta"] for p in ps_])
-    folded = fri.fold_round_batch(got, betas, 2, _lde_bits(), 0, 2)
-    assert torch.equal(folded.cpu(), fri.fold_round_batch_plain(got.cpu(), betas, 2, _lde_bits(),
-                                                                0, 2))
+    folded = fri.fold_round_batch(got, fri.beta_records(cuda, betas), ts.REC_FRI_BETA, 2,
+                                  _lde_bits(), 0, 2)
+    assert torch.equal(folded.cpu(), fri.fold_round_batch_plain(
+        got.cpu(), fri.beta_records("cpu", betas), ts.REC_FRI_BETA, 2, _lde_bits(), 0, 2))
     forest = merkle.build_merkle_forest(got, CONFIG.cap_height)
     sources = [fri._gather_sources(o, [(x, t)]) for o, x, t in zip(oracles, got, forest)]
     indices = [[0, (1 << _lde_bits()) - 1, 5, 77] for _ in ps_]

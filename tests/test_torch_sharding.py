@@ -334,14 +334,14 @@ def _meta(*shape):
 
 
 def _guard_launch(kernel, data):
-    """Call kernel `kernel`'s wrapper (or, for D, its launch function) on
-    operands of one device; returns that device. Meta tensors take a
+    """Call kernel `kernel`'s wrapper on operands of one device; returns
+    that device. Meta tensors take a
     wrapper's CUDA branch with no card: they are neither CPU nor the
     circuit's device."""
     cfg = data.config
     m = data.n << cfg.rate_bits
     nc = cfg.num_challenges
-    challenges = np.ones((1, nc), dtype=np.uint64)
+    rec = _meta(1, tts.REC_WORDS)
     if kernel == "1":
         gl.mul(_meta(8), _meta(8))
     elif kernel == "2":
@@ -351,24 +351,18 @@ def _guard_launch(kernel, data):
     elif kernel == "A":
         npp = tprover.num_partial_products(cfg.num_routed_wires, cfg.max_quotient_degree_factor)
         tprover.quotient_evals_batch(data, _meta(1, cfg.num_wires, m),
-                                     _meta(1, nc + nc * npp, m), challenges, challenges,
-                                     challenges, np.ones((1, 4), dtype=np.uint64))
+                                     _meta(1, nc + nc * npp, m), rec)
     elif kernel == "B":
-        tprover.compute_permutation_polys_batch(data, _meta(1, cfg.num_wires, data.n),
-                                                challenges, challenges)
+        tprover.compute_permutation_polys_batch(data, _meta(1, cfg.num_wires, data.n), rec)
     elif kernel == "C":
         oracle = types.SimpleNamespace(lde=_meta(3, 32))
-        inst = tfri.FriInstance(batches=(tfri.FriBatchInfo(point=(1, 2),
-                                                           polys=((0, 0), (0, 1), (0, 2))),))
-        tfri._composition_launches([[oracle]], [inst], [[np.ones((3, 2), dtype=np.uint64)]],
-                                   [[1, 2]], 5, 1)
+        tfri.compute_composition_batch([[oracle]], (((0, 0), (0, 1), (0, 2)),), _meta(1, 3, 2),
+                                       rec, 5, 1)
     elif kernel == "D":
-        # its host copy of the values needs real memory: CPU operands
-        oracle = types.SimpleNamespace(coeffs=torch.zeros((3, 16), dtype=torch.int64))
-        fo._openings_launches([[oracle]], [[1, 2]], [[3, 4]], 0, 0)
-        return torch.device("cpu")
+        oracle = types.SimpleNamespace(coeffs=_meta(3, 16))
+        fo.eval_openings_batch([[oracle]], rec, 0, 0)
     elif kernel == "E":
-        tfri.fold_round_batch(_meta(1, 8, 4), [[1, 2]], 1, 4, 0)
+        tfri.fold_round_batch(_meta(1, 8, 4), rec, tts.REC_FRI_BETA, 1, 4, 0)
     elif kernel == "F":
         tfri.query_gather([tfri.GatherSource(_meta(8, 3), 7)], [1, 2])
     elif kernel == "G":
@@ -405,7 +399,8 @@ def test_wrappers_launch_on_their_operands_device(small_zk, monkeypatch, kernel)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(synchronize=lambda: None))
     for fn in (gl.mul, tps.hash_rows, ntt.batched_ntt, tprover.quotient_evals_batch,
-               tprover.compute_permutation_polys_batch, tfri.fold_round_batch,
+               tprover.compute_permutation_polys_batch, tfri.compute_composition_batch,
+               fo.eval_openings_batch, tfri.fold_round_batch,
                tfri.query_gather, frandom.rand_felts, ntt.shard_deinterleave,
                ntt.shard_cross_ntt, tts.transcript_segment, tts.grind_device):
         if hasattr(fn, "launches"):
